@@ -1,0 +1,494 @@
+#!/usr/bin/env python3
+"""Chip smoke test of the PyTorch/CUDA port (multiverso_tpu_torch).
+
+Run from the repository root on a machine with one NVIDIA H100:
+
+    python3 chip_smoke.py
+
+Phases, each printing one JSON line:
+
+1. device  — the card's name, count and power limit.
+2. build   — compiles the three flash-attention kernels from
+             ``multiverso_tpu_torch/ops/csrc`` (one nvcc each, in parallel).
+3. parity  — each kernel against its plain PyTorch version on the card:
+             the trainer's attention shape (B=4, H=16, T=2048, D=128, bf16,
+             causal, nonzero lse cotangent), small ragged shapes (T=200)
+             in float32 and bf16, causal and not, every head dim, and a
+             cross-length case (Tq=40, Tk=136, not causal).
+             Each output is judged by its own dtype: float32 outputs
+             (lse, and every output of a float32 case) element by element
+             at atol = rtol = 1e-4; bf16 outputs by their error relative
+             to the output's scale, max|got-want| / max|want| and
+             ||got-want|| / ||want||, each at most 1e-2.  Two planted
+             faults at the trainer's shape (the causal diagonal dropped,
+             one future key admitted) must fail that test.
+4. trainer — ``TransformerTrainer`` at the full width of the repo's
+             largest dense config (vocab 32768, dim 2048, 16 heads,
+             hidden 5632, 16 layers, bf16, seq 2048, batch 4, SGD) for 5
+             steps on one fixed batch: the loss must be finite and fall,
+             and every step must launch each kernel once per layer.
+   profile — one more step under torch.profiler: device time by kernel
+             class (flash kernels, matrix products, other) and the
+             device's busy share of the step.
+5. check   — a small trainer on the card against the same trainer on the
+             CPU (plain attention): loss trajectories within 2e-2.
+6. timing  — each kernel at the trainer's shape with CUDA events, beside
+             its plain version, its bound, and scaled_dot_product_attention
+             as a yardstick that the port never calls.
+
+Then the kernels line, the nvidia-smi line, and the result line.  Any
+failure exits non-zero and prints no result.  ``--steps``/``--phases``
+shorten a run while iterating; such a run ends with a line naming what it
+skipped instead of the result line, and exits 4.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+import traceback
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+# H100 SXM published dense peaks (NVIDIA data sheet).
+PEAK_BF16_FLOPS = 989e12
+PEAK_HBM_BYTES = 3.35e12
+
+# The main path: the trainer's configuration and the attention shape it
+# gives the kernels.  The parity and timing phases use the same shape.
+LAYERS, STEPS, BATCH, SEQ = 16, 5, 4, 2048
+HEADS, HEAD_DIM = 16, 128
+PHASES = ("parity", "trainer", "profile", "check", "timing")
+
+F32_TOL = 1e-4   # float32 outputs: every element within atol + rtol·|want|
+BF16_TOL = 1e-2  # bf16 outputs: max and L2 error relative to the scale
+KERNELS = {
+    "flash_fwd": ("multiverso_tpu_torch/ops/csrc/flash_fwd.cu",
+                  "multiverso_tpu/ops/flash_attention.py:83"),
+    "flash_dq": ("multiverso_tpu_torch/ops/csrc/flash_dq.cu",
+                 "multiverso_tpu/ops/flash_attention.py:138"),
+    "flash_dkv": ("multiverso_tpu_torch/ops/csrc/flash_dkv.cu",
+                  "multiverso_tpu/ops/flash_attention.py:184"),
+}
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def nvidia_smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def attn_inputs(bh, t, d, dtype, seed, tk=None):
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    tk = tk or t
+
+    def r(*shape, dt=dtype):
+        return torch.randn(*shape, generator=g, device="cuda").to(dt)
+
+    return dict(q=r(bh, t, d), k=r(bh, tk, d), v=r(bh, tk, d),
+                do=r(bh, t, d), dlse=r(bh, t, dt=torch.float32))
+
+
+def run_three(fa, x, causal, plain: bool, saved):
+    """(o, lse, dq, dk, dv) through the kernels or their plain versions.
+    Both backward sides start from the same ``saved`` (lse, delta) — the
+    plain forward's, with the lse cotangent folded in — so each kernel is
+    held to its own function."""
+    q, k, v, do = x["q"], x["k"], x["v"], x["do"]
+    scale = q.shape[-1] ** -0.5
+    fwd, dq_fn, dkv_fn = ((fa.flash_fwd_ref, fa.flash_dq_ref,
+                           fa.flash_dkv_ref) if plain else
+                          (fa.flash_fwd, fa.flash_dq, fa.flash_dkv))
+    o, lse = fwd(q, k, v, scale, causal)
+    dq = dq_fn(q, k, v, do, *saved, scale, causal)
+    dk, dv = dkv_fn(q, k, v, do, *saved, scale, causal)
+    return {"o": o, "lse": lse, "dq": dq, "dk": dk, "dv": dv}
+
+
+def compare(got, want):
+    """Errors per output, and whether all pass: a float32 output when
+    every element is within F32_TOL·(1 + |want|), a bf16 output when its
+    max and L2 errors relative to the output's scale are within
+    BF16_TOL."""
+    import torch
+
+    out, ok = {}, True
+    for key in want:
+        g, w = got[key].float(), want[key].float()
+        if g.shape != w.shape or not bool(g.isfinite().all()):
+            return {key: {"max_abs": float("nan")}}, False
+        err = (g - w).abs()
+        e = {"max_abs": float(err.max()),
+             "scaled": float(err.max() / w.abs().max().clamp_min(1e-30)),
+             "rel_l2": float(err.double().norm()
+                             / w.double().norm().clamp_min(1e-30))}
+        out[key] = e
+        if want[key].dtype == torch.float32:
+            ok = ok and bool((err <= F32_TOL + F32_TOL * w.abs()).all())
+        else:
+            ok = ok and e["scaled"] <= BF16_TOL and e["rel_l2"] <= BF16_TOL
+    return out, ok
+
+
+def planted_fault(x, causal_offset):
+    """(o, lse, dq, dk, dv) of attention whose causal mask keeps keys up
+    to ``causal_offset`` past the diagonal (-1 drops the diagonal, 1
+    admits one future key), by float32 autograd, cast as the kernels
+    cast: what a kernel with that fault would return."""
+    import torch
+
+    q, k, v = (x[n].float().requires_grad_() for n in ("q", "k", "v"))
+    t = q.shape[1]
+    s = (q @ k.transpose(1, 2)) * q.shape[-1] ** -0.5
+    keep = torch.ones(t, t, dtype=torch.bool,
+                      device=s.device).tril(causal_offset)
+    s = s.masked_fill(~keep, -1e30)
+    lse = torch.logsumexp(s, -1)
+    o = torch.softmax(s, -1) @ v
+    dq, dk, dv = torch.autograd.grad((o, lse), (q, k, v),
+                                     (x["do"].float(), x["dlse"]))
+    dt = x["q"].dtype
+    return {"o": o.detach().to(dt), "lse": lse.detach(), "dq": dq.to(dt),
+            "dk": dk.to(dt), "dv": dv.to(dt)}
+
+
+def phase_parity(fa, torch):
+    results, full_err, faults = [], {}, []
+    cases = [(BATCH * HEADS, SEQ, SEQ, HEAD_DIM, torch.bfloat16, True,
+              "full_width")]
+    for dtype in (torch.float32, torch.bfloat16):
+        for d in (32, 64, 128, 256):
+            for causal in (True, False):
+                cases.append((3, 200, 200, d, dtype, causal, "ragged"))
+        cases.append((3, 40, 136, 64, dtype, False, "cross_length"))
+    for i, (bh, t, tk, d, dtype, causal, tag) in enumerate(cases):
+        x = attn_inputs(bh, t, d, dtype, seed=100 + i, tk=tk)
+        o_ref, lse_ref = fa.flash_fwd_ref(x["q"], x["k"], x["v"],
+                                          d ** -0.5, causal)
+        saved = (lse_ref, (x["do"].float() * o_ref.float()).sum(-1)
+                 - x["dlse"])
+        got = run_three(fa, x, causal, False, saved)
+        want = run_three(fa, x, causal, True, saved)
+        torch.cuda.synchronize()
+        errs, ok = compare(got, want)
+        del got
+        results.append({"case": tag, "bh": bh, "T": t, "Tk": tk, "D": d,
+                        "dtype": str(dtype).split(".")[-1],
+                        "causal": causal, "ok": ok, "errors": errs})
+        if tag == "full_width":
+            worst = {n: errs.get(n, {}).get("max_abs", math.nan)
+                     for n in want}
+            full_err = {"flash_fwd": max(worst["o"], worst["lse"]),
+                        "flash_dq": worst["dq"],
+                        "flash_dkv": max(worst["dk"], worst["dv"])}
+            for fault, offset in (("drop_diagonal", -1), ("next_key", 1)):
+                f_errs, f_ok = compare(planted_fault(x, offset), want)
+                faults.append({"fault": fault, "rejected": not f_ok,
+                               "errors": f_errs})
+        del x, want, saved, o_ref, lse_ref
+    ok = (all(r["ok"] for r in results)
+          and all(f["rejected"] for f in faults))
+    emit({"phase": "parity", "ok": ok, "f32_tol": F32_TOL,
+          "bf16_tol": BF16_TOL, "cases": results, "planted_faults": faults})
+    if not all(r["ok"] for r in results):
+        raise AssertionError("a kernel disagrees with its plain version")
+    if not ok:
+        raise AssertionError("the parity test accepted a planted fault")
+    return full_err
+
+
+def phase_trainer(args, torch, mv, card):
+    from multiverso_tpu_torch.models import (TransformerConfig,
+                                             TransformerTrainer)
+
+    cfg = TransformerConfig(vocab_size=32768, dim=HEADS * HEAD_DIM,
+                            n_layers=LAYERS, n_heads=HEADS, hidden=5632,
+                            max_seq=SEQ, compute_dtype=torch.bfloat16)
+    t0 = time.perf_counter()
+    tr = TransformerTrainer(cfg, updater_type="sgd", seed=0)
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in
+                   [tr.params["embed"], tr.params["head"],
+                    tr.params["out_norm"]]
+                   + [w for lyr in tr.params["layers"] for w in lyr.values()])
+    tokens = torch.randint(0, cfg.vocab_size, (BATCH, SEQ),
+                           generator=torch.Generator().manual_seed(1))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mv.ops.reset_launch_counts()
+    losses, step_s = [], []
+    for _ in range(args.steps):
+        s0 = time.perf_counter()
+        loss = tr.train_step_async(tokens)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - s0)
+        losses.append(float(loss))
+    counts = mv.ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    steady = step_s[1:] or step_s
+    step_mean = sum(steady) / len(steady)
+    want = cfg.n_layers * args.steps
+    ok = (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]
+          and all(counts[k] == want for k in KERNELS))
+    if "profile" in args.phases.split(","):
+        profile_step(tr, tokens, torch, card)
+    emit({"phase": "trainer", "ok": ok, "n_layers": cfg.n_layers,
+          "dim": cfg.dim, "n_heads": cfg.n_heads, "hidden": cfg.hidden,
+          "vocab": cfg.vocab_size, "batch": BATCH, "seq": SEQ,
+          "params": n_params, "init_s": init_s, "losses": losses,
+          "step_s": step_s, "step_s_mean_after_first": step_mean,
+          "tokens_per_s": BATCH * SEQ / step_mean,
+          "peak_mem_bytes": peak, "launch_counts": counts,
+          "launches_expected_each": want, "card": card})
+    if not ok:
+        raise AssertionError(
+            f"trainer phase failed: losses {losses}, launches {counts} "
+            f"(want {want} each)")
+    del tr
+    torch.cuda.empty_cache()
+    return counts
+
+
+def profile_step(tr, tokens, torch, card):
+    """One more trainer step under torch.profiler: device time by kernel
+    class and the device's busy share of the step's wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
+        s0 = time.perf_counter()
+        loss = tr.train_step_async(tokens)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - s0) * 1e6
+    if not math.isfinite(float(loss)):
+        raise AssertionError(f"profiled step loss {float(loss)}")
+    by_class = {"flash_kernels": 0.0, "matmul": 0.0, "other": 0.0}
+    top = []
+    for evt in prof.key_averages():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = float(getattr(evt, "self_device_time_total", 0.0))
+        name = evt.key
+        low = name.lower()
+        if "flash_" in low:
+            cls = "flash_kernels"
+        elif any(t in low for t in ("gemm", "cutlass", "xmma", "nvjet")):
+            cls = "matmul"
+        else:
+            cls = "other"
+        by_class[cls] += us
+        top.append((us, evt.count, cls, name[:90]))
+    busy = sum(by_class.values())
+    top.sort(reverse=True)
+    emit({"phase": "profile", "step_wall_ms": wall_us / 1e3,
+          "device_busy_ms": busy / 1e3,
+          "device_busy_share": busy / wall_us if wall_us else None,
+          "ms_by_class": {k: v / 1e3 for k, v in by_class.items()},
+          "top_kernels": [{"ms": us / 1e3, "calls": n, "class": c,
+                           "name": nm} for us, n, c, nm in top[:15]],
+          "card": card})
+
+
+def phase_check(torch):
+    """A small trainer on the card vs the same trainer on the CPU."""
+    from multiverso_tpu_torch.models import (TransformerConfig,
+                                             TransformerTrainer)
+
+    cfg = TransformerConfig(vocab_size=16384, dim=256, n_layers=2,
+                            n_heads=2, hidden=512, max_seq=256,
+                            compute_dtype=torch.bfloat16)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 256),
+                           generator=torch.Generator().manual_seed(2))
+    traj = {}
+    for dev in ("cuda", "cpu"):
+        tr = TransformerTrainer(cfg, device=dev, updater_type="momentum",
+                                seed=3)
+        traj[dev] = [float(tr.train_step_async(tokens)) for _ in range(3)]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(traj["cuda"],
+                                                   traj["cpu"]))
+    ok = rel <= 2e-2 and all(math.isfinite(x) for x in traj["cuda"])
+    emit({"phase": "check", "ok": ok, "losses_cuda": traj["cuda"],
+          "losses_cpu": traj["cpu"], "max_rel_diff": rel, "tol": 2e-2})
+    if not ok:
+        raise AssertionError("card and CPU trainers disagree")
+
+
+def phase_timing(fa, torch, card):
+    """Each kernel alone on operands prepared as the trainer's attention
+    call prepares them, beside its plain version, its bound and the
+    library call that computes the same function."""
+    import torch.nn.functional as F
+
+    B, H, T, D = BATCH, HEADS, SEQ, HEAD_DIM
+    bh = B * H
+    x = attn_inputs(bh, T, D, torch.bfloat16, seed=7)
+    q, k, v, do = x["q"], x["k"], x["v"], x["do"]
+    scale = D ** -0.5
+    qs, kc, vc = fa._prepare(q, k, v, scale)
+    o, lse = fa._fwd(qs, kc, vc, True)
+    rows = fa._rows(do, lse, (do.float() * o.float()).sum(-1), q.dtype)
+    pairs = T * (T + 1) // 2            # causal: what this data needs
+    e, f4 = 2, 4
+    work = {
+        # flops: 2 per multiply-add; products per visited (q, k) pair
+        "flash_fwd": (2 * 2 * D * pairs * bh,
+                      (4 * bh * T * D) * e + bh * T * f4),
+        "flash_dq": (3 * 2 * D * pairs * bh,
+                     (5 * bh * T * D) * e + 2 * bh * T * f4),
+        "flash_dkv": (4 * 2 * D * pairs * bh,
+                      (6 * bh * T * D) * e + 2 * bh * T * f4),
+    }
+    calls = {
+        "flash_fwd": (lambda: fa._fwd(qs, kc, vc, True),
+                      lambda: fa._fwd_plain(qs, kc, vc, True)),
+        "flash_dq": (lambda: fa._dq(qs, kc, vc, *rows, scale, True),
+                     lambda: fa._dq_plain(qs, kc, vc, *rows, scale, True)),
+        "flash_dkv": (lambda: fa._dkv(qs, kc, vc, *rows, True),
+                      lambda: fa._dkv_plain(qs, kc, vc, *rows, True)),
+    }
+    # The library: scaled_dot_product_attention for the forward, and
+    # PyTorch's flash backward, which returns dq, dk and dv in one call
+    # from the forward's saved output and lse, for the dq + dkv pair.
+    q4, k4, v4, do4 = (t.view(B, H, T, D) for t in (q, k, v, do))
+    lib_fwd_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q4, k4, v4, is_causal=True, scale=scale))
+    aten = torch.ops.aten
+    o4, lse4, cq, ck, mq, mk, seed, offset, _ = (
+        aten._scaled_dot_product_flash_attention(q4, k4, v4, 0.0, True,
+                                                 False, scale=scale))
+    lib_bwd = aten._scaled_dot_product_flash_attention_backward
+    lib_bwd_ms = cuda_ms(lambda: lib_bwd(
+        do4, q4, k4, v4, o4, lse4, cq, ck, mq, mk, 0.0, True, seed, offset,
+        scale=scale))
+    out = {}
+    for name, (kern, plain) in calls.items():
+        flops, nbytes = work[name]
+        t_ops = flops / PEAK_BF16_FLOPS * 1e3
+        t_mem = nbytes / PEAK_HBM_BYTES * 1e3
+        out[name] = {
+            "ms": cuda_ms(kern), "plain_ms": cuda_ms(plain, iters=3),
+            "bound_ms": max(t_ops, t_mem),
+            "bound_by": "operations" if t_ops >= t_mem else "bytes",
+            "flops": flops, "bytes": nbytes,
+            "library_ms": lib_fwd_ms if name == "flash_fwd" else lib_bwd_ms,
+        }
+        if name != "flash_fwd":
+            out[name]["library_covers"] = "flash_dq+flash_dkv"
+    emit({"phase": "timing", "shape": [B, H, T, D], "dtype": "bfloat16",
+          "causal": True, "kernels": out, "card": card})
+    return out
+
+
+def main(argv) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--steps", type=int, default=STEPS)
+    ap.add_argument("--phases", default=",".join(PHASES))
+    args = ap.parse_args(argv)
+    phases = set(args.phases.split(","))
+    if phases - set(PHASES):
+        ap.error(f"unknown phases {sorted(phases - set(PHASES))}; "
+                 f"choose from {PHASES}")
+
+    if not os.path.isdir(os.path.join(HERE, "multiverso_tpu_torch")):
+        print("chip_smoke: multiverso_tpu_torch/ not found beside this "
+              "script; run it from a checkout of the repository",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, HERE)
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; this smoke "
+              "test needs an NVIDIA GPU", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    import multiverso_tpu_torch as mv
+    from multiverso_tpu_torch.ops import _build
+    from multiverso_tpu_torch.ops import flash_attention as fa
+
+    smi = nvidia_smi_line()
+    name = torch.cuda.get_device_name(0)
+    card = {"name": name, "nvidia_smi": smi}
+    emit({"phase": "device", "name": name,
+          "count": torch.cuda.device_count(), "nvidia_smi": smi,
+          "torch": torch.__version__, "cuda": torch.version.cuda})
+
+    t0 = time.perf_counter()
+    paths = _build.build()
+    ptxas = {}
+    for kname in KERNELS:
+        with open(os.path.join(_build.BUILD_DIR, f"{kname}.log")) as f:
+            ptxas[kname] = [ln.strip() for ln in f
+                            if "registers" in ln or "spill" in ln][:16]
+    emit({"phase": "build", "s": time.perf_counter() - t0,
+          "libs": {k: os.path.relpath(p, HERE) for k, p in paths.items()},
+          "ptxas": ptxas})
+
+    errs = phase_parity(fa, torch) if "parity" in phases else {}
+    counts = (phase_trainer(args, torch, mv, card) if "trainer" in phases
+              else {})
+    if "check" in phases:
+        phase_check(torch)
+    times = phase_timing(fa, torch, card) if "timing" in phases else {}
+
+    kernels = []
+    for kname, (src, replaces) in KERNELS.items():
+        t = times.get(kname, {})
+        kernels.append({
+            "name": kname, "route": "cuda", "source": src,
+            "replaces": replaces, "launches": counts.get(kname),
+            "max_abs_err": errs.get(kname), "ms": t.get("ms"),
+            "plain_ms": t.get("plain_ms"), "bound_ms": t.get("bound_ms"),
+            "bound_by": t.get("bound_by"), "library_ms": t.get("library_ms"),
+        })
+        if "library_covers" in t:
+            kernels[-1]["library_covers"] = t["library_covers"]
+    emit({"kernels": kernels})
+    print(smi, flush=True)
+    skipped = [p for p in PHASES if p not in phases]
+    if skipped or args.steps != STEPS:
+        # A shortened run proves less than the main path: no result line.
+        emit({"ok": False, "partial": True, "skipped_phases": skipped,
+              "steps": args.steps, "steps_full": STEPS})
+        return 4
+    emit({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    try:
+        sys.exit(main(sys.argv[1:]))
+    except Exception:
+        traceback.print_exc()
+        sys.exit(1)

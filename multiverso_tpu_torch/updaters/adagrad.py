@@ -1,0 +1,38 @@
+"""AdaGrad updater — reference ``updater/adagrad_updater.h`` (SURVEY.md §2.16).
+
+Port of ``multiverso_tpu/updaters/adagrad.py``: per-row accumulator state
+is updated with the same scatter as the weights.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from .base import AddOption, Updater, _kept_rows, register_updater
+
+
+@register_updater
+class AdaGradUpdater(Updater):
+    """h += g^2 ; w -= lr * g / (sqrt(h) + eps)."""
+
+    name = "adagrad"
+    num_slots = 1
+    linear = False  # duplicate rows must be segment-summed before apply
+
+    def apply_dense(self, w, state, delta, opt: AddOption):
+        (h,) = state
+        h = h + delta * delta
+        w = w - opt.learning_rate * delta / (torch.sqrt(h) + opt.eps)
+        return w, (h,)
+
+    def apply_rows(self, w, state, rows, delta, opt: AddOption,
+                   mask: Optional[torch.Tensor] = None):
+        (h,) = state
+        rows, d = _kept_rows(rows, delta, mask, w.shape[0])
+        # State accumulates by scatter-add (exact for uniques,
+        # accumulate-then-read for duplicates), as in the JAX package.
+        h = h.index_add(0, rows, d * d)
+        step = opt.learning_rate * d / (torch.sqrt(h[rows]) + opt.eps)
+        return w.index_add(0, rows, -step), (h,)

@@ -1,0 +1,167 @@
+"""Updater base + registry + the default (plain add) updater.
+
+Port of ``multiverso_tpu/updaters/base.py``.  Reference:
+``include/multiverso/updater/updater.h`` — base ``Update``/``Access``
+virtuals and the ``GetUpdater`` factory switch (SURVEY.md §2.16).
+
+The hooks stay functional — ``(w, state, delta, opt) -> (w', state')``
+with fresh tensors — so the trainer and the tests read the same as the
+JAX package.  One semantic seam differs: the JAX row path sends padding
+to row ``num_rows`` and relies on ``.at[].add(mode="drop")`` to skip it,
+while ``index_add_`` raises on such a row.  ``_kept_rows`` therefore
+filters masked and out-of-range entries before any scatter.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, Optional, Tuple, Type
+
+import torch
+
+__all__ = ["AddOption", "GetOption", "Updater", "register_updater",
+           "get_updater", "updater_names", "aggregate_rows",
+           "scatter_apply", "masked", "effective_rows"]
+
+
+@dataclass(frozen=True)
+class AddOption:
+    """Per-Add hyper-parameters (reference ``AddOption``; SURVEY.md §2.10)."""
+
+    learning_rate: float = 0.1
+    momentum: float = 0.9
+    rho: float = 0.9          # smoothing coefficient (smooth_gradient)
+    eps: float = 1e-8         # adagrad denominator floor
+    worker_id: int = -1       # carried for parity; unused by math
+
+
+@dataclass(frozen=True)
+class GetOption:
+    """Per-Get options (reference ``GetOption``); reserved for parity."""
+
+    worker_id: int = -1
+
+
+State = Tuple[torch.Tensor, ...]
+
+
+class Updater:
+    """Functional updater. Subclasses override the three hooks."""
+
+    name = "default"
+    num_slots = 0  # state tensors, each shaped like the table
+    # True iff apply is linear in the delta, i.e. scatter-adding duplicate
+    # rows equals applying their pre-aggregated sum.  Non-linear updaters
+    # require duplicate rows to be segment-summed first (aggregate_rows).
+    linear = True
+
+    # -- state --------------------------------------------------------------
+    def init_state(self, shape, dtype=torch.float32,
+                   device=None) -> State:
+        return tuple(torch.zeros(shape, dtype=dtype, device=device)
+                     for _ in range(self.num_slots))
+
+    # -- dense path ---------------------------------------------------------
+    def apply_dense(self, w: torch.Tensor, state: State, delta: torch.Tensor,
+                    opt: AddOption) -> Tuple[torch.Tensor, State]:
+        return w + delta, state
+
+    # -- sparse (row) path --------------------------------------------------
+    def apply_rows(self, w: torch.Tensor, state: State, rows: torch.Tensor,
+                   delta: torch.Tensor, opt: AddOption,
+                   mask: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, State]:
+        """Scatter-apply to ``w[rows]``.
+
+        ``rows``: int [k]; ``delta``: [k, cols]; ``mask``: bool [k] marks
+        valid entries (padding rows carry mask=False and must not touch
+        state). Default: plain scatter-add, duplicate rows accumulate.
+        """
+        rows, delta = _kept_rows(rows, delta, mask, w.shape[0])
+        return w.index_add(0, rows, delta.to(w.dtype)), state
+
+
+_REGISTRY: Dict[str, Type[Updater]] = {}
+
+
+def register_updater(cls: Type[Updater]) -> Type[Updater]:
+    _REGISTRY[cls.name] = cls
+    return cls
+
+
+register_updater(Updater)  # "default"
+_REGISTRY["add"] = Updater  # alias
+
+
+def get_updater(name: str) -> Updater:
+    """Factory — reference ``Updater<T>::GetUpdater`` switch."""
+    try:
+        return _REGISTRY[name]()
+    except KeyError:
+        raise ValueError(
+            f"unknown updater_type '{name}'; known: {sorted(_REGISTRY)}")
+
+
+def updater_names():
+    return sorted(_REGISTRY)
+
+
+def aggregate_rows(rows: torch.Tensor, delta: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Static-shape segment-sum of duplicate row ids.
+
+    Sorts the batch, sums each duplicate group into its first slot, and
+    returns ``(uniq_rows [k], agg_delta [k, ...], mask [k])`` where surplus
+    slots carry ``mask=False`` — the same triple as the JAX package, so
+    ``Updater.apply_rows`` takes it unchanged.
+    """
+    order = torch.argsort(rows, stable=True)
+    r = rows[order]
+    d = delta[order]
+    is_new = torch.ones(r.shape, dtype=torch.bool, device=r.device)
+    is_new[1:] = r[1:] != r[:-1]
+    seg = torch.cumsum(is_new, 0) - 1
+    agg = torch.zeros_like(d).index_add_(0, seg, d)
+    uniq = torch.zeros_like(r).scatter_(0, seg, r)
+    mask = torch.zeros(r.shape, dtype=torch.bool, device=r.device)
+    mask[seg] = True
+    return uniq, agg, mask
+
+
+def scatter_apply(upd: "Updater", data, state, rows, delta, opt: AddOption):
+    """Row scatter with the linear/non-linear dispatch: linear updaters
+    scatter duplicates directly (adds commute); non-linear ones get
+    duplicates segment-summed first via ``aggregate_rows``."""
+    if upd.linear:
+        return upd.apply_rows(data, state, rows, delta, opt)
+    uniq, agg, mask = aggregate_rows(rows, delta)
+    return upd.apply_rows(data, state, uniq, agg, opt, mask=mask)
+
+
+def masked(delta: torch.Tensor, mask: Optional[torch.Tensor]
+           ) -> torch.Tensor:
+    """Zero out padding rows so they cannot perturb weights or state."""
+    if mask is None:
+        return delta
+    return torch.where(mask[:, None], delta, torch.zeros_like(delta))
+
+
+def effective_rows(rows: torch.Tensor, mask: Optional[torch.Tensor],
+                   num_rows: int) -> torch.Tensor:
+    """Redirect padding entries to the out-of-bounds index ``num_rows``
+    (the JAX package's convention; the port's scatters drop such rows
+    through ``_kept_rows`` before indexing)."""
+    if mask is None:
+        return rows
+    return torch.where(mask, rows, torch.full_like(rows, num_rows))
+
+
+def _kept_rows(rows: torch.Tensor, delta: torch.Tensor,
+               mask: Optional[torch.Tensor], num_rows: int
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The entries a ``mode="drop"`` scatter would apply: not masked off
+    and inside ``[0, num_rows)``.  Order is kept, so last-write-wins
+    updaters resolve duplicates as the JAX package does."""
+    rows = effective_rows(rows.long(), mask, num_rows)
+    keep = (rows >= 0) & (rows < num_rows)
+    return rows[keep], delta[keep]

@@ -1,0 +1,203 @@
+"""Parity of the PyTorch port's flash attention with the JAX package.
+
+On the CPU the port's wrappers run their plain versions (the CUDA
+kernels run only on the card; ``chip_smoke.py`` holds each kernel against
+its plain version there).  The JAX side runs its Pallas kernels in
+interpret mode, as ``tests/test_flash_attention.py`` does.  Inputs are
+seeded numpy arrays fed to both.
+
+Tolerances, as ``tests/test_flash_attention.py`` states them: float32
+atol 2e-5 for o and lse, 2e-4 for gradients; bfloat16 2e-2.
+"""
+
+import importlib
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from multiverso_tpu.ops import flash_attention as jax_flash
+from multiverso_tpu_torch.ops import flash_attention as fa
+
+# The JAX package's parallel/__init__ re-exports a function named
+# ring_attention that shadows its module; import both modules by path.
+jax_ring = importlib.import_module("multiverso_tpu.parallel.ring_attention")
+port_ring = importlib.import_module(
+    "multiverso_tpu_torch.parallel.ring_attention")
+
+B, H, D = 1, 2, 32
+JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _inputs(T, seed, tk=None):
+    rng = np.random.RandomState(seed)
+    tk = tk or T
+    return {
+        "q": (rng.randn(B, H, T, D) * 0.5).astype(np.float32),
+        "k": (rng.randn(B, H, tk, D) * 0.5).astype(np.float32),
+        "v": rng.randn(B, H, tk, D).astype(np.float32),
+        "do": rng.randn(B, H, T, D).astype(np.float32),
+        "dlse": rng.randn(B, H, T).astype(np.float32),
+    }
+
+
+def _jax_side(x, causal, dtype):
+    jdt = JDT[dtype]
+    q, k, v = (jnp.asarray(x[n]).astype(jdt) for n in ("q", "k", "v"))
+
+    def f(q, k, v):
+        return jax_flash(q, k, v, causal=causal, interpret=True,
+                         return_lse=True)
+
+    (o, lse), vjp = jax.vjp(f, q, k, v)
+    dq, dk, dv = vjp((jnp.asarray(x["do"]).astype(jdt),
+                      jnp.asarray(x["dlse"])))
+    return {n: np.asarray(a.astype(jnp.float32)) for n, a in
+            dict(o=o, lse=lse, dq=dq, dk=dk, dv=dv).items()}
+
+
+def _port_side(x, causal, dtype):
+    tdt = TDT[dtype]
+    q, k, v = (torch.tensor(x[n]).to(tdt).requires_grad_()
+               for n in ("q", "k", "v"))
+    o, lse = fa.flash_attention(q, k, v, causal=causal, return_lse=True)
+    torch.autograd.backward((o, lse), (torch.tensor(x["do"]).to(tdt),
+                                       torch.tensor(x["dlse"])))
+    out = dict(o=o, lse=lse, dq=q.grad, dk=k.grad, dv=v.grad)
+    return {n: a.detach().float().numpy() for n, a in out.items()}
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("T", [64, 128, 192, 256])
+def test_plain_matches_pallas_f32(T, causal):
+    x = _inputs(T, seed=T + causal)
+    want = _jax_side(x, causal, "float32")
+    got = _port_side(x, causal, "float32")
+    for name in ("o", "lse"):
+        np.testing.assert_allclose(got[name], want[name], atol=2e-5,
+                                   err_msg=name)
+    for name in ("dq", "dk", "dv"):
+        np.testing.assert_allclose(got[name], want[name], atol=2e-4,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_plain_matches_pallas_bf16(causal):
+    x = _inputs(128, seed=7 + causal)
+    want = _jax_side(x, causal, "bfloat16")
+    got = _port_side(x, causal, "bfloat16")
+    for name in ("o", "lse", "dq", "dk", "dv"):
+        np.testing.assert_allclose(got[name], want[name], atol=2e-2,
+                                   rtol=2e-2, err_msg=name)
+
+
+def _dense_grads(x, causal):
+    """Autograd of plain float64 softmax attention: the definition the
+    kernels' pre-scaled-q bookkeeping must reproduce."""
+    q, k, v = (torch.tensor(x[n], dtype=torch.float64).requires_grad_()
+               for n in ("q", "k", "v"))
+    s = torch.einsum("bhtd,bhsd->bhts", q, k) * D ** -0.5
+    if causal:
+        T = s.shape[-1]
+        s = s.masked_fill(~torch.ones(T, T, dtype=torch.bool).tril(),
+                          float("-inf"))
+    lse = torch.logsumexp(s, -1)
+    o = torch.einsum("bhts,bhsd->bhtd", torch.softmax(s, -1), v)
+    torch.autograd.backward((o, lse), (torch.tensor(x["do"]).double(),
+                                       torch.tensor(x["dlse"]).double()))
+    return {"o": o, "lse": lse, "dq": q.grad, "dk": k.grad, "dv": v.grad}
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_prescaled_q_grads_match_dense_definition(causal):
+    """Trap: q is pre-scaled before the kernels; dq takes the scale once
+    at the end and dk must not take it again.  Hold the plain path's
+    gradients to autograd of unscaled dense attention."""
+    x = _inputs(96, seed=11)
+    want = {n: a.detach().numpy() for n, a in
+            _dense_grads(x, causal).items()}
+    got = _port_side(x, causal, "float32")
+    for name in want:
+        np.testing.assert_allclose(got[name], want[name], atol=2e-5,
+                                   rtol=1e-4, err_msg=name)
+
+
+def test_prescale_rounds_in_input_dtype():
+    rng = np.random.RandomState(3)
+    q = rng.randn(2, 64, 32).astype(np.float32)
+    scale = 32 ** -0.5
+    want = np.asarray((jnp.asarray(q).astype(jnp.bfloat16)
+                       .astype(jnp.float32) * scale).astype(jnp.bfloat16)
+                      .astype(jnp.float32))
+    got = fa._prescale(torch.tensor(q).to(torch.bfloat16), scale).float()
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_ragged_length_and_cross_length():
+    """Any T works (no block-fit policy): T=100 causal, and Tq != Tk
+    without the causal mask, against the float64 definition."""
+    x = _inputs(100, seed=5)
+    want = _dense_grads(x, causal=True)
+    got = _port_side(x, True, "float32")
+    np.testing.assert_allclose(got["o"], want["o"].detach().numpy(),
+                               atol=2e-5)
+    xs = _inputs(40, seed=6, tk=72)
+    q, k, v = (torch.tensor(xs[n]) for n in ("q", "k", "v"))
+    o = fa.flash_attention(q, k, v, causal=False)
+    s = torch.einsum("bhtd,bhsd->bhts", q.double(), k.double()) * D ** -0.5
+    ref = torch.einsum("bhts,bhsd->bhtd", torch.softmax(s, -1), v.double())
+    np.testing.assert_allclose(o.numpy(), ref.numpy(), atol=2e-5)
+    with pytest.raises(ValueError, match="Tq == Tk"):
+        fa.flash_attention(q, k, v, causal=True)
+
+
+def test_rejects_unsupported_head_dim_and_dtype():
+    q = torch.zeros(1, 1, 16, 48)
+    with pytest.raises(ValueError, match=r"\(32, 64, 128, 256\)"):
+        fa.flash_attention(q, q, q)
+    q = torch.zeros(1, 1, 16, 32, dtype=torch.float16)
+    with pytest.raises(ValueError, match="not supported"):
+        fa.flash_attention(q, q, q)
+
+
+def test_cpu_tensors_take_plain_path_without_launches():
+    fa.reset_launch_counts()
+    x = _inputs(64, seed=9)
+    _port_side(x, True, "float32")
+    assert fa.launch_counts() == {"flash_fwd": 0, "flash_dq": 0,
+                                  "flash_dkv": 0}
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_blockwise_local_matches_jax(causal):
+    """The dispatcher the transformer calls, against the JAX package's
+    CPU path (its jnp streaming softmax)."""
+    x = _inputs(128, seed=13)
+    scale = D ** -0.5
+    want = jax_ring.blockwise_attention_local(
+        *(jnp.asarray(x[n]) for n in ("q", "k", "v")), scale, causal=causal)
+    got = port_ring.blockwise_attention_local(
+        *(torch.tensor(x[n]) for n in ("q", "k", "v")), scale,
+        causal=causal)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5)
+
+
+def test_offset_blocks_and_attn_piece_match_jax():
+    x = _inputs(64, seed=15)
+    scale = D ** -0.5
+    jq, jk, jv = (jnp.asarray(x[n]) for n in ("q", "k", "v"))
+    tq, tk, tv = (torch.tensor(x[n]) for n in ("q", "k", "v"))
+    want = jax_ring.blockwise_attention_local(jq, jk, jv, scale, True,
+                                              q_offset=64, k_offset=32)
+    got = port_ring.blockwise_attention_local(tq, tk, tv, scale, True,
+                                              q_offset=64, k_offset=32)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5)
+    jo, jlse = jax_ring._attn_piece(jq, jk, jv, scale, True)
+    po, plse = port_ring._attn_piece(tq, tk, tv, scale, True)
+    np.testing.assert_allclose(po.numpy(), np.asarray(jo), atol=2e-5)
+    np.testing.assert_allclose(plse.numpy(), np.asarray(jlse), atol=2e-5)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        port_ring.ring_attention(tq, tk, tv)

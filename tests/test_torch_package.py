@@ -1,0 +1,149 @@
+"""Rules of the PyTorch port as a package: it stands alone (no ``jax``,
+nothing of ``multiverso_tpu``), it runs on the card unless told
+otherwise, and its copied host planes (log, metrics, tracing, dashboard)
+work without the JAX package."""
+
+import ast
+import os
+import subprocess
+import sys
+import textwrap
+
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(REPO, "multiverso_tpu_torch")
+
+
+def _py_files():
+    for root, _, files in os.walk(PKG):
+        for f in sorted(files):
+            if f.endswith(".py"):
+                yield os.path.join(root, f)
+    yield os.path.join(REPO, "chip_smoke.py")
+
+
+def test_imports_every_module_with_jax_blocked():
+    code = textwrap.dedent(f"""
+        import importlib, pkgutil, sys
+        sys.modules["jax"] = None
+        sys.modules["multiverso_tpu"] = None
+        sys.path.insert(0, {REPO!r})
+        import multiverso_tpu_torch as pkg
+        names = [m.name for m in pkgutil.walk_packages(pkg.__path__,
+                                                       pkg.__name__ + ".")]
+        for name in names:
+            importlib.import_module(name)
+        assert "jax" not in [m for m in sys.modules if sys.modules[m]]
+        print(len(names))
+    """)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, cwd="/")
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) >= 15
+
+
+def test_no_jax_or_reference_imports_in_source():
+    bad = []
+    for path in _py_files():
+        with open(path) as f:
+            tree = ast.parse(f.read(), filename=path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                mods = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                mods = [node.module or ""]
+            else:
+                continue
+            for m in mods:
+                top = m.split(".")[0]
+                if top in ("jax", "jaxlib", "multiverso_tpu"):
+                    bad.append(f"{os.path.relpath(path, REPO)}:"
+                               f"{node.lineno} imports {m}")
+    assert not bad, bad
+
+
+def test_default_device_is_the_card_and_never_falls_back(monkeypatch):
+    from multiverso_tpu_torch import resolve_device
+    from multiverso_tpu_torch.models import (TransformerConfig,
+                                             TransformerTrainer)
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = TransformerConfig(vocab_size=64, dim=64, n_layers=1, n_heads=2,
+                            hidden=64, max_seq=16)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TransformerTrainer(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device()
+    assert resolve_device("cpu") == torch.device("cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert resolve_device() == torch.device("cuda", 0)
+
+
+def test_dashboard_monitor_feeds_metrics_and_spans(tmp_path):
+    from multiverso_tpu_torch import dashboard, metrics, tracing
+
+    dashboard.reset()
+    tracing.clear()
+    tracing.enable()
+    try:
+        with dashboard.monitor("Transformer::train_step"):
+            pass
+        with dashboard.monitor("Transformer::train_step"):
+            pass
+    finally:
+        tracing.disable()
+    mon = dashboard.get_monitor("Transformer::train_step")
+    assert mon.count == 2
+    snap = metrics.snapshot()["Transformer::train_step"]
+    assert snap["type"] == "histogram" and snap["count"] == 2
+    assert [e.name for e in tracing.events()] == ["Transformer::train_step"] * 2
+    path = tmp_path / "trace_rank0.json"
+    assert tracing.save(str(path)) == 2
+    merged = tracing.merge_dir(str(tmp_path))
+    assert os.path.exists(merged)
+    assert "Transformer::train_step" in metrics.render_prometheus()
+    dashboard.reset()
+    tracing.clear()
+
+
+def test_dashboard_trace_capture_uses_torch_profiler(tmp_path):
+    from multiverso_tpu_torch import dashboard
+
+    dashboard.start_trace(str(tmp_path))
+    torch.ones(8).sum()
+    dashboard.stop_trace()
+    assert any(f.endswith(".json") for f in os.listdir(tmp_path))
+
+
+def test_build_names_missing_nvcc(monkeypatch, tmp_path):
+    """Without nvcc the first kernel launch fails loudly, naming it —
+    it never falls back to the plain version."""
+    from multiverso_tpu_torch.ops import _build
+
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path / "build"))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build()
+
+
+def test_build_rebuilds_when_a_source_changes(monkeypatch, tmp_path):
+    import shutil
+
+    from multiverso_tpu_torch.ops import _build
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", str(csrc))
+    before = {n: _build.lib_path(n) for n in _build.SOURCES}
+    with open(csrc / "flash_common.cuh", "a") as f:
+        f.write("\n// edited\n")
+    after = {n: _build.lib_path(n) for n in _build.SOURCES}
+    assert all(before[n] != after[n] for n in _build.SOURCES)
+    with open(csrc / "flash_dq.cu", "a") as f:
+        f.write("\n// edited\n")
+    again = {n: _build.lib_path(n) for n in _build.SOURCES}
+    assert again["flash_dq"] != after["flash_dq"]
+    assert again["flash_fwd"] == after["flash_fwd"]
