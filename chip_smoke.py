@@ -9,12 +9,20 @@ Phases, each printing one JSON line:
 
 1. device  — the card's name, count and power limit.
 2. build   — compiles the three flash-attention kernels from
-             ``multiverso_tpu_torch/ops/csrc`` (one nvcc each, in parallel).
+             ``multiverso_tpu_torch/ops/csrc`` (one nvcc each, in parallel)
+             and reports, per kernel, ptxas's registers and spill bytes
+             and the SASS counts of HGMMA (wgmma), UTMALDG (TMA loads) and
+             LDL/STL (local memory) from ``cuobjdump -sass``.  The bf16
+             Hopper kernels of flash_fwd and flash_dkv must hold HGMMA and
+             UTMALDG.
 3. parity  — each kernel against its plain PyTorch version on the card:
              the trainer's attention shape (B=4, H=16, T=2048, D=128, bf16,
              causal, nonzero lse cotangent), small ragged shapes (T=200)
-             in float32 and bf16, causal and not, every head dim, and a
-             cross-length case (Tq=40, Tk=136, not causal).
+             in float32 and bf16, causal and not, every head dim, a
+             cross-length case (Tq=40, Tk=136, not causal), and the edges
+             of the 128-row Hopper tiles in bf16: T=2112 (a half-full last
+             tile), T=130 at D 64 and 128 causal and not (a second tile of
+             2 rows), and one head at T=2048.
              Each output is judged by its own dtype: float32 outputs
              (lse, and every output of a float32 case) element by element
              at atol = rtol = 1e-4; bf16 outputs by their error relative
@@ -33,7 +41,8 @@ Phases, each printing one JSON line:
 5. check   — a small trainer on the card against the same trainer on the
              CPU (plain attention): loss trajectories within 2e-2.
 6. timing  — each kernel at the trainer's shape with CUDA events, beside
-             its plain version, its bound, and scaled_dot_product_attention
+             its plain version, its bound (with the achieved TFLOP/s and
+             the bound's share of the time), and PyTorch's flash attention
              as a yardstick that the port never calls.
 
 Then the kernels line, the nvidia-smi line, and the result line.  Any
@@ -48,6 +57,7 @@ import argparse
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -181,6 +191,99 @@ def planted_fault(x, causal_offset):
             "dk": dk.to(dt), "dv": dv.to(dt)}
 
 
+def demangle(names):
+    """Kernel names as C++ reads them, where c++filt is at hand."""
+    try:
+        out = subprocess.run(["c++filt"], input="\n".join(names),
+                             capture_output=True, text=True, timeout=60,
+                             check=True).stdout.splitlines()
+    except (OSError, subprocess.SubprocessError):
+        return list(names)
+    return [o.split("(")[0] for o in out] if len(out) == len(names) \
+        else list(names)
+
+
+def ptxas_report(log_text):
+    """{kernel: {"registers": n, "spill_bytes": stores + loads}} from the
+    ``-Xptxas -v`` lines of one library's build log."""
+    per, name = {}, None
+    for ln in log_text.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?([\w$]+)'?", ln)
+        if m:
+            name = m.group(1)
+            per.setdefault(name, {})
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m:
+            per[name]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            per[name]["registers"] = int(m.group(1))
+    return per
+
+
+SASS_OPS = ("HGMMA", "UTMALDG", "LDL", "STL")
+
+
+def sass_counts(sass_text):
+    """{kernel: {op: count}} of the SASS instructions in SASS_OPS, per
+    kernel, from the text ``cuobjdump -sass`` prints for one library."""
+    per, name = {}, None
+    for ln in sass_text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", ln)
+        if m:
+            name = m.group(1)
+            per[name] = dict.fromkeys(SASS_OPS, 0)
+        elif name is not None:
+            m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9]+)",
+                          ln)
+            if m and m.group(1) in per[name]:
+                per[name][m.group(1)] += 1
+    return per
+
+
+def phase_build(_build, paths, build_s):
+    """Per kernel of each library: ptxas registers and spill bytes, and
+    the SASS counts of wgmma (HGMMA), TMA loads (UTMALDG) and local-memory
+    traffic (LDL/STL).  The bf16 Hopper kernels (flash_fwd_hopper,
+    flash_dkv_hopper) must hold HGMMA and UTMALDG."""
+    cuobjdump = os.path.join(os.path.dirname(_build.nvcc_path()),
+                             "cuobjdump")
+    libs, ok = {}, True
+    for kname in KERNELS:
+        with open(os.path.join(_build.BUILD_DIR, f"{kname}.log")) as f:
+            log_text = f.read()
+        ptx = ptxas_report(log_text)
+        sass = sass_counts(subprocess.run(
+            [cuobjdump, "-sass", paths[kname]], capture_output=True,
+            text=True, timeout=300, check=True).stdout)
+        mangled = sorted(set(ptx) | set(sass))
+        kernels = {}
+        for mname, readable in zip(mangled, demangle(mangled)):
+            kernels[readable] = {**ptx.get(mname, {}),
+                                 **sass.get(mname, {})}
+        warnings = [ln.strip() for ln in log_text.splitlines()
+                    if "warning" in ln.lower()
+                    or "performance loss" in ln.lower()][:8]
+        hopper = {n: c for n, c in kernels.items() if "_hopper" in n}
+        if kname in ("flash_fwd", "flash_dkv"):
+            ok = ok and bool(hopper) and all(
+                c.get("HGMMA", 0) > 0 and c.get("UTMALDG", 0) > 0
+                for c in hopper.values())
+        libs[kname] = {"lib": os.path.relpath(paths[kname], HERE),
+                       "kernels": kernels, "warnings": warnings,
+                       "ptxas": [ln.strip() for ln in log_text.splitlines()
+                                 if "registers" in ln or "spill" in ln][:32]}
+    emit({"phase": "build", "ok": ok, "s": build_s, "libs": libs})
+    if not ok:
+        raise AssertionError("a Hopper kernel has no HGMMA or no UTMALDG "
+                             "in its SASS")
+
+
 def phase_parity(fa, torch):
     results, full_err, faults = [], {}, []
     cases = [(BATCH * HEADS, SEQ, SEQ, HEAD_DIM, torch.bfloat16, True,
@@ -190,6 +293,15 @@ def phase_parity(fa, torch):
             for causal in (True, False):
                 cases.append((3, 200, 200, d, dtype, causal, "ragged"))
         cases.append((3, 40, 136, 64, dtype, False, "cross_length"))
+    # The edges of the Hopper design's 128-row tiles (bf16, D 64 and 128):
+    # a half-full last tile, a second tile of 2 rows, a single head.
+    cases.append((4, SEQ + 64, SEQ + 64, HEAD_DIM, torch.bfloat16, True,
+                  "half_tile"))
+    for d in (64, 128):
+        for causal in (True, False):
+            cases.append((3, 130, 130, d, torch.bfloat16, causal,
+                          "two_row_tile"))
+    cases.append((1, SEQ, SEQ, HEAD_DIM, torch.bfloat16, True, "one_head"))
     for i, (bh, t, tk, d, dtype, causal, tag) in enumerate(cases):
         x = attn_inputs(bh, t, d, dtype, seed=100 + i, tk=tk)
         o_ref, lse_ref = fa.flash_fwd_ref(x["q"], x["k"], x["v"],
@@ -394,10 +506,13 @@ def phase_timing(fa, torch, card):
         flops, nbytes = work[name]
         t_ops = flops / PEAK_BF16_FLOPS * 1e3
         t_mem = nbytes / PEAK_HBM_BYTES * 1e3
+        ms = cuda_ms(kern)
         out[name] = {
-            "ms": cuda_ms(kern), "plain_ms": cuda_ms(plain, iters=3),
+            "ms": ms, "plain_ms": cuda_ms(plain, iters=3),
             "bound_ms": max(t_ops, t_mem),
             "bound_by": "operations" if t_ops >= t_mem else "bytes",
+            "bound_share": max(t_ops, t_mem) / ms,
+            "tflops": flops / (ms * 1e-3) / 1e12,
             "flops": flops, "bytes": nbytes,
             "library_ms": lib_fwd_ms if name == "flash_fwd" else lib_bwd_ms,
         }
@@ -445,14 +560,8 @@ def main(argv) -> int:
 
     t0 = time.perf_counter()
     paths = _build.build()
-    ptxas = {}
-    for kname in KERNELS:
-        with open(os.path.join(_build.BUILD_DIR, f"{kname}.log")) as f:
-            ptxas[kname] = [ln.strip() for ln in f
-                            if "registers" in ln or "spill" in ln][:16]
-    emit({"phase": "build", "s": time.perf_counter() - t0,
-          "libs": {k: os.path.relpath(p, HERE) for k, p in paths.items()},
-          "ptxas": ptxas})
+    build_s = time.perf_counter() - t0
+    phase_build(_build, paths, build_s)
 
     errs = phase_parity(fa, torch) if "parity" in phases else {}
     counts = (phase_trainer(args, torch, mv, card) if "trainer" in phases
@@ -470,6 +579,7 @@ def main(argv) -> int:
             "max_abs_err": errs.get(kname), "ms": t.get("ms"),
             "plain_ms": t.get("plain_ms"), "bound_ms": t.get("bound_ms"),
             "bound_by": t.get("bound_by"), "library_ms": t.get("library_ms"),
+            "tflops": t.get("tflops"), "bound_share": t.get("bound_share"),
         })
         if "library_covers" in t:
             kernels[-1]["library_covers"] = t["library_covers"]

@@ -5,6 +5,9 @@ own shared library with a plain C interface, loaded through ``ctypes``
 (pointers from ``tensor.data_ptr()``, the stream from
 ``torch.cuda.current_stream().cuda_stream``).  No source includes
 PyTorch's headers and no ``ninja`` is needed, so a build takes seconds.
+No library links ``-lcuda`` either: the TMA descriptors' encoder
+(``cuTensorMapEncodeTiled``) comes from the driver at run time through
+``cudaGetDriverEntryPoint`` (``csrc/hopper.cuh``).
 
 Libraries land in ``ops/_build/`` (listed in ``.gitignore``) under a name
 that carries a hash of the sources and flags: an edited source rebuilds

@@ -264,8 +264,14 @@ inline cudaError_t allow_smem(Kernel kernel, size_t bytes, bool* done) {
 #define MVT_DTYPE_BF16 1
 // Return code for a dtype or head dim the library was not built for.
 #define MVT_UNSUPPORTED (-1)
+// Return code for a TMA descriptor the driver refused (hopper.cuh).
+#define MVT_TMA_REFUSED (-2)
 
 extern "C" const char* mvt_error_string(int code) {
   if (code == MVT_UNSUPPORTED) return "unsupported dtype or head dim";
+  if (code == MVT_TMA_REFUSED) {
+    return "TMA descriptor refused (pointer not 16-byte aligned or shape "
+           "out of range)";
+  }
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

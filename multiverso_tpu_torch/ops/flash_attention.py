@@ -13,6 +13,12 @@ wrapper        CUDA source                     replaces (TPU kernel)
 ``flash_dkv``  ``csrc/flash_dkv.cu``           ``_dkv_kernel`` :184-233
 =============  ==============================  ==========================
 
+Which design a kernel runs is fixed at compile time by (dtype, D): bf16 at
+D 64 and 128 runs the Hopper designs of ``flash_fwd.cu`` and
+``flash_dkv.cu`` (TMA loads, wgmma with register accumulators, shared
+helpers in ``csrc/hopper.cuh``); float32, bf16 at D 32 and 256, and every
+``flash_dq`` run the first port's WMMA kernels (``csrc/flash_common.cuh``).
+
 Beside each wrapper sits its plain version (``flash_fwd_ref``,
 ``flash_dq_ref``, ``flash_dkv_ref``): the same function written with
 dense tensor ops.  A wrapper takes the plain version only for a tensor

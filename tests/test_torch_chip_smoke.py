@@ -1,0 +1,102 @@
+"""The build report of ``chip_smoke.py``, on the CPU.
+
+The chip smoke test reads each built library's ``-Xptxas -v`` log and its
+``cuobjdump -sass`` listing, and fails the run when a bf16 Hopper kernel
+holds no wgmma (HGMMA) or no TMA load (UTMALDG).  Those parsers and that
+rule are plain Python; here they run on listings in the formats the CUDA
+toolkit prints, with a stand-in ``cuobjdump``.
+"""
+
+import importlib.util
+import os
+import stat
+import types
+
+import pytest
+
+_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_spec = importlib.util.spec_from_file_location(
+    "chip_smoke", os.path.join(_ROOT, "chip_smoke.py"))
+chip_smoke = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(chip_smoke)
+
+FWD = "_ZN3mvt16flash_fwd_hopperILi128EEEv14CUtensorMap_stS1_S1_P13__nv_bfloat16Pfiii"
+OLD = "_ZN3mvt16flash_fwd_kernelIfLi32ELi64ELi64EEEvPKT_S3_S3_PS1_Pfiii"
+
+PTXAS_LOG = f"""\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '{FWD}' for 'sm_90a'
+ptxas info    : Function properties for {FWD}
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 182 registers, used 1 barriers, 400 bytes cmem[0]
+ptxas info    : Compiling entry function '{OLD}' for 'sm_90a'
+ptxas info    : Function properties for {OLD}
+    8 bytes stack frame, 36 bytes spill stores, 40 bytes spill loads
+ptxas info    : Used 40 registers, used 1 barriers, 8 bytes cumulative stack size
+"""
+
+
+def _sass(hopper_ops):
+    lines = ["\tcode for sm_90a", f"\t\tFunction : {FWD}",
+             '\t.headerflags\t@"EF_CUDA_SM90 EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)"',
+             "        /*0000*/                   LDC R1, c[0x0][0x28] ;"]
+    for i, op in enumerate(hopper_ops):
+        lines.append(f"        /*{0x10 * (i + 1):04x}*/              @!UP0 {op} ;")
+    lines += [f"\t\tFunction : {OLD}",
+              "        /*0000*/                   LDC R1, c[0x0][0x28] ;",
+              "        /*0010*/               @P0 LDL.64 R2, [R1] ;",
+              "        /*0020*/                   STL [R1], R3 ;",
+              "        /*0030*/                   STL.64 [R1+0x8], R4 ;"]
+    return "\n".join(lines) + "\n"
+
+
+def test_ptxas_report_reads_registers_and_spills():
+    got = chip_smoke.ptxas_report(PTXAS_LOG)
+    assert got == {FWD: {"spill_bytes": 0, "registers": 182},
+                   OLD: {"spill_bytes": 76, "registers": 40}}
+
+
+def test_sass_counts_per_kernel_and_predicated():
+    ops = ["HGMMA.64x128x16.F32.BF16 R24, gdesc[UR4], RZ, !UPT",
+           "HGMMA.64x128x16.F32.BF16 R88, R24, gdesc[UR8].tnspB, R88, gsb0",
+           "UTMALDG.3D [UR8], [UR4]"]
+    got = chip_smoke.sass_counts(_sass(ops))
+    assert got[FWD] == {"HGMMA": 2, "UTMALDG": 1, "LDL": 0, "STL": 0}
+    assert got[OLD] == {"HGMMA": 0, "UTMALDG": 0, "LDL": 1, "STL": 2}
+
+
+def _fake_build(tmp_path, sass_text):
+    """A stand-in for ``ops._build``: logs in BUILD_DIR, and an nvcc whose
+    directory holds a ``cuobjdump`` that prints ``sass_text``."""
+    bindir = tmp_path / "bin"
+    bindir.mkdir()
+    (tmp_path / "listing.sass").write_text(sass_text)
+    tool = bindir / "cuobjdump"
+    tool.write_text(f"#!/bin/sh\ncat '{tmp_path / 'listing.sass'}'\n")
+    tool.chmod(tool.stat().st_mode | stat.S_IEXEC)
+    build_dir = tmp_path / "build"
+    build_dir.mkdir()
+    paths = {}
+    for name in chip_smoke.KERNELS:
+        (build_dir / f"{name}.log").write_text(PTXAS_LOG)
+        paths[name] = str(build_dir / f"lib{name}.so")
+    fake = types.SimpleNamespace(BUILD_DIR=str(build_dir),
+                                 nvcc_path=lambda: str(bindir / "nvcc"))
+    return fake, paths
+
+
+def test_build_phase_passes_with_wgmma_and_tma(tmp_path, capsys):
+    fake, paths = _fake_build(tmp_path, _sass(
+        ["HGMMA.64x128x16.F32.BF16 R24, gdesc[UR4], RZ, !UPT, gsb0",
+         "UTMALDG.3D [UR8], [UR4]"]))
+    chip_smoke.phase_build(fake, paths, 1.0)
+    assert '"phase": "build", "ok": true' in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("ops", [["UTMALDG.3D [UR8], [UR4]"],
+                                 ["HGMMA.64x128x16.F32.BF16 R24, gdesc[UR4], "
+                                  "RZ, !UPT, gsb0"]])
+def test_build_phase_fails_without_wgmma_or_tma(tmp_path, ops):
+    fake, paths = _fake_build(tmp_path, _sass(ops))
+    with pytest.raises(AssertionError, match="HGMMA or no UTMALDG"):
+        chip_smoke.phase_build(fake, paths, 1.0)

@@ -201,3 +201,127 @@ def test_offset_blocks_and_attn_piece_match_jax():
     np.testing.assert_allclose(plse.numpy(), np.asarray(jlse), atol=2e-5)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         port_ring.ring_attention(tq, tk, tv)
+
+
+# ------------------------------------------------ the Hopper kernels' schedule
+# Plain-torch models of the block schedules that csrc/flash_fwd.cu and
+# csrc/flash_dkv.cu run for bf16 at D 64 and 128 (one block of two 64-row
+# consumer warpgroups per 128-row tile), so their index arithmetic is held
+# to the plain versions here, in float32, before it runs on the card:
+# zero-filled tiles past T (what the TMA loads give), the causal start and
+# end blocks, the per-warpgroup skip, and masks only on straddling or
+# ragged blocks.
+_NEG = -1e30
+
+
+def _pad_rows(x, rows):
+    return torch.nn.functional.pad(x, (0, 0, 0, rows - x.shape[1]))
+
+
+def _fwd_schedule(qs, k, v, causal):
+    BQ = BK = 128
+    bh, tq, d = qs.shape
+    tk = k.shape[1]
+    nqt, nk = -(-tq // BQ), -(-tk // BK)
+    qp, kp, vp = _pad_rows(qs, nqt * BQ), _pad_rows(k, nk * BK), \
+        _pad_rows(v, nk * BK)
+    o = torch.zeros(bh, tq, d)
+    lse = torch.zeros(bh, tq)
+    for qt in range(nqt):
+        q0 = qt * BQ
+        kend = min(nk, (q0 + BQ - 1) // BK + 1) if causal else nk
+        for g in range(2):
+            qw = q0 + 64 * g
+            rows = torch.arange(qw, qw + 64)
+            acc = torch.zeros(bh, 64, d)
+            m = torch.full((bh, 64), _NEG)
+            l = torch.zeros(bh, 64)
+            for kb in range(kend):
+                k0 = kb * BK
+                s = qp[:, qw:qw + 64] @ kp[:, k0:k0 + BK].transpose(1, 2)
+                if (causal and k0 + BK - 1 > qw) or k0 + BK > tk:
+                    cols = torch.arange(k0, k0 + BK)
+                    out = (cols >= tk)[None, :] | (
+                        causal & (cols[None, :] > rows[:, None]))
+                    s = s.masked_fill(out, _NEG)
+                mx = torch.maximum(m, s.amax(-1))
+                corr = torch.exp(m - mx)
+                p = torch.exp(s - mx[..., None])
+                l = l * corr + p.sum(-1)
+                acc = acc * corr[..., None] + p @ vp[:, k0:k0 + BK]
+                m = mx
+            n = max(0, min(64, tq - qw))
+            lc = l.clamp_min(1e-30)
+            o[:, qw:qw + n] = (acc / lc[..., None])[:, :n]
+            lse[:, qw:qw + n] = (m + torch.log(lc))[:, :n]
+    return o, lse
+
+
+def _dkv_schedule(qs, k, v, do, lse, delta, causal):
+    BK, BQ = 128, 64
+    bh, tq, d = qs.shape
+    tk = k.shape[1]
+    nk, nq = -(-tk // BK), -(-tq // BQ)
+    qp, dop = _pad_rows(qs, nq * BQ), _pad_rows(do, nq * BQ)
+    kp, vp = _pad_rows(k, nk * BK), _pad_rows(v, nk * BK)
+    lsep = torch.nn.functional.pad(lse, (0, nq * BQ - tq))
+    dlp = torch.nn.functional.pad(delta, (0, nq * BQ - tq))
+    dk, dv = torch.zeros(bh, tk, d), torch.zeros(bh, tk, d)
+    for kb in range(nk):
+        k0 = kb * BK
+        qstart = k0 // BQ if causal else 0
+        for g in range(2):
+            kw = k0 + 64 * g
+            krows = torch.arange(kw, kw + 64)
+            dk_acc, dv_acc = torch.zeros(bh, 64, d), torch.zeros(bh, 64, d)
+            for qb in range(qstart, nq):
+                q0 = qb * BQ
+                if causal and q0 + BQ - 1 < kw:
+                    continue
+                qt, dot = qp[:, q0:q0 + BQ], dop[:, q0:q0 + BQ]
+                st = kp[:, kw:kw + 64] @ qt.transpose(1, 2)
+                dpt = vp[:, kw:kw + 64] @ dot.transpose(1, 2)
+                if (causal and q0 < kw + 63) or kw + 64 > tk or q0 + BQ > tq:
+                    qcols = torch.arange(q0, q0 + BQ)
+                    out = ((krows[:, None] >= tk) | (qcols[None, :] >= tq)
+                           | (causal & (krows[:, None] > qcols[None, :])))
+                    st = st.masked_fill(out, _NEG)
+                pt = torch.exp(st - lsep[:, None, q0:q0 + BQ])
+                dst = pt * (dpt - dlp[:, None, q0:q0 + BQ])
+                dv_acc += pt @ dot
+                dk_acc += dst @ qt
+            n = max(0, min(64, tk - kw))
+            dk[:, kw:kw + n] = dk_acc[:, :n]
+            dv[:, kw:kw + n] = dv_acc[:, :n]
+    return dk, dv
+
+
+@pytest.mark.parametrize("tq,tk,causal", [(130, 130, True),
+                                          (130, 130, False),
+                                          (200, 200, True),
+                                          (200, 200, False),
+                                          (256, 256, True),
+                                          (40, 136, False)])
+@pytest.mark.parametrize("kernel", ["fwd", "dkv"])
+def test_hopper_schedule_matches_plain(kernel, tq, tk, causal):
+    """The Hopper kernels' block schedules (128-row tiles split over two
+    64-row warpgroups; dk/dv over 64-row q blocks) against the plain
+    versions, float32, at ragged T."""
+    rng = np.random.RandomState(tq + tk + causal)
+    bh, d = 2, 64
+    q, k, v = (torch.tensor(rng.randn(bh, t, d).astype(np.float32))
+               for t in (tq, tk, tk))
+    scale = d ** -0.5
+    qs = fa._prescale(q, scale)
+    o, lse = fa.flash_fwd_ref(q, k, v, scale, causal)
+    if kernel == "fwd":
+        got, want = _fwd_schedule(qs, k, v, causal), (o, lse)
+    else:
+        do = torch.tensor(rng.randn(bh, tq, d).astype(np.float32))
+        delta = (do * o).sum(-1) - torch.tensor(
+            rng.randn(bh, tq).astype(np.float32))
+        got = _dkv_schedule(qs, k, v, do, lse, delta, causal)
+        want = fa.flash_dkv_ref(q, k, v, do, lse, delta, scale, causal)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), atol=2e-5,
+                                   rtol=1e-4)
