@@ -12,17 +12,18 @@ Phases, each printing one JSON line:
              ``multiverso_tpu_torch/ops/csrc`` (one nvcc each, in parallel)
              and reports, per kernel, ptxas's registers and spill bytes
              and the SASS counts of HGMMA (wgmma), UTMALDG (TMA loads) and
-             LDL/STL (local memory) from ``cuobjdump -sass``.  The bf16
-             Hopper kernels of flash_fwd and flash_dkv must hold HGMMA and
-             UTMALDG.
+             LDL/STL (local memory) from ``cuobjdump -sass``.  Each
+             library must hold bf16 Hopper kernels, and each of them HGMMA
+             and UTMALDG.
 3. parity  — each kernel against its plain PyTorch version on the card:
              the trainer's attention shape (B=4, H=16, T=2048, D=128, bf16,
              causal, nonzero lse cotangent), small ragged shapes (T=200)
-             in float32 and bf16, causal and not, every head dim, a
-             cross-length case (Tq=40, Tk=136, not causal), and the edges
-             of the 128-row Hopper tiles in bf16: T=2112 (a half-full last
-             tile), T=130 at D 64 and 128 causal and not (a second tile of
-             2 rows), and one head at T=2048.
+             in float32 and bf16, causal and not, every head dim,
+             cross-length cases (not causal: Tq=40, Tk=136 at D 64; in
+             bf16 at D 128 both Tq=40, Tk=136 and Tq=136, Tk=40), and the
+             edges of the 128-row Hopper tiles in bf16: T=2112 (a
+             half-full last tile), T=130 at D 64 and 128 causal and not (a
+             second tile of 2 rows), and one head at T=2048.
              Each output is judged by its own dtype: float32 outputs
              (lse, and every output of a float32 case) element by element
              at atol = rtol = 1e-4; bf16 outputs by their error relative
@@ -249,8 +250,9 @@ def sass_counts(sass_text):
 def phase_build(_build, paths, build_s):
     """Per kernel of each library: ptxas registers and spill bytes, and
     the SASS counts of wgmma (HGMMA), TMA loads (UTMALDG) and local-memory
-    traffic (LDL/STL).  The bf16 Hopper kernels (flash_fwd_hopper,
-    flash_dkv_hopper) must hold HGMMA and UTMALDG."""
+    traffic (LDL/STL).  Every library must hold bf16 Hopper kernels
+    (flash_fwd_hopper, flash_dq_hopper, flash_dkv_hopper), and each of
+    them HGMMA and UTMALDG."""
     cuobjdump = os.path.join(os.path.dirname(_build.nvcc_path()),
                              "cuobjdump")
     libs, ok = {}, True
@@ -270,18 +272,17 @@ def phase_build(_build, paths, build_s):
                     if "warning" in ln.lower()
                     or "performance loss" in ln.lower()][:8]
         hopper = {n: c for n, c in kernels.items() if "_hopper" in n}
-        if kname in ("flash_fwd", "flash_dkv"):
-            ok = ok and bool(hopper) and all(
-                c.get("HGMMA", 0) > 0 and c.get("UTMALDG", 0) > 0
-                for c in hopper.values())
+        ok = ok and bool(hopper) and all(
+            c.get("HGMMA", 0) > 0 and c.get("UTMALDG", 0) > 0
+            for c in hopper.values())
         libs[kname] = {"lib": os.path.relpath(paths[kname], HERE),
                        "kernels": kernels, "warnings": warnings,
                        "ptxas": [ln.strip() for ln in log_text.splitlines()
                                  if "registers" in ln or "spill" in ln][:32]}
     emit({"phase": "build", "ok": ok, "s": build_s, "libs": libs})
     if not ok:
-        raise AssertionError("a Hopper kernel has no HGMMA or no UTMALDG "
-                             "in its SASS")
+        raise AssertionError("a library has no Hopper kernel, or a Hopper "
+                             "kernel has no HGMMA or no UTMALDG in its SASS")
 
 
 def phase_parity(fa, torch):
@@ -293,6 +294,10 @@ def phase_parity(fa, torch):
             for causal in (True, False):
                 cases.append((3, 200, 200, d, dtype, causal, "ragged"))
         cases.append((3, 40, 136, 64, dtype, False, "cross_length"))
+    # q tiles over k blocks that straddle Tk, both ways round.
+    for t, tk in ((40, 136), (136, 40)):
+        cases.append((3, t, tk, HEAD_DIM, torch.bfloat16, False,
+                      "cross_length"))
     # The edges of the Hopper design's 128-row tiles (bf16, D 64 and 128):
     # a half-full last tile, a second tile of 2 rows, a single head.
     cases.append((4, SEQ + 64, SEQ + 64, HEAD_DIM, torch.bfloat16, True,

@@ -7,14 +7,15 @@
 //   PRE-SCALED by the softmax scale; lse and delta are [bh, T] float.
 //   Scores, softmax statistics and accumulators are float32.
 //
-// Design (first port, simple and right before fast): one thread block of
-// kThreads threads per (bh, row block).  Every operand tile is staged in
-// shared memory with a padded leading dimension; every product reads its
-// operands from shared memory and accumulates in float32 shared memory.
-// bf16 products run on the tensor cores through WMMA 16x16x16 fragments
-// (float32 accumulate); float32 products run as plain FMAs, so float32
-// results keep full float32 precision (no TF32).  wgmma, TMA and warp
-// specialisation are later work.
+// Design of the first port's kernels, which float32 at every D and bf16
+// at D 32 and 256 still run (bf16 at D 64 and 128 runs the Hopper
+// designs of hopper.cuh): one thread block of kThreads threads per (bh,
+// row block).  Every operand tile is staged in shared memory with a
+// padded leading dimension; every product reads its operands from shared
+// memory and accumulates in float32 shared memory.  bf16 products run on
+// the tensor cores through WMMA 16x16x16 fragments (float32 accumulate);
+// float32 products run as plain FMAs, so float32 results keep full
+// float32 precision (no TF32).
 #pragma once
 
 #include <cuda_bf16.h>

@@ -1,17 +1,18 @@
 // Hopper (sm_90a) building blocks of the redesigned flash-attention
-// kernels (flash_fwd.cu, flash_dkv.cu, bf16 at head dims 64 and 128):
+// kernels (flash_fwd.cu, flash_dq.cu, flash_dkv.cu, bf16 at head dims 64
+// and 128):
 // mbarriers, TMA tile loads, and wgmma descriptors and instructions.  Raw
 // PTX through inline asm, so a library builds in seconds with no CUTLASS
 // headers.
 //
-// Both kernels run two consumer warpgroups (256 threads) over one ring of
-// shared-memory stages, filled kStages blocks ahead.  The forward adds a
-// producer warp (288 threads) that issues every load.  dk/dv cannot: a
-// ninth warp puts three warps on one of the SM's four register files, and
-// ptxas then budgets every thread at 168 registers (setmaxnreg
-// notwithstanding), too few for its four accumulators; so there warp 0
-// refills each stage once both warpgroups have released it, and every
-// thread may hold 255 registers.
+// All three kernels run two consumer warpgroups (256 threads) over one
+// ring of shared-memory stages, filled kStages blocks ahead.  The forward
+// adds a producer warp (288 threads) that issues every load.  dq and dk/dv
+// cannot: a ninth warp puts three warps on one of the SM's four register
+// files, and ptxas then budgets every thread at 168 registers (setmaxnreg
+// notwithstanding), too few for their three or four accumulators; so
+// there warp 0 refills each stage once both warpgroups have released it,
+// and every thread may hold 255 registers.
 #pragma once
 
 #include <cuda.h>

@@ -14,10 +14,10 @@ wrapper        CUDA source                     replaces (TPU kernel)
 =============  ==============================  ==========================
 
 Which design a kernel runs is fixed at compile time by (dtype, D): bf16 at
-D 64 and 128 runs the Hopper designs of ``flash_fwd.cu`` and
-``flash_dkv.cu`` (TMA loads, wgmma with register accumulators, shared
-helpers in ``csrc/hopper.cuh``); float32, bf16 at D 32 and 256, and every
-``flash_dq`` run the first port's WMMA kernels (``csrc/flash_common.cuh``).
+D 64 and 128 runs the Hopper designs of all three sources (TMA loads,
+wgmma with register accumulators, shared helpers in ``csrc/hopper.cuh``);
+float32, and bf16 at D 32 and 256, run the first port's WMMA kernels
+(``csrc/flash_common.cuh``).
 
 Beside each wrapper sits its plain version (``flash_fwd_ref``,
 ``flash_dq_ref``, ``flash_dkv_ref``): the same function written with

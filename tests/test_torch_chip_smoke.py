@@ -1,8 +1,9 @@
 """The build report of ``chip_smoke.py``, on the CPU.
 
 The chip smoke test reads each built library's ``-Xptxas -v`` log and its
-``cuobjdump -sass`` listing, and fails the run when a bf16 Hopper kernel
-holds no wgmma (HGMMA) or no TMA load (UTMALDG).  Those parsers and that
+``cuobjdump -sass`` listing, and fails the run when a library holds no
+bf16 Hopper kernel, or one holds no wgmma (HGMMA) or no TMA load
+(UTMALDG).  Those parsers and that
 rule are plain Python; here they run on listings in the formats the CUDA
 toolkit prints, with a stand-in ``cuobjdump``.
 """
@@ -36,8 +37,8 @@ ptxas info    : Used 40 registers, used 1 barriers, 8 bytes cumulative stack siz
 """
 
 
-def _sass(hopper_ops):
-    lines = ["\tcode for sm_90a", f"\t\tFunction : {FWD}",
+def _sass(hopper_ops, hopper=FWD):
+    lines = ["\tcode for sm_90a", f"\t\tFunction : {hopper}",
              '\t.headerflags\t@"EF_CUDA_SM90 EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)"',
              "        /*0000*/                   LDC R1, c[0x0][0x28] ;"]
     for i, op in enumerate(hopper_ops):
@@ -65,38 +66,74 @@ def test_sass_counts_per_kernel_and_predicated():
     assert got[OLD] == {"HGMMA": 0, "UTMALDG": 0, "LDL": 1, "STL": 2}
 
 
-def _fake_build(tmp_path, sass_text):
+def _fake_build(tmp_path, listings):
     """A stand-in for ``ops._build``: logs in BUILD_DIR, and an nvcc whose
-    directory holds a ``cuobjdump`` that prints ``sass_text``."""
+    directory holds a ``cuobjdump`` that prints ``listings[name]`` for
+    ``lib<name>.so``."""
     bindir = tmp_path / "bin"
     bindir.mkdir()
-    (tmp_path / "listing.sass").write_text(sass_text)
-    tool = bindir / "cuobjdump"
-    tool.write_text(f"#!/bin/sh\ncat '{tmp_path / 'listing.sass'}'\n")
-    tool.chmod(tool.stat().st_mode | stat.S_IEXEC)
     build_dir = tmp_path / "build"
     build_dir.mkdir()
     paths = {}
     for name in chip_smoke.KERNELS:
-        (build_dir / f"{name}.log").write_text(PTXAS_LOG)
+        hop = _hopper_name(name)
+        (build_dir / f"{name}.log").write_text(PTXAS_LOG.replace(
+            FWD, hop if hop in listings[name] else NOT_HOPPER))
+        (build_dir / f"lib{name}.sass").write_text(listings[name])
         paths[name] = str(build_dir / f"lib{name}.so")
+    tool = bindir / "cuobjdump"
+    tool.write_text('#!/bin/sh\ncat "${2%.so}.sass"\n')
+    tool.chmod(tool.stat().st_mode | stat.S_IEXEC)
     fake = types.SimpleNamespace(BUILD_DIR=str(build_dir),
                                  nvcc_path=lambda: str(bindir / "nvcc"))
     return fake, paths
 
 
+def _hopper_name(lib):
+    """The mangled name of library ``lib``'s D=128 Hopper kernel, as FWD
+    is flash_fwd's."""
+    return FWD.replace("16flash_fwd_hopper", f"{len(lib) + 7}{lib}_hopper")
+
+
+NOT_HOPPER = "_ZN3mvt15flash_dq_kernelIfLi64ELi64ELi64EEEvPKT_S3_S3_S3_PKfS5_PS1_iiif"
+GOOD_OPS = ["HGMMA.64x128x16.F32.BF16 R24, gdesc[UR4], RZ, !UPT, gsb0",
+            "UTMALDG.3D [UR8], [UR4]"]
+
+
+def _listings(bad=None, bad_ops=None):
+    """A listing per library, each with its own Hopper kernel holding
+    GOOD_OPS, except library ``bad``, whose Hopper kernel holds
+    ``bad_ops`` (None: it has no Hopper kernel at all)."""
+    out = {}
+    for name in chip_smoke.KERNELS:
+        hop = _hopper_name(name)
+        if name != bad:
+            out[name] = _sass(GOOD_OPS, hop)
+        elif bad_ops is None:
+            out[name] = _sass(GOOD_OPS, NOT_HOPPER)
+        else:
+            out[name] = _sass(bad_ops, hop)
+    return out
+
+
 def test_build_phase_passes_with_wgmma_and_tma(tmp_path, capsys):
-    fake, paths = _fake_build(tmp_path, _sass(
-        ["HGMMA.64x128x16.F32.BF16 R24, gdesc[UR4], RZ, !UPT, gsb0",
-         "UTMALDG.3D [UR8], [UR4]"]))
+    fake, paths = _fake_build(tmp_path, _listings())
     chip_smoke.phase_build(fake, paths, 1.0)
     assert '"phase": "build", "ok": true' in capsys.readouterr().out
 
 
+@pytest.mark.parametrize("lib", list(chip_smoke.KERNELS))
 @pytest.mark.parametrize("ops", [["UTMALDG.3D [UR8], [UR4]"],
                                  ["HGMMA.64x128x16.F32.BF16 R24, gdesc[UR4], "
                                   "RZ, !UPT, gsb0"]])
-def test_build_phase_fails_without_wgmma_or_tma(tmp_path, ops):
-    fake, paths = _fake_build(tmp_path, _sass(ops))
+def test_build_phase_fails_without_wgmma_or_tma(tmp_path, ops, lib):
+    fake, paths = _fake_build(tmp_path, _listings(lib, ops))
     with pytest.raises(AssertionError, match="HGMMA or no UTMALDG"):
+        chip_smoke.phase_build(fake, paths, 1.0)
+
+
+@pytest.mark.parametrize("lib", list(chip_smoke.KERNELS))
+def test_build_phase_fails_without_a_hopper_kernel(tmp_path, lib):
+    fake, paths = _fake_build(tmp_path, _listings(lib))
+    with pytest.raises(AssertionError, match="no Hopper kernel"):
         chip_smoke.phase_build(fake, paths, 1.0)

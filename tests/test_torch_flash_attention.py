@@ -204,12 +204,13 @@ def test_offset_blocks_and_attn_piece_match_jax():
 
 
 # ------------------------------------------------ the Hopper kernels' schedule
-# Plain-torch models of the block schedules that csrc/flash_fwd.cu and
-# csrc/flash_dkv.cu run for bf16 at D 64 and 128 (one block of two 64-row
-# consumer warpgroups per 128-row tile), so their index arithmetic is held
-# to the plain versions here, in float32, before it runs on the card:
-# zero-filled tiles past T (what the TMA loads give), the causal start and
-# end blocks, the per-warpgroup skip, and masks only on straddling or
+# Plain-torch models of the block schedules that csrc/flash_fwd.cu,
+# csrc/flash_dq.cu and csrc/flash_dkv.cu run for bf16 at D 64 and 128 (one
+# block of two 64-row consumer warpgroups per 128-row tile), so their
+# index arithmetic is held to the plain versions here, in float32, before
+# it runs on the card: zero-filled tiles past T (what the TMA loads give),
+# the causal start and end blocks, dk/dv's per-warpgroup skip (which dq's
+# 128-key blocks never need), and masks only on straddling or
 # ragged blocks.
 _NEG = -1e30
 
@@ -296,17 +297,55 @@ def _dkv_schedule(qs, k, v, do, lse, delta, causal):
     return dk, dv
 
 
+def _dq_schedule(qs, k, v, do, lse, delta, scale, causal):
+    BQ, BK = 128, 128
+    bh, tq, d = qs.shape
+    tk = k.shape[1]
+    nqt, nk = -(-tq // BQ), -(-tk // BK)
+    qp, dop = _pad_rows(qs, nqt * BQ), _pad_rows(do, nqt * BQ)
+    kp, vp = _pad_rows(k, nk * BK), _pad_rows(v, nk * BK)
+    # Rows past tq read lse and delta as 0 (their q and do are zeros).
+    lsep = torch.nn.functional.pad(lse, (0, nqt * BQ - tq))
+    dlp = torch.nn.functional.pad(delta, (0, nqt * BQ - tq))
+    dq = torch.zeros(bh, tq, d)
+    for qt in range(nqt):
+        q0 = qt * BQ
+        kend = min(nk, q0 // BK + 1) if causal else nk
+        for g in range(2):
+            qw = q0 + 64 * g
+            rows = torch.arange(qw, qw + 64)
+            acc = torch.zeros(bh, 64, d)
+            for kb in range(kend):
+                k0 = kb * BK
+                # BK == BQ: every visited block reaches this warpgroup's
+                # rows, so the kernel skips none.
+                assert not (causal and k0 > qw + 63)
+                kt = kp[:, k0:k0 + BK]
+                s = qp[:, qw:qw + 64] @ kt.transpose(1, 2)
+                dp = dop[:, qw:qw + 64] @ vp[:, k0:k0 + BK].transpose(1, 2)
+                if (causal and k0 + BK - 1 > qw) or k0 + BK > tk:
+                    cols = torch.arange(k0, k0 + BK)
+                    out = ((cols[None, :] >= tk) | (rows[:, None] >= tq)
+                           | (causal & (cols[None, :] > rows[:, None])))
+                    s = s.masked_fill(out, _NEG)
+                p = torch.exp(s - lsep[:, qw:qw + 64, None])
+                acc += (p * (dp - dlp[:, qw:qw + 64, None])) @ kt
+            n = max(0, min(64, tq - qw))
+            dq[:, qw:qw + n] = (acc * scale)[:, :n]
+    return dq
+
+
 @pytest.mark.parametrize("tq,tk,causal", [(130, 130, True),
                                           (130, 130, False),
                                           (200, 200, True),
                                           (200, 200, False),
                                           (256, 256, True),
                                           (40, 136, False)])
-@pytest.mark.parametrize("kernel", ["fwd", "dkv"])
+@pytest.mark.parametrize("kernel", ["fwd", "dq", "dkv"])
 def test_hopper_schedule_matches_plain(kernel, tq, tk, causal):
-    """The Hopper kernels' block schedules (128-row tiles split over two
-    64-row warpgroups; dk/dv over 64-row q blocks) against the plain
-    versions, float32, at ragged T."""
+    """The Hopper kernels' block schedules (fwd and dq: 128-row q tiles
+    split over two 64-row warpgroups; dk/dv: 128-row k blocks over 64-row
+    q blocks) against the plain versions, float32, at ragged T."""
     rng = np.random.RandomState(tq + tk + causal)
     bh, d = 2, 64
     q, k, v = (torch.tensor(rng.randn(bh, t, d).astype(np.float32))
@@ -320,6 +359,10 @@ def test_hopper_schedule_matches_plain(kernel, tq, tk, causal):
         do = torch.tensor(rng.randn(bh, tq, d).astype(np.float32))
         delta = (do * o).sum(-1) - torch.tensor(
             rng.randn(bh, tq).astype(np.float32))
+    if kernel == "dq":
+        got = (_dq_schedule(qs, k, v, do, lse, delta, scale, causal),)
+        want = (fa.flash_dq_ref(q, k, v, do, lse, delta, scale, causal),)
+    elif kernel == "dkv":
         got = _dkv_schedule(qs, k, v, do, lse, delta, causal)
         want = fa.flash_dkv_ref(q, k, v, do, lse, delta, scale, causal)
     for g, w in zip(got, want):
