@@ -45,6 +45,29 @@ Phases, each printing one JSON line:
              its plain version, its bound (with the achieved TFLOP/s and
              the bound's share of the time), and PyTorch's flash attention
              as a yardstick that the port never calls.
+7. tables  — the parameter-server path on the card: ``init()`` with no
+             device (so ``cuda:0``), then ArrayTables of 16,777,216
+             float32 (64 MiB, the size of ``bench.py``'s add/get bench),
+             each held against the same operations in numpy on the host
+             at 1e-6 of the largest entry: host adds and gets through
+             ``sgd`` and ``adagrad``, a device-tensor add with
+             ``get(device=True)``, a BSP table whose two adds are
+             invisible before ``barrier()`` and applied after it, and one
+             1-bit add against ``dequantize_1bit`` of the same payload.
+             Then the add/get rates: device-resident (CUDA events, with
+             the bytes each op moves over 3.35 TB/s as its bound and the
+             share reached) and host (host clock, numpy in and out), and
+             the peak device memory.
+8. lr      — ``LogisticRegression(784, 10)`` on 8192 synthetic samples
+             (``bench.py``'s LR shape): 20 fused steps on the card and the
+             same 20 on the CPU (a second ``init`` lifecycle), loss
+             trajectories within rtol 1e-4 and falling; one push-pull
+             ``train_batch`` against one fused step from the same start,
+             within rtol 1e-4 / atol 1e-5; then
+             ``lr_fused_samples_per_sec`` (CUDA events over 100 queued
+             steps) and ``lr_pushpull_samples_per_sec`` (host clock, 5
+             iterations).  No kernel of ``ops/csrc`` runs on phases 7
+             and 8; each reports the launch counts of its own run (0).
 
 Then the kernels line, the nvidia-smi line, and the result line.  Any
 failure exits non-zero and prints no result.  ``--steps``/``--phases``
@@ -64,6 +87,8 @@ import sys
 import time
 import traceback
 
+import numpy as np
+
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 # H100 SXM published dense peaks (NVIDIA data sheet).
@@ -74,7 +99,17 @@ PEAK_HBM_BYTES = 3.35e12
 # gives the kernels.  The parity and timing phases use the same shape.
 LAYERS, STEPS, BATCH, SEQ = 16, 5, 4, 2048
 HEADS, HEAD_DIM = 16, 128
-PHASES = ("parity", "trainer", "profile", "check", "timing")
+PHASES = ("parity", "trainer", "profile", "check", "timing", "tables",
+          "lr")
+
+# The parameter-server path: bench.py's add/get table (bench_add_get,
+# 16 Mi float32) and its LR shape (bench_lr: batch 8192, 784 features,
+# 10 classes).
+TABLE_SIZE = 16 * 1024 * 1024
+CARD = "cuda:0"            # where init() with no device must put tables
+TABLE_TOL = 1e-6           # max |got - want| over max |want|
+LR_BATCH, LR_FEATURES, LR_CLASSES, LR_STEPS = 8192, 784, 10, 20
+LR_RTOL, LR_ATOL = 1e-4, 1e-5
 
 F32_TOL = 1e-4   # float32 outputs: every element within atol + rtol·|want|
 BF16_TOL = 1e-2  # bf16 outputs: max and L2 error relative to the scale
@@ -395,6 +430,17 @@ def phase_trainer(args, torch, mv, card):
     return counts
 
 
+def device_kernel_times(prof, torch):
+    """[(device µs, calls, name)] of every CUDA kernel a profile saw."""
+    out = []
+    for evt in prof.key_averages():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        out.append((float(getattr(evt, "self_device_time_total", 0.0)),
+                    evt.count, evt.key))
+    return out
+
+
 def profile_step(tr, tokens, torch, card):
     """One more trainer step under torch.profiler: device time by kernel
     class and the device's busy share of the step's wall time."""
@@ -410,11 +456,7 @@ def profile_step(tr, tokens, torch, card):
         raise AssertionError(f"profiled step loss {float(loss)}")
     by_class = {"flash_kernels": 0.0, "matmul": 0.0, "other": 0.0}
     top = []
-    for evt in prof.key_averages():
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        us = float(getattr(evt, "self_device_time_total", 0.0))
-        name = evt.key
+    for us, count, name in device_kernel_times(prof, torch):
         low = name.lower()
         if "flash_" in low:
             cls = "flash_kernels"
@@ -423,7 +465,7 @@ def profile_step(tr, tokens, torch, card):
         else:
             cls = "other"
         by_class[cls] += us
-        top.append((us, evt.count, cls, name[:90]))
+        top.append((us, count, cls, name[:90]))
     busy = sum(by_class.values())
     top.sort(reverse=True)
     emit({"phase": "profile", "step_wall_ms": wall_us / 1e3,
@@ -528,6 +570,243 @@ def phase_timing(fa, torch, card):
     return out
 
 
+def rel_to_peak(got, want) -> float:
+    """max |got - want| over max |want|; inf for a wrong shape or a
+    non-finite value."""
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    if got.shape != want.shape or not np.isfinite(got).all():
+        return math.inf
+    if got.size == 0:
+        return 0.0
+    return float(np.abs(got - want).max()
+                 / max(float(np.abs(want).max()), 1e-30))
+
+
+def judge_tables(checks, tol=TABLE_TOL):
+    """({name: error relative to the largest entry}, all within tol) for
+    ``checks`` = {name: (got, want)}."""
+    errs = {name: rel_to_peak(got, want)
+            for name, (got, want) in checks.items()}
+    return errs, bool(errs) and all(e <= tol for e in errs.values())
+
+
+def judge_lr(card, cpu, pushpull_w, fused_w):
+    """The lr phase's verdict: the card's fused-step losses against the
+    CPU's within LR_RTOL, falling, and one push-pull step's table against
+    one fused step's within LR_RTOL / LR_ATOL."""
+    card = np.asarray(card, np.float64)
+    cpu = np.asarray(cpu, np.float64)
+    same_len = card.shape == cpu.shape and card.size > 1
+    traj_rel = (float(np.max(np.abs(card - cpu) / np.abs(cpu)))
+                if same_len else math.inf)
+    finite = bool(np.isfinite(card).all())
+    falls = same_len and finite and bool(card[-1] < card[0])
+    pushpull_w = np.asarray(pushpull_w, np.float64)
+    fused_w = np.asarray(fused_w, np.float64)
+    step_ok = (pushpull_w.shape == fused_w.shape
+               and bool(np.isfinite(pushpull_w).all())
+               and bool(np.allclose(pushpull_w, fused_w, rtol=LR_RTOL,
+                                    atol=LR_ATOL)))
+    out = {"trajectory_max_rel_diff": traj_rel, "loss_falls": falls,
+           "step_max_abs_diff": (float(np.abs(pushpull_w - fused_w).max())
+                                 if pushpull_w.shape == fused_w.shape
+                                 else math.inf),
+           "step_within_tol": step_ok}
+    ok = same_len and finite and traj_rel <= LR_RTOL and falls and step_ok
+    return out, ok
+
+
+def phase_tables(torch, mv, card):
+    """ArrayTables of TABLE_SIZE float32 on the card against numpy on the
+    host, then the add/get rates and the peak device memory."""
+    from multiverso_tpu_torch.util.quantization import (dequantize_1bit,
+                                                        quantize_1bit)
+
+    n = TABLE_SIZE
+    rng = np.random.RandomState(11)
+    w0, g1, g2 = (rng.randn(n).astype(np.float32) for _ in range(3))
+    lr, eps = np.float32(0.1), np.float32(1e-8)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mv.ops.reset_launch_counts()
+    ctx = mv.init(device=None)
+    if ctx.device != torch.device(CARD):
+        raise AssertionError(f"init() placed the tables on {ctx.device}")
+    opt = mv.AddOption(learning_rate=float(lr))
+    checks = {}
+
+    t = mv.ArrayTable(n, name="sgd", updater_type="sgd", init=w0)
+    t.add(g1, option=opt)
+    t.add(g2, option=opt)
+    checks["host_sgd"] = (t.get(), (w0 - lr * g1) - lr * g2)
+    t.close()
+
+    t = mv.ArrayTable(n, name="adagrad", updater_type="adagrad", init=w0)
+    t.add(g1, option=opt)
+    t.add(g2, option=opt)
+    h = g1 * g1
+    w = w0 - lr * g1 / (np.sqrt(h) + eps)
+    h = h + g2 * g2
+    checks["host_adagrad"] = (t.get(), w - lr * g2 / (np.sqrt(h) + eps))
+    t.close()
+
+    t = mv.ArrayTable(n, name="device", init=w0)
+    d = torch.from_numpy(g1).to(CARD)
+    t.add(d)
+    dev = t.get(device=True)
+    if dev.device != torch.device(CARD):
+        raise AssertionError(f"get(device=True) returned {dev.device}")
+    checks["device_add_get"] = (dev.cpu().numpy(), w0 + g1)
+    del dev
+
+    tb = mv.ArrayTable(n, name="bsp", sync=True, init=w0)
+    tb.add(g1)
+    tb.add(g2)
+    checks["bsp_before_barrier"] = (tb.get(), w0)
+    mv.barrier()
+    checks["bsp_after_barrier"] = (tb.get(), w0 + (g1 + g2))
+    tb.close()
+
+    tq = mv.ArrayTable(n, name="one_bit", init=w0)
+    tq.add(g1, compress="1bit")
+    packed, p, m, _ = quantize_1bit(g1)
+    checks["one_bit"] = (tq.get(), w0 + dequantize_1bit(packed, p, m, n))
+    tq.close()
+    errs, ok = judge_tables(checks)
+
+    # Rates on the "device" table (default updater: w + d, one kernel).
+    nbytes = n * 4
+    add_ms = cuda_ms(lambda: t.add(d), iters=50, warmup=3)
+    get_ms = cuda_ms(lambda: t.get(device=True), iters=50, warmup=3)
+    moved = {"add": 3 * nbytes, "get": 2 * nbytes}   # w, d in; w' out
+    rates = {}
+    for op, ms in (("add", add_ms), ("get", get_ms)):
+        bound = moved[op] / PEAK_HBM_BYTES * 1e3
+        rates.update({f"{op}_dev_gbps": nbytes / (ms * 1e-3) / 1e9,
+                      f"{op}_dev_ms": ms,
+                      f"{op}_dev_bytes_moved": moved[op],
+                      f"{op}_dev_bound_ms": bound,
+                      f"{op}_dev_bound_share": bound / ms})
+
+    def host_s(fn, iters=5):
+        fn()
+        torch.cuda.synchronize()
+        s0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - s0) / iters
+
+    rates["add_host_gbps"] = nbytes / host_s(lambda: t.add(g1, sync=True)) / 1e9
+    rates["get_host_gbps"] = nbytes / host_s(t.get) / 1e9
+    peak = torch.cuda.max_memory_allocated()
+    mv.shutdown()
+    emit({"phase": "tables", "ok": ok, "size": n, "dtype": "float32",
+          "tol": TABLE_TOL, "rel_errors": errs, **rates,
+          "gbps_counts": "table payload bytes (size x 4) per second",
+          "peak_bytes": peak, "launch_counts": mv.ops.launch_counts(),
+          "card": card})
+    if not ok:
+        raise AssertionError(f"a table disagrees with numpy: {errs}")
+
+
+def phase_lr(torch, mv, card):
+    """LR at bench.py's shape: the card's fused trajectory against the
+    CPU's, one push-pull step against one fused step, and both rates."""
+    from multiverso_tpu_torch.apps import (LogisticRegression,
+                                           synthetic_classification)
+
+    x, y = synthetic_classification(LR_BATCH, LR_FEATURES, LR_CLASSES,
+                                    seed=0)
+
+    def fused_losses(name):
+        lr = LogisticRegression(LR_FEATURES, LR_CLASSES, learning_rate=0.1,
+                                name=name)
+        step, place = lr.make_fused_step()
+        data, state = lr.table.raw_value()
+        xb, yb = place(x), place(y)
+        losses = []
+        for _ in range(LR_STEPS):
+            data, state, loss = step(data, state, xb, yb)
+            losses.append(loss)
+        lr.table.raw_assign(data, state)
+        return [float(v) for v in losses]
+
+    mv.ops.reset_launch_counts()
+    mv.init(device=None)
+    card_losses = fused_losses("lr_fused")
+    a = LogisticRegression(LR_FEATURES, LR_CLASSES, learning_rate=0.1,
+                           name="lr_a", seed=7)
+    b = LogisticRegression(LR_FEATURES, LR_CLASSES, learning_rate=0.1,
+                           name="lr_b", seed=7)
+    a.train_batch(x, y)
+    step, place = b.make_fused_step()
+    data, state, _ = step(*b.table.raw_value(), place(x), place(y))
+    b.table.raw_assign(data, state)
+    pushpull_w, fused_w = a.table.get(), b.table.get()
+
+    bench = LogisticRegression(LR_FEATURES, LR_CLASSES, learning_rate=0.1,
+                               name="lr_bench")
+    step, place = bench.make_fused_step()
+    cur = list(bench.table.raw_value())
+    xb, yb = place(x), place(y)
+
+    def fused_once():
+        cur[0], cur[1], _ = step(cur[0], cur[1], xb, yb)
+
+    fused_ms = cuda_ms(fused_once, iters=100, warmup=3)
+    # Where a fused step's time goes: device busy time over wall time
+    # across 20 queued steps, and the kernels that fill it.
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        s0 = time.perf_counter()
+        for _ in range(20):
+            fused_once()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - s0) * 1e6
+    kernels = sorted(device_kernel_times(prof, torch), reverse=True)
+    busy_us = sum(us for us, _, _ in kernels)
+    fused_profile = {
+        "steps": 20, "wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
+        "device_busy_share": busy_us / wall_us,
+        "kernels_per_step": sum(c for _, c, _ in kernels) / 20,
+        "top_kernels": [{"ms": us / 1e3, "calls": c, "name": nm[:90]}
+                        for us, c, nm in kernels[:8]]}
+    bench.table.raw_assign(*cur)
+    pp = LogisticRegression(LR_FEATURES, LR_CLASSES, learning_rate=0.1,
+                            name="lr_pp")
+    for _ in range(2):
+        pp.train_batch(x, y)
+    torch.cuda.synchronize()
+    s0 = time.perf_counter()
+    for _ in range(5):
+        pp.train_batch(x, y)
+    torch.cuda.synchronize()
+    pushpull_s = (time.perf_counter() - s0) / 5
+    mv.shutdown()
+    counts = mv.ops.launch_counts()
+
+    mv.init(device="cpu")
+    cpu_losses = fused_losses("lr_fused")
+    mv.shutdown()
+    verdict, ok = judge_lr(card_losses, cpu_losses, pushpull_w, fused_w)
+    emit({"phase": "lr", "ok": ok, "batch": LR_BATCH,
+          "features": LR_FEATURES, "classes": LR_CLASSES,
+          "steps": LR_STEPS, "losses_cuda": card_losses,
+          "losses_cpu": cpu_losses, "rtol": LR_RTOL, "atol": LR_ATOL,
+          **verdict, "lr_fused_ms_per_step": fused_ms,
+          "lr_fused_samples_per_sec": LR_BATCH / (fused_ms * 1e-3),
+          "lr_pushpull_ms_per_step": pushpull_s * 1e3,
+          "lr_pushpull_samples_per_sec": LR_BATCH / pushpull_s,
+          "fused_profile": fused_profile,
+          "launch_counts": counts, "card": card})
+    if not ok:
+        raise AssertionError(f"lr phase failed: {verdict}")
+
+
 def main(argv) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=STEPS)
@@ -574,6 +853,10 @@ def main(argv) -> int:
     if "check" in phases:
         phase_check(torch)
     times = phase_timing(fa, torch, card) if "timing" in phases else {}
+    if "tables" in phases:
+        phase_tables(torch, mv, card)
+    if "lr" in phases:
+        phase_lr(torch, mv, card)
 
     kernels = []
     for kname, (src, replaces) in KERNELS.items():

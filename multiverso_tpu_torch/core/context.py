@@ -1,0 +1,397 @@
+"""Core runtime context — the port of ``multiverso_tpu/core/context.py``.
+
+Reference semantics (SURVEY.md §2.2, §3.1): ``Zoo::Start`` parses flags,
+initializes the transport (MPI/ZMQ), spawns the Communicator / Worker /
+Server / Controller actor threads, registers every node with rank 0, and
+barriers.  ``Zoo::Stop`` barriers, joins actors, dumps the Dashboard, and
+finalizes the transport.
+
+PyTorch redesign: the JAX package's ``jax.sharding.Mesh`` becomes one
+``torch.device`` per process (``cuda:0`` unless the caller names
+another), and multi-process jobs run over a ``torch.distributed``
+process group.  What stays on the host is the control plane:
+
+- ``init()``      → flag parsing, optional
+                    ``torch.distributed.init_process_group``, device
+                    choice, table registry.
+- ``barrier()``   → ``torch.distributed.barrier()`` across processes (the
+                    Controller's Control_Barrier round-trip) + the BSP
+                    clock tick that sync-mode tables key on.
+- ``shutdown()``  → final barrier, Dashboard dump, registry teardown.
+
+Identity mapping (kept name-compatible with the reference C API):
+
+- a reference *worker process*  ↔ a process of the group
+  (``worker_id() == torch.distributed.get_rank()``, 0 without a group).
+- a reference *server process*  ↔ the same process (every process holds
+  a full replica of each table on its device), so ``server_id() ==
+  worker_id()`` under Role.ALL.
+- one device per process, so ``num_replicas()`` is 1.
+
+Two planes of the JAX package are not ported yet (ROADMAP.md Queue 1
+item 10): the sampling profiler (``-profile_hz > 0``) and the health
+plane (``-health_rules`` with ``-metrics_flush_ms > 0``).  ``init()``
+raises ``NotImplementedError`` when the flags ask for either.
+"""
+
+from __future__ import annotations
+
+import threading
+from dataclasses import dataclass
+from typing import Any, Dict, List, Optional, Union
+
+import torch
+
+from .. import config, dashboard, metrics, tracing
+from ..device import resolve_device
+from ..log import Log
+
+__all__ = [
+    "Role", "Context", "BarrierTimeout", "init", "shutdown", "initialized",
+    "barrier", "get_context", "worker_id", "workers_num", "server_id",
+    "servers_num", "is_master_worker", "num_replicas", "clock",
+]
+
+
+class BarrierTimeout(TimeoutError):
+    """A host rendezvous did not complete within its deadline.
+
+    Raised instead of blocking forever when ``barrier()``/``host_sync``
+    is given a timeout (kwarg or the ``barrier_timeout_ms`` flag) and a
+    peer process never arrives — the analog of the native runtime's
+    ``-barrier_timeout_ms`` (C API rc ``-3``).  NOTE the underlying
+    collective cannot be cancelled: the watcher thread stays parked in
+    it, so treat this as fatal for the job (checkpoint and exit), not as
+    something to retry.
+    """
+
+
+class Role:
+    """Role bitmask — parity with reference ``node.h`` (SURVEY.md §2.5)."""
+
+    NONE = 0
+    WORKER = 1
+    SERVER = 2
+    ALL = 3
+
+
+@dataclass
+class Node:
+    """Per-process node info (reference ``Node``; SURVEY.md §2.5)."""
+
+    rank: int
+    size: int
+    role: int = Role.ALL
+
+    @property
+    def is_worker(self) -> bool:
+        return bool(self.role & Role.WORKER)
+
+    @property
+    def is_server(self) -> bool:
+        return bool(self.role & Role.SERVER)
+
+
+class Context:
+    """Singleton runtime registry (reference ``Zoo``; SURVEY.md §2.2)."""
+
+    def __init__(self, device: torch.device, node: Node, sync: bool,
+                 updater_type: str):
+        self.device = device
+        self.node = node
+        self.sync = sync
+        self.updater_type = updater_type
+        self.clock = 0
+        self._tables: Dict[int, Any] = {}
+        self._next_table_id = 0
+        self._lock = threading.Lock()
+
+    # -- table registry (Zoo::RegisterTable) --------------------------------
+    def register_table(self, table: Any) -> int:
+        with self._lock:
+            tid = self._next_table_id
+            self._next_table_id += 1
+            self._tables[tid] = table
+            return tid
+
+    def unregister_table(self, table_id: int) -> None:
+        with self._lock:
+            self._tables.pop(table_id, None)
+
+    def table(self, table_id: int) -> Any:
+        return self._tables[table_id]
+
+    def tables(self) -> List[Any]:
+        return list(self._tables.values())
+
+    # -- barrier / clock ----------------------------------------------------
+    def host_sync(self, name: str,
+                  timeout_s: Optional[float] = None) -> None:
+        """Cross-process rendezvous WITHOUT the BSP clock tick / flush.
+
+        For control-plane sync points (checkpointing) that must not apply
+        pending sync-mode adds or advance the training clock.
+
+        ``timeout_s`` (default: the ``barrier_timeout_ms`` flag; 0 =
+        wait forever) bounds the wait: a peer that never arrives raises
+        :class:`BarrierTimeout` naming the sync point instead of hanging
+        the job.  The wait runs on a watcher thread because the
+        underlying collective has no cancellation — on timeout that
+        thread is abandoned (daemon) and the error documents the job as
+        unrecoverable-but-diagnosable.
+        """
+        from .. import fault
+        from ..tables.base import is_multiprocess
+
+        if timeout_s is None:
+            ms = int(config.get("barrier_timeout_ms"))
+            timeout_s = ms / 1e3 if ms > 0 else None
+
+        def wait() -> None:
+            # Chaos seam: the injector can delay (simulating a straggler
+            # peer) or fail this rendezvous (tests/test_fault.py).
+            fault.inject("barrier")
+            if is_multiprocess():
+                import torch.distributed as dist
+
+                dist.barrier()
+
+        if timeout_s is None:
+            wait()
+            return
+        done = threading.Event()
+        err: list = []
+
+        def body() -> None:
+            try:
+                wait()
+            except BaseException as exc:  # re-raised on the caller
+                err.append(exc)
+            finally:
+                done.set()
+
+        t = threading.Thread(target=body, name="mvtpu-host-sync",
+                             daemon=True)
+        t.start()
+        if not done.wait(timeout_s):
+            # Flight-recorder trigger (docs/observability.md): the
+            # moment the job becomes unrecoverable is the moment the
+            # black box must hit disk — before the raise unwinds.
+            from ..ops.flight_recorder import recorder
+
+            recorder.trigger(f"barrier_timeout: host_sync '{name}' "
+                             f"after {timeout_s:.3f}s")
+            raise BarrierTimeout(
+                f"host_sync '{name}' timed out after {timeout_s:.3f}s "
+                f"waiting for {self.node.size} process(es) — an "
+                f"unresponsive peer; treat as fatal (the collective "
+                f"cannot be cancelled)")
+        if err:
+            raise err[0]
+
+    def barrier(self, name: Optional[str] = None,
+                timeout_s: Optional[float] = None) -> None:
+        with dashboard.monitor("Zoo::Barrier"):
+            self.host_sync(name or f"mvtpu_barrier_{self.clock}",
+                           timeout_s=timeout_s)
+            self.clock += 1
+            for t in self.tables():
+                flush = getattr(t, "flush", None)
+                if flush is not None:
+                    flush()
+
+
+_LOCK = threading.Lock()
+_CONTEXT: Optional[Context] = None
+
+_NOT_PORTED = "not ported yet (ROADMAP.md Queue 1 item 10)"
+
+
+def _refuse_unported_planes() -> None:
+    """Flags that arm a plane the port lacks fail loudly, never silently."""
+    if int(config.get("profile_hz")) > 0:
+        raise NotImplementedError(
+            f"-profile_hz > 0 arms the sampling profiler, which is "
+            f"{_NOT_PORTED}; run with -profile_hz=0")
+    if int(config.get("metrics_flush_ms")) > 0 and bool(
+            config.get("health_rules")):
+        raise NotImplementedError(
+            f"-health_rules with -metrics_flush_ms > 0 arms the health "
+            f"plane, which is {_NOT_PORTED}; pass -health_rules=false")
+
+
+def init(args: Optional[List[str]] = None,
+         sync: Optional[bool] = None,
+         updater_type: Optional[str] = None,
+         device: Optional[Union[str, torch.device]] = None,
+         role: int = Role.ALL,
+         distributed: bool = False,
+         **distributed_kwargs) -> Context:
+    """Start the runtime (reference ``MV_Init`` → ``Zoo::Start``; §3.1).
+
+    ``args`` takes reference-style ``-flag=value`` argv.  Keyword arguments
+    override parsed flags.  ``device`` is where every table of this
+    lifecycle lives: ``None`` is ``cuda:0`` and raises without a card;
+    pass ``device="cpu"`` to run on the CPU.  ``distributed=True`` calls
+    ``torch.distributed.init_process_group(**distributed_kwargs)`` (the
+    caller gives its ``backend``, ``init_method``, ``world_size`` and
+    ``rank``) — the analog of the transport Init + rank-0 registration.
+    """
+    global _CONTEXT
+    with _LOCK:
+        if _CONTEXT is not None:
+            Log.info("multiverso_tpu_torch.init: already initialized; "
+                     "reusing context")
+            return _CONTEXT
+
+        # CLI args mutate the process-global flag registry (reference
+        # semantics); keyword overrides are per-lifecycle only, so a
+        # sync=True passed to one init() cannot leak into the next.
+        config.parse_cmd_flags(args)
+        sync_val = bool(config.get("sync")) if sync is None else bool(sync)
+        updater_val = (str(config.get("updater_type"))
+                       if updater_type is None else str(updater_type))
+        _refuse_unported_planes()
+        device = resolve_device(device)
+
+        from ..log import configure as log_configure
+
+        log_configure(config.get("log_level"), config.get("log_file"))
+
+        import torch.distributed as dist
+
+        if distributed:
+            # Multi-process bring-up: the reference's NetInterface::Init +
+            # Control_Register handshake collapses into this one call;
+            # tolerate a caller that already initialized the group.
+            if dist.is_initialized():
+                Log.info("torch.distributed already initialized; reusing "
+                         "the process group")
+            else:
+                dist.init_process_group(**distributed_kwargs)
+
+        grouped = dist.is_available() and dist.is_initialized()
+        node = Node(rank=dist.get_rank() if grouped else 0,
+                    size=dist.get_world_size() if grouped else 1,
+                    role=role)
+
+        # Observability (docs/observability.md): -trace_dir arms span
+        # recording (shutdown writes trace_rank<r>.json there);
+        # -metrics_flush_ms starts the periodic Prometheus exporter.
+        # After the distributed bring-up so the rank is final.
+        trace_dir = str(config.get("trace_dir"))
+        if trace_dir:
+            tracing.enable(rank=node.rank)
+        # Flight recorder (docs/observability.md): always-on bounded
+        # ring; the rank pin names the blackbox_rank<r>.json dump a
+        # failure trigger (BarrierTimeout) writes.
+        from ..ops.flight_recorder import recorder as _recorder
+
+        _recorder.attach(rank=node.rank)
+        _recorder.record("lifecycle",
+                         f"init rank {node.rank}/{node.size}")
+        flush_ms = int(config.get("metrics_flush_ms"))
+        metrics.set_history_depth(int(config.get("metrics_history")))
+        if flush_ms > 0:
+            import os
+
+            metrics.start_flush(
+                flush_ms,
+                path=os.path.join(trace_dir,
+                                  f"metrics_rank{node.rank}.prom")
+                if trace_dir else None)
+
+        _CONTEXT = Context(device=device, node=node,
+                           sync=sync_val,
+                           updater_type=updater_val)
+        Log.info(
+            "multiverso_tpu_torch initialized: %d process(es), device %s, "
+            "sync=%s, updater=%s",
+            node.size, device, _CONTEXT.sync, _CONTEXT.updater_type,
+        )
+        _CONTEXT.barrier("mvtpu_init")
+        return _CONTEXT
+
+
+def shutdown(finalize: bool = True) -> None:
+    """Stop the runtime (reference ``MV_ShutDown`` → ``Zoo::Stop``; §3.5).
+
+    A process group that ``init(distributed=True)`` created stays up, as
+    the JAX package leaves ``jax.distributed`` up: the caller owns it."""
+    global _CONTEXT
+    with _LOCK:
+        if _CONTEXT is None:
+            return
+        from ..ops.flight_recorder import recorder as _recorder
+
+        _recorder.record("lifecycle",
+                         f"shutdown rank {_CONTEXT.node.rank}")
+        _CONTEXT.barrier("mvtpu_shutdown")
+        # Observability teardown: the last metrics flush, then the span
+        # export (-trace_dir), then the classic Dashboard dump — which
+        # prints percentiles from the same registry.
+        metrics.stop_flush()
+        trace_dir = str(config.get("trace_dir"))
+        if trace_dir and tracing.enabled():
+            import os
+
+            os.makedirs(trace_dir, exist_ok=True)
+            tracing.save(tracing.default_trace_path(trace_dir))
+        dashboard.report(log=True)
+        if finalize:
+            dashboard.reset()
+            tracing.clear()
+        _CONTEXT = None
+
+
+def initialized() -> bool:
+    return _CONTEXT is not None
+
+
+def get_context() -> Context:
+    if _CONTEXT is None:
+        raise RuntimeError(
+            "multiverso_tpu_torch is not initialized; call "
+            "multiverso_tpu_torch.init()")
+    return _CONTEXT
+
+
+def barrier(timeout_s: Optional[float] = None) -> None:
+    get_context().barrier(timeout_s=timeout_s)
+
+
+def clock() -> int:
+    return get_context().clock
+
+
+def worker_id() -> int:
+    """Rank of this process's worker role (reference ``MV_WorkerId``)."""
+    return get_context().node.rank
+
+
+def workers_num() -> int:
+    """Number of worker processes (reference ``MV_NumWorkers``)."""
+    return get_context().node.size
+
+
+def server_id() -> int:
+    """Under Role.ALL every process co-hosts a table replica
+    (``MV_ServerId``)."""
+    node = get_context().node
+    return node.rank if node.is_server else -1
+
+
+def servers_num() -> int:
+    return get_context().node.size
+
+
+def is_master_worker() -> bool:
+    return worker_id() == 0
+
+
+def num_replicas() -> int:
+    """Device-level data-parallel width inside one process's step: one
+    device per process in the port, so 1 (the JAX package reports its
+    mesh's data-parallel axis)."""
+    get_context()
+    return 1

@@ -1,19 +1,25 @@
 """Unified metrics registry — counters, gauges, and fixed-bucket
 histograms with p50/p95/p99 (docs/observability.md).
 
-A copy of ``multiverso_tpu/metrics.py`` for the PyTorch port.  The
-port has no native runtime, flight recorder or capacity plane yet, so
-the native bridge, the overflow flight-record and the capacity-gauge
-export are left out; the flush writes its file atomically itself.
+A copy of ``multiverso_tpu/metrics.py`` for the PyTorch port, without
+its native bridge (``bridge_native``): the port has no native runtime
+yet.  Every other signal source of the original feeds it:
 
-- ``dashboard.py`` monitors (the trainer's steps) are histograms here —
-  ``dashboard.monitor()`` stays as a shim.
+- ``dashboard.py`` monitors (every table op, ``Zoo::Barrier``, the
+  trainer's steps) are histograms here — ``dashboard.monitor()`` stays
+  as a shim;
+- ``fault.py`` injector/retry events are counters;
+- ``io/stream.py`` counts stream bytes;
+- a label-cardinality overflow lands in the flight recorder
+  (``ops/flight_recorder.py``), and each flush exports the capacity
+  plane's byte gauges (``capacity.py``).
 
 Surface: :func:`counter` / :func:`gauge` / :func:`histogram` mint (or
 look up) a series, optionally labeled (per-table, per-rank, ...);
 :func:`snapshot` renders everything to a plain dict;
 :func:`render_prometheus` emits Prometheus text format;
-:func:`start_flush` runs a periodic export thread.
+:func:`start_flush` runs a periodic export thread gated by the
+``-metrics_flush_ms`` / ``-trace_dir`` flags (wired up by ``init()``).
 
 Thread safety: every series carries its own lock; the registry map has
 another.  A disabled-path observation costs one lock + a few adds.
@@ -22,7 +28,6 @@ another.  A disabled-path observation costs one lock + a few adds.
 from __future__ import annotations
 
 import math
-import os
 import threading
 import time
 from typing import Any, Dict, Iterable, Optional, Tuple
@@ -50,7 +55,7 @@ DEFAULT_TIME_BUCKETS = NATIVE_TIME_BUCKETS
 # that labels by value — row id, msg id — would OOM the registry);
 # beyond the cap new label sets collapse into one overflow series.
 # Per-key/per-row accounting belongs in a bounded sketch
-# (multiverso_tpu/sketch.py), never in registry labels — mvlint MV011
+# (multiverso_tpu_torch/sketch.py), never in registry labels — mvlint MV011
 # polices the call sites.
 MAX_SERIES_PER_NAME = 256
 _OVERFLOW_LABELS = (("overflow", "true"),)
@@ -350,11 +355,23 @@ class Registry:
                 self._per_name[name] = self._per_name.get(name, 0) + 1
         if overflowed:
             # The overflow series alone is a memoryless snapshot — a
-            # post-mortem of a cardinality explosion needs the EVENT.
-            Log.error("metrics: %s overflowed %d series; dropped labels %s",
-                      name, MAX_SERIES_PER_NAME,
-                      _series_name("", dropped) or "{}")
+            # post-mortem of a cardinality explosion needs the EVENT,
+            # so it also lands in the flight-recorder ring (and dumps
+            # with the next black box).
+            self._note_overflow(name, dropped)
         return s
+
+    @staticmethod
+    def _note_overflow(name: str, dropped_key) -> None:
+        try:
+            from .ops.flight_recorder import recorder
+
+            recorder.record(
+                "metric_overflow", name,
+                dropped_labels=_series_name("", dropped_key) or "{}",
+                cap=MAX_SERIES_PER_NAME)
+        except Exception as exc:  # recording must never break a metric
+            Log.error("metrics: overflow flight-record failed: %s", exc)
 
     def counter(self, name: str,
                 labels: Optional[Dict[str, str]] = None) -> Counter:
@@ -622,7 +639,7 @@ def set_history_depth(n: int) -> None:
 
 
 # ---------------------------------------------------------------------------
-# Periodic flush thread .
+# Periodic flush thread (gated by -metrics_flush_ms / -trace_dir).
 # ---------------------------------------------------------------------------
 
 _FLUSH_LOCK = threading.Lock()
@@ -693,6 +710,14 @@ class _Flusher(threading.Thread):
 
     def flush_once(self) -> None:
         try:
+            # Capacity plane (docs/observability.md): land every
+            # registered Python byte gauge as a capacity.<name> Gauge
+            # BEFORE the history point / render, so serve-cache bytes
+            # ride the same scrape (and time-series ring) as every
+            # other series.
+            from . import capacity as _capacity
+
+            _capacity.export_gauges()
             # One time-series point per flush: the ring holds the last
             # history_depth flush snapshots, so rate()/delta() span
             # roughly interval_s * depth of history.
@@ -702,7 +727,10 @@ class _Flusher(threading.Thread):
             # current in the same exposition they were computed from.
             _run_flush_hooks()
             if self.path:
-                write_atomic(self.path, render_prometheus().encode())
+                from .io.stream import LocalStream
+
+                with LocalStream(self.path, "wb", atomic=True) as s:
+                    s.write(render_prometheus().encode())
             else:
                 snap = snapshot()
                 Log.debug("metrics flush: %d series", len(snap))
@@ -714,15 +742,6 @@ class _Flusher(threading.Thread):
 
     def stop(self) -> None:
         self._stop_evt.set()
-
-
-def write_atomic(path: str, data: bytes) -> None:
-    """Write ``data`` to a temp file beside ``path`` and rename it over
-    ``path``: a crash mid-write never leaves a truncated file."""
-    tmp = f"{path}.tmp.{os.getpid()}"
-    with open(tmp, "wb") as f:
-        f.write(data)
-    os.replace(tmp, path)
 
 
 def start_flush(interval_ms: int, path: Optional[str] = None) -> None:

@@ -21,7 +21,9 @@ port, without the native-span import: the port has no native runtime):
   ``dashboard.start_trace`` for kernel-level depth — this layer is the
   cheap always-on complement.
 
-Enable programmatically with :func:`enable`.
+Enable with the ``-trace_dir=<dir>`` flag (``init()`` arms it and
+``shutdown()`` writes ``trace_rank<r>.json``), or programmatically with
+:func:`enable`.
 """
 
 from __future__ import annotations
@@ -199,10 +201,11 @@ def save(path: str, evts: Optional[List[SpanEvent]] = None) -> int:
     """Write the buffer (or ``evts``) as Chrome trace JSON; returns the
     event count.  Atomic replace so a crash mid-write never leaves a
     truncated file where a merge step expects JSON."""
-    from .metrics import write_atomic
+    from .io.stream import LocalStream
 
     doc = to_chrome(evts)
-    write_atomic(path, json.dumps(doc).encode())
+    with LocalStream(path, "wb", atomic=True) as s:
+        s.write(json.dumps(doc).encode())
     Log.debug("tracing: wrote %d span(s) to %s",
               len(doc["traceEvents"]), path)
     return len(doc["traceEvents"])
@@ -246,8 +249,9 @@ def merge_dir(trace_dir: str, out_name: str = "trace_merged.json") -> str:
                                        "mid-write)"}})
     merged.sort(key=lambda e: e.get("ts", 0))
     out_path = os.path.join(trace_dir, out_name)
-    from .metrics import write_atomic
+    from .io.stream import LocalStream
 
-    write_atomic(out_path, json.dumps({"traceEvents": merged,
-                                       "displayTimeUnit": "ms"}).encode())
+    with LocalStream(out_path, "wb", atomic=True) as s:
+        s.write(json.dumps({"traceEvents": merged,
+                            "displayTimeUnit": "ms"}).encode())
     return out_path

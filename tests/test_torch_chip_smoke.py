@@ -1,18 +1,22 @@
-"""The build report of ``chip_smoke.py``, on the CPU.
+"""The build report and the judges of ``chip_smoke.py``, on the CPU.
 
 The chip smoke test reads each built library's ``-Xptxas -v`` log and its
 ``cuobjdump -sass`` listing, and fails the run when a library holds no
 bf16 Hopper kernel, or one holds no wgmma (HGMMA) or no TMA load
 (UTMALDG).  Those parsers and that
 rule are plain Python; here they run on listings in the formats the CUDA
-toolkit prints, with a stand-in ``cuobjdump``.
+toolkit prints, with a stand-in ``cuobjdump``.  The tables and lr
+phases' judges (numpy against the card, card against the CPU) run on
+stand-in results, each with cases it must reject.
 """
 
 import importlib.util
+import math
 import os
 import stat
 import types
 
+import numpy as np
 import pytest
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -137,3 +141,66 @@ def test_build_phase_fails_without_a_hopper_kernel(tmp_path, lib):
     fake, paths = _fake_build(tmp_path, _listings(lib))
     with pytest.raises(AssertionError, match="no Hopper kernel"):
         chip_smoke.phase_build(fake, paths, 1.0)
+
+
+# ------------------------------------------------ tables and lr phase judges
+
+def test_new_phases_run_by_default():
+    assert chip_smoke.PHASES[-2:] == ("tables", "lr")
+    assert chip_smoke.TABLE_SIZE == 16 * 1024 * 1024
+
+
+def test_rel_to_peak():
+    want = np.array([1.0, -4.0, 2.0])
+    assert chip_smoke.rel_to_peak(want, want) == 0.0
+    assert chip_smoke.rel_to_peak(want + [0, 0, 0.4], want) == pytest.approx(
+        0.1)
+    assert chip_smoke.rel_to_peak(want[:2], want) == math.inf
+    assert chip_smoke.rel_to_peak([1.0, np.nan, 2.0], want) == math.inf
+
+
+def test_judge_tables_passes_and_rejects():
+    rng = np.random.RandomState(0)
+    want = rng.randn(1000).astype(np.float32)
+    errs, ok = chip_smoke.judge_tables({"a": (want.copy(), want),
+                                        "b": (want + 1e-7, want)})
+    assert ok and errs["a"] == 0.0
+    flipped = want.copy()
+    flipped[:8] = -flipped[:8]          # one byte of signs decoded backwards
+    errs, ok = chip_smoke.judge_tables({"a": (want, want),
+                                        "one_bit": (flipped, want)})
+    assert not ok and errs["one_bit"] > 1e-6
+    assert not chip_smoke.judge_tables({})[1]
+
+
+def _losses(n=20, start=2.0):
+    return list(start * 0.9 ** np.arange(n))
+
+
+def test_judge_lr_passes():
+    card = _losses()
+    cpu = [v * (1 + 1e-6) for v in card]
+    w = np.linspace(-1, 1, 50)
+    out, ok = chip_smoke.judge_lr(card, cpu, w, w + 1e-6)
+    assert ok and out["loss_falls"] and out["step_within_tol"]
+    assert out["trajectory_max_rel_diff"] < 1e-5
+
+
+@pytest.mark.parametrize("fault", ["trajectory", "flat", "step", "nan",
+                                   "length"])
+def test_judge_lr_rejects(fault):
+    card, cpu = _losses(), _losses()
+    w = np.linspace(-1, 1, 50)
+    fused = w.copy()
+    if fault == "trajectory":
+        card[10] *= 1 + 1e-3
+    elif fault == "flat":
+        card = cpu = [1.0] * 20
+    elif fault == "step":
+        fused[3] += 1e-3
+    elif fault == "nan":
+        card[5] = cpu[5] = float("nan")
+    else:
+        card = card[:19]
+    _, ok = chip_smoke.judge_lr(card, cpu, w, fused)
+    assert not ok

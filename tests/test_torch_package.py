@@ -1,10 +1,12 @@
 """Rules of the PyTorch port as a package: it stands alone (no ``jax``,
 nothing of ``multiverso_tpu``), it runs on the card unless told
-otherwise, and its copied host planes (log, metrics, tracing, dashboard)
-work without the JAX package."""
+otherwise, its copied host planes (log, metrics, tracing, dashboard)
+work without the JAX package, and each module copied from the JAX
+package still equals its original after the package-name rewrite."""
 
 import ast
 import os
+import re
 import subprocess
 import sys
 import textwrap
@@ -41,7 +43,7 @@ def test_imports_every_module_with_jax_blocked():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120, cwd="/")
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 15
+    assert int(out.stdout.strip()) >= 38
 
 
 def test_no_jax_or_reference_imports_in_source():
@@ -147,3 +149,89 @@ def test_build_rebuilds_when_a_source_changes(monkeypatch, tmp_path):
     again = {n: _build.lib_path(n) for n in _build.SOURCES}
     assert again["flash_dq"] != after["flash_dq"]
     assert again["flash_fwd"] == after["flash_fwd"]
+
+
+# Modules the port copies from the JAX package with only the package name
+# rewritten.  metrics.py is the original minus its native bridge, under a
+# module docstring of its own.
+COPIED = ["config.py", "fault.py", "capacity.py", "sketch.py",
+          "ops/flight_recorder.py", "util/quantization.py",
+          "serve/cache.py", "serve/coalescer.py", "io/stream.py",
+          "io/__init__.py"]
+
+
+# Besides the name, a copy drops the JAX package's change-history notes
+# (a pattern each, which must match once).
+_HISTORY_NOTES = {
+    "config.py": [(r"the PR \d+ (whole-id-set entries)", r"\1")],
+}
+
+
+def _rewrite(text, rel=None):
+    text = text.replace("multiverso_tpu", "multiverso_tpu_torch")
+    for pattern, repl in _HISTORY_NOTES.get(rel, []):
+        text, n = re.subn(pattern, repl, text)
+        assert n == 1, (rel, pattern, n)
+    return text
+
+
+def _read(*parts):
+    with open(os.path.join(REPO, *parts)) as f:
+        return f.read()
+
+
+def _without_docstring(text):
+    first = ast.parse(text).body[0]
+    assert isinstance(first, ast.Expr) and isinstance(first.value,
+                                                      ast.Constant)
+    return "".join(text.splitlines(keepends=True)[first.end_lineno:])
+
+
+def _without_native_bridge(text):
+    """The original metrics.py minus the section between its "Native
+    bridge" and "Periodic flush thread" banners, and minus the bridge's
+    name in ``__all__``."""
+    lines = text.splitlines(keepends=True)
+    start = next(i for i, ln in enumerate(lines)
+                 if ln.startswith("# Native bridge:")) - 1
+    end = next(i for i, ln in enumerate(lines)
+               if ln.startswith("# Periodic flush thread")) - 1
+    out = "".join(lines[:start] + lines[end:])
+    assert '"bridge_native", ' in out
+    return out.replace('"bridge_native", ', "")
+
+
+@pytest.mark.parametrize("rel", COPIED)
+def test_copied_module_matches_its_original(rel):
+    assert _read("multiverso_tpu_torch", rel) == _rewrite(
+        _read("multiverso_tpu", rel), rel)
+
+
+def test_metrics_is_the_original_minus_the_native_bridge():
+    port = _read("multiverso_tpu_torch", "metrics.py")
+    orig = _without_native_bridge(_rewrite(_read("multiverso_tpu",
+                                                 "metrics.py")))
+    assert _without_docstring(port) == _without_docstring(orig)
+    assert "bridge_native" not in _without_docstring(port)
+
+
+def test_metrics_overflow_and_capacity_hooks(tmp_path):
+    """The two hooks the port restored: a label-cardinality overflow lands
+    in the flight recorder, and a flush exports the capacity gauges."""
+    from multiverso_tpu_torch import capacity, metrics
+    from multiverso_tpu_torch.ops.flight_recorder import recorder
+
+    reg = metrics.Registry()
+    for i in range(metrics.MAX_SERIES_PER_NAME + 1):
+        reg.counter("drift.test", {"i": str(i)})
+    assert any(e["kind"] == "metric_overflow" and e["detail"] == "drift.test"
+               for e in recorder.events())
+    capacity.register_gauge("drift.test", lambda: 1234)
+    try:
+        path = tmp_path / "m.prom"
+        metrics.start_flush(10, path=str(path))
+        metrics.stop_flush()
+        assert "capacity_drift_test 1234.0" in path.read_text()
+    finally:
+        capacity.unregister_gauge("drift.test")
+        metrics.REGISTRY.remove("capacity.drift.test")
