@@ -66,8 +66,48 @@ Phases, each printing one JSON line:
              within rtol 1e-4 / atol 1e-5; then
              ``lr_fused_samples_per_sec`` (CUDA events over 100 queued
              steps) and ``lr_pushpull_samples_per_sec`` (host clock, 5
-             iterations).  No kernel of ``ops/csrc`` runs on phases 7
-             and 8; each reports the launch counts of its own run (0).
+             iterations).
+9. rows    — the row path on the card: ``MatrixTable``s of 100,000 x 128
+             float32 (``bench.py``'s word2vec table), each held against
+             numpy at 1e-6 of the largest entry: ``add_rows``/``get_rows``
+             of 8,192 ids with duplicates and ids past the table through
+             ``sgd`` and ``adagrad``, a whole-matrix device add with
+             ``get(device=True)``, BSP row adds invisible before
+             ``barrier()`` and applied after it, a ``SparseMatrixTable``
+             whose cached rows change after an ``add_rows``, and a
+             ``KVTable`` add/get; and every updater's row apply straight
+             from tensors on the card (``apply_rows`` with a mask, and
+             ``scatter_apply`` with duplicates, as the fused steps call
+             it; ids past the table in both) against the same call on the
+             CPU, and sgd's and adagrad's against numpy.  Then a
+             checkpoint of those tables restored into fresh ones,
+             exactly.  It reports what one ``add_rows`` of 8,192 rows
+             allocated on the card, which must stay below the table's own
+             bytes (the add is in place).
+10. w2v    — ``SkipGram(100_000, 128, negatives=5)`` on ``bench.py``'s
+             word2vec batch (8,192 pairs, seed 0).  Each check starts
+             from an output table drawn like the input table and runs at
+             word2vec's per-pair step size (sgd at 0.025 x 8,192 on the
+             mean loss, adagrad at 0.025 with eps 1e-6), and holds each
+             table and updater state by its change: max |got - want|
+             over max |want - start| at most 1e-4.  The checks: 20 sgd and 5
+             adagrad fused steps on the card, under
+             ``torch.cuda.set_sync_debug_mode("error")``, against the
+             same steps on the CPU (a second ``init`` lifecycle), losses
+             within rtol 1e-4 and falling; one push-pull ``train_batch``
+             against one fused step from the same start, for each
+             updater; ``train_epoch_fused`` (prefetch on a side stream)
+             against the same batches placed one by one.  Then, at
+             ``bench.py``'s lr 0.025, ``w2v_fused_pairs_per_sec`` (CUDA
+             events over 100 queued steps) and
+             ``w2v_pushpull_pairs_per_sec`` (host clock, 5 iterations
+             after 2), a profile of 20 fused steps and the peak device
+             memory; last ``DLRMRecommender`` (32,768 users and items,
+             dim 16, zipf 1.0, 0.05 per pair): 10 ``train_step``s of 512
+             pairs, the table's change and the losses card against CPU
+             within 1e-4.
+             No kernel of ``ops/csrc`` runs on phases 7 to 10; each
+             reports the launch counts of its own run (0).
 
 Then the kernels line, the nvidia-smi line, and the result line.  Any
 failure exits non-zero and prints no result.  ``--steps``/``--phases``
@@ -100,7 +140,7 @@ PEAK_HBM_BYTES = 3.35e12
 LAYERS, STEPS, BATCH, SEQ = 16, 5, 4, 2048
 HEADS, HEAD_DIM = 16, 128
 PHASES = ("parity", "trainer", "profile", "check", "timing", "tables",
-          "lr")
+          "lr", "rows", "w2v")
 
 # The parameter-server path: bench.py's add/get table (bench_add_get,
 # 16 Mi float32) and its LR shape (bench_lr: batch 8192, 784 features,
@@ -110,6 +150,28 @@ CARD = "cuda:0"            # where init() with no device must put tables
 TABLE_TOL = 1e-6           # max |got - want| over max |want|
 LR_BATCH, LR_FEATURES, LR_CLASSES, LR_STEPS = 8192, 784, 10, 20
 LR_RTOL, LR_ATOL = 1e-4, 1e-5
+# The row path: bench.py's word2vec bench (bench_w2v) and the rows of its
+# embedding bench (bench_embedding: 65,536 rows).
+W2V_VOCAB, W2V_DIM, W2V_BATCH, W2V_NEG, W2V_LR = 100_000, 128, 8192, 5, 0.025
+W2V_STEPS = 20
+# adagrad divides each coordinate's step by its gradient's size plus eps.
+# At eps 1e-8, below the batch-mean loss's gradients (1e-7 to 1e-6), a
+# coordinate whose duplicate sum cancels takes a step that rounding
+# decides: the card against the CPU drifted to 1.5e-4 of the change in 5
+# steps.  The checks set eps to 1e-6, where the step is a smooth function
+# of the gradient, and stop at 5 steps, before the loss falls from 4.16
+# to 0.4 and amplifies rounding (a reordered batch on the CPU at 50,000 x
+# 128: 6e-7 of the change after 5 steps, 3.3e-5 after 20).
+W2V_ADAGRAD_EPS, W2V_ADAGRAD_STEPS = 1e-6, 5
+# Two runs from one start agree when max |got - want| over max |want -
+# start| is at most W2V_RTOL: each table (and updater state) is judged by
+# the change the reference made, never by its values, which one step
+# barely moves.
+W2V_RTOL = 1e-4
+DLRM_USERS = DLRM_ITEMS = 32768
+DLRM_DIM, DLRM_BATCH, DLRM_STEPS, DLRM_LR = 16, 512, 10, 0.05
+ROW_UPDATERS = ("default", "sgd", "adagrad", "momentum", "smooth_gradient",
+                "assign")
 
 F32_TOL = 1e-4   # float32 outputs: every element within atol + rtol·|want|
 BF16_TOL = 1e-2  # bf16 outputs: max and L2 error relative to the scale
@@ -807,6 +869,535 @@ def phase_lr(torch, mv, card):
         raise AssertionError(f"lr phase failed: {verdict}")
 
 
+def _trajectory(card, cpu):
+    """(max relative difference of two loss trajectories, both the same
+    length with more than one finite entry)."""
+    card = np.asarray(card, np.float64)
+    cpu = np.asarray(cpu, np.float64)
+    ok = (card.shape == cpu.shape and card.size > 1
+          and bool(np.isfinite(card).all()) and bool(np.isfinite(cpu).all()))
+    rel = (float(np.max(np.abs(card - cpu) / np.abs(cpu))) if ok
+           else math.inf)
+    return rel, ok
+
+
+def judge_row_add_memory(allocated, table_bytes):
+    """Repair 2's verdict: one ``add_rows`` allocated less than the table
+    it adds into (an out-of-place scatter would copy the whole table)."""
+    return allocated < table_bytes
+
+
+def rel_change(got, want, start) -> float:
+    """max |got - want| over max |want - start|: a run judged against the
+    change the reference run made from the same start.  inf for a wrong
+    shape, a non-finite value, or a reference that changed nothing."""
+    start = np.asarray(start, np.float64)
+    if np.shape(got) != start.shape or np.shape(want) != start.shape:
+        return math.inf
+    moved = np.asarray(want, np.float64) - start
+    if not (moved.size and np.abs(moved).max() > 0):
+        return math.inf
+    return rel_to_peak(np.asarray(got, np.float64) - start, moved)
+
+
+def judge_changes(runs, tol=W2V_RTOL):
+    """({run.array: rel_change}, all within tol) for ``runs`` = {run:
+    (got, want, start)}, each a snapshot {array name: array}; an array
+    the got snapshot lacks is an error."""
+    errs = {f"{run}.{k}": rel_change(got.get(k), want[k], start.get(k))
+            for run, (got, want, start) in runs.items() for k in want}
+    return errs, bool(errs) and all(e <= tol for e in errs.values())
+
+
+def judge_w2v(changes, trajectories, sync_free):
+    """The w2v phase's verdict: every table change (card against CPU,
+    push-pull against fused, prefetched against placed, DLRM card against
+    CPU) within W2V_RTOL of the reference's (``judge_changes``); every
+    loss trajectory {name: (card, cpu, must_fall)} within W2V_RTOL of the
+    CPU's, falling where ``must_fall``; every fused step checked free of
+    host syncs."""
+    errs, changes_ok = judge_changes(changes)
+    traj, traj_ok = {}, bool(trajectories)
+    for name, (card, cpu, must_fall) in trajectories.items():
+        rel, same = _trajectory(card, cpu)
+        falls = same and card[-1] < card[0]
+        traj[name] = {"max_rel_diff": rel, "falls": falls}
+        traj_ok = (traj_ok and same and rel <= W2V_RTOL
+                   and (falls or not must_fall))
+    out = {"change_rel_errors": errs, "trajectories": traj,
+           "sync_free": dict(sync_free)}
+    ok = (changes_ok and traj_ok and bool(sync_free)
+          and all(sync_free.values()))
+    return out, ok
+
+
+def _np_row_apply(w, h, ids, g, lr, eps, updater):
+    """numpy's row add: duplicates summed, ids past the table dropped,
+    then the default updater, sgd or adagrad on the rows (w and h
+    updated in place)."""
+    uniq, inv = np.unique(ids, return_inverse=True)
+    agg = np.zeros((uniq.shape[0], w.shape[1]), np.float32)
+    np.add.at(agg, inv.reshape(-1), g)
+    live = (uniq >= 0) & (uniq < w.shape[0])
+    u, a = uniq[live], agg[live]
+    if updater == "default":
+        w[u] = w[u] + a
+    elif updater == "sgd":
+        w[u] = w[u] - lr * a
+    else:
+        h[u] = h[u] + a * a
+        w[u] = w[u] - lr * a / (np.sqrt(h[u]) + eps)
+
+
+def _np_rows(w, ids):
+    """numpy's get_rows: ids past the table read zeros."""
+    out = np.zeros((len(ids), w.shape[1]), w.dtype)
+    live = (ids >= 0) & (ids < w.shape[0])
+    out[live] = w[ids[live]]
+    return out
+
+
+def device_row_applies(torch, device, w0, ids, g, mask, lr):
+    """Each updater of ROW_UPDATERS applied to rows straight from tensors
+    on ``device``, as the fused steps apply them: ``apply_rows`` on the
+    distinct ids with ``mask``, and ``scatter_apply`` on ``ids`` with
+    their duplicates (segment-summed on the device for the non-linear
+    updaters).  Ids past the table go in both.  Yields (case, [w, *state]
+    as numpy)."""
+    from multiverso_tpu_torch.updaters import AddOption, get_updater
+    from multiverso_tpu_torch.updaters.base import scatter_apply
+
+    opt = AddOption(learning_rate=float(lr))
+    uniq = np.unique(ids)
+
+    def put(a):
+        return torch.tensor(a, device=device)
+
+    for name in ROW_UPDATERS:
+        upd = get_updater(name)
+        for how in ("apply_rows", "scatter_apply"):
+            w = put(w0)
+            state = upd.init_state(w.shape, w.dtype, device)
+            if how == "apply_rows":
+                w, state = upd.apply_rows(w, state, put(uniq),
+                                          put(g[:len(uniq)]), opt,
+                                          mask=put(mask))
+            else:
+                w, state = scatter_apply(upd, w, state, put(ids), put(g),
+                                         opt)
+            yield (f"{name}_{how}",
+                   [w.cpu().numpy()] + [x.cpu().numpy() for x in state])
+
+
+def row_apply_checks(torch, w0, ids, g, mask, lr, eps, device):
+    """{check: (got, want)}: ``device_row_applies`` on ``device`` against
+    the same calls on the CPU, and sgd's and adagrad's against numpy."""
+    uniq = np.unique(ids)
+    want_np = {}
+    for upd in ("sgd", "adagrad"):
+        for how, r, d in (("apply_rows", uniq[mask], g[:len(uniq)][mask]),
+                          ("scatter_apply", ids, g)):
+            w, h = w0.copy(), np.zeros_like(w0)
+            _np_row_apply(w, h, r, d, lr, eps, upd)
+            want_np[f"{upd}_{how}"] = [w, h] if upd == "adagrad" else [w]
+    checks = {}
+    for (case, got), (_, want) in zip(
+            device_row_applies(torch, device, w0, ids, g, mask, lr),
+            device_row_applies(torch, "cpu", w0, ids, g, mask, lr)):
+        for i, (x, y) in enumerate(zip(got, want)):
+            checks[f"{case}_{i}_vs_cpu"] = (x, y)
+        for i, y in enumerate(want_np.get(case, [])):
+            checks[f"{case}_{i}_vs_numpy"] = (got[i], y)
+    return checks
+
+
+def phase_rows(torch, mv, card):
+    """MatrixTables of bench_w2v's shape on the card against numpy, the
+    sparse and KV tables, a checkpoint round trip, and what one row add
+    allocates."""
+    import tempfile
+
+    V, D, B = W2V_VOCAB, W2V_DIM, W2V_BATCH
+    rng = np.random.RandomState(12)
+    w0 = rng.randn(V, D).astype(np.float32)
+    ids = np.concatenate([rng.randint(V, size=B - 3), [V, V + 7, 2 * V]])
+    g1, g2 = (rng.randn(B, D).astype(np.float32) for _ in range(2))
+    lr, eps = np.float32(0.1), np.float32(1e-8)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mv.ops.reset_launch_counts()
+    ctx = mv.init(device=None)
+    if ctx.device != torch.device(CARD):
+        raise AssertionError(f"init() placed the tables on {ctx.device}")
+    opt = mv.AddOption(learning_rate=float(lr))
+    checks = {}
+
+    for upd in ("sgd", "adagrad"):
+        t = mv.MatrixTable(V, D, name=upd, updater_type=upd, init=w0)
+        w, h = w0.copy(), np.zeros_like(w0)
+        for g in (g1, g2):
+            t.add_rows(ids, g, option=opt)
+            _np_row_apply(w, h, ids, g, lr, eps, upd)
+        checks[f"rows_{upd}_get_rows"] = (t.get_rows(ids), _np_rows(w, ids))
+        checks[f"rows_{upd}_table"] = (t.get(), w.copy())
+
+    # Repair 2: one add of 8,192 rows (on the adagrad table: w and h)
+    # allocates what the rows need, not a copy of the table.
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t.add_rows(ids, g1, option=opt, sync=True)
+    row_add_alloc = torch.cuda.max_memory_allocated() - base
+    table_bytes = V * D * 4
+    _np_row_apply(w, h, ids, g1, lr, eps, "adagrad")
+    checks["rows_adagrad_after_measured_add"] = (t.get(), w)
+
+    # Repair 1 on the card: the drop masks and the segment-sum that the
+    # fused steps run on the device, for every updater.
+    mask = rng.rand(len(np.unique(ids))) < 0.75
+    checks.update(row_apply_checks(torch, w0, ids, g1, mask, lr, eps, CARD))
+
+    td = mv.MatrixTable(V, D, name="device", init=w0)
+    gd = rng.randn(V, D).astype(np.float32)
+    td.add(torch.from_numpy(gd).to(CARD))
+    dev = td.get(device=True)
+    if dev.device != torch.device(CARD):
+        raise AssertionError(f"get(device=True) returned {dev.device}")
+    checks["whole_add_get_device"] = (dev.cpu().numpy(), w0 + gd)
+    del dev
+    td.close()
+
+    tb = mv.MatrixTable(V, D, name="bsp", sync=True, init=w0)
+    tb.add_rows(ids, g1)
+    tb.add_rows(ids[::-1], g2)
+    checks["bsp_before_barrier"] = (tb.get_rows(ids), _np_rows(w0, ids))
+    mv.barrier()
+    wb = w0.copy()
+    _np_row_apply(wb, None, np.concatenate([ids, ids[::-1]]),
+                  np.concatenate([g1, g2]), lr, eps, "default")
+    checks["bsp_after_barrier"] = (tb.get(), wb)
+    tb.close()
+
+    ts = mv.SparseMatrixTable(V, D, name="sparse", updater_type="sgd",
+                              init=w0)
+    hot = ids[:64]
+    first = ts.get_rows(hot)
+    cached = bool(ts._cache_valid[hot].all())
+    ts.add_rows(hot[:16], g1[:16], option=opt)
+    ws = w0.copy()
+    _np_row_apply(ws, None, hot[:16], g1[:16], lr, eps, "sgd")
+    checks["sparse_cached_rows"] = (first, w0[hot])
+    checks["sparse_rows_after_add"] = (ts.get_rows(hot), ws[hot])
+
+    tk = mv.KVTable(value_shape=(D,), name="kv", updater_type="sgd")
+    keys = [int(k) for k in ids[:8]] + ["bias"]
+    want_kv = {}
+    for g in (g1, g2):
+        ups = {k: g[i] for i, k in enumerate(keys)}
+        tk.add(ups, option=opt)
+        for k, v in ups.items():
+            want_kv[k] = want_kv.get(k, np.zeros(D, np.float32)) - lr * v
+    got_kv = tk.get(keys)
+    checks["kv_add_get"] = (np.stack([got_kv[k] for k in keys]),
+                            np.stack([want_kv[k] for k in keys]))
+    errs, ok = judge_tables(checks)
+
+    # Checkpoint: every live table into a file, then into fresh tables of
+    # a second lifecycle; the snapshots must come back bit for bit.
+    live = {tt.name: tt for tt in ctx.tables()}
+    snaps = {name: tt.store_state() for name, tt in live.items()}
+    specs = {name: (type(tt).__name__, tt.updater_type)
+             for name, tt in live.items()}
+    peak = torch.cuda.max_memory_allocated()
+    with tempfile.TemporaryDirectory() as tmp:
+        uri = os.path.join(tmp, "rows.ckpt")
+        s0 = time.perf_counter()
+        mv.checkpoint.save(uri, extra={"phase": "rows"})
+        save_s = time.perf_counter() - s0
+        mv.shutdown()
+        mv.init(device=None)
+        fresh = {}
+        for name, (kind, upd) in specs.items():
+            if kind == "KVTable":
+                fresh[name] = mv.KVTable(value_shape=(D,), name=name,
+                                         updater_type=upd)
+            else:
+                fresh[name] = getattr(mv, kind)(V, D, name=name,
+                                                updater_type=upd)
+        s0 = time.perf_counter()
+        extra = mv.checkpoint.restore(uri)
+        restore_s = time.perf_counter() - s0
+    exact = extra == {"phase": "rows"} and all(
+        _same_snapshot(fresh[name].store_state(), snap)
+        for name, snap in snaps.items())
+    mv.shutdown()
+    mem_ok = judge_row_add_memory(row_add_alloc, table_bytes)
+    emit({"phase": "rows", "ok": ok and exact and cached and mem_ok,
+          "shape": [V, D], "ids": len(ids), "tol": TABLE_TOL,
+          "rel_errors": errs, "sparse_rows_cached": cached,
+          "checkpoint_exact": exact, "checkpoint_tables": sorted(snaps),
+          "checkpoint_save_s": save_s, "checkpoint_restore_s": restore_s,
+          "row_add_allocated_bytes": row_add_alloc,
+          "table_bytes": table_bytes, "row_add_below_table": mem_ok,
+          "peak_bytes": peak, "launch_counts": mv.ops.launch_counts(),
+          "card": card})
+    if not (ok and exact and cached and mem_ok):
+        raise AssertionError(
+            f"rows phase failed: errors {errs}, cached {cached}, checkpoint "
+            f"exact {exact}, row add allocated {row_add_alloc} bytes")
+
+
+def _same_snapshot(got, want) -> bool:
+    """Two table snapshots hold the same keys and bit-equal arrays."""
+    if isinstance(want, dict):
+        return (isinstance(got, dict) and set(got) == set(want)
+                and all(_same_snapshot(got[k], want[k]) for k in want))
+    if isinstance(want, (list, tuple)):
+        return (len(got) == len(want)
+                and all(_same_snapshot(g, w) for g, w in zip(got, want)))
+    if isinstance(want, np.ndarray):
+        return np.array_equal(got, want)
+    return got == want
+
+
+def w2v_check_lr(updater, batch):
+    """The checks' step size: word2vec's own 0.025 per pair, so sgd on
+    the batch-mean loss takes lr x batch; adagrad's step sizes are per
+    coordinate and stay at lr.  At bench_w2v's lr a step moves a table by
+    about 1e-8, below float32's rounding of its entries, so no check could
+    see a wrong step there."""
+    return W2V_LR * batch if updater == "sgd" else W2V_LR
+
+
+def w2v_model(SkipGram, vocab, dim, batch, updater, name):
+    """A SkipGram for the checks: ``w2v_check_lr`` (and adagrad's eps at
+    W2V_ADAGRAD_EPS), and the output table drawn like the input table
+    (seed 1) where SkipGram starts it at zero, so that a step moves both
+    tables from the first."""
+    import torch
+
+    from multiverso_tpu_torch.updaters import AddOption
+
+    sg = SkipGram(vocab, dim, negatives=W2V_NEG,
+                  learning_rate=w2v_check_lr(updater, batch),
+                  updater_type=updater, name=name)
+    if updater == "adagrad":
+        sg.option = AddOption(learning_rate=sg.option.learning_rate,
+                              eps=W2V_ADAGRAD_EPS)
+    rng = np.random.RandomState(1)
+    out = ((rng.rand(vocab, dim) - 0.5) / dim).astype(np.float32)
+    data, state = sg.table_out.raw_value()
+    sg.table_out.raw_assign(torch.from_numpy(out).to(data.device), state)
+    return sg
+
+
+def w2v_snapshot(sg):
+    """A SkipGram's tables and updater state, {name: numpy copy}."""
+    snap = {}
+    for side, t in (("in", sg.table_in), ("out", sg.table_out)):
+        data, state = t.raw_value()
+        snap[side] = data.cpu().numpy().copy()
+        for i, x in enumerate(state):
+            snap[f"{side}_state{i}"] = x.cpu().numpy().copy()
+    return snap
+
+
+def w2v_fused(torch, sg, batches, sync_check=False):
+    """The fused step over host batches (c, o, neg), all placed first; the
+    tables are handed back after.  Returns the step losses and, with
+    ``sync_check``, whether the steps ran under
+    ``torch.cuda.set_sync_debug_mode("error")`` without raising (else
+    None)."""
+    step, place = sg.make_fused_step()
+    placed = [tuple(place(a) for a in b) for b in batches]
+    cur = [*sg.table_in.raw_value(), *sg.table_out.raw_value()]
+    losses, sync_free = [], None
+    if sync_check:
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        for b in placed:
+            *cur, loss = step(*cur, *b)
+            losses.append(loss)
+        sync_free = True if sync_check else None
+    except RuntimeError as exc:
+        if not sync_check:
+            raise
+        sync_free = False
+        print(f"chip_smoke: fused step synchronized: {exc}", file=sys.stderr)
+    finally:
+        if sync_check:
+            torch.cuda.set_sync_debug_mode(0)
+    sg.table_in.raw_assign(cur[0], cur[1])
+    sg.table_out.raw_assign(cur[2], cur[3])
+    return [float(x) for x in losses], sync_free
+
+
+def phase_w2v(torch, mv, card):
+    """word2vec at bench_w2v's shape: card against CPU, push-pull against
+    fused, prefetched against placed (each judged by the table changes),
+    no host sync in the fused step, both rates and a profile; then DLRM
+    card against CPU."""
+    from multiverso_tpu_torch.apps import DLRMRecommender, SkipGram
+
+    V, D, B, K = W2V_VOCAB, W2V_DIM, W2V_BATCH, W2V_NEG
+    rng = np.random.RandomState(0)
+    c = rng.randint(V, size=B).astype(np.int32)
+    o = rng.randint(V, size=B).astype(np.int32)
+    neg = rng.randint(V, size=(B, K)).astype(np.int32)
+    corpus = np.random.RandomState(5).randint(V, size=12000).astype(np.int32)
+    updaters = ("sgd", "adagrad")
+
+    def model(name, updater="sgd"):
+        return w2v_model(SkipGram, V, D, B, updater, name)
+
+    def close(*models):
+        for m in models:
+            m.table_in.close()
+            m.table_out.close()
+
+    def fused_runs():
+        """The fused steps on bench_w2v's batch per updater: {upd:
+        (start, end, losses, sync_free)}; sync checked on a card only."""
+        out = {}
+        for upd in updaters:
+            sg = model(f"w2v_{upd}", upd)
+            start = w2v_snapshot(sg)
+            steps = W2V_STEPS if upd == "sgd" else W2V_ADAGRAD_STEPS
+            losses, free = w2v_fused(torch, sg, [(c, o, neg)] * steps,
+                                     sync_check=sg.device.type == "cuda")
+            out[upd] = (start, w2v_snapshot(sg), losses, free)
+            close(sg)
+        return out
+
+    def dlrm_run():
+        # The check's step size is 0.05 per pair (DLRM_LR x batch on the
+        # batch-mean loss), so the table moves far above its rounding.
+        rec = DLRMRecommender(DLRM_USERS, DLRM_ITEMS, dim=DLRM_DIM,
+                              learning_rate=DLRM_LR * DLRM_BATCH)
+        start = {"table": rec.table.get()}
+        losses = rec.train_epoch(DLRM_STEPS, DLRM_BATCH, seed=0, s=1.0)
+        end = {"table": rec.table.get()}
+        rec.close()
+        return start, end, losses
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mv.ops.reset_launch_counts()
+    mv.init(device=None)
+    card_runs = fused_runs()
+    changes = {}
+
+    # One push-pull step against one fused step from the same start: the
+    # host segment-sum and the device one (adagrad) must agree.
+    for upd in updaters:
+        a, b = model(f"w2v_pp_{upd}", upd), model(f"w2v_fu_{upd}", upd)
+        start = w2v_snapshot(a)
+        a.train_batch(c, o, neg)
+        w2v_fused(torch, b, [(c, o, neg)])
+        changes[f"{upd}_pushpull_vs_fused"] = (w2v_snapshot(a),
+                                               w2v_snapshot(b), start)
+        close(a, b)
+
+    # train_epoch_fused (prefetch: pinned staging, a side stream) against
+    # the same batches placed one by one.
+    pe, pm = model("w2v_prefetch"), model("w2v_placed")
+    start = w2v_snapshot(pe)
+    pe_steps, pe_loss = pe.train_epoch_fused(corpus, B, seed=1)
+    w2v_fused(torch, pm, list(pm.batches(corpus, B, seed=1)))
+    changes["prefetched_vs_placed"] = (w2v_snapshot(pe), w2v_snapshot(pm),
+                                       start)
+    close(pe, pm)
+
+    bench = SkipGram(V, D, negatives=K, learning_rate=W2V_LR,
+                     name="w2v_bench")
+    step, place = bench.make_fused_step()
+    cur = [*bench.table_in.raw_value(), *bench.table_out.raw_value()]
+    cb, ob, nb = place(c), place(o), place(neg)
+
+    def fused_once():
+        cur[:] = step(*cur, cb, ob, nb)[:4]
+
+    fused_ms = cuda_ms(fused_once, iters=100, warmup=3)
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        s0 = time.perf_counter()
+        for _ in range(20):
+            fused_once()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - s0) * 1e6
+    kernels = sorted(device_kernel_times(prof, torch), reverse=True)
+    busy_us = sum(us for us, _, _ in kernels)
+    fused_profile = {
+        "steps": 20, "wall_ms": wall_us / 1e3,
+        "device_busy_ms": busy_us / 1e3,
+        "device_busy_share": busy_us / wall_us,
+        "kernels_per_step": sum(n for _, n, _ in kernels) / 20,
+        "top_kernels": [{"ms": us / 1e3, "calls": n, "name": nm[:90]}
+                        for us, n, nm in kernels[:10]]}
+    bench.table_in.raw_assign(cur[0], cur[1])
+    bench.table_out.raw_assign(cur[2], cur[3])
+    for _ in range(2):
+        bench.train_batch(c, o, neg)
+    torch.cuda.synchronize()
+    s0 = time.perf_counter()
+    for _ in range(5):
+        bench.train_batch(c, o, neg)
+    torch.cuda.synchronize()
+    pushpull_s = (time.perf_counter() - s0) / 5
+    close(bench)
+    peak = torch.cuda.max_memory_allocated()
+    dlrm_card = dlrm_run()
+    mv.shutdown()
+    counts = mv.ops.launch_counts()
+
+    mv.init(device="cpu")
+    cpu_runs = fused_runs()
+    dlrm_cpu = dlrm_run()
+    mv.shutdown()
+    trajectories, sync_free = {}, {}
+    for upd in updaters:
+        start, end, losses, free = card_runs[upd]
+        _, cpu_end, cpu_losses, _ = cpu_runs[upd]
+        changes[f"{upd}_card_vs_cpu"] = (end, cpu_end, start)
+        trajectories[upd] = (losses, cpu_losses, True)
+        sync_free[upd] = free
+    changes["dlrm_card_vs_cpu"] = (dlrm_card[1], dlrm_cpu[1], dlrm_card[0])
+    trajectories["dlrm"] = (dlrm_card[2], dlrm_cpu[2], False)
+    verdict, ok = judge_w2v(changes, trajectories, sync_free)
+    moved = {name: {k: float(np.abs(want[k].astype(np.float64)
+                                    - start[k]).max()) for k in want}
+             for name, (_, want, start) in changes.items()}
+    prefetch_ok = pe_steps > 0 and math.isfinite(pe_loss)
+    ok = ok and prefetch_ok
+    emit({"phase": "w2v", "ok": ok, "vocab": V, "dim": D, "batch": B,
+          "negatives": K, "learning_rate": W2V_LR,
+          "check_learning_rate": {u: w2v_check_lr(u, B) for u in updaters},
+          "check_adagrad_eps": W2V_ADAGRAD_EPS,
+          "steps": {"sgd": W2V_STEPS, "adagrad": W2V_ADAGRAD_STEPS},
+          "rtol": W2V_RTOL,
+          "losses_cuda": {u: card_runs[u][2] for u in updaters},
+          "losses_cpu": {u: cpu_runs[u][2] for u in updaters},
+          **verdict, "reference_change_max": moved,
+          "prefetch_epoch": {"steps": pe_steps, "loss": pe_loss},
+          "w2v_fused_ms_per_step": fused_ms,
+          "w2v_fused_pairs_per_sec": B / (fused_ms * 1e-3),
+          "w2v_pushpull_ms_per_step": pushpull_s * 1e3,
+          "w2v_pushpull_pairs_per_sec": B / pushpull_s,
+          "fused_profile": fused_profile, "peak_bytes": peak,
+          "dlrm": {"users": DLRM_USERS, "items": DLRM_ITEMS,
+                   "dim": DLRM_DIM, "batch": DLRM_BATCH,
+                   "learning_rate": DLRM_LR * DLRM_BATCH,
+                   "losses_cuda": dlrm_card[2], "losses_cpu": dlrm_cpu[2]},
+          "launch_counts": counts, "card": card})
+    if not ok:
+        raise AssertionError(
+            f"w2v phase failed: {verdict}, prefetch epoch {pe_steps} steps "
+            f"loss {pe_loss}")
+
+
 def main(argv) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=STEPS)
@@ -857,6 +1448,10 @@ def main(argv) -> int:
         phase_tables(torch, mv, card)
     if "lr" in phases:
         phase_lr(torch, mv, card)
+    if "rows" in phases:
+        phase_rows(torch, mv, card)
+    if "w2v" in phases:
+        phase_w2v(torch, mv, card)
 
     kernels = []
     for kname, (src, replaces) in KERNELS.items():

@@ -16,7 +16,8 @@ Attention goes through ``parallel.ring_attention.blockwise_attention_
 local`` into the flash kernels.  Not ported yet, each raising
 ``NotImplementedError`` that names its ROADMAP item: MoE layers,
 pipeline microbatches, sequence-parallel rings, gradient accumulation,
-remat, state offload, and trainer checkpoints.
+remat and state offload.  Trainer checkpoints (``save``/``restore``) go
+through ``checkpoint.save_pytree``.
 """
 
 from __future__ import annotations
@@ -335,11 +336,19 @@ class TransformerTrainer:
             f"parallel/offload.py)")
 
     def save(self, uri: str) -> None:
-        raise NotImplementedError(
-            "trainer checkpoints are not ported yet (ROADMAP.md Queue 1 "
-            "item 7: checkpoint.py)")
+        """Snapshot params + updater state (rank-0 atomic write, the
+        durability of the table checkpoints)."""
+        from .. import checkpoint
+
+        checkpoint.save_pytree(uri, {"params": self.params,
+                                     "state": self.state})
 
     def restore(self, uri: str) -> None:
-        raise NotImplementedError(
-            "trainer checkpoints are not ported yet (ROADMAP.md Queue 1 "
-            "item 7: checkpoint.py)")
+        """Load a snapshot of this trainer's config and updater onto its
+        device (leaves land where the current ones live)."""
+        from .. import checkpoint
+
+        snap = checkpoint.restore_pytree(
+            uri, like={"params": self.params, "state": self.state})
+        self.params = snap["params"]
+        self.state = [tuple(s) for s in snap["state"]]

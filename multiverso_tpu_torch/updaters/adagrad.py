@@ -30,9 +30,11 @@ class AdaGradUpdater(Updater):
     def apply_rows(self, w, state, rows, delta, opt: AddOption,
                    mask: Optional[torch.Tensor] = None):
         (h,) = state
-        rows, d = _kept_rows(rows, delta, mask, w.shape[0])
+        kept = _kept_rows(rows, mask, w.shape[0])
+        d = kept.zeroed(delta, w)
         # State accumulates by scatter-add (exact for uniques,
         # accumulate-then-read for duplicates), as in the JAX package.
-        h = h.index_add(0, rows, d * d)
-        step = opt.learning_rate * d / (torch.sqrt(h[rows]) + opt.eps)
-        return w.index_add(0, rows, -step), (h,)
+        h.index_add_(0, kept.target, d * d)
+        step = opt.learning_rate * d / (
+            torch.sqrt(h.index_select(0, kept.target)) + opt.eps)
+        return w.index_add_(0, kept.target, step, alpha=-1), (h,)

@@ -26,5 +26,5 @@ class AssignUpdater(Updater):
 
     def apply_rows(self, w, state, rows, delta, opt: AddOption,
                    mask=None):
-        rows, d = _kept_rows(rows, delta, mask, w.shape[0])
-        return w.index_put((rows,), d.to(w.dtype)), state
+        kept = _kept_rows(rows, mask, w.shape[0], anchored=True)
+        return kept.put_(w, delta), state

@@ -5,17 +5,25 @@ Port of ``multiverso_tpu/updaters/base.py``.  Reference:
 virtuals and the ``GetUpdater`` factory switch (SURVEY.md §2.16).
 
 The hooks stay functional — ``(w, state, delta, opt) -> (w', state')``
-with fresh tensors — so the trainer and the tests read the same as the
-JAX package.  One semantic seam differs: the JAX row path sends padding
-to row ``num_rows`` and relies on ``.at[].add(mode="drop")`` to skip it,
-while ``index_add_`` raises on such a row.  ``_kept_rows`` therefore
-filters masked and out-of-range entries before any scatter.
+— so the trainer and the tests read the same as the JAX package.  The
+dense path returns fresh tensors.  The row path scatters IN PLACE into
+the ``w`` and state tensors it is given and returns them: where the JAX
+package donates the table to a jitted scatter, a row add here costs what
+the rows cost, never a copy of the whole table.
+
+One semantic seam differs: the JAX row path sends padding to row
+``num_rows`` and relies on ``.at[].add(mode="drop")`` to skip it, while
+an out-of-range index is a device-side assert in CUDA.  ``_kept_rows``
+therefore aims every dropped entry (masked off, or outside
+``[0, num_rows)``) at a real row and the updaters zero its delta, all on
+the device: filtering with a boolean index would make the host wait for
+the device on every row apply.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple, Type
+from typing import Dict, NamedTuple, Optional, Tuple, Type
 
 import torch
 
@@ -71,14 +79,14 @@ class Updater:
                    delta: torch.Tensor, opt: AddOption,
                    mask: Optional[torch.Tensor] = None
                    ) -> Tuple[torch.Tensor, State]:
-        """Scatter-apply to ``w[rows]``.
+        """Scatter-apply to ``w[rows]``, in place.
 
         ``rows``: int [k]; ``delta``: [k, cols]; ``mask``: bool [k] marks
         valid entries (padding rows carry mask=False and must not touch
         state). Default: plain scatter-add, duplicate rows accumulate.
         """
-        rows, delta = _kept_rows(rows, delta, mask, w.shape[0])
-        return w.index_add(0, rows, delta.to(w.dtype)), state
+        kept = _kept_rows(rows, mask, w.shape[0])
+        return w.index_add_(0, kept.target, kept.zeroed(delta, w)), state
 
 
 _REGISTRY: Dict[str, Type[Updater]] = {}
@@ -123,8 +131,8 @@ def aggregate_rows(rows: torch.Tensor, delta: torch.Tensor
     seg = torch.cumsum(is_new, 0) - 1
     agg = torch.zeros_like(d).index_add_(0, seg, d)
     uniq = torch.zeros_like(r).scatter_(0, seg, r)
-    mask = torch.zeros(r.shape, dtype=torch.bool, device=r.device)
-    mask[seg] = True
+    mask = torch.zeros(r.shape, dtype=torch.bool,
+                       device=r.device).index_fill_(0, seg, True)
     return uniq, agg, mask
 
 
@@ -149,19 +157,59 @@ def masked(delta: torch.Tensor, mask: Optional[torch.Tensor]
 def effective_rows(rows: torch.Tensor, mask: Optional[torch.Tensor],
                    num_rows: int) -> torch.Tensor:
     """Redirect padding entries to the out-of-bounds index ``num_rows``
-    (the JAX package's convention; the port's scatters drop such rows
-    through ``_kept_rows`` before indexing)."""
+    (the JAX package's convention; the port's own scatters never index
+    such a row: ``_kept_rows`` aims it at a real one)."""
     if mask is None:
         return rows
     return torch.where(mask, rows, torch.full_like(rows, num_rows))
 
 
-def _kept_rows(rows: torch.Tensor, delta: torch.Tensor,
-               mask: Optional[torch.Tensor], num_rows: int
-               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The entries a ``mode="drop"`` scatter would apply: not masked off
-    and inside ``[0, num_rows)``.  Order is kept, so last-write-wins
-    updaters resolve duplicates as the JAX package does."""
-    rows = effective_rows(rows.long(), mask, num_rows)
+class _Kept(NamedTuple):
+    """Where each entry of a row batch scatters, decided on the device."""
+
+    target: torch.Tensor   # int64 [k]: a row inside the table, always
+    keep: torch.Tensor     # bool [k]: the entry applies
+    last: Optional[torch.Tensor]   # int64 [1]: the last kept entry
+
+    def _col(self, like: torch.Tensor) -> torch.Tensor:
+        return self.keep.view((-1,) + (1,) * (like.dim() - 1))
+
+    def zeroed(self, values: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        """``values`` in ``w``'s dtype, with dropped entries zero: what
+        an additive scatter of them at ``target`` leaves unchanged."""
+        values = values.to(w.dtype)
+        return torch.where(self._col(values), values, 0)
+
+    def put_(self, t: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
+        """``t[target] = values`` in place, duplicates resolved by order.
+        Dropped entries aim at the last kept entry's row (``anchored``)
+        and write that entry's own value there, so they change nothing;
+        with no entry kept they rewrite row 0 with itself."""
+        values = values.to(t.dtype)
+        fill = torch.where(self.keep.any(),
+                           values.index_select(0, self.last), t[:1])
+        return t.index_put_((self.target,),
+                            torch.where(self._col(values), values, fill))
+
+
+def _kept_rows(rows: torch.Tensor, mask: Optional[torch.Tensor],
+               num_rows: int, anchored: bool = False) -> _Kept:
+    """The entries a ``mode="drop"`` scatter would apply — not masked off
+    and inside ``[0, num_rows)`` — as a mask, and a row inside the table
+    for EVERY entry, so no index ever leaves it and the host never waits
+    for the device.  A dropped entry aims at row 0, or with ``anchored``
+    (set-type scatters) at the row of the last kept entry.  Order is
+    kept, so last-write-wins updaters resolve duplicates as the JAX
+    package does on the CPU."""
+    rows = rows.long()
     keep = (rows >= 0) & (rows < num_rows)
-    return rows[keep], delta[keep]
+    if mask is not None:
+        keep = keep & mask
+    if not anchored:
+        return _Kept(torch.where(keep, rows, 0), keep, None)
+    k = rows.shape[0]
+    if k == 0:
+        return _Kept(rows, keep, rows)
+    last = ((k - 1) - torch.argmax(keep.flip(0).to(torch.int32))).view(1)
+    anchor = torch.where(keep.any(), rows.index_select(0, last), 0)
+    return _Kept(torch.where(keep, rows, anchor), keep, last)

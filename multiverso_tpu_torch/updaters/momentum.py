@@ -27,7 +27,10 @@ class MomentumUpdater(Updater):
     def apply_rows(self, w, state, rows, delta, opt: AddOption,
                    mask: Optional[torch.Tensor] = None):
         (v,) = state
-        rows, d = _kept_rows(rows, delta, mask, w.shape[0])
-        v_rows = opt.momentum * v[rows] + opt.learning_rate * d
-        v = v.index_put((rows,), v_rows)
-        return w.index_add(0, rows, -v_rows), (v,)
+        kept = _kept_rows(rows, mask, w.shape[0], anchored=True)
+        d = kept.zeroed(delta, w)
+        v_rows = (opt.momentum * v.index_select(0, kept.target)
+                  + opt.learning_rate * d)
+        w.index_add_(0, kept.target, kept.zeroed(v_rows, w), alpha=-1)
+        kept.put_(v, v_rows)
+        return w, (v,)

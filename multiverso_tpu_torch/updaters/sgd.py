@@ -23,5 +23,6 @@ class SGDUpdater(Updater):
 
     def apply_rows(self, w, state, rows, delta, opt: AddOption,
                    mask: Optional[torch.Tensor] = None):
-        rows, d = _kept_rows(rows, delta, mask, w.shape[0])
-        return w.index_add(0, rows, -opt.learning_rate * d), state
+        kept = _kept_rows(rows, mask, w.shape[0])
+        return w.index_add_(0, kept.target, kept.zeroed(delta, w),
+                            alpha=-opt.learning_rate), state

@@ -27,7 +27,11 @@ class SmoothGradientUpdater(Updater):
     def apply_rows(self, w, state, rows, delta, opt: AddOption,
                    mask: Optional[torch.Tensor] = None):
         (s,) = state
-        rows, d = _kept_rows(rows, delta, mask, w.shape[0])
-        s_rows = opt.rho * s[rows] + (1.0 - opt.rho) * d
-        s = s.index_put((rows,), s_rows)
-        return w.index_add(0, rows, -opt.learning_rate * s_rows), (s,)
+        kept = _kept_rows(rows, mask, w.shape[0], anchored=True)
+        d = kept.zeroed(delta, w)
+        s_rows = (opt.rho * s.index_select(0, kept.target)
+                  + (1.0 - opt.rho) * d)
+        w.index_add_(0, kept.target, kept.zeroed(s_rows, w),
+                     alpha=-opt.learning_rate)
+        kept.put_(s, s_rows)
+        return w, (s,)

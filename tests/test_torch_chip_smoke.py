@@ -5,11 +5,19 @@ The chip smoke test reads each built library's ``-Xptxas -v`` log and its
 bf16 Hopper kernel, or one holds no wgmma (HGMMA) or no TMA load
 (UTMALDG).  Those parsers and that
 rule are plain Python; here they run on listings in the formats the CUDA
-toolkit prints, with a stand-in ``cuobjdump``.  The tables and lr
-phases' judges (numpy against the card, card against the CPU) run on
-stand-in results, each with cases it must reject.
+toolkit prints, with a stand-in ``cuobjdump``.  The tables, lr, rows
+and w2v phases' judges (numpy against the card, card against the CPU,
+the memory of one row add) run on stand-in results, each with cases it
+must reject; the rows phase's numpy reference is held against the
+port's own MatrixTable on the CPU, and its row-apply checks against
+a row apply that ignores its mask or skips the segment-sum.  The w2v
+judge holds real fused runs of a small SkipGram on the CPU: it passes
+push-pull against fused and a reordered batch, and rejects each planted
+fault of the step (a skipped scatter, half the batch, twice the step, a
+stale batch).
 """
 
+import dataclasses
 import importlib.util
 import math
 import os
@@ -146,8 +154,10 @@ def test_build_phase_fails_without_a_hopper_kernel(tmp_path, lib):
 # ------------------------------------------------ tables and lr phase judges
 
 def test_new_phases_run_by_default():
-    assert chip_smoke.PHASES[-2:] == ("tables", "lr")
+    assert chip_smoke.PHASES[-4:] == ("tables", "lr", "rows", "w2v")
     assert chip_smoke.TABLE_SIZE == 16 * 1024 * 1024
+    assert (chip_smoke.W2V_VOCAB, chip_smoke.W2V_DIM,
+            chip_smoke.W2V_BATCH) == (100_000, 128, 8192)
 
 
 def test_rel_to_peak():
@@ -204,3 +214,259 @@ def test_judge_lr_rejects(fault):
         card = card[:19]
     _, ok = chip_smoke.judge_lr(card, cpu, w, fused)
     assert not ok
+
+
+# ----------------------------------------------------- rows and w2v judges
+
+@pytest.fixture()
+def cpu_runtime():
+    import multiverso_tpu_torch as mv
+
+    if mv.initialized():
+        mv.shutdown()
+    mv.init(device="cpu")
+    yield mv
+    mv.shutdown()
+    mv.config.reset()
+
+
+@pytest.mark.parametrize("updater", ["default", "sgd", "adagrad"])
+def test_rows_reference_matches_the_port(cpu_runtime, updater):
+    """The rows phase's numpy reference (duplicates summed, ids past the
+    table dropped and read as zeros) is what the port computes; a
+    reference that skipped the duplicate sum is rejected."""
+    mv = cpu_runtime
+    rng = np.random.RandomState(1)
+    w0 = rng.randn(50, 8).astype(np.float32)
+    ids = np.array([3, 7, 3, 49, 50, 80, 3, 0])
+    g = rng.randn(8, 8).astype(np.float32)
+    lr, eps = np.float32(0.1), np.float32(1e-8)
+    t = mv.MatrixTable(50, 8, name=updater, updater_type=updater, init=w0)
+    t.add_rows(ids, g, option=mv.AddOption(learning_rate=float(lr)))
+    w, h = w0.copy(), np.zeros_like(w0)
+    chip_smoke._np_row_apply(w, h, ids, g, lr, eps, updater)
+    errs, ok = chip_smoke.judge_tables({
+        "table": (t.get(), w),
+        "rows": (t.get_rows(ids), chip_smoke._np_rows(w, ids))})
+    assert ok, errs
+    if updater == "adagrad":
+        seq, hs = w0.copy(), np.zeros_like(w0)
+        for i in range(len(ids)):     # each duplicate applied on its own
+            chip_smoke._np_row_apply(seq, hs, ids[i:i + 1], g[i:i + 1], lr,
+                                     eps, updater)
+        assert not chip_smoke.judge_tables({"table": (t.get(), seq)})[1]
+
+
+def test_rows_judge_rejects_clamped_reads():
+    """An id past the table must read zeros; the last row (a clamped
+    gather) is rejected."""
+    w = np.random.RandomState(2).randn(10, 4).astype(np.float32)
+    ids = np.array([1, 10, 30])
+    clamped = w[np.minimum(ids, 9)]
+    _, ok = chip_smoke.judge_tables({"rows": (clamped,
+                                              chip_smoke._np_rows(w, ids))})
+    assert not ok
+
+
+def test_judge_row_add_memory():
+    table = 100_000 * 128 * 4
+    assert chip_smoke.judge_row_add_memory(12 * 2 ** 20, table)
+    assert not chip_smoke.judge_row_add_memory(table, table)
+    assert not chip_smoke.judge_row_add_memory(table + 12 * 2 ** 20, table)
+
+
+def test_row_apply_checks_hold_on_the_cpu():
+    """The rows phase's on-device row-apply checks, run on the CPU: every
+    updater against itself and sgd/adagrad against numpy, with a mask,
+    duplicates and ids past the table."""
+    import torch
+
+    rng = np.random.RandomState(4)
+    w0 = rng.randn(50, 8).astype(np.float32)
+    ids = np.array([3, 7, 3, 49, 50, 80, 3, 0, 12, 7])
+    g = rng.randn(len(ids), 8).astype(np.float32)
+    mask = np.array([True, False, True, True, True, False, True])
+    checks = chip_smoke.row_apply_checks(torch, w0, ids, g, mask,
+                                         np.float32(0.1), np.float32(1e-8),
+                                         "cpu")
+    # [w, *state] of six updaters in two calls each against the CPU
+    # (state: adagrad, momentum, smooth_gradient), and sgd's [w] and
+    # adagrad's [w, h] in two calls each against numpy.
+    assert len(checks) == 2 * (1 + 1 + 2 + 2 + 2 + 1) + 2 * (1 + 2)
+    errs, ok = chip_smoke.judge_tables(checks)
+    assert ok, errs
+
+
+@pytest.mark.parametrize("fault", ["mask_ignored", "no_segment_sum"])
+def test_row_apply_checks_reject(monkeypatch, fault):
+    """A row apply that ignores its mask, or a non-linear updater that
+    gets duplicates unsummed, fails against numpy (the CPU comparison
+    alone cannot see a fault both devices share)."""
+    import torch
+
+    from multiverso_tpu_torch.updaters import base, sgd
+
+    if fault == "mask_ignored":
+        real = base._kept_rows
+        monkeypatch.setattr(sgd, "_kept_rows",
+                            lambda rows, mask, n, anchored=False:
+                            real(rows, None, n, anchored))
+    else:
+        monkeypatch.setattr(
+            base, "aggregate_rows",
+            lambda rows, delta: (rows, delta,
+                                 torch.ones(rows.shape, dtype=torch.bool)))
+    rng = np.random.RandomState(4)
+    w0 = rng.randn(50, 8).astype(np.float32)
+    ids = np.array([3, 7, 3, 49, 50, 80, 3, 0, 12, 7])
+    g = rng.randn(len(ids), 8).astype(np.float32)
+    mask = np.array([True, False, True, True, True, False, True])
+    errs, ok = chip_smoke.judge_tables(chip_smoke.row_apply_checks(
+        torch, w0, ids, g, mask, np.float32(0.1), np.float32(1e-8), "cpu"))
+    assert not ok
+    bad = {k for k, e in errs.items() if e > chip_smoke.TABLE_TOL}
+    assert bad and all(k.endswith("_vs_numpy") for k in bad)
+
+
+def test_rel_change():
+    start = np.zeros(4)
+    want = np.array([0.0, 1.0, -2.0, 0.0])
+    assert chip_smoke.rel_change(want, want, start) == 0.0
+    assert chip_smoke.rel_change(want + [0, 0, 0, 0.02], want,
+                                 start) == pytest.approx(0.01)
+    assert chip_smoke.rel_change(start, want, start) == pytest.approx(1.0)
+    assert chip_smoke.rel_change(want, start, start) == math.inf
+    assert chip_smoke.rel_change(want[:3], want, start) == math.inf
+    assert chip_smoke.rel_change(None, want, start) == math.inf
+
+
+def _w2v_inputs():
+    rng = np.random.RandomState(3)
+    start = {"in": rng.randn(8, 8), "out": rng.randn(8, 8)}
+    end = {k: v + 0.01 * rng.randn(8, 8) for k, v in start.items()}
+    got = {k: v + 1e-7 for k, v in end.items()}
+    card = [4.158883 - 1e-3 * i for i in range(20)]
+    cpu = [v * (1 + 1e-6) for v in card]
+    return ({"sgd_card_vs_cpu": (got, end, start)},
+            {"sgd": (card, cpu, True),
+             "dlrm": (card[::-1], cpu[::-1], False)},
+            {"sgd": True, "adagrad": True})
+
+
+def test_judge_w2v_passes():
+    changes, traj, sync = _w2v_inputs()
+    out, ok = chip_smoke.judge_w2v(changes, traj, sync)
+    assert ok and out["trajectories"]["sgd"]["falls"]
+    assert max(out["change_rel_errors"].values()) < 1e-4
+
+
+@pytest.mark.parametrize("fault", ["trajectory", "flat", "step", "sync",
+                                   "nan", "length", "no_sync_runs",
+                                   "unmoved", "missing", "no_changes"])
+def test_judge_w2v_rejects(fault):
+    changes, traj, sync = _w2v_inputs()
+    got, want, start = changes["sgd_card_vs_cpu"]
+    card, cpu, _ = traj["sgd"]
+    if fault == "trajectory":
+        card[7] *= 1 + 1e-3
+    elif fault == "flat":
+        traj["sgd"] = ([1.0] * 20, [1.0] * 20, True)
+    elif fault == "step":
+        got["out"][2, 3] += 1e-4
+    elif fault == "sync":
+        sync["adagrad"] = False
+    elif fault == "nan":
+        card[3] = cpu[3] = float("nan")
+    elif fault == "length":
+        traj["sgd"] = (card[:19], cpu, True)
+    elif fault == "no_sync_runs":
+        sync = {}
+    elif fault == "unmoved":
+        changes["sgd_card_vs_cpu"] = (start, start, start)
+    elif fault == "missing":
+        del got["out"]
+    else:
+        changes = {}
+    _, ok = chip_smoke.judge_w2v(changes, traj, sync)
+    assert not ok
+
+
+# A small SkipGram through the phase's own helpers: the judge must pass
+# two correct runs and reject each planted fault of the fused step.
+SV, SD, SB = 1000, 16, 64
+
+
+def _small_batches(n):
+    rng = np.random.RandomState(6)
+    return [(rng.randint(SV, size=SB).astype(np.int32),
+             rng.randint(SV, size=SB).astype(np.int32),
+             rng.randint(SV, size=(SB, chip_smoke.W2V_NEG)).astype(np.int32))
+            for _ in range(n)]
+
+
+def _small_model(updater, name):
+    from multiverso_tpu_torch.apps import SkipGram
+
+    return chip_smoke.w2v_model(SkipGram, SV, SD, SB, updater, name)
+
+
+@pytest.mark.parametrize("updater", ["sgd", "adagrad"])
+def test_w2v_judge_passes_real_runs(cpu_runtime, updater):
+    """Push-pull against fused, and a run whose batches list their pairs
+    in another order, from one start: within W2V_RTOL of the change."""
+    import torch
+
+    batches = _small_batches(3)
+    ref, alt = _small_model(updater, "ref"), _small_model(updater, "alt")
+    a, b = _small_model(updater, "pp"), _small_model(updater, "fu")
+    start = chip_smoke.w2v_snapshot(ref)
+    losses, free = chip_smoke.w2v_fused(torch, ref, batches)
+    assert free is None and len(losses) == 3
+    perm = np.random.RandomState(0).permutation(SB)
+    chip_smoke.w2v_fused(torch, alt, [tuple(x[perm] for x in bt)
+                                      for bt in batches])
+    a.train_batch(*batches[0])
+    chip_smoke.w2v_fused(torch, b, batches[:1])
+    snap = chip_smoke.w2v_snapshot
+    errs, ok = chip_smoke.judge_changes({
+        "reordered": (snap(alt), snap(ref), start),
+        "pushpull_vs_fused": (snap(a), snap(b), start)})
+    assert ok, errs
+    assert len(errs) == 2 * (2 if updater == "sgd" else 4)
+
+
+@pytest.mark.parametrize("updater", ["sgd", "adagrad"])
+@pytest.mark.parametrize("fault", ["out_scatter_skipped", "half_batch",
+                                   "double_step", "stale_batch"])
+def test_w2v_judge_rejects_a_wrong_fused_step(cpu_runtime, monkeypatch,
+                                              updater, fault):
+    import torch
+
+    from multiverso_tpu_torch.updaters import base
+
+    batches = _small_batches(3)
+    ref = _small_model(updater, "ref")
+    start = chip_smoke.w2v_snapshot(ref)
+    chip_smoke.w2v_fused(torch, ref, batches)
+    if fault == "out_scatter_skipped":
+        real = base.scatter_apply
+
+        def skip_out(upd, data, state, rows, delta, opt):
+            if rows.shape[0] > SB:       # the output table's scatter
+                return data, state
+            return real(upd, data, state, rows, delta, opt)
+
+        monkeypatch.setattr(base, "scatter_apply", skip_out)
+    bad = _small_model(updater, "bad")
+    if fault == "half_batch":
+        batches = [tuple(x[:SB // 2] for x in bt) for bt in batches]
+    elif fault == "double_step":
+        bad.option = dataclasses.replace(
+            bad.option, learning_rate=2 * bad.option.learning_rate)
+    elif fault == "stale_batch":
+        batches = [batches[0], batches[0], batches[2]]
+    chip_smoke.w2v_fused(torch, bad, batches)
+    errs, ok = chip_smoke.judge_changes({
+        fault: (chip_smoke.w2v_snapshot(bad), chip_smoke.w2v_snapshot(ref),
+                start)})
+    assert not ok, errs

@@ -43,7 +43,7 @@ def test_imports_every_module_with_jax_blocked():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120, cwd="/")
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 38
+    assert int(out.stdout.strip()) >= 49
 
 
 def test_no_jax_or_reference_imports_in_source():
@@ -67,7 +67,9 @@ def test_no_jax_or_reference_imports_in_source():
 
 
 def test_default_device_is_the_card_and_never_falls_back(monkeypatch):
+    import multiverso_tpu_torch as mv
     from multiverso_tpu_torch import resolve_device
+    from multiverso_tpu_torch.apps import DLRMRecommender, SkipGram
     from multiverso_tpu_torch.models import (TransformerConfig,
                                              TransformerTrainer)
 
@@ -79,8 +81,27 @@ def test_default_device_is_the_card_and_never_falls_back(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         resolve_device()
     assert resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        mv.init()
+    # The apps' tables live where init() put the context, so without it
+    # they refuse to start rather than land on the CPU.
+    for make in (lambda: SkipGram(50, 4), lambda: DLRMRecommender(8, 8)):
+        with pytest.raises(RuntimeError, match="not initialized"):
+            make()
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     assert resolve_device() == torch.device("cuda", 0)
+    try:
+        assert mv.init().device == torch.device("cuda", 0)
+        if not torch.backends.cuda.is_built():
+            # This torch has no CUDA: placing a table on the card fails
+            # instead of falling back to the CPU.
+            for make in (lambda: SkipGram(50, 4, name="w2v_card"),
+                         lambda: DLRMRecommender(8, 8, name="dlrm_card")):
+                with pytest.raises((RuntimeError, AssertionError)):
+                    make()
+    finally:
+        mv.shutdown()
+        mv.config.reset()
 
 
 def test_dashboard_monitor_feeds_metrics_and_spans(tmp_path):
@@ -156,8 +177,9 @@ def test_build_rebuilds_when_a_source_changes(monkeypatch, tmp_path):
 # module docstring of its own.
 COPIED = ["config.py", "fault.py", "capacity.py", "sketch.py",
           "ops/flight_recorder.py", "util/quantization.py",
-          "serve/cache.py", "serve/coalescer.py", "io/stream.py",
-          "io/__init__.py"]
+          "util/async_buffer.py", "serve/cache.py", "serve/coalescer.py",
+          "io/stream.py", "io/__init__.py", "tables/kv_table.py",
+          "tables/sparse_matrix_table.py", "tables/factory.py"]
 
 
 # Besides the name, a copy drops the JAX package's change-history notes

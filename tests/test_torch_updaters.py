@@ -1,9 +1,12 @@
 """Parity of the PyTorch port's updaters with the JAX package.
 
 Every updater, dense path and row path (unique rows, duplicate rows,
-masked padding, aggregate-then-apply), on the same seeded numpy inputs
-fed to ``multiverso_tpu.updaters`` and ``multiverso_tpu_torch.updaters``.
-Tolerance 1e-6: both sides run the same float32 formulas.
+masked padding, rows past the table, aggregate-then-apply), on the same
+seeded numpy inputs fed to ``multiverso_tpu.updaters`` and
+``multiverso_tpu_torch.updaters``.  Tolerance 1e-6: both sides run the
+same float32 formulas.  The port's row path also holds its own
+contract: it scatters in place into the tensors it is given, and a
+dropped entry changes no weight and no state.
 """
 
 import jax.numpy as jnp
@@ -153,3 +156,84 @@ def test_masked_and_effective_rows_match():
                                            jnp.asarray(mask), 5)))
     _close(tup.masked(torch.as_tensor(d), torch.as_tensor(mask)),
            jup.base.masked(jnp.asarray(d), jnp.asarray(mask)))
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_rows_out_of_range_dropped(name):
+    """Unmasked entries past the table's last row are dropped on both
+    sides: the JAX scatter's mode="drop", and the port's dropped entries
+    aimed at a real row with nothing to write."""
+    rng = np.random.RandomState(6)
+    w0 = rng.randn(6, 3).astype(np.float32)
+    rows = np.array([1, 9, 0, 6, 12], np.int32)
+    d = (rng.randn(5, 3) * 5).astype(np.float32)
+
+    def steps(u, w, s, opt, arr):
+        return u.apply_rows(w, s, arr(rows), arr(d), opt)
+
+    _both(name, w0, steps)
+
+
+def _apply_kept_only(u, w0, s0, rows, d, keep, opt):
+    """The reference result: only the kept entries, on fresh copies."""
+    w = torch.from_numpy(w0.copy())
+    s = tuple(torch.from_numpy(x.copy()) for x in s0)
+    k = np.flatnonzero(keep)
+    return u.apply_rows(w, s, torch.as_tensor(rows[k]), torch.as_tensor(d[k]),
+                        opt)
+
+
+@pytest.mark.parametrize("name", NAMES)
+@pytest.mark.parametrize("kept_any", [True, False])
+def test_row_apply_in_place_leaves_dropped_rows(name, kept_any):
+    """The row path writes into the tensors it is given and returns them,
+    and masked-off, negative and past-the-end entries change no weight
+    and no state: the result equals applying the kept entries alone."""
+    u = tup.get_updater(name)
+    opt = tup.AddOption(**OPT)
+    rng = np.random.RandomState(7)
+    w0 = rng.randn(8, 3).astype(np.float32)
+    s0 = [np.abs(rng.randn(8, 3)).astype(np.float32)
+          for _ in range(u.num_slots)]
+    rows = np.array([5, -1, 2, 8, 0, 30], np.int64)
+    mask = np.array([True, True, False, True, True, True])
+    if not kept_any:
+        mask[:] = False
+    keep = mask & (rows >= 0) & (rows < 8)
+    d = (rng.randn(6, 3) * 3).astype(np.float32)
+    w = torch.from_numpy(w0.copy())
+    s = tuple(torch.from_numpy(x.copy()) for x in s0)
+    w2, s2 = u.apply_rows(w, s, torch.as_tensor(rows), torch.as_tensor(d),
+                          opt, mask=torch.as_tensor(mask))
+    assert w2 is w and len(s2) == len(s)
+    assert all(a is b for a, b in zip(s2, s))
+    want_w, want_s = _apply_kept_only(u, w0, s0, rows, d, keep, opt)
+    np.testing.assert_array_equal(w2.numpy(), want_w.numpy())
+    for a, b in zip(s2, want_s):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+    untouched = np.setdiff1d(np.arange(8), rows[keep])
+    np.testing.assert_array_equal(w2.numpy()[untouched], w0[untouched])
+    for a, b in zip(s2, s0):
+        np.testing.assert_array_equal(a.numpy()[untouched], b[untouched])
+
+
+def test_assign_rows_last_write_wins_past_dropped_entries():
+    """Duplicates of a kept row resolve by order, and a dropped entry
+    after them (aimed at that row) does not undo the last write."""
+    u = tup.get_updater("assign")
+    w = torch.zeros(4, 2)
+    rows = torch.tensor([3, 1, 3, 9])
+    d = torch.tensor([[1.0, 1.0], [2.0, 2.0], [3.0, 3.0], [7.0, 7.0]])
+    w2, _ = u.apply_rows(w, (), rows, d, tup.AddOption())
+    np.testing.assert_array_equal(
+        w2.numpy(), [[0, 0], [2, 2], [0, 0], [3, 3]])
+
+
+def test_empty_row_batch_is_a_no_op():
+    for name in NAMES:
+        u = tup.get_updater(name)
+        w = torch.ones(3, 2)
+        s = u.init_state((3, 2), torch.float32, "cpu")
+        w2, s2 = u.apply_rows(w, s, torch.zeros(0, dtype=torch.int64),
+                              torch.zeros(0, 2), tup.AddOption())
+        np.testing.assert_array_equal(w2.numpy(), 1.0)
