@@ -79,7 +79,11 @@ Phases, each printing one JSON line:
              from tensors on the card (``apply_rows`` with a mask, and
              ``scatter_apply`` with duplicates, as the fused steps call
              it; ids past the table in both) against the same call on the
-             CPU, and sgd's and adagrad's against numpy.  Then a
+             CPU, and sgd's and adagrad's against numpy; ``assign``'s
+             ``apply_rows`` of 8,192 ids, each repeated 2-4 times with
+             its own values, some masked and some past the table, against
+             the CPU and numpy's last write, exactly (it also reports how
+             many rows a plain ``index_put_`` gives another value).  Then a
              checkpoint of those tables restored into fresh ones,
              exactly.  It reports what one ``add_rows`` of 8,192 rows
              allocated on the card, which must stay below the table's own
@@ -106,7 +110,49 @@ Phases, each printing one JSON line:
              dim 16, zipf 1.0, 0.05 per pair): 10 ``train_step``s of 512
              pairs, the table's change and the losses card against CPU
              within 1e-4.
-             No kernel of ``ops/csrc`` runs on phases 7 to 10; each
+11. lda    — ``LightLDA`` at ``bench.py``'s shape (bench_lightlda: 2,048
+             docs of 64 tokens, V 10,000, K 64, alpha 0.5, beta 0.1).  One
+             fused and one MH sweep (4 steps) on the card against the same
+             sweeps on the CPU, each from ``initialize_counts``, with the
+             same draws made once on the host: at most 1e-3 of the tokens
+             may take another topic (a comparison on a rounding boundary
+             can flip), and after every sweep the counts are conserved
+             exactly (each doc-topic row sums to its doc's length, the
+             topic totals to the token count, the word-topic columns to the
+             topic totals).  One ``sample_pass`` on 256 of the docs, card
+             against CPU, exactly.  Topic recovery: 25 MH sweeps at the
+             planted-topic test's setting (60 docs, V 80, K 4,
+             concentration 0.05) reach ``topic_purity`` > 0.6.  Then
+             ``bench.py``'s rates (the median of 3 sweeps after one
+             warm-up, host clock, each sweep ending in a synchronize):
+             ``lda_tokens_per_sec`` (fused, K 64) and
+             ``lda_mh_k{1024,8192}_tokens_per_sec``; for each, the
+             launches and the device's busy share of one profiled sweep,
+             the conserved counts after the timed sweeps, and for the MH
+             sweeps the bound of their [V, K] passes (``mh_bound_bytes``
+             over 3.35 TB/s) and its share of the sweep; the peak device
+             memory.
+12. sgmix  — ``SkipGramMixture`` at ``bench_w2v``'s vocabulary and width
+             (V 100,000, dim 128, 2 senses, window 5, 5 negatives), 20
+             batches of 1,024 occurrences drawn by ``batches`` from
+             ``synthetic_corpus(20_480, 100_000, seed=0)``.  The checks run
+             sgd at the mixture's own 0.05 per occurrence (lr 51.2 on the
+             batch-mean loss; at the app's 0.05 a step moves most entries
+             little more than their rounding) and hold each table by its
+             change, max |got - want| over max |want - start| at most
+             1e-4: 20 fused steps on the card, under
+             ``torch.cuda.set_sync_debug_mode("error")``, against the
+             same steps on the CPU (a second ``init``
+             lifecycle), losses within rtol 1e-4; one push-pull
+             ``train_batch`` against one fused step from the same start;
+             one ``momentum`` step whose padded bag slots (id V) sit next
+             to row V-1 must leave row V-1 of every table, and its state,
+             unchanged; and the homonym test's setting (V 21, dim 16, 12
+             epochs) must separate the two senses of token 0 on the card.
+             Then ``sgmix_fused_occurrences_per_sec`` (CUDA events over
+             100 queued steps at lr 0.05), a profile of 20 fused steps and
+             the peak device memory.
+             No kernel of ``ops/csrc`` runs on phases 7 to 12; each
              reports the launch counts of its own run (0).
 
 Then the kernels line, the nvidia-smi line, and the result line.  Any
@@ -140,7 +186,7 @@ PEAK_HBM_BYTES = 3.35e12
 LAYERS, STEPS, BATCH, SEQ = 16, 5, 4, 2048
 HEADS, HEAD_DIM = 16, 128
 PHASES = ("parity", "trainer", "profile", "check", "timing", "tables",
-          "lr", "rows", "w2v")
+          "lr", "rows", "w2v", "lda", "sgmix")
 
 # The parameter-server path: bench.py's add/get table (bench_add_get,
 # 16 Mi float32) and its LR shape (bench_lr: batch 8192, 784 features,
@@ -172,6 +218,27 @@ DLRM_USERS = DLRM_ITEMS = 32768
 DLRM_DIM, DLRM_BATCH, DLRM_STEPS, DLRM_LR = 16, 512, 10, 0.05
 ROW_UPDATERS = ("default", "sgd", "adagrad", "momentum", "smooth_gradient",
                 "assign")
+# LightLDA: bench.py's bench_lightlda (2,048 docs of 64 tokens, V 10,000,
+# K 64) and bench_lightlda_mh (K 1,024 and 8,192, the same docs).
+LDA_DOCS, LDA_VOCAB, LDA_TOPICS, LDA_LEN = 2048, 10000, 64, 64
+LDA_ALPHA, LDA_BETA, LDA_MH_STEPS = 0.5, 0.1, 4
+LDA_MH_TOPICS = (1024, 8192)
+LDA_Z_TOL = 1e-3          # share of tokens whose topic may differ
+LDA_SAMPLE_DOCS = 256
+# tests/test_lightlda.py's planted-topic recovery (the MH case).
+LDA_PURITY = dict(docs=60, vocab=80, topics=4, doc_len=48, seed=7,
+                  concentration=0.05, sweeps=25)
+LDA_PURITY_MIN = 0.6
+# The skip-gram mixture at bench_w2v's vocabulary and width.
+SGMIX_VOCAB, SGMIX_DIM, SGMIX_SENSES = 100_000, 128, 2
+SGMIX_WINDOW, SGMIX_NEG, SGMIX_BATCH, SGMIX_STEPS = 5, 5, 1024, 20
+SGMIX_LR = 0.05
+# The checks' step size: the mixture's 0.05 per occurrence, so sgd on the
+# batch-mean loss takes lr x batch.  At the app's 0.05 on the batch-mean
+# loss a step moves most entries little more than float32's rounding of
+# them, so a batch whose occurrences are merely reordered drifts a
+# sizeable share of W2V_RTOL from the original in 20 steps.
+SGMIX_CHECK_LR = SGMIX_LR * SGMIX_BATCH
 
 F32_TOL = 1e-4   # float32 outputs: every element within atol + rtol·|want|
 BF16_TOL = 1e-2  # bf16 outputs: max and L2 error relative to the scale
@@ -503,6 +570,29 @@ def device_kernel_times(prof, torch):
     return out
 
 
+def profile_calls(torch, fn, calls, top=10):
+    """``fn()`` called ``calls`` times under torch.profiler, ending in a
+    synchronize: the wall and device busy time, the device's busy share,
+    the kernels launched per call and the ``top`` kernels by time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        s0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - s0) * 1e6
+    kernels = sorted(device_kernel_times(prof, torch), reverse=True)
+    busy_us = sum(us for us, _, _ in kernels)
+    return {"steps": calls, "wall_ms": wall_us / 1e3,
+            "device_busy_ms": busy_us / 1e3,
+            "device_busy_share": busy_us / wall_us,
+            "kernels_per_step": sum(n for _, n, _ in kernels) / calls,
+            "top_kernels": [{"ms": us / 1e3, "calls": n, "name": nm[:90]}
+                            for us, n, nm in kernels[:top]]}
+
+
 def profile_step(tr, tokens, torch, card):
     """One more trainer step under torch.profiler: device time by kernel
     class and the device's busy share of the step's wall time."""
@@ -820,23 +910,7 @@ def phase_lr(torch, mv, card):
     fused_ms = cuda_ms(fused_once, iters=100, warmup=3)
     # Where a fused step's time goes: device busy time over wall time
     # across 20 queued steps, and the kernels that fill it.
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        s0 = time.perf_counter()
-        for _ in range(20):
-            fused_once()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - s0) * 1e6
-    kernels = sorted(device_kernel_times(prof, torch), reverse=True)
-    busy_us = sum(us for us, _, _ in kernels)
-    fused_profile = {
-        "steps": 20, "wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
-        "device_busy_share": busy_us / wall_us,
-        "kernels_per_step": sum(c for _, c, _ in kernels) / 20,
-        "top_kernels": [{"ms": us / 1e3, "calls": c, "name": nm[:90]}
-                        for us, c, nm in kernels[:8]]}
+    fused_profile = profile_calls(torch, fused_once, 20, top=8)
     bench.table.raw_assign(*cur)
     pp = LogisticRegression(LR_FEATURES, LR_CLASSES, learning_rate=0.1,
                             name="lr_pp")
@@ -1011,6 +1085,54 @@ def row_apply_checks(torch, w0, ids, g, mask, lr, eps, device):
     return checks
 
 
+def assign_duplicates_case(rng, n, rows):
+    """(ids, values, mask) for ``assign``'s apply: ``n`` entries whose ids
+    each repeat 2-4 times in shuffled order, each entry with its own
+    values, a tenth masked off, and 31 distinct ids past the table."""
+    k = -(-n // 3)                       # 3 entries an id, up to 2 with 2
+    counts = np.full(k, 3)
+    counts[:3 * k - n] -= 1
+    swap = rng.permutation(np.arange(2, k))[:2 * (k // 3)]
+    counts[swap[:k // 3]] += 1
+    counts[swap[k // 3:]] -= 1
+    uniq = np.concatenate([rng.choice(rows, size=k - 31, replace=False),
+                           rows + rng.choice(1000, size=31, replace=False)])
+    ids = np.repeat(uniq[rng.permutation(k)], counts)
+    ids = ids[rng.permutation(n)].astype(np.int64)
+    values = rng.randn(n, W2V_DIM).astype(np.float32)
+    return ids, values, rng.rand(n) > 0.1
+
+
+def last_write(w0, ids, values, mask):
+    """numpy's assign: entries in order, masked ones and ids past the
+    table skipped, the last write to a row kept."""
+    w = w0.copy()
+    for i, v, m in zip(ids, values, mask):
+        if m and 0 <= i < w.shape[0]:
+            w[i] = v
+    return w
+
+
+def assign_duplicates(torch, device, w0, ids, values, mask):
+    """``assign``'s ``apply_rows`` on ``device`` (numpy out), and the
+    number of rows where a plain ``index_put_`` of the kept entries,
+    whose order of writes to one row CUDA leaves undefined, ends with
+    another value."""
+    from multiverso_tpu_torch.updaters import AddOption, get_updater
+
+    def put(a):
+        return torch.tensor(a, device=device)
+
+    w, _ = get_updater("assign").apply_rows(put(w0), (), put(ids),
+                                            put(values), AddOption(),
+                                            mask=put(mask))
+    got = w.cpu().numpy()
+    kept = mask & (ids < w0.shape[0])
+    plain = put(w0).index_put_((put(ids[kept]),), put(values[kept]))
+    differ = int((plain.cpu().numpy() != got).any(axis=1).sum())
+    return got, differ
+
+
 def phase_rows(torch, mv, card):
     """MatrixTables of bench_w2v's shape on the card against numpy, the
     sparse and KV tables, a checkpoint round trip, and what one row add
@@ -1056,6 +1178,15 @@ def phase_rows(torch, mv, card):
     # fused steps run on the device, for every updater.
     mask = rng.rand(len(np.unique(ids))) < 0.75
     checks.update(row_apply_checks(torch, w0, ids, g1, mask, lr, eps, CARD))
+
+    # assign with duplicate ids: the last kept entry wins on the card as
+    # on the CPU, exactly.
+    a_ids, a_vals, a_mask = assign_duplicates_case(rng, B, V)
+    a_card, plain_differ = assign_duplicates(torch, CARD, w0, a_ids, a_vals,
+                                             a_mask)
+    a_cpu, _ = assign_duplicates(torch, "cpu", w0, a_ids, a_vals, a_mask)
+    assign_exact = bool(np.array_equal(a_card, a_cpu) and np.array_equal(
+        a_card, last_write(w0, a_ids, a_vals, a_mask)))
 
     td = mv.MatrixTable(V, D, name="device", init=w0)
     gd = rng.randn(V, D).astype(np.float32)
@@ -1132,9 +1263,14 @@ def phase_rows(torch, mv, card):
         for name, snap in snaps.items())
     mv.shutdown()
     mem_ok = judge_row_add_memory(row_add_alloc, table_bytes)
+    ok = ok and assign_exact
     emit({"phase": "rows", "ok": ok and exact and cached and mem_ok,
           "shape": [V, D], "ids": len(ids), "tol": TABLE_TOL,
           "rel_errors": errs, "sparse_rows_cached": cached,
+          "assign_duplicates": {"ids": len(a_ids),
+                                "exact_vs_cpu_and_numpy": assign_exact,
+                                "plain_index_put_rows_differing":
+                                    plain_differ},
           "checkpoint_exact": exact, "checkpoint_tables": sorted(snaps),
           "checkpoint_save_s": save_s, "checkpoint_restore_s": restore_s,
           "row_add_allocated_bytes": row_add_alloc,
@@ -1144,7 +1280,8 @@ def phase_rows(torch, mv, card):
     if not (ok and exact and cached and mem_ok):
         raise AssertionError(
             f"rows phase failed: errors {errs}, cached {cached}, checkpoint "
-            f"exact {exact}, row add allocated {row_add_alloc} bytes")
+            f"exact {exact}, row add allocated {row_add_alloc} bytes, "
+            f"assign duplicates exact {assign_exact}")
 
 
 def _same_snapshot(got, want) -> bool:
@@ -1191,10 +1328,11 @@ def w2v_model(SkipGram, vocab, dim, batch, updater, name):
     return sg
 
 
-def w2v_snapshot(sg):
-    """A SkipGram's tables and updater state, {name: numpy copy}."""
+def tables_snapshot(tables):
+    """Tables and their updater state, {name: numpy copy} for ``tables``
+    = {name: table}; state slot i of table t is "t_state{i}"."""
     snap = {}
-    for side, t in (("in", sg.table_in), ("out", sg.table_out)):
+    for side, t in tables.items():
         data, state = t.raw_value()
         snap[side] = data.cpu().numpy().copy()
         for i, x in enumerate(state):
@@ -1202,15 +1340,18 @@ def w2v_snapshot(sg):
     return snap
 
 
-def w2v_fused(torch, sg, batches, sync_check=False):
-    """The fused step over host batches (c, o, neg), all placed first; the
-    tables are handed back after.  Returns the step losses and, with
-    ``sync_check``, whether the steps ran under
+def w2v_snapshot(sg):
+    """A SkipGram's tables and updater state, {name: numpy copy}."""
+    return tables_snapshot({"in": sg.table_in, "out": sg.table_out})
+
+
+def run_fused(torch, tables, step, placed, sync_check=False):
+    """An app's fused ``step`` over batches already on the device, from
+    ``tables``' tensors, which get the results back.  Returns the step
+    losses and, with ``sync_check``, whether the steps ran under
     ``torch.cuda.set_sync_debug_mode("error")`` without raising (else
     None)."""
-    step, place = sg.make_fused_step()
-    placed = [tuple(place(a) for a in b) for b in batches]
-    cur = [*sg.table_in.raw_value(), *sg.table_out.raw_value()]
+    cur = [x for t in tables for x in t.raw_value()]
     losses, sync_free = [], None
     if sync_check:
         torch.cuda.synchronize()
@@ -1228,9 +1369,21 @@ def w2v_fused(torch, sg, batches, sync_check=False):
     finally:
         if sync_check:
             torch.cuda.set_sync_debug_mode(0)
-    sg.table_in.raw_assign(cur[0], cur[1])
-    sg.table_out.raw_assign(cur[2], cur[3])
+    for i, t in enumerate(tables):
+        t.raw_assign(cur[2 * i], cur[2 * i + 1])
     return [float(x) for x in losses], sync_free
+
+
+def w2v_fused(torch, sg, batches, sync_check=False):
+    """The fused step over host batches (c, o, neg), all placed first; the
+    tables are handed back after.  Returns the step losses and, with
+    ``sync_check``, whether the steps ran under
+    ``torch.cuda.set_sync_debug_mode("error")`` without raising (else
+    None)."""
+    step, place = sg.make_fused_step()
+    placed = [tuple(place(a) for a in b) for b in batches]
+    return run_fused(torch, [sg.table_in, sg.table_out], step, placed,
+                     sync_check)
 
 
 def phase_w2v(torch, mv, card):
@@ -1319,24 +1472,7 @@ def phase_w2v(torch, mv, card):
         cur[:] = step(*cur, cb, ob, nb)[:4]
 
     fused_ms = cuda_ms(fused_once, iters=100, warmup=3)
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        s0 = time.perf_counter()
-        for _ in range(20):
-            fused_once()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - s0) * 1e6
-    kernels = sorted(device_kernel_times(prof, torch), reverse=True)
-    busy_us = sum(us for us, _, _ in kernels)
-    fused_profile = {
-        "steps": 20, "wall_ms": wall_us / 1e3,
-        "device_busy_ms": busy_us / 1e3,
-        "device_busy_share": busy_us / wall_us,
-        "kernels_per_step": sum(n for _, n, _ in kernels) / 20,
-        "top_kernels": [{"ms": us / 1e3, "calls": n, "name": nm[:90]}
-                        for us, n, nm in kernels[:10]]}
+    fused_profile = profile_calls(torch, fused_once, 20)
     bench.table_in.raw_assign(cur[0], cur[1])
     bench.table_out.raw_assign(cur[2], cur[3])
     for _ in range(2):
@@ -1398,6 +1534,424 @@ def phase_w2v(torch, mv, card):
             f"loss {pe_loss}")
 
 
+# ------------------------------------------------------------ LightLDA
+
+
+def z_disagreement(got_z, want_z, docs) -> float:
+    """Share of the tokens (``docs`` != -1) whose topic in ``got_z``
+    differs from ``want_z``; 1.0 for a shape mismatch."""
+    got_z, want_z, docs = (np.asarray(a) for a in (got_z, want_z, docs))
+    if got_z.shape != want_z.shape or got_z.shape != docs.shape:
+        return 1.0
+    valid = docs != -1
+    if not valid.any():
+        return 0.0
+    return float((got_z[valid] != want_z[valid]).mean())
+
+
+def lda_counts_conserved(docs, doc_topic, word_topic, topic_sum):
+    """({check: bool}, all hold) for LightLDA's counts, exactly: every
+    doc-topic row sums to its doc's length, the topic totals to the token
+    count, and each word-topic column to its topic's total."""
+    docs = np.asarray(docs)
+    dt = np.asarray(doc_topic, np.float64)
+    wt = np.asarray(word_topic, np.float64)
+    ts = np.asarray(topic_sum, np.float64)
+    lengths = (docs != -1).sum(axis=1)
+    shapes = (dt.shape == (docs.shape[0], ts.shape[0])
+              and wt.ndim == 2 and wt.shape[1] == ts.shape[0])
+    checks = {
+        "doc_rows_sum_to_lengths": bool(
+            shapes and np.array_equal(dt.sum(axis=1), lengths)),
+        "topic_totals_sum_to_tokens": bool(ts.sum() == lengths.sum()),
+        "word_columns_equal_topic_totals": bool(
+            shapes and np.array_equal(wt.sum(axis=0), ts)),
+    }
+    return checks, all(checks.values())
+
+
+def mh_bound_bytes(vocab, topics) -> int:
+    """Bytes the MH sweep's [V, K] passes must move, each input read once
+    and each output written once, in float32: the proposal build (read
+    the counts, write the density and its cumsum: 3), the dense
+    word-topic delta (written once: 1) and the table's add (read the
+    table and the delta, write the table: 3)."""
+    return 4 * vocab * topics * (3 + 1 + 3)
+
+
+def lda_host_draws(torch, docs_shape, topics, mh_steps, seed):
+    """One fused and one MH sweep's draws, made once on the host from a
+    seeded generator: (Gumbel noise [D, L, K], MHDraws)."""
+    from multiverso_tpu_torch.apps.lightlda import MHDraws, gumbel_noise
+
+    g = torch.Generator().manual_seed(seed)
+    shape = tuple(docs_shape)
+    gumbel = gumbel_noise(torch.rand(shape + (topics,), generator=g))
+    u = torch.rand((3, mh_steps) + shape, generator=g)
+    t = torch.randint(0, topics, (mh_steps,) + shape, generator=g)
+    return gumbel, MHDraws(u[0], u[1], t, u[2])
+
+
+def host_array(x) -> np.ndarray:
+    """A tensor (on any device) or an array as a host array."""
+    return np.asarray(x.cpu() if hasattr(x, "cpu") else x)
+
+
+def lda_sweep(LightLDA, docs, sweep, draws, vocab=LDA_VOCAB,
+              topics=LDA_TOPICS):
+    """A fresh LightLDA (``bench_lightlda``'s alpha and beta) from
+    ``initialize_counts`` through one sweep — "fused", "mh" (``draws`` on
+    the host: moved to the tables' device) or "sample" — and its state
+    after it as host arrays: (z, doc_topic, word_topic, topic_sum)."""
+    from multiverso_tpu_torch.apps.lightlda import MHDraws
+
+    lda = LightLDA(vocab, topics, alpha=LDA_ALPHA, beta=LDA_BETA,
+                   name=f"lda_{sweep}")
+    dt = lda.initialize_counts(docs, seed=0)
+    if sweep == "fused":
+        dt = lda.run_fused_pass(docs, dt, gumbel=draws.to(lda.device))
+    elif sweep == "mh":
+        dt = lda.run_mh_pass(docs, dt, mh_steps=LDA_MH_STEPS,
+                             draws=MHDraws(*(x.to(lda.device)
+                                             for x in draws)))
+    else:
+        dt = lda.sample_pass(docs, dt, seed=0)
+    out = (lda._z.copy(), host_array(dt), lda.word_topic.get(),
+           lda.topic_sum.get())
+    lda.close()
+    return out
+
+
+def lda_check_runs(LightLDA, docs, sample_docs, gumbel, mh):
+    """The three sweeps the lda phase holds card against CPU: {sweep:
+    state after it}."""
+    return {"fused": lda_sweep(LightLDA, docs, "fused", gumbel),
+            "mh": lda_sweep(LightLDA, docs, "mh", mh),
+            "sample": lda_sweep(LightLDA, sample_docs, "sample", None)}
+
+
+def lda_rate(torch, LightLDA, docs, sweep, topics):
+    """``bench.py``'s rate of one sweep kind: one warm-up sweep, then the
+    median of 3 on the host clock (each ending in a synchronize); then
+    one profiled sweep (launches, the device's busy share) and the
+    conserved counts after all of them."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    lda = LightLDA(LDA_VOCAB, topics, alpha=LDA_ALPHA, beta=LDA_BETA,
+                   name=f"lda_{sweep}_k{topics}")
+
+    dt = [lda.initialize_counts(docs)]
+
+    def run():
+        if sweep == "fused":
+            dt[0] = lda.run_fused_pass(docs, dt[0])
+        else:
+            dt[0] = lda.run_mh_pass(docs, dt[0], mh_steps=LDA_MH_STEPS)
+
+    run()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(3):
+        s0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - s0)
+    prof = profile_calls(torch, run, 1, top=8)
+    sec = float(np.median(times))
+    checks, conserved = lda_counts_conserved(
+        docs, host_array(dt[0]), lda.word_topic.get(), lda.topic_sum.get())
+    out = {"topics": topics, "sweep_s": times, "sweep_ms_median": sec * 1e3,
+           "tokens_per_sec": docs.size / sec,
+           "launches_per_sweep": prof["kernels_per_step"],
+           "device_busy_share": prof["device_busy_share"],
+           "profiled_sweep": prof, "conserved": checks,
+           "peak_bytes": torch.cuda.max_memory_allocated()}
+    if sweep == "mh":
+        nbytes = mh_bound_bytes(LDA_VOCAB, topics)
+        bound_ms = nbytes / PEAK_HBM_BYTES * 1e3
+        out.update({"bound_bytes": nbytes, "bound_ms": bound_ms,
+                    "bound_share_of_sweep": bound_ms / (sec * 1e3)})
+    lda.close()
+    torch.cuda.empty_cache()
+    return out, conserved
+
+
+def lda_purity_run(LightLDA, synthetic_documents):
+    """25 MH sweeps at the planted-topic test's setting; topic_purity."""
+    p = LDA_PURITY
+    docs, true = synthetic_documents(p["docs"], p["vocab"], p["topics"],
+                                     doc_len=p["doc_len"], seed=p["seed"],
+                                     concentration=p["concentration"])
+    lda = LightLDA(p["vocab"], p["topics"], alpha=LDA_ALPHA, beta=LDA_BETA,
+                   seed=p["seed"], name="lda_purity")
+    dt = lda.initialize_counts(docs, seed=p["seed"])
+    for _ in range(p["sweeps"]):
+        dt = lda.run_mh_pass(docs, dt, mh_steps=LDA_MH_STEPS)
+    purity = float(lda.topic_purity(docs, true, dt))
+    lda.close()
+    return purity
+
+
+def phase_lda(torch, mv, card):
+    """LightLDA at bench_lightlda's shape: the device sweeps card against
+    CPU with one set of draws, exact count conservation, an exact
+    ``sample_pass``, topic recovery, and bench.py's three rates."""
+    from multiverso_tpu_torch.apps import LightLDA, synthetic_documents
+
+    docs, _ = synthetic_documents(LDA_DOCS, LDA_VOCAB, LDA_TOPICS,
+                                  doc_len=LDA_LEN, seed=0)
+    gumbel, mh = lda_host_draws(torch, docs.shape, LDA_TOPICS,
+                                LDA_MH_STEPS, seed=1)
+    sample_docs = docs[:LDA_SAMPLE_DOCS]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mv.ops.reset_launch_counts()
+    mv.init(device=None)
+    runs = {"card": lda_check_runs(LightLDA, docs, sample_docs, gumbel, mh)}
+    purity = lda_purity_run(LightLDA, synthetic_documents)
+    check_peak = torch.cuda.max_memory_allocated()
+    rates, conserved_after_rates = {}, {}
+    for sweep, topics in (("fused", LDA_TOPICS),
+                          *(("mh", k) for k in LDA_MH_TOPICS)):
+        key = "fused" if sweep == "fused" else f"mh_k{topics}"
+        rates[key], conserved_after_rates[key] = lda_rate(
+            torch, LightLDA, docs, sweep, topics)
+    mv.shutdown()
+    counts = mv.ops.launch_counts()
+    mv.init(device="cpu")
+    runs["cpu"] = lda_check_runs(LightLDA, docs, sample_docs, gumbel, mh)
+    mv.shutdown()
+
+    z_shares, conservation = {}, {}
+    for sweep in ("fused", "mh"):
+        card_z, card_dt, card_wt, card_ts = runs["card"][sweep]
+        z_shares[sweep] = z_disagreement(card_z, runs["cpu"][sweep][0], docs)
+        conservation[sweep] = lda_counts_conserved(docs, card_dt, card_wt,
+                                                   card_ts)[0]
+    sample_exact = all(np.array_equal(a, b) for a, b in
+                       zip(runs["card"]["sample"], runs["cpu"]["sample"]))
+    conservation["sample"] = lda_counts_conserved(
+        sample_docs, *runs["card"]["sample"][1:])[0]
+    ok = (all(v <= LDA_Z_TOL for v in z_shares.values())
+          and all(all(c.values()) for c in conservation.values())
+          and all(conserved_after_rates.values())
+          and sample_exact and purity > LDA_PURITY_MIN)
+    emit({"phase": "lda", "ok": ok, "docs": LDA_DOCS, "doc_len": LDA_LEN,
+          "vocab": LDA_VOCAB, "topics": LDA_TOPICS, "alpha": LDA_ALPHA,
+          "beta": LDA_BETA, "mh_steps": LDA_MH_STEPS,
+          "z_differing_share": z_shares, "z_tol": LDA_Z_TOL,
+          "conserved": conservation,
+          "conserved_after_timed_sweeps": conserved_after_rates,
+          "sample_pass_docs": LDA_SAMPLE_DOCS,
+          "sample_pass_exact": sample_exact, "purity": purity,
+          "purity_min": LDA_PURITY_MIN, "purity_setting": LDA_PURITY,
+          "lda_tokens_per_sec": rates["fused"]["tokens_per_sec"],
+          **{f"lda_mh_k{k}_tokens_per_sec": rates[f"mh_k{k}"]
+             ["tokens_per_sec"] for k in LDA_MH_TOPICS},
+          "sweeps": rates, "checks_peak_bytes": check_peak,
+          "launch_counts": counts, "card": card})
+    if not ok:
+        raise AssertionError(
+            f"lda phase failed: z differing {z_shares}, conserved "
+            f"{conservation} / {conserved_after_rates}, sample_pass exact "
+            f"{sample_exact}, purity {purity}")
+
+
+# ---------------------------------------------------- skip-gram mixture
+
+
+def sgmix_tables(sg):
+    """A SkipGramMixture's three tables, in its fused step's order."""
+    return {"sense": sg.table_sense, "out": sg.table_out,
+            "prior": sg.table_prior}
+
+
+def sgmix_snapshot(sg):
+    """A SkipGramMixture's three tables and their updater state, {name:
+    numpy copy}."""
+    return tables_snapshot(sgmix_tables(sg))
+
+
+def sgmix_fused(torch, sg, batches, sync_check=False):
+    """The mixture's fused step over host batches (c, bags, mask, neg),
+    all placed first; the tables are handed back after.  Returns the
+    step losses and, with ``sync_check``, whether the steps ran under
+    ``torch.cuda.set_sync_debug_mode("error")`` without raising (else
+    None)."""
+    step, place = sg.make_fused_step()
+    placed = [(place(c), place(bags), torch.as_tensor(mask).to(sg.device),
+               place(neg)) for c, bags, mask, neg in batches]
+    return run_fused(torch, list(sgmix_tables(sg).values()), step, placed,
+                     sync_check)
+
+
+def sgmix_batches(sg, synthetic_corpus, n):
+    """``n`` batches of SGMIX_BATCH occurrences through ``sg.batches``
+    from the word2vec stream ``synthetic_corpus(n·B, V, seed=0)``."""
+    import itertools
+
+    corpus = synthetic_corpus(n * SGMIX_BATCH, sg.vocab_size, seed=0)
+    return list(itertools.islice(sg.batches(corpus, SGMIX_BATCH, seed=0),
+                                 n))
+
+
+def padding_batches(batches, vocab):
+    """Two momentum batches for the padding check: the first makes word
+    V-1 a center and a context, so its rows gain momentum state; the
+    second holds no id V-1, only the padding id V beside it."""
+    c, bags, mask, neg = (np.array(x) for x in batches[0])
+    c[0], bags[0, 0], mask[0, 0] = vocab - 1, vocab - 1, True
+    second = tuple(np.where(x == vocab - 1, vocab - 2, x) if x.dtype != bool
+                   else x for x in batches[1])
+    return (c, bags, mask, neg), second
+
+
+def rows_unchanged(before, after, vocab, senses):
+    """{table: bool}: word V-1's rows of the sense, out and prior tables
+    and of their updater state are bit for bit the same."""
+    sense_rows = slice((vocab - 1) * senses, vocab * senses)
+    out = {}
+    for k, b in before.items():
+        rows = sense_rows if k.startswith("sense") else slice(vocab - 1,
+                                                             vocab)
+        out[k] = bool(np.array_equal(b[rows], after[k][rows]))
+    return out
+
+
+def senses_separate(post_a, post_b, prior, cos):
+    """The homonym test's verdict (tests/test_apps.py): each context world
+    picks its own dominant sense, neither sense starves, and the two
+    sense vectors differ."""
+    post_a, post_b, prior = (np.asarray(x) for x in (post_a, post_b, prior))
+    return bool(post_a.max() > 0.8 and post_b.max() > 0.8
+                and post_a.argmax() != post_b.argmax()
+                and prior.min() > 0.2 and cos < 0.9)
+
+
+def sgmix_homonym(SkipGramMixture, synthetic_homonym_corpus):
+    """The homonym test's training (V 21, dim 16, 12 epochs) and what it
+    judges: (posterior under A-contexts, under B-contexts, prior, cosine
+    of the two winning sense vectors)."""
+    corpus = synthetic_homonym_corpus(4000, vocab_size=21,
+                                      groups=((1, 10), (11, 20)), seed=0)
+    sg = SkipGramMixture(21, dim=16, senses=2, learning_rate=0.3,
+                         negatives=3, window=3, seed=3, name="sgmix_homonym")
+    for epoch in range(12):
+        sg.train_epoch_fused(corpus, batch_size=256, seed=epoch)
+    post_a = sg.sense_posterior(0, np.arange(1, 11))
+    post_b = sg.sense_posterior(0, np.arange(11, 21))
+    sv_a = sg.sense_vector(0, int(post_a.argmax()))
+    sv_b = sg.sense_vector(0, int(post_b.argmax()))
+    cos = float((sv_a @ sv_b) / (np.linalg.norm(sv_a) * np.linalg.norm(sv_b)
+                                 + 1e-12))
+    return post_a, post_b, sg.sense_priors(0), cos
+
+
+def phase_sgmix(torch, mv, card):
+    """The skip-gram mixture at bench_w2v's vocabulary and width: card
+    against CPU and push-pull against fused by the table changes, a
+    sync-free fused step, padding that leaves row V-1 alone under
+    momentum, the homonym's senses separating, and the fused rate."""
+    from multiverso_tpu_torch.apps import (SkipGramMixture, synthetic_corpus,
+                                           synthetic_homonym_corpus)
+
+    V = SGMIX_VOCAB
+
+    def model(name, updater="sgd", lr=SGMIX_CHECK_LR):
+        return SkipGramMixture(V, SGMIX_DIM, senses=SGMIX_SENSES,
+                               learning_rate=lr, negatives=SGMIX_NEG,
+                               window=SGMIX_WINDOW, updater_type=updater,
+                               name=name)
+
+    def close(*models):
+        for m in models:
+            for t in sgmix_tables(m).values():
+                t.close()
+
+    def fused_run(sg, batches):
+        start = sgmix_snapshot(sg)
+        losses, free = sgmix_fused(torch, sg, batches,
+                                   sync_check=sg.device.type == "cuda")
+        end = sgmix_snapshot(sg)
+        close(sg)
+        return start, end, losses, free
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mv.ops.reset_launch_counts()
+    mv.init(device=None)
+    sg = model("sgmix_sgd")
+    batches = sgmix_batches(sg, synthetic_corpus, SGMIX_STEPS)
+    start, card_end, card_losses, sync_free = fused_run(sg, batches)
+
+    a, b = model("sgmix_pp"), model("sgmix_fu")
+    pp_start = sgmix_snapshot(a)
+    a.train_batch(*batches[0])
+    sgmix_fused(torch, b, batches[:1])
+    pushpull = (sgmix_snapshot(a), sgmix_snapshot(b), pp_start)
+    close(a, b)
+
+    m = model("sgmix_momentum", "momentum", lr=SGMIX_LR)
+    first, second = padding_batches(batches, V)
+    sgmix_fused(torch, m, [first])
+    before = sgmix_snapshot(m)
+    sgmix_fused(torch, m, [second])
+    after = sgmix_snapshot(m)
+    untouched = rows_unchanged(before, after, V, SGMIX_SENSES)
+    moved_elsewhere = bool(np.abs(after["out"] - before["out"]).max() > 0)
+    close(m)
+
+    post_a, post_b, prior, cos = sgmix_homonym(SkipGramMixture,
+                                               synthetic_homonym_corpus)
+    separate = senses_separate(post_a, post_b, prior, cos)
+
+    bench = model("sgmix_bench", lr=SGMIX_LR)
+    step, place = bench.make_fused_step()
+    c, bags, mask, neg = batches[0]
+    placed = (place(c), place(bags), torch.as_tensor(mask).to(CARD),
+              place(neg))
+    cur = [x for t in sgmix_tables(bench).values() for x in t.raw_value()]
+
+    def fused_once():
+        cur[:] = step(*cur, *placed)[:6]
+
+    fused_ms = cuda_ms(fused_once, iters=100, warmup=3)
+    fused_profile = profile_calls(torch, fused_once, 20)
+    close(bench)
+    peak = torch.cuda.max_memory_allocated()
+    mv.shutdown()
+    counts = mv.ops.launch_counts()
+
+    mv.init(device="cpu")
+    _, cpu_end, cpu_losses, _ = fused_run(model("sgmix_sgd"), batches)
+    mv.shutdown()
+    verdict, ok = judge_w2v(
+        {"sgd_card_vs_cpu": (card_end, cpu_end, start),
+         "pushpull_vs_fused": pushpull},
+        {"sgd": (card_losses, cpu_losses, False)}, {"sgd": sync_free})
+    ok = ok and all(untouched.values()) and moved_elsewhere and separate
+    emit({"phase": "sgmix", "ok": ok, "vocab": V, "dim": SGMIX_DIM,
+          "senses": SGMIX_SENSES, "window": SGMIX_WINDOW,
+          "negatives": SGMIX_NEG, "batch": SGMIX_BATCH,
+          "steps": SGMIX_STEPS, "learning_rate": SGMIX_LR,
+          "check_learning_rate": SGMIX_CHECK_LR, "rtol": W2V_RTOL,
+          "losses_cuda": card_losses, "losses_cpu": cpu_losses, **verdict,
+          "padding_row_v_minus_1_unchanged": untouched,
+          "padding_step_moved_the_table": moved_elsewhere,
+          "homonym": {"posterior_a": post_a.tolist(),
+                      "posterior_b": post_b.tolist(),
+                      "prior": prior.tolist(), "cos": cos,
+                      "separate": separate},
+          "sgmix_fused_ms_per_step": fused_ms,
+          "sgmix_fused_occurrences_per_sec": SGMIX_BATCH / (fused_ms * 1e-3),
+          "fused_profile": fused_profile, "peak_bytes": peak,
+          "launch_counts": counts, "card": card})
+    if not ok:
+        raise AssertionError(
+            f"sgmix phase failed: {verdict}, V-1 untouched {untouched}, "
+            f"senses separate {separate}")
+
+
 def main(argv) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=STEPS)
@@ -1452,6 +2006,10 @@ def main(argv) -> int:
         phase_rows(torch, mv, card)
     if "w2v" in phases:
         phase_w2v(torch, mv, card)
+    if "lda" in phases:
+        phase_lda(torch, mv, card)
+    if "sgmix" in phases:
+        phase_sgmix(torch, mv, card)
 
     kernels = []
     for kname, (src, replaces) in KERNELS.items():

@@ -1,22 +1,25 @@
 """Bundled applications of the PyTorch port.
 
 The reference ships its flagship apps as binding examples (SURVEY.md
-§2.32, §2.36).  The port has logistic regression and word2vec, each
-with
+§2.32, §2.36).  The port has logistic regression, word2vec and the
+skip-gram mixture, each with
 
 - a *parity* training path using push-pull ``Get``/``Add`` (the literal
   reference training-loop shape, SURVEY.md §3.4), and
 - a *fused* path where the whole step — pull, compute, push, update —
   runs on the table's device with no host hop,
 
-and the DLRM recommender on the row path.  LightLDA, the skip-gram
-mixture and ResNet come with ROADMAP.md Queue 1 item 9.
+the DLRM recommender on the row path, and LightLDA with its host sweep
+and its two device sweeps.  ResNet comes with ROADMAP.md Queue 1.
 """
 
 from .dlrm import DLRMRecommender, synthetic_clicks, zipf_ids
+from .lightlda import LightLDA, synthetic_documents
 from .logistic_regression import LogisticRegression, synthetic_classification
+from .skipgram_mixture import SkipGramMixture, synthetic_homonym_corpus
 from .word2vec import SkipGram, synthetic_corpus
 
-__all__ = ["DLRMRecommender", "LogisticRegression", "SkipGram",
-           "synthetic_classification", "synthetic_clicks",
-           "synthetic_corpus", "zipf_ids"]
+__all__ = ["DLRMRecommender", "LightLDA", "LogisticRegression", "SkipGram",
+           "SkipGramMixture", "synthetic_classification", "synthetic_clicks",
+           "synthetic_corpus", "synthetic_documents",
+           "synthetic_homonym_corpus", "zipf_ids"]

@@ -28,10 +28,11 @@ Identity mapping (kept name-compatible with the reference C API):
   worker_id()`` under Role.ALL.
 - one device per process, so ``num_replicas()`` is 1.
 
-Two planes of the JAX package are not ported yet (ROADMAP.md Queue 1
-item 10): the sampling profiler (``-profile_hz > 0``) and the health
-plane (``-health_rules`` with ``-metrics_flush_ms > 0``).  ``init()``
-raises ``NotImplementedError`` when the flags ask for either.
+Two planes of the JAX package are not ported yet (ROADMAP.md Queue 1,
+"Jax-free host planes"): the sampling profiler (``-profile_hz > 0``)
+and the health plane (``-health_rules`` with ``-metrics_flush_ms >
+0``).  ``init()`` raises ``NotImplementedError`` when the flags ask for
+either.
 """
 
 from __future__ import annotations
@@ -204,7 +205,8 @@ class Context:
 _LOCK = threading.Lock()
 _CONTEXT: Optional[Context] = None
 
-_NOT_PORTED = "not ported yet (ROADMAP.md Queue 1 item 10)"
+_NOT_PORTED = ("not ported yet (ROADMAP.md Queue 1, the item "
+               "\"Jax-free host planes\")")
 
 
 def _refuse_unported_planes() -> None:

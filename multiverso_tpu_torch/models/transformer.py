@@ -39,7 +39,7 @@ __all__ = ["TransformerConfig", "init_params", "stack_layer_params",
 
 _LAYER_KEYS = ("wq", "wk", "wv", "wo", "w1", "w2", "w3", "attn_norm",
                "mlp_norm")
-_ROADMAP = "ROADMAP.md Queue 1 item 8"
+_ROADMAP = 'ROADMAP.md Queue 1, "The rest of the transformer on one device"'
 
 
 @dataclass(frozen=True)
@@ -332,8 +332,9 @@ class TransformerTrainer:
 
     def offload_state(self, bridge) -> None:
         raise NotImplementedError(
-            f"optimizer-state offload is not ported yet ({_ROADMAP}: "
-            f"parallel/offload.py)")
+            "optimizer-state offload is not ported yet (ROADMAP.md Queue "
+            "1, \"Modules that need the native runtime\": "
+            "parallel/offload.py)")
 
     def save(self, uri: str) -> None:
         """Snapshot params + updater state (rank-0 atomic write, the

@@ -81,4 +81,4 @@ def ring_attention(*args, **kwargs):
     """Sequence-parallel ring attention (``sp > 1``) is not ported yet."""
     raise NotImplementedError(
         "ring attention over an sp > 1 axis is not ported yet "
-        "(ROADMAP.md Queue 1 item 8: sequence-parallel ring)")
+        "(ROADMAP.md Queue 1, \"Several processes\")")

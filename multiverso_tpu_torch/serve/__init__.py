@@ -13,8 +13,8 @@ package's (``tables/base.py``: ``-serve_cache_entries`` arms them):
 
 Both are copies of the JAX package's modules.  The client, wire and
 hedge modules (``ServeClient``, ``AnonServeClient``, ``HedgedReader``)
-need the native runtime and are not ported yet (ROADMAP.md Queue 1
-item 10).
+need the native runtime and are not ported yet (ROADMAP.md Queue 1,
+"Modules that need the native runtime").
 """
 
 from __future__ import annotations

@@ -13,10 +13,17 @@ updater scatters them into the table in place.  The JAX package pads
 row batches to power-of-two buckets for XLA's static shapes; nothing
 here needs them.
 
-Ids outside ``[0, num_rows)`` read zeros and their adds are dropped on
-the host — an out-of-range index never reaches the device, where it
-would be a device-side assert.  (The JAX package reads its padding
-there, or clamps to the last row; ROADMAP.md Queue 3.)
+Ids past the table — outside ``[0, num_rows)`` — are the port's
+contract: ``get_rows`` reads zeros for them and ``add_rows`` drops their
+deltas on the host, so no such index ever reaches the device, where it
+would be a device-side assert.  The JAX package's answer depends on its
+mesh: it pads the rows to a multiple of the device count, an id inside
+the padding reads the padding (zeros until an ``add_rows`` of that id
+writes there), and an id past the padding reads the last padded row
+(on one device: the last real row).  The two agree wherever the JAX
+package reads untouched padding — the apps' padding ids (the skip-gram
+mixture's ``vocab_size``) among them; they differ where the JAX package
+reads padding that an add wrote, or reads its last row.
 """
 
 from __future__ import annotations

@@ -181,15 +181,32 @@ class _Kept(NamedTuple):
         return torch.where(self._col(values), values, 0)
 
     def put_(self, t: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
-        """``t[target] = values`` in place, duplicates resolved by order.
-        Dropped entries aim at the last kept entry's row (``anchored``)
-        and write that entry's own value there, so they change nothing;
-        with no entry kept they rewrite row 0 with itself."""
+        """``t[target] = values`` in place, duplicates resolved by order:
+        the last entry aimed at a row wins.  Dropped entries aim at the
+        last kept entry's row (``anchored``) and write that entry's own
+        value there, so they change nothing; with no entry kept they
+        rewrite row 0 with itself.
+
+        Every entry writes its row's winning value, so duplicate writes
+        agree: ``index_put_`` leaves the order of writes to one row
+        undefined on CUDA, and on the CPU once it splits a batch between
+        threads.  The winner is found on the device, by a stable sort on
+        the row and the last entry of each run of equal rows."""
         values = values.to(t.dtype)
         fill = torch.where(self.keep.any(),
                            values.index_select(0, self.last), t[:1])
-        return t.index_put_((self.target,),
-                            torch.where(self._col(values), values, fill))
+        values = torch.where(self._col(values), values, fill)
+        order = torch.argsort(self.target, stable=True)
+        rows = self.target[order]
+        k = rows.shape[0]
+        # Sorted positions that end a run keep their own index; the rest
+        # take the nearest run end to their right.
+        inside = torch.zeros(k, dtype=torch.bool, device=rows.device)
+        inside[:-1] = rows[1:] == rows[:-1]
+        ends = torch.arange(k, device=rows.device).masked_fill(inside, k)
+        ends = torch.cummin(ends.flip(0), 0).values.flip(0)
+        return t.index_put_((rows,),
+                            values.index_select(0, order[ends]))
 
 
 def _kept_rows(rows: torch.Tensor, mask: Optional[torch.Tensor],

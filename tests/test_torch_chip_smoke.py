@@ -14,7 +14,15 @@ a row apply that ignores its mask or skips the segment-sum.  The w2v
 judge holds real fused runs of a small SkipGram on the CPU: it passes
 push-pull against fused and a reordered batch, and rejects each planted
 fault of the step (a skipped scatter, half the batch, twice the step, a
-stale batch).
+stale batch).  The rows phase's ``assign`` case with duplicate ids is
+held against numpy's last write, and rejects an apply where the first
+write wins.  The lda phase's judges (the share of tokens whose topic
+differs, exact count conservation, the MH bound's bytes) run on real
+sweeps of a small LightLDA, and conservation rejects one planted
+off-by-one count in each of its three arrays.  The sgmix phase's
+helpers run real small mixtures: push-pull against fused and a reordered
+batch pass ``judge_changes``, a doubled step fails it, and the padding
+and homonym verdicts reject what they must.
 """
 
 import dataclasses
@@ -154,10 +162,16 @@ def test_build_phase_fails_without_a_hopper_kernel(tmp_path, lib):
 # ------------------------------------------------ tables and lr phase judges
 
 def test_new_phases_run_by_default():
-    assert chip_smoke.PHASES[-4:] == ("tables", "lr", "rows", "w2v")
+    assert chip_smoke.PHASES[-6:] == ("tables", "lr", "rows", "w2v", "lda",
+                                      "sgmix")
     assert chip_smoke.TABLE_SIZE == 16 * 1024 * 1024
     assert (chip_smoke.W2V_VOCAB, chip_smoke.W2V_DIM,
             chip_smoke.W2V_BATCH) == (100_000, 128, 8192)
+    assert (chip_smoke.LDA_DOCS, chip_smoke.LDA_LEN, chip_smoke.LDA_VOCAB,
+            chip_smoke.LDA_TOPICS, chip_smoke.LDA_MH_TOPICS) == (
+                2048, 64, 10000, 64, (1024, 8192))
+    assert (chip_smoke.SGMIX_VOCAB, chip_smoke.SGMIX_DIM,
+            chip_smoke.SGMIX_BATCH) == (100_000, 128, 1024)
 
 
 def test_rel_to_peak():
@@ -470,3 +484,192 @@ def test_w2v_judge_rejects_a_wrong_fused_step(cpu_runtime, monkeypatch,
         fault: (chip_smoke.w2v_snapshot(bad), chip_smoke.w2v_snapshot(ref),
                 start)})
     assert not ok, errs
+
+
+# ----------------------------------------------- rows: assign duplicates
+
+def test_assign_duplicates_case_shape():
+    rng = np.random.RandomState(3)
+    for n in (8192, 8193, 8194, 300):
+        ids, values, mask = chip_smoke.assign_duplicates_case(rng, n, 5000)
+        _, counts = np.unique(ids, return_counts=True)
+        assert ids.size == values.shape[0] == mask.size == n
+        assert counts.min() == 2 and counts.max() == 4
+        assert 0 < (ids >= 5000).sum() and 0.8 < mask.mean() < 0.95
+
+
+def test_assign_duplicates_hold_last_write(monkeypatch):
+    """The port's assign on the CPU (four threads, where a plain
+    ``index_put_`` orders no writes to one row) equals numpy's last
+    write; an apply where the first write wins does not."""
+    import torch
+
+    rng = np.random.RandomState(4)
+    w0 = rng.randn(3000, chip_smoke.W2V_DIM).astype(np.float32)
+    ids, values, mask = chip_smoke.assign_duplicates_case(rng, 4096, 3000)
+    want = chip_smoke.last_write(w0, ids, values, mask)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(4)
+    try:
+        got, _ = chip_smoke.assign_duplicates(torch, "cpu", w0, ids, values,
+                                              mask)
+        assert np.array_equal(got, want)
+        first, _ = chip_smoke.assign_duplicates(
+            torch, "cpu", w0, *(np.ascontiguousarray(a[::-1])
+                                for a in (ids, values, mask)))
+        assert not np.array_equal(first, want)
+    finally:
+        torch.set_num_threads(threads)
+
+
+# ------------------------------------------------------------- lda judges
+
+def test_z_disagreement():
+    docs = np.array([[1, 2, -1], [3, -1, -1]])
+    z = np.array([[0, 1, -1], [2, -1, -1]])
+    assert chip_smoke.z_disagreement(z, z, docs) == 0.0
+    other = z.copy()
+    other[0, 1] = 3
+    other[1, 2] = 5                          # a PAD slot: not a token
+    assert chip_smoke.z_disagreement(other, z, docs) == pytest.approx(1 / 3)
+    assert chip_smoke.z_disagreement(z[:1], z, docs) == 1.0
+
+
+def test_mh_bound_bytes():
+    assert chip_smoke.mh_bound_bytes(10, 4) == 4 * 10 * 4 * 7
+    ms = chip_smoke.mh_bound_bytes(10_000, 8192) / chip_smoke.PEAK_HBM_BYTES
+    assert ms * 1e3 == pytest.approx(0.6847, abs=1e-4)
+
+
+def _small_lda_state(sweep, draws_seed=1):
+    import torch
+
+    from multiverso_tpu_torch.apps import LightLDA, synthetic_documents
+
+    docs, _ = synthetic_documents(24, 60, 6, doc_len=16, seed=0)
+    docs[::5, 11:] = -1
+    gumbel, mh = chip_smoke.lda_host_draws(torch, docs.shape, 8,
+                                           chip_smoke.LDA_MH_STEPS,
+                                           seed=draws_seed)
+    return docs, chip_smoke.lda_sweep(LightLDA, docs, sweep,
+                                      gumbel if sweep == "fused" else mh,
+                                      vocab=60, topics=8)
+
+
+@pytest.mark.parametrize("sweep", ["fused", "mh", "sample"])
+def test_lda_judges_on_real_sweeps(cpu_runtime, sweep):
+    """One sweep of each kind twice from the same draws: no token differs
+    and the counts are conserved; other draws move some tokens."""
+    docs, a = _small_lda_state(sweep)
+    _, b = _small_lda_state(sweep)
+    assert chip_smoke.z_disagreement(a[0], b[0], docs) == 0.0
+    checks, ok = chip_smoke.lda_counts_conserved(docs, *a[1:])
+    assert ok, checks
+    if sweep != "sample":
+        _, c = _small_lda_state(sweep, draws_seed=2)
+        assert chip_smoke.z_disagreement(c[0], a[0], docs) > 0.01
+
+
+@pytest.mark.parametrize("where", ["doc_topic", "word_topic", "topic_sum"])
+def test_lda_conservation_rejects_one_count_off(cpu_runtime, where):
+    docs, (_, dt, wt, ts) = _small_lda_state("mh")
+    arrays = {"doc_topic": dt.copy(), "word_topic": wt.copy(),
+              "topic_sum": ts.copy()}
+    arrays[where].reshape(-1)[3] += 1
+    checks, ok = chip_smoke.lda_counts_conserved(
+        docs, arrays["doc_topic"], arrays["word_topic"], arrays["topic_sum"])
+    assert not ok, checks
+
+
+# ----------------------------------------------------------- sgmix judges
+
+def _small_sgmix(name, updater="sgd", lr=0.05 * 64):
+    from multiverso_tpu_torch.apps import SkipGramMixture
+
+    return SkipGramMixture(300, 8, senses=2, learning_rate=lr, negatives=3,
+                           window=3, updater_type=updater, name=name)
+
+
+def _sgmix_batches(sg, n=3):
+    import itertools
+
+    from multiverso_tpu_torch.apps import synthetic_corpus
+
+    corpus = synthetic_corpus(64 * n, 300, seed=0)
+    return list(itertools.islice(sg.batches(corpus, 64, seed=0), n))
+
+
+def test_sgmix_judge_passes_and_rejects_real_runs(cpu_runtime):
+    import torch
+
+    ref, alt, bad = (_small_sgmix(n) for n in ("ref", "alt", "bad"))
+    a, b = _small_sgmix("pp"), _small_sgmix("fu")
+    batches = _sgmix_batches(ref)
+    start = chip_smoke.sgmix_snapshot(ref)
+    losses, free = chip_smoke.sgmix_fused(torch, ref, batches)
+    assert free is None and len(losses) == 3 and np.isfinite(losses).all()
+    perm = np.random.RandomState(0).permutation(64)
+    chip_smoke.sgmix_fused(torch, alt, [tuple(x[perm] for x in bt)
+                                        for bt in batches])
+    a.train_batch(*batches[0])
+    chip_smoke.sgmix_fused(torch, b, batches[:1])
+    snap = chip_smoke.sgmix_snapshot
+    errs, ok = chip_smoke.judge_changes({
+        "reordered": (snap(alt), snap(ref), start),
+        "pushpull_vs_fused": (snap(a), snap(b), start)})
+    assert ok, errs
+    assert len(errs) == 6
+    bad.option = dataclasses.replace(bad.option,
+                                     learning_rate=2 * bad.option.learning_rate)
+    chip_smoke.sgmix_fused(torch, bad, batches)
+    _, ok = chip_smoke.judge_changes({"double": (snap(bad), snap(ref),
+                                                 start)})
+    assert not ok
+
+
+def test_sgmix_padding_check(cpu_runtime, monkeypatch):
+    """The padding batches: the first puts word V-1 in, the second keeps
+    it out.  Under momentum the port leaves V-1 alone; a step that
+    clamps the scatter ids onto V-1 (the fault the check exists for)
+    changes its state."""
+    import torch
+
+    from multiverso_tpu_torch.updaters import base
+
+    V = 300
+    m = _small_sgmix("m", "momentum", lr=0.05)
+    first, second = chip_smoke.padding_batches(_sgmix_batches(m, 2), V)
+    assert (first[0] == V - 1).any() and (first[1] == V - 1).any()
+    assert not any((x == V - 1).any() for x in (second[0], second[1],
+                                                second[3]))
+    assert (second[1] == V).any()
+    chip_smoke.sgmix_fused(torch, m, [first])
+    before = chip_smoke.sgmix_snapshot(m)
+    chip_smoke.sgmix_fused(torch, m, [second])
+    same = chip_smoke.rows_unchanged(before, chip_smoke.sgmix_snapshot(m),
+                                     V, 2)
+    assert all(same.values()) and len(same) == 5, same
+
+    real = base.scatter_apply
+
+    def clamped(upd, data, state, rows, delta, opt):
+        return real(upd, data, state, rows.clamp(max=data.shape[0] - 1),
+                    delta, opt)
+
+    monkeypatch.setattr(base, "scatter_apply", clamped)
+    bad = _small_sgmix("bad", "momentum", lr=0.05)
+    chip_smoke.sgmix_fused(torch, bad, [first])
+    before = chip_smoke.sgmix_snapshot(bad)
+    chip_smoke.sgmix_fused(torch, bad, [second])
+    same = chip_smoke.rows_unchanged(before, chip_smoke.sgmix_snapshot(bad),
+                                     V, 2)
+    assert not same["out_state0"], same
+
+
+def test_senses_separate_verdict():
+    a, b, prior = [0.9, 0.1], [0.05, 0.95], [0.5, 0.5]
+    assert chip_smoke.senses_separate(a, b, prior, 0.3)
+    assert not chip_smoke.senses_separate(a, [0.9, 0.1], prior, 0.3)
+    assert not chip_smoke.senses_separate([0.6, 0.4], b, prior, 0.3)
+    assert not chip_smoke.senses_separate(a, b, [0.9, 0.1], 0.3)
+    assert not chip_smoke.senses_separate(a, b, prior, 0.95)

@@ -186,7 +186,7 @@ def test_barrier_timeout_dumps_the_black_box(tmv, tmp_path):
                                    ["-metrics_flush_ms=50",
                                     "-health_rules=true"]])
 def test_unported_planes_raise(tmv, flags):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+    with pytest.raises(NotImplementedError, match="Jax-free host planes"):
         tmv.init(device="cpu", args=flags)
     assert not tmv.initialized()
 

@@ -12,7 +12,10 @@ pads to 16 rows, so ids 13-15 read its padding and larger ids clamp to
 row 15 — zeros while nothing lands there, which is what the port reads
 for every id outside the table.  Adds to ids past the table are dropped
 by the port; the JAX package writes ids 13-15 into its padding, which
-no whole-table read shows (ROADMAP.md Queue 3).
+no whole-table read shows.  That is the port's contract for ids past a
+table (``multiverso_tpu_torch/tables/matrix_table.py``), and
+``test_ids_past_the_table_contract`` pins both the agreement and the one
+difference.
 """
 
 from functools import partial
@@ -115,6 +118,83 @@ def test_matrix_get_rows_reads_zeros_past_the_table(mv, tmv):
     _close(got[0], init[[3, 7, 0, 12]])
     assert got[2].shape == (0, COLS)
     np.testing.assert_array_equal(got[1][[0, 2, 3, 4]], 0.0)
+
+
+def test_ids_past_the_table_contract(mv, tmv):
+    """Ids past the table: both packages read zeros while the JAX
+    package's padding is untouched (ids 13-15 lie in it, larger ids read
+    its last padded row, 15).  Once an ``add_rows`` of ids 14 and 15
+    writes into the padding, the JAX package reads that write at 14, 15
+    and every id past the padding; the port dropped the add and reads
+    zeros there.  Whole-table reads agree throughout."""
+    init = _rand(5, ROWS, COLS)
+    past = [13, 14, 15, 16, 40]
+
+    def run(s):
+        s.init()
+        t = s.m.MatrixTable(ROWS, COLS, init=init)
+        untouched = t.get_rows(past)
+        t.add_rows([15, 14, 2], np.full((3, COLS), 7, np.float32))
+        return [untouched, t.get(), t.get_rows(past)]
+
+    got, want = {}, {}
+    for side in _sides(mv, tmv):
+        (got if side.name == "torch" else want)[side.name] = run(side)
+        side.m.shutdown()
+    got, want = got["torch"], want["jax"]
+    np.testing.assert_array_equal(got[0], 0.0)
+    np.testing.assert_array_equal(want[0], 0.0)
+    _close(got[1], want[1])
+    np.testing.assert_array_equal(want[1][2], init[2] + 7)
+    np.testing.assert_array_equal(got[2], 0.0)
+    np.testing.assert_array_equal(want[2][0], 0.0)        # id 13
+    np.testing.assert_array_equal(want[2][1:], 7.0)       # 14, 15, past
+
+
+def _assign_case(seed, n_ids, rows, cols):
+    """Ids each repeated 2-4 times in shuffled order, every entry with its
+    own values, about a tenth masked off, and ids past the table."""
+    rng = np.random.RandomState(seed)
+    ids = np.repeat(rng.choice(rows + 6, size=n_ids, replace=False),
+                    rng.randint(2, 5, size=n_ids))
+    ids = ids[rng.permutation(ids.size)].astype(np.int64)
+    values = rng.randn(ids.size, cols).astype(np.float32)
+    mask = rng.rand(ids.size) > 0.1
+    return ids, values, mask
+
+
+@pytest.mark.parametrize("rows, n_ids, cols", [(40, 30, COLS),
+                                               (20_000, 2_731, 64)])
+def test_assign_duplicate_ids_last_write_wins(mv, tmv, rows, n_ids, cols):
+    """``assign``'s row apply resolves duplicate ids by order: the last
+    kept entry aimed at a row wins, as in the JAX package's
+    ``.at[].set`` on the CPU.  Masked entries and ids past the table
+    change nothing.  The large case runs on four threads: the CPU's
+    ``index_put_`` then splits one batch's writes between threads and,
+    like CUDA, leaves their order to one row undefined."""
+    from multiverso_tpu import updaters as jup
+    from multiverso_tpu_torch import updaters as tup
+
+    w0 = _rand(6, rows, cols)
+    ids, values, mask = _assign_case(7, n_ids, rows, cols)
+    want = w0.copy()
+    for i, v, m in zip(ids, values, mask):
+        if m and i < rows:
+            want[i] = v
+    jw, _ = jup.get_updater("assign").apply_rows(
+        jnp.asarray(w0), (), jnp.asarray(ids), jnp.asarray(values),
+        jup.AddOption(), mask=jnp.asarray(mask))
+    threads = torch.get_num_threads()
+    torch.set_num_threads(4)
+    try:
+        tw, _ = tup.get_updater("assign").apply_rows(
+            torch.from_numpy(w0.copy()), (), torch.from_numpy(ids),
+            torch.from_numpy(values), tup.AddOption(),
+            mask=torch.from_numpy(mask))
+    finally:
+        torch.set_num_threads(threads)
+    np.testing.assert_array_equal(np.asarray(jw), want)
+    np.testing.assert_array_equal(tw.numpy(), want)
 
 
 @pytest.mark.parametrize("name", UPDATERS)
