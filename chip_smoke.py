@@ -5,7 +5,7 @@ Run from the repository root on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py
 
-Phases, each printing one JSON line:
+Phases, each printing JSON lines:
 
 1. device  — the card's name, count and power limit.
 2. build   — compiles the three flash-attention kernels from
@@ -32,10 +32,22 @@ Phases, each printing one JSON line:
              faults at the trainer's shape (the causal diagonal dropped,
              one future key admitted) must fail that test.
 4. trainer — ``TransformerTrainer`` at the full width of the repo's
-             largest dense config (vocab 32768, dim 2048, 16 heads,
-             hidden 5632, 16 layers, bf16, seq 2048, batch 4, SGD) for 5
-             steps on one fixed batch: the loss must be finite and fall,
-             and every step must launch each kernel once per layer.
+             largest dense config (bench_transformer_large: vocab 32768,
+             dim 2048, 16 heads, hidden 5632, 16 layers, bf16, seq 2048,
+             SGD), runs of 5 steps from one draw of the float32 masters
+             (``TransformerTrainer(params=...)``): no remat at batch 4
+             (the continuity line), remat "dots" at batch 4
+             (``transformer_large_tokens_per_sec``), no remat at batch 8
+             (the batch of 4 twice) and full remat at batch 8
+             (``transformer_large_fullremat_tokens_per_sec``).  Each loss
+             trajectory must be finite and fall, each remat run's stay
+             within 1e-3 of the no-remat run's and its parameters' change
+             within 1e-3 of the no-remat run's at its batch, the kernels
+             at the batch of 8's attention shape (bh 128) must agree
+             with their plain versions, and the kernels launch per layer
+             and step: the forward once (twice under full remat, whose
+             backward recomputes it; "dots" keeps its output), dq and
+             dkv once.
    profile — one more step under torch.profiler: device time by kernel
              class (flash kernels, matrix products, other) and the
              device's busy share of the step.
@@ -45,6 +57,36 @@ Phases, each printing one JSON line:
              its plain version, its bound (with the achieved TFLOP/s and
              the bound's share of the time), and PyTorch's flash attention
              as a yardstick that the port never calls.
+   small   — bench_transformer (vocab 8192, dim 512, 4 layers, 8 heads of
+             64, hidden 1408, batch 8, seq 2048, no remat): 5 steps
+             (``transformer_tokens_per_sec``), one ``accum=2`` step
+             against one ``accum=1`` step from the same weights (loss and
+             every parameter's change within 2e-2), and the kernels at
+             its attention shape (D 64): parity and timing as above.
+   moe     — bench_moe (vocab 16384, dim 1024, 8 layers, 8 heads, hidden
+             2816, 8 experts, top-2, capacity factor 1.25, full remat,
+             batch 8, seq 1024): 5 steps with each dispatch from one draw
+             (``moe_dense_tokens_per_sec``,
+             ``moe_capacity_tokens_per_sec``, ``moe_capacity_vs_dense``);
+             one MoE layer's forward and backward with each dispatch
+             must not make the host wait for the card
+             (``torch.cuda.set_sync_debug_mode("error")``); the kernels
+             at its attention shape (bh 64, T 1024, D 128, bf16, causal)
+             against their plain versions; then a seeded 2-layer
+             float32 copy on the card and on the CPU: the capacity
+             dispatch with room for every route drops none and equals
+             the dense one, each layer's dropped routes at capacity
+             factors 1.25 and 0.5 match, the aux losses agree within
+             1e-5 and the logits within 1e-4 of their scale.
+   longctx — bench_long_context (vocab 8192, dim 1024, 4 layers, 8 heads
+             of 128, hidden 2816, batch 1, seq 16,384, full remat): 5
+             steps (``longctx_tokens_per_sec``, ``longctx_seq``), the
+             kernels at T 16,384 against their plain versions at bh 2,
+             and their times at bh 8.
+             Each of trainer, small, moe and longctx reports step times
+             (mean of steps 2-5), peak memory and its own launch counts,
+             and each new run a profile of one more step (the device's
+             busy share, launches, the top kernels).
 7. tables  — the parameter-server path on the card: ``init()`` with no
              device (so ``cuda:0``), then ArrayTables of 16,777,216
              float32 (64 MiB, the size of ``bench.py``'s add/get bench),
@@ -155,7 +197,9 @@ Phases, each printing one JSON line:
              No kernel of ``ops/csrc`` runs on phases 7 to 12; each
              reports the launch counts of its own run (0).
 
-Then the kernels line, the nvidia-smi line, and the result line.  Any
+Then the kernels line (the trainer's numbers, the launches of every
+path, and the kernels' numbers at the small and longctx shapes), the
+nvidia-smi line, and the result line.  Any
 failure exits non-zero and prints no result.  ``--steps``/``--phases``
 shorten a run while iterating; such a run ends with a line naming what it
 skipped instead of the result line, and exits 4.
@@ -185,8 +229,39 @@ PEAK_HBM_BYTES = 3.35e12
 # gives the kernels.  The parity and timing phases use the same shape.
 LAYERS, STEPS, BATCH, SEQ = 16, 5, 4, 2048
 HEADS, HEAD_DIM = 16, 128
-PHASES = ("parity", "trainer", "profile", "check", "timing", "tables",
-          "lr", "rows", "w2v", "lda", "sgmix")
+PHASES = ("parity", "trainer", "profile", "check", "timing", "small", "moe",
+          "longctx", "tables", "lr", "rows", "w2v", "lda", "sgmix")
+# Remat reschedules the backward and recomputes the same numbers: on the
+# card "dots" matched the no-remat losses to the last bit and full remat
+# (batch 8, the batch of 4 twice) within 5.3e-5, so the losses are held
+# within 1e-3, about 20x room; so is each remat run's parameter change
+# against the no-remat run's at its batch, where a layer whose update was
+# lost shows as 1.  accum=2 against accum=1 (sums of bf16 products in
+# another order) is held within the card-vs-CPU trainer check's 2e-2.
+REMAT_TOL = 1e-3
+CHANGE_TOL = 2e-2
+# bench.py's other transformer configs, each at its own batch and seq:
+# bench_transformer (:1418-1424), bench_moe (:1590-1616) and
+# bench_long_context (:1619-1640).
+SMALL = dict(vocab_size=8192, dim=512, n_layers=4, n_heads=8, hidden=1408)
+SMALL_BATCH, SMALL_SEQ = 8, 2048
+MOE = dict(vocab_size=16384, dim=1024, n_layers=8, n_heads=8, hidden=2816,
+           num_experts=8, top_k=2, capacity_factor=1.25, remat=True)
+MOE_BATCH, MOE_SEQ = 8, 1024
+# The MoE checks' 2-layer float32 copy, small enough for the CPU side.
+MOE_CHECK_BATCH, MOE_CHECK_SEQ = 2, 256
+# Two float32 paths (dense against capacity dispatch, card against CPU)
+# sum products over dim 1024 and hidden 2816 in other orders: logits
+# within 1e-4 of their scale; the aux loss, a mean of softmax outputs,
+# within 1e-5 relative.  A dropped or misrouted route moves the logits
+# by O(1) of their scale.
+MOE_TOL, MOE_AUX_TOL = 1e-4, 1e-5
+LONG = dict(vocab_size=8192, dim=1024, n_layers=4, n_heads=8, hidden=2816,
+            remat=True)
+LONG_BATCH, LONG_SEQ = 1, 16384
+# The plain versions hold [bh, T, T] float32 scores, 1 GiB a head at T
+# 16,384: the kernels are held against them at bh 2.
+LONG_PARITY_BH = 2
 
 # The parameter-server path: bench.py's add/get table (bench_add_get,
 # 16 Mi float32) and its LR shape (bench_lr: batch 8192, 784 features,
@@ -449,6 +524,32 @@ def phase_build(_build, paths, build_s):
                              "kernel has no HGMMA or no UTMALDG in its SASS")
 
 
+def parity_case(fa, torch, bh, t, tk, d, dtype, causal, tag, seed):
+    """One case of the three kernels against their plain versions:
+    (result line, inputs, plain outputs)."""
+    x = attn_inputs(bh, t, d, dtype, seed=seed, tk=tk)
+    o_ref, lse_ref = fa.flash_fwd_ref(x["q"], x["k"], x["v"], d ** -0.5,
+                                      causal)
+    saved = (lse_ref, (x["do"].float() * o_ref.float()).sum(-1) - x["dlse"])
+    del o_ref
+    got = run_three(fa, x, causal, False, saved)
+    want = run_three(fa, x, causal, True, saved)
+    torch.cuda.synchronize()
+    errs, ok = compare(got, want)
+    return ({"case": tag, "bh": bh, "T": t, "Tk": tk, "D": d,
+             "dtype": str(dtype).split(".")[-1], "causal": causal,
+             "ok": ok, "errors": errs}, x, want)
+
+
+def kernel_errors(errs):
+    """The largest absolute error of each kernel's outputs in one case."""
+    worst = {n: errs.get(n, {}).get("max_abs", math.nan)
+             for n in ("o", "lse", "dq", "dk", "dv")}
+    return {"flash_fwd": max(worst["o"], worst["lse"]),
+            "flash_dq": worst["dq"],
+            "flash_dkv": max(worst["dk"], worst["dv"])}
+
+
 def phase_parity(fa, torch):
     results, full_err, faults = [], {}, []
     cases = [(BATCH * HEADS, SEQ, SEQ, HEAD_DIM, torch.bfloat16, True,
@@ -472,30 +573,16 @@ def phase_parity(fa, torch):
                           "two_row_tile"))
     cases.append((1, SEQ, SEQ, HEAD_DIM, torch.bfloat16, True, "one_head"))
     for i, (bh, t, tk, d, dtype, causal, tag) in enumerate(cases):
-        x = attn_inputs(bh, t, d, dtype, seed=100 + i, tk=tk)
-        o_ref, lse_ref = fa.flash_fwd_ref(x["q"], x["k"], x["v"],
-                                          d ** -0.5, causal)
-        saved = (lse_ref, (x["do"].float() * o_ref.float()).sum(-1)
-                 - x["dlse"])
-        got = run_three(fa, x, causal, False, saved)
-        want = run_three(fa, x, causal, True, saved)
-        torch.cuda.synchronize()
-        errs, ok = compare(got, want)
-        del got
-        results.append({"case": tag, "bh": bh, "T": t, "Tk": tk, "D": d,
-                        "dtype": str(dtype).split(".")[-1],
-                        "causal": causal, "ok": ok, "errors": errs})
+        result, x, want = parity_case(fa, torch, bh, t, tk, d, dtype,
+                                      causal, tag, seed=100 + i)
+        results.append(result)
         if tag == "full_width":
-            worst = {n: errs.get(n, {}).get("max_abs", math.nan)
-                     for n in want}
-            full_err = {"flash_fwd": max(worst["o"], worst["lse"]),
-                        "flash_dq": worst["dq"],
-                        "flash_dkv": max(worst["dk"], worst["dv"])}
+            full_err = kernel_errors(result["errors"])
             for fault, offset in (("drop_diagonal", -1), ("next_key", 1)):
                 f_errs, f_ok = compare(planted_fault(x, offset), want)
                 faults.append({"fault": fault, "rejected": not f_ok,
                                "errors": f_errs})
-        del x, want, saved, o_ref, lse_ref
+        del x, want
     ok = (all(r["ok"] for r in results)
           and all(f["rejected"] for f in faults))
     emit({"phase": "parity", "ok": ok, "f32_tol": F32_TOL,
@@ -507,29 +594,59 @@ def phase_parity(fa, torch):
     return full_err
 
 
-def phase_trainer(args, torch, mv, card):
-    from multiverso_tpu_torch.models import (TransformerConfig,
-                                             TransformerTrainer)
+def large_config(torch, **kw):
+    """bench_transformer_large's model (bench.py:1468-1469) in bf16."""
+    from multiverso_tpu_torch.models import TransformerConfig
 
-    cfg = TransformerConfig(vocab_size=32768, dim=HEADS * HEAD_DIM,
-                            n_layers=LAYERS, n_heads=HEADS, hidden=5632,
-                            max_seq=SEQ, compute_dtype=torch.bfloat16)
+    return TransformerConfig(vocab_size=32768, dim=HEADS * HEAD_DIM,
+                             n_layers=LAYERS, n_heads=HEADS, hidden=5632,
+                             max_seq=SEQ, compute_dtype=torch.bfloat16, **kw)
+
+
+def expected_launches(remat_policy, layers, steps):
+    """Kernel launches of ``steps`` train steps of ``layers`` layers: the
+    forward once per layer and step, and once more in the backward under
+    full remat ("dots" keeps its (o, lse)); each backward kernel once."""
+    fwd = 2 if remat_policy == "full" else 1
+    return {"flash_fwd": fwd * layers * steps,
+            "flash_dq": layers * steps, "flash_dkv": layers * steps}
+
+
+def judge_launches(counts, remat_policy, layers, steps) -> bool:
+    want = expected_launches(remat_policy, layers, steps)
+    return all(counts.get(k) == n for k, n in want.items())
+
+
+def judge_remat_losses(losses, base, tol=REMAT_TOL):
+    """(max relative difference, verdict) of a remat run's losses against
+    the no-remat run's from the same weights and tokens: remat is a pure
+    rescheduling, so only bf16 rounding may part them."""
+    if len(losses) != len(base) or not all(math.isfinite(x)
+                                           for x in losses + base):
+        return math.inf, False
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, base))
+    return rel, rel <= tol
+
+
+def train_run(torch, mv, cfg, host, tokens, steps, accum=1, profile=False):
+    """``steps`` trainer steps from the float32 masters ``host`` on one
+    batch: the losses, each step's host-clock time (ending in a
+    synchronize), tokens/s over steps 2-5, the peak device memory and
+    the launch counts of these steps alone; with ``profile``, one more
+    step under torch.profiler (the device's busy share, launches, the
+    top kernels).  Returns (report, trainer)."""
+    from multiverso_tpu_torch.models import TransformerTrainer
+
     t0 = time.perf_counter()
-    tr = TransformerTrainer(cfg, updater_type="sgd", seed=0)
-    init_s = time.perf_counter() - t0
-    n_params = sum(p.numel() for p in
-                   [tr.params["embed"], tr.params["head"],
-                    tr.params["out_norm"]]
-                   + [w for lyr in tr.params["layers"] for w in lyr.values()])
-    tokens = torch.randint(0, cfg.vocab_size, (BATCH, SEQ),
-                           generator=torch.Generator().manual_seed(1))
+    tr = TransformerTrainer(cfg, updater_type="sgd", params=host)
     torch.cuda.synchronize()
+    place_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
     mv.ops.reset_launch_counts()
     losses, step_s = [], []
-    for _ in range(args.steps):
+    for _ in range(steps):
         s0 = time.perf_counter()
-        loss = tr.train_step_async(tokens)
+        loss = tr.train_step_async(tokens, accum)
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - s0)
         losses.append(float(loss))
@@ -537,26 +654,382 @@ def phase_trainer(args, torch, mv, card):
     peak = torch.cuda.max_memory_allocated()
     steady = step_s[1:] or step_s
     step_mean = sum(steady) / len(steady)
-    want = cfg.n_layers * args.steps
-    ok = (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]
-          and all(counts[k] == want for k in KERNELS))
+    prof = (profile_calls(torch, lambda: tr.train_step_async(tokens, accum),
+                          1, top=8) if profile else None)
+    return {"remat": cfg.remat and cfg.remat_policy, "batch": tokens.shape[0],
+            "seq": tokens.shape[1], "n_layers": cfg.n_layers,
+            "place_s": place_s, "losses": losses, "step_s": step_s,
+            "step_s_mean_after_first": step_mean,
+            "tokens_per_s": tokens.numel() / step_mean,
+            "peak_mem_bytes": peak, "launch_counts": counts,
+            "launches_expected": expected_launches(
+                cfg.remat and cfg.remat_policy, cfg.n_layers, steps),
+            "profile": prof}, tr
+
+
+def run_ok(run, steps) -> bool:
+    """Finite, falling losses and the kernels launched as the remat
+    policy says."""
+    losses = run["losses"]
+    return (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]
+            and judge_launches(run["launch_counts"], run["remat"],
+                               run["n_layers"], steps))
+
+
+def phase_trainer(args, torch, fa, mv, card):
+    """bench_transformer_large's three runs from one draw of the float32
+    masters: no remat at batch 4 (PERF.md's continuity line), remat
+    "dots" at batch 4 (transformer_large_tokens_per_sec) and full remat
+    at batch 8 (transformer_large_fullremat_tokens_per_sec).  The batch
+    of 8 is the batch of 4 twice, so its mean loss and gradients are the
+    batch of 4's and every run's losses can be held against the no-remat
+    run's; each remat run's parameter change is held against that of a
+    no-remat run at its own batch (the batch of 8 picks other product
+    shapes, whose bf16 rounding parts it from the batch of 4 by 2.8e-2 of
+    the change in five steps).  Then the kernels at the batch of 8's
+    attention shape against their plain versions.  Returns the
+    runs' launch counts and the kernels' errors at that shape."""
+    from multiverso_tpu_torch.models import init_params
+
+    cfg = large_config(torch)
+    t0 = time.perf_counter()
+    host = init_params(cfg, seed=0)
+    draw_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in
+                   [host["embed"], host["head"], host["out_norm"]]
+                   + [w for lyr in host["layers"] for w in lyr.values()])
+    tokens = torch.randint(0, cfg.vocab_size, (BATCH, SEQ),
+                           generator=torch.Generator().manual_seed(1))
+    base, tr = train_run(torch, mv, cfg, host, tokens, args.steps)
+    ok = run_ok(base, args.steps)
+    start, moved = snapshot(host), snapshot(tr.params)
     if "profile" in args.phases.split(","):
         profile_step(tr, tokens, torch, card)
+    del tr
+    torch.cuda.empty_cache()
+    # init_s, as in every earlier PR: the draw and placing the weights on
+    # the card.
     emit({"phase": "trainer", "ok": ok, "n_layers": cfg.n_layers,
           "dim": cfg.dim, "n_heads": cfg.n_heads, "hidden": cfg.hidden,
           "vocab": cfg.vocab_size, "batch": BATCH, "seq": SEQ,
-          "params": n_params, "init_s": init_s, "losses": losses,
-          "step_s": step_s, "step_s_mean_after_first": step_mean,
-          "tokens_per_s": BATCH * SEQ / step_mean,
-          "peak_mem_bytes": peak, "launch_counts": counts,
-          "launches_expected_each": want, "card": card})
+          "params": n_params, "init_s": draw_s + base["place_s"],
+          "losses": base["losses"], "step_s": base["step_s"],
+          "step_s_mean_after_first": base["step_s_mean_after_first"],
+          "tokens_per_s": base["tokens_per_s"],
+          "peak_mem_bytes": base["peak_mem_bytes"],
+          "launch_counts": base["launch_counts"],
+          "launches_expected_each": cfg.n_layers * args.steps,
+          "card": card})
     if not ok:
         raise AssertionError(
-            f"trainer phase failed: losses {losses}, launches {counts} "
-            f"(want {want} each)")
+            f"trainer phase failed: losses {base['losses']}, launches "
+            f"{base['launch_counts']}")
+    counts = {"trainer": base["launch_counts"]}
+    refs = {BATCH: (base, moved)}
+    for policy, batch, key in (
+            ("dots", BATCH, "transformer_large_tokens_per_sec"),
+            ("full", 2 * BATCH, "transformer_large_fullremat_tokens_per_sec")):
+        batch_tokens = tokens.repeat(batch // BATCH, 1)
+        if batch not in refs:
+            # The no-remat run at this batch, whose parameter change the
+            # remat run must reproduce.
+            ref, tr = train_run(torch, mv, cfg, host, batch_tokens,
+                                args.steps)
+            refs[batch] = ref, snapshot(tr.params)
+            del tr
+            torch.cuda.empty_cache()
+        ref, ref_params = refs[batch]
+        run, tr = train_run(torch, mv, large_config(
+            torch, remat=True, remat_policy=policy), host, batch_tokens,
+            args.steps)
+        change = max(rel_change(g, w, s0) for g, w, s0 in
+                     zip(snapshot(tr.params), ref_params, start))
+        run["profile"] = profile_calls(
+            torch, lambda: tr.train_step_async(batch_tokens), 1, top=8)
+        del tr
+        torch.cuda.empty_cache()
+        rel, same = judge_remat_losses(run["losses"], base["losses"])
+        ok = run_ok(run, args.steps) and same and change <= REMAT_TOL
+        emit({"phase": "trainer", "ok": ok, **run, key: run["tokens_per_s"],
+              "losses_no_remat": base["losses"], "max_rel_diff": rel,
+              "tol": REMAT_TOL, "change_vs_no_remat": change,
+              "no_remat_at_batch": {k: ref[k] for k in (
+                  "batch", "losses", "step_s_mean_after_first",
+                  "peak_mem_bytes")},
+              "card": card})
+        if not ok:
+            raise AssertionError(
+                f"trainer remat {policy} failed: losses {run['losses']} vs "
+                f"{base['losses']}, change {change}, launches "
+                f"{run['launch_counts']} (want {run['launches_expected']})")
+        counts[f"trainer_{policy}"] = run["launch_counts"]
+    del start, moved, refs
+    bh = 2 * BATCH * HEADS
+    parity, _, _ = parity_case(fa, torch, bh, SEQ, SEQ, HEAD_DIM,
+                               torch.bfloat16, True, "full_remat_bh128",
+                               seed=600)
+    torch.cuda.empty_cache()
+    emit({"phase": "trainer", "ok": parity["ok"], "kernel_parity": parity,
+          "card": card})
+    if not parity["ok"]:
+        raise AssertionError("a kernel disagrees with its plain version at "
+                             f"the full-remat run's shape (bh {bh})")
+    return counts, {"trainer_full": {
+        "errors": kernel_errors(parity["errors"]),
+        "shape": [2 * BATCH, HEADS, SEQ, HEAD_DIM]}}
+
+
+def snapshot(params):
+    """Every leaf of a parameter tree as float32 numpy, in one order."""
+    from multiverso_tpu_torch.models.transformer import _leaves
+
+    return [host_array(p) for p in _leaves(params)]
+
+
+def phase_small(args, torch, fa, mv, card):
+    """bench_transformer's config (``transformer_tokens_per_sec``): five
+    steps at batch 8, seq 2048, no remat; one ``accum=2`` step against
+    one ``accum=1`` step from the same weights; and the kernels at its
+    attention shape (D 64): parity against the plain versions and their
+    times."""
+    from multiverso_tpu_torch.models import (TransformerConfig,
+                                             TransformerTrainer, init_params)
+
+    cfg = TransformerConfig(**SMALL, max_seq=SMALL_SEQ,
+                            compute_dtype=torch.bfloat16)
+    host = init_params(cfg, seed=0)
+    tokens = torch.randint(0, cfg.vocab_size, (SMALL_BATCH, SMALL_SEQ),
+                           generator=torch.Generator().manual_seed(1))
+    run, tr = train_run(torch, mv, cfg, host, tokens, args.steps,
+                        profile=True)
+    del tr
+    start = snapshot(host)
+    steps = {}
+    for accum in (1, 2):
+        tr = TransformerTrainer(cfg, updater_type="sgd", params=host)
+        loss = float(tr.train_step_async(tokens, accum))
+        steps[accum] = (loss, snapshot(tr.params))
+        del tr
+    torch.cuda.empty_cache()
+    accum_err = {"loss": abs(steps[2][0] - steps[1][0]) / abs(steps[1][0]),
+                 "leaves": max(rel_change(g, w, s0) for g, w, s0 in zip(
+                     steps[2][1], steps[1][1], start))}
+    heads = cfg.n_heads
+    parity, _, _ = parity_case(fa, torch, SMALL_BATCH * heads, SMALL_SEQ,
+                               SMALL_SEQ, cfg.head_dim, torch.bfloat16,
+                               True, "small_d64", seed=300)
+    times = kernel_times(fa, torch, SMALL_BATCH, heads, SMALL_SEQ,
+                         cfg.head_dim)
+    ok = (run_ok(run, args.steps) and parity["ok"]
+          and all(e <= CHANGE_TOL for e in accum_err.values()))
+    emit({"phase": "small", "ok": ok, "config": SMALL, **run,
+          "transformer_tokens_per_sec": run["tokens_per_s"],
+          "accum2_vs_accum1": accum_err, "accum_tol": CHANGE_TOL,
+          "kernel_parity": parity, "kernel_times": times, "card": card})
+    if not ok:
+        raise AssertionError(
+            f"small phase failed: losses {run['losses']}, launches "
+            f"{run['launch_counts']}, accum {accum_err}, kernel parity "
+            f"{parity['ok']}")
+    return {"launches": run["launch_counts"],
+            "errors": kernel_errors(parity["errors"]), "times": times,
+            "shape": [SMALL_BATCH, heads, SMALL_SEQ, cfg.head_dim]}
+
+
+def dropped_routes(moe, fn):
+    """``fn()``'s result and the dropped-route count of each capacity
+    dispatch it made (one per MoE layer)."""
+    seen, plan = [], moe.capacity_plan
+
+    def counted(*args):
+        out = plan(*args)
+        seen.append(int((~out[1]).sum()))
+        return out
+
+    moe.capacity_plan = counted
+    try:
+        return fn(), seen
+    finally:
+        moe.capacity_plan = plan
+
+
+def moe_check_run(torch, cfg_kw, host, tokens, device):
+    """The seeded 2-layer copy of bench_moe's config in float32 on
+    ``device``: logits and aux of the dense dispatch, of the capacity
+    dispatch with room for every route (cf = E/top_k), and at cf 1.25 and
+    0.5 with each layer's dropped routes."""
+    from multiverso_tpu_torch.models import (TransformerConfig,
+                                             params_from_jax,
+                                             transformer_forward)
+    from multiverso_tpu_torch.models import moe
+
+    out = {}
+    ample = cfg_kw["num_experts"] / cfg_kw["top_k"]
+    for name, disp, cf in (("dense", "dense", 1.25),
+                           ("ample", "capacity", ample),
+                           ("cf1.25", "capacity", 1.25),
+                           ("cf0.5", "capacity", 0.5)):
+        cfg = TransformerConfig(**{**cfg_kw, "moe_dispatch": disp,
+                                   "capacity_factor": cf},
+                                compute_dtype=torch.float32)
+        params = params_from_jax(host, cfg, device)
+        with torch.no_grad():
+            (logits, aux), dropped = dropped_routes(
+                moe, lambda: transformer_forward(params, tokens.to(device),
+                                                 cfg, return_aux=True))
+        out[name] = {"logits": host_array(logits), "aux": float(aux),
+                     "dropped": dropped}
+    return out
+
+
+def moe_layer_sync_free(torch, params, x, dispatch) -> bool:
+    """Whether one MoE layer's forward and backward on the card ran
+    without making the host wait for the device."""
+    from multiverso_tpu_torch.models.moe import moe_ffn
+
+    leaves = {k: v.detach().requires_grad_() for k, v in params.items()}
+
+    def layer():
+        out, aux = moe_ffn(leaves, x, top_k=MOE["top_k"],
+                           compute_dtype=torch.bfloat16, dispatch=dispatch,
+                           capacity_factor=MOE["capacity_factor"])
+        torch.autograd.grad(out.float().sum() + aux, list(leaves.values()))
+
+    _, free = without_sync(torch, layer)
+    torch.cuda.synchronize()
+    return free
+
+
+def judge_moe(card, cpu, tol=MOE_TOL, aux_tol=MOE_AUX_TOL):
+    """({check: value}, verdict) of the MoE checks, card against CPU on
+    one seeded 2-layer copy: the capacity dispatch with room for every
+    route drops none and equals the dense dispatch on each device; the
+    dropped routes per layer are the same on both at cf 1.25 and 0.5
+    (some must drop at 0.5); the aux losses agree within ``aux_tol``
+    and the logits within ``tol`` of their scale."""
+    checks = {
+        "ample_vs_dense_card": rel_to_peak(card["ample"]["logits"],
+                                           card["dense"]["logits"]),
+        "ample_vs_dense_cpu": rel_to_peak(cpu["ample"]["logits"],
+                                          cpu["dense"]["logits"]),
+        "ample_dropped": sum(card["ample"]["dropped"])
+        + sum(cpu["ample"]["dropped"]),
+        "dropped_card": {k: card[k]["dropped"] for k in ("cf1.25", "cf0.5")},
+        "dropped_cpu": {k: cpu[k]["dropped"] for k in ("cf1.25", "cf0.5")},
+        "aux_rel": max(abs(card[k]["aux"] - cpu[k]["aux"]) / abs(cpu[k]["aux"])
+                       for k in cpu),
+        "logits_card_vs_cpu": max(rel_to_peak(card[k]["logits"],
+                                              cpu[k]["logits"])
+                                  for k in cpu),
+    }
+    ok = (checks["ample_vs_dense_card"] <= tol
+          and checks["ample_vs_dense_cpu"] <= tol
+          and checks["ample_dropped"] == 0
+          and checks["dropped_card"] == checks["dropped_cpu"]
+          and sum(checks["dropped_cpu"]["cf0.5"]) > 0
+          and checks["aux_rel"] <= aux_tol
+          and checks["logits_card_vs_cpu"] <= tol)
+    return checks, ok
+
+
+def phase_moe(args, torch, fa, mv, card):
+    """bench_moe (E 8, top-2, capacity factor 1.25, full remat, batch 8,
+    seq 1024): five steps with each dispatch from one draw of the
+    weights, the kernels at its attention shape against their plain
+    versions, and the card-against-CPU checks of ``judge_moe``.  Returns
+    the runs' launch counts and the kernels' errors at that shape."""
+    from multiverso_tpu_torch.models import TransformerConfig, init_params
+
+    base = dict(MOE, max_seq=MOE_SEQ)
+    host = init_params(TransformerConfig(**base), seed=0)
+    tokens = torch.randint(0, base["vocab_size"], (MOE_BATCH, MOE_SEQ),
+                           generator=torch.Generator().manual_seed(1))
+    runs, counts = {}, {}
+    for disp in ("dense", "capacity"):
+        cfg = TransformerConfig(**base, moe_dispatch=disp,
+                                compute_dtype=torch.bfloat16)
+        runs[disp], tr = train_run(torch, mv, cfg, host, tokens, args.steps,
+                                   profile=True)
+        del tr
+        torch.cuda.empty_cache()
+        counts[f"moe_{disp}"] = runs[disp]["launch_counts"]
+    layer = {k: v.to("cuda") for k, v in host["layers"][0]["moe"].items()}
+    x = torch.randn(MOE_BATCH, MOE_SEQ, base["dim"], device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(3))
+    sync_free = {disp: moe_layer_sync_free(torch, layer, x, disp)
+                 for disp in ("dense", "capacity")}
+    del host, layer, x
+    torch.cuda.empty_cache()
+    heads = base["n_heads"]
+    parity, _, _ = parity_case(fa, torch, MOE_BATCH * heads, MOE_SEQ,
+                               MOE_SEQ, base["dim"] // heads, torch.bfloat16,
+                               True, "moe_t1024", seed=500)
+    torch.cuda.empty_cache()
+    check_kw = dict(base, n_layers=2, max_seq=MOE_CHECK_SEQ)
+    check_host = init_params(TransformerConfig(**check_kw), seed=0)
+    check_tokens = torch.randint(0, base["vocab_size"],
+                                 (MOE_CHECK_BATCH, MOE_CHECK_SEQ),
+                                 generator=torch.Generator().manual_seed(2))
+    sides = {dev: moe_check_run(torch, check_kw, check_host, check_tokens,
+                                dev) for dev in ("cuda", "cpu")}
+    checks, same = judge_moe(sides["cuda"], sides["cpu"])
+    dense_s = runs["dense"]["step_s_mean_after_first"]
+    cap_s = runs["capacity"]["step_s_mean_after_first"]
+    ok = (same and all(run_ok(r, args.steps) for r in runs.values())
+          and all(sync_free.values()) and parity["ok"])
+    emit({"phase": "moe", "ok": ok, "config": MOE, "batch": MOE_BATCH,
+          "seq": MOE_SEQ, "runs": runs,
+          "moe_dense_tokens_per_sec": runs["dense"]["tokens_per_s"],
+          "moe_capacity_tokens_per_sec": runs["capacity"]["tokens_per_s"],
+          "moe_capacity_vs_dense": dense_s / cap_s,
+          "checks": checks, "check_shape": [MOE_CHECK_BATCH, MOE_CHECK_SEQ],
+          "layer_sync_free": sync_free, "kernel_parity": parity,
+          "tol": MOE_TOL, "aux_tol": MOE_AUX_TOL, "card": card})
+    if not ok:
+        raise AssertionError(
+            f"moe phase failed: checks {checks}, sync free {sync_free}, "
+            f"kernel parity {parity['ok']}, losses "
+            f"{[r['losses'] for r in runs.values()]}, launches "
+            f"{[r['launch_counts'] for r in runs.values()]}")
+    return counts, {"errors": kernel_errors(parity["errors"]),
+                    "shape": [MOE_BATCH, heads, MOE_SEQ, base["dim"] // heads]}
+
+
+def phase_longctx(args, torch, fa, mv, card):
+    """bench_long_context (seq 16,384, batch 1, full remat):
+    ``longctx_tokens_per_sec``; the kernels at T 16,384 (bf16, D 128,
+    causal) against their plain versions at bh 2, and timed at the
+    config's bh 8 beside their bounds and the library calls."""
+    from multiverso_tpu_torch.models import TransformerConfig, init_params
+
+    cfg = TransformerConfig(**LONG, max_seq=LONG_SEQ,
+                            compute_dtype=torch.bfloat16)
+    host = init_params(cfg, seed=0)
+    tokens = torch.randint(0, cfg.vocab_size, (LONG_BATCH, LONG_SEQ),
+                           generator=torch.Generator().manual_seed(1))
+    run, tr = train_run(torch, mv, cfg, host, tokens, args.steps,
+                        profile=True)
     del tr
     torch.cuda.empty_cache()
-    return counts
+    parity, _, _ = parity_case(fa, torch, LONG_PARITY_BH, LONG_SEQ,
+                               LONG_SEQ, cfg.head_dim, torch.bfloat16, True,
+                               "long_t16384", seed=400)
+    torch.cuda.empty_cache()
+    times = kernel_times(fa, torch, LONG_BATCH, cfg.n_heads, LONG_SEQ,
+                         cfg.head_dim, plain_bh=LONG_PARITY_BH)
+    torch.cuda.empty_cache()
+    ok = run_ok(run, args.steps) and parity["ok"]
+    emit({"phase": "longctx", "ok": ok, "config": LONG, **run,
+          "longctx_tokens_per_sec": run["tokens_per_s"],
+          "longctx_seq": float(LONG_SEQ), "kernel_parity": parity,
+          "kernel_times": times, "card": card})
+    if not ok:
+        raise AssertionError(
+            f"longctx phase failed: losses {run['losses']}, launches "
+            f"{run['launch_counts']}, kernel parity {parity['ok']}")
+    return {"launches": run["launch_counts"],
+            "errors": kernel_errors(parity["errors"]), "times": times,
+            "shape": [LONG_BATCH, cfg.n_heads, LONG_SEQ, cfg.head_dim]}
 
 
 def device_kernel_times(prof, torch):
@@ -653,13 +1126,38 @@ def phase_check(torch):
         raise AssertionError("card and CPU trainers disagree")
 
 
+def flash_work(bh, t, d):
+    """{kernel: (flops, bytes)} of causal bf16 attention at [bh, t, d]:
+    2 flops per multiply-add over the (q, k) pairs the causal mask keeps,
+    each input read once and each output written once."""
+    pairs = t * (t + 1) // 2
+    e, f4 = 2, 4
+    return {
+        "flash_fwd": (2 * 2 * d * pairs * bh,
+                      (4 * bh * t * d) * e + bh * t * f4),
+        "flash_dq": (3 * 2 * d * pairs * bh,
+                     (5 * bh * t * d) * e + 2 * bh * t * f4),
+        "flash_dkv": (4 * 2 * d * pairs * bh,
+                      (6 * bh * t * d) * e + 2 * bh * t * f4),
+    }
+
+
 def phase_timing(fa, torch, card):
+    """Each kernel alone at the trainer's attention shape."""
+    out = kernel_times(fa, torch, BATCH, HEADS, SEQ, HEAD_DIM)
+    emit({"phase": "timing", "shape": [BATCH, HEADS, SEQ, HEAD_DIM],
+          "dtype": "bfloat16", "causal": True, "kernels": out, "card": card})
+    return out
+
+
+def kernel_times(fa, torch, B, H, T, D, plain_bh=None):
     """Each kernel alone on operands prepared as the trainer's attention
-    call prepares them, beside its plain version, its bound and the
-    library call that computes the same function."""
+    call prepares them (bf16, causal, [B, H, T, D]), beside its plain
+    version (on the first ``plain_bh`` heads where given: the plain
+    versions hold [bh, T, T] float32 scores), its bound and the library
+    call that computes the same function."""
     import torch.nn.functional as F
 
-    B, H, T, D = BATCH, HEADS, SEQ, HEAD_DIM
     bh = B * H
     x = attn_inputs(bh, T, D, torch.bfloat16, seed=7)
     q, k, v, do = x["q"], x["k"], x["v"], x["do"]
@@ -667,24 +1165,17 @@ def phase_timing(fa, torch, card):
     qs, kc, vc = fa._prepare(q, k, v, scale)
     o, lse = fa._fwd(qs, kc, vc, True)
     rows = fa._rows(do, lse, (do.float() * o.float()).sum(-1), q.dtype)
-    pairs = T * (T + 1) // 2            # causal: what this data needs
-    e, f4 = 2, 4
-    work = {
-        # flops: 2 per multiply-add; products per visited (q, k) pair
-        "flash_fwd": (2 * 2 * D * pairs * bh,
-                      (4 * bh * T * D) * e + bh * T * f4),
-        "flash_dq": (3 * 2 * D * pairs * bh,
-                     (5 * bh * T * D) * e + 2 * bh * T * f4),
-        "flash_dkv": (4 * 2 * D * pairs * bh,
-                      (6 * bh * T * D) * e + 2 * bh * T * f4),
-    }
+    work = flash_work(bh, T, D)
+    pb = plain_bh or bh
+    pq, pk, pv = qs[:pb], kc[:pb], vc[:pb]
+    prows = [r[:pb] for r in rows]
     calls = {
         "flash_fwd": (lambda: fa._fwd(qs, kc, vc, True),
-                      lambda: fa._fwd_plain(qs, kc, vc, True)),
+                      lambda: fa._fwd_plain(pq, pk, pv, True)),
         "flash_dq": (lambda: fa._dq(qs, kc, vc, *rows, scale, True),
-                     lambda: fa._dq_plain(qs, kc, vc, *rows, scale, True)),
+                     lambda: fa._dq_plain(pq, pk, pv, *prows, scale, True)),
         "flash_dkv": (lambda: fa._dkv(qs, kc, vc, *rows, True),
-                      lambda: fa._dkv_plain(qs, kc, vc, *rows, True)),
+                      lambda: fa._dkv_plain(pq, pk, pv, *prows, True)),
     }
     # The library: scaled_dot_product_attention for the forward, and
     # PyTorch's flash backward, which returns dq, dk and dv in one call
@@ -715,10 +1206,10 @@ def phase_timing(fa, torch, card):
             "flops": flops, "bytes": nbytes,
             "library_ms": lib_fwd_ms if name == "flash_fwd" else lib_bwd_ms,
         }
+        if pb != bh:
+            out[name]["plain_bh"] = pb
         if name != "flash_fwd":
             out[name]["library_covers"] = "flash_dq+flash_dkv"
-    emit({"phase": "timing", "shape": [B, H, T, D], "dtype": "bfloat16",
-          "causal": True, "kernels": out, "card": card})
     return out
 
 
@@ -1345,30 +1836,43 @@ def w2v_snapshot(sg):
     return tables_snapshot({"in": sg.table_in, "out": sg.table_out})
 
 
+def without_sync(torch, fn):
+    """``fn()`` under ``torch.cuda.set_sync_debug_mode("error")``: (its
+    result, True), or (None, False) when an op in it made the host wait
+    for the device; the frames that led to that op go to stderr."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn(), True
+    except RuntimeError as exc:
+        if "called a synchronizing CUDA operation" not in str(exc):
+            raise
+        print("chip_smoke: the host waited for the device:\n"
+              + traceback.format_exc(limit=-6), file=sys.stderr)
+        return None, False
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
 def run_fused(torch, tables, step, placed, sync_check=False):
     """An app's fused ``step`` over batches already on the device, from
     ``tables``' tensors, which get the results back.  Returns the step
     losses and, with ``sync_check``, whether the steps ran under
-    ``torch.cuda.set_sync_debug_mode("error")`` without raising (else
-    None)."""
+    ``without_sync`` without a host sync (else None)."""
     cur = [x for t in tables for x in t.raw_value()]
-    losses, sync_free = [], None
-    if sync_check:
-        torch.cuda.synchronize()
-        torch.cuda.set_sync_debug_mode("error")
-    try:
+    losses = []
+
+    def steps():
+        nonlocal cur
         for b in placed:
             *cur, loss = step(*cur, *b)
             losses.append(loss)
-        sync_free = True if sync_check else None
-    except RuntimeError as exc:
-        if not sync_check:
-            raise
-        sync_free = False
-        print(f"chip_smoke: fused step synchronized: {exc}", file=sys.stderr)
-    finally:
-        if sync_check:
-            torch.cuda.set_sync_debug_mode(0)
+
+    sync_free = None
+    if sync_check:
+        _, sync_free = without_sync(torch, steps)
+    else:
+        steps()
     for i, t in enumerate(tables):
         t.raw_assign(cur[2 * i], cur[2 * i + 1])
     return [float(x) for x in losses], sync_free
@@ -1993,11 +2497,20 @@ def main(argv) -> int:
     phase_build(_build, paths, build_s)
 
     errs = phase_parity(fa, torch) if "parity" in phases else {}
-    counts = (phase_trainer(args, torch, mv, card) if "trainer" in phases
-              else {})
+    paths, shapes = (phase_trainer(args, torch, fa, mv, card)
+                     if "trainer" in phases else ({}, {}))
     if "check" in phases:
         phase_check(torch)
     times = phase_timing(fa, torch, card) if "timing" in phases else {}
+    if "small" in phases:
+        shapes["small"] = phase_small(args, torch, fa, mv, card)
+        paths["small"] = shapes["small"]["launches"]
+    if "moe" in phases:
+        moe_counts, shapes["moe"] = phase_moe(args, torch, fa, mv, card)
+        paths.update(moe_counts)
+    if "longctx" in phases:
+        shapes["longctx"] = phase_longctx(args, torch, fa, mv, card)
+        paths["longctx"] = shapes["longctx"]["launches"]
     if "tables" in phases:
         phase_tables(torch, mv, card)
     if "lr" in phases:
@@ -2016,11 +2529,18 @@ def main(argv) -> int:
         t = times.get(kname, {})
         kernels.append({
             "name": kname, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": counts.get(kname),
+            "replaces": replaces,
+            "launches": paths.get("trainer", {}).get(kname),
             "max_abs_err": errs.get(kname), "ms": t.get("ms"),
             "plain_ms": t.get("plain_ms"), "bound_ms": t.get("bound_ms"),
             "bound_by": t.get("bound_by"), "library_ms": t.get("library_ms"),
             "tflops": t.get("tflops"), "bound_share": t.get("bound_share"),
+            "launches_by_path": {p: c.get(kname) for p, c in paths.items()},
+            "other_shapes": [
+                {"path": p, "shape": sh["shape"],
+                 "max_abs_err": sh["errors"][kname],
+                 **sh.get("times", {}).get(kname, {})}
+                for p, sh in shapes.items()],
         })
         if "library_covers" in t:
             kernels[-1]["library_covers"] = t["library_covers"]

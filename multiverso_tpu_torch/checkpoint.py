@@ -35,8 +35,8 @@ from .io import StreamFactory
 from .log import Log
 
 __all__ = ["save", "restore", "save_pytree", "restore_pytree",
-           "save_pytree_async", "AsyncSave", "CheckpointCorrupt",
-           "CheckpointManager"]
+           "place_pytree", "save_pytree_async", "AsyncSave",
+           "CheckpointCorrupt", "CheckpointManager"]
 
 # v2 framing: magic + <uint64 body_len, uint32 crc32> + pickle body.
 # The CRC turns "killed mid-write" / "bit-rotted storage" into a
@@ -182,16 +182,24 @@ def restore_pytree(uri: str, like: Any = None) -> Any:
     Trust boundary: pickle body — restore only checkpoints you control
     (same caveat as :func:`restore`).
     """
+    host_tree = _read_snapshot(uri, _MAGIC_TREE, "pytree snapshot")
+    _host_sync("mvtpu_pytree_restore")
+    if like is None:
+        return host_tree
+    return place_pytree(host_tree, like, uri)
+
+
+def place_pytree(host_tree: Any, like: Any, source: str = "snapshot") -> Any:
+    """A loaded tree of numpy leaves placed like ``like``: each leaf at a
+    tensor of ``like`` becomes a tensor on that tensor's device, with its
+    shape and dtype (or ``ValueError`` naming the leaf); other leaves
+    stay as loaded.  Another structure raises ``ValueError`` naming
+    ``source``."""
     import numpy as np
     import torch
 
     from .tables.base import host_put, numpy_dtype
     from .util.tree import keystr, tree_map_with_path
-
-    host_tree = _read_snapshot(uri, _MAGIC_TREE, "pytree snapshot")
-    _host_sync("mvtpu_pytree_restore")
-    if like is None:
-        return host_tree
 
     class _LeafMismatch(ValueError):
         pass
@@ -215,7 +223,7 @@ def restore_pytree(uri: str, like: Any = None) -> Any:
         raise
     except Exception as exc:
         raise ValueError(
-            f"{uri}: snapshot tree structure does not match the live "
+            f"{source}: snapshot tree structure does not match the live "
             f"tree (different model config or updater?): {exc}") from exc
 
 

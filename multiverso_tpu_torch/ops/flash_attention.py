@@ -34,6 +34,13 @@ lse)``.  lse and Δ are plain ``[bh, T]`` float32 rows: the TPU's
 
 Every launch adds one to its kernel's count (:func:`launch_counts`), so
 a run can show that its steps went through the kernels.
+
+The forward launch is a dispatcher op, ``torch.ops.mvt.flash_fwd``.  A
+ctypes call is invisible to PyTorch's dispatcher, so selective activation
+checkpointing could not tell it apart from the plain ops around it and
+would relaunch the kernel on every recompute; as an op, a checkpoint
+policy can name it and keep its ``(o, lse)`` instead (the JAX package
+names them ``"flash_out"``/``"flash_lse"`` for its "dots" policy).
 """
 
 from __future__ import annotations
@@ -184,6 +191,21 @@ def _dkv(qs, k, v, do, lse, delta, causal):
     return dk, dv
 
 
+@torch.library.custom_op("mvt::flash_fwd", mutates_args=())
+def _fwd_op(qs: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            causal: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The forward on prepared operands as a dispatcher op (see the
+    module docstring): the kernel for CUDA tensors, the plain version for
+    CPU tensors."""
+    return _fwd(qs, k, v, causal)
+
+
+@_fwd_op.register_fake
+def _(qs, k, v, causal):
+    return (torch.empty_like(qs),
+            qs.new_empty(qs.shape[:2], dtype=torch.float32))
+
+
 # ---------------------------------------------------------------- wrappers
 def flash_fwd(q, k, v, scale: float, causal: bool
               ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -281,7 +303,7 @@ class _Flash(torch.autograd.Function):
     def forward(ctx, q, k, v, scale, causal):
         _check(q, k, v)
         qs, k, v = _prepare(q, k, v, scale)
-        o, lse = _fwd(qs, k, v, causal)
+        o, lse = torch.ops.mvt.flash_fwd(qs, k, v, causal)
         ctx.save_for_backward(qs, k, v, o, lse)
         ctx.scale, ctx.causal = scale, causal
         ctx.set_materialize_grads(False)

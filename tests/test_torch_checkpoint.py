@@ -258,3 +258,65 @@ def test_trainer_save_restore_is_exact(tmv, tmp_path):
     c = pt.TransformerTrainer(cfg, device="cpu", updater_type="sgd")
     with pytest.raises(ValueError, match="structure"):
         c.restore(uri)
+
+
+@pytest.mark.parametrize("layout", ["loop", "scan", "scan_moe"])
+@pytest.mark.parametrize("direction", ["torch_to_jax", "jax_to_torch"])
+def test_trainer_checkpoint_crosses_packages(mv, tmv, tmp_path, direction,
+                                             layout):
+    """The port's trainer writes the tree the JAX trainer writes for the
+    same config ({"params", "state"}, per-leaf tuples of updater slots,
+    layers stacked [L, ...] under scan_layers) and reads either
+    package's: a run saved after one step by one package and continued
+    for two by the other follows the uninterrupted run (losses rtol 1e-5,
+    parameters 1e-4 of each tensor's scale, as the trajectory test)."""
+    import jax
+    from jax.sharding import Mesh
+
+    from multiverso_tpu.models import transformer as jt
+    from multiverso_tpu_torch.models import transformer as pt
+
+    kw = dict(vocab_size=16384, dim=64, n_layers=2, n_heads=2, hidden=128,
+              max_seq=64, scan_layers=layout != "loop")
+    if layout == "scan_moe":
+        kw.update(num_experts=4, moe_dispatch="capacity")
+    jcfg = jt.TransformerConfig(**kw, compute_dtype=jax.numpy.float32)
+    pcfg = pt.TransformerConfig(**kw, compute_dtype=torch.float32)
+    mesh = Mesh(np.asarray(jax.devices()[:1]), ("dp",))
+    tokens = np.random.RandomState(3).randint(0, 16384, size=(2, 64)
+                                              ).astype(np.int32)
+    uri = str(tmp_path / "trainer.tree")
+    mv.init()
+    if direction == "torch_to_jax":
+        writer = pt.TransformerTrainer(pcfg, device="cpu",
+                                       updater_type="momentum", seed=1)
+        reader = jt.TransformerTrainer(jcfg, mesh, updater_type="momentum",
+                                       seed=2)
+    else:
+        writer = jt.TransformerTrainer(jcfg, mesh, updater_type="momentum",
+                                       seed=1)
+        reader = pt.TransformerTrainer(pcfg, device="cpu",
+                                       updater_type="momentum", seed=2)
+    writer.train_step(tokens)
+    writer.save(uri)
+    want = [writer.train_step(tokens) for _ in range(2)]
+    reader.restore(uri)
+    got = [reader.train_step(tokens) for _ in range(2)]
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+
+    def layout(tr):
+        """Either trainer's tree in the JAX trainer's layout, as numpy."""
+        if isinstance(tr, pt.TransformerTrainer):
+            tree = tr._tree()
+            tree = pt._stacked(tree) if pcfg.scan_layers else tree
+        else:
+            tree = {"params": tr.params, "state": tr.state}
+        return jax.tree_util.tree_leaves(
+            jax.tree_util.tree_map(np.asarray, tree))
+
+    got_leaves, want_leaves = layout(reader), layout(writer)
+    assert len(got_leaves) == len(want_leaves) > 0
+    for a, b in zip(got_leaves, want_leaves):
+        assert a.shape == b.shape
+        scale = float(np.max(np.abs(b))) or 1.0
+        np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-4 * scale)

@@ -673,3 +673,241 @@ def test_senses_separate_verdict():
     assert not chip_smoke.senses_separate([0.6, 0.4], b, prior, 0.3)
     assert not chip_smoke.senses_separate(a, b, [0.9, 0.1], 0.3)
     assert not chip_smoke.senses_separate(a, b, prior, 0.95)
+
+
+# ------------------------------------- trainer, small, moe, longctx judges
+
+def test_transformer_phases_at_bench_shapes():
+    assert chip_smoke.PHASES[5:8] == ("small", "moe", "longctx")
+    assert chip_smoke.SMALL == dict(vocab_size=8192, dim=512, n_layers=4,
+                                    n_heads=8, hidden=1408)
+    assert (chip_smoke.SMALL_BATCH, chip_smoke.SMALL_SEQ) == (8, 2048)
+    assert chip_smoke.MOE == dict(vocab_size=16384, dim=1024, n_layers=8,
+                                  n_heads=8, hidden=2816, num_experts=8,
+                                  top_k=2, capacity_factor=1.25, remat=True)
+    assert (chip_smoke.MOE_BATCH, chip_smoke.MOE_SEQ) == (8, 1024)
+    assert chip_smoke.LONG == dict(vocab_size=8192, dim=1024, n_layers=4,
+                                   n_heads=8, hidden=2816, remat=True)
+    assert (chip_smoke.LONG_BATCH, chip_smoke.LONG_SEQ) == (1, 16384)
+
+
+def test_expected_launches_per_remat_policy():
+    assert chip_smoke.expected_launches(False, 16, 5) == {
+        "flash_fwd": 80, "flash_dq": 80, "flash_dkv": 80}
+    assert chip_smoke.expected_launches("dots", 16, 5) == {
+        "flash_fwd": 80, "flash_dq": 80, "flash_dkv": 80}
+    assert chip_smoke.expected_launches("full", 16, 5) == {
+        "flash_fwd": 160, "flash_dq": 80, "flash_dkv": 80}
+    ok = {"flash_fwd": 160, "flash_dq": 80, "flash_dkv": 80}
+    assert chip_smoke.judge_launches(ok, "full", 16, 5)
+    assert not chip_smoke.judge_launches(ok, "dots", 16, 5)
+    assert not chip_smoke.judge_launches({**ok, "flash_dq": 0}, "full",
+                                         16, 5)
+
+
+def _counted_kernels(monkeypatch):
+    """Count each kernel's runs as the card's wrappers count launches
+    (on the CPU the wrappers run the plain versions and count nothing)."""
+    from multiverso_tpu_torch.ops import flash_attention as fa
+
+    counts = {k: 0 for k in chip_smoke.KERNELS}
+    for name, attr in (("flash_fwd", "_fwd"), ("flash_dq", "_dq"),
+                       ("flash_dkv", "_dkv")):
+        plain = getattr(fa, attr)
+
+        def counted(*args, _plain=plain, _name=name):
+            counts[_name] += 1
+            return _plain(*args)
+
+        monkeypatch.setattr(fa, attr, counted)
+    return counts
+
+
+def _remat_run(policy, steps=2):
+    import torch
+    from multiverso_tpu_torch.models import transformer as pt
+
+    cfg = pt.TransformerConfig(vocab_size=512, dim=64, n_layers=2,
+                               n_heads=2, hidden=128, max_seq=32,
+                               compute_dtype=torch.float32,
+                               remat=policy is not None,
+                               remat_policy=policy or "full")
+    tr = pt.TransformerTrainer(cfg, device="cpu", seed=0)
+    tokens = np.random.RandomState(0).randint(0, 512, size=(2, 32))
+    return [float(tr.train_step_async(tokens)) for _ in range(steps)]
+
+
+@pytest.mark.parametrize("policy", [None, "dots", "full"])
+def test_launch_rule_holds_real_remat_runs(monkeypatch, policy):
+    counts = _counted_kernels(monkeypatch)
+    _remat_run(policy)
+    assert chip_smoke.judge_launches(counts, policy or False, 2, 2), counts
+
+
+def test_launch_rule_rejects_dots_that_relaunches_the_forward(monkeypatch):
+    """A "dots" policy that does not keep the flash forward's output
+    replays the kernel in the backward, as a forward outside the
+    dispatcher would: the launch rule must reject that run."""
+    import torch
+    from torch.utils.checkpoint import CheckpointPolicy
+    from multiverso_tpu_torch.models import transformer as pt
+
+    def mm_only(ctx, op, *args, **kwargs):
+        if op == torch.ops.aten.mm.default:
+            return CheckpointPolicy.MUST_SAVE
+        return CheckpointPolicy.PREFER_RECOMPUTE
+
+    monkeypatch.setattr(pt, "_dots_policy", mm_only)
+    counts = _counted_kernels(monkeypatch)
+    _remat_run("dots")
+    assert counts["flash_fwd"] == 2 * 2 * 2
+    assert not chip_smoke.judge_launches(counts, "dots", 2, 2)
+
+
+def test_judge_remat_losses():
+    base = [10.9, 10.2, 9.8, 9.6, 9.5]
+    rel, ok = chip_smoke.judge_remat_losses([x * 1.0005 for x in base],
+                                            base)
+    assert ok and rel == pytest.approx(5e-4)
+    assert not chip_smoke.judge_remat_losses([x * 1.003 for x in base],
+                                             base)[1]
+    assert not chip_smoke.judge_remat_losses(base[:4], base)[1]
+    assert not chip_smoke.judge_remat_losses(base[:4] + [math.nan],
+                                             base)[1]
+
+
+def _remat_params(policy, steps=2):
+    """(start, after) snapshots of a small trainer's parameters around
+    ``steps`` steps under ``policy`` (None: no remat)."""
+    import torch
+    from multiverso_tpu_torch.models import transformer as pt
+
+    cfg = pt.TransformerConfig(vocab_size=512, dim=64, n_layers=2,
+                               n_heads=2, hidden=128, max_seq=32,
+                               compute_dtype=torch.float32,
+                               remat=policy is not None,
+                               remat_policy=policy or "full")
+    tr = pt.TransformerTrainer(cfg, device="cpu", seed=0)
+    start = chip_smoke.snapshot(tr.params)
+    tokens = np.random.RandomState(0).randint(0, 512, size=(2, 32))
+    for _ in range(steps):
+        assert math.isfinite(float(tr.train_step_async(tokens)))
+    return start, chip_smoke.snapshot(tr.params)
+
+
+@pytest.mark.parametrize("policy", ["dots", "full"])
+def test_remat_change_judge_on_real_runs(policy):
+    """The trainer phase's change judge: a remat run's parameter change
+    equals the no-remat run's; one whose update of a layer weight was
+    lost is rejected."""
+    start, want = _remat_params(None)
+    _, got = _remat_params(policy)
+    change = max(chip_smoke.rel_change(g, w, s0)
+                 for g, w, s0 in zip(got, want, start))
+    assert change == 0.0
+    got[3] = start[3]
+    lost = max(chip_smoke.rel_change(g, w, s0)
+               for g, w, s0 in zip(got, want, start))
+    assert lost > chip_smoke.REMAT_TOL
+
+
+def test_judge_remat_losses_on_real_runs(monkeypatch):
+    base = _remat_run(None, steps=3)
+    for policy in ("dots", "full"):
+        rel, ok = chip_smoke.judge_remat_losses(_remat_run(policy, 3), base)
+        assert ok and rel == 0.0
+
+
+_MOE_KW = dict(vocab_size=16384, dim=64, n_layers=2, n_heads=2, hidden=128,
+               num_experts=8, top_k=2, capacity_factor=1.25, remat=True,
+               max_seq=64)
+
+
+def _moe_sides():
+    import torch
+    from multiverso_tpu_torch.models import TransformerConfig, init_params
+
+    host = init_params(TransformerConfig(**_MOE_KW), seed=0)
+    tokens = torch.as_tensor(np.random.RandomState(1).randint(
+        0, 16384, size=(2, 64)))
+    return [chip_smoke.moe_check_run(torch, _MOE_KW, host, tokens, "cpu")
+            for _ in range(2)]
+
+
+def test_judge_moe_passes_real_runs():
+    card, cpu = _moe_sides()
+    checks, ok = chip_smoke.judge_moe(card, cpu)
+    assert ok, checks
+    assert checks["ample_dropped"] == 0
+    assert sum(checks["dropped_cpu"]["cf0.5"]) > 0
+    assert len(checks["dropped_cpu"]["cf1.25"]) == 2    # one per layer
+
+
+@pytest.mark.parametrize("fault", ["ample_drops", "other_drops", "aux",
+                                   "logits", "nothing_drops"])
+def test_judge_moe_rejects(fault):
+    card, cpu = _moe_sides()
+    if fault == "ample_drops":
+        card["ample"]["dropped"] = [1, 0]
+    elif fault == "other_drops":
+        card["cf1.25"]["dropped"] = [d + 1 for d in
+                                     card["cf1.25"]["dropped"]]
+    elif fault == "aux":
+        card["dense"]["aux"] *= 1 + 1e-4
+    elif fault == "logits":
+        card["cf0.5"]["logits"] = card["cf0.5"]["logits"] * (1 + 1e-3)
+    else:
+        for side in (card, cpu):
+            side["cf0.5"]["dropped"] = [0, 0]
+    assert not chip_smoke.judge_moe(card, cpu)[1]
+
+
+def test_judge_moe_rejects_a_capacity_path_that_drops(monkeypatch):
+    """At room for every route, a capacity dispatch whose buckets are too
+    small drops routes and parts from the dense dispatch."""
+    from multiverso_tpu_torch.models import moe
+
+    card, cpu = _moe_sides()
+    monkeypatch.setattr(moe, "moe_capacity", lambda *a: 8)
+    bad, _ = _moe_sides()
+    card["ample"] = bad["ample"]
+    checks, ok = chip_smoke.judge_moe(card, cpu)
+    assert not ok
+    assert checks["ample_dropped"] > 0
+    assert checks["ample_vs_dense_card"] > chip_smoke.MOE_TOL
+
+
+@pytest.mark.parametrize("planted", [False, True])
+def test_moe_layer_syncs_reports_where_the_host_waited(monkeypatch, planted):
+    """The moe phase's sync check: an op inside the layer that raises
+    "called a synchronizing CUDA operation" (what the card's "error"
+    debug mode does) makes the layer not sync-free; any other error
+    propagates."""
+    import torch
+    from multiverso_tpu_torch.models import moe
+
+    modes = []
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "set_sync_debug_mode", modes.append)
+    routing = moe._routing
+
+    def noisy(*args):
+        if planted:
+            raise RuntimeError("called a synchronizing CUDA operation")
+        return routing(*args)
+
+    monkeypatch.setattr(moe, "_routing", noisy)
+    params = moe.init_moe_params(64, 128, 8, seed=0)
+    x = torch.randn(2, 16, 64)
+    for dispatch in ("dense", "capacity"):
+        modes.clear()
+        free = chip_smoke.moe_layer_sync_free(torch, params, x, dispatch)
+        assert free is not planted
+        assert modes == ["error", 0]
+
+    def broken(*args):
+        raise RuntimeError("an unrelated failure")
+
+    monkeypatch.setattr(moe, "_routing", broken)
+    with pytest.raises(RuntimeError, match="unrelated"):
+        chip_smoke.moe_layer_sync_free(torch, params, x, "dense")

@@ -171,6 +171,22 @@ def test_cpu_tensors_take_plain_path_without_launches():
                                   "flash_dkv": 0}
 
 
+def test_forward_is_a_dispatcher_op():
+    """The forward launch is ``torch.ops.mvt.flash_fwd``: on CPU tensors
+    it runs the plain version; its fake (meta) version gives the output
+    shapes a checkpoint policy or a tracer sees without running it."""
+    x = _inputs(48, seed=10)
+    q, k, v = (torch.as_tensor(x[n][0]) for n in ("q", "k", "v"))
+    qs, kc, vc = fa._prepare(q, k, v, D ** -0.5)
+    o, lse = torch.ops.mvt.flash_fwd(qs, kc, vc, True)
+    want_o, want_lse = fa.flash_fwd_ref(q, k, v, D ** -0.5, True)
+    assert torch.equal(o, want_o) and torch.equal(lse, want_lse)
+    meta = [t.to("meta") for t in (qs, kc, vc)]
+    mo, mlse = torch.ops.mvt.flash_fwd(*meta, True)
+    assert mo.shape == o.shape and mo.dtype == o.dtype
+    assert mlse.shape == lse.shape and mlse.dtype == torch.float32
+
+
 @pytest.mark.parametrize("causal", [True, False])
 def test_blockwise_local_matches_jax(causal):
     """The dispatcher the transformer calls, against the JAX package's

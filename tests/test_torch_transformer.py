@@ -47,12 +47,20 @@ def _tokens(seed=0):
         0, V, size=(BATCH, T)).astype(np.int32)
 
 
-def _jax_leaves(params):
+def _loop(tree, cfg):
+    """A JAX tree in loop format (scan-format layers unstacked)."""
+    if isinstance(tree["layers"], dict):
+        return {**tree, "layers": pt.unstack_layer_params(
+            jax.tree_util.tree_map(np.asarray, tree["layers"]),
+            cfg.n_layers)}
+    return tree
+
+
+def _jax_leaves(params, cfg=None):
     """The JAX tree's leaves in the port's fixed order."""
-    out = [params["embed"], params["out_norm"], params["head"]]
-    for lyr in params["layers"]:
-        out.extend(lyr[key] for key in pt._LAYER_KEYS)
-    return [np.asarray(a, np.float32) for a in out]
+    if cfg is not None:
+        params = _loop(params, cfg)
+    return [np.asarray(a, np.float32) for a in pt._leaves(params)]
 
 
 @pytest.mark.parametrize("scan", [False, True])
@@ -74,26 +82,31 @@ def test_params_from_jax_and_same_seed_init(scan):
         stacked["wq"].numpy(), np.stack([l["wq"] for l in loop]))
 
 
-def _loss_and_grads(dtype):
-    jcfg, pcfg = _cfgs(dtype)
+def _loss_and_grads(dtype, **kw):
+    """((logits, loss, grads, aux) of the JAX package, the same of the
+    port) from one seed's weights and tokens."""
+    jcfg, pcfg = _cfgs(dtype, **kw)
     host = jt.init_params(jcfg, seed=1)
     tokens = _tokens(1)
     mesh = _mesh()
-    jlogits = jax.jit(jt.transformer_forward, static_argnums=(2, 3))(
-        host, jnp.asarray(tokens), jcfg, mesh)
+    jlogits, jaux = jax.jit(
+        lambda p, t: jt.transformer_forward(p, t, jcfg, mesh,
+                                            return_aux=True))(
+        host, jnp.asarray(tokens))
     jloss, jgrads = jax.jit(jax.value_and_grad(jt.lm_loss),
                             static_argnums=(2, 3))(
         host, jnp.asarray(tokens), jcfg, mesh)
     params = pt.params_from_jax(host, pcfg, device="cpu")
     leaves = [p.requires_grad_() for p in pt._leaves(params)]
     params = pt._with_leaves(params, leaves)
-    plogits = pt.transformer_forward(params, torch.as_tensor(tokens), pcfg)
+    plogits, paux = pt.transformer_forward(params, torch.as_tensor(tokens),
+                                           pcfg, return_aux=True)
     ploss = pt.lm_loss(params, torch.as_tensor(tokens), pcfg)
     pgrads = torch.autograd.grad(ploss, leaves)
     return ((np.asarray(jlogits.astype(jnp.float32)), float(jloss),
-             _jax_leaves(jgrads)),
+             _jax_leaves(jgrads, jcfg), float(jaux)),
             (plogits.detach().float().numpy(), float(ploss.detach()),
-             [g.numpy() for g in pgrads]))
+             [g.numpy() for g in pgrads], float(paux.detach())))
 
 
 def _assert_scaled(got, want, rtol):
@@ -105,7 +118,7 @@ def _assert_scaled(got, want, rtol):
 
 
 def test_forward_loss_grads_f32():
-    (jl, jloss, jg), (pl, ploss, pg) = _loss_and_grads("float32")
+    (jl, jloss, jg, _), (pl, ploss, pg, _) = _loss_and_grads("float32")
     _assert_scaled(pl, jl, 1e-5)
     np.testing.assert_allclose(ploss, jloss, rtol=1e-5)
     assert len(pg) == len(jg)
@@ -118,7 +131,7 @@ def test_forward_loss_grads_bf16(monkeypatch):
     # mode), which share the port's pre-scaled-q, float32-score math; its
     # default CPU path rounds the scores to bf16 before scaling them.
     monkeypatch.setenv("MVTPU_FORCE_FLASH", "1")
-    (jl, jloss, jg), (pl, ploss, pg) = _loss_and_grads("bfloat16")
+    (jl, jloss, jg, _), (pl, ploss, pg, _) = _loss_and_grads("bfloat16")
     _assert_scaled(pl, jl, 2e-2)
     np.testing.assert_allclose(ploss, jloss, rtol=2e-2)
     # Gradients per tensor in relative L2 norm: XLA's fusions and PyTorch
@@ -127,7 +140,7 @@ def test_forward_loss_grads_bf16(monkeypatch):
     # entry.  Two checks: the port is within 3e-2 of the JAX package in
     # bf16, and against the float32 gradients the port's bf16 error is no
     # more than 1.5x the JAX package's own bf16 error.
-    (_, _, f32), _ = _loss_and_grads("float32")
+    (_, _, f32, _), _ = _loss_and_grads("float32")
 
     def rel(a, b):
         return float(np.linalg.norm(a - b) / np.linalg.norm(b))
@@ -214,11 +227,7 @@ def test_trainer_three_step_trajectory(updater):
 
 
 def _jax_state_leaves(jtr):
-    st = jtr.state
-    out = [st["embed"], st["out_norm"], st["head"]]
-    for lyr in st["layers"]:
-        out.extend(lyr[key] for key in pt._LAYER_KEYS)
-    return out
+    return pt._leaves(jtr.state)
 
 
 def test_fused_steps_and_eval_loss():
@@ -236,15 +245,13 @@ def test_fused_steps_and_eval_loss():
 
 def test_unported_options_raise():
     _, pcfg = _cfgs("float32")
-    for kw in (dict(num_experts=4), dict(pipeline_microbatches=2),
-               dict(remat=True)):
-        cfg = pt.TransformerConfig(**{**SHAPE, **kw})
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            pt.TransformerTrainer(cfg, device="cpu")
+    cfg = pt.TransformerConfig(**SHAPE, pipeline_microbatches=2)
+    with pytest.raises(NotImplementedError,
+                       match='ROADMAP.*"Several processes"'):
+        pt.TransformerTrainer(cfg, device="cpu")
     tr = pt.TransformerTrainer(pcfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tr.train_step_async(_tokens(), accum=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError,
+                       match='ROADMAP.*"Modules that need the native'):
         tr.offload_state(None)
 
 
@@ -255,3 +262,133 @@ def test_scan_layers_accepted_as_a_loop():
     a = pt.TransformerTrainer(loop_cfg, device="cpu", seed=7)
     b = pt.TransformerTrainer(scan_cfg, device="cpu", seed=7)
     assert a.train_step(tokens) == b.train_step(tokens)
+
+
+# ------------------------------------------------------- mixture of experts
+
+MOE = dict(num_experts=4, top_k=2, aux_loss_coef=0.01)
+
+
+@pytest.mark.parametrize("scan", [False, True])
+def test_moe_init_order_matches_jax(scan):
+    """Trap: per layer wq, wk, wv, wo, then ONE randint seeding the
+    experts (no w1/w3/w2 draws), and embed and head after the layers."""
+    jcfg, pcfg = _cfgs(scan_layers=scan, **MOE)
+    host = jt.init_params(jcfg, seed=4)
+    own = pt.init_params(pcfg, seed=4)
+    got = pt.params_from_jax(host, pcfg, device="cpu")
+    assert set(own["layers"][0]) == set(pt._ATTN_KEYS) | {"moe"}
+    assert own["layers"][0]["moe"]["w1"].shape == (4, 64, 128)
+    want = _jax_leaves(host, jcfg)
+    for a, b, c in zip(pt._leaves(got), want, pt._leaves(own)):
+        np.testing.assert_array_equal(a.numpy(), b)
+        np.testing.assert_array_equal(c.numpy(), b)
+    assert len(pt._leaves(own)) == len(want) == 3 + 2 * 10
+
+
+@pytest.mark.parametrize("dispatch", ["dense", "capacity"])
+def test_moe_forward_aux_loss_grads_f32(dispatch):
+    (jl, jloss, jg, jaux), (pl, ploss, pg, paux) = _loss_and_grads(
+        "float32", moe_dispatch=dispatch, **MOE)
+    _assert_scaled(pl, jl, 1e-5)
+    assert paux > 0
+    np.testing.assert_allclose(paux, jaux, rtol=1e-5)
+    np.testing.assert_allclose(ploss, jloss, rtol=1e-5)
+    assert len(pg) == len(jg)
+    for a, b in zip(pg, jg):
+        _assert_scaled(a, b, 1e-5)
+
+
+# ------------------------------------------------------------------- remat
+
+def _count_forward_launches(monkeypatch):
+    """Count the flash forward's runs through the dispatcher op (on the
+    CPU the op runs the plain version; on the card it is the launch)."""
+    from multiverso_tpu_torch.ops import flash_attention as fa
+
+    calls = {"fwd": 0}
+    plain = fa._fwd
+
+    def counted(*args):
+        calls["fwd"] += 1
+        return plain(*args)
+
+    monkeypatch.setattr(fa, "_fwd", counted)
+    return calls
+
+
+@pytest.mark.parametrize("policy,moe", [("full", False), ("dots", False),
+                                        ("full", True), ("dots", True)])
+def test_remat_equals_no_remat_and_jax(monkeypatch, policy, moe):
+    """Remat reschedules the backward and changes no number: exactly the
+    no-remat step on the CPU, and within 1e-5 of the JAX package's remat.
+    "dots" keeps the flash forward's (o, lse), so the forward runs once
+    per layer and step; "full" runs it again in the backward."""
+    extra = dict(MOE, moe_dispatch="capacity") if moe else {}
+    jcfg, pcfg = _cfgs("float32", remat=True, remat_policy=policy, **extra)
+    _, base_cfg = _cfgs("float32", **extra)
+    tokens = _tokens(5)
+    calls = _count_forward_launches(monkeypatch)
+    base = pt.TransformerTrainer(base_cfg, device="cpu", seed=8)
+    base_losses = [base.train_step(tokens) for _ in range(2)]
+    assert calls["fwd"] == 2 * 2
+    calls["fwd"] = 0
+    tr = pt.TransformerTrainer(pcfg, device="cpu", seed=8)
+    losses = [tr.train_step(tokens) for _ in range(2)]
+    assert calls["fwd"] == (1 if policy == "dots" else 2) * 2 * 2
+    assert losses == base_losses
+    for a, b in zip(pt._leaves(tr.params), pt._leaves(base.params)):
+        assert torch.equal(a, b)
+    jtr = jt.TransformerTrainer(jcfg, _mesh(), seed=8)
+    jl = [jtr.train_step(tokens) for _ in range(2)]
+    np.testing.assert_allclose(losses, jl, rtol=1e-5)
+    for a, b in zip(pt._leaves(tr.params), _jax_leaves(jtr.params)):
+        _assert_scaled(a.numpy(), b, 1e-4)
+
+
+# ---------------------------------------------------- gradient accumulation
+
+@pytest.mark.parametrize("updater", ["sgd", "momentum"])
+def test_accum_equals_full_batch_and_jax(updater):
+    """accum=2 is the full-batch step: the f32 gradients of two equal
+    microbatches summed and halved, the loss their mean."""
+    jcfg, pcfg = _cfgs("float32")
+    tokens = _tokens(6)
+    full = pt.TransformerTrainer(pcfg, device="cpu", updater_type=updater,
+                                 seed=9)
+    acc = pt.TransformerTrainer(pcfg, device="cpu", updater_type=updater,
+                                seed=9)
+    jtr = jt.TransformerTrainer(jcfg, _mesh(), updater_type=updater, seed=9)
+    want = [full.train_step(tokens) for _ in range(3)]
+    got = [float(acc.train_step_async(tokens, accum=2)) for _ in range(3)]
+    jl = [float(jtr.train_step_async(tokens, accum=2)) for _ in range(3)]
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+    np.testing.assert_allclose(got, jl, rtol=1e-5)
+    assert got[-1] < got[0]
+    for a, b, c in zip(pt._leaves(acc.params), pt._leaves(full.params),
+                       _jax_leaves(jtr.params)):
+        _assert_scaled(a.numpy(), b.numpy(), 1e-4)
+        _assert_scaled(a.numpy(), c, 1e-4)
+
+
+def _raised(fn):
+    with pytest.raises(ValueError) as err:
+        fn()
+    return str(err.value)
+
+
+@pytest.mark.parametrize("case", ["moe_accum", "batch_accum",
+                                  "remat_policy", "moe_dispatch"])
+def test_bad_options_raise_as_jax(case):
+    kw, accum = {
+        "moe_accum": (MOE, 2),
+        "batch_accum": ({}, 3),
+        "remat_policy": (dict(remat=True, remat_policy="everything"), 1),
+        "moe_dispatch": (dict(MOE, moe_dispatch="gshard"), 1),
+    }[case]
+    jcfg, pcfg = _cfgs("float32", **kw)
+    tokens = _tokens(7)
+    jtr = jt.TransformerTrainer(jcfg, _mesh())
+    ptr = pt.TransformerTrainer(pcfg, device="cpu")
+    want = _raised(lambda: jtr.train_step_async(tokens, accum=accum))
+    assert _raised(lambda: ptr.train_step_async(tokens, accum=accum)) == want
