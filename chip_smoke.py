@@ -194,7 +194,44 @@ Phases, each printing JSON lines:
              Then ``sgmix_fused_occurrences_per_sec`` (CUDA events over
              100 queued steps at lr 0.05), a profile of 20 fused steps and
              the peak device memory.
-             No kernel of ``ops/csrc`` runs on phases 7 to 12; each
+13. resnet — ``ResNet20DataParallel`` (``apps/resnet.py``) at its real
+             widths (16/32/64, 3 x 3 basic blocks, 272,474 parameters,
+             10 classes), 2 workers, lr 0.1, batch 64 split across them,
+             through ``TorchParamManager`` (``ext/torch_ext.py``) on one
+             draw of ``synthetic_cifar(60_000)``: 50,000 training and
+             10,000 held-out images.  Checks: (a) the card's initial
+             weights equal the CPU build from the same seed, bit for bit;
+             (c) 5 steps from one start on the same batches on the card
+             (TF32 off, deterministic cuDNN, for this check only) and on
+             the CPU (a second ``init`` lifecycle), each worker's
+             parameters held by their change after the first step, within
+             2.1e-2 and 3.3e-2 (10x the readings), every step's gap
+             reported beside the CPU's own gap to a run whose inputs moved
+             by one ulp, and the first step with cuDNN's TF32 on reported
+             as a control beside the limits.  The rest runs under
+             PyTorch's defaults (cuDNN TF32 on, not deterministic): (b)
+             after each manager's sync in a step the table equals the
+             table before plus (flat_i - synced_i) / 2 computed in
+             float32 on the card, and net i's parameters equal the table,
+             bit for bit; (d) one whole step (both workers' forward,
+             backward and SGD step, both syncs) under
+             ``torch.cuda.set_sync_debug_mode("error")``; (e) one epoch
+             (781 steps), then held-out accuracy above 0.5.  Then
+             ``resnet_images_per_sec`` (CUDA events over 100 steps after
+             5, with the precision switches read as it starts and
+             printed), the two syncs alone (their share of a step), one
+             profiled step and 20 profiled pairs of syncs (launches, the
+             device's busy share), and the peak device memory.
+14. planes — the LR fused step (phase 8's shape) for 300 steps under
+             CUDA events in eight lifecycles on the card, disarmed, armed,
+             armed, disarmed, twice; armed is ``-profile_hz=97
+             -metrics_flush_ms=50 -health_rules=true -trace_dir=<tmp>``.
+             Each armed run's ``trace_rank0.json`` must hold the
+             profiler's folded-stack events beside the spans, its
+             ``metrics_rank0.prom`` the health evaluator's series, and
+             the evaluator the default rule pack.  It reports the step
+             times and the ratio of their medians, armed over disarmed.
+             No kernel of ``ops/csrc`` runs on phases 7 to 14; each
              reports the launch counts of its own run (0).
 
 Then the kernels line (the trainer's numbers, the launches of every
@@ -208,6 +245,7 @@ skipped instead of the result line, and exits 4.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -230,7 +268,8 @@ PEAK_HBM_BYTES = 3.35e12
 LAYERS, STEPS, BATCH, SEQ = 16, 5, 4, 2048
 HEADS, HEAD_DIM = 16, 128
 PHASES = ("parity", "trainer", "profile", "check", "timing", "small", "moe",
-          "longctx", "tables", "lr", "rows", "w2v", "lda", "sgmix")
+          "longctx", "tables", "lr", "rows", "w2v", "lda", "sgmix", "resnet",
+          "planes")
 # Remat reschedules the backward and recomputes the same numbers: on the
 # card "dots" matched the no-remat losses to the last bit and full remat
 # (batch 8, the batch of 4 twice) within 5.3e-5, so the losses are held
@@ -314,6 +353,37 @@ SGMIX_LR = 0.05
 # them, so a batch whose occurrences are merely reordered drifts a
 # sizeable share of W2V_RTOL from the original in 20 steps.
 SGMIX_CHECK_LR = SGMIX_LR * SGMIX_BATCH
+# ResNet-20 / CIFAR-10 data-parallel (BASELINE.json's torch-binding
+# config) at its real widths (16/32/64, 3 x 3 basic blocks, 272,474
+# parameters), on one draw of synthetic_cifar split into training and
+# held-out images, with the app's defaults: 2 workers, lr 0.1, batch 64
+# split across them.
+RESNET_TRAIN, RESNET_HELD, RESNET_CLASSES = 50_000, 10_000, 10
+RESNET_WORKERS, RESNET_LR, RESNET_BATCH = 2, 0.1, 64
+RESNET_PARAMS = 272_474
+RESNET_CHECK_STEPS, RESNET_TIMED_STEPS = 5, 100
+# Card (TF32 off, deterministic cuDNN) against CPU from one start on the
+# same batches, each worker's parameters held by their change: max |got -
+# want| over max |want - start|.  Float32 training from ResNet-20's
+# initial weights at lr 0.1 is chaotic: on the card the gap read 2.0e-3
+# and 3.2e-3 after one step and grew about 4x a step to 0.13 after five,
+# as the CPU's own run does against itself with its inputs moved by one
+# ulp (6.2e-6 and 3.2e-3 after one step; reported beside it).  So the
+# first step is held, each worker within 10x its reading, and all five
+# are reported.  The same step with cuDNN's TF32 on read 2.9e-2 and
+# 2.0e-2 (reported as a control): worker 0's limit rejects it; worker
+# 1's cannot, since its first step is as chaotic on the CPU against
+# itself as on the card.
+RESNET_TOL = (2.1e-2, 3.3e-2)
+RESNET_ACC_MIN = 0.5      # held-out accuracy after one epoch; chance 0.1
+# The planes phase: the lr phase's fused step with the host planes armed
+# (the flag set that raised before they were ported) and disarmed.
+PLANES_FLAGS = ("-profile_hz=97", "-metrics_flush_ms=50",
+                "-health_rules=true")
+PLANES_STEPS = 300
+# Host-bound steps vary between lifecycles, so the two settings take
+# turns: off, on, on, off, twice.
+PLANES_ORDER = (False, True, True, False) * 2
 
 F32_TOL = 1e-4   # float32 outputs: every element within atol + rtol·|want|
 BF16_TOL = 1e-2  # bf16 outputs: max and L2 error relative to the scale
@@ -2456,6 +2526,358 @@ def phase_sgmix(torch, mv, card):
             f"senses separate {separate}")
 
 
+# ------------------------------------------------------- ResNet-20 (ext)
+
+
+@contextlib.contextmanager
+def cudnn_flags(torch, allow_tf32, deterministic):
+    """cuDNN's TF32 and determinism switches set for the block, and the
+    values found restored after it.  ``allow_tf32=True,
+    deterministic=False`` are PyTorch's defaults, which ``main`` turns
+    off for the kernel checks."""
+    cudnn = torch.backends.cudnn
+    old = cudnn.allow_tf32, cudnn.deterministic
+    cudnn.allow_tf32, cudnn.deterministic = allow_tf32, deterministic
+    try:
+        yield
+    finally:
+        cudnn.allow_tf32, cudnn.deterministic = old
+
+
+def torch_float_settings(torch) -> dict:
+    """The switches that pick a float32 convolution's or matmul's
+    precision and algorithm, read as they stand."""
+    return {"cudnn.allow_tf32": torch.backends.cudnn.allow_tf32,
+            "cudnn.deterministic": torch.backends.cudnn.deterministic,
+            "cudnn.benchmark": torch.backends.cudnn.benchmark,
+            "cuda.matmul.allow_tf32": torch.backends.cuda.matmul.allow_tf32}
+
+
+def net_flat(torch, net):
+    """A net's parameters as one float32 vector on their device."""
+    return torch.cat([p.detach().reshape(-1).float()
+                      for p in net.parameters()])
+
+
+def same_state(a, b) -> bool:
+    """Two modules' parameters and buffers are bit for bit the same."""
+    sa, sb = a.state_dict(), b.state_dict()
+    return list(sa) == list(sb) and all(
+        np.array_equal(sa[k].detach().cpu().numpy(),
+                       sb[k].detach().cpu().numpy()) for k in sa)
+
+
+def resnet_sync_records(torch, app, xb, yb):
+    """One step of ``app``: ``local_steps``, then each manager's sync in
+    turn, recording around it (table before, net i's flat parameters and
+    the manager's last synced value, table after, net i's parameters
+    after), all on the app's device."""
+    app.local_steps(xb, yb)
+    records = []
+    for net, mgr in zip(app.nets, app.mgrs):
+        before = mgr.table.get(device=True)
+        flat, synced = net_flat(torch, net), mgr._synced.clone()
+        mgr.sync_all_param()
+        records.append((before, flat, synced, mgr.table.get(device=True),
+                        net_flat(torch, net)))
+    return records
+
+
+def judge_protocol(torch, records, workers):
+    """({sync i: {table, params}}, verdict) of the delta protocol, bit for
+    bit: after manager i's sync the table equals the table before plus
+    ``(flat_i - synced_i) · (1/N)`` in float32, and net i's parameters
+    equal the table."""
+    out = {}
+    for i, (before, flat, synced, after, params) in enumerate(records):
+        want = before + (flat - synced) * (1.0 / workers)
+        out[f"sync{i}"] = {"table_exact": bool(torch.equal(after, want)),
+                           "params_exact": bool(torch.equal(params, after))}
+    ok = bool(out) and all(all(v.values()) for v in out.values())
+    return out, ok
+
+
+def judge_resnet_changes(card, cpu, start, tol=RESNET_TOL):
+    """({worker: rel_change}, each within its worker's tol): each
+    worker's parameters after the same steps on the card and on the CPU,
+    held by the change the CPU run made from ``start``."""
+    rels = {f"worker{i}": rel_change(g, w, s)
+            for i, (g, w, s) in enumerate(zip(card, cpu, start))}
+    return rels, (len(rels) == len(tol)
+                  and all(r <= t for r, t in zip(rels.values(), tol)))
+
+
+def converged(accuracy, floor=RESNET_ACC_MIN) -> bool:
+    return bool(accuracy > floor)
+
+
+def resnet_check_run(torch, app, x, y, steps):
+    """``steps`` of ``app.train_step`` on the first batches of ``x``/``y``
+    (on the app's device): each worker's flat parameters at the start
+    and after every step, as numpy, and the losses."""
+    xd, yd = app.place(x[:steps * RESNET_BATCH], y[:steps * RESNET_BATCH])
+
+    def flats():
+        return [net_flat(torch, n).cpu().numpy() for n in app.nets]
+
+    start, after, losses = flats(), [], []
+    for s in range(steps):
+        b = slice(s * RESNET_BATCH, (s + 1) * RESNET_BATCH)
+        losses.append(float(app.train_step(xd[b], yd[b])))
+        after.append(flats())
+    return start, after, losses
+
+
+def close_app(app):
+    app.mgrs[0].table.close()
+
+
+def phase_resnet(torch, mv, card):
+    """Data-parallel ResNet-20 on CIFAR-shaped data: the card's initial
+    weights against the CPU build, the delta protocol bit for bit, 5
+    steps card against CPU (the first held, all reported beside the
+    CPU's one-ulp floor and a TF32 control step), a step free of host
+    syncs, one epoch's held-out accuracy, then the rate, the syncs'
+    share, launches, busy share and peak memory; all but the card
+    against CPU under PyTorch's defaults."""
+    from multiverso_tpu_torch.apps.resnet import (ResNet20DataParallel,
+                                                  build_resnet20,
+                                                  synthetic_cifar)
+
+    def app_on(device=None):
+        return ResNet20DataParallel(RESNET_WORKERS, RESNET_LR,
+                                    RESNET_CLASSES, seed=0, device=device)
+
+    x, y = synthetic_cifar(RESNET_TRAIN + RESNET_HELD, RESNET_CLASSES,
+                           seed=0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mv.ops.reset_launch_counts()
+    mv.init(device=None)
+    # (a) the card's nets against the CPU build from the same seed.
+    app = app_on()
+    with torch.random.fork_rng(devices=[]):
+        cpu_nets = []
+        for _ in range(RESNET_WORKERS):
+            torch.manual_seed(0)
+            cpu_nets.append(build_resnet20(RESNET_CLASSES))
+    params = sum(p.numel() for p in app.nets[0].parameters())
+    init_exact = (all(same_state(a, b) for a, b in zip(app.nets, cpu_nets))
+                  and params == RESNET_PARAMS)
+    # (c), the card's side: TF32 off and deterministic cuDNN, here only.
+    with cudnn_flags(torch, allow_tf32=False, deterministic=True):
+        start, card_end, card_losses = resnet_check_run(
+            torch, app, x, y, RESNET_CHECK_STEPS)
+    close_app(app)
+    # The control for (c)'s limit: the same first step with cuDNN's TF32
+    # on, reported beside the limit that should reject it.
+    app = app_on()
+    with cudnn_flags(torch, allow_tf32=True, deterministic=True):
+        _, tf32_end, _ = resnet_check_run(torch, app, x, y, 1)
+    close_app(app)
+    # The rest under PyTorch's defaults (cuDNN TF32 on, not deterministic).
+    with cudnn_flags(torch, allow_tf32=True, deterministic=False):
+        # (b) the protocol on a step of a fresh app, then (d) a whole
+        # step under sync-debug "error".
+        app = app_on()
+        xd, yd = app.place(x[:RESNET_TRAIN], y[:RESNET_TRAIN])
+        protocol, protocol_ok = judge_protocol(
+            torch, resnet_sync_records(torch, app, xd[:RESNET_BATCH],
+                                       yd[:RESNET_BATCH]), RESNET_WORKERS)
+        b2 = slice(RESNET_BATCH, 2 * RESNET_BATCH)
+        _, sync_free = without_sync(torch, lambda: app.train_step(xd[b2],
+                                                                  yd[b2]))
+        close_app(app)
+        # (e) one epoch from the start, then the held-out accuracy.
+        app = app_on()
+        torch.cuda.synchronize()
+        s0 = time.perf_counter()
+        epoch_loss = app.train_epoch(xd, yd, batch_size=RESNET_BATCH)
+        epoch_s = time.perf_counter() - s0
+        accuracy = app.accuracy(x[RESNET_TRAIN:], y[RESNET_TRAIN:])
+        steps_per_epoch = RESNET_TRAIN // RESNET_BATCH
+        # The rate, going on from the trained app through the training
+        # batches, with the switches it ran under read as it starts.
+        batch_at = [0]
+
+        def step_once():
+            i = batch_at[0] % steps_per_epoch * RESNET_BATCH
+            batch_at[0] += 1
+            app.train_step(xd[i:i + RESNET_BATCH], yd[i:i + RESNET_BATCH])
+
+        def syncs_once():
+            for m in app.mgrs:
+                m.sync_all_param()
+
+        rate_settings = torch_float_settings(torch)
+        step_ms = cuda_ms(step_once, iters=RESNET_TIMED_STEPS, warmup=5)
+        sync_ms = cuda_ms(syncs_once, iters=RESNET_TIMED_STEPS, warmup=5)
+        step_profile = profile_calls(torch, step_once, 1)
+        sync_profile = profile_calls(torch, syncs_once, 20, top=5)
+        close_app(app)
+    peak = torch.cuda.max_memory_allocated()
+    mv.shutdown()
+    counts = mv.ops.launch_counts()
+
+    mv.init(device="cpu")
+    cpu_app = app_on("cpu")
+    cpu_start, cpu_end, cpu_losses = resnet_check_run(
+        torch, cpu_app, x, y, RESNET_CHECK_STEPS)
+    close_app(cpu_app)
+    mv.shutdown()
+    # The CPU's float32 noise floor: the same run with every input image
+    # moved by one ulp, against the CPU run.
+    mv.init(device="cpu")
+    floor_app = app_on("cpu")
+    _, floor_end, _ = resnet_check_run(
+        torch, floor_app, np.nextafter(x[:RESNET_CHECK_STEPS * RESNET_BATCH],
+                                       np.float32(np.inf)), y,
+        RESNET_CHECK_STEPS)
+    close_app(floor_app)
+    mv.shutdown()
+    start_same = all(np.array_equal(a, b) for a, b in zip(start, cpu_start))
+    by_step = [judge_resnet_changes(c, w, start)[0]
+               for c, w in zip(card_end, cpu_end)]
+    floor_by_step = [judge_resnet_changes(f, w, start)[0]
+                     for f, w in zip(floor_end, cpu_end)]
+    changes, changes_ok = judge_resnet_changes(card_end[0], cpu_end[0],
+                                               start)
+    tf32_changes, _ = judge_resnet_changes(tf32_end[0], cpu_end[0], start)
+    ok = (init_exact and protocol_ok and start_same and changes_ok
+          and sync_free and converged(accuracy))
+    emit({"phase": "resnet", "ok": ok, "workers": RESNET_WORKERS,
+          "lr": RESNET_LR, "batch": RESNET_BATCH, "classes": RESNET_CLASSES,
+          "train_images": RESNET_TRAIN, "held_out_images": RESNET_HELD,
+          "parameters": params, "initial_weights_exact": init_exact,
+          "protocol": protocol, "check_steps": RESNET_CHECK_STEPS,
+          "card_vs_cpu_change_step1": changes, "tol": RESNET_TOL,
+          "card_vs_cpu_change_by_step": by_step,
+          "tf32_control_change_step1": tf32_changes,
+          "tol_rejects_tf32_control": {
+              w: r > t for (w, r), t in zip(tf32_changes.items(),
+                                            RESNET_TOL)},
+          "cpu_one_ulp_change_by_step": floor_by_step,
+          "check_losses_cuda": card_losses,
+          "check_losses_cpu": cpu_losses,
+          "step_sync_free": sync_free, "epoch_steps": steps_per_epoch,
+          "epoch_s": epoch_s, "epoch_last_loss": epoch_loss,
+          "held_out_accuracy": accuracy, "accuracy_min": RESNET_ACC_MIN,
+          "resnet_ms_per_step": step_ms,
+          "resnet_images_per_sec": RESNET_BATCH / (step_ms * 1e-3),
+          "syncs_ms": sync_ms, "syncs_share_of_step": sync_ms / step_ms,
+          "step_profile": step_profile, "syncs_profile": sync_profile,
+          "rate_settings": rate_settings,
+          "peak_bytes": peak, "launch_counts": counts, "card": card})
+    if not ok:
+        raise AssertionError(
+            f"resnet phase failed: initial weights exact {init_exact}, "
+            f"protocol {protocol}, same start {start_same}, card vs CPU "
+            f"{changes} (tol {RESNET_TOL}), sync-free {sync_free}, "
+            f"held-out accuracy {accuracy}")
+
+
+# ------------------------------------------------------- the host planes
+
+
+def judge_planes(trace_doc, prom_text, rules_loaded, default_rules):
+    """({check: value}, verdict) of an armed run: the trace holds the
+    profiler's folded-stack events beside the spans, the metrics file
+    was written with the health evaluator's series in it, and the
+    evaluator held the default rule pack."""
+    events = trace_doc.get("traceEvents", []) if trace_doc else []
+    profile = [e for e in events if e.get("name", "").startswith("profile:")
+               and e.get("args", {}).get("plane") == "profiler/python"]
+    spans = [e for e in events if not e.get("name", "").startswith(
+        "profile:")]
+    out = {"profile_events": len(profile), "spans": len(spans),
+           "metrics_written": bool(prom_text),
+           "health_evaluated": "health_alerts_firing" in (prom_text or ""),
+           "rules_loaded": rules_loaded, "default_rules": default_rules}
+    ok = bool(profile and spans and out["health_evaluated"]
+              and rules_loaded == default_rules)
+    return out, ok
+
+
+def planes_run(torch, mv, LogisticRegression, x, y, armed, trace_dir):
+    """The lr phase's fused step, PLANES_STEPS times under CUDA events,
+    in one lifecycle with the planes armed or not: (ms per step, the
+    armed evaluator's rule count, profiler samples)."""
+    from multiverso_tpu_torch import health, profiler
+
+    args = [*PLANES_FLAGS, f"-trace_dir={trace_dir}"] if armed else []
+    mv.init(device=None, args=args)
+    try:
+        lr = LogisticRegression(LR_FEATURES, LR_CLASSES, learning_rate=0.1,
+                                name="lr_planes")
+        step, place = lr.make_fused_step()
+        cur = list(lr.table.raw_value())
+        xb, yb = place(x), place(y)
+
+        def fused_once():
+            cur[0], cur[1], _ = step(cur[0], cur[1], xb, yb)
+
+        ms = cuda_ms(fused_once, iters=PLANES_STEPS, warmup=3)
+        lr.table.raw_assign(*cur)
+        lr.table.get()
+        ev, prof = health.evaluator(), profiler.active()
+        rules = len(ev.snapshot()) if ev is not None else 0
+        samples = prof.samples if prof is not None else 0
+        if armed and ev is not None:
+            deadline = time.time() + 5   # at least one flush evaluates
+            while not any(s.name == "health.alerts.firing"
+                          for s in mv.metrics.REGISTRY.series()) \
+                    and time.time() < deadline:
+                time.sleep(0.01)
+    finally:
+        mv.shutdown()
+        mv.config.reset()          # -flags are process-global
+        mv.tracing.disable()
+    return ms, rules, samples
+
+
+def phase_planes(torch, mv, card):
+    """The host planes armed on the card (-profile_hz, -metrics_flush_ms,
+    -health_rules, -trace_dir): the LR fused step runs, shutdown writes
+    the trace with the profiler's stacks and the metrics file, and the
+    health evaluator ran; the step's time armed against disarmed, in
+    turns."""
+    import tempfile
+
+    from multiverso_tpu_torch import health
+    from multiverso_tpu_torch.apps import (LogisticRegression,
+                                           synthetic_classification)
+
+    x, y = synthetic_classification(LR_BATCH, LR_FEATURES, LR_CLASSES,
+                                    seed=0)
+    mv.ops.reset_launch_counts()
+    runs = {"disarmed": [], "armed": []}
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, armed in enumerate(PLANES_ORDER):
+            trace_dir = os.path.join(tmp, f"run{i}")
+            ms, rules, samples = planes_run(torch, mv, LogisticRegression,
+                                            x, y, armed, trace_dir)
+            runs["armed" if armed else "disarmed"].append(ms)
+            if armed:
+                with open(os.path.join(trace_dir, "trace_rank0.json")) as f:
+                    trace = json.load(f)
+                prom = os.path.join(trace_dir, "metrics_rank0.prom")
+                with open(prom) as f:
+                    prom_text = f.read()
+                verdict, ok = judge_planes(trace, prom_text, rules,
+                                           len(health.default_rules()))
+                verdict["profiler_samples"] = samples
+                if not ok:
+                    raise AssertionError(f"planes phase failed: {verdict}")
+    counts = mv.ops.launch_counts()
+    on, off = (float(np.median(runs[k])) for k in ("armed", "disarmed"))
+    emit({"phase": "planes", "ok": True, "flags": list(PLANES_FLAGS),
+          "steps": PLANES_STEPS, **verdict,
+          "lr_fused_ms_disarmed": runs["disarmed"],
+          "lr_fused_ms_armed": runs["armed"],
+          "armed_over_disarmed_medians": on / off,
+          "launch_counts": counts, "card": card})
+
+
 def main(argv) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=STEPS)
@@ -2523,6 +2945,10 @@ def main(argv) -> int:
         phase_lda(torch, mv, card)
     if "sgmix" in phases:
         phase_sgmix(torch, mv, card)
+    if "resnet" in phases:
+        phase_resnet(torch, mv, card)
+    if "planes" in phases:
+        phase_planes(torch, mv, card)
 
     kernels = []
     for kname, (src, replaces) in KERNELS.items():

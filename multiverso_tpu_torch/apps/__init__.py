@@ -9,17 +9,20 @@ skip-gram mixture, each with
 - a *fused* path where the whole step — pull, compute, push, update —
   runs on the table's device with no host hop,
 
-the DLRM recommender on the row path, and LightLDA with its host sweep
-and its two device sweeps.  ResNet comes with ROADMAP.md Queue 1.
+the DLRM recommender on the row path, LightLDA with its host sweep and
+its two device sweeps, and data-parallel ResNet-20 (``apps.resnet``),
+whose workers sync through ``ext.torch_ext.TorchParamManager``.
 """
 
 from .dlrm import DLRMRecommender, synthetic_clicks, zipf_ids
 from .lightlda import LightLDA, synthetic_documents
 from .logistic_regression import LogisticRegression, synthetic_classification
+from .resnet import ResNet20DataParallel, build_resnet20, synthetic_cifar
 from .skipgram_mixture import SkipGramMixture, synthetic_homonym_corpus
 from .word2vec import SkipGram, synthetic_corpus
 
-__all__ = ["DLRMRecommender", "LightLDA", "LogisticRegression", "SkipGram",
-           "SkipGramMixture", "synthetic_classification", "synthetic_clicks",
-           "synthetic_corpus", "synthetic_documents",
+__all__ = ["DLRMRecommender", "LightLDA", "LogisticRegression",
+           "ResNet20DataParallel", "SkipGram", "SkipGramMixture",
+           "build_resnet20", "synthetic_cifar", "synthetic_classification",
+           "synthetic_clicks", "synthetic_corpus", "synthetic_documents",
            "synthetic_homonym_corpus", "zipf_ids"]

@@ -28,11 +28,11 @@ Identity mapping (kept name-compatible with the reference C API):
   worker_id()`` under Role.ALL.
 - one device per process, so ``num_replicas()`` is 1.
 
-Two planes of the JAX package are not ported yet (ROADMAP.md Queue 1,
-"Jax-free host planes"): the sampling profiler (``-profile_hz > 0``)
-and the health plane (``-health_rules`` with ``-metrics_flush_ms >
-0``).  ``init()`` raises ``NotImplementedError`` when the flags ask for
-either.
+The host planes arm as in the JAX package: ``-trace_dir`` records
+spans, ``-profile_hz > 0`` starts the sampling profiler (its folded
+stacks join the trace at shutdown), and ``-metrics_flush_ms > 0``
+starts the Prometheus flusher and, with ``-health_rules`` (on by
+default), the health evaluator on its cadence.
 """
 
 from __future__ import annotations
@@ -205,23 +205,6 @@ class Context:
 _LOCK = threading.Lock()
 _CONTEXT: Optional[Context] = None
 
-_NOT_PORTED = ("not ported yet (ROADMAP.md Queue 1, the item "
-               "\"Jax-free host planes\")")
-
-
-def _refuse_unported_planes() -> None:
-    """Flags that arm a plane the port lacks fail loudly, never silently."""
-    if int(config.get("profile_hz")) > 0:
-        raise NotImplementedError(
-            f"-profile_hz > 0 arms the sampling profiler, which is "
-            f"{_NOT_PORTED}; run with -profile_hz=0")
-    if int(config.get("metrics_flush_ms")) > 0 and bool(
-            config.get("health_rules")):
-        raise NotImplementedError(
-            f"-health_rules with -metrics_flush_ms > 0 arms the health "
-            f"plane, which is {_NOT_PORTED}; pass -health_rules=false")
-
-
 def init(args: Optional[List[str]] = None,
          sync: Optional[bool] = None,
          updater_type: Optional[str] = None,
@@ -253,7 +236,6 @@ def init(args: Optional[List[str]] = None,
         sync_val = bool(config.get("sync")) if sync is None else bool(sync)
         updater_val = (str(config.get("updater_type"))
                        if updater_type is None else str(updater_type))
-        _refuse_unported_planes()
         device = resolve_device(device)
 
         from ..log import configure as log_configure
@@ -292,6 +274,14 @@ def init(args: Optional[List[str]] = None,
         _recorder.attach(rank=node.rank)
         _recorder.record("lifecycle",
                          f"init rank {node.rank}/{node.size}")
+        # Latency plane (docs/observability.md): -profile_hz arms the
+        # Python sampler thread; its folded stacks land in the trace
+        # export at shutdown beside the spans.
+        profile_hz = int(config.get("profile_hz"))
+        if profile_hz > 0:
+            from .. import profiler as _profiler
+
+            _profiler.start(profile_hz)
         flush_ms = int(config.get("metrics_flush_ms"))
         metrics.set_history_depth(int(config.get("metrics_history")))
         if flush_ms > 0:
@@ -302,6 +292,14 @@ def init(args: Optional[List[str]] = None,
                 path=os.path.join(trace_dir,
                                   f"metrics_rank{node.rank}.prom")
                 if trace_dir else None)
+            # Health plane (docs/observability.md "health plane"):
+            # -health_rules arms the default SLO/alert pack on the
+            # flush cadence — rules can only evaluate when flushes
+            # actually happen, so the gate rides flush_ms.
+            if bool(config.get("health_rules")):
+                from .. import health as _health
+
+                _health.arm()
 
         _CONTEXT = Context(device=device, node=node,
                            sync=sync_val,
@@ -329,10 +327,20 @@ def shutdown(finalize: bool = True) -> None:
         _recorder.record("lifecycle",
                          f"shutdown rank {_CONTEXT.node.rank}")
         _CONTEXT.barrier("mvtpu_shutdown")
-        # Observability teardown: the last metrics flush, then the span
-        # export (-trace_dir), then the classic Dashboard dump — which
-        # prints percentiles from the same registry.
+        # Observability teardown: health evaluator off BEFORE the final
+        # flush (an alert must not fire against a half-torn-down rank),
+        # then the last flush, then the span export (-trace_dir), then
+        # the classic Dashboard dump — which prints percentiles from the
+        # same registry.
+        from .. import health as _health
+
+        _health.disarm()
         metrics.stop_flush()
+        # Profiler down BEFORE the trace export so its folded stacks
+        # ride trace_rank<r>.json (stop() folds them into the buffer).
+        from .. import profiler as _profiler
+
+        _profiler.stop(to_trace=True)
         trace_dir = str(config.get("trace_dir"))
         if trace_dir and tracing.enabled():
             import os

@@ -11,15 +11,23 @@ package's (``tables/base.py``: ``-serve_cache_entries`` arms them):
   max_staleness``; the "server version" is the table's local apply
   counter.
 
-Both are copies of the JAX package's modules.  The client, wire and
-hedge modules (``ServeClient``, ``AnonServeClient``, ``HedgedReader``)
-need the native runtime and are not ported yet (ROADMAP.md Queue 1,
-"Modules that need the native runtime").
+- :class:`~multiverso_tpu_torch.serve.wire.AnonServeClient` speaks the
+  serve protocol over a plain socket to a server rank's reactor;
+- :class:`~multiverso_tpu_torch.serve.hedge.HedgedReader` hedges row
+  reads over two such connections past a p95-derived delay.
+
+All four are copies of the JAX package's modules.  The wire clients'
+server end, and ``ServeClient`` (which imports the ctypes binding), need
+the native runtime and are not ported yet (ROADMAP.md Queue 1, "Modules
+that need the native runtime").
 """
 
 from __future__ import annotations
 
 from .cache import VersionedLRUCache
 from .coalescer import Coalescer
+from .hedge import HedgedReader, LatencyTracker
+from .wire import AnonServeClient, FrameDecoder, ServeBusy
 
-__all__ = ["Coalescer", "VersionedLRUCache"]
+__all__ = ["AnonServeClient", "Coalescer", "FrameDecoder", "HedgedReader",
+           "LatencyTracker", "ServeBusy", "VersionedLRUCache"]

@@ -22,14 +22,22 @@ sweeps of a small LightLDA, and conservation rejects one planted
 off-by-one count in each of its three arrays.  The sgmix phase's
 helpers run real small mixtures: push-pull against fused and a reordered
 batch pass ``judge_changes``, a doubled step fails it, and the padding
-and homonym verdicts reject what they must.
+and homonym verdicts reject what they must.  The resnet phase's protocol
+judge runs on real steps of a small ResNet-20 and rejects a sync that
+drops the 1/N scale or skips the write-back; its change judge and the
+convergence floor are held at their edges; the planes judge passes a
+real armed CPU lifecycle and rejects its trace without the profiler's
+events, its metrics without the evaluator's series, and a short rule
+pack.
 """
 
 import dataclasses
 import importlib.util
+import json
 import math
 import os
 import stat
+import time
 import types
 
 import numpy as np
@@ -162,8 +170,8 @@ def test_build_phase_fails_without_a_hopper_kernel(tmp_path, lib):
 # ------------------------------------------------ tables and lr phase judges
 
 def test_new_phases_run_by_default():
-    assert chip_smoke.PHASES[-6:] == ("tables", "lr", "rows", "w2v", "lda",
-                                      "sgmix")
+    assert chip_smoke.PHASES[-8:] == ("tables", "lr", "rows", "w2v", "lda",
+                                      "sgmix", "resnet", "planes")
     assert chip_smoke.TABLE_SIZE == 16 * 1024 * 1024
     assert (chip_smoke.W2V_VOCAB, chip_smoke.W2V_DIM,
             chip_smoke.W2V_BATCH) == (100_000, 128, 8192)
@@ -172,6 +180,11 @@ def test_new_phases_run_by_default():
                 2048, 64, 10000, 64, (1024, 8192))
     assert (chip_smoke.SGMIX_VOCAB, chip_smoke.SGMIX_DIM,
             chip_smoke.SGMIX_BATCH) == (100_000, 128, 1024)
+    assert (chip_smoke.RESNET_TRAIN, chip_smoke.RESNET_HELD,
+            chip_smoke.RESNET_CLASSES, chip_smoke.RESNET_WORKERS,
+            chip_smoke.RESNET_LR, chip_smoke.RESNET_BATCH,
+            chip_smoke.RESNET_PARAMS) == (50_000, 10_000, 10, 2, 0.1, 64,
+                                          272_474)
 
 
 def test_rel_to_peak():
@@ -911,3 +924,147 @@ def test_moe_layer_syncs_reports_where_the_host_waited(monkeypatch, planted):
     monkeypatch.setattr(moe, "_routing", broken)
     with pytest.raises(RuntimeError, match="unrelated"):
         chip_smoke.moe_layer_sync_free(torch, params, x, "dense")
+
+
+# ------------------------------------------------- resnet and planes judges
+
+def _small_resnet(seed=0):
+    from multiverso_tpu_torch.apps.resnet import (ResNet20DataParallel,
+                                                  synthetic_cifar)
+
+    app = ResNet20DataParallel(lr=0.05, num_classes=4, seed=seed,
+                               device="cpu")
+    x, y = synthetic_cifar(32, num_classes=4, seed=seed)
+    return app, app.place(x, y)
+
+
+@pytest.mark.parametrize("fault", [None, "scale_dropped",
+                                   "write_back_skipped"])
+def test_protocol_judge_rejects_planted_faults(cpu_runtime, monkeypatch,
+                                               fault):
+    """The resnet phase's protocol check on a real step: the true sync
+    passes bit for bit; a sync that drops the 1/N scale, or one that
+    skips the write-back into the net, fails it."""
+    import torch
+
+    app, (xb, yb) = _small_resnet()
+    if fault == "scale_dropped":
+        for m in app.mgrs:
+            m._average = False
+    elif fault == "write_back_skipped":
+        for m in app.mgrs:
+            monkeypatch.setattr(m, "_write_back", lambda flat: None)
+    records = chip_smoke.resnet_sync_records(torch, app, xb, yb)
+    checks, ok = chip_smoke.judge_protocol(torch, records, 2)
+    assert ok is (fault is None), checks
+    if fault == "scale_dropped":
+        assert not checks["sync0"]["table_exact"]
+    if fault == "write_back_skipped":
+        assert checks["sync0"]["table_exact"]
+        assert not checks["sync0"]["params_exact"]
+
+
+def test_resnet_check_run_and_change_judge_edges(cpu_runtime):
+    """Two CPU runs from one start agree exactly; the change judge passes
+    at its tolerance and fails just past it, and on a run that did not
+    move."""
+    import torch
+    from multiverso_tpu_torch.apps.resnet import synthetic_cifar
+
+    x, y = synthetic_cifar(128, num_classes=4, seed=0)
+    runs = []
+    for name in ("a", "b"):
+        app, _ = _small_resnet()
+        runs.append(chip_smoke.resnet_check_run(torch, app, x, y, 2))
+        chip_smoke.close_app(app)
+    (start, ends, losses), (start_b, ends_b, losses_b) = runs
+    assert all(np.array_equal(p, q) for p, q in zip(start, start_b))
+    assert losses == losses_b and np.isfinite(losses).all()
+    assert len(ends) == 2
+    end, end_b = ends[-1], ends_b[-1]
+    rels, ok = chip_smoke.judge_resnet_changes(end_b, end, start)
+    assert ok and set(rels) == {"worker0", "worker1"}
+    assert all(r == 0.0 for r in rels.values())
+    end64 = [e.astype(np.float64) for e in end]
+    start64 = [s.astype(np.float64) for s in start]
+    for w, tol in enumerate(chip_smoke.RESNET_TOL):
+        moved = end64[w] - start64[w]
+        k = int(np.abs(moved).argmax())
+        for factor, want in ((0.999, True), (1.001, False)):
+            got = [e.copy() for e in end64]
+            got[w][k] += tol * factor * abs(moved[k])
+            assert chip_smoke.judge_resnet_changes(got, end64,
+                                                   start64)[1] is want
+    assert not chip_smoke.judge_resnet_changes(end, start, start)[1]
+
+
+def test_convergence_threshold_edges():
+    floor = chip_smoke.RESNET_ACC_MIN
+    assert chip_smoke.converged(floor + 1e-4)
+    assert not chip_smoke.converged(floor)
+    assert not chip_smoke.converged(0.1)
+
+
+def test_cudnn_flags_restore_what_they_found():
+    import torch
+
+    cudnn = torch.backends.cudnn
+    before = cudnn.allow_tf32, cudnn.deterministic
+    with chip_smoke.cudnn_flags(torch, allow_tf32=not before[0],
+                                deterministic=not before[1]):
+        assert (cudnn.allow_tf32, cudnn.deterministic) == (
+            not before[0], not before[1])
+        read = chip_smoke.torch_float_settings(torch)
+        assert (read["cudnn.allow_tf32"], read["cudnn.deterministic"]) == (
+            not before[0], not before[1])
+    assert (cudnn.allow_tf32, cudnn.deterministic) == before
+
+
+def _armed_run(tmp_path):
+    """A CPU lifecycle with the planes phase's flags: (trace, metrics
+    text, rules loaded)."""
+    import multiverso_tpu_torch as mv
+    from multiverso_tpu_torch import health, profiler
+
+    mv.init(device="cpu", args=[*chip_smoke.PLANES_FLAGS,
+                                f"-trace_dir={tmp_path}"])
+    try:
+        rules = len(health.evaluator().snapshot())
+        prof = profiler.active()
+        t = mv.ArrayTable(16, name="planes")
+        deadline = time.time() + 5
+        while time.time() < deadline and (
+                prof.samples == 0
+                or not any(s.name == "health.alerts.firing"
+                           for s in mv.metrics.REGISTRY.series())):
+            t.add(np.ones(16, np.float32))
+    finally:
+        mv.shutdown()
+        mv.config.reset()
+        mv.tracing.disable()
+    with open(tmp_path / "trace_rank0.json") as f:
+        trace = json.load(f)
+    with open(tmp_path / "metrics_rank0.prom") as f:
+        prom = f.read()
+    return trace, prom, rules
+
+
+def test_planes_judge_passes_and_rejects(tmp_path):
+    """The planes phase's judge on a real armed CPU lifecycle passes, and
+    fails on the same trace without the profiler's events, on a metrics
+    file without the evaluator's series, and on a short rule pack."""
+    from multiverso_tpu_torch import health
+
+    trace, prom, rules = _armed_run(tmp_path)
+    n = len(health.default_rules())
+    checks, ok = chip_smoke.judge_planes(trace, prom, rules, n)
+    assert ok, checks
+    assert checks["profile_events"] > 0 and checks["spans"] > 0
+    stripped = {"traceEvents": [e for e in trace["traceEvents"]
+                                if not e["name"].startswith("profile:")]}
+    assert not chip_smoke.judge_planes(stripped, prom, rules, n)[1]
+    no_health = "\n".join(ln for ln in prom.splitlines()
+                          if "health_alerts" not in ln)
+    assert not chip_smoke.judge_planes(trace, no_health, rules, n)[1]
+    assert not chip_smoke.judge_planes(trace, prom, rules - 1, n)[1]
+    assert not chip_smoke.judge_planes(None, "", 0, n)[1]

@@ -4,12 +4,13 @@ Lifecycle, ids, flags and per-lifecycle kwargs as in ``test_core.py``,
 run on both packages (the JAX package on its 8-device CPU mesh, the port
 with ``device="cpu"``); the barrier timeout under an injected straggler;
 and what only the port has to show: ``init()`` with no device needs a
-card, and flags that arm a plane the port lacks raise instead of being
-skipped.
+card, and the host planes (sampling profiler, health evaluator) arm from
+their flags and come down at shutdown in the JAX package's order.
 """
 
 import json
 import os
+import time
 from functools import partial
 from types import SimpleNamespace
 
@@ -185,10 +186,58 @@ def test_barrier_timeout_dumps_the_black_box(tmv, tmp_path):
                                    ["-metrics_flush_ms=50"],
                                    ["-metrics_flush_ms=50",
                                     "-health_rules=true"]])
-def test_unported_planes_raise(tmv, flags):
-    with pytest.raises(NotImplementedError, match="Jax-free host planes"):
-        tmv.init(device="cpu", args=flags)
-    assert not tmv.initialized()
+def test_unported_planes_raise(tmv, flags, tmp_path):
+    """The flag sets that raised before the host planes were ported now
+    arm them: ``-profile_hz`` the sampler, ``-metrics_flush_ms`` with
+    ``-health_rules`` (on by default) the health evaluator; shutdown
+    disarms both and writes the profile into the trace."""
+    from multiverso_tpu_torch import health, profiler
+
+    tmv.init(device="cpu", args=flags + [f"-trace_dir={tmp_path}"])
+    prof = profiler.active()
+    assert (prof is not None) == ("-profile_hz=97" in flags)
+    assert (health.evaluator() is not None) == ("-metrics_flush_ms=50"
+                                               in flags)
+    if prof is not None:
+        assert prof.hz == 97
+        deadline = time.time() + 5
+        while prof.samples == 0 and time.time() < deadline:
+            sum(i * i for i in range(10000))
+    else:
+        ev = health.evaluator()
+        assert {r.name for r in ev._rules} == {
+            r.name for r in health.default_rules()}
+        deadline = time.time() + 5
+        while (not any(x.name == "health.alerts.firing"
+                       for x in tmv.metrics.REGISTRY.series())
+               and time.time() < deadline):
+            time.sleep(0.01)
+    tmv.shutdown()
+    assert profiler.active() is None and health.evaluator() is None
+    with open(tmp_path / "trace_rank0.json") as f:
+        names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+    assert any(n.startswith("profile:") for n in names) == (prof is not None)
+    if prof is None:
+        with open(tmp_path / "metrics_rank0.prom") as f:
+            assert "health_alerts_firing" in f.read()
+
+
+def test_shutdown_disarms_the_planes_in_the_jax_order(tmv, tmp_path,
+                                                      monkeypatch):
+    from multiverso_tpu_torch import health, metrics, profiler, tracing
+
+    tmv.init(device="cpu", args=["-profile_hz=97", "-metrics_flush_ms=50",
+                                 "-health_rules=true",
+                                 f"-trace_dir={tmp_path}"])
+    assert profiler.active() is not None and health.evaluator() is not None
+    calls = []
+    for mod, name in ((health, "disarm"), (metrics, "stop_flush"),
+                      (profiler, "stop"), (tracing, "save")):
+        real = getattr(mod, name)
+        monkeypatch.setattr(mod, name, lambda *a, _r=real, _n=name, **k: (
+            calls.append(_n), _r(*a, **k))[1])
+    tmv.shutdown()
+    assert calls == ["disarm", "stop_flush", "stop", "save"]
 
 
 def test_metrics_flush_without_health_rules(tmv, tmp_path):

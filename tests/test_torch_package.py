@@ -179,13 +179,17 @@ COPIED = ["config.py", "fault.py", "capacity.py", "sketch.py",
           "ops/flight_recorder.py", "util/quantization.py",
           "util/async_buffer.py", "serve/cache.py", "serve/coalescer.py",
           "io/stream.py", "io/__init__.py", "tables/kv_table.py",
-          "tables/sparse_matrix_table.py", "tables/factory.py"]
+          "tables/sparse_matrix_table.py", "tables/factory.py",
+          "util/timer.py", "util/net_util.py", "slo.py", "profiler.py",
+          "health.py", "serve/wire.py", "latency.py", "serve/hedge.py",
+          "ops/audit.py", "ops/introspect.py"]
 
 
 # Besides the name, a copy drops the JAX package's change-history notes
 # (a pattern each, which must match once).
 _HISTORY_NOTES = {
     "config.py": [(r"the PR \d+ (whole-id-set entries)", r"\1")],
+    "serve/hedge.py": [(r"\nPR \d+ (audit plane's)", r"\n\1")],
 }
 
 
