@@ -82,7 +82,37 @@ Phases, each printing JSON lines:
              of 128, hidden 2816, batch 1, seq 16,384, full remat): 5
              steps (``longctx_tokens_per_sec``, ``longctx_seq``), the
              kernels at T 16,384 against their plain versions at bh 2,
-             and their times at bh 8.
+             and their times at bh 8.  Then bench_long_context's seq
+             65,536 run (the same model, batch 1, 5 steps,
+             ``longctx64k_tokens_per_sec``), the single-device path that
+             sequence parallelism extends, with the kernels at T 65,536
+             against their plain versions at bh 2 (the plain versions
+             taken in blocks of 4,096 query rows or key columns, since
+             one head's [T, T] float32 scores hold 16 GiB).
+   mesh    — the transformer's mesh code on the card: (1) the trainer's
+             full-width config over ``torch.distributed`` with NCCL at
+             world size 1, on a mesh ("dp", "sp", "tp") of sizes 1, 3
+             SGD steps from the same masters as the no-mesh trainer: every
+             parameter and every loss equal to the no-mesh run's, bit for
+             bit (the vocabulary-parallel cross-entropy included; see
+             ``_VocabCE``), step times side by side; (2) the ring's
+             compute at sp 4 in one process: every virtual rank's
+             schedule (``ring_attention_shard``) through an in-process
+             rotation (``InProcessRing``) at bench_long_context's
+             attention shape [1, 8, 16384, 128] bf16 in both layouts, o,
+             lse, dq, dk and dv held against single-device attention by
+             the parity criterion, and again in float32 at [2, 4, 2048,
+             64]; the kernel launches per virtual rank, and each
+             kernel's launches by piece shape as its wrapper counts them
+             (``launch_shapes``), must be the schedule's; the ring's time
+             beside single-device attention's; then each kernel at each
+             of the ring's piece shapes at T
+             16,384 (contiguous: 4,096 x 4,096 causal and full; zigzag:
+             2,048 x 2,048 causal and full, 4,096 x 2,048 and 2,048 x
+             4,096) against its plain version, timed beside its bound and
+             the library call; (3) a planted fault: a rotation that hands
+             each rank the blocks of the rank one further back must fail
+             check (2), in both layouts.
              Each of trainer, small, moe and longctx reports step times
              (mean of steps 2-5), peak memory and its own launch counts,
              and each new run a profile of one more step (the device's
@@ -235,7 +265,8 @@ Phases, each printing JSON lines:
              reports the launch counts of its own run (0).
 
 Then the kernels line (the trainer's numbers, the launches of every
-path, and the kernels' numbers at the small and longctx shapes), the
+path, and the kernels' numbers at every other path's shapes, the ring's
+pieces among them with their measured launches per ring call), the
 nvidia-smi line, and the result line.  Any
 failure exits non-zero and prints no result.  ``--steps``/``--phases``
 shorten a run while iterating; such a run ends with a line naming what it
@@ -268,8 +299,8 @@ PEAK_HBM_BYTES = 3.35e12
 LAYERS, STEPS, BATCH, SEQ = 16, 5, 4, 2048
 HEADS, HEAD_DIM = 16, 128
 PHASES = ("parity", "trainer", "profile", "check", "timing", "small", "moe",
-          "longctx", "tables", "lr", "rows", "w2v", "lda", "sgmix", "resnet",
-          "planes")
+          "longctx", "mesh", "tables", "lr", "rows", "w2v", "lda", "sgmix",
+          "resnet", "planes")
 # Remat reschedules the backward and recomputes the same numbers: on the
 # card "dots" matched the no-remat losses to the last bit and full remat
 # (batch 8, the batch of 4 twice) within 5.3e-5, so the losses are held
@@ -301,6 +332,17 @@ LONG_BATCH, LONG_SEQ = 1, 16384
 # The plain versions hold [bh, T, T] float32 scores, 1 GiB a head at T
 # 16,384: the kernels are held against them at bh 2.
 LONG_PARITY_BH = 2
+# bench_long_context's seq 65,536 run (bench.py:1646-1656): the same
+# model at 4x the sequence.  Its plain versions run in blocks of rows or
+# columns (16 GiB of scores a head otherwise).
+LONG64K_SEQ, LONG64K_BLOCK = 65536, 4096
+# The mesh phase: the trainer's config over NCCL at one rank, and the
+# ring's compute at sp 4 (its bf16 shape is bench_long_context's
+# attention: B 1, 8 heads of 128, T 16,384).
+MESH_STEPS = 3
+RING_SP = 4
+RING_BF16 = (1, 8, LONG_SEQ, 128)
+RING_F32 = (2, 4, 2048, 64)
 
 # The parameter-server path: bench.py's add/get table (bench_add_get,
 # 16 Mi float32) and its LR shape (bench_lr: batch 8192, 784 features,
@@ -463,7 +505,7 @@ def compare(got, want):
 
     out, ok = {}, True
     for key in want:
-        g, w = got[key].float(), want[key].float()
+        g, w = got[key].detach().float(), want[key].detach().float()
         if g.shape != w.shape or not bool(g.isfinite().all()):
             return {key: {"max_abs": float("nan")}}, False
         err = (g - w).abs()
@@ -664,6 +706,17 @@ def phase_parity(fa, torch):
     return full_err
 
 
+def large_host(torch):
+    """The trainer's float32 masters (seed 0) and the seconds the draw
+    took.  ``main`` draws them once for the phases that train the large
+    config."""
+    from multiverso_tpu_torch.models import init_params
+
+    t0 = time.perf_counter()
+    host = init_params(large_config(torch), seed=0)
+    return host, time.perf_counter() - t0
+
+
 def large_config(torch, **kw):
     """bench_transformer_large's model (bench.py:1468-1469) in bf16."""
     from multiverso_tpu_torch.models import TransformerConfig
@@ -698,17 +751,18 @@ def judge_remat_losses(losses, base, tol=REMAT_TOL):
     return rel, rel <= tol
 
 
-def train_run(torch, mv, cfg, host, tokens, steps, accum=1, profile=False):
+def train_run(torch, mv, cfg, host, tokens, steps, accum=1, profile=False,
+              mesh=None):
     """``steps`` trainer steps from the float32 masters ``host`` on one
-    batch: the losses, each step's host-clock time (ending in a
-    synchronize), tokens/s over steps 2-5, the peak device memory and
-    the launch counts of these steps alone; with ``profile``, one more
-    step under torch.profiler (the device's busy share, launches, the
-    top kernels).  Returns (report, trainer)."""
+    batch (on ``mesh`` when given): the losses, each step's host-clock
+    time (ending in a synchronize), tokens/s over steps 2-5, the peak
+    device memory and the launch counts of these steps alone; with
+    ``profile``, one more step under torch.profiler (the device's busy
+    share, launches, the top kernels).  Returns (report, trainer)."""
     from multiverso_tpu_torch.models import TransformerTrainer
 
     t0 = time.perf_counter()
-    tr = TransformerTrainer(cfg, updater_type="sgd", params=host)
+    tr = TransformerTrainer(cfg, updater_type="sgd", params=host, mesh=mesh)
     torch.cuda.synchronize()
     place_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
@@ -746,7 +800,7 @@ def run_ok(run, steps) -> bool:
                                run["n_layers"], steps))
 
 
-def phase_trainer(args, torch, fa, mv, card):
+def phase_trainer(args, torch, fa, mv, card, host, draw_s):
     """bench_transformer_large's three runs from one draw of the float32
     masters: no remat at batch 4 (PERF.md's continuity line), remat
     "dots" at batch 4 (transformer_large_tokens_per_sec) and full remat
@@ -759,12 +813,7 @@ def phase_trainer(args, torch, fa, mv, card):
     the change in five steps).  Then the kernels at the batch of 8's
     attention shape against their plain versions.  Returns the
     runs' launch counts and the kernels' errors at that shape."""
-    from multiverso_tpu_torch.models import init_params
-
     cfg = large_config(torch)
-    t0 = time.perf_counter()
-    host = init_params(cfg, seed=0)
-    draw_s = time.perf_counter() - t0
     n_params = sum(p.numel() for p in
                    [host["embed"], host["head"], host["out_norm"]]
                    + [w for lyr in host["layers"] for w in lyr.values()])
@@ -1102,6 +1151,366 @@ def phase_longctx(args, torch, fa, mv, card):
             "shape": [LONG_BATCH, cfg.n_heads, LONG_SEQ, cfg.head_dim]}
 
 
+def phase_longctx64k(args, torch, fa, mv, card):
+    """bench_long_context's seq 65,536 run (``longctx64k_tokens_per_sec``)
+    and the kernels at T 65,536 against their plain versions, taken in
+    blocks, at bh 2."""
+    from multiverso_tpu_torch.models import TransformerConfig, init_params
+
+    cfg = TransformerConfig(**LONG, scan_layers=True, max_seq=LONG64K_SEQ,
+                            compute_dtype=torch.bfloat16)
+    host = init_params(cfg, seed=0)
+    tokens = torch.randint(0, cfg.vocab_size, (LONG_BATCH, LONG64K_SEQ),
+                           generator=torch.Generator().manual_seed(1))
+    run, tr = train_run(torch, mv, cfg, host, tokens, args.steps,
+                        profile=True)
+    del tr
+    torch.cuda.empty_cache()
+    parity = blocked_parity_case(fa, torch, LONG_PARITY_BH, LONG64K_SEQ,
+                                 cfg.head_dim, True, "long_t65536",
+                                 seed=410, block=LONG64K_BLOCK)
+    torch.cuda.empty_cache()
+    ok = run_ok(run, args.steps) and parity["ok"]
+    emit({"phase": "longctx", "ok": ok, "config": dict(LONG,
+                                                       scan_layers=True),
+          **run, "longctx64k_tokens_per_sec": run["tokens_per_s"],
+          "longctx64k_seq": float(LONG64K_SEQ), "kernel_parity": parity,
+          "card": card})
+    if not ok:
+        raise AssertionError(
+            f"longctx seq 65,536 failed: losses {run['losses']}, launches "
+            f"{run['launch_counts']}, kernel parity {parity['ok']}")
+    return {"launches": run["launch_counts"],
+            "errors": kernel_errors(parity["errors"]),
+            "shape": [LONG_BATCH, cfg.n_heads, LONG64K_SEQ, cfg.head_dim]}
+
+
+def blocked_plain(fa, x, causal, block, saved=None):
+    """The plain versions of the three kernels (``fa._fwd_plain``,
+    ``_dq_plain``, ``_dkv_plain``, at their rounding points) computed in
+    blocks of ``block`` query rows (o, lse, dq) or key columns (dk, dv),
+    so no [bh, T, T] float32 score tensor is ever whole.  Causal blocks
+    read only the keys (queries) the mask keeps.  Without ``saved``:
+    ``{"o", "lse"}``; with ``saved`` = (lse, delta), as ``run_three``
+    takes it: ``{"dq", "dk", "dv"}``."""
+    import torch
+
+    q, k, v, do = x["q"], x["k"], x["v"], x["do"]
+    scale = q.shape[-1] ** -0.5
+    qs = fa._prescale(q, scale)
+    T, Tk = q.shape[1], k.shape[1]
+    out = {n: [] for n in (("dq",) if saved else ("o", "lse"))}
+
+    def scores(q_blk, k_blk, q0, k0):
+        s = torch.einsum("btd,bsd->bts", q_blk.float(), k_blk.float())
+        if causal:
+            keep = (torch.arange(q0, q0 + s.shape[1], device=s.device)[:, None]
+                    >= torch.arange(k0, k0 + s.shape[2],
+                                    device=s.device)[None, :])
+            s = s.masked_fill(~keep, fa._NEG)
+        return s
+
+    for r0 in range(0, T, block):
+        r1 = min(r0 + block, T)
+        kend = r1 if causal else Tk
+        kb, vb = k[:, :kend], v[:, :kend]
+        s = scores(qs[:, r0:r1], kb, r0, 0)
+        if not saved:
+            m = s.amax(-1, keepdim=True)
+            p = torch.exp(s - m)
+            l = p.sum(-1, keepdim=True).clamp_min(1e-30)
+            o = torch.einsum("bts,bsd->btd", p.to(v.dtype).float(),
+                             vb.float()) / l
+            out["o"].append(o.to(q.dtype))
+            out["lse"].append((m + torch.log(l))[..., 0])
+            continue
+        lse_in, delta = (a.float() for a in saved)
+        p = torch.exp(s - lse_in[:, r0:r1, None])
+        dp = torch.einsum("btd,bsd->bts", do[:, r0:r1].float(), vb.float())
+        ds = p * (dp - delta[:, r0:r1, None])
+        dq = torch.einsum("bts,bsd->btd", ds.to(k.dtype).float(), kb.float())
+        out["dq"].append((dq * scale).to(q.dtype))
+        del s, p, dp, ds
+    res = {n: torch.cat(parts, 1) for n, parts in out.items()}
+    if not saved:
+        return res
+    lse_in, delta = (a.float() for a in saved)
+    dk, dv = [], []
+    for c0 in range(0, Tk, block):
+        c1 = min(c0 + block, Tk)
+        qstart = c0 if causal else 0
+        qb, dob = qs[:, qstart:], do[:, qstart:]
+        s = scores(qb, k[:, c0:c1], qstart, c0)
+        p = torch.exp(s - lse_in[:, qstart:, None])
+        dp = torch.einsum("btd,bsd->bts", dob.float(), v[:, c0:c1].float())
+        ds = p * (dp - delta[:, qstart:, None])
+        dv.append(torch.einsum("bts,btd->bsd", p.to(do.dtype).float(),
+                               dob.float()).to(v.dtype))
+        dk.append(torch.einsum("bts,btd->bsd", ds.to(q.dtype).float(),
+                               qb.float()).to(k.dtype))
+        del s, p, dp, ds
+    res["dk"], res["dv"] = torch.cat(dk, 1), torch.cat(dv, 1)
+    return res
+
+
+def blocked_parity_case(fa, torch, bh, t, d, causal, tag, seed, block):
+    """``parity_case`` with the plain side in blocks (``blocked_plain``)."""
+    x = attn_inputs(bh, t, d, torch.bfloat16, seed=seed)
+    want = blocked_plain(fa, x, causal, block)
+    saved = (want["lse"], (x["do"].float() * want["o"].float()).sum(-1)
+             - x["dlse"])
+    want.update(blocked_plain(fa, x, causal, block, saved))
+    got = run_three(fa, x, causal, False, saved)
+    torch.cuda.synchronize()
+    errs, ok = compare(got, want)
+    return {"case": tag, "bh": bh, "T": t, "Tk": t, "D": d,
+            "dtype": "bfloat16", "causal": causal, "ok": ok,
+            "plain_block": block, "errors": errs}
+
+
+def ring_pieces(t, sp, layout):
+    """The flash pieces of one causal ring call at sequence length t over
+    sp ranks, summed over the ranks: [(tq, tk, causal, count)]."""
+    if layout == "zigzag":
+        c, pairs = t // (2 * sp), sp * (sp - 1) // 2
+        return [(c, c, True, 2 * sp), (c, c, False, sp),
+                (2 * c, c, False, pairs), (c, 2 * c, False, pairs)]
+    n = t // sp
+    return [(n, n, True, sp), (n, n, False, sp * (sp - 1) // 2)]
+
+
+def ring_launches(sp, layout):
+    """Forward launches of each virtual rank's schedule (each piece is
+    one flash forward; its backward one dq and one dkv)."""
+    if layout == "zigzag":
+        return [3 + sp - 1 for _ in range(sp)]
+    return [1 + r for r in range(sp)]
+
+
+def ring_case(fa, torch, shape, dtype, layout, seed, shift=0):
+    """Every virtual rank's schedule of an sp ring (``RING_SP``) through
+    the port's ``ring_attention_shard`` with an in-process rotation,
+    forward and backward (do and a nonzero lse cotangent), against
+    single-device flash attention on the same inputs.  Returns (result
+    line, ring ms, single-device ms)."""
+    from multiverso_tpu_torch.parallel import (InProcessRing,
+                                               ring_attention_shard,
+                                               sequence_positions)
+
+    B, H, T, D = shape
+    zigzag = layout == "zigzag"
+    x = attn_inputs(B * H, T, D, dtype, seed=seed)
+    q, k, v, do = (x[n].view(B, H, T, D) for n in ("q", "k", "v", "do"))
+    dlse = x["dlse"].view(B, H, T)
+    pos = [sequence_positions(T, RING_SP, r, zigzag, q.device)
+           for r in range(RING_SP)]
+    everywhere = torch.cat(pos)
+
+    def ring():
+        qs, ks, vs = ([a.index_select(2, p).detach().requires_grad_()
+                       for p in pos] for a in (q, k, v))
+        rot = InProcessRing(ks, vs, shift=shift)
+        fwd, outs = [], []
+        fa.reset_launch_counts()
+        for r in range(RING_SP):
+            before = fa.launch_counts()["flash_fwd"]
+            outs.append(ring_attention_shard(qs[r], ks[r], vs[r], r, RING_SP,
+                                             rot.rotate_for(r), True, None,
+                                             zigzag))
+            fwd.append(fa.launch_counts()["flash_fwd"] - before)
+        torch.autograd.backward(
+            [a for o in outs for a in o],
+            [g for p in pos for g in (do.index_select(2, p),
+                                      dlse.index_select(2, p))])
+        bwd = fa.launch_counts()
+        bwd["flash_fwd"] -= sum(fwd)
+        pieces = {}
+        for (kname, tq, tk, causal), n in fa.launch_shapes().items():
+            pieces.setdefault((tq, tk, causal), {})[kname] = n
+
+        def whole(parts):
+            cat = torch.cat(parts, 2)
+            return torch.empty_like(cat).index_copy_(2, everywhere, cat)
+
+        res = {"o": whole([o for o, _ in outs]),
+               "lse": whole([lse for _, lse in outs]),
+               "dq": whole([a.grad for a in qs]),
+               "dk": whole([a.grad for a in ks]),
+               "dv": whole([a.grad for a in vs])}
+        return res, fwd, bwd, pieces
+
+    def single():
+        qq, kk, vv = (a.detach().requires_grad_() for a in (q, k, v))
+        o, lse = fa.flash_attention(qq, kk, vv, causal=True,
+                                    return_lse=True)
+        torch.autograd.backward([o, lse], [do, dlse])
+        return {"o": o.detach(), "lse": lse.detach(), "dq": qq.grad,
+                "dk": kk.grad, "dv": vv.grad}
+
+    want = single()
+    got, fwd, bwd, pieces = ring()
+    torch.cuda.synchronize()
+    errs, ok = compare({n: a.flatten(0, 1) for n, a in got.items()},
+                       {n: a.flatten(0, 1) for n, a in want.items()})
+    expected = ring_launches(RING_SP, layout)
+    schedule = {(tq, tk, causal): {k: n for k in KERNELS}
+                for tq, tk, causal, n in ring_pieces(T, RING_SP, layout)}
+    launches_ok = (fwd == expected and bwd["flash_fwd"] == 0
+                   and bwd["flash_dq"] == sum(expected)
+                   and bwd["flash_dkv"] == sum(expected)
+                   and pieces == schedule)
+    del got, want
+    ring_ms = cuda_ms(lambda: ring(), iters=3, warmup=1)
+    single_ms = cuda_ms(lambda: single(), iters=3, warmup=1)
+    return ({"case": f"ring_sp{RING_SP}_{layout}", "shape": list(shape),
+             "dtype": str(dtype).split(".")[-1], "shift": shift,
+             "ok": ok and (launches_ok or shift != 0),
+             "launches_ok": launches_ok,
+             "fwd_launches_per_rank": fwd, "fwd_launches_expected": expected,
+             "bwd_launches": bwd, "launches_by_piece": [
+                 {"tq": tq, "tk": tk, "causal": causal, **n}
+                 for (tq, tk, causal), n in sorted(pieces.items())],
+             "errors": errs}, ring_ms, single_ms)
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def mesh_trainer_check(torch, mv, card, host):
+    """Check (1): the trainer's full-width config through the mesh code
+    over NCCL at world size 1 against the no-mesh trainer, from one draw
+    of the masters on one batch, in turns (no mesh, mesh, mesh, no mesh:
+    the first run of a process pays the allocator's growth).  Every run
+    must equal the first bit for bit.  Returns the mesh runs' launch
+    counts (the first)."""
+    import torch.distributed as dist
+
+    from multiverso_tpu_torch.parallel import make_mesh
+
+    cfg = large_config(torch)
+    tokens = torch.randint(0, cfg.vocab_size, (BATCH, SEQ),
+                           generator=torch.Generator().manual_seed(1))
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", world_size=1, rank=0)
+    try:
+        mesh = make_mesh((1, 1, 1), ("dp", "sp", "tp"))
+        backend = dist.get_backend()
+        runs, want, diffs = [], None, []
+        for on_mesh in (False, True, True, False):
+            run, tr = train_run(torch, mv, cfg, host, tokens, MESH_STEPS,
+                                mesh=mesh if on_mesh else None)
+            got = snapshot(tr.params)
+            del tr
+            torch.cuda.empty_cache()
+            if want is None:
+                want = got
+            diffs.append(max(float(np.abs(g - w).max())
+                             for g, w in zip(got, want)))
+            run["mesh"] = on_mesh
+            runs.append(run)
+            del got
+    finally:
+        dist.destroy_process_group()
+    base = runs[0]
+    same = (all(d == 0.0 for d in diffs)
+            and all(r["losses"] == base["losses"] for r in runs))
+    ok = (same and all(run_ok(r, MESH_STEPS) for r in runs)
+          and backend == "nccl")
+    emit({"phase": "mesh", "check": "trainer_one_rank", "ok": ok,
+          "backend": backend, "mesh": {"dp": 1, "sp": 1, "tp": 1},
+          "steps": MESH_STEPS, "order": [r["mesh"] for r in runs],
+          "losses": [r["losses"] for r in runs], "bitwise_equal": same,
+          "max_abs_diff_vs_first": diffs,
+          "step_s_mean_after_first": [r["step_s_mean_after_first"]
+                                      for r in runs],
+          "tokens_per_s": [r["tokens_per_s"] for r in runs],
+          "peak_mem_bytes": [r["peak_mem_bytes"] for r in runs],
+          "launch_counts": [r["launch_counts"] for r in runs],
+          "launches_expected": base["launches_expected"], "card": card})
+    if not ok:
+        raise AssertionError(
+            f"mesh trainer at one NCCL rank differs from the no-mesh "
+            f"trainer: max differences {diffs}, losses "
+            f"{[r['losses'] for r in runs]}")
+    return runs[1]["launch_counts"]
+
+
+def phase_mesh(args, torch, fa, mv, card, host):
+    """Checks (1) to (3) of the mesh phase (see the module docstring).
+    Returns the launch counts of its paths and the kernels at the ring's
+    piece shapes."""
+    counts = {"mesh": mesh_trainer_check(torch, mv, card, host)}
+    shapes, results, times = {}, [], {}
+    for dtype, shape in ((torch.bfloat16, RING_BF16),
+                         (torch.float32, RING_F32)):
+        for i, layout in enumerate(("contiguous", "zigzag")):
+            res, ring_ms, single_ms = ring_case(fa, torch, shape, dtype,
+                                                layout, seed=700 + i)
+            res.update(ring_ms=ring_ms, single_device_ms=single_ms)
+            results.append(res)
+            torch.cuda.empty_cache()
+            if dtype == torch.bfloat16:
+                counts[f"ring_sp{RING_SP}_{layout}"] = {
+                    "flash_fwd": sum(res["fwd_launches_per_rank"]),
+                    "flash_dq": res["bwd_launches"]["flash_dq"],
+                    "flash_dkv": res["bwd_launches"]["flash_dkv"]}
+    faults = []
+    for i, layout in enumerate(("contiguous", "zigzag")):
+        res, _, _ = ring_case(fa, torch, RING_F32, torch.float32, layout,
+                              seed=700 + i, shift=1)
+        faults.append({"fault": f"rotation_off_by_one_{layout}",
+                       "rejected": not res["ok"], "errors": res["errors"]})
+    emit({"phase": "mesh", "check": "ring_sp4", "sp": RING_SP,
+          "ok": all(r["ok"] for r in results), "cases": results,
+          "planted_faults": faults, "f32_tol": F32_TOL,
+          "bf16_tol": BF16_TOL, "card": card})
+    if not all(r["ok"] for r in results):
+        raise AssertionError("the sp 4 ring disagrees with single-device "
+                             "attention, or launched other kernels than "
+                             "its schedule")
+    if not all(f["rejected"] for f in faults):
+        raise AssertionError("the ring check accepted a rotation that "
+                             "hands each rank the wrong blocks")
+    # The pieces the bf16 rings launched, as their wrappers counted them.
+    B, H, T, D = RING_BF16
+    pieces = {}
+    for res in results:
+        if res["dtype"] != "bfloat16":
+            continue
+        layout = res["case"].rsplit("_", 1)[1]
+        for row in res["launches_by_piece"]:
+            tq, tk, causal = row["tq"], row["tk"], row["causal"]
+            key = f"{tq}x{tk}_{'causal' if causal else 'full'}"
+            pieces.setdefault(key, (tq, tk, causal, {}))[3][layout] = {
+                k: row[k] for k in KERNELS}
+    ok = True
+    for i, (key, (tq, tk, causal, per_call)) in enumerate(pieces.items()):
+        parity, _, _ = parity_case(fa, torch, B * H, tq, tk, D,
+                                   torch.bfloat16, causal, f"ring_{key}",
+                                   seed=720 + i)
+        torch.cuda.empty_cache()
+        t = kernel_times(fa, torch, B, H, tq, D, tk=tk, causal=causal)
+        torch.cuda.empty_cache()
+        times[key] = t
+        ok = ok and parity["ok"]
+        shapes[f"ring_{key}"] = {"errors": kernel_errors(parity["errors"]),
+                                 "times": t, "shape": [B, H, tq, tk, D],
+                                 "causal": causal,
+                                 "launches_per_ring_call": per_call}
+        emit({"phase": "mesh", "check": "ring_piece", "piece": key,
+              "ok": parity["ok"], "launches_per_ring_call": per_call,
+              "kernel_parity": parity, "kernel_times": t, "card": card})
+    if not ok:
+        raise AssertionError("a kernel disagrees with its plain version at "
+                             "a ring piece's shape")
+    return counts, shapes
+
+
 def device_kernel_times(prof, torch):
     """[(device µs, calls, name)] of every CUDA kernel a profile saw."""
     out = []
@@ -1196,19 +1605,22 @@ def phase_check(torch):
         raise AssertionError("card and CPU trainers disagree")
 
 
-def flash_work(bh, t, d):
-    """{kernel: (flops, bytes)} of causal bf16 attention at [bh, t, d]:
-    2 flops per multiply-add over the (q, k) pairs the causal mask keeps,
-    each input read once and each output written once."""
-    pairs = t * (t + 1) // 2
+def flash_work(bh, t, d, tk=None, causal=True):
+    """{kernel: (flops, bytes)} of bf16 attention of [bh, t, d] queries
+    over [bh, tk, d] keys (tk = t by default): 2 flops per multiply-add
+    over the (q, k) pairs the causal mask keeps (all of them without
+    it), each input read once and each output written once (q, o, do and
+    dq have t rows; k, v, dk and dv tk; lse and delta are float32)."""
+    tk = tk or t
+    pairs = t * (t + 1) // 2 if causal else t * tk
     e, f4 = 2, 4
     return {
         "flash_fwd": (2 * 2 * d * pairs * bh,
-                      (4 * bh * t * d) * e + bh * t * f4),
+                      (2 * t + 2 * tk) * bh * d * e + bh * t * f4),
         "flash_dq": (3 * 2 * d * pairs * bh,
-                     (5 * bh * t * d) * e + 2 * bh * t * f4),
+                     (3 * t + 2 * tk) * bh * d * e + 2 * bh * t * f4),
         "flash_dkv": (4 * 2 * d * pairs * bh,
-                      (6 * bh * t * d) * e + 2 * bh * t * f4),
+                      (2 * t + 4 * tk) * bh * d * e + 2 * bh * t * f4),
     }
 
 
@@ -1220,47 +1632,51 @@ def phase_timing(fa, torch, card):
     return out
 
 
-def kernel_times(fa, torch, B, H, T, D, plain_bh=None):
+def kernel_times(fa, torch, B, H, T, D, plain_bh=None, tk=None,
+                 causal=True):
     """Each kernel alone on operands prepared as the trainer's attention
-    call prepares them (bf16, causal, [B, H, T, D]), beside its plain
-    version (on the first ``plain_bh`` heads where given: the plain
-    versions hold [bh, T, T] float32 scores), its bound and the library
-    call that computes the same function."""
+    call prepares them (bf16, [B, H, T, D] queries over [B, H, tk, D]
+    keys, causal or not), beside its plain version (on the first
+    ``plain_bh`` heads where given: the plain versions hold [bh, T, tk]
+    float32 scores), its bound and the library call that computes the
+    same function."""
     import torch.nn.functional as F
 
-    bh = B * H
-    x = attn_inputs(bh, T, D, torch.bfloat16, seed=7)
+    bh, tk = B * H, tk or T
+    x = attn_inputs(bh, T, D, torch.bfloat16, seed=7, tk=tk)
     q, k, v, do = x["q"], x["k"], x["v"], x["do"]
     scale = D ** -0.5
     qs, kc, vc = fa._prepare(q, k, v, scale)
-    o, lse = fa._fwd(qs, kc, vc, True)
+    o, lse = fa._fwd(qs, kc, vc, causal)
     rows = fa._rows(do, lse, (do.float() * o.float()).sum(-1), q.dtype)
-    work = flash_work(bh, T, D)
+    work = flash_work(bh, T, D, tk, causal)
     pb = plain_bh or bh
     pq, pk, pv = qs[:pb], kc[:pb], vc[:pb]
     prows = [r[:pb] for r in rows]
     calls = {
-        "flash_fwd": (lambda: fa._fwd(qs, kc, vc, True),
-                      lambda: fa._fwd_plain(pq, pk, pv, True)),
-        "flash_dq": (lambda: fa._dq(qs, kc, vc, *rows, scale, True),
-                     lambda: fa._dq_plain(pq, pk, pv, *prows, scale, True)),
-        "flash_dkv": (lambda: fa._dkv(qs, kc, vc, *rows, True),
-                      lambda: fa._dkv_plain(pq, pk, pv, *prows, True)),
+        "flash_fwd": (lambda: fa._fwd(qs, kc, vc, causal),
+                      lambda: fa._fwd_plain(pq, pk, pv, causal)),
+        "flash_dq": (lambda: fa._dq(qs, kc, vc, *rows, scale, causal),
+                     lambda: fa._dq_plain(pq, pk, pv, *prows, scale,
+                                          causal)),
+        "flash_dkv": (lambda: fa._dkv(qs, kc, vc, *rows, causal),
+                      lambda: fa._dkv_plain(pq, pk, pv, *prows, causal)),
     }
     # The library: scaled_dot_product_attention for the forward, and
     # PyTorch's flash backward, which returns dq, dk and dv in one call
     # from the forward's saved output and lse, for the dq + dkv pair.
-    q4, k4, v4, do4 = (t.view(B, H, T, D) for t in (q, k, v, do))
+    q4, do4 = (t.view(B, H, T, D) for t in (q, do))
+    k4, v4 = (t.view(B, H, tk, D) for t in (k, v))
     lib_fwd_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-        q4, k4, v4, is_causal=True, scale=scale))
+        q4, k4, v4, is_causal=causal, scale=scale))
     aten = torch.ops.aten
     o4, lse4, cq, ck, mq, mk, seed, offset, _ = (
-        aten._scaled_dot_product_flash_attention(q4, k4, v4, 0.0, True,
+        aten._scaled_dot_product_flash_attention(q4, k4, v4, 0.0, causal,
                                                  False, scale=scale))
     lib_bwd = aten._scaled_dot_product_flash_attention_backward
     lib_bwd_ms = cuda_ms(lambda: lib_bwd(
-        do4, q4, k4, v4, o4, lse4, cq, ck, mq, mk, 0.0, True, seed, offset,
-        scale=scale))
+        do4, q4, k4, v4, o4, lse4, cq, ck, mq, mk, 0.0, causal, seed,
+        offset, scale=scale))
     out = {}
     for name, (kern, plain) in calls.items():
         flops, nbytes = work[name]
@@ -2919,7 +3335,9 @@ def main(argv) -> int:
     phase_build(_build, paths, build_s)
 
     errs = phase_parity(fa, torch) if "parity" in phases else {}
-    paths, shapes = (phase_trainer(args, torch, fa, mv, card)
+    host, draw_s = (large_host(torch) if phases & {"trainer", "mesh"}
+                    else (None, None))
+    paths, shapes = (phase_trainer(args, torch, fa, mv, card, host, draw_s)
                      if "trainer" in phases else ({}, {}))
     if "check" in phases:
         phase_check(torch)
@@ -2933,6 +3351,13 @@ def main(argv) -> int:
     if "longctx" in phases:
         shapes["longctx"] = phase_longctx(args, torch, fa, mv, card)
         paths["longctx"] = shapes["longctx"]["launches"]
+        shapes["longctx64k"] = phase_longctx64k(args, torch, fa, mv, card)
+        paths["longctx64k"] = shapes["longctx64k"]["launches"]
+    if "mesh" in phases:
+        mesh_counts, ring_shapes = phase_mesh(args, torch, fa, mv, card,
+                                              host)
+        paths.update(mesh_counts)
+        shapes.update(ring_shapes)
     if "tables" in phases:
         phase_tables(torch, mv, card)
     if "lr" in phases:
@@ -2965,6 +3390,11 @@ def main(argv) -> int:
             "other_shapes": [
                 {"path": p, "shape": sh["shape"],
                  "max_abs_err": sh["errors"][kname],
+                 **({"causal": sh["causal"]} if "causal" in sh else {}),
+                 **({"launches_per_ring_call": {
+                     layout: n[kname] for layout, n in
+                     sh["launches_per_ring_call"].items()}}
+                    if "launches_per_ring_call" in sh else {}),
                  **sh.get("times", {}).get(kname, {})}
                 for p, sh in shapes.items()],
         })

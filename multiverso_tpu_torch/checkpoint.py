@@ -127,17 +127,32 @@ def _read_snapshot(uri: str, magic: bytes, what: str) -> Any:
             f"file") from exc
 
 
+def _grouped() -> bool:
+    import torch.distributed as dist
+
+    return dist.is_available() and dist.is_initialized()
+
+
 def _rank() -> int:
-    """This process's rank: the runtime's, or 0 before ``init()`` (a
-    trainer needs no runtime; it is then a job of one process)."""
+    """This process's rank: the runtime's; before ``init()`` the process
+    group's (a trainer on a mesh needs no runtime), or 0 in a job of one
+    process."""
     if core_context.initialized():
         return core_context.get_context().node.rank
+    if _grouped():
+        import torch.distributed as dist
+
+        return dist.get_rank()
     return 0
 
 
 def _host_sync(name: str) -> None:
     if core_context.initialized():
         core_context.get_context().host_sync(name)
+    elif _grouped():
+        import torch.distributed as dist
+
+        dist.barrier()
 
 
 def _to_host(tree: Any) -> Any:

@@ -220,7 +220,9 @@ def init(args: Optional[List[str]] = None,
     pass ``device="cpu"`` to run on the CPU.  ``distributed=True`` calls
     ``torch.distributed.init_process_group(**distributed_kwargs)`` (the
     caller gives its ``backend``, ``init_method``, ``world_size`` and
-    ``rank``) — the analog of the transport Init + rank-0 registration.
+    ``rank``) — the analog of the transport Init + rank-0 registration —
+    and then ``None`` is the rank's own card (``device.resolve_device``),
+    made current with ``torch.cuda.set_device``.
     """
     global _CONTEXT
     with _LOCK:
@@ -236,7 +238,7 @@ def init(args: Optional[List[str]] = None,
         sync_val = bool(config.get("sync")) if sync is None else bool(sync)
         updater_val = (str(config.get("updater_type"))
                        if updater_type is None else str(updater_type))
-        device = resolve_device(device)
+        requested, device = device, resolve_device(device)
 
         from ..log import configure as log_configure
 
@@ -253,6 +255,13 @@ def init(args: Optional[List[str]] = None,
                          "the process group")
             else:
                 dist.init_process_group(**distributed_kwargs)
+            if requested is None:
+                # Each rank on its own card (NCCL refuses two ranks on
+                # one device); set it current so collectives' buffers
+                # (tables/base.py _collective_device) land there too.
+                device = resolve_device(None)
+            if device.type == "cuda":
+                torch.cuda.set_device(device)
 
         grouped = dist.is_available() and dist.is_initialized()
         node = Node(rank=dist.get_rank() if grouped else 0,

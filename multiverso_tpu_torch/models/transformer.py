@@ -14,16 +14,41 @@ leaf by leaf.  The layers are always a list here; ``scan_layers=True``
 runs the same Python loop, and only the checkpoint format stacks them
 ``[L, ...]`` as the JAX package does.
 
-Attention goes through ``parallel.ring_attention.blockwise_attention_
-local`` into the flash kernels.  Remat checkpoints each layer
-(``torch.utils.checkpoint``, not reentrant): ``"full"`` keeps only the
-layer's input, ``"dots"`` also keeps every projection product and the
-flash forward's ``(o, lse)``, and recomputes the rest.  Gradient
-accumulation sums float32 gradients over equal microbatches.  Trainer
-checkpoints (``save``/``restore``) write and read the JAX trainer's tree.
-Not ported yet, each raising ``NotImplementedError`` that names its
-ROADMAP item: pipeline microbatches, sequence-parallel rings and state
-offload.
+Attention goes through ``parallel.ring_attention`` into the flash
+kernels.  Remat checkpoints each layer (``torch.utils.checkpoint``, not
+reentrant): ``"full"`` keeps only the layer's input, ``"dots"`` also
+keeps every projection product and the flash forward's ``(o, lse)``, and
+recomputes the rest.  Gradient accumulation sums float32 gradients over
+equal microbatches.  Trainer checkpoints (``save``/``restore``) write
+and read the JAX trainer's tree.
+
+With a mesh (``parallel.sharding.Mesh``: one process per card, the
+JAX package's named axes as process groups) each rank holds its shard,
+where GSPMD placed the JAX package's:
+
+- ``dp``: the batch rows, contiguous blocks;
+- ``tp``: the Megatron layout of ``param_shardings`` — wq/wk/wv/w1/w3
+  column-parallel, wo/w2 row-parallel, the head split over the
+  vocabulary, embed and norms replicated; ``copy_to``/``reduce_from``
+  (``parallel/collectives.py``) around attention and the MLP, and a
+  vocabulary-parallel cross-entropy;
+- ``sp``: the sequence, in the ring's layout (zigzag when 2·sp divides
+  T, else contiguous); RoPE rotates each rank's *global* positions and
+  each position's target comes from the full row, so a chunk's last
+  position predicts the next rank's first token;
+- ``pp`` (with ``pipeline_microbatches``): the stacked layers split over
+  stages and run by GPipe (``parallel/pipeline.py``) with the JAX
+  package's interleaved microbatches.
+
+The loss is the JAX package's global mean over B·(T-1) positions.
+Gradients are summed over dp and sp (and the embedding's over pp), so
+the updater runs on each rank's shard with its state sharded as the
+weights are.  MoE under a mesh axis of more than one process, and an
+``ep`` axis, raise ``NotImplementedError``: the JAX package computes the
+load-balancing loss and the capacity buckets over the whole batch, and
+a per-rank port would change the objective (ROADMAP.md Queue 1,
+"Several processes").  State offload raises too (Queue 1, "Modules that
+need the native runtime").
 """
 
 from __future__ import annotations
@@ -40,14 +65,17 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from .. import dashboard
 from ..device import resolve_device
+from ..parallel.collectives import (all_reduce_grads, all_reduce_max,
+                                    all_reduce_sum, copy_to, reduce_from,
+                                    ring_rotate)
+from ..parallel.sharding import gather_full, local_shard
 from ..updaters import AddOption, get_updater
 from ..util.tree import tree_map
 from .moe import init_moe_params, moe_ffn
 
 __all__ = ["TransformerConfig", "init_params", "stack_layer_params",
-           "unstack_layer_params", "params_from_jax",
-           "transformer_forward", "lm_loss",
-           "TransformerTrainer"]
+           "unstack_layer_params", "params_from_jax", "shard_params",
+           "transformer_forward", "lm_loss", "TransformerTrainer"]
 
 _LAYER_KEYS = ("wq", "wk", "wv", "wo", "w1", "w2", "w3", "attn_norm",
                "mlp_norm")
@@ -57,6 +85,11 @@ _MOE_KEYS = ("router", "w1", "w3", "w2")
 # The weights the JAX block casts through ``wc`` (named "wcast"), which
 # its "dots" policy saves.
 _WCAST_KEYS = ("wq", "wk", "wv", "wo", "w1", "w2", "w3")
+# The dimension each leaf splits over tp (``param_shardings``):
+# column-parallel projections and the head on their outputs, row-parallel
+# ones on their inputs; every other leaf is replicated.
+_TP_DIM = {"wq": 1, "wk": 1, "wv": 1, "w1": 1, "w3": 1, "wo": 0, "w2": 0,
+           "head": 1}
 
 
 @dataclass(frozen=True)
@@ -84,19 +117,39 @@ class TransformerConfig:
     remat: bool = False
     remat_policy: str = "full"
     scan_layers: bool = False   # the layers run as a loop; checkpoints stack
-    pipeline_microbatches: int = 0   # not ported: raises
+    # GPipe over a mesh's ``pp`` axis (parallel/pipeline.py): the layers
+    # split into pp stages, batches into this many microbatches.  Needs
+    # scan_layers, dense MLPs and sp == 1, as in the JAX package.
+    pipeline_microbatches: int = 0
 
     @property
     def head_dim(self) -> int:
         return self.dim // self.n_heads
 
 
-def _check_ported(cfg: TransformerConfig) -> None:
-    if cfg.pipeline_microbatches > 0:
+def _check_mesh(cfg: TransformerConfig, mesh) -> None:
+    """The mesh configurations the port does not run yet."""
+    if mesh is None:
+        return
+    if "ep" in mesh or (cfg.num_experts
+                        and any(n > 1 for n in mesh.shape.values())):
         raise NotImplementedError(
-            "pipeline parallelism (pipeline_microbatches > 0) is not "
-            "ported to multiverso_tpu_torch yet (ROADMAP.md Queue 1, "
-            "\"Several processes\")")
+            f"MoE and the ep axis under a mesh of several processes "
+            f"({mesh.shape}) are not ported yet: the load-balancing loss "
+            f"and the capacity buckets are global over the batch "
+            f"(ROADMAP.md Queue 1, \"Several processes\")")
+
+
+def _use_pp(cfg: TransformerConfig, mesh) -> bool:
+    return (mesh is not None and cfg.pipeline_microbatches > 0
+            and mesh.size("pp") > 1)
+
+
+def _pp_layers(cfg: TransformerConfig, mesh) -> bool:
+    """Whether the stacked layers split over pp (``param_shardings``'s
+    leading ``"pp"``)."""
+    return (_use_pp(cfg, mesh) and cfg.scan_layers
+            and cfg.n_layers % mesh.size("pp") == 0)
 
 
 def init_params(cfg: TransformerConfig, seed: int = 0
@@ -104,7 +157,6 @@ def init_params(cfg: TransformerConfig, seed: int = 0
     """Float32 master weights on the host, from the JAX package's numpy
     ``RandomState`` recipe: the same seed gives the same weights in both
     packages.  Layers are a list of dicts of CPU tensors."""
-    _check_ported(cfg)
     rng = np.random.RandomState(seed)
 
     def w(*shape, scale=None):
@@ -175,30 +227,51 @@ def _stacked(tree: Dict[str, Any]) -> Dict[str, Any]:
             for part, sub in tree.items()}
 
 
-def params_from_jax(host_params, cfg: TransformerConfig,
-                    device=None) -> Dict[str, Any]:
+def shard_params(tree, cfg: TransformerConfig, mesh, fn) -> Dict[str, Any]:
+    """A loop-format tree of the parameters' structure (parameters, or
+    updater slots at each leaf) cut to this rank's shard: the layers of
+    its pp stage when they split, each leaf's tp block on its
+    ``_TP_DIM``.  ``fn(leaf, dim)`` takes a leaf (or a tuple of slots)
+    and the tp dimension (None: replicated) and returns the shard."""
+    from ..parallel.pipeline import stage_slice
+
+    layers = tree["layers"]
+    if len(layers) != cfg.n_layers:
+        raise ValueError(f"{len(layers)} layers for a config with "
+                         f"{cfg.n_layers}")
+    if _pp_layers(cfg, mesh):
+        layers = layers[stage_slice(cfg.n_layers, mesh)]
+    return {
+        "embed": fn(tree["embed"], None),
+        "out_norm": fn(tree["out_norm"], None),
+        "head": fn(tree["head"], _TP_DIM["head"]),
+        "layers": [{k: (tree_map(lambda a: fn(a, None), w) if k == "moe"
+                        else fn(w, _TP_DIM.get(k))) for k, w in lyr.items()}
+                   for lyr in layers],
+    }
+
+
+def params_from_jax(host_params, cfg: TransformerConfig, device=None,
+                    mesh=None) -> Dict[str, Any]:
     """The JAX package's parameter tree (``init_params`` output of either
     package, or a trainer's ``params`` pulled to numpy), in loop or
     stacked ``[L, ...]`` format → the port's parameters: float32 tensors
     on ``device``, names and ``[in, out]`` layouts unchanged, layers as a
-    list."""
+    list.  With a mesh, this rank's shard of each (:func:`shard_params`):
+    the weight carrier from the JAX package's full arrays."""
+    _check_mesh(cfg, mesh)
     dev = resolve_device(device)
 
-    def t(a):
-        return torch.as_tensor(np.asarray(a, np.float32)).to(dev)
+    def t(a, dim):
+        a = torch.as_tensor(np.asarray(a, np.float32))
+        if dim is not None:
+            a = local_shard(a, dim, "tp", mesh).contiguous()
+        return a.to(dev)
 
     layers = host_params["layers"]
     if isinstance(layers, dict):           # stacked [L, ...] (scan format)
         layers = unstack_layer_params(layers, cfg.n_layers)
-    if len(layers) != cfg.n_layers:
-        raise ValueError(f"{len(layers)} layers for a config with "
-                         f"{cfg.n_layers}")
-    return {
-        "embed": t(host_params["embed"]),
-        "out_norm": t(host_params["out_norm"]),
-        "head": t(host_params["head"]),
-        "layers": [tree_map(t, lyr) for lyr in layers],
-    }
+    return shard_params({**host_params, "layers": layers}, cfg, mesh, t)
 
 
 def _layer_leaves(lyr) -> list:
@@ -242,62 +315,92 @@ def _rms_norm(x, gain, eps):
     return (x * torch.rsqrt(var + eps)).to(x.dtype) * gain
 
 
-def _rope(x, theta: float):
-    """Rotary embedding, half-split rotation over positions 0..T-1;
-    x [B, H, T, D], math in float32, result in x's dtype."""
+def _rope(x, theta: float, positions=None):
+    """Rotary embedding, half-split rotation; x [B, H, T, D] at the global
+    ``positions`` [T] (0..T-1 when None: a rank's shard of the sequence
+    under sp rotates its own positions), math in float32, result in x's
+    dtype."""
     T, D = x.shape[2], x.shape[3]
     half = D // 2
     freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
                                     device=x.device) / half)
-    ang = torch.arange(T, dtype=torch.float32,
-                       device=x.device)[:, None] * freqs[None, :]
+    if positions is None:
+        pos = torch.arange(T, dtype=torch.float32, device=x.device)
+    else:
+        pos = positions.to(device=x.device, dtype=torch.float32)
+    ang = pos[:, None] * freqs[None, :]
     cos, sin = torch.cos(ang), torch.sin(ang)
     x1, x2 = x[..., :half], x[..., half:]
     rot = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], -1)
     return rot.to(x.dtype)
 
 
-def _block(x, lyr, cfg: TransformerConfig, scale: float):
+@dataclass(frozen=True)
+class _Shard:
+    """Where a rank's activations sit: its mesh, and under sp the global
+    positions of its sequence shard in the ring's layout."""
+    mesh: Any
+    positions: Optional[torch.Tensor] = None
+    zigzag: bool = False
+
+
+def _block(x, lyr, cfg: TransformerConfig, scale: float,
+           shard: Optional[_Shard] = None):
     """One decoder layer: attention + residual, then the SwiGLU MLP or the
     MoE layer + residual.  Returns ``(x, aux)``: the MoE load-balancing
-    loss, or None for a dense layer."""
-    from ..parallel.ring_attention import blockwise_attention_local
+    loss, or None for a dense layer.  Under tp the layer holds
+    ``n_heads / tp`` heads and hidden / tp MLP columns, between the
+    Megatron pair; under sp attention is the ring."""
+    from ..parallel.ring_attention import (blockwise_attention_local,
+                                           ring_attention_shard)
 
+    mesh = None if shard is None else shard.mesh
     dt = cfg.compute_dtype
     B, T, _ = x.shape
-    H, hd = cfg.n_heads, cfg.head_dim
-    h = _rms_norm(x, lyr["attn_norm"].to(dt), cfg.norm_eps)
+    hd = cfg.head_dim
+    H = lyr["wq"].shape[1] // hd                  # this rank's heads
+    h = copy_to(_rms_norm(x, lyr["attn_norm"].to(dt), cfg.norm_eps), mesh)
     q = (h @ lyr["wq"].to(dt)).reshape(B, T, H, hd).transpose(1, 2)
     k = (h @ lyr["wk"].to(dt)).reshape(B, T, H, hd).transpose(1, 2)
     v = (h @ lyr["wv"].to(dt)).reshape(B, T, H, hd).transpose(1, 2)
-    q = _rope(q, cfg.rope_theta)
-    k = _rope(k, cfg.rope_theta)
-    o = blockwise_attention_local(q, k, v, scale, causal=True)
+    positions = None if shard is None else shard.positions
+    q = _rope(q, cfg.rope_theta, positions)
+    k = _rope(k, cfg.rope_theta, positions)
+    sp = 1 if mesh is None else mesh.size("sp")
+    if sp > 1:
+        o, _ = ring_attention_shard(q, k, v, mesh.index("sp"), sp,
+                                    ring_rotate(mesh, "sp"), True, scale,
+                                    shard.zigzag)
+    else:
+        o = blockwise_attention_local(q, k, v, scale, causal=True)
     o = o.transpose(1, 2).reshape(B, T, H * hd)
-    x = x + o @ lyr["wo"].to(dt)
+    x = x + reduce_from(o @ lyr["wo"].to(dt), mesh)
     h = _rms_norm(x, lyr["mlp_norm"].to(dt), cfg.norm_eps)
     if "moe" in lyr:
         out, aux = moe_ffn(lyr["moe"], h, top_k=cfg.top_k, compute_dtype=dt,
                            dispatch=cfg.moe_dispatch,
                            capacity_factor=cfg.capacity_factor)
         return x + out, aux
+    h = copy_to(h, mesh)
     gated = F.silu(h @ lyr["w1"].to(dt)) * (h @ lyr["w3"].to(dt))
-    return x + gated @ lyr["w2"].to(dt), None
+    return x + reduce_from(gated @ lyr["w2"].to(dt), mesh), None
 
 
 def _dots_policy(ctx, op, *args, **kwargs):
     """The "dots" policy: keep every 2-D product (the projections; JAX's
     ``dots_with_no_batch_dims_saveable``) and the flash forward's (o,
-    lse) (JAX's ``"flash_out"``/``"flash_lse"``); recompute the rest."""
+    lse) (JAX's ``"flash_out"``/``"flash_lse"``); recompute the rest —
+    collectives included, which every rank then re-runs in one order."""
     if op in (torch.ops.aten.mm.default, torch.ops.mvt.flash_fwd.default):
         return CheckpointPolicy.MUST_SAVE
     return CheckpointPolicy.PREFER_RECOMPUTE
 
 
-def _layer(x, lyr, cfg: TransformerConfig, scale: float):
+def _layer(x, lyr, cfg: TransformerConfig, scale: float,
+           shard: Optional[_Shard] = None):
     """:func:`_block`, checkpointed as ``cfg.remat_policy`` says."""
     if not cfg.remat:
-        return _block(x, lyr, cfg, scale)
+        return _block(x, lyr, cfg, scale, shard)
     if cfg.remat_policy == "dots":
         # The bf16 weight casts stay outside the checkpoint, so the
         # backward reuses them (the JAX package saves them as "wcast").
@@ -306,36 +409,119 @@ def _layer(x, lyr, cfg: TransformerConfig, scale: float):
                for k, w in lyr.items()}
         context = partial(create_selective_checkpoint_contexts,
                           _dots_policy)
-        return checkpoint(_block, x, lyr, cfg, scale, use_reentrant=False,
-                          context_fn=context)
+        return checkpoint(_block, x, lyr, cfg, scale, shard,
+                          use_reentrant=False, context_fn=context)
     if cfg.remat_policy == "full":
-        return checkpoint(_block, x, lyr, cfg, scale, use_reentrant=False)
+        return checkpoint(_block, x, lyr, cfg, scale, shard,
+                          use_reentrant=False)
     raise ValueError(f"unknown remat_policy '{cfg.remat_policy}' "
                      "(expected 'full' or 'dots')")
 
 
-def transformer_forward(params, tokens, cfg: TransformerConfig,
+def _check_forward(cfg: TransformerConfig, mesh, B: int, T: int) -> None:
+    """The JAX package's refusals of a mesh forward (``:334-357``), in its
+    order, then the port's own."""
+    if T > cfg.max_seq:
+        raise ValueError(f"sequence length {T} exceeds max_seq "
+                         f"{cfg.max_seq}")
+    if mesh is None:
+        return
+    dp, tp, sp = mesh.size("dp"), mesh.size("tp"), mesh.size("sp")
+    if _use_pp(cfg, mesh):
+        pp, M = mesh.size("pp"), cfg.pipeline_microbatches
+        if not cfg.scan_layers or cfg.num_experts:
+            raise ValueError(
+                "pipeline_microbatches requires scan_layers=True and a "
+                "dense MLP (num_experts=0)")
+        if sp > 1:
+            raise ValueError(
+                "pipeline parallelism composes with dp and tp, not sp "
+                "(ring attention inside pipeline stages is unsupported)")
+        if cfg.n_layers % pp or B % (M * dp):
+            raise ValueError(
+                f"n_layers ({cfg.n_layers}) must divide into pp ({pp}) "
+                f"stages and batch ({B}) into {M} microbatches x dp "
+                f"({dp}) shards")
+        if cfg.n_heads % tp or cfg.hidden % tp or cfg.dim % tp:
+            raise ValueError(
+                f"pp x tp needs n_heads ({cfg.n_heads}), hidden "
+                f"({cfg.hidden}) and dim ({cfg.dim}) divisible by tp "
+                f"({tp}) — the stage body shards them manually")
+    _check_mesh(cfg, mesh)
+    if cfg.n_heads % tp or cfg.hidden % tp or cfg.vocab_size % tp:
+        raise ValueError(
+            f"tensor parallelism needs n_heads ({cfg.n_heads}), hidden "
+            f"({cfg.hidden}) and vocab_size ({cfg.vocab_size}) divisible "
+            f"by tp ({tp})")
+    if B % dp:
+        raise ValueError(f"batch {B} not divisible by the dp axis ({dp})")
+
+
+def _forward_local(params, tokens, cfg: TransformerConfig, mesh=None):
+    """This rank's forward: tokens [B, T] (the global batch) → (logits
+    [B/dp, t, vocab/tp] over this rank's rows and positions, the summed
+    MoE aux loss, the global positions under sp or None)."""
+    from ..parallel.pipeline import gpipe
+    from ..parallel.ring_attention import _use_zigzag, sequence_positions
+
+    B, T = tokens.shape
+    _check_forward(cfg, mesh, B, T)
+    rows = local_shard(tokens.long(), 0, "dp", mesh)
+    positions, zigzag = None, False
+    sp = 1 if mesh is None else mesh.size("sp")
+    if sp > 1:
+        zigzag = _use_zigzag(T, sp, True, "auto")
+        positions = sequence_positions(T, sp, mesh.index("sp"), zigzag,
+                                       rows.device)
+        rows = rows.index_select(1, positions)
+    shard = None if mesh is None else _Shard(mesh, positions, zigzag)
+    dt = cfg.compute_dtype
+    x = params["embed"][rows].to(dt)                     # [b,t,dim]
+    scale = cfg.head_dim ** -0.5
+    aux_total = torch.zeros((), device=x.device)
+    if _use_pp(cfg, mesh):
+        def stage_fn(layers, h):
+            for lyr in layers:
+                h, _ = _layer(h, lyr, cfg, scale, shard)
+            return h
+
+        # The JAX package's INTERLEAVED microbatches: row r of this
+        # rank's (contiguous dp) rows goes to microbatch r mod M.
+        b, t, d = x.shape
+        M = cfg.pipeline_microbatches
+        xm = x.reshape(b // M, M, t, d).transpose(0, 1).contiguous()
+        xm = gpipe(stage_fn, params["layers"], xm, mesh)
+        x = xm.transpose(0, 1).reshape(b, t, d)
+    else:
+        for lyr in params["layers"]:
+            x, aux = _layer(x, lyr, cfg, scale, shard)
+            if aux is not None:
+                aux_total = aux_total + aux
+    x = _rms_norm(x, params["out_norm"].to(dt), cfg.norm_eps)
+    logits = copy_to(x, mesh) @ params["head"].to(dt)
+    return logits, aux_total, positions
+
+
+def transformer_forward(params, tokens, cfg: TransformerConfig, mesh=None,
                         return_aux: bool = False):
     """tokens [B, T] (any integer dtype) → logits [B, T, vocab] in the
     compute dtype; with ``return_aux`` also the summed MoE load-balancing
-    loss (float32, zero for a dense config)."""
-    _check_ported(cfg)
-    if tokens.shape[1] > cfg.max_seq:
-        raise ValueError(
-            f"sequence length {tokens.shape[1]} exceeds max_seq "
-            f"{cfg.max_seq}")
-    dt = cfg.compute_dtype
-    x = params["embed"][tokens.long()].to(dt)            # [B,T,dim]
-    scale = cfg.head_dim ** -0.5
-    aux_total = torch.zeros((), device=x.device)
-    for lyr in params["layers"]:
-        x, aux = _layer(x, lyr, cfg, scale)
-        if aux is not None:
-            aux_total = aux_total + aux
-    x = _rms_norm(x, params["out_norm"].to(dt), cfg.norm_eps)
-    logits = x @ params["head"].to(dt)
+    loss (float32, zero for a dense config).
+
+    With a mesh every rank passes the global batch and its own shard of
+    the parameters (``params_from_jax(..., mesh=mesh)``), and gets the
+    global logits, gathered over tp, sp and dp (the gather has no
+    backward: :func:`lm_loss` trains on the local shard)."""
+    logits, aux, positions = _forward_local(params, tokens, cfg, mesh)
+    if mesh is not None:
+        logits = gather_full(logits, 2, "tp", mesh)
+        if positions is not None:
+            held = gather_full(positions, 0, "sp", mesh)
+            logits = gather_full(logits, 1, "sp", mesh)
+            logits = torch.empty_like(logits).index_copy_(1, held, logits)
+        logits = gather_full(logits, 0, "dp", mesh)
     if return_aux:
-        return logits, aux_total
+        return logits, aux
     return logits
 
 
@@ -346,41 +532,100 @@ def _ce_value(logits, targets):
     return (logz - ll).mean()
 
 
-class _CE(torch.autograd.Function):
+class _VocabCE(torch.autograd.Function):
     """Cross-entropy whose gradient is computed in float32 and cast to the
     LOGITS' dtype (the JAX package's ``_ce`` custom vjp): the head's
     backward products then run in bf16, and only the bf16 logits are kept
-    for the backward."""
+    for the backward.
+
+    Vocabulary-parallel over tp: each rank holds logits for its block of
+    the vocabulary, starting at ``lo``.  Each rank's logsumexp joins the
+    others' through an all-reduced max and sum over ``mesh``'s tp axis
+    (no mesh or no tp axis: the whole row is local), the target logit
+    comes from the rank that holds it, and the value is ``sum(weight ·
+    (lse - target logit)) / n`` (the mean when ``weight`` is None and the
+    rows are all n positions).  The backward is (softmax - onehot) ·
+    weight · g / n on the local block.  The row's logsumexp is the local
+    one plus log(S / s), and its softmax the local one times s / S, where
+    s is this rank's ``exp(lse_local - max)`` and S their sum.  With the
+    whole row on one rank (no mesh, or tp of one) none of that runs: the
+    value and gradient are those of the plain logsumexp and softmax."""
 
     @staticmethod
-    def forward(ctx, logits, targets):
-        ctx.save_for_backward(logits, targets)
-        return _ce_value(logits, targets)
+    def forward(ctx, logits, targets, weight, lo, mesh, n):
+        lf = logits.float()
+        vl = lf.shape[-1]
+        lse = torch.logsumexp(lf, -1)
+        share = None
+        if mesh is not None and mesh.size("tp") > 1:
+            top = all_reduce_max(lse, mesh, "tp")
+            s = torch.exp(lse - top)
+            total = all_reduce_sum(s, mesh, "tp")
+            lse = torch.where(s > 0, lse + torch.log(total / s),
+                              top + torch.log(total))
+            share = s / total
+        local = targets - lo
+        own = (local >= 0) & (local < vl)
+        local = local.clamp(0, vl - 1)
+        ll = torch.gather(lf, -1, local[..., None])[..., 0] * own
+        rows = lse - (ll if share is None else all_reduce_sum(ll, mesh, "tp"))
+        if weight is None and rows.numel() == n:
+            loss = rows.mean()
+        else:
+            loss = (rows if weight is None else rows * weight).sum() / n
+        ctx.save_for_backward(logits, local, own, share, weight)
+        ctx.n = n
+        return loss
 
     @staticmethod
     def backward(ctx, g):
-        logits, targets = ctx.saved_tensors
-        B, T, _ = logits.shape
+        logits, local, own, share, weight = ctx.saved_tensors
         d = torch.softmax(logits.float(), -1)
-        d.scatter_add_(-1, targets[..., None],
-                       torch.full(targets[..., None].shape, -1.0,
-                                  device=d.device))
-        d *= g / (B * T)
-        return d.to(logits.dtype), None
+        if share is not None:
+            d.mul_(share[..., None])
+        d.scatter_add_(-1, local[..., None], -own[..., None].float())
+        d *= g / ctx.n
+        if weight is not None:
+            d *= weight[..., None]
+        return d.to(logits.dtype), None, None, None, None, None
 
 
-def lm_loss(params, tokens, cfg: TransformerConfig):
-    """Next-token cross-entropy, mean over all positions (float32), plus
-    ``aux_loss_coef`` × the summed load-balancing loss for MoE configs.
-    The ``_CE`` function serves heads of 16384 tokens and up, as in the
-    JAX package; smaller heads differentiate ``_ce_value`` directly."""
+def _ce(logits, targets):
+    """The mean cross-entropy of whole rows through ``_VocabCE``."""
+    return _VocabCE.apply(logits, targets, None, 0, None, targets.numel())
+
+
+def lm_loss(params, tokens, cfg: TransformerConfig, mesh=None):
+    """Next-token cross-entropy, mean over all B·(T-1) positions
+    (float32), plus ``aux_loss_coef`` × the summed load-balancing loss
+    for MoE configs.  Without a mesh ``_ce`` serves heads of 16384 tokens
+    and up, as in the JAX package, and smaller heads differentiate
+    ``_ce_value`` directly.  With a mesh every rank passes
+    the global batch and gets the global loss (summed over dp and sp,
+    whose backward is the identity: each rank differentiates its own
+    positions' terms); the targets of a rank's positions come from the
+    full rows, and the global last position counts for nothing."""
     tokens = tokens.long()
-    logits, aux = transformer_forward(params, tokens, cfg, return_aux=True)
-    logits, targets = logits[:, :-1], tokens[:, 1:]
-    if cfg.vocab_size >= 16384:
-        ce = _CE.apply(logits, targets)
+    if mesh is None:
+        logits, aux = transformer_forward(params, tokens, cfg,
+                                          return_aux=True)
+        logits, targets = logits[:, :-1], tokens[:, 1:]
+        if cfg.vocab_size >= 16384:
+            ce = _ce(logits, targets)
+        else:
+            ce = _ce_value(logits, targets)
     else:
-        ce = _ce_value(logits, targets)
+        logits, aux, positions = _forward_local(params, tokens, cfg, mesh)
+        rows = local_shard(tokens, 0, "dp", mesh)
+        B, T = tokens.shape
+        if positions is None:
+            logits, targets, weight = logits[:, :-1], rows[:, 1:], None
+        else:
+            targets = rows.index_select(1, (positions + 1).clamp(max=T - 1))
+            weight = (positions < T - 1).float()
+        lo = mesh.index("tp") * logits.shape[-1]
+        ce = _VocabCE.apply(logits, targets, weight, lo, mesh, B * (T - 1))
+        ce = reduce_from(reduce_from(ce, mesh, "dp"), mesh, "sp")
     if cfg.num_experts:
         return ce + cfg.aux_loss_coef * aux
     return ce
@@ -404,19 +649,26 @@ class TransformerTrainer:
     ``params`` argument and always draws from ``seed``.  It lets a caller
     that runs several configurations of one model (the smoke script's
     remat runs, say) draw the masters once.
+
+    ``mesh`` (a ``parallel.sharding.Mesh``, the JAX trainer's second
+    argument) trains on a mesh of processes: each rank keeps its shard of
+    the weights and of the updater state on ``mesh.device``, and every
+    rank passes the same global batch to each step.
     """
 
     def __init__(self, cfg: TransformerConfig, device=None,
                  updater_type: str = "sgd",
                  option: Optional[AddOption] = None, seed: int = 0,
-                 params=None):
-        _check_ported(cfg)
+                 params=None, mesh=None):
+        _check_mesh(cfg, mesh)
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = resolve_device(
+            mesh.device if device is None and mesh is not None else device)
         self.updater = get_updater(updater_type)
         self.option = option or AddOption(learning_rate=0.1)
         host = init_params(cfg, seed) if params is None else params
-        self.params = params_from_jax(host, cfg, self.device)
+        self.params = params_from_jax(host, cfg, self.device, mesh)
         self.state = [self.updater.init_state(p.shape, p.dtype, p.device)
                       for p in _leaves(self.params)]
 
@@ -424,6 +676,18 @@ class TransformerTrainer:
         if not isinstance(tokens, torch.Tensor):
             tokens = torch.as_tensor(np.asarray(tokens))
         return tokens.to(self.device).long()
+
+    def _sum_grads(self, grads) -> None:
+        """Each rank's gradients → the global batch's, in place: every
+        leaf summed over dp and sp (each rank differentiated its own rows
+        and positions), and under GPipe the embedding over pp too (only
+        stage 0 feeds it).  The head and norms after the pipeline are
+        computed on every stage alike, and tp's replicated leaves already
+        hold the full gradient (``copy_to``'s backward)."""
+        mesh = self.mesh
+        all_reduce_grads(grads, mesh, ("dp", "sp"))
+        if _use_pp(self.cfg, mesh):
+            all_reduce_grads(grads[:1], mesh, ("pp",))     # embed
 
     def train_step_async(self, tokens, accum: int = 1) -> torch.Tensor:
         """One step; returns the loss as a device tensor (no host sync).
@@ -433,8 +697,9 @@ class TransformerTrainer:
         one update: the full-batch step (the loss is a mean over equal
         chunks) with one microbatch's activations alive at a time.  The
         loss returned is the mean of the chunks' losses.  MoE configs
-        refuse it, as in the JAX package."""
-        cfg = self.cfg
+        refuse it, as in the JAX package; so does a microbatch that the
+        dp axis does not divide."""
+        cfg, mesh = self.cfg, self.mesh
         if accum > 1 and cfg.num_experts:
             raise ValueError(
                 "grad accumulation is not equivalence-preserving for MoE "
@@ -444,17 +709,25 @@ class TransformerTrainer:
         B = tokens.shape[0]
         if B % accum:
             raise ValueError(f"batch {B} not divisible by accum {accum}")
+        if accum > 1 and mesh is not None and (B // accum) % mesh.size("dp"):
+            raise ValueError(
+                f"microbatch {B // accum} (batch {B} / accum {accum}) not "
+                f"divisible by the dp axis ({mesh.size('dp')})")
         leaves = [p.detach().requires_grad_() for p in _leaves(self.params)]
         params = _with_leaves(self.params, leaves)
         grads, losses = None, []
         for chunk in tokens.reshape(accum, B // accum, -1):
-            loss = lm_loss(params, chunk, cfg)
-            g = torch.autograd.grad(loss, leaves)
+            loss = lm_loss(params, chunk, cfg, mesh)
+            # Under GPipe only stage 0 uses the embedding: zeros elsewhere.
+            g = [torch.zeros_like(p) if d is None else d for p, d in zip(
+                leaves, torch.autograd.grad(loss, leaves, allow_unused=True))]
             grads = g if grads is None else [a + b for a, b in zip(grads, g)]
             losses.append(loss.detach())
         if accum > 1:
             grads = [g / accum for g in grads]
             loss = torch.stack(losses).mean()
+        if mesh is not None:
+            self._sum_grads(list(grads))
         with torch.no_grad():
             out = [self.updater.apply_dense(p.detach(), s, g, self.option)
                    for p, s, g in zip(leaves, self.state, grads)]
@@ -479,7 +752,7 @@ class TransformerTrainer:
     def loss(self, tokens) -> float:
         with torch.no_grad():
             return float(lm_loss(self.params, self._tokens(tokens),
-                                 self.cfg))
+                                 self.cfg, self.mesh))
 
     def offload_state(self, bridge) -> None:
         raise NotImplementedError(
@@ -490,26 +763,60 @@ class TransformerTrainer:
     def _tree(self) -> Dict[str, Any]:
         """``{"params", "state"}`` in the JAX trainer's layout, loop
         format: the state mirrors the params with a tuple of updater
-        slots at each leaf."""
+        slots at each leaf.  This rank's shard under a mesh."""
         return {"params": self.params,
                 "state": _with_leaves(self.params, self.state)}
+
+    def _full_tree(self) -> Dict[str, Any]:
+        """:meth:`_tree` with every leaf gathered whole: tp blocks
+        concatenated on their split dimension, the pp stages' layers in
+        order (a collective over the mesh)."""
+        mesh, cfg = self.mesh, self.cfg
+        if mesh is None:
+            return self._tree()
+
+        def whole(leaf, dim):
+            if isinstance(leaf, tuple):
+                return tuple(whole(a, dim) for a in leaf)
+            return leaf if dim is None else gather_full(leaf, dim, "tp",
+                                                        mesh)
+
+        out = {}
+        for part, sub in self._tree().items():
+            sub = {"embed": whole(sub["embed"], None),
+                   "out_norm": whole(sub["out_norm"], None),
+                   "head": whole(sub["head"], _TP_DIM["head"]),
+                   "layers": [{k: whole(w, _TP_DIM.get(k))
+                               for k, w in lyr.items()}
+                              for lyr in sub["layers"]]}
+            if _pp_layers(cfg, mesh):
+                stages = [tree_map(lambda a: gather_full(a[None], 0, "pp",
+                                                         mesh), lyr)
+                          for lyr in sub["layers"]]
+                sub["layers"] = [tree_map(lambda a: a[s], lyr)
+                                 for s in range(mesh.size("pp"))
+                                 for lyr in stages]
+            out[part] = sub
+        return out
 
     def save(self, uri: str) -> None:
         """Snapshot params + updater state (rank-0 atomic write, the
         durability of the table checkpoints) as the JAX trainer of the
         same config writes it: layers stacked ``[L, ...]`` under
-        ``scan_layers``, a list otherwise."""
+        ``scan_layers``, a list otherwise.  Under a mesh every rank
+        calls it; the full tensors are gathered first."""
         from .. import checkpoint
 
-        tree = self._tree()
+        tree = self._full_tree()
         if self.cfg.scan_layers:
             tree = _stacked(tree)
         checkpoint.save_pytree(uri, tree)
 
     def restore(self, uri: str) -> None:
         """Load a snapshot written by either package's trainer for this
-        config and updater, in loop or stacked format, onto this
-        trainer's device.  A snapshot of another structure raises
+        config and updater, on any mesh, in loop or stacked format, onto
+        this trainer's device and mesh (each rank re-slices its own
+        shard).  A snapshot of another structure raises
         ``ValueError``."""
         from .. import checkpoint
 
@@ -519,6 +826,16 @@ class TransformerTrainer:
                 if isinstance(sub["layers"], dict):
                     sub["layers"] = unstack_layer_params(sub["layers"],
                                                          self.cfg.n_layers)
+            if self.mesh is not None:
+                def cut(leaf, dim):
+                    if isinstance(leaf, tuple):
+                        return tuple(cut(a, dim) for a in leaf)
+                    a = torch.as_tensor(np.asarray(leaf))
+                    return (a if dim is None else
+                            local_shard(a, dim, "tp", self.mesh).contiguous())
+
+                snap = {part: shard_params(sub, self.cfg, self.mesh, cut)
+                        for part, sub in snap.items()}
         except (AttributeError, KeyError, TypeError) as exc:
             raise ValueError(f"{uri}: snapshot tree structure is not a "
                              f"trainer's: {exc}") from exc

@@ -33,7 +33,9 @@ lse)``.  lse and Δ are plain ``[bh, T]`` float32 rows: the TPU's
 ``[*, T, 128]`` lane padding has no purpose here.
 
 Every launch adds one to its kernel's count (:func:`launch_counts`), so
-a run can show that its steps went through the kernels.
+a run can show that its steps went through the kernels, and to its
+count by ``(Tq, Tk, causal)`` (:func:`launch_shapes`), so a run can show
+which pieces a ring of attention calls launched.
 
 The forward launch is a dispatcher op, ``torch.ops.mvt.flash_fwd``.  A
 ctypes call is invisible to PyTorch's dispatcher, so selective activation
@@ -53,13 +55,15 @@ import torch
 
 __all__ = ["flash_attention", "flash_fwd", "flash_dq", "flash_dkv",
            "flash_fwd_ref", "flash_dq_ref", "flash_dkv_ref",
-           "launch_counts", "reset_launch_counts", "HEAD_DIMS"]
+           "launch_counts", "launch_shapes", "reset_launch_counts",
+           "HEAD_DIMS"]
 
 _NEG = -1e30
 HEAD_DIMS = (32, 64, 128, 256)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _LAUNCHES: Dict[str, int] = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
+_SHAPES: Dict[Tuple[str, int, int, bool], int] = {}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -78,9 +82,16 @@ def launch_counts() -> Dict[str, int]:
     return dict(_LAUNCHES)
 
 
+def launch_shapes() -> Dict[Tuple[str, int, int, bool], int]:
+    """Launches since the last :func:`reset_launch_counts`, by ``(kernel,
+    Tq, Tk, causal)``."""
+    return dict(_SHAPES)
+
+
 def reset_launch_counts() -> None:
     for name in _LAUNCHES:
         _LAUNCHES[name] = 0
+    _SHAPES.clear()
 
 
 def _kernel(name: str) -> tuple:
@@ -98,9 +109,10 @@ def _kernel(name: str) -> tuple:
         return entry
 
 
-def _launch(name: str, device: torch.device, *args) -> None:
+def _launch(name: str, device: torch.device, *args, piece) -> None:
     """Launch on the current stream; tensors pass as their data pointers
-    (the wrappers checked shape, dtype, device and contiguity)."""
+    (the wrappers checked shape, dtype, device and contiguity).  ``piece``
+    is the launch's ``(Tq, Tk, causal)``."""
     fn, error_string = _kernel(name)
     ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
     with torch.cuda.device(device):
@@ -110,6 +122,8 @@ def _launch(name: str, device: torch.device, *args) -> None:
         raise RuntimeError(f"{name} kernel launch failed ({rc}): "
                            f"{error_string(rc).decode()}")
     _LAUNCHES[name] += 1
+    key = (name, *piece)
+    _SHAPES[key] = _SHAPES.get(key, 0) + 1
 
 
 def _check(q, k, v, do=None, lse=None, delta=None) -> None:
@@ -167,7 +181,8 @@ def _fwd(qs, k, v, causal):
     o = torch.empty_like(qs)
     lse = torch.empty((bh, tq), dtype=torch.float32, device=qs.device)
     _launch("flash_fwd", qs.device, qs, k, v, o, lse, bh, tq, k.shape[1], d,
-            _DTYPE_CODES[qs.dtype], int(causal))
+            _DTYPE_CODES[qs.dtype], int(causal),
+            piece=(tq, k.shape[1], bool(causal)))
     return o, lse
 
 
@@ -177,7 +192,8 @@ def _dq(qs, k, v, do, lse, delta, scale, causal):
         return _dq_plain(qs, k, v, do, lse, delta, scale, causal)
     dq = torch.empty_like(qs)
     _launch("flash_dq", qs.device, qs, k, v, do, lse, delta, dq, bh, tq,
-            k.shape[1], d, _DTYPE_CODES[qs.dtype], int(causal), float(scale))
+            k.shape[1], d, _DTYPE_CODES[qs.dtype], int(causal), float(scale),
+            piece=(tq, k.shape[1], bool(causal)))
     return dq
 
 
@@ -187,7 +203,8 @@ def _dkv(qs, k, v, do, lse, delta, causal):
         return _dkv_plain(qs, k, v, do, lse, delta, causal)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _launch("flash_dkv", qs.device, qs, k, v, do, lse, delta, dk, dv, bh, tq,
-            k.shape[1], d, _DTYPE_CODES[qs.dtype], int(causal))
+            k.shape[1], d, _DTYPE_CODES[qs.dtype], int(causal),
+            piece=(tq, k.shape[1], bool(causal)))
     return dk, dv
 
 

@@ -1,42 +1,188 @@
-"""Table placement helpers — the port of ``multiverso_tpu/parallel/sharding.py``.
+"""Placement helpers and the named process mesh — the port of
+``multiverso_tpu/parallel/sharding.py``.
 
-In the JAX package a table picks a ``NamedSharding`` over a 1-D mesh of
-every device and XLA materializes the partitioning (the reference's
-``WorkerTable::Partition`` over server processes; SURVEY.md §2.10).  The
-port runs one device per process, so each helper collapses to that
-device: ``table_mesh`` and ``shard_along`` return it, and
-``batch_placer`` moves a batch onto it.
+In the JAX package a table or a weight picks a ``NamedSharding`` over a
+``jax.sharding.Mesh`` of devices, and XLA materializes the partitioning
+and the collectives (the reference's ``WorkerTable::Partition`` over
+server processes; SURVEY.md §2.10).  The port runs one process per card,
+so the mesh becomes :class:`Mesh`: one ``torch.distributed`` group per
+named axis, and each process knows its coordinate on every axis.  A
+process holds only its own shard of a tensor; :func:`local_shard` and
+:func:`gather_full` stand in for placing an array with a
+``NamedSharding`` and for fetching the global array back.
 
-``make_mesh``, ``replicated`` and ``host_to_global`` have no
-counterpart: there is no multi-device mesh to build or replicate over
-and no global array to assemble (under several processes each one holds
-a full table replica; see ``tables/base.py``).
+The port's own class rather than ``torch.distributed.device_mesh.
+DeviceMesh``: the collectives of the port name groups by axis and send
+point to point to a neighbour's global rank, which is all a mesh has to
+give, and the same class runs over gloo on the CPU and NCCL on the card.
+
+The table helpers stay single-device: ``table_mesh`` and ``shard_along``
+return the process's device, ``batch_placer`` moves a batch onto it
+(under several processes each one holds a full table replica; see
+``tables/base.py``).  ``replicated`` and ``host_to_global`` have no
+counterpart: a replicated tensor is an ordinary tensor on every rank,
+and a global array is never assembled except by :func:`gather_full`.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 
 from ..device import resolve_device
 
-__all__ = ["table_mesh", "shard_along", "batch_placer"]
+__all__ = ["Mesh", "make_mesh", "local_shard", "gather_full", "table_mesh",
+           "shard_along", "batch_placer"]
 
 _SHARD_AXIS = "shard"
 
 Device = Union[str, torch.device]
 
 
+class Mesh:
+    """Named axes over an initialized ``torch.distributed`` group.
+
+    Ranks fill the axis grid in row-major order, as ``make_mesh`` of the
+    JAX package reshapes its device list: the last axis varies fastest.
+    ``shape`` maps each axis to its size (as ``jax.sharding.Mesh.shape``
+    does); :meth:`index`, :meth:`size`, :meth:`group` and :meth:`peer`
+    answer for this rank.  An axis the mesh does not name has size 1 and
+    index 0.  Building a mesh is a collective: every rank builds the
+    same one, in the same order.
+    """
+
+    def __init__(self, axis_sizes: Sequence[int], axis_names: Sequence[str],
+                 device: Optional[Device] = None):
+        import torch.distributed as dist
+
+        sizes = tuple(int(s) for s in axis_sizes)
+        names = tuple(axis_names)
+        if len(sizes) != len(names) or len(set(names)) != len(names):
+            raise ValueError(f"axis sizes {sizes} and names {names} do not "
+                             "pair up one to one")
+        if not (dist.is_available() and dist.is_initialized()):
+            raise RuntimeError("a Mesh needs an initialized torch.distributed "
+                               "process group (one process per card)")
+        world = dist.get_world_size()
+        n = int(np.prod(sizes))
+        if n != world:
+            raise ValueError(f"mesh {sizes} needs {n} processes, have "
+                             f"{world}")
+        self.rank = dist.get_rank()
+        self.shape: Dict[str, int] = dict(zip(names, sizes))
+        grid = np.arange(world).reshape(sizes)
+        self._index = {a: int(i) for a, i in
+                       zip(names, np.unravel_index(self.rank, sizes))}
+        self._grid, self._groups, self._ranks = grid, {}, {}
+        for axis in names:
+            self._groups[axis], self._ranks[axis] = self._new_group((axis,))
+        self.device = resolve_device(device)
+        if self.device.type == "cuda":
+            torch.cuda.set_device(self.device)   # NCCL's current device
+
+    def __contains__(self, axis: str) -> bool:
+        return axis in self.shape
+
+    def size(self, axis: str) -> int:
+        return self.shape.get(axis, 1)
+
+    def index(self, axis: str) -> int:
+        return self._index.get(axis, 0)
+
+    def _new_group(self, axes: Tuple[str, ...]):
+        """Every group over ``axes`` (all other coordinates fixed), built
+        on every rank in one order; returns this rank's and its ranks."""
+        import torch.distributed as dist
+
+        names = list(self.shape)
+        at = [names.index(a) for a in axes]
+        n = int(np.prod([self.shape[a] for a in axes]))
+        lines = np.moveaxis(self._grid, at, list(range(-len(at), 0)))
+        mine = None
+        for line in lines.reshape(-1, n):
+            ranks = [int(r) for r in line]
+            group = dist.new_group(ranks)         # collective: every rank
+            if self.rank in ranks:
+                mine = group, ranks
+        return mine
+
+    def group(self, axis: str):
+        """This rank's process group along ``axis``."""
+        return self._groups[axis]
+
+    def group_over(self, axes: Sequence[str]):
+        """This rank's process group over the product of ``axes`` (all
+        named by the mesh, in mesh order).  The first call for a set of
+        axes builds its groups: a collective, which every rank makes with
+        the same axes."""
+        axes = tuple(a for a in self.shape if a in axes)
+        if len(axes) == 1:
+            return self._groups[axes[0]]
+        if axes not in self._groups:
+            self._groups[axes], self._ranks[axes] = self._new_group(axes)
+        return self._groups[axes]
+
+    def ranks(self, axis: str) -> List[int]:
+        """The global ranks along ``axis`` through this rank, in axis
+        order."""
+        return list(self._ranks[axis])
+
+    def peer(self, axis: str, offset: int) -> int:
+        """Global rank of the process ``offset`` steps along ``axis``
+        (cyclic)."""
+        ranks = self._ranks[axis]
+        return ranks[(self.index(axis) + offset) % len(ranks)]
+
+
+def make_mesh(axis_sizes: Sequence[int], axis_names: Sequence[str],
+              device: Optional[Device] = None) -> Mesh:
+    """Build a named process mesh, e.g. ``make_mesh((2, 2), ("dp",
+    "tp"))`` over four processes.  ``device`` defaults to the rank's own
+    card, which becomes the current CUDA device."""
+    return Mesh(axis_sizes, axis_names, device)
+
+
+def local_shard(full: torch.Tensor, dim: int, axis: str,
+                mesh: Optional[Mesh]) -> torch.Tensor:
+    """This rank's contiguous block of ``full`` along ``dim`` when ``dim``
+    is sharded over ``axis`` (``full`` itself without a mesh or for an
+    axis of one)."""
+    n = 1 if mesh is None else mesh.size(axis)
+    if n == 1:
+        return full
+    if full.shape[dim] % n:
+        raise ValueError(f"dimension {dim} of size {full.shape[dim]} does "
+                         f"not divide over {axis} ({n})")
+    step = full.shape[dim] // n
+    return full.narrow(dim, mesh.index(axis) * step, step)
+
+
+def gather_full(local: torch.Tensor, dim: int, axis: str,
+                mesh: Optional[Mesh]) -> torch.Tensor:
+    """Inverse of :func:`local_shard`: every rank's block along ``axis``
+    concatenated on ``dim`` (a collective over that axis's group)."""
+    import torch.distributed as dist
+
+    n = 1 if mesh is None else mesh.size(axis)
+    if n == 1:
+        return local
+    local = local.contiguous()
+    parts = [torch.empty_like(local) for _ in range(n)]
+    dist.all_gather(parts, local, group=mesh.group(axis))
+    return torch.cat(parts, dim)
+
+
 def table_mesh(device: Optional[Device] = None) -> torch.device:
-    """The device tables live on: the context's device, or ``cuda:0``
-    (raising without a card) when none is given."""
+    """The device tables live on: the context's device, or the rank's
+    card (raising without one) when none is given."""
     return resolve_device(device)
 
 
 def shard_along(device: Device, ndim: int, dim: int = 0,
                 axis: str = _SHARD_AXIS) -> torch.device:
-    """One device holds the whole array: every dimension is "sharded"
+    """One device holds the whole table: every dimension is "sharded"
     over a mesh of one."""
     return torch.device(device)
 

@@ -30,6 +30,9 @@ def pytest_configure(config):
         "markers",
         "slow: heavyweight sweep (e.g. the ASan/UBSan multi-process "
         "scenario rebuild+run) excluded from tier-1 via -m 'not slow'")
+    config.addinivalue_line(
+        "markers",
+        "card: needs CUDA devices (NVIDIA cards); skipped without them")
 
 
 @pytest.fixture()

@@ -704,6 +704,99 @@ def test_transformer_phases_at_bench_shapes():
     assert (chip_smoke.LONG_BATCH, chip_smoke.LONG_SEQ) == (1, 16384)
 
 
+def test_mesh_phase_and_long_context_shapes():
+    """The mesh phase runs after longctx, at the trainer's config and the
+    ring's bf16 check at bench_long_context's attention shape; the seq
+    65,536 run is bench.py's longctx64k config."""
+    assert chip_smoke.PHASES[8] == "mesh"
+    assert (chip_smoke.LONG64K_SEQ, chip_smoke.LONG64K_BLOCK) == (65536,
+                                                                  4096)
+    assert chip_smoke.RING_SP == 4
+    assert chip_smoke.RING_BF16 == (1, 8, 16384, 128)
+    assert chip_smoke.RING_F32 == (2, 4, 2048, 64)
+    assert chip_smoke.MESH_STEPS == 3
+
+
+def test_flash_work_counts_cross_length_pieces():
+    """A square causal piece keeps the counts it always had; a full
+    piece counts every (q, k) pair and reads tk rows of k and v."""
+    assert chip_smoke.flash_work(8, 2048, 128) == chip_smoke.flash_work(
+        8, 2048, 128, 2048, True)
+    work = chip_smoke.flash_work(2, 64, 32, tk=128, causal=False)
+    assert work["flash_fwd"] == (2 * 2 * 32 * 64 * 128 * 2,
+                                 (2 * 64 + 2 * 128) * 2 * 32 * 2
+                                 + 2 * 64 * 4)
+    assert work["flash_dkv"][0] == 4 * 2 * 32 * 64 * 128 * 2
+
+
+def _attn_case(t, d, seed, tk=None):
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    tk = tk or t
+
+    def r(*shape):
+        return torch.randn(*shape, generator=g)
+
+    return dict(q=r(2, t, d), k=r(2, tk, d), v=r(2, tk, d), do=r(2, t, d),
+                dlse=r(2, t))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_blocked_plain_equals_the_plain_versions(causal):
+    """The seq 65,536 check's plain side, in blocks of rows or columns,
+    is the kernels' plain versions (float32 on the CPU)."""
+    from multiverso_tpu_torch.ops import flash_attention as fa
+
+    x = _attn_case(200, 32, 3)
+    want = chip_smoke.blocked_plain(fa, x, causal, 64)
+    o, lse = fa.flash_fwd_ref(x["q"], x["k"], x["v"], 32 ** -0.5, causal)
+    np.testing.assert_allclose(want["o"], o, atol=1e-6)
+    np.testing.assert_allclose(want["lse"], lse, atol=1e-5)
+    saved = (lse, (x["do"] * o).sum(-1) - x["dlse"])
+    got = chip_smoke.blocked_plain(fa, x, causal, 64, saved)
+    ref = chip_smoke.run_three(fa, x, causal, True, saved)
+    for key in ("dq", "dk", "dv"):
+        np.testing.assert_allclose(got[key], ref[key], atol=1e-5,
+                                   err_msg=key)
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "zigzag"])
+def test_ring_launch_rule_holds_the_schedule(monkeypatch, layout):
+    """The mesh phase's expected launches per virtual rank and its piece
+    tally are what the port's ring schedule runs, forward and backward,
+    piece shape by piece shape."""
+    import torch
+    from multiverso_tpu_torch.parallel import (InProcessRing,
+                                               ring_attention_shard,
+                                               sequence_positions)
+
+    sp, T = 4, 64
+    zigzag = layout == "zigzag"
+    x = _attn_case(T, 32, 4)
+    blocks = {n: [x[n][None].index_select(
+        2, sequence_positions(T, sp, r, zigzag)).requires_grad_()
+        for r in range(sp)] for n in ("q", "k", "v")}
+    shapes = {}
+    counts = _counted_kernels(monkeypatch, shapes)
+    ring = InProcessRing(blocks["k"], blocks["v"])
+    per_rank, outs = [], []
+    for r in range(sp):
+        before = counts["flash_fwd"]
+        outs.append(ring_attention_shard(
+            blocks["q"][r], blocks["k"][r], blocks["v"][r], r, sp,
+            ring.rotate_for(r), True, None, zigzag))
+        per_rank.append(counts["flash_fwd"] - before)
+    assert per_rank == chip_smoke.ring_launches(sp, layout)
+    torch.autograd.backward([a for o in outs for a in o],
+                            [torch.ones_like(a) for o in outs for a in o])
+    pieces = chip_smoke.ring_pieces(T, sp, layout)
+    assert shapes == {(name, tq, tk, causal): n
+                      for tq, tk, causal, n in pieces
+                      for name in chip_smoke.KERNELS}
+    assert sum(n for *_, n in pieces) == sum(per_rank)
+
+
 def test_expected_launches_per_remat_policy():
     assert chip_smoke.expected_launches(False, 16, 5) == {
         "flash_fwd": 80, "flash_dq": 80, "flash_dkv": 80}
@@ -718,9 +811,11 @@ def test_expected_launches_per_remat_policy():
                                          16, 5)
 
 
-def _counted_kernels(monkeypatch):
+def _counted_kernels(monkeypatch, shapes=None):
     """Count each kernel's runs as the card's wrappers count launches
-    (on the CPU the wrappers run the plain versions and count nothing)."""
+    (on the CPU the wrappers run the plain versions and count nothing);
+    into ``shapes`` too by (kernel, Tq, Tk, causal), as
+    ``launch_shapes`` counts them."""
     from multiverso_tpu_torch.ops import flash_attention as fa
 
     counts = {k: 0 for k in chip_smoke.KERNELS}
@@ -730,6 +825,10 @@ def _counted_kernels(monkeypatch):
 
         def counted(*args, _plain=plain, _name=name):
             counts[_name] += 1
+            if shapes is not None:
+                key = (_name, args[0].shape[1], args[1].shape[1],
+                       bool(args[-1]))
+                shapes[key] = shapes.get(key, 0) + 1
             return _plain(*args)
 
         monkeypatch.setattr(fa, attr, counted)

@@ -215,8 +215,11 @@ def test_offset_blocks_and_attn_piece_match_jax():
     po, plse = port_ring._attn_piece(tq, tk, tv, scale, True)
     np.testing.assert_allclose(po.numpy(), np.asarray(jo), atol=2e-5)
     np.testing.assert_allclose(plse.numpy(), np.asarray(jlse), atol=2e-5)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_ring.ring_attention(tq, tk, tv)
+    # Without a mesh the ring is the local path, as on a JAX mesh whose
+    # sp, batch and head axes are absent (the ring: test_torch_mesh.py).
+    np.testing.assert_array_equal(
+        port_ring.ring_attention(tq, tk, tv).numpy(),
+        port_ring.blockwise_attention_local(tq, tk, tv, scale).numpy())
 
 
 # ------------------------------------------------ the Hopper kernels' schedule

@@ -191,7 +191,7 @@ def test_ce_gradient_in_logits_dtype(dtype):
     jloss, jvjp = jax.vjp(lambda l: jt._ce(l, jnp.asarray(tgt)), jlog)
     (jg,) = jvjp(jnp.float32(1.0))
     tlog = torch.tensor(logits).to(TDT[dtype]).requires_grad_()
-    tloss = pt._CE.apply(tlog, torch.as_tensor(tgt).long())
+    tloss = pt._ce(tlog, torch.as_tensor(tgt).long())
     (tg,) = torch.autograd.grad(tloss, tlog)
     assert tg.dtype == TDT[dtype]
     tol = 1e-6 if dtype == "float32" else 2e-3
@@ -245,10 +245,14 @@ def test_fused_steps_and_eval_loss():
 
 def test_unported_options_raise():
     _, pcfg = _cfgs("float32")
-    cfg = pt.TransformerConfig(**SHAPE, pipeline_microbatches=2)
-    with pytest.raises(NotImplementedError,
-                       match='ROADMAP.*"Several processes"'):
-        pt.TransformerTrainer(cfg, device="cpu")
+    # Pipelining is ported (tests/test_torch_pipeline.py): without a pp
+    # axis the config trains as the local stack, as the JAX trainer does.
+    # MoE under a mesh still raises (tests/test_torch_mesh.py).
+    _, cfg = _cfgs("float32", pipeline_microbatches=2)
+    tokens = _tokens(8)
+    piped = pt.TransformerTrainer(cfg, device="cpu", seed=8)
+    local = pt.TransformerTrainer(pcfg, device="cpu", seed=8)
+    assert piped.train_step(tokens) == local.train_step(tokens)
     tr = pt.TransformerTrainer(pcfg, device="cpu")
     with pytest.raises(NotImplementedError,
                        match='ROADMAP.*"Modules that need the native'):
