@@ -50,6 +50,20 @@ __all__ = ["LightLDA", "MHDraws", "synthetic_documents"]
 PAD = -1  # padding token id in [docs, max_len] matrices
 
 
+def _one_process() -> None:
+    """The device sweeps' guard: the JAX package's sweeps fetch the
+    sharded global arrays to the host, which raises across processes
+    (``tests/test_torch_lightlda_processes.py`` runs them under two), so
+    the port runs them in one process only (``sample_pass`` and the
+    eager table ops run under several)."""
+    if is_multiprocess():
+        raise NotImplementedError(
+            "LightLDA's device sweeps (make_fused_pass, make_mh_pass) run "
+            "in one process, as the JAX package's do; under several "
+            "processes use sample_pass (ROADMAP.md Queue 1, \"Several "
+            "processes\")")
+
+
 def synthetic_documents(num_docs: int, vocab_size: int, num_topics: int,
                         doc_len: int = 64, seed: int = 0,
                         concentration: float = 0.1
@@ -219,8 +233,10 @@ class LightLDA:
         doc_topic, gumbel) -> (z', doc_topic', topic_sum_delta)`` —
         ``gumbel`` is [D, L, K] standard Gumbel noise — wired through
         ``run_fused_pass`` (which rebuilds the sparse word-topic deltas on
-        the host from ``z``/``z'``), and the batch placer.
+        the host from ``z``/``z'``), and the batch placer.  One process
+        only (see ``_one_process``).
         """
+        _one_process()
         cache_key = ("fused", max_len, batch_axis)
         cached = self._fused_cache.get(cache_key)
         if cached is not None:
@@ -271,14 +287,12 @@ class LightLDA:
         per sweep from those counts, with the MH ratio using that same
         stale density (so the chain targets the exact sweep-start
         posterior).  Returns ``pass_fn(wt, ts, docs, z, doc_topic, draws)
-        -> (z', doc_topic', topic_sum_delta[, word_topic_delta])`` with
-        ``draws`` an ``MHDraws``, and the batch placer.
+        -> (z', doc_topic', topic_sum_delta, word_topic_delta)`` with
+        ``draws`` an ``MHDraws``, and the batch placer.  One process only
+        (see ``_one_process``).
         """
-        # The dense [V, K] word-topic delta exists only where it is
-        # consumed (one process: the device add); several processes take
-        # the host sparse rebuild and must not pay a discarded scatter.
-        with_wt_delta = not is_multiprocess()
-        cache_key = ("mh", max_len, mh_steps, batch_axis, with_wt_delta)
+        _one_process()
+        cache_key = ("mh", max_len, mh_steps, batch_axis)
         cached = self._fused_cache.get(cache_key)
         if cached is not None:
             return cached
@@ -373,8 +387,6 @@ class LightLDA:
 
             dt_delta = counts(D, d_flat, K).view(D, K)
             ts_delta = counts(1, torch.zeros_like(d_flat), K)
-            if not with_wt_delta:
-                return new_z, doc_topic + dt_delta, ts_delta
             # The word-topic delta stays on the device: the [V, K] count
             # update rides the table's device add (HBM speed) instead of
             # a host round trip.
@@ -416,13 +428,10 @@ class LightLDA:
         the sweep, push deltas back through the tables.
 
         ``device_wt_delta``: the sweep also returns a dense [V, K]
-        word-topic delta which (one process) goes straight through the
-        table's device add.  ``doc_topic`` is then returned as a device
+        word-topic delta which goes straight through the table's device
+        add.  ``doc_topic`` is then returned as a device
         tensor, so it never ships to the host between sweeps.
         """
-        # make_mh_pass omits the wt_delta output under several processes
-        # (the host sparse rebuild runs instead); mirror that.
-        device_wt_delta = device_wt_delta and not is_multiprocess()
         wt_full, _ = self.word_topic.raw_value()
         ts = host_put(self.topic_sum.get(), self.device)
         old_z = self._z
@@ -439,9 +448,7 @@ class LightLDA:
             self.topic_sum.add(ts_delta)       # ditto (a tensor delta)
             return new_dt
         # Word-topic deltas rebuilt sparsely on the host from (old_z,
-        # new_z): [touched_words, K] instead of a dense [D, L, K].  (Also
-        # the multi-process path: eager adds must be the lockstep
-        # collectives.)
+        # new_z): [touched_words, K] instead of a dense [D, L, K].
         valid = docs != PAD
         w_flat = docs[valid]
         old_flat = old_z[valid]

@@ -14,7 +14,10 @@ training paths:
 - ``make_fused_step`` — one step over the table's own tensors: loss and
   gradient, then the updater applies on the device, with no host hop
   and no host sync.  It runs eagerly (no ``torch.compile``, no CUDA
-  graph).
+  graph).  Under several processes, as in the JAX package, the caller's
+  batch is the global batch (every rank passes the same one): each rank
+  gathers the table's blocks, computes the step's gradient, and applies
+  its own block of it, so the blocks equal one process's table.
 """
 
 from __future__ import annotations
@@ -133,24 +136,26 @@ class LogisticRegression:
             lr.table.raw_assign(data, state)
 
         The loss stays a device tensor: nothing in the step waits for
-        the device, so consecutive steps queue back to back.
+        the device, so consecutive steps queue back to back.  Sharded,
+        ``data``/``state`` are this rank's blocks and the step gathers
+        the blocks (one collective): every rank computes the whole
+        batch's gradient, so no gradient crosses ranks.
         """
         cached = self._fused_cache.get(batch_axis)
         if cached is not None:
             return cached
         from ..parallel.sharding import batch_placer
         _, place = batch_placer(self.device, batch_axis)
-        updater = self.table.updater
+        table = self.table
+        updater = table.updater
         grad_fn = self._grad_fn
         opt = self.option
         n = self.param_size
 
         def step(data, state, x, y):
-            loss, grad = grad_fn(data[:n], x, y)
-            pad = data.shape[0] - grad.shape[0]
-            if pad:
-                grad = torch.cat([grad, grad.new_zeros(pad)])
-            data, state = updater.apply_dense(data, state, grad, opt)
+            loss, grad = grad_fn(table.full_value(data)[:n], x, y)
+            data, state = updater.apply_dense(data, state,
+                                              table.local_part(grad), opt)
             return data, state, loss
 
         self._fused_cache[batch_axis] = (step, place)

@@ -233,7 +233,6 @@ class SkipGramMixture:
         if cached is not None:
             return cached
         from ..parallel.sharding import batch_placer
-        from ..updaters.base import scatter_apply
 
         _, put = batch_placer(self.device, batch_axis, dtype=torch.int64)
         V = self.vocab_size
@@ -242,9 +241,8 @@ class SkipGramMixture:
             _check_ids(a, V + 1)
             return put(a)
 
-        upd_sense = self.table_sense.updater
-        upd_out = self.table_out.updater
-        upd_prior = self.table_prior.updater
+        t_sense, t_out = self.table_sense, self.table_out
+        t_prior = self.table_prior
         opt = self.option
         opt_prior = self.table_prior.default_option
         S, D = self.senses, self.dim
@@ -254,19 +252,22 @@ class SkipGramMixture:
             B, K = neg.shape
             C = bags.shape[1]
             sense_rows = (c[:, None] * S + sense_offsets).reshape(-1)
-            vs = ds[sense_rows].reshape(B, S, D)
+            vs = t_sense.rows_of(ds, sense_rows).reshape(B, S, D)
             # The padding id V is clamped for the gather only: its slot
             # is masked, so its gradient is exactly zero.
-            uc = do[bags.reshape(-1).clamp(max=V - 1)].reshape(B, C, D)
-            un = do[neg.reshape(-1)].reshape(B, K, D)
-            resp, loss, (dvs, duc, dun) = _em_step(vs, uc, un, mask, dp[c])
-            ds, ss = scatter_apply(upd_sense, ds, ss, sense_rows,
-                                   dvs.reshape(B * S, D), opt)
+            out_emb = t_out.rows_of(do, torch.cat(
+                [bags.reshape(-1).clamp(max=V - 1), neg.reshape(-1)]))
+            uc = out_emb[:B * C].reshape(B, C, D)
+            un = out_emb[B * C:].reshape(B, K, D)
+            resp, loss, (dvs, duc, dun) = _em_step(
+                vs, uc, un, mask, t_prior.rows_of(dp, c))
+            ds, ss = t_sense.scatter_rows(ds, ss, sense_rows,
+                                          dvs.reshape(B * S, D), opt)
             out_rows = torch.cat([bags.reshape(-1), neg.reshape(-1)])
             out_delta = torch.cat([duc.reshape(B * C, D),
                                    dun.reshape(B * K, D)])
-            do, so = scatter_apply(upd_out, do, so, out_rows, out_delta, opt)
-            dp, sp_ = scatter_apply(upd_prior, dp, sp_, c, resp, opt_prior)
+            do, so = t_out.scatter_rows(do, so, out_rows, out_delta, opt)
+            dp, sp_ = t_prior.scatter_rows(dp, sp_, c, resp, opt_prior)
             return ds, ss, do, so, dp, sp_, loss
 
         self._fused_cache[batch_axis] = (step, place)

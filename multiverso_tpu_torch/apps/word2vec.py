@@ -16,7 +16,11 @@ table device.  Two training paths:
   tables' own tensors: row gathers, autograd, and the updaters' in-place
   row scatter (``scatter_apply``).  It runs eagerly (no
   ``torch.compile``, no CUDA graph) and never waits for the device, so
-  consecutive steps queue back to back.
+  consecutive steps queue back to back.  Under several processes the
+  caller's batch is the global batch, as in the JAX package: the rows
+  reach every rank by one sum of owner-filled buffers per table
+  (``MatrixTable.rows_of``), every rank computes the batch's gradients,
+  and each applies the rows it owns (``MatrixTable.scatter_rows``).
 
 Negatives are pre-sampled on the host (the reference samples on the
 worker too), from the same ``RandomState`` seeds as the JAX package, so
@@ -195,7 +199,6 @@ class SkipGram:
         if cached is not None:
             return cached
         from ..parallel.sharding import batch_placer
-        from ..updaters.base import scatter_apply
 
         _, put = batch_placer(self.device, batch_axis, dtype=torch.int64)
         vocab = self.vocab_size
@@ -204,22 +207,22 @@ class SkipGram:
             _check_ids(a, vocab)
             return put(a)
 
-        upd_in = self.table_in.updater
-        upd_out = self.table_out.updater
+        t_in, t_out = self.table_in, self.table_out
         opt = self.option
         D = self.dim
 
         def step(din, sin, dout, sout, c, o, neg):
             B, K = neg.shape
-            vc = din[c]
-            uo = dout[o]
-            un = dout[neg.reshape(-1)].reshape(B, K, D)
-            loss, (dvc, duo, dun) = _sgns_value_and_grad(vc, uo, un)
-            din, sin = scatter_apply(upd_in, din, sin, c, dvc, opt)
+            vc = t_in.rows_of(din, c)
             out_rows = torch.cat([o, neg.reshape(-1)])
+            out_emb = t_out.rows_of(dout, out_rows)
+            uo = out_emb[:B]
+            un = out_emb[B:].reshape(B, K, D)
+            loss, (dvc, duo, dun) = _sgns_value_and_grad(vc, uo, un)
+            din, sin = t_in.scatter_rows(din, sin, c, dvc, opt)
             out_delta = torch.cat([duo, dun.reshape(B * K, D)])
-            dout, sout = scatter_apply(upd_out, dout, sout, out_rows,
-                                       out_delta, opt)
+            dout, sout = t_out.scatter_rows(dout, sout, out_rows,
+                                            out_delta, opt)
             return din, sin, dout, sout, loss
 
         self._fused_cache[batch_axis] = (step, place)

@@ -346,9 +346,11 @@ def save_pytree_async(uri: str, tree: Any) -> AsyncSave:
 def save(uri: str, extra: Optional[Dict[str, Any]] = None) -> None:
     """Snapshot all registered tables + clock to ``uri`` (one file).
 
-    Several processes: every rank holds a full replica, and EVERY process
-    materializes the snapshot as in the JAX package; only rank 0 writes
-    it.
+    Several processes: EVERY process materializes the snapshot (the
+    sharded tables gather their blocks, a collective) as in the JAX
+    package; only rank 0 writes it.  The snapshot holds each table's
+    live region, so it restores at any world size and into the JAX
+    package, and each rank of a restore takes its own block.
     The local write goes to a temp file and renames into place, so a
     crash mid-write never leaves a truncated file at the final path.
     """

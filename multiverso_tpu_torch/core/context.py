@@ -24,7 +24,7 @@ Identity mapping (kept name-compatible with the reference C API):
 - a reference *worker process*  ↔ a process of the group
   (``worker_id() == torch.distributed.get_rank()``, 0 without a group).
 - a reference *server process*  ↔ the same process (every process holds
-  a full replica of each table on its device), so ``server_id() ==
+  one shard of each dense table on its device), so ``server_id() ==
   worker_id()`` under Role.ALL.
 - one device per process, so ``num_replicas()`` is 1.
 
@@ -394,7 +394,7 @@ def workers_num() -> int:
 
 
 def server_id() -> int:
-    """Under Role.ALL every process co-hosts a table replica
+    """Under Role.ALL every process co-hosts table shards
     (``MV_ServerId``)."""
     node = get_context().node
     return node.rank if node.is_server else -1

@@ -11,8 +11,9 @@ push is the table's device add, the pull ``get(device=True)``, and the
 write-back one ``torch._foreach_copy_`` of views of the merged tensor,
 so the uncompressed sync makes no host copy and never waits for the
 device.  A module on another device than the table raises; it is never
-moved quietly.  ``get(device=True)`` is a one-process path, so the
-managers run in one process (ROADMAP.md Queue 1, "Several processes").
+moved quietly.  Under several processes the table is sharded: the push
+is the collective add, and the pull the collective ``get()`` (the
+reference's own pull), placed back on the table's device.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ import torch
 
 from ..core import context as core_context
 from ..tables import ArrayTable
+from ..tables.base import host_put, is_multiprocess
 
 __all__ = ["TorchParamManager"]
 
@@ -34,8 +36,18 @@ def table_holding(flat: torch.Tensor, name: Optional[str]) -> ArrayTable:
     the JAX package's ``ArrayTable(init=flat)`` without a host hop."""
     table = ArrayTable(flat.numel(), updater_type="default", sync=False,
                        name=name)
-    table.raw_assign(flat.to(table.device, torch.float32).clone())
+    table.raw_assign(table.local_part(
+        flat.to(table.device, torch.float32)).clone())
     return table
+
+
+def pull(table: ArrayTable) -> torch.Tensor:
+    """The table's value as a fresh tensor on its device:
+    ``get(device=True)`` in one process, the collective ``get()`` placed
+    on the device under several (every rank calls it together)."""
+    if is_multiprocess():
+        return host_put(table.get(), table.device)
+    return table.get(device=True)
 
 
 def delta_sync(table: ArrayTable, flat: torch.Tensor, synced: torch.Tensor,
@@ -43,7 +55,7 @@ def delta_sync(table: ArrayTable, flat: torch.Tensor, synced: torch.Tensor,
                compress: Optional[str] = None) -> torch.Tensor:
     """The delta-sync protocol (reference ``mv_sync``): push ``(flat -
     synced) · scale`` through ``table``'s add and return the merged value
-    pulled with ``get(device=True)`` — the new ``synced``.  ``scale`` is
+    pulled with :func:`pull` — the new ``synced``.  ``scale`` is
     ``1/peers`` when ``average`` (``peers`` defaults to
     ``workers_num()``), else 1.  ``compress="1bit"``: sign-bit wire
     format with error feedback, through the table's compressed add (its
@@ -51,7 +63,7 @@ def delta_sync(table: ArrayTable, flat: torch.Tensor, synced: torch.Tensor,
     peers = peers or core_context.workers_num()
     scale = (1.0 / peers) if average else 1.0
     table.add((flat - synced) * scale, compress=compress)
-    return table.get(device=True)
+    return pull(table)
 
 
 def _on_device(params: List[torch.Tensor], device: torch.device) -> None:
@@ -90,7 +102,7 @@ class TorchParamManager:
                     f"shared table holds {table.size} params, module has "
                     f"{flat.numel()}")
             self.table = table
-            self._synced = table.get(device=True)
+            self._synced = pull(table)
             self._write_back(self._synced)  # adopt the shared weights
         else:
             self.table = table_holding(flat, name)

@@ -23,7 +23,12 @@ Beside each wrapper sits its plain version (``flash_fwd_ref``,
 ``flash_dq_ref``, ``flash_dkv_ref``): the same function written with
 dense tensor ops.  A wrapper takes the plain version only for a tensor
 on the CPU; a CUDA tensor launches the kernel, and a kernel that fails to
-build or launch raises — nothing falls back.
+build or launch raises — nothing falls back.  The JAX package's kernels
+take any head dim; these are compiled for ``HEAD_DIMS``, so a CUDA
+tensor of another head dim up to 256 launches the kernel of the next
+one in the set on operands zero-padded along D (zero columns add
+nothing to q·kᵀ, and give zero columns of o, dq, dk and dv, which are
+cut off), and a larger head dim raises.
 
 What stays plain PyTorch around the kernels, as in the JAX package: the
 pre-scale of q rounded in the input dtype (``:244``, ``:318``), the
@@ -143,14 +148,30 @@ def _check(q, k, v, do=None, lse=None, delta=None) -> None:
     devices = {t.device for t in (q, k, v, do, lse, delta) if t is not None}
     if len(devices) != 1:
         raise ValueError(f"operands on several devices: {devices}")
-    if q.shape[2] not in HEAD_DIMS:
-        raise ValueError(f"head dim {q.shape[2]} not supported; the "
-                         f"kernels support {HEAD_DIMS}")
+    if q.is_cuda:
+        _kernel_dim(q.shape[2])
     if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or \
             v.dtype != q.dtype:
         raise ValueError(f"dtypes {q.dtype}/{k.dtype}/{v.dtype} not "
                          f"supported; the kernels take one of "
                          f"{sorted(str(d) for d in _DTYPE_CODES)}")
+
+
+def _kernel_dim(d: int) -> int:
+    """The head dim a CUDA launch runs at: the smallest of ``HEAD_DIMS``
+    that holds ``d`` (the operands are zero-padded up to it)."""
+    for kd in HEAD_DIMS:
+        if d <= kd:
+            return kd
+    raise ValueError(f"head dim {d} not supported on the card; the "
+                     f"kernels support {HEAD_DIMS} and smaller dims "
+                     f"padded up to one of them")
+
+
+def _pad(kd: int, *ts: torch.Tensor):
+    """``ts`` zero-padded along their last (head) dim to ``kd``."""
+    return tuple(torch.nn.functional.pad(t, (0, kd - t.shape[-1]))
+                 for t in ts)
 
 
 def _prescale(q: torch.Tensor, scale: float) -> torch.Tensor:
@@ -173,11 +194,16 @@ def _rows(do, lse, delta, dtype):
 
 # ------------------------------------------- kernels on prepared operands
 # Operands as _prepare and _rows make them.  A CUDA tensor launches the
-# kernel; a CPU tensor takes the plain version.
+# kernel (of _kernel_dim's head dim, on padded operands); a CPU tensor
+# takes the plain version.
 def _fwd(qs, k, v, causal):
     bh, tq, d = qs.shape
     if not qs.is_cuda:
         return _fwd_plain(qs, k, v, causal)
+    kd = _kernel_dim(d)
+    if kd != d:
+        o, lse = _fwd(*_pad(kd, qs, k, v), causal)
+        return o[..., :d].contiguous(), lse
     o = torch.empty_like(qs)
     lse = torch.empty((bh, tq), dtype=torch.float32, device=qs.device)
     _launch("flash_fwd", qs.device, qs, k, v, o, lse, bh, tq, k.shape[1], d,
@@ -190,6 +216,10 @@ def _dq(qs, k, v, do, lse, delta, scale, causal):
     bh, tq, d = qs.shape
     if not qs.is_cuda:
         return _dq_plain(qs, k, v, do, lse, delta, scale, causal)
+    kd = _kernel_dim(d)
+    if kd != d:
+        return _dq(*_pad(kd, qs, k, v, do), lse, delta, scale,
+                   causal)[..., :d].contiguous()
     dq = torch.empty_like(qs)
     _launch("flash_dq", qs.device, qs, k, v, do, lse, delta, dq, bh, tq,
             k.shape[1], d, _DTYPE_CODES[qs.dtype], int(causal), float(scale),
@@ -201,6 +231,10 @@ def _dkv(qs, k, v, do, lse, delta, causal):
     bh, tq, d = qs.shape
     if not qs.is_cuda:
         return _dkv_plain(qs, k, v, do, lse, delta, causal)
+    kd = _kernel_dim(d)
+    if kd != d:
+        dk, dv = _dkv(*_pad(kd, qs, k, v, do), lse, delta, causal)
+        return dk[..., :d].contiguous(), dv[..., :d].contiguous()
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _launch("flash_dkv", qs.device, qs, k, v, do, lse, delta, dk, dv, bh, tq,
             k.shape[1], d, _DTYPE_CODES[qs.dtype], int(causal),

@@ -14,11 +14,11 @@ from .pipeline import gpipe, stage_slice
 from .ring_attention import (InProcessRing, blockwise_attention_local,
                              ring_attention, ring_attention_shard,
                              sequence_positions)
-from .sharding import (Mesh, batch_placer, gather_full, local_shard,
-                       make_mesh, shard_along, table_mesh)
+from .sharding import (Mesh, TableShard, batch_placer, gather_full,
+                       local_shard, make_mesh, shard_along, table_mesh)
 
 __all__ = ["InProcessRing", "Mesh", "batch_placer",
            "blockwise_attention_local", "gather_full", "gpipe",
            "local_shard", "make_mesh", "ring_attention",
            "ring_attention_shard", "sequence_positions", "shard_along",
-           "stage_slice", "table_mesh"]
+           "stage_slice", "table_mesh", "TableShard"]

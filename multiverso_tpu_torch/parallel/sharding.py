@@ -16,17 +16,23 @@ DeviceMesh``: the collectives of the port name groups by axis and send
 point to point to a neighbour's global rank, which is all a mesh has to
 give, and the same class runs over gloo on the CPU and NCCL on the card.
 
-The table helpers stay single-device: ``table_mesh`` and ``shard_along``
-return the process's device, ``batch_placer`` moves a batch onto it
-(under several processes each one holds a full table replica; see
-``tables/base.py``).  ``replicated`` and ``host_to_global`` have no
-counterpart: a replicated tensor is an ordinary tensor on every rank,
-and a global array is never assembled except by :func:`gather_full`.
+The tables shard over the ranks of the default process group, as the
+JAX package's tables shard over its 1-D table mesh: ``table_mesh`` is
+the rank's device, ``shard_along`` the :class:`TableShard` of a table's
+leading dimension on it (one process: the whole table).  Every table
+asks its shard for its block's size and offset and for the owner of a
+row; :func:`is_multiprocess`, the one predicate behind every collective
+of the tables, says whether they shard at all.  ``batch_placer`` moves
+a batch onto the device.  ``replicated`` and
+``host_to_global`` have no counterpart: a replicated tensor is an
+ordinary tensor on every rank, and a global array is never assembled
+except by :func:`gather_full` (a mesh) or a table's gather of its
+shards (``tables/base.py``).
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence, Tuple, Union
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -34,9 +40,7 @@ import torch
 from ..device import resolve_device
 
 __all__ = ["Mesh", "make_mesh", "local_shard", "gather_full", "table_mesh",
-           "shard_along", "batch_placer"]
-
-_SHARD_AXIS = "shard"
+           "shard_along", "TableShard", "batch_placer", "is_multiprocess"]
 
 Device = Union[str, torch.device]
 
@@ -175,16 +179,90 @@ def gather_full(local: torch.Tensor, dim: int, axis: str,
 
 
 def table_mesh(device: Optional[Device] = None) -> torch.device:
-    """The device tables live on: the context's device, or the rank's
-    card (raising without one) when none is given."""
+    """The device this rank's table shards live on: the context's
+    device, or the rank's card (raising without one) when none is given.
+    The mesh's ranks are those of the default process group."""
     return resolve_device(device)
 
 
-def shard_along(device: Device, ndim: int, dim: int = 0,
-                axis: str = _SHARD_AXIS) -> torch.device:
-    """One device holds the whole table: every dimension is "sharded"
-    over a mesh of one."""
-    return torch.device(device)
+class TableShard(NamedTuple):
+    """This rank's block of a table's leading dimension (rows, or an
+    array's elements): the one spelling of a shard's size, offset and
+    owned rows that every table uses.
+
+    ``rows`` live rows pad to ``padded = ceil(rows / world) * world``, as
+    the JAX package pads a table to its mesh; rank ``r`` holds rows
+    ``[r * size, (r + 1) * size)`` with ``size = padded / world``.  Rows
+    past ``rows`` are padding: no add may write one, no read returns
+    one.  One process: ``world`` 1, the whole table."""
+
+    device: torch.device
+    rows: int
+    world: int = 1
+    rank: int = 0
+
+    @property
+    def padded(self) -> int:
+        return -(-self.rows // self.world) * self.world
+
+    @property
+    def size(self) -> int:
+        return self.padded // self.world
+
+    @property
+    def offset(self) -> int:
+        return self.rank * self.size
+
+    @property
+    def sharded(self) -> bool:
+        return self.world > 1
+
+    def owned(self, rows):
+        """Which of ``rows`` (numpy or tensor ids) are live rows of this
+        rank's block: the rows this rank owns (row ``i``'s owner is rank
+        ``i // size``)."""
+        return (rows >= self.offset) & (rows < self.offset + self.size) \
+            & (rows < self.rows)
+
+    def block(self, full: Optional[np.ndarray], dtype,
+              rest: Tuple[int, ...] = ()) -> np.ndarray:
+        """This rank's block as a fresh host array of ``size`` rows:
+        ``full``'s live rows that fall in it (``full`` holds at least the
+        live rows; ``None`` reads zeros), zeros in the padding."""
+        out = np.zeros((self.size,) + tuple(rest), dtype=dtype)
+        hi = min(self.offset + self.size, self.rows)
+        if full is not None and hi > self.offset:
+            src = np.asarray(full, dtype)
+            if src.ndim <= len(rest):      # a row or a scalar: every row
+                src = np.broadcast_to(src, (self.rows,) + tuple(rest))
+            out[:hi - self.offset] = src[self.offset:hi]
+        return out
+
+
+def is_multiprocess() -> bool:
+    """One predicate for every lockstep-collective guard in the tables.
+
+    All multi-process paths (``multihost_sum``/the gathers/the barrier,
+    a table's shard) MUST use this same test — two spellings that ever
+    diverged would leave one rank inside a collective the other skipped:
+    deadlock.
+    """
+    import torch.distributed as dist
+
+    return (dist.is_available() and dist.is_initialized()
+            and dist.get_world_size() > 1)
+
+
+def shard_along(device: Device, rows: int) -> TableShard:
+    """The shard of a table with ``rows`` leading rows over the ranks of
+    the default process group (:func:`is_multiprocess`), on ``device``:
+    the whole table in one process."""
+    import torch.distributed as dist
+
+    if not is_multiprocess():
+        return TableShard(torch.device(device), int(rows))
+    return TableShard(torch.device(device), int(rows),
+                      dist.get_world_size(), dist.get_rank())
 
 
 def batch_placer(device: Device, batch_axis: str = "worker", dtype=None):

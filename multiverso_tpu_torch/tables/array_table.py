@@ -5,9 +5,13 @@ Port of ``multiverso_tpu/tables/array_table.py``.  Reference (SURVEY.md
 sharded over server processes; workers ``Get`` the whole array and
 ``Add`` whole-array deltas; the server applies the Updater per shard.
 
-PyTorch: the vector is ONE tensor on the context's device.  ``Get`` is a
-device→host copy; ``Add`` is the functional updater call on the device —
-the reference's server-side ``ProcessAdd`` with the network removed.
+PyTorch: in one process the vector is ONE tensor on the context's
+device.  ``Get`` is a device→host copy; ``Add`` is the functional updater
+call on the device — the reference's server-side ``ProcessAdd`` with the
+network removed.  Under several processes each rank holds one contiguous
+block of the vector padded to a multiple of the world size (``shard``):
+``Get`` gathers the blocks, ``Add`` reduce-scatters the delta and each
+rank updates its own block (``tables/base.py``).
 """
 
 from __future__ import annotations
@@ -19,7 +23,7 @@ import torch
 
 from ..parallel.sharding import shard_along, table_mesh
 from ..updaters import AddOption
-from .base import Table, host_fetch, host_put
+from .base import Table, host_put
 
 __all__ = ["ArrayTable"]
 
@@ -33,18 +37,12 @@ class ArrayTable(Table):
         self._set_dtype(dtype)   # before registering: a bad dtype leaves
         super().__init__(**kw)   # no half-built table in the registry
         self.size = int(size)
-        self.device = shard_along(table_mesh(self._ctx.device), ndim=1,
-                                  dim=0)
-        # One device holds the whole vector, so the padded length is the
-        # size; the field stays so the snapshot paths read as in JAX.
-        self._padded = self.size
-
-        host = np.zeros(self._padded, dtype=self.dtype)
-        if init is not None:
-            host[: self.size] = np.asarray(init, dtype=self.dtype)
-        self._data = host_put(host, self.device)
+        self.shard = shard_along(table_mesh(self._ctx.device), self.size)
+        self.device = self.shard.device
+        self._data = host_put(self.shard.block(init, self.dtype),
+                              self.device)
         self._state = self.updater.init_state(
-            (self._padded,), self.torch_dtype, self.device)
+            (self.shard.size,), self.torch_dtype, self.device)
         # BSP clock buffers, bucketed per AddOption so a flush applies each
         # option's aggregate with the right hyper-parameters.
         self._pending: Dict[Optional[AddOption], np.ndarray] = {}
@@ -77,7 +75,7 @@ class ArrayTable(Table):
             return self._fill_out(out, self._serve_read(
                 ("get",),
                 lambda: self._locked_read(
-                    lambda d, s: host_fetch(d))[: self.size]))
+                    lambda d, s: self._fetch(d))[: self.size]))
 
     # ------------------------------------------------------------------ Add
     def add(self, delta, option: Optional[AddOption] = None,
@@ -163,18 +161,22 @@ class ArrayTable(Table):
 
     # ------------------------------------------------- fused (on-device) path
     def raw_value(self) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
-        """Hand the tensors to a training step (the fused hot loop)."""
+        """Hand the tensors to a training step (the fused hot loop): this
+        rank's blocks (the whole table in one process; see
+        ``full_value``/``local_part``)."""
         return self._data, self._state
 
     def raw_assign(self, data: torch.Tensor,
                    state: Optional[Tuple[torch.Tensor, ...]] = None) -> None:
+        self._check_block(data)
         self._data = data
         if state is not None:
             self._state = tuple(state)
 
     @property
     def sharding(self) -> torch.device:
-        """Where the table lives (the JAX package's ``NamedSharding``)."""
+        """The device this rank's block lives on (the JAX package's
+        ``NamedSharding``; the block itself is ``shard``)."""
         return self.device
 
     # ------------------------------------------------------------ checkpoint
@@ -193,4 +195,4 @@ class ArrayTable(Table):
                 f"snapshot of a {snap['kind']} table of size "
                 f"{snap['size']} cannot load into {self.kind} table "
                 f"'{self.name}' of size {self.size}")
-        self._dense_restore(snap["data"], snap["state"], self.size)
+        self._dense_restore(snap["data"], snap["state"])

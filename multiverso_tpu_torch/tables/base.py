@@ -31,12 +31,17 @@ triggered by ``barrier()``, i.e. the clock boundary — aggregates and
 applies them in one updater call, exactly the reference sync-server
 behavior of holding replies until all adds for clock *t* arrive.
 
-Several processes (a ``torch.distributed`` group): each rank holds a
-**full replica** of every table on its own device.  Eager adds are
-collectives — every rank contributes its delta, every rank applies the
-identical sum — so the replicas stay equal, and every ``get()`` returns
-what the JAX package's global array holds after the same adds.  Sharding
-one table across ranks waits for a later slice.
+Several processes (a ``torch.distributed`` group of W ranks): the
+dense tables (array, matrix, sparse matrix) are **sharded** — each rank
+holds one contiguous block of ``_data`` and of every state tensor on its
+own device (``self.shard``, a ``parallel.sharding.TableShard``), as the
+JAX package shards them over its table mesh.  Eager ops are lockstep
+collectives: a dense add is a ``reduce_scatter`` of the padded delta
+after which each rank applies the updater to its own block (the
+reference server's ``ProcessAdd`` on its shard); a whole-table read is an
+``all_gather`` of the blocks trimmed to the live region (the JAX
+package's ``process_allgather``).  Every ``get()`` then returns what the
+JAX package's global array holds after the same adds.
 """
 
 from __future__ import annotations
@@ -49,10 +54,12 @@ import torch
 
 from .. import config, dashboard, fault, metrics, tracing
 from ..core import context as core_context
+from ..parallel.sharding import is_multiprocess
 from ..updaters import AddOption, get_updater
 
 __all__ = ["Table", "host_fetch", "host_put", "is_multiprocess",
-           "bucket_size", "multihost_sum", "multihost_allgather_list"]
+           "bucket_size", "multihost_sum", "multihost_allgather_list",
+           "shard_allgather", "shard_reduce_scatter", "device_sum"]
 
 
 def bucket_size(k: int, floor: int = 8) -> int:
@@ -62,19 +69,6 @@ def bucket_size(k: int, floor: int = 8) -> int:
     while b < k:
         b *= 2
     return b
-
-
-def is_multiprocess() -> bool:
-    """One predicate for every lockstep-collective guard in the tables.
-
-    All multi-process paths (``multihost_sum``/the gathers/the barrier)
-    MUST use this same test — two spellings that ever diverged would
-    leave one rank inside a collective the other skipped: deadlock.
-    """
-    import torch.distributed as dist
-
-    return (dist.is_available() and dist.is_initialized()
-            and dist.get_world_size() > 1)
 
 
 def torch_dtype(dtype: Any) -> torch.dtype:
@@ -101,8 +95,8 @@ def host_fetch(arr: torch.Tensor) -> np.ndarray:
     On a CPU tensor ``Tensor.numpy()`` is a view of the table's own
     storage, so the CPU case copies — a caller mutating what it got must
     never corrupt the table (``jax.device_get`` never aliases either).
-    Under several processes every rank holds the full replica, so no
-    gather is needed.
+    A copy of this process's tensor only: a sharded table's whole value
+    is ``Table._fetch`` (a collective).
     """
     t = arr.detach()
     out = t.cpu().numpy()
@@ -118,15 +112,49 @@ def _collective_device() -> torch.device:
     return torch.device("cpu")
 
 
-def multihost_sum(host_delta: np.ndarray) -> np.ndarray:
-    """Sum per-process host deltas across processes (collective).
+def shard_allgather(local: torch.Tensor, shard) -> torch.Tensor:
+    """Every rank's block of a sharded tensor, in rank order along dim 0
+    (``shard.padded`` rows), on the collective device (a collective).
+    Under gloo a card's block is staged through the host."""
+    import torch.distributed as dist
 
-    Multi-process mapping of the reference's many-workers-Add semantics
-    (SURVEY.md §3.3): every worker process pushes its own delta, the
-    "server" applies the sum.  In one process this is the identity;
-    under several every process MUST call adds in lockstep (eager adds
-    become collective), and each then applies the identical summed
-    delta, keeping the replicas equal.
+    dev = _collective_device()
+    send = local.detach().to(dev).contiguous()
+    out = torch.empty((shard.padded,) + tuple(send.shape[1:]),
+                      dtype=send.dtype, device=dev)
+    dist.all_gather_into_tensor(out, send)
+    return out
+
+
+def shard_reduce_scatter(padded: np.ndarray, shard,
+                         device: torch.device) -> torch.Tensor:
+    """This rank's block of the sum over ranks of each rank's padded host
+    array (``shard.padded`` rows), on ``device`` (a collective)."""
+    import torch.distributed as dist
+
+    dev = _collective_device()
+    send = torch.from_numpy(np.ascontiguousarray(padded)).to(dev)
+    out = torch.empty((shard.size,) + tuple(send.shape[1:]),
+                      dtype=send.dtype, device=dev)
+    dist.reduce_scatter_tensor(out, send, op=dist.ReduceOp.SUM)
+    return out.to(device)
+
+
+def device_sum(t: torch.Tensor) -> torch.Tensor:
+    """The sum over ranks of a tensor, on its own device (a collective;
+    staged through the host under gloo).  ``t`` is left as it was."""
+    import torch.distributed as dist
+
+    x = t.detach().to(_collective_device(), copy=True)
+    dist.all_reduce(x, op=dist.ReduceOp.SUM)
+    return x.to(t.device)
+
+
+def multihost_sum(host_delta: np.ndarray) -> np.ndarray:
+    """Sum per-process host arrays across processes (collective): every
+    process gets the identical sum (a sharded matrix's row read sums the
+    ranks' owner-filled buffers with it).  In one process this is the
+    identity; under several every process MUST call it in lockstep.
     """
     if not is_multiprocess():
         return host_delta
@@ -307,18 +335,72 @@ class Table:
 
     def _apply_dense_padded(self, delta, option, *,
                             presummed: bool = False) -> None:
-        """Shared eager dense-apply: ship the host delta, update.
+        """Shared eager dense-apply: pad to the shards, ship, update.
 
-        Used by the dense ``add`` paths.  One device holds the whole
-        table, so the delta already has its shape (the JAX package pads
-        it to the mesh here).  ``presummed`` marks a delta already merged
-        across ranks (the compressed path) — it skips the multi-process
-        sum collective.
+        Used by the dense ``add`` paths.  One process: the delta has the
+        table's shape and ships whole.  Sharded: the delta pads to
+        ``shard.padded`` rows, and a ``reduce_scatter`` hands each rank
+        the sum over ranks of its own block, which its updater applies.
+        ``presummed`` marks a delta already merged across ranks (the
+        compressed path): each rank takes its block of it, with no sum.
         """
         host = np.ascontiguousarray(delta, dtype=self.dtype)
-        if not presummed:
-            host = multihost_sum(host)
-        self._apply(host_put(host, self.device), option)
+        sh = self.shard
+        if not sh.sharded:
+            self._apply(host_put(host, self.device), option)
+            return
+        if presummed:
+            local = host_put(sh.block(host, self.dtype, host.shape[1:]),
+                             self.device)
+        else:
+            if host.shape[0] != sh.padded:
+                padded = np.zeros((sh.padded,) + host.shape[1:],
+                                  dtype=self.dtype)
+                padded[:host.shape[0]] = host
+                host = padded
+            local = shard_reduce_scatter(host, sh, self.device)
+        self._apply(local, option)
+
+    def _fetch(self, t: torch.Tensor) -> np.ndarray:
+        """A table tensor (``_data`` or a state slot) whole on the host,
+        padding included: this process's copy, or under sharding the
+        ``all_gather`` of every rank's block (a collective)."""
+        if not self.shard.sharded:
+            return host_fetch(t)
+        return shard_allgather(t, self.shard).cpu().numpy()
+
+    # -- the fused path's view of the shards ---------------------------------
+    def full_value(self, data: torch.Tensor) -> torch.Tensor:
+        """The whole (padded) tensor of which ``data`` is this rank's
+        block, on the table's device: ``data`` itself in one process, the
+        ``all_gather`` of every rank's block under sharding (a
+        collective — a fused step calls it on every rank)."""
+        if not self.shard.sharded:
+            return data
+        return shard_allgather(data, self.shard).to(self.device)
+
+    def _check_block(self, data: torch.Tensor) -> None:
+        """``raw_assign``'s guard: sharded, a block of another length
+        (a whole table, say) would leave the ranks' shards disagreeing."""
+        sh = self.shard
+        if sh.sharded and data.shape[0] != sh.size:
+            raise ValueError(
+                f"raw_assign of {data.shape[0]} rows into table "
+                f"'{self.name}', whose block on this rank holds "
+                f"{sh.size} (several processes: assign this rank's "
+                f"block, e.g. local_part(full))")
+
+    def local_part(self, full: torch.Tensor) -> torch.Tensor:
+        """This rank's block of a whole-table tensor whose leading length
+        is the live or the padded one (``full`` itself in one process):
+        the rows a fused step's update may apply here."""
+        sh = self.shard
+        if not sh.sharded and full.shape[0] == sh.size:
+            return full
+        if full.shape[0] < sh.padded:
+            full = torch.cat([full, full.new_zeros(
+                (sh.padded - full.shape[0],) + tuple(full.shape[1:]))])
+        return full.narrow(0, sh.offset, sh.size)
 
     def _wire_compress_default(self):
         """Resolve the ``-wire_codec`` flag into a default ``compress=``
@@ -451,24 +533,24 @@ class Table:
         """Checkpoint the LIVE region of ``_data``/``_state``: padding is
         a placement artifact, and baking it in would pin the snapshot to
         the layout that wrote it.  The same numpy dict as the JAX
-        package's, so a snapshot of either loads into the other."""
+        package's, so a snapshot of either loads into the other, at any
+        world size.  Sharded, the blocks are gathered (a collective)."""
         return self._locked_read(
-            lambda d, s: (host_fetch(d)[:live],
-                          [host_fetch(x)[:live] for x in s]))
+            lambda d, s: (self._fetch(d)[:live],
+                          [self._fetch(x)[:live] for x in s]))
 
-    def _dense_restore(self, data, state, live: int) -> None:
-        """Re-pad a live-region snapshot for THIS table and place it."""
-        padded_shape = tuple(self._data.shape)
+    def _dense_restore(self, data, state) -> None:
+        """Place this rank's block of a live-region snapshot (the
+        table's own live rows), zeros in the padding."""
+        rest = tuple(self._data.shape[1:])
 
-        def pad(h):
-            out = np.zeros(padded_shape, dtype=self.dtype)
-            out[:live] = np.asarray(h, dtype=self.dtype)[:live]
-            return out
+        def block(h):
+            return host_put(self.shard.block(h, self.dtype, rest),
+                            self.device)
 
         with self._lock:
-            self._data = host_put(pad(data), self.device)
-            self._state = tuple(host_put(pad(s), self.device)
-                                for s in state)
+            self._data = block(data)
+            self._state = tuple(block(s) for s in state)
         self._serve_bump()   # restored timeline: cached reads are void
         if self._compressor is not None:
             # Carried quantization error belongs to the abandoned timeline.
@@ -491,7 +573,7 @@ class Table:
         writes never reach the table.
 
         One process only, as in the JAX package: under several the get
-        is a collective host fetch — use ``get()``."""
+        is a collective host fetch of the shards — use ``get()``."""
         if is_multiprocess():
             raise RuntimeError(
                 "get(device=True) is a single-process fast path; under "

@@ -5,13 +5,20 @@ Port of ``multiverso_tpu/tables/matrix_table.py``.  Reference (SURVEY.md
 workers Get/Add the whole matrix or a set of row ids — the sparse-access
 workhorse behind word2vec and LightLDA.
 
-PyTorch: the matrix is ONE tensor [rows, cols] on the context's device.
-``get_rows`` is an ``index_select`` and a device→host copy; ``add_rows``
-sums duplicate ids on the host (segment-sum, so stateful updaters see
-one delta per row), ships the unique rows and their deltas, and the
-updater scatters them into the table in place.  The JAX package pads
-row batches to power-of-two buckets for XLA's static shapes; nothing
-here needs them.
+PyTorch: in one process the matrix is ONE tensor [rows, cols] on the
+context's device.  ``get_rows`` is an ``index_select`` and a device→host
+copy; ``add_rows`` sums duplicate ids on the host (segment-sum, so
+stateful updaters see one delta per row), ships the unique rows and
+their deltas, and the updater scatters them into the table in place.
+The JAX package pads row batches to power-of-two buckets for XLA's
+static shapes; nothing here needs them.
+
+Several processes: each rank holds one contiguous block of rows
+(``shard``; the rows pad to a multiple of the world size, as the JAX
+package pads them to its mesh).  The row ops union every rank's ids as
+before; then each rank reads or updates only the rows it owns, at their
+offsets in its block, and a read's rows reach every rank by one sum of
+zero-filled buffers.  Padding rows are never written.
 
 Ids past the table — outside ``[0, num_rows)`` — are the port's
 contract: ``get_rows`` reads zeros for them and ``add_rows`` drops their
@@ -35,7 +42,9 @@ import torch
 
 from ..parallel.sharding import shard_along, table_mesh
 from ..updaters import AddOption
-from .base import Table, host_fetch, host_put, multihost_allgather_list
+from ..updaters import base as updater_base
+from .base import (Table, device_sum, host_fetch, host_put,
+                   multihost_allgather_list, multihost_sum)
 
 __all__ = ["MatrixTable"]
 
@@ -50,9 +59,9 @@ class MatrixTable(Table):
         super().__init__(**kw)   # no half-built table in the registry
         self.num_rows = int(num_rows)
         self.num_cols = int(num_cols)
-        # One device holds the whole matrix: no padding rows.
-        self.device = shard_along(table_mesh(self._ctx.device), ndim=2,
-                                  dim=0)
+        self.shard = shard_along(table_mesh(self._ctx.device),
+                                 self.num_rows)
+        self.device = self.shard.device
         # BSP buffers, bucketed per AddOption so a flush applies each
         # option's aggregate with the right hyper-parameters.  Set before
         # the device allocation, so a table whose allocation failed still
@@ -64,12 +73,11 @@ class MatrixTable(Table):
         # (docs/host_bridge.md): never += into the caller's memory.
         self._pending_borrowed: set = set()
 
-        host = np.zeros((self.num_rows, self.num_cols), dtype=self.dtype)
-        if init is not None:
-            host[: self.num_rows] = np.asarray(init, dtype=self.dtype)
-        self._data = host_put(host, self.device)
+        self._data = host_put(
+            self.shard.block(init, self.dtype, (self.num_cols,)),
+            self.device)
         self._state = self.updater.init_state(
-            (self.num_rows, self.num_cols), self.torch_dtype, self.device)
+            (self.shard.size, self.num_cols), self.torch_dtype, self.device)
 
     # ------------------------------------------------------------------ Get
     def get(self, option=None, device: bool = False, out=None):
@@ -88,7 +96,7 @@ class MatrixTable(Table):
             return self._fill_out(out, self._serve_read(
                 ("get",),
                 lambda: self._locked_read(
-                    lambda d, s: host_fetch(d))[: self.num_rows]))
+                    lambda d, s: self._fetch(d))[: self.num_rows]))
 
     def get_rows(self, row_ids, option=None, out=None) -> np.ndarray:
         """Row-subset pull — the sparse hot read path.
@@ -97,9 +105,10 @@ class MatrixTable(Table):
         servers; here it is one ``index_select`` on the device.
 
         Several processes: ranks may ask for different (or no) rows; as
-        in the JAX package the ids are first unioned across processes
-        and every rank runs the identical gather, then slices out its own
-        rows — so ``get_rows`` is a lockstep collective there too.
+        in the JAX package the ids are first unioned across processes,
+        every rank fills the union's rows it owns, one sum hands every
+        rank all of them, and each slices out its own request — so
+        ``get_rows`` is a lockstep collective there too.
         """
         from .base import is_multiprocess
 
@@ -130,10 +139,14 @@ class MatrixTable(Table):
             def fetch():
                 if is_multiprocess():
                     union = self._allgather_row_ids(rows)
-                    if union.shape[0] == 0 or rows.shape[0] == 0:
+                    if union.shape[0] == 0:
                         return np.zeros((0, self.num_cols),
                                         dtype=self.dtype)
+                    # Every rank joins the fill's sum, asked for rows or not.
                     fetched = self._gather_host(union)
+                    if rows.shape[0] == 0:
+                        return np.zeros((0, self.num_cols),
+                                        dtype=self.dtype)
                     return fetched[np.searchsorted(union, rows)]
                 return self._gather_host(rows)
 
@@ -149,20 +162,22 @@ class MatrixTable(Table):
 
     def _gather_host(self, rows: np.ndarray) -> np.ndarray:
         """Rows ``rows`` as a host array; ids outside the table read
-        zeros and are never sent to the device."""
-        k = rows.shape[0]
-        if k == 0:
-            return np.zeros((0, self.num_cols), dtype=self.dtype)
-        valid = (rows >= 0) & (rows < self.num_rows)
-        ids = rows if valid.all() else rows[valid]
-        idx = host_put(ids.astype(np.int64), self.device)
-        got = self._locked_read(
-            lambda d, s: host_fetch(d.index_select(0, idx)))
-        if ids is rows:
+        zeros and are never sent to the device.  Sharded (a collective:
+        every rank passes the same ``rows``): each rank fills the rows it
+        owns and the zero-filled buffers are summed across ranks."""
+        sh = self.shard
+        own = sh.owned(rows)
+        ids = rows[own] - sh.offset
+        got = np.zeros((0, self.num_cols), dtype=self.dtype)
+        if ids.shape[0]:
+            idx = host_put(ids.astype(np.int64), self.device)
+            got = self._locked_read(
+                lambda d, s: host_fetch(d.index_select(0, idx)))
+        if own.all() and not sh.sharded:
             return got
-        out = np.zeros((k, self.num_cols), dtype=self.dtype)
-        out[valid] = got
-        return out
+        out = np.zeros((rows.shape[0], self.num_cols), dtype=self.dtype)
+        out[own] = got
+        return multihost_sum(out) if sh.sharded else out
 
     @staticmethod
     def _allgather_row_ids(rows: np.ndarray) -> np.ndarray:
@@ -272,9 +287,9 @@ class MatrixTable(Table):
         """Union per-process (rows, deltas) across processes (collective).
 
         Multi-process mapping of per-worker sparse Adds: each process
-        contributes its row batch, every process applies the identical
-        union batch (duplicates re-aggregated), keeping the replicas
-        equal.  Rows and deltas ride one float64 buffer through the
+        contributes its row batch, and every process gets the identical
+        union batch (duplicates re-aggregated), whose rows it owns it
+        applies.  Rows and deltas ride one float64 buffer through the
         shared padded-allgather (f64 holds row ids exactly to 2^53).
         """
         from .base import is_multiprocess
@@ -308,13 +323,18 @@ class MatrixTable(Table):
         np.add.at(agg, inv.reshape(-1), delta)
         uniq, agg = self._multihost_union(uniq, agg)
         # Out-of-range ids are dropped here, on the host (the JAX
-        # package's scatter drops them with mode="drop").
-        live = (uniq >= 0) & (uniq < self.num_rows)
+        # package's scatter drops them with mode="drop"); sharded, so are
+        # the rows other ranks own, and the rest go to their offsets in
+        # this rank's block.  Padding rows are never written.
+        sh = self.shard
+        live = sh.owned(uniq)
         if live.any():
             if not live.all():
                 r, d = uniq[live], agg[live]
             else:
                 r, d = uniq, agg
+            if sh.offset:
+                r = r - sh.offset
             r_dev = host_put(r, self.device)
             d_dev = host_put(d, self.device)
             with self._lock:
@@ -329,18 +349,55 @@ class MatrixTable(Table):
 
     # ------------------------------------------------ fused (on-device) path
     def raw_value(self) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
-        """Hand the tensors to a training step (the fused hot loop)."""
+        """Hand the tensors to a training step (the fused hot loop): this
+        rank's blocks (the whole table in one process), which the step
+        reads through ``rows_of`` and updates through ``scatter_rows``."""
         return self._data, self._state
+
+    def rows_of(self, data: torch.Tensor, ids: torch.Tensor
+                ) -> torch.Tensor:
+        """Rows ``ids`` (a device tensor of live ids) of the table whose
+        block is ``data``, for a fused step: ``data[ids]`` in one
+        process; sharded, each rank fills the ids it owns and one sum
+        across ranks hands every rank every row (a collective)."""
+        sh = self.shard
+        if not sh.sharded:
+            return data[ids]
+        own = sh.owned(ids)
+        got = data[torch.where(own, ids - sh.offset, 0)]
+        return device_sum(torch.where(own[:, None], got,
+                                      torch.zeros_like(got)))
+
+    def scatter_rows(self, data, state, ids: torch.Tensor,
+                     delta: torch.Tensor, opt: AddOption):
+        """``updaters.base.scatter_apply`` of a fused step's row deltas
+        into the block ``data``/``state``, in place: sharded, every rank
+        passes the same ids and deltas and applies only the live rows it
+        owns, at their offsets (duplicates aggregate over the whole
+        batch first, as in one process)."""
+        sh = self.shard
+        upd = self.updater
+        if not sh.sharded:
+            return updater_base.scatter_apply(upd, data, state, ids, delta,
+                                              opt)
+        if upd.linear:
+            return upd.apply_rows(data, state, ids - sh.offset, delta, opt,
+                                  mask=sh.owned(ids))
+        uniq, agg, mask = updater_base.aggregate_rows(ids, delta)
+        return upd.apply_rows(data, state, uniq - sh.offset, agg, opt,
+                              mask=mask & sh.owned(uniq))
 
     def raw_assign(self, data: torch.Tensor,
                    state: Optional[Tuple[torch.Tensor, ...]] = None) -> None:
+        self._check_block(data)
         self._data = data
         if state is not None:
             self._state = tuple(state)
 
     @property
     def sharding(self) -> torch.device:
-        """Where the table lives (the JAX package's ``NamedSharding``)."""
+        """The device this rank's block lives on (the JAX package's
+        ``NamedSharding``; the block itself is ``shard``)."""
         return self.device
 
     # ------------------------------------------------------------ checkpoint
@@ -361,4 +418,4 @@ class MatrixTable(Table):
                 f"{tuple(snap['shape'])} cannot load into {self.kind} "
                 f"table '{self.name}' of shape "
                 f"{(self.num_rows, self.num_cols)}")
-        self._dense_restore(snap["data"], snap["state"], self.num_rows)
+        self._dense_restore(snap["data"], snap["state"])

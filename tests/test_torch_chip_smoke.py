@@ -257,6 +257,97 @@ def cpu_runtime():
     mv.config.reset()
 
 
+# ---------------------------------------------------------- shard phase
+
+
+def test_shard_phase_runs_after_mesh_at_its_sizes():
+    i = chip_smoke.PHASES.index("shard")
+    assert chip_smoke.PHASES[i - 1:i + 2] == ("mesh", "shard", "tables")
+    assert (chip_smoke.SHARD_BIG_ROWS, chip_smoke.SHARD_IDS) == (1 << 20,
+                                                                 8192)
+    assert chip_smoke.shard_layout(1) == ("gloo", 2)
+    assert {chip_smoke.shard_device("gloo", r) for r in range(2)} == {
+        "cuda:0"}
+    assert chip_smoke.shard_layout(4) == ("nccl", 4)
+    assert [chip_smoke.shard_device("nccl", r) for r in range(4)] == [
+        f"cuda:{r}" for r in range(4)]
+
+
+@pytest.mark.parametrize("updater", ["sgd", "adagrad"])
+def test_shard_dense_reference_matches_the_port(cpu_runtime, updater):
+    import torch
+
+    rng = np.random.RandomState(0)
+    start, g = rng.randn(2, 1000).astype(np.float32)
+    t = cpu_runtime.ArrayTable(1000, init=start, updater_type=updater,
+                               default_option=cpu_runtime.AddOption(
+                                   learning_rate=chip_smoke.SHARD_LR))
+    t.add(torch.from_numpy(g))
+    want = chip_smoke.np_dense_apply(start, g, updater, chip_smoke.SHARD_LR)
+    assert chip_smoke.rel_change(t.get(), want, start) <= 1e-6
+
+
+def test_shard_block_checks_and_planted_shift(cpu_runtime):
+    from multiverso_tpu_torch.parallel.sharding import TableShard
+
+    m = cpu_runtime.MatrixTable(10, 3, updater_type="adagrad")
+    nbytes = chip_smoke.block_bytes(m)
+    assert nbytes == 2 * 10 * 3 * 4
+    assert chip_smoke.block_checks(m, nbytes, 1)["ok"]
+    # Each of the two tensors may round up to 512 bytes, no more.
+    assert chip_smoke.block_checks(m, nbytes + 1024, 1)["ok"]
+    assert not chip_smoke.block_checks(m, nbytes + 1025, 1)["ok"]
+    assert not chip_smoke.block_checks(m, nbytes - 1, 1)["ok"]
+    assert not chip_smoke.block_checks(m, nbytes, 2)["ok"]   # a replica
+    shard = TableShard("cpu", 10, world=2, rank=1)
+    shifted = chip_smoke.shifted_shard(shard)
+    assert (shifted.offset, shifted.size, shifted.padded) == (6, 5, 10)
+    ids = np.arange(12)
+    np.testing.assert_array_equal(shifted.owned(ids),
+                                  (ids >= 6) & (ids < 10))
+    np.testing.assert_array_equal(shard.owned(ids), (ids >= 5) & (ids < 10))
+
+
+def _shard_rank(r, ok=True, fault_ok=False):
+    return {"rank": r, "arrays": {"array_sgd_asp": {"ok": ok}},
+            "w2v_table": {"ok": True}, "big_table": {"ok": True},
+            "fault": {"ok": fault_ok}, "device_get_refused": True}
+
+
+def test_judge_shard_ranks_edges():
+    verdicts, ok, rejected = chip_smoke.judge_shard_ranks(
+        [_shard_rank(0), _shard_rank(1)])
+    assert ok and rejected and len(verdicts) == 8
+    assert not chip_smoke.judge_shard_ranks(
+        [_shard_rank(0), _shard_rank(1, ok=False)])[1]
+    # A planted fault that passed on every rank fails the phase.
+    assert not chip_smoke.judge_shard_ranks(
+        [_shard_rank(0, fault_ok=True), _shard_rank(1, fault_ok=True)])[1]
+
+
+def test_judge_shard_apps_edges():
+    rng = np.random.RandomState(0)
+    start = {"in": rng.randn(50), "out": rng.randn(50)}
+    end = {k: v + rng.randn(50) for k, v in start.items()}
+    one = {"w2v_sgd": (start, end, [3.0, 2.0])}
+    sharded = {"w2v_sgd.end.in": end["in"], "w2v_sgd.end.out": end["out"],
+               "w2v_sgd.losses": [3.0, 2.0]}
+    out, ok = chip_smoke.judge_shard_apps(sharded, one)
+    assert ok and out["change_rel_errors"] == {"w2v_sgd.in": 0.0,
+                                               "w2v_sgd.out": 0.0}
+    moved = np.abs(end["out"] - start["out"]).max()
+    for factor, want in ((0.9, True), (1.1, False)):
+        bad = dict(sharded)
+        bad["w2v_sgd.end.out"] = end["out"] + np.eye(50)[3] * (
+            chip_smoke.W2V_RTOL * factor * moved)
+        assert chip_smoke.judge_shard_apps(bad, one)[1] is want
+    assert not chip_smoke.judge_shard_apps(
+        {**sharded, "w2v_sgd.losses": [3.0]}, one)[1]
+    assert not chip_smoke.judge_shard_apps(
+        {k: v for k, v in sharded.items() if k != "w2v_sgd.end.in"},
+        one)[1]
+
+
 @pytest.mark.parametrize("updater", ["default", "sgd", "adagrad"])
 def test_rows_reference_matches_the_port(cpu_runtime, updater):
     """The rows phase's numpy reference (duplicates summed, ids past the
@@ -1095,6 +1186,39 @@ def test_resnet_check_run_and_change_judge_edges(cpu_runtime):
             assert chip_smoke.judge_resnet_changes(got, end64,
                                                    start64)[1] is want
     assert not chip_smoke.judge_resnet_changes(end, start, start)[1]
+
+
+def test_resnet_l2_judge_and_held_step_edges():
+    """The L2 measure passes at its tolerance and fails just past it; an
+    error spread over every entry (as TF32's) that the largest-entry
+    judge passes fails the held step, while one chaotic entry as large
+    as that judge allows passes it."""
+    rng = np.random.RandomState(0)
+    start = [rng.randn(4000) for _ in range(2)]
+    moved = [rng.randn(4000) * 1e-2 for _ in range(2)]
+    want = [s + m for s, m in zip(start, moved)]
+    rels, ok = chip_smoke.resnet_l2_changes(want, want, start)
+    assert ok and all(r == 0.0 for r in rels.values())
+    for w, tol in enumerate(chip_smoke.RESNET_L2_TOL):
+        unit = moved[w] / np.linalg.norm(moved[w])
+        for factor, ok_want in ((0.999, True), (1.001, False)):
+            got = [x.copy() for x in want]
+            got[w] = got[w] + unit * tol * factor * np.linalg.norm(moved[w])
+            assert chip_smoke.resnet_l2_changes(got, want,
+                                                start)[1] is ok_want
+    # Worker 1: an error of half its largest-entry limit in every entry,
+    # and the same in one entry.
+    w, tol = 1, chip_smoke.RESNET_TOL[1]
+    peak = np.abs(moved[w]).max()
+    spread = [x.copy() for x in want]
+    spread[w] = spread[w] + 0.5 * tol * peak * np.sign(rng.randn(4000))
+    assert chip_smoke.judge_resnet_changes(spread, want, start)[1]
+    held, ok = chip_smoke.resnet_step_held(spread, want, start)
+    assert not ok and held == {"worker0": True, "worker1": False}
+    single = [x.copy() for x in want]
+    single[w][7] += 0.5 * tol * peak
+    assert chip_smoke.resnet_step_held(single, want, start)[1]
+    assert chip_smoke.rel_l2_change(want[0], want[0], want[0]) == math.inf
 
 
 def test_convergence_threshold_edges():

@@ -32,14 +32,14 @@ JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
-def _inputs(T, seed, tk=None):
+def _inputs(T, seed, tk=None, d=D):
     rng = np.random.RandomState(seed)
     tk = tk or T
     return {
-        "q": (rng.randn(B, H, T, D) * 0.5).astype(np.float32),
-        "k": (rng.randn(B, H, tk, D) * 0.5).astype(np.float32),
-        "v": rng.randn(B, H, tk, D).astype(np.float32),
-        "do": rng.randn(B, H, T, D).astype(np.float32),
+        "q": (rng.randn(B, H, T, d) * 0.5).astype(np.float32),
+        "k": (rng.randn(B, H, tk, d) * 0.5).astype(np.float32),
+        "v": rng.randn(B, H, tk, d).astype(np.float32),
+        "do": rng.randn(B, H, T, d).astype(np.float32),
         "dlse": rng.randn(B, H, T).astype(np.float32),
     }
 
@@ -155,12 +155,65 @@ def test_ragged_length_and_cross_length():
 
 
 def test_rejects_unsupported_head_dim_and_dtype():
-    q = torch.zeros(1, 1, 16, 48)
+    # A CUDA tensor runs the kernels of the next head dim in the set on
+    # zero-padded operands, and one past the largest raises (the check
+    # _check makes for a CUDA tensor); on the CPU any head dim runs (see
+    # test_head_dims_outside_the_kernels_set_match_pallas).  An
+    # unsupported dtype raises on either device.
+    assert [fa._kernel_dim(d) for d in (16, 32, 48, 96, 200, 256)] == \
+        [32, 32, 64, 128, 256, 256]
     with pytest.raises(ValueError, match=r"\(32, 64, 128, 256\)"):
-        fa.flash_attention(q, q, q)
+        fa._kernel_dim(320)
     q = torch.zeros(1, 1, 16, 32, dtype=torch.float16)
     with pytest.raises(ValueError, match="not supported"):
         fa.flash_attention(q, q, q)
+
+
+@pytest.mark.parametrize("d", [16, 48])
+def test_head_dims_outside_the_kernels_set_match_pallas(d):
+    """The JAX tests' transformer runs heads of 16; both packages take
+    head dims the port's kernels were not compiled for."""
+    x = _inputs(64, seed=40 + d, d=d)
+    want = _jax_side(x, True, "float32")
+    fa.reset_launch_counts()
+    got = _port_side(x, True, "float32")
+    assert fa.launch_counts() == {"flash_fwd": 0, "flash_dq": 0,
+                                  "flash_dkv": 0}
+    for name in ("o", "lse"):
+        np.testing.assert_allclose(got[name], want[name], atol=2e-5)
+    for name in ("dq", "dk", "dv"):
+        np.testing.assert_allclose(got[name], want[name], atol=2e-4)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [16, 48, 96])
+def test_zero_padded_head_dim_leaves_outputs_unchanged(d, dtype):
+    """What a CUDA launch at a head dim outside the set relies on: the
+    three functions on operands zero-padded along D to ``_kernel_dim``,
+    cut back to D, give the unpadded results (float32 2e-5, bfloat16
+    2e-2)."""
+    tol = 2e-5 if dtype == "float32" else 2e-2
+    x = _inputs(40, seed=60 + d, d=d)
+    q, k, v, do = (torch.tensor(x[n]).to(TDT[dtype])[0]
+                   for n in ("q", "k", "v", "do"))
+    scale = d ** -0.5
+    o, lse = fa.flash_fwd_ref(q, k, v, scale, True)
+    delta = (do.float() * o.float()).sum(-1)
+    want = [o, lse,
+            fa.flash_dq_ref(q, k, v, do, lse, delta, scale, True),
+            *fa.flash_dkv_ref(q, k, v, do, lse, delta, scale, True)]
+    pq, pk, pv, pdo = fa._pad(fa._kernel_dim(d), q, k, v, do)
+    po, plse = fa.flash_fwd_ref(pq, pk, pv, scale, True)
+    got = [po, plse,
+           fa.flash_dq_ref(pq, pk, pv, pdo, lse, delta, scale, True),
+           *fa.flash_dkv_ref(pq, pk, pv, pdo, lse, delta, scale, True)]
+    for g, w in zip(got, want):
+        if g.dim() == 2:                          # lse: no head dim
+            np.testing.assert_allclose(g.numpy(), w.numpy(), atol=tol)
+            continue
+        assert not g[..., d:].any()               # the padding stays zero
+        np.testing.assert_allclose(g[..., :d].float().numpy(),
+                                   w.float().numpy(), atol=tol)
 
 
 def test_cpu_tensors_take_plain_path_without_launches():

@@ -15,7 +15,10 @@ launch, the ring on (sp 4) in both layouts with its gradients and the
 in-process stand-in beside it, the forward and 3 trainer steps on (dp 2,
 sp 2), (sp 2, tp 2) and (dp 2, tp 2), the trainer under remat ("full"
 and "dots") on (sp 2, tp 2) and (dp 2, sp 2), GPipe on (pp 4) and the
-pipelined transformer on (dp 2, pp 2) and (pp 2, tp 2).  Each is held against the
+pipelined transformer on (dp 2, pp 2) and (pp 2, tp 2), the
+transformer at ``torch_ranks.KERNEL_CFG`` and ``PP_CFG`` (heads 32
+wide, so the ranks' attention launches the kernels).  Each is held
+against the
 same computation without a mesh on one card in this process (GPipe
 against its stages run in turn on the CPU), float32: attention atol
 1e-5, logits, losses and parameters rtol 1e-5 with a floor at 1e-5 of
@@ -39,14 +42,15 @@ MESHES = {"sp4": ([4], ["sp"]), "dpsp": ([2, 2], ["dp", "sp"]),
           "pptp": ([2, 2], ["pp", "tp"])}
 LAYOUTS = ["contiguous", "zigzag"]
 # (mesh, config, updater, accum, T)
-TRAINERS = [("dpsp", "CFG", "sgd", 1, T_MODEL),
-            ("dpsp", "CFG", "momentum", 1, T_MODEL),
-            ("sptp", "CFG", "momentum", 1, T_MODEL),
-            ("dptp", "CFG", "sgd", 2, T_MODEL),
+TRAINERS = [("dpsp", "KERNEL_CFG", "sgd", 1, T_MODEL),
+            ("dpsp", "KERNEL_CFG", "momentum", 1, T_MODEL),
+            ("sptp", "KERNEL_CFG", "momentum", 1, T_MODEL),
+            ("dptp", "KERNEL_CFG", "sgd", 2, T_MODEL),
             ("dppp", "PP_CFG", "sgd", 1, T_PP),
             ("pptp", "PP_CFG", "momentum", 1, T_PP)]
-FORWARDS = [("dpsp", "CFG", T_MODEL), ("sptp", "CFG", T_MODEL),
-            ("dptp", "CFG", T_MODEL), ("dppp", "PP_CFG", T_PP),
+FORWARDS = [("dpsp", "KERNEL_CFG", T_MODEL),
+            ("sptp", "KERNEL_CFG", T_MODEL),
+            ("dptp", "KERNEL_CFG", T_MODEL), ("dppp", "PP_CFG", T_PP),
             ("pptp", "PP_CFG", T_PP)]
 GPIPES = [("pp4", 4, False), ("pp4", 3, True)]
 # (mesh, remat_policy), scan-format layers: the recompute re-runs the
@@ -78,6 +82,7 @@ def _plan():
     for key, policy in REMATS:
         cases[key].append([f"remat_{key}_{policy}", "trainer",
                            dict(updater="sgd", T=T_MODEL,
+                                cfg="KERNEL_CFG",
                                 extra=_remat_kw(policy))])
     for key, micro, remat in GPIPES:
         cases[key].append([f"gpipe_{micro}_{remat}", "gpipe",
@@ -171,7 +176,8 @@ def test_remat_trainer_over_nccl_matches_one_card(read, key, policy):
     """Three SGD steps under remat on a mesh with sp against the same
     remat without a mesh on one card."""
     _hold_trainer(read(f"remat_{key}_{policy}"),
-                  _cfg("CFG", **_remat_kw(policy)), "sgd", 1, T_MODEL)
+                  _cfg("KERNEL_CFG", **_remat_kw(policy)), "sgd", 1,
+                  T_MODEL)
 
 
 def _hold_trainer(res, cfg, updater, accum, T):

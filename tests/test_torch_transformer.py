@@ -126,6 +126,47 @@ def test_forward_loss_grads_f32():
         _assert_scaled(a, b, 1e-5)
 
 
+# The JAX tests' own config (tests/test_transformer.py's _CFG): 4 heads
+# of 16, a head dim outside the kernels' compiled set, which the port's
+# attention runs through the plain versions.
+JAX_TESTS_CFG = dict(vocab_size=128, dim=64, n_layers=2, n_heads=4,
+                     hidden=128, max_seq=64)
+
+
+def test_jax_tests_config_head_dim_16_matches_jax():
+    jcfg = jt.TransformerConfig(**JAX_TESTS_CFG, compute_dtype=jnp.float32)
+    pcfg = pt.TransformerConfig(**JAX_TESTS_CFG, compute_dtype=torch.float32)
+    assert pcfg.dim // pcfg.n_heads == 16
+    host = jt.init_params(jcfg, seed=1)
+    tokens = np.random.RandomState(1).randint(
+        0, 128, size=(4, 32)).astype(np.int32)
+    mesh = _mesh()
+    jlogits = jt.transformer_forward(host, jnp.asarray(tokens), jcfg, mesh)
+    jloss, jgrads = jax.value_and_grad(jt.lm_loss)(
+        host, jnp.asarray(tokens), jcfg, mesh)
+    params = pt.params_from_jax(host, pcfg, device="cpu")
+    leaves = [p.requires_grad_() for p in pt._leaves(params)]
+    params = pt._with_leaves(params, leaves)
+    plogits = pt.transformer_forward(params, torch.as_tensor(tokens), pcfg)
+    ploss = pt.lm_loss(params, torch.as_tensor(tokens), pcfg)
+    pgrads = torch.autograd.grad(ploss, leaves)
+    _assert_scaled(plogits.detach().numpy(), np.asarray(jlogits), 1e-5)
+    np.testing.assert_allclose(float(ploss.detach()), float(jloss),
+                               rtol=1e-5)
+    jg = _jax_leaves(jgrads, jcfg)
+    assert len(pgrads) == len(jg)
+    for a, b in zip(pgrads, jg):
+        _assert_scaled(a.numpy(), b, 1e-5)
+    # Three trainer steps from one seed: the loss trajectories.
+    jtr = jt.TransformerTrainer(jcfg, mesh, updater_type="sgd", seed=5)
+    ptr = pt.TransformerTrainer(pcfg, device="cpu", updater_type="sgd",
+                                seed=5)
+    jl = [jtr.train_step(tokens) for _ in range(3)]
+    pl = [ptr.train_step(tokens) for _ in range(3)]
+    np.testing.assert_allclose(pl, jl, rtol=1e-5)
+    assert pl[-1] < pl[0]
+
+
 def test_forward_loss_grads_bf16(monkeypatch):
     # Like for like: the JAX side runs its Pallas kernels (interpret
     # mode), which share the port's pre-scaled-q, float32-score math; its
