@@ -113,6 +113,30 @@ Phases, each printing JSON lines:
              the library call; (3) a planted fault: a rotation that hands
              each rank the blocks of the rank one further back must fail
              check (2), in both layouts.
+   moe_mesh — MoE and the ep axis on a mesh: (1) bench_moe (E 8, top-2,
+             capacity factor 1.25, full remat, batch 8, seq 1024, bf16)
+             at its full width through the mesh code over NCCL at world
+             size 1, a mesh ("dp", "sp", "tp", "ep") of 1s, each
+             dispatch 3 SGD steps against the no-mesh trainer from the
+             same draw: every loss and parameter bit for bit, and one
+             MoE layer's forward and backward through the mesh path
+             must not make the host wait for the card; (2) the
+             moe phase's 2-layer float32 copy at its check shape (batch
+             2, seq 256) at capacity factor 1.0 on 2 gloo ranks sharing
+             the card (an NCCL rank per card with two cards, four ranks
+             with four: ``moe_layout``), each a process of this script
+             (``--moe-rank``), on (ep 2) and (dp 2) (four ranks: (dp 2,
+             ep 2) and (ep 4)), each dispatch 3 momentum steps held
+             against the same steps in one process on the card: losses
+             at rtol 1e-5, every gathered parameter and updater slot at
+             rtol 1e-5 with a floor at 1e-5 of its largest entry; the
+             capacity runs must drop routes; (3) three planted faults
+             (``planted_moe_fault``) must fail check (2): a per-rank slot
+             order, a per-rank load-balancing loss, the routers'
+             gradients also summed over ep; (4) bench_transformer's
+             config with momentum, 3 steps with the state offloaded to
+             ``OffloadedState(backend="local")`` against 3 in memory, bit
+             for bit, both step times.
    shard   — tables sharded across ranks: one NCCL rank per card with
              two cards or more, else 2 gloo ranks sharing the card
              (tables on the card, collectives staged through the host),
@@ -322,8 +346,8 @@ PEAK_HBM_BYTES = 3.35e12
 LAYERS, STEPS, BATCH, SEQ = 16, 5, 4, 2048
 HEADS, HEAD_DIM = 16, 128
 PHASES = ("parity", "trainer", "profile", "check", "timing", "small", "moe",
-          "longctx", "mesh", "shard", "tables", "lr", "rows", "w2v", "lda",
-          "sgmix", "resnet", "planes")
+          "longctx", "mesh", "moe_mesh", "shard", "tables", "lr", "rows",
+          "w2v", "lda", "sgmix", "resnet", "planes")
 # Remat reschedules the backward and recomputes the same numbers: on the
 # card "dots" matched the no-remat losses to the last bit and full remat
 # (batch 8, the batch of 4 twice) within 5.3e-5, so the losses are held
@@ -366,6 +390,16 @@ MESH_STEPS = 3
 RING_SP = 4
 RING_BF16 = (1, 8, LONG_SEQ, 128)
 RING_F32 = (2, 4, 2048, 64)
+# The moe_mesh phase: bench_moe on a mesh.  At one NCCL rank the full
+# width, 3 steps, bit for bit against no mesh; on several ranks the moe
+# phase's 2-layer float32 copy at its check shape, at a capacity factor
+# where routes overflow, held like the CPU mesh tests: losses at rtol
+# 1e-5, every parameter and slot at rtol 1e-5 with a floor at 1e-5 of
+# the tensor's largest entry.
+MOE_MESH_STEPS = 3
+MOE_MESH_CF = 1.0
+MOE_MESH_TOL = 1e-5
+MOE_MESH_TIMEOUT_S = 600
 
 # The parameter-server path: bench.py's add/get table (bench_add_get,
 # 16 Mi float32) and its LR shape (bench_lr: batch 8192, 784 features,
@@ -1045,9 +1079,10 @@ def moe_check_run(torch, cfg_kw, host, tokens, device):
     return out
 
 
-def moe_layer_sync_free(torch, params, x, dispatch) -> bool:
+def moe_layer_sync_free(torch, params, x, dispatch, shard=None) -> bool:
     """Whether one MoE layer's forward and backward on the card ran
-    without making the host wait for the device."""
+    without making the host wait for the device (on a mesh with
+    ``shard``, a ``models.moe.TokenShard``)."""
     from multiverso_tpu_torch.models.moe import moe_ffn
 
     leaves = {k: v.detach().requires_grad_() for k, v in params.items()}
@@ -1055,7 +1090,8 @@ def moe_layer_sync_free(torch, params, x, dispatch) -> bool:
     def layer():
         out, aux = moe_ffn(leaves, x, top_k=MOE["top_k"],
                            compute_dtype=torch.bfloat16, dispatch=dispatch,
-                           capacity_factor=MOE["capacity_factor"])
+                           capacity_factor=MOE["capacity_factor"],
+                           shard=shard)
         torch.autograd.grad(out.float().sum() + aux, list(leaves.values()))
 
     _, free = without_sync(torch, layer)
@@ -1553,6 +1589,413 @@ def phase_mesh(args, torch, fa, mv, card, host):
         raise AssertionError("a kernel disagrees with its plain version at "
                              "a ring piece's shape")
     return counts, shapes
+
+
+# --------------------------------------------------- the moe_mesh phase
+
+
+def _local_plan(experts, num_experts, capacity, top_k, shard):
+    """Planted fault: each rank plans the buckets from its own routes
+    alone (a per-rank slot order), at the global capacity."""
+    from multiverso_tpu_torch.models import moe
+
+    return moe.capacity_plan(experts, num_experts, capacity)
+
+
+def _local_stats(stats, n, shard):
+    """Planted fault: each rank's load-balancing means over its own
+    tokens (a per-rank aux loss)."""
+    return stats, n
+
+
+def _router_over_ep(plain):
+    """Planted fault: a ``_sum_grads`` that also sums every router's
+    gradient over ep (the aux term then counts ep times)."""
+    def summed(self, grads):
+        from multiverso_tpu_torch.models.transformer import _with_leaves
+        from multiverso_tpu_torch.parallel.collectives import \
+            all_reduce_grads
+
+        plain(self, grads)
+        tree = _with_leaves(self.params, grads)
+        all_reduce_grads([lyr["moe"]["router"] for lyr in tree["layers"]],
+                         self.mesh, ("ep",))
+
+    return summed
+
+
+@contextlib.contextmanager
+def planted_moe_fault(fault):
+    """Plant ``fault`` ("local_slots", "local_aux", "router_over_ep", or
+    None for none) in the MoE mesh path for the body."""
+    from multiverso_tpu_torch.models import moe
+    from multiverso_tpu_torch.models.transformer import TransformerTrainer
+
+    if fault is None:
+        yield
+        return
+    owner, name = {"local_slots": (moe, "_global_plan"),
+                   "local_aux": (moe, "_global_stats"),
+                   "router_over_ep": (TransformerTrainer, "_sum_grads")
+                   }[fault]
+    keep = getattr(owner, name)
+    setattr(owner, name, {"local_slots": _local_plan,
+                          "local_aux": _local_stats,
+                          "router_over_ep": _router_over_ep(keep)}[fault])
+    try:
+        yield
+    finally:
+        setattr(owner, name, keep)
+
+
+def moe_layout(device_count: int):
+    """(backend, world) of the several-rank MoE runs: an NCCL rank per
+    card on four cards (or two), else 2 gloo ranks sharing ``cuda:0``."""
+    if device_count >= 4:
+        return "nccl", 4
+    return ("nccl", 2) if device_count >= 2 else ("gloo", 2)
+
+
+def moe_meshes(world: int):
+    """[(key, sizes, names)] the ranks run, and [(fault, key, dispatch)]
+    the planted faults they run: the per-rank slot order and aux loss
+    need the tokens split (dp), the router's sum over ep the experts
+    split (ep)."""
+    if world == 4:
+        meshes = [("dpep", [2, 2], ["dp", "ep"]), ("ep4", [4], ["ep"])]
+        faults = [("local_slots", "dpep", "capacity"),
+                  ("local_aux", "dpep", "dense"),
+                  ("router_over_ep", "dpep", "dense")]
+    else:
+        meshes = [("ep2", [2], ["ep"]), ("dp2", [2], ["dp"])]
+        faults = [("local_slots", "dp2", "capacity"),
+                  ("local_aux", "dp2", "dense"),
+                  ("router_over_ep", "ep2", "dense")]
+    return meshes, faults
+
+
+def moe_mesh_spec(backend, world, device="cuda", **cfg_kw):
+    """What the ranks run (written to a JSON file they read): the moe
+    phase's 2-layer float32 copy of bench_moe at its check shape, at a
+    capacity factor where routes overflow, on ``moe_meshes(world)``."""
+    meshes, faults = moe_meshes(world)
+    cfg = {**MOE, "n_layers": 2, "max_seq": MOE_CHECK_SEQ,
+           "capacity_factor": MOE_MESH_CF, **cfg_kw}
+    return {"backend": backend, "world": world, "device": device,
+            "cfg": cfg, "batch": MOE_CHECK_BATCH,
+            "seq": min(MOE_CHECK_SEQ, cfg["max_seq"]),
+            "steps": MOE_MESH_STEPS, "meshes": meshes, "faults": faults}
+
+
+def moe_trained(torch, cfg, host, tokens, device, mesh, steps):
+    """``steps`` momentum steps of an MoE trainer from ``host``: losses,
+    the routes the first step's capacity plans dropped, the step times,
+    and the gathered tree (every parameter, then every slot) as host
+    arrays (a collective under a mesh)."""
+    from multiverso_tpu_torch.models import TransformerTrainer, moe
+    from multiverso_tpu_torch.models.transformer import _leaves
+
+    tr = TransformerTrainer(cfg, device=device, updater_type="momentum",
+                            params=host, mesh=mesh)
+    losses, step_s, dropped = [], [], []
+    for i in range(steps):
+        s0 = time.perf_counter()
+        loss, seen = dropped_routes(moe, lambda: tr.train_step_async(tokens))
+        losses.append(float(loss))
+        step_s.append(time.perf_counter() - s0)
+        dropped = dropped or seen
+    tree = tr._full_tree()
+    arrays = ([host_array(a) for a in _leaves(tree["params"])]
+              + [host_array(a) for sl in _leaves(tree["state"]) for a in sl])
+    return {"losses": losses, "step_s": step_s,
+            "dropped_first_step": sum(dropped)}, arrays
+
+
+def judge_moe_mesh(got, want, tol=MOE_MESH_TOL):
+    """({check: error}, verdict): a mesh run against the run in one
+    process — the losses by relative error, every parameter and slot by
+    max |got - want| / (max |want| + |want|), the rtol at which the CPU
+    tests' check (a floor at rtol times the tensor's largest entry)
+    passes; each at most ``tol``."""
+    (g_run, g_arrays), (w_run, w_arrays) = got, want
+    g_loss = np.asarray(g_run["losses"], np.float64)
+    w_loss = np.asarray(w_run["losses"], np.float64)
+    errs = {"losses": (float(np.max(np.abs(g_loss - w_loss) / np.abs(w_loss)))
+                       if g_loss.shape == w_loss.shape else math.inf)}
+    worst = 0.0 if len(g_arrays) == len(w_arrays) else math.inf
+    for g, w in zip(g_arrays, w_arrays):
+        if np.shape(g) != np.shape(w):
+            worst = math.inf
+            break
+        # float32 throughout: the trees hold 10^8 entries and more.
+        w = np.asarray(w, np.float32)
+        den = np.abs(w)
+        den += den.max() or np.float32(1)
+        d = np.abs(np.asarray(g, np.float32) - w)
+        d /= den
+        top = float(d.max())
+        worst = max(worst, top if math.isfinite(top) else math.inf)
+    errs["tree"] = worst
+    return errs, all(e <= tol for e in errs.values())
+
+
+def moe_mesh_rank(argv) -> int:
+    """One rank of the moe_mesh phase (``chip_smoke.py --moe-rank <rank>
+    <spec.json> <store> <out dir>``): joins the group, runs the spec's
+    meshes and planted faults for each dispatch, and writes
+    ``rank<r>.json``.  Rank 0 also runs each dispatch in one process
+    first and judges every mesh run against it."""
+    import datetime
+
+    rank, spec_path, store, out_dir = (int(argv[0]), argv[1], argv[2],
+                                       argv[3])
+    sys.path.insert(0, HERE)
+    import torch
+    import torch.distributed as dist
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if spec["device"] == "cuda":
+        device = shard_device(spec["backend"], rank)
+        torch.cuda.set_device(device)
+    else:
+        device = "cpu"
+        torch.set_num_threads(1)
+    dist.init_process_group(
+        spec["backend"], init_method="file://" + store,
+        world_size=spec["world"], rank=rank,
+        timeout=datetime.timedelta(seconds=MOE_MESH_TIMEOUT_S))
+    from multiverso_tpu_torch.models import TransformerConfig, init_params
+    from multiverso_tpu_torch.parallel import make_mesh
+
+    def config(dispatch):
+        return TransformerConfig(**{**spec["cfg"], "moe_dispatch": dispatch},
+                                 compute_dtype=torch.float32)
+
+    host = init_params(config("dense"), seed=0)
+    tokens = torch.randint(0, spec["cfg"]["vocab_size"],
+                           (spec["batch"], spec["seq"]),
+                           generator=torch.Generator().manual_seed(2))
+    dispatches = ("dense", "capacity")
+    refs = {d: moe_trained(torch, config(d), host, tokens, device, None,
+                           spec["steps"]) for d in dispatches} \
+        if rank == 0 else {}
+    runs, faults = [], []
+    for key, sizes, names in spec["meshes"]:
+        mesh = make_mesh(sizes, names, device=device)
+        todo = [(d, None) for d in dispatches] + [
+            (d, fault) for fault, at, d in spec["faults"] if at == key]
+        for dispatch, fault in todo:
+            with planted_moe_fault(fault):
+                got = moe_trained(torch, config(dispatch), host, tokens,
+                                  device, mesh, spec["steps"])
+            row = {"mesh": key, "dispatch": dispatch, **got[0]}
+            if rank == 0:
+                row["errors"], row["ok"] = judge_moe_mesh(got, refs[dispatch])
+            (runs if fault is None else faults).append(
+                {**row, **({"fault": fault} if fault else {})})
+            del got
+    out = {"rank": rank, "world": spec["world"], "backend": spec["backend"],
+           "device": str(device), "runs": runs, "faults": faults}
+    if rank == 0:
+        out["reference"] = {d: r[0] for d, r in refs.items()}
+    dist.destroy_process_group()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def launch_moe_ranks(spec, out_dir, timeout=MOE_MESH_TIMEOUT_S):
+    """Run the spec's ranks (processes of this script) under ``timeout``
+    (all killed on expiry); returns [each rank's json] and the
+    seconds."""
+    spec_path = os.path.join(out_dir, "spec.json")
+    with open(spec_path, "w") as f:
+        json.dump(spec, f)
+    store = os.path.join(out_dir, "store")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--moe-rank", str(r),
+         spec_path, store, out_dir],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(spec["world"])]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=timeout)[0])
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+            p.communicate()
+        raise AssertionError(f"moe_mesh ranks did not finish within "
+                             f"{timeout} s")
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise AssertionError(f"moe_mesh rank {r} failed:\n{log[-4000:]}")
+    ranks = []
+    for r in range(spec["world"]):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    return ranks, time.perf_counter() - t0
+
+
+def judge_moe_ranks(rank0):
+    """({check: verdict}, every mesh run held the one-process run and
+    every capacity run dropped routes, every planted fault rejected)."""
+    verdicts = {}
+    for run in rank0["runs"]:
+        name = f"{run['mesh']}_{run['dispatch']}"
+        verdicts[name] = run["ok"]
+        if run["dispatch"] == "capacity":
+            verdicts[name + "_dropped"] = run["dropped_first_step"] > 0
+    for run in rank0["faults"]:
+        verdicts[f"{run['fault']}_rejected"] = not run["ok"]
+    return verdicts, bool(verdicts) and all(verdicts.values())
+
+
+def moe_one_rank_check(torch, mv, card):
+    """Check (1): bench_moe at full width through the mesh code at one
+    NCCL rank, a mesh (dp, sp, tp, ep) of 1s, against the no-mesh trainer
+    from the same draw, each dispatch: every loss and parameter bit for
+    bit after MOE_MESH_STEPS steps, and one MoE layer through the mesh
+    path without a host sync (each run also profiles one more step).
+    Returns the mesh runs' launch counts."""
+    import torch.distributed as dist
+
+    from multiverso_tpu_torch.models import TransformerConfig, init_params
+    from multiverso_tpu_torch.models.moe import TokenShard
+    from multiverso_tpu_torch.parallel import make_mesh
+
+    base = dict(MOE, max_seq=MOE_SEQ)
+    host = init_params(TransformerConfig(**base), seed=0)
+    tokens = torch.randint(0, base["vocab_size"], (MOE_BATCH, MOE_SEQ),
+                           generator=torch.Generator().manual_seed(1))
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", world_size=1, rank=0)
+    counts, runs, ok = {}, {}, True
+    try:
+        mesh = make_mesh((1, 1, 1, 1), ("dp", "sp", "tp", "ep"))
+        layer = {k: v.to("cuda") for k, v in host["layers"][0]["moe"].items()}
+        x = torch.randn(MOE_BATCH, MOE_SEQ, base["dim"], device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(3))
+        n = MOE_BATCH * MOE_SEQ
+        shard = TokenShard(mesh, torch.arange(n, device="cuda"), n)
+        for disp in ("dense", "capacity"):
+            cfg = TransformerConfig(**base, moe_dispatch=disp,
+                                    compute_dtype=torch.bfloat16)
+            sync_free = moe_layer_sync_free(torch, layer, x, disp, shard)
+            pair = []
+            for on_mesh in (False, True):
+                run, tr = train_run(torch, mv, cfg, host, tokens,
+                                    MOE_MESH_STEPS, profile=True,
+                                    mesh=mesh if on_mesh else None)
+                pair.append((run, snapshot(tr.params)))
+                del tr
+                torch.cuda.empty_cache()
+            (plain, want), (meshed, got) = pair
+            diff = max(float(np.abs(g - w).max()) for g, w in zip(got, want))
+            same = diff == 0.0 and meshed["losses"] == plain["losses"]
+            ok = ok and same and sync_free and all(
+                run_ok(r, MOE_MESH_STEPS) for r, _ in pair)
+            counts[f"moe_mesh_{disp}"] = meshed["launch_counts"]
+            runs[disp] = {"bitwise_equal": same, "max_abs_diff": diff,
+                          "layer_sync_free_on_mesh": sync_free,
+                          "step_s": [plain["step_s"], meshed["step_s"]],
+                          "profile": [plain["profile"], meshed["profile"]],
+                          "losses": [plain["losses"], meshed["losses"]],
+                          "step_s_mean_after_first": [
+                              plain["step_s_mean_after_first"],
+                              meshed["step_s_mean_after_first"]],
+                          "tokens_per_s": [plain["tokens_per_s"],
+                                           meshed["tokens_per_s"]],
+                          "peak_mem_bytes": meshed["peak_mem_bytes"],
+                          "launch_counts": meshed["launch_counts"],
+                          "launches_expected": meshed["launches_expected"]}
+            del pair, want, got
+        del layer, x, shard
+    finally:
+        dist.destroy_process_group()
+    emit({"phase": "moe_mesh", "check": "one_rank", "ok": ok,
+          "mesh": {"dp": 1, "sp": 1, "tp": 1, "ep": 1}, "config": MOE,
+          "batch": MOE_BATCH, "seq": MOE_SEQ, "steps": MOE_MESH_STEPS,
+          "order": ["no mesh", "mesh"], "runs": runs, "card": card})
+    if not ok:
+        raise AssertionError(f"MoE at one NCCL rank differs from the "
+                             f"no-mesh trainer: {runs}")
+    return counts
+
+
+def offload_check(torch, card):
+    """Check (4): bench_transformer's config (dim 512) with momentum, 3
+    steps with the state offloaded to the local store against 3 in
+    memory from the same draw: losses, parameters and state bit for bit,
+    and both step times."""
+    from multiverso_tpu_torch.models import (TransformerConfig,
+                                             TransformerTrainer, init_params)
+    from multiverso_tpu_torch.parallel import OffloadedState
+
+    cfg = TransformerConfig(**SMALL, max_seq=SMALL_SEQ,
+                            compute_dtype=torch.bfloat16)
+    host = init_params(cfg, seed=0)
+    tokens = torch.randint(0, cfg.vocab_size, (SMALL_BATCH, SMALL_SEQ),
+                           generator=torch.Generator().manual_seed(1))
+    out = {}
+    for offloaded in (False, True):
+        tr = TransformerTrainer(cfg, updater_type="momentum", params=host)
+        if offloaded:
+            tr.offload_state(OffloadedState(None, tr.offload_size(),
+                                            backend="local"))
+        losses, step_s = [], []
+        for _ in range(MOE_MESH_STEPS):
+            s0 = time.perf_counter()
+            losses.append(float(tr.train_step_async(tokens)))
+            step_s.append(time.perf_counter() - s0)
+        state = (tr._flat_to_state(tr._offload.wait()) if offloaded
+                 else tr.state)
+        out[offloaded] = (losses, step_s, snapshot(tr.params),
+                          [host_array(a) for sl in state for a in sl],
+                          tr.offload_size())
+        del tr, state
+        torch.cuda.empty_cache()
+    (ml, ms, mp, mst, n), (ol, os_, op, ost, _) = out[False], out[True]
+    same = (ml == ol and all(np.array_equal(a, b) for a, b in zip(mp, op))
+            and all(np.array_equal(a, b) for a, b in zip(mst, ost)))
+    res = {"bitwise_equal": same, "losses": [ml, ol],
+           "step_s": {"in_memory": ms, "offloaded": os_},
+           "state_elements": n, "state_bytes": 4 * n}
+    emit({"phase": "moe_mesh", "check": "offload", "ok": same,
+          "config": SMALL, "batch": SMALL_BATCH, "seq": SMALL_SEQ, **res,
+          "card": card})
+    if not same:
+        raise AssertionError(f"the offloaded trainer differs from the "
+                             f"in-memory one: {res}")
+
+
+def phase_moe_mesh(torch, mv, card):
+    """The moe_mesh phase (see the module docstring).  Returns the
+    launch counts of the one-rank runs."""
+    import tempfile
+
+    counts = moe_one_rank_check(torch, mv, card)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    backend, world = moe_layout(torch.cuda.device_count())
+    spec = moe_mesh_spec(backend, world)
+    with tempfile.TemporaryDirectory(prefix="mvt_moe_") as out_dir:
+        ranks, ranks_s = launch_moe_ranks(spec, out_dir)
+    verdicts, ok = judge_moe_ranks(ranks[0])
+    emit({"phase": "moe_mesh", "check": "ranks", "ok": ok,
+          "backend": backend, "world": world, "ranks_s": ranks_s,
+          "config": spec["cfg"], "batch": spec["batch"], "seq": spec["seq"],
+          "steps": spec["steps"], "tol": MOE_MESH_TOL, "verdicts": verdicts,
+          "reference": ranks[0]["reference"], "runs": ranks[0]["runs"],
+          "planted_faults": ranks[0]["faults"], "card": card})
+    if not ok:
+        raise AssertionError(f"moe_mesh ranks failed: {verdicts}")
+    offload_check(torch, card)
+    return counts
 
 
 # ------------------------------------------------------ the shard phase
@@ -3819,6 +4262,8 @@ def main(argv) -> int:
                                               host)
         paths.update(mesh_counts)
         shapes.update(ring_shapes)
+    if "moe_mesh" in phases:
+        paths.update(phase_moe_mesh(torch, mv, card))
     if "shard" in phases:
         phase_shard(torch, mv, card)
     if "tables" in phases:
@@ -3880,6 +4325,8 @@ if __name__ == "__main__":
     try:
         if sys.argv[1:2] == ["--shard-rank"]:
             sys.exit(shard_rank(sys.argv[2:]))
+        if sys.argv[1:2] == ["--moe-rank"]:
+            sys.exit(moe_mesh_rank(sys.argv[2:]))
         sys.exit(main(sys.argv[1:]))
     except Exception:
         traceback.print_exc()

@@ -38,17 +38,18 @@ where GSPMD placed the JAX package's:
   position predicts the next rank's first token;
 - ``pp`` (with ``pipeline_microbatches``): the stacked layers split over
   stages and run by GPipe (``parallel/pipeline.py``) with the JAX
-  package's interleaved microbatches.
+  package's interleaved microbatches;
+- ``ep``: an MoE layer's experts ``[E, ...]`` (``models/moe.py``'s
+  ``moe_pspecs``); the MoE layer runs whole on each tp rank, and its
+  load-balancing loss and capacity buckets stay global over the batch.
 
 The loss is the JAX package's global mean over B·(T-1) positions.
 Gradients are summed over dp and sp (and the embedding's over pp), so
 the updater runs on each rank's shard with its state sharded as the
-weights are.  MoE under a mesh axis of more than one process, and an
-``ep`` axis, raise ``NotImplementedError``: the JAX package computes the
-load-balancing loss and the capacity buckets over the whole batch, and
-a per-rank port would change the objective (ROADMAP.md Queue 1,
-"Several processes").  State offload raises too (Queue 1, "Modules that
-need the native runtime").
+weights are.  ``offload_state`` moves the updater state to an
+``OffloadedState`` bridge (``parallel/offload.py``) on one process; the
+native store and several processes raise (ROADMAP.md Queue 1, "Modules
+that need the native runtime" and "Several processes").
 """
 
 from __future__ import annotations
@@ -67,11 +68,12 @@ from .. import dashboard
 from ..device import resolve_device
 from ..parallel.collectives import (all_reduce_grads, all_reduce_max,
                                     all_reduce_sum, copy_to, reduce_from,
-                                    ring_rotate)
-from ..parallel.sharding import gather_full, local_shard
+                                    reduce_over, ring_rotate)
+from ..parallel.sharding import (gather_full, gather_leaf, local_shard,
+                                 shard_leaf)
 from ..updaters import AddOption, get_updater
 from ..util.tree import tree_map
-from .moe import init_moe_params, moe_ffn
+from .moe import TokenShard, init_moe_params, moe_ffn, moe_pspecs
 
 __all__ = ["TransformerConfig", "init_params", "stack_layer_params",
            "unstack_layer_params", "params_from_jax", "shard_params",
@@ -90,6 +92,14 @@ _WCAST_KEYS = ("wq", "wk", "wv", "wo", "w1", "w2", "w3")
 # ones on their inputs; every other leaf is replicated.
 _TP_DIM = {"wq": 1, "wk": 1, "wv": 1, "w1": 1, "w3": 1, "wo": 0, "w2": 0,
            "head": 1}
+
+
+def _spec(key: str, mesh):
+    """Where a non-MoE leaf lives on ``mesh`` (``parallel.sharding``'s
+    ``(dim, axis)``, or None: replicated)."""
+    if mesh is None or "tp" not in mesh or key not in _TP_DIM:
+        return None
+    return _TP_DIM[key], "tp"
 
 
 @dataclass(frozen=True)
@@ -128,16 +138,14 @@ class TransformerConfig:
 
 
 def _check_mesh(cfg: TransformerConfig, mesh) -> None:
-    """The mesh configurations the port does not run yet."""
+    """The port's own refusal of a mesh: experts that do not divide over
+    ``ep`` (the JAX package's refusals of a mesh forward are in
+    :func:`_check_forward`)."""
     if mesh is None:
         return
-    if "ep" in mesh or (cfg.num_experts
-                        and any(n > 1 for n in mesh.shape.values())):
-        raise NotImplementedError(
-            f"MoE and the ep axis under a mesh of several processes "
-            f"({mesh.shape}) are not ported yet: the load-balancing loss "
-            f"and the capacity buckets are global over the batch "
-            f"(ROADMAP.md Queue 1, \"Several processes\")")
+    if cfg.num_experts and cfg.num_experts % mesh.size("ep"):
+        raise ValueError(f"num_experts ({cfg.num_experts}) not divisible "
+                         f"by the ep axis ({mesh.size('ep')})")
 
 
 def _use_pp(cfg: TransformerConfig, mesh) -> bool:
@@ -230,9 +238,10 @@ def _stacked(tree: Dict[str, Any]) -> Dict[str, Any]:
 def shard_params(tree, cfg: TransformerConfig, mesh, fn) -> Dict[str, Any]:
     """A loop-format tree of the parameters' structure (parameters, or
     updater slots at each leaf) cut to this rank's shard: the layers of
-    its pp stage when they split, each leaf's tp block on its
-    ``_TP_DIM``.  ``fn(leaf, dim)`` takes a leaf (or a tuple of slots)
-    and the tp dimension (None: replicated) and returns the shard."""
+    its pp stage when they split, each leaf's tp block, and an MoE
+    layer's experts over ep.  ``fn(leaf, spec)`` takes a leaf (or a tuple
+    of slots) and where it lives (``parallel.sharding``'s ``(dim, axis)``,
+    None: replicated) and returns the shard."""
     from ..parallel.pipeline import stage_slice
 
     layers = tree["layers"]
@@ -241,13 +250,25 @@ def shard_params(tree, cfg: TransformerConfig, mesh, fn) -> Dict[str, Any]:
                          f"{cfg.n_layers}")
     if _pp_layers(cfg, mesh):
         layers = layers[stage_slice(cfg.n_layers, mesh)]
+    return _map_leaves({**tree, "layers": layers}, mesh, fn)
+
+
+def _map_leaves(tree, mesh, fn) -> Dict[str, Any]:
+    """A loop-format tree with ``fn(leaf, spec)`` at each leaf, ``spec``
+    where the leaf lives on ``mesh`` (tp blocks, an MoE layer's experts
+    over ep; None: replicated)."""
+    moe_specs = moe_pspecs(mesh)
+
+    def layer(lyr):
+        return {k: ({mk: fn(m, moe_specs[mk]) for mk, m in w.items()}
+                    if k == "moe" else fn(w, _spec(k, mesh)))
+                for k, w in lyr.items()}
+
     return {
         "embed": fn(tree["embed"], None),
         "out_norm": fn(tree["out_norm"], None),
-        "head": fn(tree["head"], _TP_DIM["head"]),
-        "layers": [{k: (tree_map(lambda a: fn(a, None), w) if k == "moe"
-                        else fn(w, _TP_DIM.get(k))) for k, w in lyr.items()}
-                   for lyr in layers],
+        "head": fn(tree["head"], _spec("head", mesh)),
+        "layers": [layer(lyr) for lyr in tree["layers"]],
     }
 
 
@@ -262,11 +283,9 @@ def params_from_jax(host_params, cfg: TransformerConfig, device=None,
     _check_mesh(cfg, mesh)
     dev = resolve_device(device)
 
-    def t(a, dim):
+    def t(a, spec):
         a = torch.as_tensor(np.asarray(a, np.float32))
-        if dim is not None:
-            a = local_shard(a, dim, "tp", mesh).contiguous()
-        return a.to(dev)
+        return shard_leaf(a, spec, mesh).contiguous().to(dev)
 
     layers = host_params["layers"]
     if isinstance(layers, dict):           # stacked [L, ...] (scan format)
@@ -337,11 +356,13 @@ def _rope(x, theta: float, positions=None):
 
 @dataclass(frozen=True)
 class _Shard:
-    """Where a rank's activations sit: its mesh, and under sp the global
-    positions of its sequence shard in the ring's layout."""
+    """Where a rank's activations sit: its mesh, under sp the global
+    positions of its sequence shard in the ring's layout, and for an MoE
+    config its tokens' places in the global batch."""
     mesh: Any
     positions: Optional[torch.Tensor] = None
     zigzag: bool = False
+    tokens: Optional[TokenShard] = None
 
 
 def _block(x, lyr, cfg: TransformerConfig, scale: float,
@@ -377,9 +398,11 @@ def _block(x, lyr, cfg: TransformerConfig, scale: float,
     x = x + reduce_from(o @ lyr["wo"].to(dt), mesh)
     h = _rms_norm(x, lyr["mlp_norm"].to(dt), cfg.norm_eps)
     if "moe" in lyr:
+        # Whole on each tp rank: no tp collective around it.
         out, aux = moe_ffn(lyr["moe"], h, top_k=cfg.top_k, compute_dtype=dt,
                            dispatch=cfg.moe_dispatch,
-                           capacity_factor=cfg.capacity_factor)
+                           capacity_factor=cfg.capacity_factor,
+                           shard=None if shard is None else shard.tokens)
         return x + out, aux
     h = copy_to(h, mesh)
     gated = F.silu(h @ lyr["w1"].to(dt)) * (h @ lyr["w3"].to(dt))
@@ -474,7 +497,18 @@ def _forward_local(params, tokens, cfg: TransformerConfig, mesh=None):
         positions = sequence_positions(T, sp, mesh.index("sp"), zigzag,
                                        rows.device)
         rows = rows.index_select(1, positions)
-    shard = None if mesh is None else _Shard(mesh, positions, zigzag)
+    shard = None
+    if mesh is not None:
+        tokens_at = None
+        if cfg.num_experts:
+            b, t = rows.shape
+            first = mesh.index("dp") * b
+            at = torch.arange(t, device=rows.device) if positions is None \
+                else positions
+            index = ((first + torch.arange(b, device=rows.device))[:, None]
+                     * T + at[None, :]).reshape(-1)
+            tokens_at = TokenShard(mesh, index, B * T)
+        shard = _Shard(mesh, positions, zigzag, tokens_at)
     dt = cfg.compute_dtype
     x = params["embed"][rows].to(dt)                     # [b,t,dim]
     scale = cfg.head_dim ** -0.5
@@ -625,7 +659,7 @@ def lm_loss(params, tokens, cfg: TransformerConfig, mesh=None):
             weight = (positions < T - 1).float()
         lo = mesh.index("tp") * logits.shape[-1]
         ce = _VocabCE.apply(logits, targets, weight, lo, mesh, B * (T - 1))
-        ce = reduce_from(reduce_from(ce, mesh, "dp"), mesh, "sp")
+        ce = reduce_over(ce, mesh, ("dp", "sp"))
     if cfg.num_experts:
         return ce + cfg.aux_loss_coef * aux
     return ce
@@ -654,6 +688,10 @@ class TransformerTrainer:
     argument) trains on a mesh of processes: each rank keeps its shard of
     the weights and of the updater state on ``mesh.device``, and every
     rank passes the same global batch to each step.
+
+    ``offload_state(bridge)`` keeps the updater state in an
+    ``OffloadedState`` (``parallel/offload.py``) between steps instead of
+    on the device, as the JAX trainer does.
     """
 
     def __init__(self, cfg: TransformerConfig, device=None,
@@ -671,6 +709,7 @@ class TransformerTrainer:
         self.params = params_from_jax(host, cfg, self.device, mesh)
         self.state = [self.updater.init_state(p.shape, p.dtype, p.device)
                       for p in _leaves(self.params)]
+        self._offload = None       # the OffloadedState bridge, once set
 
     def _tokens(self, tokens) -> torch.Tensor:
         if not isinstance(tokens, torch.Tensor):
@@ -713,6 +752,25 @@ class TransformerTrainer:
             raise ValueError(
                 f"microbatch {B // accum} (batch {B} / accum {accum}) not "
                 f"divisible by the dp axis ({mesh.size('dp')})")
+        if self._offload is None:
+            return self._update(tokens, accum)
+        # Offloaded state: the vector prefetched after the previous step
+        # (or fetched now on the first), rebuilt on the device; the new
+        # state ships back and the next prefetch is issued behind it.
+        with dashboard.monitor("Transformer::offload_wait"):
+            self.state = self._flat_to_state(self._offload.wait())
+        loss = self._update(tokens, accum)
+        with dashboard.monitor("Transformer::offload_push"):
+            self._offload.push(self._state_to_flat())
+            self._offload.prefetch()
+        self.state = self._no_state()      # the bridge owns it now
+        return loss
+
+    def _update(self, tokens: torch.Tensor, accum: int) -> torch.Tensor:
+        """The step's gradients and the updater's application, in place
+        of ``params`` and ``state``; returns the device loss."""
+        cfg, mesh = self.cfg, self.mesh
+        B = tokens.shape[0]
         leaves = [p.detach().requires_grad_() for p in _leaves(self.params)]
         params = _with_leaves(self.params, leaves)
         grads, losses = None, []
@@ -742,7 +800,13 @@ class TransformerTrainer:
     def train_steps_fused(self, tokens, n: int) -> torch.Tensor:
         """``n`` steps on one batch; returns the last device loss.  The
         JAX package fuses them into one compiled program; here they are
-        a loop of eager steps with no host sync between them."""
+        a loop of eager steps with no host sync between them.  Refused
+        with the state offloaded, as in the JAX package."""
+        if self._offload is not None:
+            raise RuntimeError(
+                "train_steps_fused keeps the state on device across the "
+                "whole fused program — incompatible with offload_state "
+                "(use train_step_async)")
         tokens = self._tokens(tokens)
         loss = torch.zeros((), device=self.device)
         for _ in range(n):
@@ -754,41 +818,97 @@ class TransformerTrainer:
             return float(lm_loss(self.params, self._tokens(tokens),
                                  self.cfg, self.mesh))
 
+    # ------------------------------------------------------ state offload
     def offload_state(self, bridge) -> None:
-        raise NotImplementedError(
-            "optimizer-state offload is not ported yet (ROADMAP.md Queue "
-            "1, \"Modules that need the native runtime\": "
-            "parallel/offload.py)")
+        """Move the updater state to ``bridge``, an
+        ``parallel.offload.OffloadedState`` of ``offload_size()``
+        elements (the JAX trainer's ZeRO-style offload).  From then on
+        each ``train_step_async`` takes the state from the bridge's
+        prefetched vector, steps, pushes the new state and issues the
+        next prefetch; between steps the device holds none of it.  The
+        bridge stores float32 bits verbatim, so the run equals the
+        in-memory one bit for bit.  One process only: under a mesh of
+        several processes it raises (ROADMAP.md Queue 1, "Several
+        processes")."""
+        import torch.distributed as dist
 
-    def _tree(self) -> Dict[str, Any]:
+        if (self.mesh is not None and dist.is_initialized()
+                and dist.get_world_size() > 1):
+            raise NotImplementedError(
+                "offload_state under a mesh of several processes is not "
+                "ported yet: each rank would need its own store of its "
+                "shard (ROADMAP.md Queue 1, \"Several processes\")")
+        if not self.updater.num_slots:
+            raise ValueError(
+                f"updater '{self.updater.name}' keeps no optimizer "
+                f"state — nothing to offload")
+        if bridge.size != self.offload_size():
+            raise ValueError(
+                f"bridge sized {bridge.size}, state needs "
+                f"{self.offload_size()} elements")
+        self._offload = bridge
+        bridge.init(self._state_to_flat())
+        # The device copies now live in the store: drop them.
+        self.state = self._no_state()
+        bridge.prefetch()
+
+    def offload_size(self) -> int:
+        """Flat float32 element count of the updater state: the
+        ``OffloadedState`` size this trainer needs."""
+        return sum(p.numel() for p in _leaves(self.params)) \
+            * self.updater.num_slots
+
+    def _no_state(self) -> list:
+        return [tuple(None for _ in range(self.updater.num_slots))
+                for _ in _leaves(self.params)]
+
+    def _state_to_flat(self, state=None) -> np.ndarray:
+        """The state as one float32 host vector: leaf by leaf in
+        ``_leaves`` order, each leaf's slots in turn (one copy from the
+        device)."""
+        slots = [a.detach().reshape(-1).float()
+                 for sl in (self.state if state is None else state)
+                 for a in sl]
+        return torch.cat(slots).cpu().numpy()
+
+    def _flat_to_state(self, flat) -> list:
+        """The state from the bridge's vector: one copy onto the device
+        (the bridge keeps its buffer), each slot a view of it."""
+        buf = torch.as_tensor(np.asarray(flat, np.float32)).to(
+            self.device, copy=True)
+        out, pos = [], 0
+        for p in _leaves(self.params):
+            n = p.numel()
+            out.append(tuple(buf[pos + i * n:pos + (i + 1) * n].view(p.shape)
+                             for i in range(self.updater.num_slots)))
+            pos += n * self.updater.num_slots
+        return out
+
+    def _tree(self, state=None) -> Dict[str, Any]:
         """``{"params", "state"}`` in the JAX trainer's layout, loop
         format: the state mirrors the params with a tuple of updater
         slots at each leaf.  This rank's shard under a mesh."""
         return {"params": self.params,
-                "state": _with_leaves(self.params, self.state)}
+                "state": _with_leaves(self.params,
+                                      self.state if state is None
+                                      else state)}
 
-    def _full_tree(self) -> Dict[str, Any]:
-        """:meth:`_tree` with every leaf gathered whole: tp blocks
-        concatenated on their split dimension, the pp stages' layers in
-        order (a collective over the mesh)."""
+    def _full_tree(self, state=None) -> Dict[str, Any]:
+        """:meth:`_tree` with every leaf gathered whole: tp blocks and
+        the experts' ep blocks concatenated on their split dimension, the
+        pp stages' layers in order (a collective over the mesh)."""
         mesh, cfg = self.mesh, self.cfg
         if mesh is None:
-            return self._tree()
+            return self._tree(state)
 
-        def whole(leaf, dim):
+        def whole(leaf, spec):
             if isinstance(leaf, tuple):
-                return tuple(whole(a, dim) for a in leaf)
-            return leaf if dim is None else gather_full(leaf, dim, "tp",
-                                                        mesh)
+                return tuple(whole(a, spec) for a in leaf)
+            return gather_leaf(leaf, spec, mesh)
 
         out = {}
-        for part, sub in self._tree().items():
-            sub = {"embed": whole(sub["embed"], None),
-                   "out_norm": whole(sub["out_norm"], None),
-                   "head": whole(sub["head"], _TP_DIM["head"]),
-                   "layers": [{k: whole(w, _TP_DIM.get(k))
-                               for k, w in lyr.items()}
-                              for lyr in sub["layers"]]}
+        for part, sub in self._tree(state).items():
+            sub = _map_leaves(sub, mesh, whole)
             if _pp_layers(cfg, mesh):
                 stages = [tree_map(lambda a: gather_full(a[None], 0, "pp",
                                                          mesh), lyr)
@@ -804,10 +924,14 @@ class TransformerTrainer:
         durability of the table checkpoints) as the JAX trainer of the
         same config writes it: layers stacked ``[L, ...]`` under
         ``scan_layers``, a list otherwise.  Under a mesh every rank
-        calls it; the full tensors are gathered first."""
+        calls it; the full tensors are gathered first.  With the state
+        offloaded it is fetched from the bridge first."""
         from .. import checkpoint
 
-        tree = self._full_tree()
+        state = None
+        if self._offload is not None:
+            state = self._flat_to_state(self._offload.wait())
+        tree = self._full_tree(state)
         if self.cfg.scan_layers:
             tree = _stacked(tree)
         checkpoint.save_pytree(uri, tree)
@@ -816,8 +940,8 @@ class TransformerTrainer:
         """Load a snapshot written by either package's trainer for this
         config and updater, on any mesh, in loop or stacked format, onto
         this trainer's device and mesh (each rank re-slices its own
-        shard).  A snapshot of another structure raises
-        ``ValueError``."""
+        shard).  A snapshot of another structure raises ``ValueError``.
+        With the state offloaded, the restored state seeds the bridge."""
         from .. import checkpoint
 
         snap = checkpoint.restore_pytree(uri)
@@ -827,18 +951,25 @@ class TransformerTrainer:
                     sub["layers"] = unstack_layer_params(sub["layers"],
                                                          self.cfg.n_layers)
             if self.mesh is not None:
-                def cut(leaf, dim):
+                def cut(leaf, spec):
                     if isinstance(leaf, tuple):
-                        return tuple(cut(a, dim) for a in leaf)
+                        return tuple(cut(a, spec) for a in leaf)
                     a = torch.as_tensor(np.asarray(leaf))
-                    return (a if dim is None else
-                            local_shard(a, dim, "tp", self.mesh).contiguous())
+                    return shard_leaf(a, spec, self.mesh).contiguous()
 
                 snap = {part: shard_params(sub, self.cfg, self.mesh, cut)
                         for part, sub in snap.items()}
         except (AttributeError, KeyError, TypeError) as exc:
             raise ValueError(f"{uri}: snapshot tree structure is not a "
                              f"trainer's: {exc}") from exc
-        placed = checkpoint.place_pytree(snap, self._tree(), uri)
+        like = self._tree(
+            None if self._offload is None else
+            [self.updater.init_state(p.shape, p.dtype, p.device)
+             for p in _leaves(self.params)])
+        placed = checkpoint.place_pytree(snap, like, uri)
         self.params = placed["params"]
         self.state = _leaves(placed["state"])
+        if self._offload is not None:
+            self._offload.init(self._state_to_flat())
+            self.state = self._no_state()
+            self._offload.prefetch()

@@ -19,7 +19,15 @@ each is a ``torch.autograd.Function`` with its backward written out:
 - :func:`broadcast_from_last`: the pipeline's outputs from the last stage
   to every stage;
 - :func:`all_reduce_grads`: a sum over a set of axes, in place, in
-  flat buckets over one group for the product of the axes.
+  flat buckets over one group for the product of the axes;
+- :func:`reduce_over`: a sum over the product of a set of axes with the
+  identity backward (``reduce_from`` over several axes at once): the MoE
+  layer's routing statistics over dp and sp, whose gradient each rank
+  takes for its own tokens;
+- :func:`gather_routes`: every rank's routes (integers, no gradient)
+  over a set of axes, placed at their global positions (one all-reduce
+  of the ranks' disjoint parts): the MoE capacity plan's expert ids in
+  the global token order.
 
 Every rank of a group must call the same collectives in the same order,
 forward and backward; the functions here keep that true of their
@@ -35,9 +43,9 @@ from typing import Iterable, List, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
-__all__ = ["copy_to", "reduce_from", "all_reduce_max", "all_reduce_sum",
-           "ring_rotate", "send_forward", "recv_forward",
-           "broadcast_from_last", "all_reduce_grads"]
+__all__ = ["copy_to", "reduce_from", "reduce_over", "gather_routes",
+           "all_reduce_max", "all_reduce_sum", "ring_rotate", "send_forward",
+           "recv_forward", "broadcast_from_last", "all_reduce_grads"]
 
 
 def all_reduce_sum(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
@@ -97,6 +105,35 @@ def reduce_from(x: torch.Tensor, mesh, axis: str = "tp") -> torch.Tensor:
     if mesh is None or axis not in mesh:
         return x
     return _ReduceFrom.apply(x, mesh.group(axis))
+
+
+def _axes_in(mesh, axes: Sequence[str]) -> Tuple[str, ...]:
+    """The ``axes`` the mesh names (none without a mesh)."""
+    return () if mesh is None else tuple(a for a in axes if a in mesh)
+
+
+def reduce_over(x: torch.Tensor, mesh, axes: Sequence[str]) -> torch.Tensor:
+    """Sum of ``x`` over the product of ``axes`` (those the mesh names),
+    with the identity backward: each rank's gradient is its own part's.
+    Without a mesh or any of the axes, ``x`` itself."""
+    axes = _axes_in(mesh, axes)
+    if not axes:
+        return x
+    return _ReduceFrom.apply(x, mesh.group_over(axes))
+
+
+def gather_routes(values: torch.Tensor, where: torch.Tensor, total: int,
+                  mesh, axes: Sequence[str]) -> torch.Tensor:
+    """A tensor of ``total`` entries holding every rank's ``values`` (1-D
+    integers, no gradient) at its ``where`` (the values' global
+    positions; the ranks' positions tile ``range(total)``), gathered over
+    the product of ``axes``: each rank writes its values into zeros and
+    one all-reduce sums the ranks' disjoint parts."""
+    out = values.new_zeros(total).index_copy_(0, where, values)
+    axes = _axes_in(mesh, axes)
+    if axes:
+        dist.all_reduce(out, group=mesh.group_over(axes))
+    return out
 
 
 def _exchange(sends: Sequence[torch.Tensor], to: int, frm: int, group
@@ -233,7 +270,13 @@ def all_reduce_grads(grads: Sequence[torch.Tensor], mesh,
 
     def flush():
         if len(bucket) == 1:
-            dist.all_reduce(bucket[0], group=group)
+            # A gradient may come out of its backward with permuted
+            # strides (an MoE expert's einsum); NCCL takes it dense.
+            g = bucket[0]
+            dense = g.contiguous()
+            dist.all_reduce(dense, group=group)
+            if dense is not g:
+                g.copy_(dense)
         elif bucket:
             flat = torch.cat([g.reshape(-1) for g in bucket])
             dist.all_reduce(flat, group=group)

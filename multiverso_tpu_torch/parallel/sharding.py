@@ -39,10 +39,15 @@ import torch
 
 from ..device import resolve_device
 
-__all__ = ["Mesh", "make_mesh", "local_shard", "gather_full", "table_mesh",
-           "shard_along", "TableShard", "batch_placer", "is_multiprocess"]
+__all__ = ["Mesh", "make_mesh", "local_shard", "gather_full", "shard_leaf",
+           "gather_leaf", "table_mesh", "shard_along", "TableShard",
+           "batch_placer", "is_multiprocess"]
 
 Device = Union[str, torch.device]
+# Where a leaf of a parameter tree lives on a mesh: ``(dim, axis)``, its
+# dimension ``dim`` split in contiguous blocks over ``axis``, or None,
+# replicated (the port's spelling of a ``PartitionSpec``).
+Spec = Optional[Tuple[int, str]]
 
 
 class Mesh:
@@ -166,16 +171,42 @@ def local_shard(full: torch.Tensor, dim: int, axis: str,
 def gather_full(local: torch.Tensor, dim: int, axis: str,
                 mesh: Optional[Mesh]) -> torch.Tensor:
     """Inverse of :func:`local_shard`: every rank's block along ``axis``
-    concatenated on ``dim`` (a collective over that axis's group)."""
+    concatenated on ``dim`` (a collective over that axis's group).  Gloo
+    gathers no CUDA tensors, so under gloo a card's block is staged
+    through the host."""
     import torch.distributed as dist
 
     n = 1 if mesh is None else mesh.size(axis)
     if n == 1:
         return local
-    local = local.contiguous()
-    parts = [torch.empty_like(local) for _ in range(n)]
-    dist.all_gather(parts, local, group=mesh.group(axis))
-    return torch.cat(parts, dim)
+    group = mesh.group(axis)
+    local = local.detach().contiguous()
+    staged = local.is_cuda and dist.get_backend(group) == "gloo"
+    send = local.cpu() if staged else local
+    parts = [torch.empty_like(send) for _ in range(n)]
+    dist.all_gather(parts, send, group=group)
+    return torch.cat(parts, dim).to(local.device)
+
+
+def shard_leaf(full: torch.Tensor, spec: Spec,
+               mesh: Optional[Mesh]) -> torch.Tensor:
+    """This rank's block of a leaf placed by ``spec`` (``full`` itself
+    when replicated): the tp blocks of the Megatron layout, or an MoE
+    layer's experts ``[E, ...]`` split over ``ep``."""
+    if spec is None:
+        return full
+    dim, axis = spec
+    return local_shard(full, dim, axis, mesh)
+
+
+def gather_leaf(local: torch.Tensor, spec: Spec,
+                mesh: Optional[Mesh]) -> torch.Tensor:
+    """Inverse of :func:`shard_leaf`: the whole leaf on every rank (a
+    collective over ``spec``'s axis)."""
+    if spec is None:
+        return local
+    dim, axis = spec
+    return gather_full(local, dim, axis, mesh)
 
 
 def table_mesh(device: Optional[Device] = None) -> torch.device:

@@ -257,12 +257,101 @@ def cpu_runtime():
     mv.config.reset()
 
 
+# ------------------------------------------------------- moe_mesh phase
+
+
+def test_moe_mesh_layout_and_spec():
+    """Two gloo ranks share one card, NCCL ranks take two or four cards;
+    each layout's meshes split the tokens (dp) and the experts (ep), and
+    each planted fault runs where it can show."""
+    assert chip_smoke.moe_layout(1) == ("gloo", 2)
+    assert chip_smoke.moe_layout(2) == ("nccl", 2)
+    assert chip_smoke.moe_layout(8) == ("nccl", 4)
+    for world in (2, 4):
+        meshes, faults = chip_smoke.moe_meshes(world)
+        assert all(int(np.prod(sizes)) == world for _, sizes, _ in meshes)
+        names = {key: n for key, _, n in meshes}
+        assert {f for f, _, _ in faults} == {"local_slots", "local_aux",
+                                             "router_over_ep"}
+        for fault, key, _ in faults:
+            assert ("ep" if fault == "router_over_ep" else "dp") in \
+                names[key]
+    spec = chip_smoke.moe_mesh_spec("gloo", 2)
+    assert spec["cfg"]["dim"] == 1024 and spec["cfg"]["n_layers"] == 2
+    assert spec["cfg"]["capacity_factor"] == chip_smoke.MOE_MESH_CF
+    assert (spec["batch"], spec["seq"]) == (chip_smoke.MOE_CHECK_BATCH,
+                                            chip_smoke.MOE_CHECK_SEQ)
+
+
+def test_judge_moe_mesh_edges():
+    rng = np.random.RandomState(0)
+    want = ({"losses": [3.0, 2.5]}, [rng.randn(20), rng.randn(5) + 4])
+    same = ({"losses": [3.0, 2.5]}, [a.copy() for a in want[1]])
+    errs, ok = chip_smoke.judge_moe_mesh(same, want)
+    assert ok and errs == {"losses": 0.0, "tree": 0.0}
+    # One entry off by just under / just over the floor of rtol times
+    # twice the tensor's largest entry.
+    top = np.abs(want[1][0]).max()
+    for factor, verdict in ((0.99, True), (1.01, False)):
+        arrays = [a.copy() for a in want[1]]
+        i = int(np.argmax(np.abs(arrays[0])))
+        arrays[0][i] += factor * 1e-5 * 2 * top
+        assert chip_smoke.judge_moe_mesh(({"losses": [3.0, 2.5]}, arrays),
+                                         want)[1] is verdict
+    assert not chip_smoke.judge_moe_mesh(({"losses": [3.0, 2.6]}, same[1]),
+                                         want)[1]
+    assert not chip_smoke.judge_moe_mesh(({"losses": [3.0]}, same[1]),
+                                         want)[1]
+    assert not chip_smoke.judge_moe_mesh(
+        ({"losses": [3.0, 2.5]}, [same[1][0][:10], same[1][1]]), want)[1]
+    nan = [a.copy() for a in want[1]]
+    nan[1][0] = np.nan
+    assert not chip_smoke.judge_moe_mesh(({"losses": [3.0, 2.5]}, nan),
+                                         want)[1]
+
+
+def test_moe_mesh_ranks_on_the_cpu(tmp_path):
+    """The phase's ranks at a small width on two gloo ranks on the CPU
+    (the phase itself runs bench_moe's width on the card): every mesh run
+    holds the one-process run, the capacity runs drop routes, and all
+    three planted faults are rejected."""
+    spec = chip_smoke.moe_mesh_spec("gloo", 2, device="cpu", vocab_size=64,
+                                    dim=32, n_heads=4, hidden=64,
+                                    max_seq=32)
+    spec["batch"] = 4
+    ranks, _ = chip_smoke.launch_moe_ranks(spec, str(tmp_path), timeout=240)
+    verdicts, ok = chip_smoke.judge_moe_ranks(ranks[0])
+    assert ok, verdicts
+    assert len(verdicts) == 9
+    assert [r["fault"] for r in ranks[0]["faults"]] == [
+        "router_over_ep", "local_slots", "local_aux"]
+    assert ranks[1]["runs"] and "errors" not in ranks[1]["runs"][0]
+
+
+def test_planted_moe_fault_restores():
+    from multiverso_tpu_torch.models import moe
+    from multiverso_tpu_torch.models.transformer import TransformerTrainer
+
+    keep = (moe._global_plan, moe._global_stats,
+            TransformerTrainer._sum_grads)
+    for fault in ("local_slots", "local_aux", "router_over_ep"):
+        with chip_smoke.planted_moe_fault(fault):
+            now = (moe._global_plan, moe._global_stats,
+                   TransformerTrainer._sum_grads)
+            assert sum(a is not b for a, b in zip(now, keep)) == 1
+        assert (moe._global_plan, moe._global_stats,
+                TransformerTrainer._sum_grads) == keep
+    with chip_smoke.planted_moe_fault(None):
+        pass
+
+
 # ---------------------------------------------------------- shard phase
 
 
 def test_shard_phase_runs_after_mesh_at_its_sizes():
     i = chip_smoke.PHASES.index("shard")
-    assert chip_smoke.PHASES[i - 1:i + 2] == ("mesh", "shard", "tables")
+    assert chip_smoke.PHASES[i - 2:i + 2] == ("mesh", "moe_mesh", "shard",
+                                              "tables")
     assert (chip_smoke.SHARD_BIG_ROWS, chip_smoke.SHARD_IDS) == (1 << 20,
                                                                  8192)
     assert chip_smoke.shard_layout(1) == ("gloo", 2)

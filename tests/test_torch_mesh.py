@@ -1,10 +1,12 @@
 """The port's mesh over several processes against the JAX package's mesh.
 
 Four gloo ranks on the CPU (``torch_ranks.py``) build, in one launch, the
-meshes (sp 4), (dp 2, sp 2), (sp 2, tp 2), (dp 2, tp 2) and (ep 2, dp 2)
-and run every case below on them (the trainer under remat on (sp 2, tp 2)
-and (dp 2, sp 2) too); the JAX package runs in this process
-on sub-meshes of its 8 CPU devices of the same shapes.  The inputs come
+meshes (sp 4), (dp 2, sp 2), (sp 2, tp 2), (dp 2, tp 2), (ep 2, dp 2),
+(ep 4) and (dp 2, pp 2) and run every case below on them (the trainer
+under remat on (sp 2, tp 2) and (dp 2, sp 2) too; an MoE trainer's
+checkpoints on (ep 2, dp 2) and (ep 4), and the refusals of MoE on a
+mesh); the JAX package runs in this process on sub-meshes of its 8 CPU
+devices of the same shapes.  The inputs come
 from numpy seeds on both sides.  One more launch, of a single rank, holds
 the mesh code with every axis of size 1 against the no-mesh trainer, bit
 for bit (what the card's ``mesh`` phase holds over NCCL).
@@ -37,7 +39,8 @@ WORLD = 4
 T_RING, T_MODEL = 64, 32
 MESHES = {"sp4": ([4], ["sp"]), "dpsp": ([2, 2], ["dp", "sp"]),
           "sptp": ([2, 2], ["sp", "tp"]), "dptp": ([2, 2], ["dp", "tp"]),
-          "epdp": ([2, 2], ["ep", "dp"])}
+          "epdp": ([2, 2], ["ep", "dp"]), "ep4": ([4], ["ep"]),
+          "dppp": ([2, 2], ["dp", "pp"])}
 RINGS = [("sp4", True, "contiguous"), ("sp4", True, "zigzag"),
          ("dpsp", True, "contiguous"), ("dpsp", True, "zigzag"),
          ("dpsp", False, "auto"), ("sptp", True, "auto")]
@@ -74,6 +77,14 @@ def _jmesh(key):
 
 def _jcfg(**kw):
     return jt.TransformerConfig(**R.CFG, compute_dtype=jnp.float32, **kw)
+
+
+def _moe_jcfg(**kw):
+    """The MoE checkpoint chain's config (``torch_ranks.MOE_CFG``,
+    capacity dispatch whose routes overflow)."""
+    return jt.TransformerConfig(**{**R.MOE_CFG, "moe_dispatch": "capacity",
+                                   "capacity_factor": 1.0, **kw},
+                                compute_dtype=jnp.float32)
 
 
 def _pcfg(**kw):
@@ -122,8 +133,15 @@ def _plan(snaps):
     for key, bucket in GRAD_SUMS:
         cases[key].append([f"grad_sum_{key}_{bucket}", "grad_sum",
                            dict(seed=11, bucket=bucket)])
-    cases["dpsp"].append(["raises_moe", "raises", dict(moe=True)])
-    cases["epdp"].append(["raises_ep", "raises", dict(moe=False)])
+    cases["epdp"].append(["moe_ckpt_epdp", "moe_checkpoint",
+                          dict(snap_in=snaps["moe_jax"],
+                               snap_out=snaps["moe_epdp"])])
+    cases["ep4"].append(["moe_ckpt_ep4", "moe_checkpoint",
+                         dict(snap_in=snaps["moe_epdp"],
+                              snap_out=snaps["moe_ep4"])])
+    cases["epdp"].append(["refuse_accum", "moe_refusal",
+                          dict(refusal="accum")])
+    cases["dppp"].append(["refuse_pp", "moe_refusal", dict(refusal="pp")])
     return [dict(key=k, sizes=MESHES[k][0], names=MESHES[k][1],
                  cases=cases[k]) for k in MESHES]
 
@@ -134,7 +152,8 @@ def run(tmp_path_factory):
     the four ranks; returns a reader of their results."""
     out = str(tmp_path_factory.mktemp("mesh_ranks"))
     snaps = {k: os.path.join(out, f"{k}.tree")
-             for k in ("port", "jax", "port_out", "jax_out")}
+             for k in ("port", "jax", "port_out", "jax_out", "moe_jax",
+                       "moe_epdp", "moe_ep4")}
     toks = R.tokens(4, T_MODEL, 6)
     writer = pt.TransformerTrainer(_pcfg(), device="cpu",
                                    updater_type="momentum", seed=7)
@@ -148,6 +167,11 @@ def run(tmp_path_factory):
         for _ in range(3):
             jw.train_step(toks)
         jw.save(snaps["jax"])
+        jm = jt.TransformerTrainer(_moe_jcfg(), _jmesh("epdp"),
+                                   updater_type="momentum", seed=8)
+        for _ in range(3):
+            jm.train_step(R.tokens(4, T_MODEL, 6, vocab=64))
+        jm.save(snaps["moe_jax"])
     finally:
         jmv.shutdown()
         jmv.config.reset()
@@ -156,7 +180,7 @@ def run(tmp_path_factory):
     def read(name):
         res = R.results(out, name, WORLD)
         for r in res:
-            assert "error" not in r or name.startswith("raises"), \
+            assert "error" not in r or name.startswith("refuse"), \
                 f"{name}: {r['error']}"
         return res
 
@@ -380,11 +404,66 @@ def test_checkpoint_from_jax_mesh(run):
     np.testing.assert_allclose(float(res[0]["loss"]), want_loss, rtol=1e-5)
 
 
-@pytest.mark.parametrize("case", ["raises_moe", "raises_ep"])
-def test_moe_and_ep_under_a_mesh_raise(run, case):
+def _assert_trees_equal(got, want):
+    for g, w in zip(got[0], want[0]):
+        np.testing.assert_array_equal(g, w)
+    for gs, ws in zip(got[1], want[1]):
+        for g, w in zip(gs, ws):
+            np.testing.assert_array_equal(g, w)
+
+
+def test_moe_checkpoint_crosses_meshes_and_packages(run):
+    """An MoE trainer's snapshot (experts split over ep): the JAX
+    trainer's from its (ep 2, dp 2) mesh restores exactly onto the
+    port's (ep 2, dp 2), where one step matches the JAX trainer's step
+    from it; the snapshot saved there restores exactly onto the port's
+    (ep 4); and the JAX trainer on (ep 4) reads that mesh's snapshot
+    exactly."""
+    read, snaps = run
+    jmv = _jax_runtime()
+    try:
+        jtr = jt.TransformerTrainer(_moe_jcfg(), _jmesh("epdp"),
+                                    updater_type="momentum", seed=4)
+        jtr.restore(snaps["moe_jax"])
+        from_jax = _jax_tree(jtr.params, jtr.state)
+        want_loss = jtr.train_step(R.tokens(4, T_MODEL, 6, vocab=64))
+        reader = jt.TransformerTrainer(_moe_jcfg(), _jmesh("ep4"),
+                                       updater_type="momentum", seed=3)
+        reader.restore(snaps["moe_ep4"])
+        read_back = _jax_tree(reader.params, reader.state)
+    finally:
+        jmv.shutdown()
+        jmv.config.reset()
+    epdp, ep4 = read("moe_ckpt_epdp"), read("moe_ckpt_ep4")
+    _assert_trees_equal(_port_tree(epdp, "restored_"), from_jax)
+    np.testing.assert_allclose(float(epdp[0]["loss"]), want_loss, rtol=1e-5)
+    _assert_trees_equal(_port_tree(ep4, "restored_"), _port_tree(epdp))
+    _assert_trees_equal(read_back, _port_tree(ep4))
+
+
+@pytest.mark.parametrize("refusal", ["pp", "accum"])
+def test_moe_refusals_match_jax(run, refusal):
+    """Where the JAX package refuses MoE on a mesh, the port refuses with
+    its message: pipelined layers ((dp 2, pp 2), scan format, 2
+    microbatches) and gradient accumulation ((ep 2, dp 2), accum 2).
+    MoE and the ep axis themselves train (``test_torch_moe_mesh.py``)."""
     read, _ = run
-    for r in read(case):
-        assert "Several processes" in str(r["error"]), r["error"]
+    kw = dict(moe_dispatch="dense", capacity_factor=1.25)
+    if refusal == "pp":
+        kw.update(scan_layers=True, pipeline_microbatches=2)
+    cfg = _moe_jcfg(**kw)
+    toks = R.tokens(4, 16, 0, vocab=64)
+    with pytest.raises(ValueError) as err:
+        if refusal == "pp":
+            params = jax.tree_util.tree_map(jnp.asarray,
+                                            jt.init_params(cfg, 0))
+            jt.transformer_forward(params, jnp.asarray(toks), cfg,
+                                   mesh=_jmesh("dppp"))
+        else:
+            jt.TransformerTrainer(cfg, _jmesh("epdp")).train_step_async(
+                toks, 2)
+    for r in read(f"refuse_{refusal}"):
+        assert str(r["error"]) == str(err.value)
 
 
 @pytest.mark.parametrize("env,rank,count,want", [

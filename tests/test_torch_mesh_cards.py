@@ -17,7 +17,10 @@ sp 2), (sp 2, tp 2) and (dp 2, tp 2), the trainer under remat ("full"
 and "dots") on (sp 2, tp 2) and (dp 2, sp 2), GPipe on (pp 4) and the
 pipelined transformer on (dp 2, pp 2) and (pp 2, tp 2), the
 transformer at ``torch_ranks.KERNEL_CFG`` and ``PP_CFG`` (heads 32
-wide, so the ranks' attention launches the kernels).  Each is held
+wide, so the ranks' attention launches the kernels), and the MoE config
+(``torch_ranks.MOE_KERNEL_CFG``, both dispatches, capacity factor 1.0,
+where routes overflow) on (ep 4), (dp 2, ep 2), (sp 2, ep 2) and (tp 2,
+ep 2): its forward logits and aux loss and 3 momentum steps.  Each is held
 against the
 same computation without a mesh on one card in this process (GPipe
 against its stages run in turn on the CPU), float32: attention atol
@@ -39,7 +42,9 @@ T_RING, T_MODEL, T_PP = 64, 32, 16
 MESHES = {"sp4": ([4], ["sp"]), "dpsp": ([2, 2], ["dp", "sp"]),
           "sptp": ([2, 2], ["sp", "tp"]), "dptp": ([2, 2], ["dp", "tp"]),
           "pp4": ([4], ["pp"]), "dppp": ([2, 2], ["dp", "pp"]),
-          "pptp": ([2, 2], ["pp", "tp"])}
+          "pptp": ([2, 2], ["pp", "tp"]), "ep4": ([4], ["ep"]),
+          "dpep": ([2, 2], ["dp", "ep"]), "spep": ([2, 2], ["sp", "ep"]),
+          "tpep": ([2, 2], ["tp", "ep"])}
 LAYOUTS = ["contiguous", "zigzag"]
 # (mesh, config, updater, accum, T)
 TRAINERS = [("dpsp", "KERNEL_CFG", "sgd", 1, T_MODEL),
@@ -53,6 +58,10 @@ FORWARDS = [("dpsp", "KERNEL_CFG", T_MODEL),
             ("dptp", "KERNEL_CFG", T_MODEL), ("dppp", "PP_CFG", T_PP),
             ("pptp", "PP_CFG", T_PP)]
 GPIPES = [("pp4", 4, False), ("pp4", 3, True)]
+# (mesh, dispatch): the MoE config at capacity factor MOE_CF.
+MOES = [(key, dispatch) for key in ("ep4", "dpep", "spep", "tpep")
+        for dispatch in ("dense", "capacity")]
+MOE_CF = 1.0
 # (mesh, remat_policy), scan-format layers: the recompute re-runs the
 # ring's rotations and tp's all-reduces.
 REMATS = [(key, policy) for key in ("sptp", "dpsp")
@@ -87,6 +96,10 @@ def _plan():
     for key, micro, remat in GPIPES:
         cases[key].append([f"gpipe_{micro}_{remat}", "gpipe",
                            dict(micro=micro, remat=remat)])
+    for key, dispatch in MOES:
+        cases[key].append([f"moe_{key}_{dispatch}", "moe",
+                           dict(dispatch=dispatch, cf=MOE_CF, T=T_MODEL,
+                                cfg="MOE_KERNEL_CFG")])
     return [dict(key=k, sizes=MESHES[k][0], names=MESHES[k][1],
                  cases=cases[k]) for k in MESHES]
 
@@ -211,3 +224,36 @@ def test_gpipe_over_nccl_matches_sequential(read, key, micro, remat):
     for r in read(f"gpipe_{micro}_{remat}"):
         np.testing.assert_allclose(r["out"], h.detach().numpy(), atol=1e-5)
         np.testing.assert_allclose(r["grad"], g.numpy(), atol=1e-5)
+
+
+@pytest.mark.parametrize("key,dispatch", MOES)
+def test_moe_over_nccl_matches_one_card(read, key, dispatch):
+    """The MoE config's forward (logits, aux) and three momentum steps
+    (losses, every gathered parameter and slot) on the mesh against the
+    same without a mesh on one card; the capacity runs drop routes."""
+    from multiverso_tpu_torch.models import TransformerTrainer, init_params
+    from multiverso_tpu_torch.models.transformer import (_leaves,
+                                                         params_from_jax,
+                                                         transformer_forward)
+
+    res = read(f"moe_{key}_{dispatch}")
+    c = _cfg("MOE_KERNEL_CFG", moe_dispatch=dispatch, capacity_factor=MOE_CF)
+    toks = R.tokens(4, T_MODEL, 1, vocab=c.vocab_size)
+    params = params_from_jax(init_params(c, seed=0), c, "cuda:0")
+    logits, aux = transformer_forward(params, torch.tensor(
+        toks, device="cuda:0"), c, return_aux=True)
+    for r in res[1:]:
+        np.testing.assert_array_equal(r["logits"], res[0]["logits"])
+    _assert_scaled(res[0]["logits"], logits.detach().cpu().numpy())
+    np.testing.assert_allclose(float(res[0]["aux"]), float(aux), rtol=1e-5)
+    if dispatch == "capacity":
+        assert int(res[0]["dropped"]) > 0
+    tr = TransformerTrainer(c, device="cuda:0", updater_type="momentum",
+                            seed=5)
+    losses = [float(tr.train_step_async(toks)) for _ in range(3)]
+    np.testing.assert_allclose(res[0]["losses"], losses, rtol=1e-5)
+    for i, p in enumerate(_leaves(tr.params)):
+        _assert_scaled(res[0][f"p{i}"], p.cpu().numpy())
+    for i, slots in enumerate(tr.state):
+        for j, s in enumerate(slots):
+            _assert_scaled(res[0][f"s{i}_{j}"], s.cpu().numpy())

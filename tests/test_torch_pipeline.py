@@ -10,7 +10,11 @@ this process, values and gradients (with and without ``remat_stages``),
 atol 1e-5 as in the JAX tests; the transformer's pipelined forward and
 three trainer steps against the JAX package's on the same mesh, rtol
 1e-5 with a floor at 1e-5 of each tensor's largest entry; the bad
-configs raise the JAX package's errors, word for word.
+configs raise the JAX package's errors, word for word.  At the JAX
+pipeline test's own width (``torch_ranks.PP_JAX_CFG``) the JAX package's
+mesh trainer is itself farther than that from its trainer without a
+mesh, so there the port is held to at most 1.5x the JAX package's own
+spread.
 """
 
 import jax
@@ -53,6 +57,8 @@ def _plan():
     for key, updater in TRAINERS:
         cases[key].append([f"trainer_{key}", "trainer",
                            dict(updater=updater, T=T, cfg="PP_CFG")])
+        cases[key].append([f"trainer_{key}_jax_width", "trainer",
+                           dict(updater=updater, T=T, cfg="PP_JAX_CFG")])
     for name, (key, kw, batch) in BAD.items():
         cases[key].append([f"bad_{name}", "forward_error",
                            dict(cfg_kw={**R.PP_CFG, **kw}, batch=batch,
@@ -109,9 +115,34 @@ def test_gpipe_matches_sequential(read, key, micro, remat):
         np.testing.assert_allclose(r["grad"], g.numpy(), atol=1e-5)
 
 
-def _jcfg(**kw):
-    return jt.TransformerConfig(**{**R.PP_CFG, **kw},
+def _jcfg(base=None, **kw):
+    return jt.TransformerConfig(**{**(base or R.PP_CFG), **kw},
                                 compute_dtype=jnp.float32)
+
+
+def _jax_trained(cfg, mesh, updater):
+    """(losses, params, state) of three JAX trainer steps, the trees
+    unstacked into the port's loop format."""
+    jtr = jt.TransformerTrainer(cfg, mesh, updater_type=updater, seed=5)
+    toks = R.tokens(4, T, 1)
+    losses = [float(jtr.train_step_async(toks)) for _ in range(3)]
+
+    def unstack(tree):
+        return {**tree, "layers": pt.unstack_layer_params(
+            jax.tree_util.tree_map(np.asarray, tree["layers"]),
+            cfg.n_layers)}
+
+    return losses, unstack(jtr.params), unstack(jtr.state)
+
+
+def _spread(got, want):
+    """The least rtol at which ``got`` passes ``_assert_scaled`` against
+    ``want`` (its floor at rtol times the largest entry): max |got -
+    want| / (max |want| + |want|)."""
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    return float(np.max(np.abs(got - want)
+                        / (np.max(np.abs(want)) + np.abs(want))))
 
 
 @pytest.mark.parametrize("key", ["dppp", "pptp"])
@@ -134,15 +165,8 @@ def test_pipeline_trainer_matches_jax(read, key, updater):
     weights on pp x tp) against the JAX trainer on the same mesh: losses,
     every gathered parameter and updater slot."""
     res = read(f"trainer_{key}")
-    jtr = jt.TransformerTrainer(_jcfg(), _jmesh(key), updater_type=updater,
-                                seed=5)
-    toks = R.tokens(4, T, 1)
-    losses = [float(jtr.train_step_async(toks)) for _ in range(3)]
+    losses, params, state = _jax_trained(_jcfg(), _jmesh(key), updater)
     np.testing.assert_allclose(res[0]["losses"], losses, rtol=1e-5)
-    params = {**jtr.params, "layers": pt.unstack_layer_params(
-        jax.tree_util.tree_map(np.asarray, jtr.params["layers"]), 4)}
-    state = {**jtr.state, "layers": pt.unstack_layer_params(
-        jax.tree_util.tree_map(np.asarray, jtr.state["layers"]), 4)}
     for i, want in enumerate(pt._leaves(params)):
         for r in res[1:]:
             np.testing.assert_array_equal(r[f"p{i}"], res[0][f"p{i}"])
@@ -150,6 +174,38 @@ def test_pipeline_trainer_matches_jax(read, key, updater):
     for i, slots in enumerate(pt._leaves(state)):
         for j, want in enumerate(slots):
             _assert_scaled(res[0][f"s{i}_{j}"], want)
+
+
+@pytest.mark.parametrize("key,updater", TRAINERS)
+def test_pipeline_trainer_at_jax_width_within_jax_spread(read, key,
+                                                         updater):
+    """At the JAX pipeline test's width (dim 32, 4 heads of 8) the JAX
+    package's trainer on the mesh and its trainer without one (a mesh of
+    one device, no pipeline) part by summation order alone: on (pp 2, tp
+    2) with momentum the least rtol that holds one against the other is
+    1.18e-5, past the rtol 1e-5 of the test above.  The port on the mesh
+    is held against the JAX mesh trainer to at most 1.5x that spread,
+    every parameter and updater slot, and its losses at rtol 1e-5."""
+    res = read(f"trainer_{key}_jax_width")
+    cfg = _jcfg(R.PP_JAX_CFG)
+    losses, params, state = _jax_trained(cfg, _jmesh(key), updater)
+    one = jax.sharding.Mesh(np.asarray(jax.devices()[:1]), ("dp",))
+    _, params1, state1 = _jax_trained(cfg, one, updater)
+    np.testing.assert_allclose(res[0]["losses"], losses, rtol=1e-5)
+    want = pt._leaves(params) + [a for sl in pt._leaves(state) for a in sl]
+    alone = (pt._leaves(params1)
+             + [a for sl in pt._leaves(state1) for a in sl])
+    n = len(pt._leaves(params))
+    got = ([res[0][f"p{i}"] for i in range(n)]
+           + [res[0][f"s{i}_{j}"] for i in range(n)
+              for j in range(len(pt._leaves(state)[i]))])
+    for i in range(n):
+        for r in res[1:]:
+            np.testing.assert_array_equal(r[f"p{i}"], res[0][f"p{i}"])
+    jax_spread = max(_spread(a, b) for a, b in zip(want, alone))
+    port_spread = max(_spread(a, b) for a, b in zip(got, want))
+    assert jax_spread > 0.0
+    assert port_spread <= 1.5 * jax_spread, (port_spread, jax_spread)
 
 
 @pytest.mark.parametrize("name", list(BAD))

@@ -288,16 +288,19 @@ def test_unported_options_raise():
     _, pcfg = _cfgs("float32")
     # Pipelining is ported (tests/test_torch_pipeline.py): without a pp
     # axis the config trains as the local stack, as the JAX trainer does.
-    # MoE under a mesh still raises (tests/test_torch_mesh.py).
     _, cfg = _cfgs("float32", pipeline_microbatches=2)
     tokens = _tokens(8)
     piped = pt.TransformerTrainer(cfg, device="cpu", seed=8)
     local = pt.TransformerTrainer(pcfg, device="cpu", seed=8)
     assert piped.train_step(tokens) == local.train_step(tokens)
-    tr = pt.TransformerTrainer(pcfg, device="cpu")
+    # State offload is ported with its local store
+    # (tests/test_torch_offload.py); the native store still raises.
+    from multiverso_tpu_torch.parallel.offload import OffloadedState
+
+    tr = pt.TransformerTrainer(pcfg, device="cpu", updater_type="momentum")
     with pytest.raises(NotImplementedError,
                        match='ROADMAP.*"Modules that need the native'):
-        tr.offload_state(None)
+        tr.offload_state(OffloadedState(None, tr.offload_size()))
 
 
 def test_scan_layers_accepted_as_a_loop():
