@@ -310,6 +310,35 @@ Phases, each printing JSON lines:
              times and the ratio of their medians, armed over disarmed.
              No kernel of ``ops/csrc`` runs on phases 7 to 14; each
              reports the launch counts of its own run (0).
+15. native — the native runtime (``multiverso_tpu_torch/native``): its
+             library built from the checkout's C++ sources (in a thread
+             started beside the kernels' builds; the seconds, whether
+             ``make`` and ``g++`` exist), loaded from inside the
+             checkout.  An in-process runtime under the ``assign``
+             updater: ``OffloadedState`` at the dim-512 trainer's state
+             size (21,238,272 float32) round-trips bit for bit; then
+             bench_transformer's config (dim 512, bf16, batch 8, seq
+             2048) with momentum, 3 steps each in memory, offloaded to
+             the local store and to the native store: losses, parameters
+             and state bit for bit across all three, step times and the
+             bridge's push/wait p50s; the native arm must launch every
+             flash kernel.  Planted faults that must fail: a bridge
+             that drops the first step's push (the arms' comparison),
+             and runtimes under the ``default`` and ``sgd`` updaters
+             (the bridge's ``init`` probe).  Then bench.py's
+             denominators through the port's workers over loopback
+             TcpNet (``spawn_native_workers``): ``lr_native_worker`` at
+             8 ranks, 60 steps, batch 1,024
+             (``lr_native8_samples_per_sec``), ``w2v_native_worker`` at
+             8 ranks, 20 steps, batch 512, prefetch on and off
+             (``w2v_native8_pairs_per_sec``,
+             ``w2v_native8_prefetch_speedup``), each rank's marker
+             required; ``lr_fused_vs_native8`` and
+             ``w2v_fused_vs_native8`` from this run's fused rates (only
+             when the lr and w2v phases ran); the host's CPU count; and
+             ``serve_bench_worker`` on 2 ranks
+             (``serve_cached_vs_cold_p50``, beside the JAX package's
+             acceptance of 10x, not gated).
 
 Then the kernels line (the trainer's numbers, the launches of every
 path, and the kernels' numbers at every other path's shapes, the ring's
@@ -347,7 +376,7 @@ LAYERS, STEPS, BATCH, SEQ = 16, 5, 4, 2048
 HEADS, HEAD_DIM = 16, 128
 PHASES = ("parity", "trainer", "profile", "check", "timing", "small", "moe",
           "longctx", "mesh", "moe_mesh", "shard", "tables", "lr", "rows",
-          "w2v", "lda", "sgmix", "resnet", "planes")
+          "w2v", "lda", "sgmix", "resnet", "planes", "native")
 # Remat reschedules the backward and recomputes the same numbers: on the
 # card "dots" matched the no-remat losses to the last bit and full remat
 # (batch 8, the batch of 4 twice) within 5.3e-5, so the losses are held
@@ -1927,43 +1956,87 @@ def moe_one_rank_check(torch, mv, card):
     return counts
 
 
+def small_offload_setup(torch, cfg_kw=SMALL, seq=SMALL_SEQ,
+                        batch=SMALL_BATCH, dtype="bfloat16"):
+    """bench_transformer's config (dim 512) and one draw of its masters
+    and tokens: what every offload arm starts from."""
+    from multiverso_tpu_torch.models import TransformerConfig, init_params
+
+    cfg = TransformerConfig(**cfg_kw, max_seq=seq,
+                            compute_dtype=getattr(torch, dtype))
+    host = init_params(cfg, seed=0)
+    tokens = torch.randint(0, cfg.vocab_size, (batch, seq),
+                           generator=torch.Generator().manual_seed(1))
+    return cfg, host, tokens
+
+
+def offload_arm(torch, cfg, host, tokens, store=None, rt=None,
+                device=None, steps=MOE_MESH_STEPS, bridge_hook=None):
+    """``steps`` momentum steps of a trainer from ``host``, its state in
+    memory (``store`` None) or offloaded to ``OffloadedState`` with that
+    backend (``"native"`` over the runtime ``rt``); ``bridge_hook``
+    may wrap the bridge first (a planted fault).  Returns the losses,
+    the host-clock step times, the parameters, the state (fetched from
+    the bridge when offloaded), the state's size and the bridge's
+    ``push_s``/``wait_s`` p50s."""
+    from multiverso_tpu_torch import metrics
+    from multiverso_tpu_torch.models import TransformerTrainer
+    from multiverso_tpu_torch.parallel import OffloadedState
+
+    tr = TransformerTrainer(cfg, updater_type="momentum", params=host,
+                            device=device)
+    bridge = None
+    if store is not None:
+        for name in ("bridge.push_s", "bridge.wait_s"):
+            metrics.REGISTRY.remove(name)
+        bridge = OffloadedState(rt, tr.offload_size(), backend=store)
+        if bridge_hook is not None:
+            bridge = bridge_hook(bridge)
+        tr.offload_state(bridge)
+    losses, step_s = [], []
+    for _ in range(steps):
+        s0 = time.perf_counter()
+        losses.append(float(tr.train_step_async(tokens)))
+        step_s.append(time.perf_counter() - s0)
+    state = tr._flat_to_state(bridge.wait()) if bridge else tr.state
+    p50 = ({k: metrics.histogram(f"bridge.{k}").quantile(0.5)
+            for k in ("push_s", "wait_s")} if bridge else {})
+    out = (losses, step_s, snapshot(tr.params),
+           [host_array(a) for sl in state for a in sl], tr.offload_size(),
+           p50)
+    if bridge is not None:
+        bridge.close()
+    del tr, state, bridge
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+    return out
+
+
+def judge_offload_arms(ref, arms):
+    """Each arm's losses, parameters and state against ``ref``'s, bit for
+    bit (``offload_arm`` results).  Returns ({arm: equal}, all equal)."""
+    def same(a, b):
+        return (a[0] == b[0] and len(a[2]) == len(b[2])
+                and len(a[3]) == len(b[3])
+                and all(np.array_equal(x, y) for x, y in zip(a[2], b[2]))
+                and all(np.array_equal(x, y) for x, y in zip(a[3], b[3])))
+
+    verdict = {name: same(arm, ref) for name, arm in arms.items()}
+    return verdict, all(verdict.values())
+
+
 def offload_check(torch, card):
     """Check (4): bench_transformer's config (dim 512) with momentum, 3
     steps with the state offloaded to the local store against 3 in
     memory from the same draw: losses, parameters and state bit for bit,
     and both step times."""
-    from multiverso_tpu_torch.models import (TransformerConfig,
-                                             TransformerTrainer, init_params)
-    from multiverso_tpu_torch.parallel import OffloadedState
-
-    cfg = TransformerConfig(**SMALL, max_seq=SMALL_SEQ,
-                            compute_dtype=torch.bfloat16)
-    host = init_params(cfg, seed=0)
-    tokens = torch.randint(0, cfg.vocab_size, (SMALL_BATCH, SMALL_SEQ),
-                           generator=torch.Generator().manual_seed(1))
-    out = {}
-    for offloaded in (False, True):
-        tr = TransformerTrainer(cfg, updater_type="momentum", params=host)
-        if offloaded:
-            tr.offload_state(OffloadedState(None, tr.offload_size(),
-                                            backend="local"))
-        losses, step_s = [], []
-        for _ in range(MOE_MESH_STEPS):
-            s0 = time.perf_counter()
-            losses.append(float(tr.train_step_async(tokens)))
-            step_s.append(time.perf_counter() - s0)
-        state = (tr._flat_to_state(tr._offload.wait()) if offloaded
-                 else tr.state)
-        out[offloaded] = (losses, step_s, snapshot(tr.params),
-                          [host_array(a) for sl in state for a in sl],
-                          tr.offload_size())
-        del tr, state
-        torch.cuda.empty_cache()
-    (ml, ms, mp, mst, n), (ol, os_, op, ost, _) = out[False], out[True]
-    same = (ml == ol and all(np.array_equal(a, b) for a, b in zip(mp, op))
-            and all(np.array_equal(a, b) for a, b in zip(mst, ost)))
-    res = {"bitwise_equal": same, "losses": [ml, ol],
-           "step_s": {"in_memory": ms, "offloaded": os_},
+    cfg, host, tokens = small_offload_setup(torch)
+    mem = offload_arm(torch, cfg, host, tokens)
+    off = offload_arm(torch, cfg, host, tokens, "local")
+    _, same = judge_offload_arms(mem, {"local": off})
+    n = mem[4]
+    res = {"bitwise_equal": same, "losses": [mem[0], off[0]],
+           "step_s": {"in_memory": mem[1], "offloaded": off[1]},
            "state_elements": n, "state_bytes": 4 * n}
     emit({"phase": "moe_mesh", "check": "offload", "ok": same,
           "config": SMALL, "batch": SMALL_BATCH, "seq": SMALL_SEQ, **res,
@@ -2691,7 +2764,8 @@ def phase_tables(torch, mv, card):
 
 def phase_lr(torch, mv, card):
     """LR at bench.py's shape: the card's fused trajectory against the
-    CPU's, one push-pull step against one fused step, and both rates."""
+    CPU's, one push-pull step against one fused step, and both rates.
+    Returns ``lr_fused_samples_per_sec``."""
     from multiverso_tpu_torch.apps import (LogisticRegression,
                                            synthetic_classification)
 
@@ -2767,6 +2841,7 @@ def phase_lr(torch, mv, card):
           "launch_counts": counts, "card": card})
     if not ok:
         raise AssertionError(f"lr phase failed: {verdict}")
+    return LR_BATCH / (fused_ms * 1e-3)
 
 
 def _trajectory(card, cpu):
@@ -3230,7 +3305,7 @@ def phase_w2v(torch, mv, card):
     """word2vec at bench_w2v's shape: card against CPU, push-pull against
     fused, prefetched against placed (each judged by the table changes),
     no host sync in the fused step, both rates and a profile; then DLRM
-    card against CPU."""
+    card against CPU.  Returns ``w2v_fused_pairs_per_sec``."""
     from multiverso_tpu_torch.apps import DLRMRecommender, SkipGram
 
     V, D, B, K = W2V_VOCAB, W2V_DIM, W2V_BATCH, W2V_NEG
@@ -3372,6 +3447,7 @@ def phase_w2v(torch, mv, card):
         raise AssertionError(
             f"w2v phase failed: {verdict}, prefetch epoch {pe_steps} steps "
             f"loss {pe_loss}")
+    return B / (fused_ms * 1e-3)
 
 
 # ------------------------------------------------------------ LightLDA
@@ -4198,6 +4274,290 @@ def phase_planes(torch, mv, card):
           "launch_counts": counts, "card": card})
 
 
+# ------------------------------------------------------ the native phase
+
+# bench.py's sizes for the north-star denominators (bench_lr_native8,
+# bench_w2v_native8: :498-556) and its serve section (bench_serve:
+# 2 ranks).  The JAX package's acceptance for serve_cached_vs_cold_p50
+# is >= 10x: printed beside the reading, not gated.
+NATIVE_LR = dict(procs=8, steps=60, batch=1024)
+NATIVE_W2V = dict(procs=8, steps=20, batch=512)
+NATIVE_SERVE_PROCS = 2
+SERVE_ACCEPT = 10.0
+NATIVE_TIMEOUT_S = 300
+NATIVE_ATTEMPTS = 3
+NATIVE_BIND_RACE = ("Address already in use", "Failed to bind",
+                    "bind failed", "EADDRINUSE")
+
+
+def spawn_native_workers(script, procs, marker, extra_args=(),
+                         timeout=NATIVE_TIMEOUT_S):
+    """``procs`` ranks of the port's worker ``apps/<script>`` over a fresh
+    loopback machine file (bench.py's ``_spawn_native_workers``): every
+    rank's output, or an error naming the rank that failed or lacked
+    ``marker``.  A launch whose failed ranks all lost a port to another
+    process is retried on fresh ports; every rank is killed at the
+    deadline.  Each rank's BLAS gets its share of the host's cores
+    (``blas_threads``), as one process a core under ``mpirun`` would:
+    with every rank running a BLAS thread per core, 8 LR ranks on the
+    H100 host's 8 cores ran 16-19x slower (33,442 samples/s against
+    551,841-647,695)."""
+    import socket
+    import tempfile
+
+    worker = os.path.join(HERE, "multiverso_tpu_torch", "apps", script)
+    threads = str(blas_threads(procs))
+    env = dict(os.environ, PYTHONPATH=HERE, OMP_NUM_THREADS=threads,
+               OPENBLAS_NUM_THREADS=threads, MKL_NUM_THREADS=threads)
+    for attempt in range(NATIVE_ATTEMPTS):
+        socks = [socket.socket() for _ in range(procs)]
+        for s in socks:
+            s.bind(("127.0.0.1", 0))
+        eps = [f"127.0.0.1:{s.getsockname()[1]}" for s in socks]
+        for s in socks:
+            s.close()
+        with tempfile.TemporaryDirectory(prefix="mvt_native_") as tmp:
+            mf = os.path.join(tmp, "machines")
+            with open(mf, "w") as f:
+                f.write("\n".join(eps) + "\n")
+            children = [subprocess.Popen(
+                [sys.executable, worker, mf, str(r), *map(str, extra_args)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                env=env) for r in range(procs)]
+            t0 = time.monotonic()
+            outs = []
+            try:
+                for p in children:
+                    left = max(1.0, timeout - (time.monotonic() - t0))
+                    outs.append(p.communicate(timeout=left)[0])
+            finally:
+                for p in children:
+                    if p.poll() is None:
+                        p.kill()
+                        p.wait()
+        failed = [r for r, p in enumerate(children) if p.returncode != 0]
+        if failed and attempt < NATIVE_ATTEMPTS - 1 and all(
+                any(m in outs[r] for m in NATIVE_BIND_RACE) for r in failed):
+            continue
+        for r, (p, out) in enumerate(zip(children, outs)):
+            if p.returncode != 0 or marker not in out:
+                raise RuntimeError(f"{script} rank {r} failed "
+                                   f"(rc={p.returncode}):\n{out[-2000:]}")
+        return outs
+
+
+def blas_threads(procs: int) -> int:
+    """BLAS threads per rank: the host's cores shared among the ranks."""
+    return max(1, (os.cpu_count() or 1) // procs)
+
+
+def native_wall(outs) -> float:
+    """The job's wall clock: the largest per-rank barrier-to-barrier
+    ``dt=`` (bench.py's ``_run_native_workers``)."""
+    return max(float(re.search(r"dt=([0-9.]+)", out).group(1))
+               for out in outs)
+
+
+def native_ratios(lr_fused, w2v_fused, lr_native, w2v_native) -> dict:
+    """bench.py's north-star ratios, fused rate over the 8-process native
+    job's rate, each only when this run measured its fused rate."""
+    out = {}
+    if lr_fused is not None:
+        out["lr_fused_vs_native8"] = lr_fused / lr_native
+    if w2v_fused is not None:
+        out["w2v_fused_vs_native8"] = w2v_fused / w2v_native
+    return out
+
+
+def serve_numbers(rank0_out) -> dict:
+    """bench_serve's keys from rank 0's ``SERVE_BENCH_OK`` line, and
+    ``serve_cached_vs_cold_p50``."""
+    res = {f"serve_{m.group(1)}": float(m.group(2))
+           for m in re.finditer(r"(\w+)=([0-9.]+)", rank0_out)
+           if m.group(1) != "rank"}
+    res["serve_cached_vs_cold_p50"] = (res["serve_cold_p50_ms"]
+                                       / res["serve_cached_p50_ms"])
+    return res
+
+
+def dropping_push(drop_at):
+    """A bridge hook (planted fault): the bridge loses its ``drop_at``-th
+    push (``init`` makes the first two; 3 is the first step's)."""
+    def hook(bridge):
+        push, calls = bridge.push, [0]
+
+        def dropped(vec, blocking=False):
+            calls[0] += 1
+            if calls[0] != drop_at:
+                push(vec, blocking=blocking)
+
+        bridge.push = dropped
+        return bridge
+
+    return hook
+
+
+def native_probe_rejects(nat, OffloadedState, updater) -> bool:
+    """A runtime under ``updater`` (not ``assign``): the bridge's ``init``
+    probe must raise.  The runtime is the process's only one while it
+    runs."""
+    rt = nat.NativeRuntime(args=[f"-updater_type={updater}",
+                                 "-log_level=error"])
+    try:
+        off = OffloadedState(rt, 64)
+        try:
+            off.init(np.arange(1, 65, dtype=np.float32))
+        except RuntimeError:
+            return True
+        finally:
+            off.close()
+        return False
+    finally:
+        rt.shutdown()
+
+
+def start_native_build():
+    """Start building the native library in a thread, beside the
+    kernels' nvcc builds.  Returns the thread and a dict that receives
+    whether the library was there already, the build's seconds and any
+    error, which the native phase re-raises."""
+    import threading
+
+    from multiverso_tpu_torch import native as nat
+
+    out = {"prebuilt": os.path.exists(nat.lib_path())}
+
+    def run():
+        t0 = time.perf_counter()
+        try:
+            nat.ensure_built()
+        except (OSError, subprocess.SubprocessError) as exc:
+            out["error"] = exc
+        out["build_s"] = time.perf_counter() - t0
+
+    thread = threading.Thread(target=run, name="native-build", daemon=True)
+    thread.start()
+    return thread, out
+
+
+def phase_native(torch, fa, card, build, lr_fused=None, w2v_fused=None):
+    """The native phase (see the module docstring); ``build`` is
+    ``start_native_build``'s.  Returns the flash kernels' launch counts
+    of the native-store trainer run."""
+    import shutil
+
+    from multiverso_tpu_torch import native as nat
+    from multiverso_tpu_torch.parallel import OffloadedState
+
+    tools = {name: shutil.which(name) for name in ("make", "g++")}
+    thread, built = build
+    thread.join()
+    if "error" in built:
+        raise built["error"]
+    lib = nat.lib_path()
+    nat.load()
+    with open("/proc/self/maps") as f:
+        mapped = lib in f.read()
+    inside = os.path.realpath(lib).startswith(os.path.realpath(HERE) + os.sep)
+    emit({"phase": "native", "check": "build", "ok": mapped and inside,
+          "library": os.path.relpath(lib, HERE), **built, "tools": tools,
+          "host_cpus": os.cpu_count()})
+    if not (mapped and inside):
+        raise AssertionError(f"the native library {lib} is not the "
+                             f"checkout's own (mapped {mapped})")
+
+    cfg, host, tokens = small_offload_setup(torch)
+    arms = {"in_memory": offload_arm(torch, cfg, host, tokens)}
+    n = arms["in_memory"][4]
+    rt = nat.NativeRuntime(args=["-updater_type=assign", "-log_level=error"])
+    try:
+        # The bridge alone at the trainer's state size, bit for bit.
+        off = OffloadedState(rt, n)
+        rng = np.random.default_rng(3)
+        v = rng.standard_normal(n, dtype=np.float32)
+        v[:3] = (np.float32(1e-38), np.float32(-0.0), np.float32(np.inf))
+        s0 = time.perf_counter()
+        off.init(v)
+        init_s = time.perf_counter() - s0
+        w = (v * np.float32(0.5)).astype(np.float32)
+        s0 = time.perf_counter()
+        off.push(w)
+        off.prefetch()
+        round_trip = off.wait().tobytes() == w.tobytes()
+        round_s = time.perf_counter() - s0
+        off.close()
+        arms["local"] = offload_arm(torch, cfg, host, tokens, "local")
+        fa.reset_launch_counts()
+        arms["native"] = offload_arm(torch, cfg, host, tokens, "native", rt)
+        counts = fa.launch_counts()
+        dropped = offload_arm(torch, cfg, host, tokens, "native", rt,
+                              bridge_hook=dropping_push(3))
+    finally:
+        rt.shutdown()
+    verdict, same = judge_offload_arms(
+        arms["in_memory"], {k: arms[k] for k in ("local", "native")})
+    _, dropped_passes = judge_offload_arms(arms["in_memory"],
+                                           {"dropped_push": dropped})
+    probe = {u: native_probe_rejects(nat, OffloadedState, u)
+             for u in ("default", "sgd")}
+    launched = judge_launches(counts, None, SMALL["n_layers"],
+                              MOE_MESH_STEPS)
+    ok = (round_trip and same and not dropped_passes
+          and all(probe.values()) and launched)
+    emit({"phase": "native", "check": "offload", "ok": ok,
+          "config": SMALL, "batch": SMALL_BATCH, "seq": SMALL_SEQ,
+          "updater": "momentum", "steps": MOE_MESH_STEPS,
+          "state_elements": n, "state_bytes": 4 * n,
+          "bridge_round_trip_bitwise": round_trip, "bridge_init_s": init_s,
+          "bridge_push_prefetch_wait_s": round_s,
+          "bitwise_equal": verdict,
+          "losses": {k: a[0] for k, a in arms.items()},
+          "step_s": {k: a[1] for k, a in arms.items()},
+          "steps_2_3_s": {k: a[1][1:] for k, a in arms.items()},
+          "bridge_p50_s": {k: a[5] for k, a in arms.items() if a[5]},
+          "planted": {"dropped_push_passes": dropped_passes,
+                      "dropped_push_losses": dropped[0],
+                      "non_assign_probe_raises": probe},
+          "launch_counts": counts, "card": card})
+    if not ok:
+        raise AssertionError(
+            f"native offload failed: round trip {round_trip}, arms "
+            f"{verdict}, dropped push passes {dropped_passes}, probe "
+            f"{probe}, launches {counts}")
+
+    lr = spawn_native_workers("lr_native_worker.py", NATIVE_LR["procs"],
+                              "NATIVE_LR_OK",
+                              (NATIVE_LR["steps"], NATIVE_LR["batch"]))
+    w2v = {pf: spawn_native_workers(
+        "w2v_native_worker.py", NATIVE_W2V["procs"], "NATIVE_W2V_OK",
+        (NATIVE_W2V["steps"], NATIVE_W2V["batch"], pf)) for pf in (1, 0)}
+    serve = spawn_native_workers("serve_bench_worker.py", NATIVE_SERVE_PROCS,
+                                 "SERVE_BENCH_OK")
+    lr_rate = (NATIVE_LR["procs"] * NATIVE_LR["steps"] * NATIVE_LR["batch"]
+               / native_wall(lr))
+    w2v_rate = (NATIVE_W2V["procs"] * NATIVE_W2V["steps"]
+                * NATIVE_W2V["batch"] / native_wall(w2v[1]))
+    losses = [float(re.search(r"loss=([0-9.]+)", o).group(1)) for o in lr]
+    served = serve_numbers(serve[0])
+    emit({"phase": "native", "check": "workers", "ok": True,
+          "host_cpus": os.cpu_count(), "lr": NATIVE_LR, "w2v": NATIVE_W2V,
+          "blas_threads_per_rank": {
+              "lr": blas_threads(NATIVE_LR["procs"]),
+              "w2v": blas_threads(NATIVE_W2V["procs"]),
+              "serve": blas_threads(NATIVE_SERVE_PROCS)},
+          "lr_native8_samples_per_sec": lr_rate,
+          "lr_native8_final_losses": losses,
+          "w2v_native8_pairs_per_sec": w2v_rate,
+          "w2v_native8_prefetch_speedup": native_wall(w2v[0])
+          / native_wall(w2v[1]),
+          **native_ratios(lr_fused, w2v_fused, lr_rate, w2v_rate),
+          "lr_fused_samples_per_sec": lr_fused,
+          "w2v_fused_pairs_per_sec": w2v_fused,
+          **served, "serve_cached_vs_cold_p50_acceptance": SERVE_ACCEPT,
+          "card": card})
+    return counts
+
+
 def main(argv) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=STEPS)
@@ -4233,6 +4593,7 @@ def main(argv) -> int:
           "count": torch.cuda.device_count(), "nvidia_smi": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda})
 
+    native_build = start_native_build() if "native" in phases else None
     t0 = time.perf_counter()
     paths = _build.build()
     build_s = time.perf_counter() - t0
@@ -4268,12 +4629,10 @@ def main(argv) -> int:
         phase_shard(torch, mv, card)
     if "tables" in phases:
         phase_tables(torch, mv, card)
-    if "lr" in phases:
-        phase_lr(torch, mv, card)
+    lr_fused = phase_lr(torch, mv, card) if "lr" in phases else None
     if "rows" in phases:
         phase_rows(torch, mv, card)
-    if "w2v" in phases:
-        phase_w2v(torch, mv, card)
+    w2v_fused = phase_w2v(torch, mv, card) if "w2v" in phases else None
     if "lda" in phases:
         phase_lda(torch, mv, card)
     if "sgmix" in phases:
@@ -4282,6 +4641,9 @@ def main(argv) -> int:
         phase_resnet(torch, mv, card)
     if "planes" in phases:
         phase_planes(torch, mv, card)
+    if "native" in phases:
+        paths["native"] = phase_native(torch, fa, card, native_build,
+                                       lr_fused, w2v_fused)
 
     kernels = []
     for kname, (src, replaces) in KERNELS.items():

@@ -12,6 +12,12 @@ skip-gram mixture, each with
 the DLRM recommender on the row path, LightLDA with its host sweep and
 its two device sweeps, and data-parallel ResNet-20 (``apps.resnet``),
 whose workers sync through ``ext.torch_ext.TorchParamManager``.
+
+The ``*_worker.py`` scripts are numpy programs over the native runtime
+(``native/``), one process per rank of a machine file: the 8-process
+LR and word2vec jobs that the fused rates are measured against
+(``lr_native_worker``, ``w2v_native_worker``) and ``ServeClient``'s two
+benches (``serve_bench_worker``, ``embedding_bench_worker``).
 """
 
 from .dlrm import DLRMRecommender, synthetic_clicks, zipf_ids

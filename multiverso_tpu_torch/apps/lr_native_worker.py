@@ -1,0 +1,87 @@
+"""N-process native-wire LR worker — the measured stand-in for the
+reference's ``mpirun -n 8`` logistic-regression baseline.
+
+``BASELINE.md`` action 2 asks for the reference's 8-process MPI LR run
+as the north-star denominator; the reference mount stayed empty through
+every round, so the reference binary cannot be built.  This worker
+reproduces that job's *mechanism* on this repo's own native runtime
+(the architecture the reference shares: C++ actor/server processes, a
+wire between them, C++ updaters — SURVEY.md §3.4, ref
+``Test/test_logreg`` push/pull per batch): each process is a
+worker+server rank over TcpNet, pulling the dense weight table through
+the C API, computing a softmax-regression gradient on CPU with numpy,
+and pushing it back through a blocking Add.  ``bench.py`` aggregates
+N ranks into ``lr_native8_samples_per_sec`` and reports the TPU fused
+path's speedup over it as ``lr_fused_vs_native8`` — a real
+distributed-wire denominator rather than a same-chip loop.
+
+Run: ``python lr_native_worker.py <machine_file> <rank> <steps>
+<batch> [codec]`` (spawned by ``bench.py``; stands alone for
+debugging).  ``codec`` (default ``raw``) selects the wire payload codec
+(docs/wire_compression.md): with ``1bit`` every gradient Add ships as
+sign bits + two scales with worker-side error feedback — ~32x fewer
+payload bytes for the same training trajectory, which the printed
+``loss=`` (final mean cross-entropy on this rank's batch) lets the
+bench verify stays within 5% of the raw run.
+"""
+
+import os
+import sys
+import time
+
+# Before ANY multiverso/jax import: this process must not touch the TPU
+# the spawning bench run holds (same seam as tests/mp_worker.py).
+os.environ["JAX_PLATFORMS"] = "cpu"
+
+import numpy as np  # noqa: E402
+
+
+def main(argv) -> None:
+    mf, rank = argv[0], int(argv[1])
+    steps, batch = int(argv[2]), int(argv[3])
+    codec = argv[4] if len(argv) > 4 else "raw"
+    features, classes = 784, 10
+
+    from multiverso_tpu_torch import native as nat
+
+    rt = nat.NativeRuntime(args=[f"-machine_file={mf}", f"-rank={rank}",
+                                 "-updater_type=sgd", "-log_level=error",
+                                 f"-wire_codec={codec}"])
+    n = features * classes
+    h = rt.new_array_table(n)
+    rt.set_add_option(learning_rate=0.1)
+
+    rng = np.random.default_rng(rank)
+    x = rng.standard_normal((batch, features)).astype(np.float32)
+    w_plant = rng.standard_normal((features, classes)).astype(np.float32)
+    y = np.eye(classes, dtype=np.float32)[(x @ w_plant).argmax(1)]
+
+    rt.barrier()              # all ranks timed over the same window
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        w = rt.array_get(h, n).reshape(features, classes)
+        logits = x @ w
+        logits -= logits.max(axis=1, keepdims=True)
+        p = np.exp(logits)
+        p /= p.sum(axis=1, keepdims=True)
+        grad = x.T @ (p - y) / batch
+        rt.array_add(h, grad.reshape(-1))
+    rt.barrier()              # every rank's adds applied
+    dt = time.perf_counter() - t0
+
+    # Final mean cross-entropy on this rank's batch — the convergence
+    # ledger the codec comparison reads (equal steps, raw vs 1bit).
+    w = rt.array_get(h, n).reshape(features, classes)
+    logits = x @ w
+    logits -= logits.max(axis=1, keepdims=True)
+    p = np.exp(logits)
+    p /= p.sum(axis=1, keepdims=True)
+    loss = float(-(y * np.log(p + 1e-12)).sum(axis=1).mean())
+
+    print(f"NATIVE_LR_OK rank={rank} dt={dt:.6f} steps={steps} "
+          f"batch={batch} loss={loss:.6f} codec={codec}", flush=True)
+    rt.shutdown()
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

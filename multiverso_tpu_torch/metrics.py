@@ -1,18 +1,17 @@
 """Unified metrics registry — counters, gauges, and fixed-bucket
 histograms with p50/p95/p99 (docs/observability.md).
 
-A copy of ``multiverso_tpu/metrics.py`` for the PyTorch port, without
-its native bridge (``bridge_native``): the port has no native runtime
-yet.  Every other signal source of the original feeds it:
+The reference Multiverso only dumps named timers at shutdown
+(SURVEY.md §2.26); this registry is the superset every signal source in
+the port now feeds:
 
-- ``dashboard.py`` monitors (every table op, ``Zoo::Barrier``, the
-  trainer's steps) are histograms here — ``dashboard.monitor()`` stays
-  as a shim;
+- ``dashboard.py`` monitors (every table op, ``Zoo::Barrier``, jitted
+  steps) are histograms here — ``dashboard.monitor()`` stays as a shim;
 - ``fault.py`` injector/retry events are counters;
 - ``io/stream.py`` counts stream bytes;
-- a label-cardinality overflow lands in the flight recorder
-  (``ops/flight_recorder.py``), and each flush exports the capacity
-  plane's byte gauges (``capacity.py``).
+- ALL native ``Dashboard`` monitors (wire sends, server applies,
+  ``net.retries``/``hb.missed``, chaos counters) bridge in through one
+  ``MV_DumpMonitors`` call (:func:`bridge_native`).
 
 Surface: :func:`counter` / :func:`gauge` / :func:`histogram` mint (or
 look up) a series, optionally labeled (per-table, per-rank, ...);
@@ -37,7 +36,7 @@ from .log import Log
 __all__ = [
     "Counter", "Gauge", "Histogram", "Registry",
     "counter", "gauge", "histogram", "snapshot", "render_prometheus",
-    "reset", "start_flush", "stop_flush", "set_ops_push",
+    "reset", "bridge_native", "start_flush", "stop_flush", "set_ops_push",
     "record_history", "rate", "delta", "history", "set_history_depth",
     "add_flush_hook", "remove_flush_hook",
     "NATIVE_TIME_BUCKETS", "DEFAULT_TIME_BUCKETS", "HISTORY_SNAPSHOTS",
@@ -639,6 +638,59 @@ def set_history_depth(n: int) -> None:
 
 
 # ---------------------------------------------------------------------------
+# Native bridge: ALL Dashboard monitors in one MV_DumpMonitors call.
+# ---------------------------------------------------------------------------
+
+def parse_native_dump(text: str) -> Dict[str, tuple]:
+    """Parse ``MV_DumpMonitors`` text → {name: (count, total, max,
+    bucket_counts[, exemplars])} (wire format documented in c_api.h).
+    The trailing per-bucket exemplar trace ids are optional — a
+    pre-exemplar dump yields 4-tuples, a current one 5-tuples."""
+    out = {}
+    for line in text.splitlines():
+        if not line.strip():
+            continue
+        fields = line.split("\t")
+        name, count, total, vmax, buckets = fields[:5]
+        parsed = (int(count), float(total), float(vmax),
+                  tuple(int(b) for b in buckets.split(",")))
+        if len(fields) > 5:
+            parsed += (tuple(int(e) for e in fields[5].split(",")),)
+        out[name] = parsed
+    return out
+
+
+def bridge_native(runtime: Any, prefix: str = "native.") -> int:
+    """Import every native Dashboard monitor into the registry as a
+    ``<prefix><name>`` histogram (absolute state, so re-bridging after
+    more native work just refreshes).  ``runtime`` is a
+    ``native.NativeRuntime`` (anything with ``dump_monitors()``; a
+    ``dead_peer_count()`` rides along as a gauge when present).
+    Returns the number of monitors bridged.
+    """
+    dump = runtime.dump_monitors()
+    n = 0
+    for name, item in dump.items():
+        count, total, vmax, buckets = item[:4]
+        exemplars = item[4] if len(item) > 4 else None
+        h = REGISTRY.histogram(prefix + name, bounds=NATIVE_TIME_BUCKETS)
+        h._load(count, total, vmax, buckets, exemplars)
+        n += 1
+        # Wire-byte observability parity (docs/wire_compression.md):
+        # the native transport ledgers record 1 unit = 1 byte with
+        # count = frames, so they land as the same labelled counters
+        # the Python io layer uses (io.bytes{dir=...} -> net.bytes).
+        if name in ("net.bytes.sent", "net.bytes.recv"):
+            direction = name.rsplit(".", 1)[1]
+            REGISTRY.counter("net.bytes", {"dir": direction})._load(total)
+            REGISTRY.counter("net.msgs", {"dir": direction})._load(count)
+    dead = getattr(runtime, "dead_peer_count", None)
+    if dead is not None:
+        REGISTRY.gauge(prefix + "dead_peers").set(float(dead()))
+    return n
+
+
+# ---------------------------------------------------------------------------
 # Periodic flush thread (gated by -metrics_flush_ms / -trace_dir).
 # ---------------------------------------------------------------------------
 
@@ -769,7 +821,7 @@ def stop_flush(final_flush: bool = True) -> None:
     """Stop the exporter.  The thread is JOINED before the final flush
     runs on the caller: shutdown's last ``snapshot()``/render must never
     interleave with a flusher mid-write of ``metrics_rank<r>.prom`` (the
-    PR 3 teardown race) — if the join times out, the final flush is
+    teardown race) — if the join times out, the final flush is
     SKIPPED and the error logged rather than racing the straggler."""
     global _FLUSHER
     with _FLUSH_LOCK:

@@ -47,9 +47,9 @@ The loss is the JAX package's global mean over B·(T-1) positions.
 Gradients are summed over dp and sp (and the embedding's over pp), so
 the updater runs on each rank's shard with its state sharded as the
 weights are.  ``offload_state`` moves the updater state to an
-``OffloadedState`` bridge (``parallel/offload.py``) on one process; the
-native store and several processes raise (ROADMAP.md Queue 1, "Modules
-that need the native runtime" and "Several processes").
+``OffloadedState`` bridge (``parallel/offload.py``: the native runtime's
+``assign`` table, or the local store) on one process; several processes
+raise (ROADMAP.md Queue 1, "Several processes").
 """
 
 from __future__ import annotations
@@ -827,7 +827,10 @@ class TransformerTrainer:
         prefetched vector, steps, pushes the new state and issues the
         next prefetch; between steps the device holds none of it.  The
         bridge stores float32 bits verbatim, so the run equals the
-        in-memory one bit for bit.  One process only: under a mesh of
+        in-memory one bit for bit.  The vector ``wait()`` returns is the
+        bridge's own buffer (an arena buffer of the native store): it is
+        copied onto the device at once (``_flat_to_state``), before the
+        next prefetch may land in it.  One process only: under a mesh of
         several processes it raises (ROADMAP.md Queue 1, "Several
         processes")."""
         import torch.distributed as dist
@@ -873,7 +876,10 @@ class TransformerTrainer:
 
     def _flat_to_state(self, flat) -> list:
         """The state from the bridge's vector: one copy onto the device
-        (the bridge keeps its buffer), each slot a view of it."""
+        (the bridge keeps its buffer), each slot a view of it.  The copy
+        blocks: from pageable host memory it has read the whole buffer
+        when it returns, so the bridge may reuse the slot (a
+        ``non_blocking`` copy would need an event per slot)."""
         buf = torch.as_tensor(np.asarray(flat, np.float32)).to(
             self.device, copy=True)
         out, pos = [], 0

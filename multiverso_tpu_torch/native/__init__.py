@@ -1,0 +1,1233 @@
+"""Python binding to the native (C++) host runtime.
+
+The reference's Python binding loads ``libmultiverso.so`` via ctypes
+(SURVEY.md §2.28); this package does the same over the TPU framework's
+native control plane (``native/src``) — a real actor/message runtime
+serving the flat ``MV_*`` C API (SURVEY.md §2.19).
+
+Role in the TPU framework: the JAX tables are the accelerator data path;
+the native runtime is the host control plane + FFI surface, letting non-
+Python frontends (C, C++, Lua-style FFI) keep the Multiverso API.  The
+math (updaters) matches the JAX updaters in float32 so either plane can
+serve a table.
+
+Build on demand with ``ensure_built()`` (g++ + make, few seconds) or
+``make -C multiverso_tpu_torch/native``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import fcntl
+import os
+import shutil
+import subprocess
+import tempfile
+from typing import Optional, Sequence
+
+import numpy as np
+
+__all__ = ["ensure_built", "load", "NativeRuntime", "HostArena",
+           "lib_path", "BusyError", "ArenaError"]
+
+
+class BusyError(RuntimeError):
+    """A server SHED the request under ``-server_inflight_max``
+    backpressure (C API rc -6; docs/serving.md).
+
+    Retryable — and unlike the indeterminate rc -3, the server did NO
+    work, so a retry cannot double-apply.  ``fault.RetryPolicy`` with
+    ``retry_on=(BusyError,)`` is the house backoff (the serve client
+    wires this up by default)."""
+
+class ArenaError(RuntimeError):
+    """A ``*Borrowed`` call's buffer is not (entirely) inside a live
+    :class:`HostArena` buffer (C API rc -7; docs/host_bridge.md).
+
+    Borrowed calls fail loudly instead of silently copying — allocate
+    the buffer with ``NativeRuntime.arena().alloc(...)`` (or drop the
+    ``borrowed``/``arena`` argument to take the copying path)."""
+
+
+_DIR = os.path.dirname(os.path.abspath(__file__))
+_LIB = os.path.join(_DIR, "build", "libmvtpu.so")
+_lib: Optional[ctypes.CDLL] = None
+
+
+def lib_path() -> str:
+    return _LIB
+
+
+def ensure_built(quiet: bool = True) -> str:
+    """Build libmvtpu.so if missing; returns its path.
+
+    Processes that build at once take turns on an ``fcntl.flock`` of
+    ``build.lock`` beside ``build/``; the library is made in a fresh
+    directory under ``build/`` and renamed into place, so no process
+    ever loads a half-written file.  The link keeps the symbols of the
+    static libraries it pulls in local: a compiler that links libstdc++
+    statically would otherwise export that copy, the process's own
+    libstdc++ (torch's) would interpose parts of it, and the two copies'
+    locale tables crash the first iostream call (``MV_ShutDown``'s
+    dashboard report did, under a ``CXX`` wrapper that links libstdc++
+    statically)."""
+    if os.path.exists(_LIB):
+        return _LIB
+    os.makedirs(os.path.dirname(_LIB), exist_ok=True)
+    with open(os.path.join(_DIR, "build.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not os.path.exists(_LIB):
+            tmp = tempfile.mkdtemp(prefix="tmp.", dir=os.path.dirname(_LIB))
+            try:
+                cxx = os.environ.get("CXX", "g++")
+                subprocess.run(
+                    ["make", "-C", _DIR, "-j", str(os.cpu_count() or 2),
+                     f"CXX={cxx} -Wl,--exclude-libs,ALL", f"BUILD={tmp}",
+                     os.path.join(tmp, "libmvtpu.so")],
+                    check=True, timeout=900,
+                    stdout=subprocess.DEVNULL if quiet else None,
+                    stderr=subprocess.STDOUT if quiet else None)
+                os.replace(os.path.join(tmp, "libmvtpu.so"), _LIB)
+            finally:
+                shutil.rmtree(tmp, ignore_errors=True)
+    return _LIB
+
+
+def load(build: bool = True) -> ctypes.CDLL:
+    """Load (and memoize) the shared library with typed signatures."""
+    global _lib
+    if _lib is not None:
+        return _lib
+    if build:
+        ensure_built()
+    lib = ctypes.CDLL(_LIB)
+
+    c_float_p = ctypes.POINTER(ctypes.c_float)
+    c_int32_p = ctypes.POINTER(ctypes.c_int32)
+
+    lib.MV_Init.argtypes = [ctypes.c_int,
+                            ctypes.POINTER(ctypes.c_char_p)]
+    lib.MV_Init.restype = ctypes.c_int
+    for name in ("MV_ShutDown", "MV_Barrier", "MV_Clock", "MV_NumWorkers",
+                 "MV_WorkerId", "MV_ServerId"):
+        getattr(lib, name).argtypes = []
+        getattr(lib, name).restype = ctypes.c_int
+    lib.MV_SetFlag.argtypes = [ctypes.c_char_p, ctypes.c_char_p]
+    lib.MV_SetFlag.restype = ctypes.c_int
+    lib.MV_NewArrayTable.argtypes = [ctypes.c_int64,
+                                     ctypes.POINTER(ctypes.c_int32)]
+    lib.MV_NewArrayTable.restype = ctypes.c_int
+    for name in ("MV_GetArrayTable", "MV_AddArrayTable",
+                 "MV_AddAsyncArrayTable"):
+        getattr(lib, name).argtypes = [ctypes.c_int32, c_float_p,
+                                       ctypes.c_int64]
+        getattr(lib, name).restype = ctypes.c_int
+    lib.MV_NewSparseMatrixTable.argtypes = [ctypes.c_int64, ctypes.c_int64,
+                                            c_int32_p]
+    lib.MV_NewSparseMatrixTable.restype = ctypes.c_int
+    lib.MV_NewMatrixTable.argtypes = [ctypes.c_int64, ctypes.c_int64,
+                                      ctypes.POINTER(ctypes.c_int32)]
+    lib.MV_NewMatrixTable.restype = ctypes.c_int
+    for name in ("MV_GetMatrixTableAll", "MV_AddMatrixTableAll",
+                 "MV_AddAsyncMatrixTableAll"):
+        getattr(lib, name).argtypes = [ctypes.c_int32, c_float_p,
+                                       ctypes.c_int64]
+        getattr(lib, name).restype = ctypes.c_int
+    lib.MV_GetMatrixTableByRows.argtypes = [
+        ctypes.c_int32, c_float_p, c_int32_p, ctypes.c_int64, ctypes.c_int64]
+    lib.MV_GetMatrixTableByRows.restype = ctypes.c_int
+    for name in ("MV_AddMatrixTableByRows", "MV_AddAsyncMatrixTableByRows"):
+        getattr(lib, name).argtypes = [
+            ctypes.c_int32, c_float_p, c_int32_p, ctypes.c_int64,
+            ctypes.c_int64]
+        getattr(lib, name).restype = ctypes.c_int
+    lib.MV_GetAsyncArrayTable.argtypes = [ctypes.c_int32, c_float_p,
+                                          ctypes.c_int64, c_int32_p]
+    lib.MV_GetAsyncArrayTable.restype = ctypes.c_int
+    # ---- host-bridge fast path (docs/host_bridge.md) -----------------
+    lib.MV_ArenaAcquire.argtypes = [ctypes.c_int64,
+                                    ctypes.POINTER(ctypes.c_void_p)]
+    lib.MV_ArenaAcquire.restype = ctypes.c_int
+    lib.MV_ArenaRelease.argtypes = [ctypes.c_void_p]
+    lib.MV_ArenaRelease.restype = ctypes.c_int
+    lib.MV_ArenaStats.argtypes = [ctypes.POINTER(ctypes.c_longlong)] * 7
+    lib.MV_ArenaStats.restype = ctypes.c_int
+    for name in ("MV_AddArrayTableBorrowed", "MV_AddAsyncArrayTableBorrowed",
+                 "MV_GetArrayTableBorrowed",
+                 "MV_AddMatrixTableAllBorrowed",
+                 "MV_AddAsyncMatrixTableAllBorrowed"):
+        getattr(lib, name).argtypes = [ctypes.c_int32, c_float_p,
+                                       ctypes.c_int64]
+        getattr(lib, name).restype = ctypes.c_int
+    lib.MV_GetAsyncArrayTableBorrowed.argtypes = [
+        ctypes.c_int32, c_float_p, ctypes.c_int64, c_int32_p]
+    lib.MV_GetAsyncArrayTableBorrowed.restype = ctypes.c_int
+    for name in ("MV_AddMatrixTableByRowsBorrowed",
+                 "MV_AddAsyncMatrixTableByRowsBorrowed"):
+        getattr(lib, name).argtypes = [
+            ctypes.c_int32, c_float_p, c_int32_p, ctypes.c_int64,
+            ctypes.c_int64]
+        getattr(lib, name).restype = ctypes.c_int
+    lib.MV_GetAsyncMatrixTableByRowsBorrowed.argtypes = [
+        ctypes.c_int32, c_float_p, c_int32_p, ctypes.c_int64,
+        ctypes.c_int64, c_int32_p]
+    lib.MV_GetAsyncMatrixTableByRowsBorrowed.restype = ctypes.c_int
+    lib.MV_GetAsyncMatrixTableByRows.argtypes = [
+        ctypes.c_int32, c_float_p, c_int32_p, ctypes.c_int64,
+        ctypes.c_int64, c_int32_p]
+    lib.MV_GetAsyncMatrixTableByRows.restype = ctypes.c_int
+    lib.MV_WaitGet.argtypes = [ctypes.c_int32]
+    lib.MV_WaitGet.restype = ctypes.c_int
+    lib.MV_CancelGet.argtypes = [ctypes.c_int32]
+    lib.MV_CancelGet.restype = ctypes.c_int
+    lib.MV_NewKVTable.argtypes = [ctypes.POINTER(ctypes.c_int32)]
+    lib.MV_NewKVTable.restype = ctypes.c_int
+    lib.MV_GetKV.argtypes = [ctypes.c_int32, ctypes.c_char_p, c_float_p]
+    lib.MV_GetKV.restype = ctypes.c_int
+    for name in ("MV_AddKV", "MV_AddAsyncKV"):
+        getattr(lib, name).argtypes = [ctypes.c_int32, ctypes.c_char_p,
+                                       ctypes.c_float]
+        getattr(lib, name).restype = ctypes.c_int
+    lib.MV_GetKVBatch.argtypes = [ctypes.c_int32, ctypes.c_char_p,
+                                  ctypes.POINTER(ctypes.c_int32),
+                                  ctypes.c_int64, c_float_p]
+    lib.MV_GetKVBatch.restype = ctypes.c_int
+    lib.MV_AddKVBatch.argtypes = [ctypes.c_int32, ctypes.c_char_p,
+                                  ctypes.POINTER(ctypes.c_int32),
+                                  ctypes.c_int64, c_float_p]
+    lib.MV_AddKVBatch.restype = ctypes.c_int
+    lib.MV_SetAddOption.argtypes = [ctypes.c_float] * 4
+    lib.MV_SetAddOption.restype = ctypes.c_int
+    lib.MV_StoreTable.argtypes = [ctypes.c_int32, ctypes.c_char_p]
+    lib.MV_StoreTable.restype = ctypes.c_int
+    lib.MV_LoadTable.argtypes = [ctypes.c_int32, ctypes.c_char_p]
+    lib.MV_LoadTable.restype = ctypes.c_int
+    lib.MV_DashboardReport.argtypes = []
+    lib.MV_DashboardReport.restype = ctypes.c_void_p
+    lib.MV_FreeString.argtypes = [ctypes.c_void_p]
+    lib.MV_FreeString.restype = None
+    lib.MV_QueryMonitor.argtypes = [ctypes.c_char_p,
+                                    ctypes.POINTER(ctypes.c_longlong)]
+    lib.MV_QueryMonitor.restype = ctypes.c_int
+    lib.MV_DumpMonitors.argtypes = []
+    lib.MV_DumpMonitors.restype = ctypes.c_void_p
+    lib.MV_SetTraceEnabled.argtypes = [ctypes.c_int]
+    lib.MV_SetTraceEnabled.restype = ctypes.c_int
+    lib.MV_SetTraceId.argtypes = [ctypes.c_longlong]
+    lib.MV_SetTraceId.restype = ctypes.c_int
+    lib.MV_DumpSpans.argtypes = []
+    lib.MV_DumpSpans.restype = ctypes.c_void_p
+    lib.MV_ClearSpans.argtypes = []
+    lib.MV_ClearSpans.restype = ctypes.c_int
+    lib.MV_OpsReport.argtypes = [ctypes.c_char_p]
+    lib.MV_OpsReport.restype = ctypes.c_void_p
+    lib.MV_SetOpsHostMetrics.argtypes = [ctypes.c_char_p]
+    lib.MV_SetOpsHostMetrics.restype = ctypes.c_int
+    lib.MV_SetOpsHostAlerts.argtypes = [ctypes.c_char_p]
+    lib.MV_SetOpsHostAlerts.restype = ctypes.c_int
+    lib.MV_SetWatchdog.argtypes = [ctypes.c_int]
+    lib.MV_SetWatchdog.restype = ctypes.c_int
+    lib.MV_WatchdogBump.argtypes = [ctypes.c_char_p]
+    lib.MV_WatchdogBump.restype = ctypes.c_int
+    lib.MV_WatchdogBusy.argtypes = [ctypes.c_char_p, ctypes.c_longlong]
+    lib.MV_WatchdogBusy.restype = ctypes.c_int
+    lib.MV_WatchdogStats.argtypes = []
+    lib.MV_WatchdogStats.restype = ctypes.c_void_p
+    lib.MV_BlackboxEvent.argtypes = [ctypes.c_char_p, ctypes.c_char_p]
+    lib.MV_BlackboxEvent.restype = ctypes.c_int
+    lib.MV_BlackboxTrigger.argtypes = [ctypes.c_char_p]
+    lib.MV_BlackboxTrigger.restype = ctypes.c_int
+    lib.MV_HotKeys.argtypes = [ctypes.c_int32]
+    lib.MV_HotKeys.restype = ctypes.c_void_p
+    lib.MV_TableLoadStats.argtypes = [
+        ctypes.c_int32,
+        ctypes.POINTER(ctypes.c_longlong),
+        ctypes.POINTER(ctypes.c_longlong),
+        ctypes.POINTER(ctypes.c_double),
+        ctypes.POINTER(ctypes.c_double),
+        ctypes.POINTER(ctypes.c_double),
+        ctypes.POINTER(ctypes.c_longlong),
+        ctypes.POINTER(ctypes.c_longlong)]
+    lib.MV_TableLoadStats.restype = ctypes.c_int
+    lib.MV_SetHotKeyTracking.argtypes = [ctypes.c_int]
+    lib.MV_SetHotKeyTracking.restype = ctypes.c_int
+    lib.MV_CapacityReport.argtypes = []
+    lib.MV_CapacityReport.restype = ctypes.c_void_p
+    lib.MV_SetCapacityTracking.argtypes = [ctypes.c_int]
+    lib.MV_SetCapacityTracking.restype = ctypes.c_int
+    lib.MV_SetWireTiming.argtypes = [ctypes.c_int]
+    lib.MV_SetWireTiming.restype = ctypes.c_int
+    lib.MV_SetAudit.argtypes = [ctypes.c_int]
+    lib.MV_SetAudit.restype = ctypes.c_int
+    lib.MV_ClockOffset.argtypes = [ctypes.c_int,
+                                   ctypes.POINTER(ctypes.c_longlong),
+                                   ctypes.POINTER(ctypes.c_longlong)]
+    lib.MV_ClockOffset.restype = ctypes.c_int
+    lib.MV_SetProfiler.argtypes = [ctypes.c_int]
+    lib.MV_SetProfiler.restype = ctypes.c_int
+    lib.MV_ProfilerDump.argtypes = []
+    lib.MV_ProfilerDump.restype = ctypes.c_void_p
+    lib.MV_ProfilerClear.argtypes = []
+    lib.MV_ProfilerClear.restype = ctypes.c_int
+    lib.MV_SetHotKeyReplica.argtypes = [ctypes.c_int]
+    lib.MV_SetHotKeyReplica.restype = ctypes.c_int
+    lib.MV_ReplicaRefresh.argtypes = [ctypes.c_int32]
+    lib.MV_ReplicaRefresh.restype = ctypes.c_int
+    lib.MV_ReplicaStats.argtypes = [
+        ctypes.c_int32] + [ctypes.POINTER(ctypes.c_longlong)] * 5
+    lib.MV_ReplicaStats.restype = ctypes.c_int
+    lib.MV_OpsFleetReport.argtypes = [ctypes.c_char_p]
+    lib.MV_OpsFleetReport.restype = ctypes.c_void_p
+    lib.MV_SetFault.argtypes = [ctypes.c_char_p, ctypes.c_double]
+    lib.MV_SetFault.restype = ctypes.c_int
+    lib.MV_SetFaultN.argtypes = [ctypes.c_char_p, ctypes.c_longlong]
+    lib.MV_SetFaultN.restype = ctypes.c_int
+    lib.MV_SetFaultSeed.argtypes = [ctypes.c_longlong]
+    lib.MV_SetFaultSeed.restype = ctypes.c_int
+    lib.MV_ClearFaults.argtypes = []
+    lib.MV_ClearFaults.restype = ctypes.c_int
+    lib.MV_DeadPeerCount.argtypes = []
+    lib.MV_DeadPeerCount.restype = ctypes.c_int
+    lib.MV_SetReplication.argtypes = [ctypes.c_int]
+    lib.MV_SetReplication.restype = ctypes.c_int
+    lib.MV_RoutingEpoch.argtypes = []
+    lib.MV_RoutingEpoch.restype = ctypes.c_longlong
+    lib.MV_ShardOwner.argtypes = [ctypes.c_int]
+    lib.MV_ShardOwner.restype = ctypes.c_int
+    lib.MV_BackupShard.argtypes = []
+    lib.MV_BackupShard.restype = ctypes.c_int
+    lib.MV_PromoteBackup.argtypes = [ctypes.c_int]
+    lib.MV_PromoteBackup.restype = ctypes.c_int
+    lib.MV_ReplJoin.argtypes = [ctypes.c_int]
+    lib.MV_ReplJoin.restype = ctypes.c_int
+    lib.MV_ReplicationStats.argtypes = \
+        [ctypes.POINTER(ctypes.c_longlong)] * 8
+    lib.MV_ReplicationStats.restype = ctypes.c_int
+    lib.MV_NetEngine.argtypes = []
+    lib.MV_NetEngine.restype = ctypes.c_void_p
+    lib.MV_UringSupported.argtypes = []
+    lib.MV_UringSupported.restype = ctypes.c_int
+    lib.MV_FanInStats.argtypes = [ctypes.POINTER(ctypes.c_longlong)] * 3
+    lib.MV_FanInStats.restype = ctypes.c_int
+    lib.MV_SetTableCodec.argtypes = [ctypes.c_int32, ctypes.c_char_p]
+    lib.MV_SetTableCodec.restype = ctypes.c_int
+    lib.MV_FlushAdds.argtypes = [ctypes.c_int32]
+    lib.MV_FlushAdds.restype = ctypes.c_int
+    lib.MV_WireStats.argtypes = [ctypes.POINTER(ctypes.c_longlong)] * 4
+    lib.MV_WireStats.restype = ctypes.c_int
+    for name in ("MV_TableVersion", "MV_LastVersion"):
+        getattr(lib, name).argtypes = [ctypes.c_int32,
+                                       ctypes.POINTER(ctypes.c_longlong)]
+        getattr(lib, name).restype = ctypes.c_int
+    lib.MV_CacheStats.argtypes = [ctypes.POINTER(ctypes.c_longlong),
+                                  ctypes.POINTER(ctypes.c_longlong)]
+    lib.MV_CacheStats.restype = ctypes.c_int
+    lib.MV_ServeQueueDepth.argtypes = []
+    lib.MV_ServeQueueDepth.restype = ctypes.c_int
+    _lib = lib
+    return lib
+
+
+def _f32(a) -> np.ndarray:
+    return np.ascontiguousarray(a, dtype=np.float32)
+
+
+def _contig_f32(a: np.ndarray, size: int, what: str) -> np.ndarray:
+    """Validate (never copy) a caller buffer for the borrow/out=
+    protocol (docs/host_bridge.md): float32, C-contiguous, exactly
+    ``size`` elements — raising beats a silent astype/copy, which is
+    the very churn the fast path exists to kill (mvlint MV012)."""
+    if not isinstance(a, np.ndarray):
+        raise TypeError(f"{what}: expected an ndarray, got {type(a)!r}")
+    if a.dtype != np.float32:
+        raise ValueError(f"{what}: dtype {a.dtype} != float32 — the "
+                         f"borrow/out= protocol never converts")
+    if not a.flags["C_CONTIGUOUS"]:
+        raise ValueError(f"{what}: buffer is not C-contiguous — the "
+                         f"borrow/out= protocol never copies")
+    if a.size != size:
+        raise ValueError(f"{what}: buffer has {a.size} elements, "
+                         f"expected {size}")
+    return a
+
+
+def _fp(a: np.ndarray):
+    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_float))
+
+
+def _ip(a: np.ndarray):
+    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_int32))
+
+
+class AsyncGet:
+    """In-flight ``MV_GetAsync*`` pull (reference ``GetAsync``+``Wait``,
+    SURVEY.md §2.10): the request is already on the wire; ``wait()``
+    blocks until every contacted shard replied and returns the filled
+    array, raising on dead shard / ``-rpc_timeout_ms`` expiry (the C
+    API's indeterminate ``-3``).  The handle keeps the output buffer
+    alive for ctypes; ``wait()`` is idempotent (a failure replays on
+    retry).  Dropping the handle un-waited cancels the ticket
+    (``MV_CancelGet``) so a late reply cannot write freed memory."""
+
+    def __init__(self, rt: "NativeRuntime", ticket: int, out: np.ndarray,
+                 shape: tuple):
+        self._rt = rt
+        self._ticket = ticket
+        self._out = out
+        self._shape = shape
+        self._done = False
+        self._err: "Exception | None" = None
+
+    def wait(self) -> np.ndarray:
+        if not self._done:
+            self._done = True   # MV_WaitGet consumes the ticket either way
+            try:
+                self._rt._check(self._rt.lib.MV_WaitGet(self._ticket),
+                                "MV_WaitGet")
+            except Exception as exc:
+                self._err = exc  # replayed on retry, not a bogus rc=-2
+                raise
+        if self._err is not None:
+            raise self._err
+        return self._out.reshape(self._shape)
+
+    def __del__(self):
+        # This object holds the ONLY reference to the output buffer a
+        # late shard reply would scatter into — an un-waited drop must
+        # withdraw the in-flight request before numpy frees it.
+        if getattr(self, "_done", True):
+            return
+        try:
+            self._rt.lib.MV_CancelGet(self._ticket)
+        except Exception:  # mvlint: MV015-exempt(__del__ at teardown)
+            # interpreter teardown: the lib may already be reclaimed,
+            # and raising from a finalizer only aborts the teardown.
+            pass
+
+
+class HostArena:
+    """Numpy facade over the native pinned buffer arena
+    (docs/host_bridge.md, ``mvtpu/host_arena.h``).
+
+    ``alloc()`` hands out numpy arrays BACKED BY arena buffers —
+    recycled, 64-byte-aligned, best-effort mlock'd, and C-contiguous
+    float32 by construction (MV008 holds without an
+    ``ascontiguousarray`` in sight).  Arrays allocated here are what
+    the ``borrowed=``/``out=``/``arena=`` arguments of
+    :class:`NativeRuntime` accept: adds ship the bytes zero-copy into
+    the scatter-gather send path, async gets land replies straight
+    into them.
+
+    Ownership: an array is yours from ``alloc()`` until ``release()``.
+    Releasing while a borrowed send is still in flight is safe — the
+    native arena defers recycling until the wire is done — but the
+    ndarray must not be READ OR WRITTEN after ``release()`` returns
+    (a recycled buffer may be handed to the next ``alloc``).
+    """
+
+    def __init__(self, rt: "NativeRuntime"):
+        self._rt = rt
+        self._bases: dict = {}  # mvlint: MV007-exempt(one entry per live buffer, freed by release)
+
+    def alloc(self, shape, dtype=np.float32) -> np.ndarray:
+        shape = (int(shape),) if np.isscalar(shape) else tuple(shape)
+        dt = np.dtype(dtype)
+        nbytes = max(int(np.prod(shape)) * dt.itemsize, 1)
+        p = ctypes.c_void_p()
+        self._rt._check(
+            self._rt.lib.MV_ArenaAcquire(nbytes, ctypes.byref(p)),
+            "MV_ArenaAcquire")
+        raw = (ctypes.c_char * nbytes).from_address(p.value)
+        arr = np.frombuffer(raw, dtype=dt).reshape(shape)
+        self._bases[p.value] = True
+        return arr
+
+    def owns(self, arr: np.ndarray) -> bool:
+        """True when ``arr``'s base address is a live arena buffer this
+        facade handed out (offset-0 views included)."""
+        try:
+            addr = arr.__array_interface__["data"][0]
+        except (AttributeError, TypeError):
+            return False
+        return addr in self._bases
+
+    def release(self, arr: np.ndarray) -> None:
+        """Return ``arr``'s buffer to the arena.  The array (and every
+        view of it) is dead to the caller afterwards; in-flight
+        borrowed sends keep the memory alive natively until they
+        drain."""
+        addr = arr.__array_interface__["data"][0]
+        if addr not in self._bases:
+            raise ArenaError(
+                "release(): not an arena-allocated array (or already "
+                "released)")
+        del self._bases[addr]
+        self._rt._check(self._rt.lib.MV_ArenaRelease(
+            ctypes.c_void_p(addr)), "MV_ArenaRelease")
+
+    def stats(self) -> dict:
+        """Native arena counters: ``buffers``/``free_buffers``/``bytes``
+        /``in_flight``/``deferred``/``recycled``/``pinned`` —
+        ``deferred`` counts releases parked behind in-flight borrows,
+        the observable proof of the lifetime contract."""
+        vals = [ctypes.c_longlong(0) for _ in range(7)]
+        self._rt._check(
+            self._rt.lib.MV_ArenaStats(*(ctypes.byref(v) for v in vals)),
+            "MV_ArenaStats")
+        keys = ("buffers", "free_buffers", "bytes", "in_flight",
+                "deferred", "recycled", "pinned")
+        return dict(zip(keys, (v.value for v in vals)))
+
+
+class NativeRuntime:
+    """Numpy-facing wrapper over the MV_* C API."""
+
+    def __init__(self, args: Optional[Sequence[str]] = None,
+                 build: bool = True):
+        self.lib = load(build=build)
+        argv = [a.encode() for a in (args or [])]
+        arr = (ctypes.c_char_p * len(argv))(*argv)
+        if self.lib.MV_Init(len(argv), arr) != 0:
+            raise RuntimeError("MV_Init failed (bad flags?)")
+
+    def shutdown(self) -> None:
+        self.lib.MV_ShutDown()
+
+    def barrier(self) -> None:
+        self._check(self.lib.MV_Barrier(), "MV_Barrier")
+
+    def clock(self) -> None:
+        """SSP tick (see MV_Clock / the -staleness flag)."""
+        self._check(self.lib.MV_Clock(), "MV_Clock")
+
+    def workers_num(self) -> int:
+        return self.lib.MV_NumWorkers()
+
+    def worker_id(self) -> int:
+        return self.lib.MV_WorkerId()
+
+    def server_id(self) -> int:
+        return self.lib.MV_ServerId()
+
+    def set_add_option(self, learning_rate=0.1, momentum=0.9, rho=0.9,
+                       eps=1e-8) -> None:
+        self.lib.MV_SetAddOption(learning_rate, momentum, rho, eps)
+
+    # ------------------------------------------------- host bridge
+    def arena(self) -> HostArena:
+        """The process's pinned buffer arena (docs/host_bridge.md):
+        allocate numpy arrays here and pass them to the ``borrowed=``/
+        ``out=``/``arena=`` arguments below for the zero-copy path."""
+        a = getattr(self, "_arena", None)
+        if a is None:
+            a = self._arena = HostArena(self)
+        return a
+
+    # ------------------------------------------------------------- arrays
+    def new_array_table(self, size: int) -> int:
+        h = ctypes.c_int32(-1)
+        self._check(self.lib.MV_NewArrayTable(size, ctypes.byref(h)),
+                    "MV_NewArrayTable")
+        return h.value
+
+    def array_get(self, handle: int, size: int,
+                  out: Optional[np.ndarray] = None) -> np.ndarray:
+        """Pull the array; ``out=`` fills a preallocated float32 buffer
+        (no per-call allocation+zeroing — the host-bridge out=
+        protocol, docs/host_bridge.md) and returns it."""
+        if out is None:
+            out = np.zeros(size, np.float32)
+        else:
+            out = _contig_f32(out, size, "array_get(out=)")
+        self._check(self.lib.MV_GetArrayTable(handle, _fp(out), size),
+                    "MV_GetArrayTable")
+        return out
+
+    def array_get_async(self, handle: int, size: int,
+                        out: Optional[np.ndarray] = None,
+                        arena: Optional[HostArena] = None) -> AsyncGet:
+        """Start a non-blocking Get; overlap compute, then ``wait()``.
+
+        ``out=`` lands the reply in a preallocated buffer.  With
+        ``arena=`` (and ``out`` allocated from it) the native side
+        holds the buffer until the ticket is consumed, so an early
+        ``arena.release(out)`` cannot recycle memory a late shard
+        reply could still scatter into."""
+        if out is None:
+            out = np.zeros(size, np.float32)
+        else:
+            out = _contig_f32(out, size, "array_get_async(out=)")
+        t = ctypes.c_int32(-1)
+        if arena is not None:
+            if not arena.owns(out):
+                raise ArenaError("array_get_async: out= is not an "
+                                 "arena-allocated buffer")
+            self._check(
+                self.lib.MV_GetAsyncArrayTableBorrowed(
+                    handle, _fp(out), size, ctypes.byref(t)),
+                "MV_GetAsyncArrayTableBorrowed")
+        else:
+            self._check(
+                self.lib.MV_GetAsyncArrayTable(handle, _fp(out), size,
+                                               ctypes.byref(t)),
+                "MV_GetAsyncArrayTable")
+        return AsyncGet(self, t.value, out, (size,))
+
+    def array_add(self, handle: int, delta, sync: bool = True,
+                  borrowed: bool = False) -> None:
+        """Push a delta.  ``borrowed=True``: ``delta`` is an arena
+        array (``arena().alloc``) shipped ZERO-COPY into the send path
+        — do not mutate it until the add is known drained (a blocking
+        add returning, or any later get/barrier on the table)."""
+        if borrowed:
+            d = _contig_f32(delta, int(delta.size), "array_add(borrowed)")
+            fn = (self.lib.MV_AddArrayTableBorrowed if sync
+                  else self.lib.MV_AddAsyncArrayTableBorrowed)
+            self._check(fn(handle, _fp(d), d.size),
+                        "MV_AddArrayTableBorrowed")
+            return
+        d = _f32(delta)
+        fn = (self.lib.MV_AddArrayTable if sync
+              else self.lib.MV_AddAsyncArrayTable)
+        self._check(fn(handle, _fp(d), d.size), "MV_AddArrayTable")
+
+    # ------------------------------------------------------------ matrices
+    def new_matrix_table(self, rows: int, cols: int) -> int:
+        h = ctypes.c_int32(-1)
+        self._check(self.lib.MV_NewMatrixTable(rows, cols, ctypes.byref(h)),
+                    "MV_NewMatrixTable")
+        return h.value
+
+    def new_sparse_matrix_table(self, rows: int, cols: int) -> int:
+        """Worker-side row cache variant (MV_NewSparseMatrixTable); same
+        get/add calls as the plain matrix table."""
+        h = ctypes.c_int32(-1)
+        self._check(
+            self.lib.MV_NewSparseMatrixTable(rows, cols, ctypes.byref(h)),
+            "MV_NewSparseMatrixTable")
+        return h.value
+
+    def matrix_get_all(self, handle: int, rows: int, cols: int,
+                       out: Optional[np.ndarray] = None) -> np.ndarray:
+        if out is None:
+            out = np.zeros(rows * cols, np.float32)
+        else:
+            # Validate BEFORE reshaping: reshape(-1) of a strided array
+            # would copy and the caller's buffer would never fill.
+            out = _contig_f32(out, rows * cols,
+                              "matrix_get_all(out=)").ravel()
+        self._check(
+            self.lib.MV_GetMatrixTableAll(handle, _fp(out), out.size),
+            "MV_GetMatrixTableAll")
+        return out.reshape(rows, cols)
+
+    def matrix_add_all(self, handle: int, delta, sync: bool = True,
+                       borrowed: bool = False) -> None:
+        if borrowed:
+            d = _contig_f32(delta, int(delta.size),
+                            "matrix_add_all(borrowed)").ravel()
+            fn = (self.lib.MV_AddMatrixTableAllBorrowed if sync
+                  else self.lib.MV_AddAsyncMatrixTableAllBorrowed)
+            self._check(fn(handle, _fp(d), d.size),
+                        "MV_AddMatrixTableAllBorrowed")
+            return
+        d = _f32(delta).ravel()
+        fn = (self.lib.MV_AddMatrixTableAll if sync
+              else self.lib.MV_AddAsyncMatrixTableAll)
+        self._check(fn(handle, _fp(d), d.size), "MV_AddMatrixTableAll")
+
+    def matrix_get_rows(self, handle: int, row_ids, cols: int,
+                        out: Optional[np.ndarray] = None) -> np.ndarray:
+        ids = np.ascontiguousarray(row_ids, dtype=np.int32)
+        if out is None:
+            out = np.zeros(ids.size * cols, np.float32)
+        else:
+            out = _contig_f32(out, ids.size * cols,
+                              "matrix_get_rows(out=)").ravel()
+        self._check(
+            self.lib.MV_GetMatrixTableByRows(handle, _fp(out), _ip(ids),
+                                             ids.size, cols),
+            "MV_GetMatrixTableByRows")
+        return out.reshape(ids.size, cols)
+
+    def matrix_get_rows_async(self, handle: int, row_ids, cols: int,
+                              out: Optional[np.ndarray] = None,
+                              arena: Optional[HostArena] = None
+                              ) -> AsyncGet:
+        """Start a non-blocking row pull (``MV_GetAsyncMatrixTableByRows``);
+        the ids are consumed before this returns.  On a sparse table the
+        async path bypasses the worker row cache entirely.  ``out=``/
+        ``arena=`` follow :meth:`array_get_async`'s borrow protocol."""
+        ids = np.ascontiguousarray(row_ids, dtype=np.int32)
+        if out is None:
+            out = np.zeros(ids.size * cols, np.float32)
+        else:
+            out = _contig_f32(out, ids.size * cols,
+                              "matrix_get_rows_async(out=)").ravel()
+        t = ctypes.c_int32(-1)
+        if arena is not None:
+            if not arena.owns(out):
+                raise ArenaError("matrix_get_rows_async: out= is not an "
+                                 "arena-allocated buffer")
+            self._check(
+                self.lib.MV_GetAsyncMatrixTableByRowsBorrowed(
+                    handle, _fp(out), _ip(ids), ids.size, cols,
+                    ctypes.byref(t)),
+                "MV_GetAsyncMatrixTableByRowsBorrowed")
+        else:
+            self._check(
+                self.lib.MV_GetAsyncMatrixTableByRows(
+                    handle, _fp(out), _ip(ids), ids.size, cols,
+                    ctypes.byref(t)),
+                "MV_GetAsyncMatrixTableByRows")
+        return AsyncGet(self, t.value, out, (ids.size, cols))
+
+    def matrix_add_rows(self, handle: int, row_ids, delta,
+                        sync: bool = True,
+                        borrowed: bool = False) -> None:
+        ids = np.ascontiguousarray(row_ids, dtype=np.int32)
+        if borrowed:
+            # Zero-copy row push (docs/host_bridge.md): with one server
+            # shard the packed delta ships straight from this buffer
+            # (no per-rank staging); multi-shard fleets stage per rank
+            # but still skip the binding-side astype/copy.
+            d = _contig_f32(delta, int(delta.size),
+                            "matrix_add_rows(borrowed)")
+            if d.ndim != 2 or d.shape[0] != ids.size:
+                raise ValueError("rows/delta shape mismatch")
+            flat = d.ravel()
+            fn = (self.lib.MV_AddMatrixTableByRowsBorrowed if sync
+                  else self.lib.MV_AddAsyncMatrixTableByRowsBorrowed)
+            self._check(fn(handle, _fp(flat), _ip(ids), ids.size,
+                           d.shape[1]),
+                        "MV_AddMatrixTableByRowsBorrowed")
+            return
+        d = _f32(delta)
+        if d.shape[0] != ids.size:
+            raise ValueError("rows/delta shape mismatch")
+        fn = (self.lib.MV_AddMatrixTableByRows if sync
+              else self.lib.MV_AddAsyncMatrixTableByRows)
+        # Named reference (not `_fp(d.ravel())`): the async add returns
+        # before the native side is done with the buffer, so a Python
+        # name must keep it alive across the call (mvlint MV001).
+        flat = d.ravel()
+        self._check(fn(handle, _fp(flat), _ip(ids), ids.size,
+                       d.shape[1]),
+                    "MV_AddMatrixTableByRows")
+
+    # ------------------------------------------------------------------ KV
+    def new_kv_table(self) -> int:
+        h = ctypes.c_int32(-1)
+        self._check(self.lib.MV_NewKVTable(ctypes.byref(h)),
+                    "MV_NewKVTable")
+        return h.value
+
+    def kv_get(self, handle: int, keys):
+        """str -> float, or list[str] -> np.ndarray (absent keys read 0)."""
+        if isinstance(keys, str):
+            v = ctypes.c_float(0.0)
+            self._check(self.lib.MV_GetKV(handle, keys.encode(),
+                                          ctypes.byref(v)), "MV_GetKV")
+            return v.value
+        enc = [k.encode() for k in keys]
+        lens = np.asarray([len(e) for e in enc], np.int32)
+        out = np.zeros(len(enc), np.float32)
+        self._check(self.lib.MV_GetKVBatch(handle, b"".join(enc),
+                                           _ip(lens), len(enc), _fp(out)),
+                    "MV_GetKVBatch")
+        return out
+
+    def kv_add(self, handle: int, keys, deltas, sync: bool = True) -> None:
+        """str+float, or list[str]+array (batch adds are blocking)."""
+        if isinstance(keys, str):
+            fn = self.lib.MV_AddKV if sync else self.lib.MV_AddAsyncKV
+            self._check(fn(handle, keys.encode(), float(deltas)),
+                        "MV_AddKV")
+            return
+        enc = [k.encode() for k in keys]
+        lens = np.asarray([len(e) for e in enc], np.int32)
+        d = _f32(deltas)
+        if d.size != len(enc):
+            raise ValueError("keys/deltas length mismatch")
+        self._check(self.lib.MV_AddKVBatch(handle, b"".join(enc),
+                                           _ip(lens), len(enc), _fp(d)),
+                    "MV_AddKVBatch")
+
+    # ----------------------------------------------------------- checkpoint
+    def store_table(self, handle: int, path: str) -> None:
+        self._check(self.lib.MV_StoreTable(handle, path.encode()),
+                    "MV_StoreTable")
+
+    def load_table(self, handle: int, path: str) -> None:
+        self._check(self.lib.MV_LoadTable(handle, path.encode()),
+                    "MV_LoadTable")
+
+    def dashboard_report(self) -> str:
+        ptr = self.lib.MV_DashboardReport()
+        try:
+            return ctypes.cast(ptr, ctypes.c_char_p).value.decode()
+        finally:
+            self.lib.MV_FreeString(ptr)
+
+    def query_monitor(self, name: str) -> int:
+        """Hit count of one Dashboard monitor (0 if it never fired) —
+        e.g. ``net.retries`` / ``net.dropped`` / ``hb.missed``."""
+        c = ctypes.c_longlong(0)
+        self._check(self.lib.MV_QueryMonitor(name.encode(),
+                                             ctypes.byref(c)),
+                    "MV_QueryMonitor")
+        return c.value
+
+    def _dump_string(self, fn, what: str) -> str:
+        ptr = fn()
+        if not ptr:
+            raise RuntimeError(f"{what} returned NULL")
+        try:
+            return ctypes.cast(ptr, ctypes.c_char_p).value.decode()
+        finally:
+            self.lib.MV_FreeString(ptr)
+
+    # ------------------------------------------------- observability
+    def dump_monitors(self) -> dict:
+        """EVERY Dashboard monitor in one MV_DumpMonitors call:
+        {name: (count, total_s, max_s, bucket_counts)} — the enumeration
+        ``metrics.bridge_native`` imports (docs/observability.md)."""
+        from .. import metrics as _metrics
+
+        return _metrics.parse_native_dump(
+            self._dump_string(self.lib.MV_DumpMonitors,
+                              "MV_DumpMonitors"))
+
+    def set_trace_enabled(self, on: bool = True) -> None:
+        """Arm native span recording (also via the ``-trace`` flag)."""
+        self._check(self.lib.MV_SetTraceEnabled(1 if on else 0),
+                    "MV_SetTraceEnabled")
+
+    def set_trace_id(self, trace_id: int) -> None:
+        """Pin this thread's native trace id (0 = auto per-op ids) so
+        native spans nest under a host-side ``tracing.span``."""
+        self._check(self.lib.MV_SetTraceId(trace_id), "MV_SetTraceId")
+
+    def dump_spans(self) -> str:
+        """Raw MV_DumpSpans text (``tracing.parse_native_spans`` /
+        ``tracing.add_native_spans`` turn it into events)."""
+        return self._dump_string(self.lib.MV_DumpSpans, "MV_DumpSpans")
+
+    def ops_report(self, kind: str = "health") -> str:
+        """This rank's live introspection report — the same text the
+        in-band wire scrape (MsgType::OpsQuery) serves: ``metrics``
+        (Prometheus exposition with per-bucket exemplar trace ids),
+        ``health`` (JSON verdict), or ``tables`` (JSON per-table
+        version/spread/codec/agg stats).  docs/observability.md."""
+        return self._dump_string(lambda: self.lib.MV_OpsReport(
+            kind.encode()), "MV_OpsReport")
+
+    def set_ops_host_metrics(self, prom_text: str) -> None:
+        """Push this process's Python metrics-registry rendering so
+        in-band scrapes serve the full superset (the flush thread calls
+        this each interval via ``metrics.set_ops_push``)."""
+        self._check(self.lib.MV_SetOpsHostMetrics(prom_text.encode()),
+                    "MV_SetOpsHostMetrics")
+
+    def set_ops_host_alerts(self, alerts_json: str) -> None:
+        """Push the Python health evaluator's alert state (JSON object
+        text) so the in-band ``"alerts"`` OpsQuery kind serves it under
+        its ``"host"`` key beside the native watchdog table (the health
+        flush hook calls this each metrics flush).  Empty clears."""
+        self._check(self.lib.MV_SetOpsHostAlerts(alerts_json.encode()),
+                    "MV_SetOpsHostAlerts")
+
+    def set_watchdog(self, stall_ms: int) -> None:
+        """Arm the native stall watchdog at ``stall_ms`` (<= 0 disarms;
+        boot value: the ``-watchdog_stall_ms`` flag).  A watched loop
+        with queued work and zero progress past the deadline dumps a
+        'stall:' blackbox + profiler folded stacks and bumps
+        ``watchdog.stalls`` (docs/observability.md "health plane")."""
+        self._check(self.lib.MV_SetWatchdog(int(stall_ms)),
+                    "MV_SetWatchdog")
+
+    def watchdog_bump(self, loop: str) -> None:
+        """One unit of progress on a host-side watched loop (e.g.
+        ``py.flush``); registers the loop on first use, no-op when the
+        watchdog is disarmed."""
+        self._check(self.lib.MV_WatchdogBump(loop.encode()),
+                    "MV_WatchdogBump")
+
+    def watchdog_busy(self, loop: str, queued: int) -> None:
+        """Declare a host loop's queued work (0 = idle; an idle loop
+        cannot stall)."""
+        self._check(self.lib.MV_WatchdogBusy(loop.encode(), int(queued)),
+                    "MV_WatchdogBusy")
+
+    def watchdog_stats(self) -> list:
+        """The per-loop watchdog table (loop, progress, queued, stalls,
+        stalled, age_s) — the ``"watchdog"`` section of the ``alerts``
+        ops report."""
+        import json
+
+        return json.loads(self._dump_string(self.lib.MV_WatchdogStats,
+                                            "MV_WatchdogStats"))
+
+    def blackbox_event(self, kind: str, detail: str = "") -> None:
+        """Record one lifecycle event into the native flight-recorder
+        ring (bounded by ``-blackbox_events``)."""
+        self._check(self.lib.MV_BlackboxEvent(kind.encode(),
+                                              detail.encode()),
+                    "MV_BlackboxEvent")
+
+    def blackbox_trigger(self, reason: str) -> None:
+        """Dump the flight recorder (ring + recent spans + monitor
+        totals) to ``<trace_dir>/blackbox_rank<r>.json``.  Native
+        failure paths (barrier timeout, dead peer, shed storm) trigger
+        automatically; this is the host-side trigger (e.g.
+        CheckpointCorrupt)."""
+        self._check(self.lib.MV_BlackboxTrigger(reason.encode()),
+                    "MV_BlackboxTrigger")
+
+    def clear_spans(self) -> None:
+        self._check(self.lib.MV_ClearSpans(), "MV_ClearSpans")
+
+    # --------------------------------------------- workload observability
+    def hot_keys(self, handle: int = -1) -> list:
+        """Per-table hot-key / shard-load report (docs/observability.md,
+        the ``"hotkeys"`` OpsQuery kind): for each server table, get/add
+        totals, bucket-load skew ratio, space-saving top-K hot keys with
+        count-min estimates, observed-staleness stats, and the add
+        L2/Linf + NaN/Inf health sentinels.  ``handle >= 0`` restricts
+        to one table."""
+        import json
+
+        return json.loads(self._dump_string(
+            lambda: self.lib.MV_HotKeys(handle), "MV_HotKeys"))
+
+    def table_load_stats(self, handle: int) -> dict:
+        """Numeric workload slice for one table: ``{"gets", "adds",
+        "skew_ratio", "add_l2", "add_linf", "nan_count", "inf_count"}``
+        (MV_TableLoadStats)."""
+        gets = ctypes.c_longlong(0)
+        adds = ctypes.c_longlong(0)
+        skew = ctypes.c_double(0.0)
+        l2 = ctypes.c_double(0.0)
+        linf = ctypes.c_double(0.0)
+        nans = ctypes.c_longlong(0)
+        infs = ctypes.c_longlong(0)
+        self._check(self.lib.MV_TableLoadStats(
+            handle, ctypes.byref(gets), ctypes.byref(adds),
+            ctypes.byref(skew), ctypes.byref(l2), ctypes.byref(linf),
+            ctypes.byref(nans), ctypes.byref(infs)), "MV_TableLoadStats")
+        return {"gets": gets.value, "adds": adds.value,
+                "skew_ratio": skew.value, "add_l2": l2.value,
+                "add_linf": linf.value, "nan_count": nans.value,
+                "inf_count": infs.value}
+
+    def set_hotkey_tracking(self, on: bool = True) -> None:
+        """Toggle the workload accounting live (boot value: the
+        ``-hotkey_enabled`` flag).  Disarmed, every server hot-path hook
+        is a single relaxed atomic check — the A/B behind the
+        ``hotkey_track_overhead_pct`` bench bar."""
+        self._check(self.lib.MV_SetHotKeyTracking(1 if on else 0),
+                    "MV_SetHotKeyTracking")
+
+    # ------------------------------------------------- capacity plane
+    def capacity_report(self) -> dict:
+        """This rank's capacity report (docs/observability.md
+        "capacity plane"), parsed: ``proc`` (RSS/VmHWM/open fds/
+        uptime), ``arena``/``net``/``gauges`` byte holders, and per
+        table the shard's ``resident_bytes``/``rows`` with per-bucket
+        byte + load arrays, the bounded load-history ring, and the
+        worker side tables (replica/agg/cache bytes) as their own
+        fields.  The same payload the in-band ``"capacity"`` OpsQuery
+        kind serves; ``tools/mvplan.py`` bin-packs placement proposals
+        over the fleet scrape."""
+        import json
+
+        return json.loads(self._dump_string(
+            lambda: self.lib.MV_CapacityReport(), "MV_CapacityReport"))
+
+    def set_capacity_tracking(self, on: bool = True) -> None:
+        """Toggle the byte accounting live (boot value: the
+        ``-capacity_enabled`` flag).  Disarmed, every hot-path growth
+        hook is one relaxed atomic check — the ``capacity_overhead_pct``
+        A/B; re-arming resyncs every shard's counters exactly."""
+        self._check(self.lib.MV_SetCapacityTracking(1 if on else 0),
+                    "MV_SetCapacityTracking")
+
+    # ------------------------------------------- latency attribution
+    def set_wire_timing(self, on: bool = True) -> None:
+        """Toggle wire-header timing trails live (boot value: the
+        ``-wire_timing`` flag, default ON).  Armed, every request
+        carries six monotonic stage stamps and replies fold into the
+        ``lat.stage.*`` histograms + per-peer clock offsets
+        (docs/observability.md "latency plane")."""
+        self._check(self.lib.MV_SetWireTiming(1 if on else 0),
+                    "MV_SetWireTiming")
+
+    def set_audit(self, on: bool = True) -> None:
+        """Toggle the delivery-audit plane live (boot value: the
+        ``-audit`` flag, default ON; docs/observability.md "audit
+        plane").  Armed, every Add carries a per-(worker, table,
+        shard) seq range, acks advance the client acked-add ledger,
+        and server tables keep per-origin applied watermarks with
+        dup/reorder/gap anomaly rings — the ``audit_overhead_pct``
+        A/B toggle."""
+        self._check(self.lib.MV_SetAudit(1 if on else 0), "MV_SetAudit")
+
+    def audit_report(self) -> dict:
+        """This rank's delivery-audit books (the ``"audit"`` OpsQuery
+        kind, parsed): per table, the worker acked-add ledger
+        (sent/acked per shard stream), the server delivery book
+        (per-origin watermark, dups, reorders, pending out-of-order
+        ranges, anomaly ring) and per-bucket content checksums.
+        ``tools/mvaudit.py`` diffs these fleet-wide."""
+        import json
+
+        return json.loads(self.ops_report("audit"))
+
+    def clock_offset(self, rank: int):
+        """Best NTP-style clock-offset estimate for a peer rank, as
+        ``{"offset_ns", "rtt_ns"}`` — how far the peer's monotonic
+        clock runs ahead of this process's, and the minimum round trip
+        backing the sample.  ``None`` when no timed round trip to that
+        rank completed yet."""
+        off = ctypes.c_longlong(0)
+        rtt = ctypes.c_longlong(0)
+        rc = self.lib.MV_ClockOffset(rank, ctypes.byref(off),
+                                     ctypes.byref(rtt))
+        if rc == -2:
+            return None
+        self._check(rc, "MV_ClockOffset")
+        return {"offset_ns": off.value, "rtt_ns": rtt.value}
+
+    def set_profiler(self, hz: int) -> None:
+        """(Re)arm the SIGPROF sampling profiler at ``hz`` (CPU-time
+        sampling; 97 is the house rate), or stop it with ``hz <= 0``.
+        Boot value: the ``-profile_hz`` flag."""
+        self._check(self.lib.MV_SetProfiler(hz), "MV_SetProfiler")
+
+    def profiler_dump(self) -> str:
+        """Folded-stack aggregation of everything sampled so far (one
+        ``outer;...;leaf count`` line per distinct stack) —
+        ``multiverso_tpu_torch.profiler.add_native_profile`` lands it in the
+        Chrome trace beside the spans."""
+        return self._dump_string(self.lib.MV_ProfilerDump,
+                                 "MV_ProfilerDump")
+
+    def profiler_clear(self) -> None:
+        """Drop recorded profiler samples (per-phase A/B runs)."""
+        self._check(self.lib.MV_ProfilerClear(), "MV_ProfilerClear")
+
+    def set_hotkey_replica(self, on: bool = True) -> None:
+        """Toggle the hot-key read replica live (docs/embedding.md;
+        boot value: the ``-hotkey_replica`` flag).  Armed, matrix row
+        gets consult the servers' pushed top-K rows before the wire;
+        invalidation rides the version-stamp protocol."""
+        self._check(self.lib.MV_SetHotKeyReplica(1 if on else 0),
+                    "MV_SetHotKeyReplica")
+
+    def replica_refresh(self, handle: int) -> None:
+        """Force one replica refresh round trip (RequestReplica to
+        every shard) for a matrix table — GetRows otherwise refreshes
+        lazily past ``-replica_lease_ms``."""
+        self._check(self.lib.MV_ReplicaRefresh(handle),
+                    "MV_ReplicaRefresh")
+
+    def replica_stats(self, handle: int) -> dict:
+        """Replica ledger for a matrix table: ``{"hits", "misses",
+        "rows", "refreshes", "pushes"}`` — rows served locally vs sent
+        to the wire, rows currently held, refresh round trips, and this
+        rank's server-side push count."""
+        vals = [ctypes.c_longlong(0) for _ in range(5)]
+        self._check(self.lib.MV_ReplicaStats(
+            handle, *(ctypes.byref(v) for v in vals)),
+            "MV_ReplicaStats")
+        keys = ("hits", "misses", "rows", "refreshes", "pushes")
+        return dict(zip(keys, (v.value for v in vals)))
+
+    def ops_fleet_report(self, kind: str = "health") -> str:
+        """Fleet-scope ops report assembled BY THIS RANK over the rank
+        wire (bounded fan-out + merge) — works on every engine,
+        including the blocking tcp engine that refuses anonymous
+        scraper connections."""
+        return self._dump_string(
+            lambda: self.lib.MV_OpsFleetReport(kind.encode()),
+            "MV_OpsFleetReport")
+
+    # ------------------------------------------------- fault injection
+    def set_fault(self, kind: str, rate: float) -> None:
+        """Arm a wire fault (docs/fault_tolerance.md): kind in
+        drop|delay|dup|fail_send, probability per op; ``delay_ms`` sets
+        the injected delay length."""
+        self._check(self.lib.MV_SetFault(kind.encode(), rate),
+                    "MV_SetFault")
+
+    def set_fault_n(self, kind: str, n: int) -> None:
+        """Deterministic variant: fire on exactly the next ``n`` ops."""
+        self._check(self.lib.MV_SetFaultN(kind.encode(), n),
+                    "MV_SetFaultN")
+
+    def set_fault_seed(self, seed: int) -> None:
+        self._check(self.lib.MV_SetFaultSeed(seed), "MV_SetFaultSeed")
+
+    def clear_faults(self) -> None:
+        self._check(self.lib.MV_ClearFaults(), "MV_ClearFaults")
+
+    def dead_peer_count(self) -> int:
+        """Peers with expired heartbeat leases on THIS rank
+        (-heartbeat_ms; lease watching is symmetric — every rank
+        tracks every peer, docs/replication.md)."""
+        return self.lib.MV_DeadPeerCount()
+
+    # ---------------------------------- replication (docs/replication.md)
+    def set_replication(self, on: bool = True) -> None:
+        """Live toggle for the primary->backup forward stream (the
+        armed-vs-disarmed overhead A/B); the chained backup assignment
+        is latched from ``-replication_factor`` at init."""
+        self._check(self.lib.MV_SetReplication(1 if on else 0),
+                    "MV_SetReplication")
+
+    def routing_epoch(self) -> int:
+        """Current fleet routing epoch (0 = registration-time map;
+        every promotion/join bumps and broadcasts it)."""
+        return int(self.lib.MV_RoutingEpoch())
+
+    def shard_owner(self, shard_idx: int) -> int:
+        """Rank currently serving ``shard_idx`` per the routed map."""
+        return self.lib.MV_ShardOwner(shard_idx)
+
+    def backup_shard(self) -> int:
+        """Shard index this rank backs (chained or joined), -1 none."""
+        return self.lib.MV_BackupShard()
+
+    def promote_backup(self, dead_rank: int) -> int:
+        """Operator-driven promotion of this rank's backup shard(s)
+        for ``dead_rank``; returns the number of shards promoted (the
+        lease-expiry path minus the corpse)."""
+        return self.lib.MV_PromoteBackup(dead_rank)
+
+    def repl_join(self, shard_idx: int) -> None:
+        """Elastic join: become ``shard_idx``'s backup — announce via
+        a routing-epoch flip, then pull whole-shard catch-up snapshots
+        (blocking; idempotent, chaos re-runs re-pull)."""
+        self._check(self.lib.MV_ReplJoin(shard_idx), "MV_ReplJoin")
+
+    def replication_stats(self) -> dict:
+        """Replication ledger: forwards/acks (primary), applied
+        (backup), outstanding forwards, promotions, epoch flips,
+        post-failover dup-skipped replays, catch-up installs."""
+        vals = [ctypes.c_longlong(0) for _ in range(8)]
+        self._check(
+            self.lib.MV_ReplicationStats(*[ctypes.byref(v) for v in vals]),
+            "MV_ReplicationStats")
+        keys = ("forwards", "acks", "applied", "outstanding",
+                "promotions", "epoch_flips", "dup_skips", "catchups")
+        return {k: v.value for k, v in zip(keys, vals)}
+
+    # ------------------------------------------------- transport
+    def net_engine(self) -> str:
+        """Active (effective) wire engine (docs/transport.md): ``tcp``
+        | ``epoll`` | ``mpi`` | ``uring``, or ``local`` for a single
+        process with no wire.  A ``-net_engine=uring`` request on a
+        kernel without io_uring degrades to epoll and reports
+        ``epoll`` here (the health report records the downgrade)."""
+        return self._dump_string(self.lib.MV_NetEngine, "MV_NetEngine")
+
+    def uring_supported(self) -> bool:
+        """True when this kernel can run the io_uring engine.  Probes
+        the kernel, not the session — callable before ``init`` (the
+        uring test suites gate on it)."""
+        return bool(self.lib.MV_UringSupported())
+
+    def fanin_stats(self) -> dict:
+        """Anonymous serve-tier fan-in counters (epoll engine only):
+        ``{"accepted_total", "active_clients", "client_shed"}`` —
+        non-rank client connections accepted, currently connected, and
+        requests shed by the per-client admission gate
+        (``-client_inflight_max``)."""
+        vals = [ctypes.c_longlong(0) for _ in range(3)]
+        self._check(
+            self.lib.MV_FanInStats(*(ctypes.byref(v) for v in vals)),
+            "MV_FanInStats")
+        return {"accepted_total": vals[0].value,
+                "active_clients": vals[1].value,
+                "client_shed": vals[2].value}
+
+    # ------------------------------------------------- wire data plane
+    def set_table_codec(self, handle: int, codec: str) -> None:
+        """Retarget one table's wire codec (docs/wire_compression.md):
+        ``raw`` | ``1bit`` (sign bits + scales, worker-side error
+        feedback) | ``sparse`` (lossless nonzero pairs with raw
+        fallback).  Tables start on the ``-wire_codec`` flag."""
+        self._check(self.lib.MV_SetTableCodec(handle, codec.encode()),
+                    "MV_SetTableCodec")
+
+    def flush_adds(self, handle: int = -1) -> None:
+        """Drain the add-aggregation buffer (``-add_agg_ms`` /
+        ``-add_agg_bytes``) of one table — or every table when
+        ``handle < 0`` — onto the wire.  Get/Clock/Barrier/shutdown
+        flush implicitly; this is the explicit trigger."""
+        from .. import fault
+
+        fault.inject("agg.flush")
+        self._check(self.lib.MV_FlushAdds(handle), "MV_FlushAdds")
+
+    def wire_stats(self) -> dict:
+        """Transport byte/frame ledger: ``{"sent_bytes", "recv_bytes",
+        "sent_msgs", "recv_msgs"}`` over the native wire (headers
+        included) — the numbers behind ``net.bytes{dir=...}`` /
+        ``net.msgs`` in the metrics registry."""
+        vals = [ctypes.c_longlong(0) for _ in range(4)]
+        self._check(self.lib.MV_WireStats(*(ctypes.byref(v) for v in vals)),
+                    "MV_WireStats")
+        return {"sent_bytes": vals[0].value, "recv_bytes": vals[1].value,
+                "sent_msgs": vals[2].value, "recv_msgs": vals[3].value}
+
+    # ------------------------------------------------- serve layer
+    def table_version(self, handle: int) -> int:
+        """Current max server-side version of the table (docs/serving.md)
+        — ONE header-only wire round trip (the cheap cache-validation
+        probe), not a full fetch.  Raises :class:`BusyError` when a
+        server shed it under ``-server_inflight_max``."""
+        v = ctypes.c_longlong(0)
+        self._check(self.lib.MV_TableVersion(handle, ctypes.byref(v)),
+                    "MV_TableVersion")
+        return v.value
+
+    def last_version(self, handle: int) -> int:
+        """Highest version stamp observed in any reply to this process
+        (free local lower bound on the server version — no wire)."""
+        v = ctypes.c_longlong(0)
+        self._check(self.lib.MV_LastVersion(handle, ctypes.byref(v)),
+                    "MV_LastVersion")
+        return v.value
+
+    def cache_stats(self) -> tuple:
+        """(hits, misses) of the native worker-side row cache (the
+        sparse matrix table); the Python serve cache counts separately
+        in the metrics registry (serve.cache.*)."""
+        h = ctypes.c_longlong(0)
+        m = ctypes.c_longlong(0)
+        self._check(self.lib.MV_CacheStats(ctypes.byref(h),
+                                           ctypes.byref(m)),
+                    "MV_CacheStats")
+        return h.value, m.value
+
+    def serve_queue_depth(self) -> int:
+        """Server-actor mailbox backlog (the -server_inflight_max
+        gauge)."""
+        d = self.lib.MV_ServeQueueDepth()
+        self._check(min(d, 0), "MV_ServeQueueDepth")
+        return d
+
+    @staticmethod
+    def _check(rc: int, what: str) -> None:
+        if rc == -6:
+            raise BusyError(
+                f"{what} shed by server backpressure "
+                f"(-server_inflight_max) — retry after backoff")
+        if rc == -7:
+            raise ArenaError(
+                f"{what}: buffer is not inside a live HostArena buffer "
+                f"— allocate it with NativeRuntime.arena().alloc(...) "
+                f"(docs/host_bridge.md)")
+        if rc != 0:
+            raise RuntimeError(f"{what} failed with rc={rc}")

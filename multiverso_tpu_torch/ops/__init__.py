@@ -9,8 +9,7 @@
   :mod:`flight_recorder` keeps the bounded black-box ring that dumps
   ``blackbox_rank<r>.json`` on failure triggers, and :mod:`audit` diffs
   the delivery-audit books fleet-wide.  The scrape's server end is the
-  native runtime, which the port does not have yet (ROADMAP.md Queue 1,
-  "Modules that need the native runtime").
+  port's copy of the native runtime (``native/``).
 """
 
 from . import flash_attention

@@ -4,7 +4,8 @@ the GPipe pipeline of the PyTorch port.
 The port runs one process per card; the JAX package's named mesh axes
 (dp, tp, sp, pp, ep) become one ``torch.distributed`` group per axis
 (:class:`Mesh`).  ``OffloadedState`` is the trainer's state bridge
-(its local store; ``offload.py``).  ``parallel/_compat.py`` of the JAX package (its
+(the native store or the local one; ``offload.py``).
+``parallel/_compat.py`` of the JAX package (its
 ``shard_map`` shim across JAX versions) has no counterpart: there is no
 ``shard_map`` here — each process already runs the per-shard body, and
 ``collectives.py`` holds the communication GSPMD and ``shard_map``

@@ -11,23 +11,28 @@ package's (``tables/base.py``: ``-serve_cache_entries`` arms them):
   max_staleness``; the "server version" is the table's local apply
   counter.
 
+- :class:`~multiverso_tpu_torch.serve.client.ServeClient` wires both
+  over a :class:`~multiverso_tpu_torch.native.NativeRuntime`, with
+  busy-retry against ``-server_inflight_max`` sheds (``BusyError`` →
+  ``fault.RetryPolicy`` backoff);
 - :class:`~multiverso_tpu_torch.serve.wire.AnonServeClient` speaks the
   serve protocol over a plain socket to a server rank's reactor;
 - :class:`~multiverso_tpu_torch.serve.hedge.HedgedReader` hedges row
   reads over two such connections past a p95-derived delay.
 
-All four are copies of the JAX package's modules.  The wire clients'
-server end, and ``ServeClient`` (which imports the ctypes binding), need
-the native runtime and are not ported yet (ROADMAP.md Queue 1, "Modules
-that need the native runtime").
+All five are copies of the JAX package's modules; the wire clients'
+server end is the port's own copy of the native runtime
+(``native/``).
 """
 
 from __future__ import annotations
 
 from .cache import VersionedLRUCache
+from .client import ServeClient
 from .coalescer import Coalescer
 from .hedge import HedgedReader, LatencyTracker
 from .wire import AnonServeClient, FrameDecoder, ServeBusy
 
 __all__ = ["AnonServeClient", "Coalescer", "FrameDecoder", "HedgedReader",
-           "LatencyTracker", "ServeBusy", "VersionedLRUCache"]
+           "LatencyTracker", "ServeBusy", "ServeClient",
+           "VersionedLRUCache"]

@@ -5,8 +5,7 @@ Cross-rank, cross-plane tracing for the push-pull path: a worker-side
 apply all share one **trace id**, so a merged timeline answers *where
 time went* across the Python/native/wire boundaries.
 
-Two pieces (a copy of ``multiverso_tpu/tracing.py`` for the PyTorch
-port, without the native-span import: the port has no native runtime):
+Three pieces:
 
 - **Python spans** — :func:`span` is a context manager recording a
   wall-clock span into a bounded in-process buffer; ``dashboard``
@@ -14,6 +13,10 @@ port, without the native-span import: the port has no native runtime):
   op / barrier / jitted step shows up without new call sites.  Trace
   ids are thread-local: nested spans share the outermost id (mirroring
   the native ``Monitor`` contract in ``mvtpu/dashboard.h``).
+- **Native spans** — the C runtime records the same span shape
+  (``MV_DumpSpans``; ids propagate through message headers across
+  ranks).  :func:`add_native_spans` folds a dump into this buffer so
+  one export holds both planes.
 - **Export** — :func:`save` writes Chrome trace-event JSON (load it in
   Perfetto / ``chrome://tracing``); :func:`merge_dir` merges per-rank
   files into one timeline (timestamps are wall-clock µs, so same-host
@@ -43,7 +46,8 @@ __all__ = [
     "SpanEvent", "enabled", "enable", "disable", "span", "record_span",
     "current_trace_id", "set_trace_id", "new_trace_id", "events",
     "trace_ids",
-    "clear", "to_chrome", "save", "merge_dir", "default_trace_path",
+    "clear", "to_chrome", "save", "merge_dir", "add_native_spans",
+    "parse_native_spans", "default_trace_path",
 ]
 
 # Bounded buffer: a long run must not grow without limit; newest win.
@@ -165,6 +169,33 @@ def trace_ids() -> set:
     exemplar (docs/observability.md) must land in to be explainable."""
     with _LOCK:
         return {e.trace_id for e in _EVENTS if e.trace_id}
+
+
+# ---------------------------------------------------------------------------
+# Native span import (MV_DumpSpans wire format; see c_api.h).
+# ---------------------------------------------------------------------------
+
+def parse_native_spans(text: str) -> List[SpanEvent]:
+    """``name\\ttrace_id\\tts_us\\tdur_us\\trank\\ttid`` lines → events."""
+    out = []
+    for line in text.splitlines():
+        if not line.strip():
+            continue
+        name, trace_id, ts_us, dur_us, rank, tid = line.split("\t")
+        out.append(SpanEvent(
+            name=name, trace_id=int(trace_id), ts_us=int(ts_us),
+            dur_us=int(dur_us), pid=int(rank), tid=int(tid) & 0xFFFF,
+            args={"plane": "native"}))
+    return out
+
+
+def add_native_spans(runtime: Any) -> int:
+    """Fold a ``NativeRuntime``'s recorded spans into this buffer (so one
+    :func:`save` exports both planes).  Returns the span count."""
+    spans = parse_native_spans(runtime.dump_spans())
+    with _LOCK:
+        _EVENTS.extend(spans)
+    return len(spans)
 
 
 # ---------------------------------------------------------------------------

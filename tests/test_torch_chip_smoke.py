@@ -28,10 +28,15 @@ drops the 1/N scale or skips the write-back; its change judge and the
 convergence floor are held at their edges; the planes judge passes a
 real armed CPU lifecycle and rejects its trace without the profiler's
 events, its metrics without the evaluator's series, and a short rule
-pack.
+pack.  The native phase's judges run on real tiny trainers on the CPU
+(in memory, the local store, the native store): they pass the three
+arms and reject a bridge that drops a push; the ``init`` probe rejects
+the non-assign runtimes; its sizes are bench.py's, its launcher runs
+the port's LR worker on 2 ranks, and its ratios are checked by hand.
 """
 
 import dataclasses
+import functools
 import importlib.util
 import json
 import math
@@ -170,8 +175,9 @@ def test_build_phase_fails_without_a_hopper_kernel(tmp_path, lib):
 # ------------------------------------------------ tables and lr phase judges
 
 def test_new_phases_run_by_default():
-    assert chip_smoke.PHASES[-8:] == ("tables", "lr", "rows", "w2v", "lda",
-                                      "sgmix", "resnet", "planes")
+    assert chip_smoke.PHASES[-9:] == ("tables", "lr", "rows", "w2v", "lda",
+                                      "sgmix", "resnet", "planes",
+                                      "native")
     assert chip_smoke.TABLE_SIZE == 16 * 1024 * 1024
     assert (chip_smoke.W2V_VOCAB, chip_smoke.W2V_DIM,
             chip_smoke.W2V_BATCH) == (100_000, 128, 8192)
@@ -1380,3 +1386,125 @@ def test_planes_judge_passes_and_rejects(tmp_path):
     assert not chip_smoke.judge_planes(trace, no_health, rules, n)[1]
     assert not chip_smoke.judge_planes(trace, prom, rules - 1, n)[1]
     assert not chip_smoke.judge_planes(None, "", 0, n)[1]
+
+
+# --------------------------------------------------------- native phase
+
+def _bench_defaults(name):
+    """The keyword defaults of one of bench.py's functions, read from its
+    source (bench.py imports JAX at the top)."""
+    import ast
+
+    with open(os.path.join(_ROOT, "bench.py")) as f:
+        tree = ast.parse(f.read())
+    fn = next(n for n in tree.body
+              if isinstance(n, ast.FunctionDef) and n.name == name)
+    args = fn.args.args[-len(fn.args.defaults):]
+    return {a.arg: ast.literal_eval(d)
+            for a, d in zip(args, fn.args.defaults)}
+
+
+def test_native_phase_runs_last_at_bench_sizes():
+    assert chip_smoke.PHASES[-1] == "native"
+    assert chip_smoke.NATIVE_LR == _bench_defaults("bench_lr_native8")
+    assert chip_smoke.NATIVE_W2V == _bench_defaults("bench_w2v_native8")
+    assert chip_smoke.NATIVE_SERVE_PROCS == 2
+
+
+TINY = dict(vocab_size=64, dim=64, n_layers=2, n_heads=2, hidden=64)
+
+
+def test_native_offload_judges_on_cpu(monkeypatch):
+    """The phase's judges on real tiny runs on the CPU: the local and the
+    native store equal the in-memory trainer bit for bit; the native
+    arm runs each kernel's path the launch rule's count of times; a
+    bridge that drops the first step's push fails the comparison; the
+    ``init`` probe rejects runtimes under ``default`` and ``sgd`` and
+    passes ``assign``."""
+    import torch
+
+    from multiverso_tpu_torch import native as nat
+    from multiverso_tpu_torch.parallel import OffloadedState
+
+    cfg, host, tokens = chip_smoke.small_offload_setup(
+        torch, TINY, 16, 4, "float32")
+    arm = functools.partial(chip_smoke.offload_arm, torch, cfg, host,
+                            tokens, device="cpu")
+    counts = _counted_kernels(monkeypatch)
+    mem = arm()
+    rt = nat.NativeRuntime(args=["-updater_type=assign", "-log_level=error"])
+    try:
+        arms = {"local": arm("local")}
+        counts.update(dict.fromkeys(counts, 0))
+        arms["native"] = arm("native", rt)
+        native_counts = dict(counts)
+        dropped = arm("native", rt,
+                      bridge_hook=chip_smoke.dropping_push(3))
+    finally:
+        rt.shutdown()
+    verdict, ok = chip_smoke.judge_offload_arms(mem, arms)
+    assert ok and verdict == {"local": True, "native": True}
+    assert set(arms["native"][5]) == {"push_s", "wait_s"}
+    assert chip_smoke.judge_launches(native_counts, None, TINY["n_layers"],
+                                     chip_smoke.MOE_MESH_STEPS)
+    assert not chip_smoke.judge_launches(
+        {**native_counts, "flash_dkv": native_counts["flash_dkv"] - 1},
+        None, TINY["n_layers"], chip_smoke.MOE_MESH_STEPS)
+    assert not chip_smoke.judge_offload_arms(mem, {"d": dropped})[1]
+    assert dropped[0][0] == mem[0][0] and dropped[0][2] != mem[0][2]
+    # A run one step short, or of other state, fails too.
+    short = (mem[0][:2], *mem[1:])
+    assert not chip_smoke.judge_offload_arms(mem, {"s": short})[1]
+    other = (*mem[:3], [a + 1 for a in mem[3]], *mem[4:])
+    assert not chip_smoke.judge_offload_arms(mem, {"o": other})[1]
+    for upd in ("default", "sgd"):
+        assert chip_smoke.native_probe_rejects(nat, OffloadedState, upd)
+    assert not chip_smoke.native_probe_rejects(nat, OffloadedState,
+                                               "assign")
+
+
+def test_native_ratio_arithmetic():
+    assert chip_smoke.native_ratios(None, None, 10.0, 20.0) == {}
+    assert chip_smoke.native_ratios(30.0, None, 10.0, 20.0) == {
+        "lr_fused_vs_native8": 3.0}
+    assert chip_smoke.native_ratios(30.0, 50.0, 10.0, 20.0) == {
+        "lr_fused_vs_native8": 3.0, "w2v_fused_vs_native8": 2.5}
+    outs = ["NATIVE_LR_OK rank=0 dt=1.500000 steps=60",
+            "NATIVE_LR_OK rank=1 dt=2.250000 steps=60"]
+    assert chip_smoke.native_wall(outs) == 2.25
+    got = chip_smoke.serve_numbers(
+        "SERVE_BENCH_OK rank=0 cold_p50_ms=0.400000 cached_p50_ms=0.010000")
+    assert got["serve_cold_p50_ms"] == 0.4
+    assert got["serve_cached_vs_cold_p50"] == pytest.approx(40.0)
+    assert "serve_rank" not in got
+    cpus = os.cpu_count() or 1
+    assert chip_smoke.blas_threads(8) == max(1, cpus // 8)
+    assert chip_smoke.blas_threads(10 * cpus) == 1
+
+
+def test_spawn_native_workers_runs_the_ports_workers():
+    """The phase's launcher at 2 ranks and a small LR job: every rank's
+    marker and a barrier-to-barrier window; a marker no rank prints
+    fails the launch, naming a rank."""
+    outs = chip_smoke.spawn_native_workers("lr_native_worker.py", 2,
+                                           "NATIVE_LR_OK", (3, 32),
+                                           timeout=240)
+    assert all(f"NATIVE_LR_OK rank={r}" in o for r, o in enumerate(outs))
+    assert chip_smoke.native_wall(outs) > 0
+    with pytest.raises(RuntimeError, match="rank 0"):
+        chip_smoke.spawn_native_workers("lr_native_worker.py", 2,
+                                        "NO_SUCH_MARKER", (1, 8),
+                                        timeout=240)
+
+
+def test_native_build_thread_reports_its_build():
+    """The phase's build runs in a thread started beside the kernels'
+    builds; joined, it has the library and its seconds, and no error."""
+    from multiverso_tpu_torch import native as nat
+
+    thread, out = chip_smoke.start_native_build()
+    thread.join(timeout=900)
+    assert not thread.is_alive()
+    assert "error" not in out and out["build_s"] >= 0
+    assert isinstance(out["prebuilt"], bool)
+    assert os.path.exists(nat.lib_path())

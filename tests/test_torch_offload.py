@@ -2,12 +2,16 @@
 and ``TransformerTrainer.offload_state``) against the in-memory trainer
 and the JAX package's offloaded trainer, on the CPU.
 
-The local store keeps float32 bits verbatim, so the offloaded trainer
-must equal the in-memory one bit for bit (losses, parameters and state),
-across ``save``/``restore`` too; against the JAX package's offloaded
-trainer (``backend="local"``) the tolerance is the trainer tests' rtol
-1e-5 with a floor at 1e-5 of each tensor's largest entry.  The native
-store and several processes raise, naming their ROADMAP.md items.
+Both stores keep float32 bits verbatim: the local one and the native
+runtime's ``assign`` table (the port's own library, one runtime at a
+time in this process).  So the offloaded trainer must equal the
+in-memory one bit for bit (losses, parameters and state), across
+``save``/``restore`` too, and the native arm the local one; against the
+JAX package's offloaded trainer (``backend="local"``) the tolerance is
+the trainer tests' rtol 1e-5 with a floor at 1e-5 of each tensor's
+largest entry.  A runtime whose updater does not assign fails the
+bridge's ``init`` probe.  Several processes raise, naming their
+ROADMAP.md item.
 """
 
 import jax
@@ -18,7 +22,7 @@ import torch
 
 import torch_ranks as R
 from multiverso_tpu.models import transformer as jt
-from multiverso_tpu_torch import metrics, tracing
+from multiverso_tpu_torch import metrics, native as nat, tracing
 from multiverso_tpu_torch.models import transformer as pt
 from multiverso_tpu_torch.parallel.offload import OffloadedState, _LocalStore
 
@@ -38,11 +42,20 @@ def _trainer(**kw):
                                  seed=1)
 
 
-def _offloaded(**kw):
+def _offloaded(rt=None, **kw):
     tr = _trainer(**kw)
-    bridge = OffloadedState(None, tr.offload_size(), backend="local")
+    bridge = (OffloadedState(rt, tr.offload_size()) if rt is not None else
+              OffloadedState(None, tr.offload_size(), backend="local"))
     tr.offload_state(bridge)
     return tr, bridge
+
+
+@pytest.fixture()
+def rt():
+    """The port's native runtime under the offload store's updater."""
+    r = nat.NativeRuntime(args=["-updater_type=assign", "-log_level=error"])
+    yield r
+    r.shutdown()
 
 
 def _bits(x):
@@ -180,10 +193,97 @@ def test_offloaded_trainer_matches_jax_offloaded_trainer():
         np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=floor)
 
 
+def test_native_store_round_trips_bit_for_bit(rt):
+    """The JAX package's ``test_offloaded_state_bit_exact_native`` on the
+    port's runtime: the protocol over five steps through the arena's
+    buffers, borrowed async pushes and async prefetches; ``close`` hands
+    the four buffers back to the arena."""
+    off = OffloadedState(rt, 333)
+    assert all(rt.arena().owns(b) for b in off._get_bufs + off._push_bufs)
+    v = np.random.RandomState(5).randn(333).astype(np.float32)
+    v[0], v[1] = np.float32(1e-38), np.float32(-0.0)
+    off.init(v)
+    ref = v.copy()
+    for i in range(5):
+        s = off.wait()
+        new = (s * np.float32(0.99) + np.float32(i * 0.1)).astype(
+            np.float32)
+        off.push(new)
+        off.prefetch()
+        ref = (ref * np.float32(0.99) + np.float32(i * 0.1)).astype(
+            np.float32)
+    assert off.wait().tobytes() == ref.tobytes()
+    free = rt.arena().stats()["free_buffers"]
+    off.close()
+    assert rt.arena().stats()["free_buffers"] == free + 4
+
+
+@pytest.mark.parametrize("updater", ["default", "sgd"])
+def test_native_probe_rejects_a_runtime_that_does_not_assign(updater):
+    """A fleet under any other updater accumulates (or steps) the probe's
+    second push, and ``init`` refuses it, as in the JAX package."""
+    r = nat.NativeRuntime(args=[f"-updater_type={updater}",
+                                "-log_level=error"])
+    try:
+        off = OffloadedState(r, 64)
+        with pytest.raises(RuntimeError, match="updater_type=assign"):
+            off.init(np.arange(1, 65, dtype=np.float32))
+        off.close()
+    finally:
+        r.shutdown()
+
+
+def test_native_offloaded_trainer_equals_local_bit_for_bit(rt):
+    """Three momentum steps at dim 64 with the state in the native store,
+    in the local store and in memory: losses, parameters and state bit
+    for bit across all three."""
+    base = _trainer(dim=64)
+    mem = [float(base.train_step_async(_tokens())) for _ in range(3)]
+    runs = {}
+    for name, store in (("local", None), ("native", rt)):
+        tr, bridge = _offloaded(store, dim=64)
+        losses = [float(tr.train_step_async(_tokens())) for _ in range(3)]
+        assert [_bits(x) for x in losses] == [_bits(x) for x in mem]
+        _same_trainers(tr, base, a_state=_bridge_state(tr))
+        runs[name] = tr
+        bridge.close()
+    assert runs["native"]._offload.backend == "native"
+
+
+def test_native_offloaded_trainer_matches_jax_offloaded_trainer(rt):
+    """The port's trainer offloaded to the native store against the JAX
+    package's offloaded trainer (its local store, which its own
+    ``test_trainer_offload_bit_exact`` holds bit for bit with its native
+    one): losses, parameters and state at rtol 1e-5 after 3 steps."""
+    from multiverso_tpu.parallel.offload import \
+        OffloadedState as JOffloadedState
+
+    mesh = jax.sharding.Mesh(np.asarray(jax.devices()[:1]), ("dp",))
+    jtr = jt.TransformerTrainer(
+        jt.TransformerConfig(**CFG, compute_dtype=jnp.float32), mesh,
+        updater_type="momentum", seed=1)
+    jtr.offload_state(JOffloadedState(None, jtr.offload_size(),
+                                      backend="local"))
+    jl = [float(jtr.train_step_async(_tokens())) for _ in range(3)]
+    tr, bridge = _offloaded(rt)
+    pl = [float(tr.train_step_async(_tokens())) for _ in range(3)]
+    np.testing.assert_allclose(pl, jl, rtol=1e-5)
+    jstate = jtr._flat_to_state(jtr._offload.wait())
+    pairs = list(zip(pt._leaves(tr.params), pt._leaves(jtr.params)))
+    pairs += [(a, b) for sa, sb in zip(_bridge_state(tr),
+                                       pt._leaves(jstate))
+              for a, b in zip(sa, sb)]
+    for got, want in pairs:
+        want = np.asarray(want)
+        floor = 1e-5 * float(np.max(np.abs(want)))
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=floor)
+    bridge.close()
+
+
 def test_offload_refusals():
-    """The JAX trainer's refusals (a stateless updater, a bridge of
-    another size, the fused steps) and the port's own: the native
-    store, named by its ROADMAP.md item."""
+    """The JAX trainer's refusals: a stateless updater, a bridge of
+    another size, the native store without a runtime, the fused
+    steps."""
     cfg = pt.TransformerConfig(**CFG, compute_dtype=torch.float32)
     sgd = pt.TransformerTrainer(cfg, device="cpu", updater_type="sgd")
     assert sgd.offload_size() == 0
@@ -192,8 +292,8 @@ def test_offload_refusals():
     tr = _trainer()
     with pytest.raises(ValueError, match="bridge sized 7"):
         tr.offload_state(OffloadedState(None, 7, backend="local"))
-    with pytest.raises(NotImplementedError,
-                       match='ROADMAP.*"Modules that need the native'):
+    with pytest.raises(ValueError,
+                       match="backend='native' needs a NativeRuntime"):
         OffloadedState(None, tr.offload_size())
     with pytest.raises(ValueError, match="unknown backend"):
         OffloadedState(None, 4, backend="disk")

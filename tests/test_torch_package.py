@@ -173,8 +173,7 @@ def test_build_rebuilds_when_a_source_changes(monkeypatch, tmp_path):
 
 
 # Modules the port copies from the JAX package with only the package name
-# rewritten.  metrics.py is the original minus its native bridge, under a
-# module docstring of its own.
+# rewritten.
 COPIED = ["config.py", "fault.py", "capacity.py", "sketch.py",
           "ops/flight_recorder.py", "util/quantization.py",
           "util/async_buffer.py", "serve/cache.py", "serve/coalescer.py",
@@ -182,15 +181,48 @@ COPIED = ["config.py", "fault.py", "capacity.py", "sketch.py",
           "tables/sparse_matrix_table.py", "tables/factory.py",
           "util/timer.py", "util/net_util.py", "slo.py", "profiler.py",
           "health.py", "serve/wire.py", "latency.py", "serve/hedge.py",
-          "ops/audit.py", "ops/introspect.py"]
+          "ops/audit.py", "ops/introspect.py", "metrics.py",
+          "tracing.py", "serve/client.py", "parallel/offload.py",
+          "native/__init__.py", "apps/lr_native_worker.py",
+          "apps/w2v_native_worker.py", "apps/serve_bench_worker.py",
+          "apps/embedding_bench_worker.py"]
 
 
 # Besides the name, a copy drops the JAX package's change-history notes
-# (a pattern each, which must match once).
+# and names the port's profiler (a pattern each, which must match once).
 _HISTORY_NOTES = {
     "config.py": [(r"the PR \d+ (whole-id-set entries)", r"\1")],
     "serve/hedge.py": [(r"\nPR \d+ (audit plane's)", r"\n\1")],
+    "tracing.py": [(r"``jax\.profiler`` capture", "``torch.profiler`` capture"),
+                   (r"for XLA-level depth", "for kernel-level depth")],
 }
+
+# Where a copy is the original with a change of its own: each pattern
+# must match once in the copy and once in the original, and the two
+# texts must be equal outside the matches.  The binding builds under a
+# lock, into a temporary name renamed into place (its imports and
+# ``ensure_built``); ``uring_net.cc``'s io_uring probe uses one aligned
+# buffer, because ``io_uring_probe`` ends in a flexible array member in
+# newer kernel headers and cannot be nested in a struct.
+_PORT_CHANGES = {
+    "native/__init__.py": [r"\nimport ctypes\n.*?from typing",
+                           r"\ndef ensure_built\(.*?\n    return _LIB\n"],
+    "native/src/uring_net.cc": [
+        r"\n  (?:struct \{|// io_uring_probe ends).*?"
+        r"kProbeOpSupported\)\) \{\n"],
+}
+
+
+# Then every copy drops the number of the JAX package's change that a
+# comment cites: the noun after the number stays ("the send contract").
+_CHANGE_NUMBERS = [
+    (r" ?\(PRs? \d+(?:/\d+)*\)", ""),
+    (r", PR \d+\)", ")"),
+    (r"\b([Aa]) PR \d+ ([aeiou])", r"\1n \2"),
+    (r"\b(?:the )?PR \d+'s( |$)", r"the\1"),
+    (r"\b([Tt]he|[Aa]) PR \d+ ", r"\1 "),
+    (r"\bPR \d+ ", ""),
+]
 
 
 def _rewrite(text, rel=None):
@@ -198,6 +230,8 @@ def _rewrite(text, rel=None):
     for pattern, repl in _HISTORY_NOTES.get(rel, []):
         text, n = re.subn(pattern, repl, text)
         assert n == 1, (rel, pattern, n)
+    for pattern, repl in _CHANGE_NUMBERS:
+        text = re.sub(pattern, repl, text, flags=re.M)
     return text
 
 
@@ -206,39 +240,76 @@ def _read(*parts):
         return f.read()
 
 
-def _without_docstring(text):
-    first = ast.parse(text).body[0]
-    assert isinstance(first, ast.Expr) and isinstance(first.value,
-                                                      ast.Constant)
-    return "".join(text.splitlines(keepends=True)[first.end_lineno:])
-
-
-def _without_native_bridge(text):
-    """The original metrics.py minus the section between its "Native
-    bridge" and "Periodic flush thread" banners, and minus the bridge's
-    name in ``__all__``."""
-    lines = text.splitlines(keepends=True)
-    start = next(i for i, ln in enumerate(lines)
-                 if ln.startswith("# Native bridge:")) - 1
-    end = next(i for i, ln in enumerate(lines)
-               if ln.startswith("# Periodic flush thread")) - 1
-    out = "".join(lines[:start] + lines[end:])
-    assert '"bridge_native", ' in out
-    return out.replace('"bridge_native", ', "")
+def _outside_changes(text, rel):
+    for pattern in _PORT_CHANGES.get(rel, []):
+        text, n = re.subn(pattern, "\n<port change>\n", text,
+                          flags=re.DOTALL)
+        assert n == 1, (rel, pattern, n)
+    return text
 
 
 @pytest.mark.parametrize("rel", COPIED)
 def test_copied_module_matches_its_original(rel):
-    assert _read("multiverso_tpu_torch", rel) == _rewrite(
-        _read("multiverso_tpu", rel), rel)
+    port = _read("multiverso_tpu_torch", rel)
+    want = _rewrite(_read("multiverso_tpu", rel), rel)
+    assert _outside_changes(port, rel) == _outside_changes(want, rel)
+    if rel not in _PORT_CHANGES:
+        assert port == want
 
 
-def test_metrics_is_the_original_minus_the_native_bridge():
-    port = _read("multiverso_tpu_torch", "metrics.py")
-    orig = _without_native_bridge(_rewrite(_read("multiverso_tpu",
-                                                 "metrics.py")))
-    assert _without_docstring(port) == _without_docstring(orig)
-    assert "bridge_native" not in _without_docstring(port)
+def _native_sources():
+    root = os.path.join(REPO, "multiverso_tpu", "native")
+    out = ["Makefile", "test/test_main.cc"]
+    for sub in ("src", "include/mvtpu"):
+        out += sorted(f"{sub}/{f}" for f in os.listdir(os.path.join(root,
+                                                                    sub)))
+    return out
+
+
+@pytest.mark.parametrize("rel", _native_sources())
+def test_native_source_matches_its_original(rel):
+    """The port's copy of the native runtime's C++ sources and Makefile:
+    the original with the package name rewritten, and in ``uring_net.cc``
+    the one repair (the probe's aligned buffer) and nothing else."""
+    rel = f"native/{rel}"
+    port = _read("multiverso_tpu_torch", rel)
+    want = _rewrite(_read("multiverso_tpu", rel), rel)
+    assert _outside_changes(port, rel) == _outside_changes(want, rel)
+    if rel in _PORT_CHANGES:
+        assert port != want and "alignas(io_uring_probe)" in port
+        assert "alignas(io_uring_probe)" not in want
+    else:
+        assert port == want
+
+
+def test_copies_cite_no_change_numbers():
+    """No copy cites a change of the JAX package by its number."""
+    rels = COPIED + [f"native/{r}" for r in _native_sources()]
+    cited = [rel for rel in rels
+             if re.search(r"\bPRs? ?#?\d", _read("multiverso_tpu_torch",
+                                                   rel))]
+    assert not cited, cited
+
+
+def test_native_copy_is_complete():
+    """Every C++ source and header the port's library builds from has
+    its original (nothing added past the copy)."""
+    port = os.path.join(PKG, "native")
+    have = ["Makefile", "test/test_main.cc"]
+    for sub in ("src", "include/mvtpu"):
+        have += sorted(f"{sub}/{f}"
+                       for f in os.listdir(os.path.join(port, sub)))
+    assert have == _native_sources()
+
+
+def test_binding_differs_only_in_its_build():
+    """The binding's two changes: the imports of the locked build, and
+    ``ensure_built``, which takes the lock and renames into place."""
+    port = _read("multiverso_tpu_torch", "native/__init__.py")
+    want = _rewrite(_read("multiverso_tpu", "native/__init__.py"))
+    assert port != want
+    assert "fcntl.flock(lock, fcntl.LOCK_EX)" in port
+    assert "os.replace(" in port and "os.replace(" not in want
 
 
 def test_metrics_overflow_and_capacity_hooks(tmp_path):

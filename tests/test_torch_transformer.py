@@ -293,13 +293,14 @@ def test_unported_options_raise():
     piped = pt.TransformerTrainer(cfg, device="cpu", seed=8)
     local = pt.TransformerTrainer(pcfg, device="cpu", seed=8)
     assert piped.train_step(tokens) == local.train_step(tokens)
-    # State offload is ported with its local store
-    # (tests/test_torch_offload.py); the native store still raises.
+    # State offload is ported with both stores
+    # (tests/test_torch_offload.py); the native store needs a runtime,
+    # as in the JAX package.
     from multiverso_tpu_torch.parallel.offload import OffloadedState
 
     tr = pt.TransformerTrainer(pcfg, device="cpu", updater_type="momentum")
-    with pytest.raises(NotImplementedError,
-                       match='ROADMAP.*"Modules that need the native'):
+    with pytest.raises(ValueError,
+                       match="backend='native' needs a NativeRuntime"):
         tr.offload_state(OffloadedState(None, tr.offload_size()))
 
 
