@@ -339,6 +339,40 @@ Phases, each printing JSON lines:
              ``serve_bench_worker`` on 2 ranks
              (``serve_cached_vs_cold_p50``, beside the JAX package's
              acceptance of 10x, not gated).
+16. serve  — the serve tier's fleet workers on the card's host (numpy
+             programs over the native runtime; no kernel runs) at
+             bench.py's sizes (``SERVE``), after the host's facts (CPU
+             count, RLIMIT_NOFILE soft and hard, raised toward the tail
+             herd as bench_tail does, io_uring support, ``luajit``): the
+             fan-in herd (1,000 anonymous sockets, inflight 8) on epoll
+             and, where ``MV_UringSupported``, on uring; its ``tail``
+             (10,000, degraded to what the fd limit allows, with the
+             reason), ``ops``, ``latency``, ``audit`` (1,000) and
+             ``health`` (256) modes; failover (3 replicated ranks, rank 1
+             SIGKILLs itself); skew (1,000 x 2,048 x 2,048); capacity
+             (256 x 2,048 x 512, the port's ``tools/mvplan.py``); then
+             the JAX package's demo drivers' runs with the port's
+             modules (``SERVE_DEMO``): fan-in chaos, skew's NaN add,
+             capacity's demo, audit ``chaos`` (epoll and tcp) / ``loss``
+             / ``plain``, and the doctor, latency and ops demos driven
+             over stdin (``Fleet``); and the Lua smoke where a ``luajit``
+             is on PATH.  Gated, each by its judge: every connection
+             accepted; in the demo's run the overload shed and the chaos
+             adds exact; no
+             acked add lost in failover, a promotion within 10 s; the
+             audit plane's named duplicate, the health alert fired, the
+             latency stages summing to >= 0.85; the hot keys, the zipf
+             ratio over 3x uniform and the NaN black box; the byte books
+             within 10% and mvplan's spread <= 2x (demo: skews > 2x, RSS
+             and arena moved); audit chaos exactly the two duplicates,
+             loss a gap with its black box, plain converged disarmed; the
+             doctor's alert firing then resolved; ``apply`` the latency
+             demo's dominant stage under its delay; the ops demo's fleet
+             scrape, exemplars and barrier-timeout black box.  Every part
+             runs and prints its line, then the phase fails naming each
+             part that failed.  The overheads (``SERVE_BARS``) and every
+             p50/p99 are recorded beside bench.py's acceptance bars, not
+             gated, with the phase's own wall clock.
 
 Then the kernels line (the trainer's numbers, the launches of every
 path, and the kernels' numbers at every other path's shapes, the ring's
@@ -376,7 +410,7 @@ LAYERS, STEPS, BATCH, SEQ = 16, 5, 4, 2048
 HEADS, HEAD_DIM = 16, 128
 PHASES = ("parity", "trainer", "profile", "check", "timing", "small", "moe",
           "longctx", "mesh", "moe_mesh", "shard", "tables", "lr", "rows",
-          "w2v", "lda", "sgmix", "resnet", "planes", "native")
+          "w2v", "lda", "sgmix", "resnet", "planes", "native", "serve")
 # Remat reschedules the backward and recomputes the same numbers: on the
 # card "dots" matched the no-remat losses to the last bit and full remat
 # (batch 8, the batch of 4 twice) within 5.3e-5, so the losses are held
@@ -4290,36 +4324,53 @@ NATIVE_BIND_RACE = ("Address already in use", "Failed to bind",
                     "bind failed", "EADDRINUSE")
 
 
+def machine_file(tmp, procs):
+    """A loopback machine file of ``procs`` free ports in ``tmp``: its
+    path and the endpoints."""
+    import socket
+
+    socks = [socket.socket() for _ in range(procs)]
+    for s in socks:
+        s.bind(("127.0.0.1", 0))
+    eps = [f"127.0.0.1:{s.getsockname()[1]}" for s in socks]
+    for s in socks:
+        s.close()
+    mf = os.path.join(tmp, "machines")
+    with open(mf, "w") as f:
+        f.write("\n".join(eps) + "\n")
+    return mf, eps
+
+
+def worker_env(procs, **extra):
+    """The ranks' environment: the checkout on the path and each rank's
+    BLAS on its share of the host's cores (``blas_threads``)."""
+    threads = str(blas_threads(procs))
+    return dict(os.environ, PYTHONPATH=HERE, OMP_NUM_THREADS=threads,
+                OPENBLAS_NUM_THREADS=threads, MKL_NUM_THREADS=threads,
+                **extra)
+
+
 def spawn_native_workers(script, procs, marker, extra_args=(),
-                         timeout=NATIVE_TIMEOUT_S):
+                         timeout=NATIVE_TIMEOUT_S, exempt_ranks=(), env=None):
     """``procs`` ranks of the port's worker ``apps/<script>`` over a fresh
     loopback machine file (bench.py's ``_spawn_native_workers``): every
     rank's output, or an error naming the rank that failed or lacked
-    ``marker``.  A launch whose failed ranks all lost a port to another
-    process is retried on fresh ports; every rank is killed at the
-    deadline.  Each rank's BLAS gets its share of the host's cores
+    ``marker``.  A rank in ``exempt_ranks`` (failover's victim, which
+    SIGKILLs itself) is held to neither; ``env`` adds variables to the
+    ranks' environment.  A launch whose failed ranks all lost a port to
+    another process is retried on fresh ports; every rank is killed at
+    the deadline.  Each rank's BLAS gets its share of the host's cores
     (``blas_threads``), as one process a core under ``mpirun`` would:
     with every rank running a BLAS thread per core, 8 LR ranks on the
     H100 host's 8 cores ran 16-19x slower (33,442 samples/s against
     551,841-647,695)."""
-    import socket
     import tempfile
 
     worker = os.path.join(HERE, "multiverso_tpu_torch", "apps", script)
-    threads = str(blas_threads(procs))
-    env = dict(os.environ, PYTHONPATH=HERE, OMP_NUM_THREADS=threads,
-               OPENBLAS_NUM_THREADS=threads, MKL_NUM_THREADS=threads)
+    env = worker_env(procs, **(env or {}))
     for attempt in range(NATIVE_ATTEMPTS):
-        socks = [socket.socket() for _ in range(procs)]
-        for s in socks:
-            s.bind(("127.0.0.1", 0))
-        eps = [f"127.0.0.1:{s.getsockname()[1]}" for s in socks]
-        for s in socks:
-            s.close()
         with tempfile.TemporaryDirectory(prefix="mvt_native_") as tmp:
-            mf = os.path.join(tmp, "machines")
-            with open(mf, "w") as f:
-                f.write("\n".join(eps) + "\n")
+            mf, _ = machine_file(tmp, procs)
             children = [subprocess.Popen(
                 [sys.executable, worker, mf, str(r), *map(str, extra_args)],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
@@ -4335,11 +4386,14 @@ def spawn_native_workers(script, procs, marker, extra_args=(),
                     if p.poll() is None:
                         p.kill()
                         p.wait()
-        failed = [r for r, p in enumerate(children) if p.returncode != 0]
+        failed = [r for r, p in enumerate(children)
+                  if p.returncode != 0 and r not in exempt_ranks]
         if failed and attempt < NATIVE_ATTEMPTS - 1 and all(
                 any(m in outs[r] for m in NATIVE_BIND_RACE) for r in failed):
             continue
         for r, (p, out) in enumerate(zip(children, outs)):
+            if r in exempt_ranks:
+                continue
             if p.returncode != 0 or marker not in out:
                 raise RuntimeError(f"{script} rank {r} failed "
                                    f"(rc={p.returncode}):\n{out[-2000:]}")
@@ -4558,6 +4612,741 @@ def phase_native(torch, fa, card, build, lr_fused=None, w2v_fused=None):
     return counts
 
 
+# ------------------------------------------------------- the serve phase
+
+# bench.py's sizes for the serve tier, the JAX package's full width for
+# these planes: bench_serve_fanin (:586; 1,000 clients, inflight 8, on
+# epoll and on uring where the probe says yes), bench_tail (:626; 10,000),
+# bench_ops (:679), bench_latency (:705) and bench_audit (:738) at 1,000,
+# bench_health (:863; 256), bench_failover (:767; the worker's defaults),
+# bench_skew (:803; clients x rows x requests) and bench_capacity (:832).
+SERVE = dict(fanin=1000, tail=10000, ops=1000, latency=1000, audit=1000,
+             health=256, skew=(1000, 2048, 2048), capacity=(256, 2048, 512))
+SERVE_INFLIGHT = 8        # -server_inflight_max of every run but tail's (0)
+# The JAX package's demo drivers' sizes: tools/fanin_demo.py (256 clients
+# at inflight 1, the chaos adds), tools/skew_demo.py (64 x 2,048 x 256,
+# the NaN add) and tools/capacity_demo.py (3 ranks, 64 x 2,048 x 192,
+# demo on).
+SERVE_DEMO = dict(fanin=(256, 1), skew=(64, 2048, 256),
+                  capacity=(3, 64, 2048, 192))
+# The acceptance bars bench.py's docstrings name for the recorded keys:
+# printed beside each reading, not gated (host-noise figures).
+SERVE_BARS = {"ops_overhead_pct": "< 1", "ops_scrape_p99_ms": "< 5",
+              "audit_overhead_pct": "< 1", "health_overhead_pct": "< 1",
+              "hotkey_track_overhead_pct": "< 2",
+              "capacity_overhead_pct": "< 1", "repl_overhead_pct": "< 3",
+              "latency_profiler_overhead_pct": "< 1",
+              "tail_qos_isolation": "< 2", "tail_overhead_pct": "< 1",
+              "health_alert_detect_ms": "< 2000"}
+AUDIT_DUPS = 2            # audit_demo_worker.DUP_ADDS
+LATENCY_STAGES = ("queue", "wire_out", "mailbox", "apply", "reactor",
+                  "wire_back")
+
+
+def worker_keys(outs) -> dict:
+    """The ``key=value`` numbers of the ranks' report lines (those naming
+    ``rank=<n>``); where two ranks print one key, the first rank's."""
+    keys = {}
+    for out in outs:
+        for line in out.splitlines():
+            if not re.search(r"\brank=\d", line):
+                continue
+            for m in re.finditer(r"(\w+)=(-?\d+(?:\.\d+)?)(?![\w.])", line):
+                if m.group(1) != "rank":
+                    keys.setdefault(m.group(1), float(m.group(2)))
+    return keys
+
+
+def bench_names(keys, prefix, keep=()) -> dict:
+    """bench.py's names for a worker's keys: ``prefix`` before each key
+    that does not already start with one of ``keep``."""
+    return {(k if k.startswith(keep) else prefix + k): v
+            for k, v in keys.items()}
+
+
+def read_json(path):
+    """The JSON document at ``path``, or None when there is none."""
+    if not os.path.exists(path):
+        return None
+    with open(path) as f:
+        return json.load(f)
+
+
+def judge_fanin(keys, clients, demo=False):
+    """({check: verdict}, all pass) of a fan-in run: every anonymous
+    connection accepted and served; in the demo's run
+    (tools/fanin_demo.py: inflight 1, the chaos adds) the overload burst
+    shed and every faulted add landed exactly once (the worker asserts
+    the table's final value; ``adds_ok`` is its receipt).  At bench.py's
+    inflight 8 the shed is recorded, not judged: the card's host shed 1
+    to 221 of 1,000 bursts' requests over 12 runs."""
+    checks = {"accepted": keys.get("accepted") == clients,
+              "clients": keys.get("clients") == clients}
+    if demo:
+        checks.update(shed=keys.get("shed_rate", 0.0) > 0.0,
+                      adds_ok=keys.get("adds_ok") == 1.0)
+    return checks, all(checks.values())
+
+
+def judge_failover(keys):
+    """Failover (tools/failover_demo.py): no acked add lost, the backup
+    promoted, and the promotion within 10 s of the blackout."""
+    promote = keys.get("failover_promote_ms", math.inf)
+    checks = {"lost_acked_adds": keys.get("failover_lost_acked_adds") == 0,
+              "promoted": keys.get("promotions", 0.0) >= 1,
+              "promote_ms": math.isfinite(promote) and 0 <= promote < 1e4}
+    return checks, all(checks.values())
+
+
+def judge_serve_plane(mode, keys):
+    """The fan-in worker's plane modes: the audit plane names its
+    injected duplicate, the health plane's alert fires under the seeded
+    apply delay, the latency plane's stages add up to >= 0.85 of the end
+    to end, the ops scrape ran under load, the tail herd ran."""
+    checks = {
+        "audit": {"dup_named": keys.get("audit_detect_ms", -1) >= 0},
+        "health": {"alert_fired": keys.get("health_alert_fired") == 1.0},
+        "latency": {"stage_sum_ratio": keys.get("stage_sum_ratio", 0.0)
+                    >= 0.85},
+        "ops": {"scraped": keys.get("ops_scrapes", 0.0) > 0},
+        "tail": {"herd": keys.get("clients", 0.0) > 0},
+    }[mode]
+    return checks, all(checks.values())
+
+
+def judge_skew(keys, box=None, nan=False):
+    """Skew (tools/skew_demo.py): every planted hot key in the top-K, the
+    zipf skew ratio over 3x the uniform control's, observed-staleness
+    samples recorded; with ``nan`` the NaN add dumped the black box
+    naming its table."""
+    checks = {"hot_keys": 0 < keys.get("hot_expected", 0.0)
+              == keys.get("hot_hits"),
+              "skew_ratio": keys.get("skew_ratio_zipf", 0.0)
+              > 3.0 * keys.get("skew_ratio_uniform", math.inf),
+              "staleness": keys.get("staleness_count", 0.0) > 0}
+    if nan:
+        reason = (box or {}).get("reason", "")
+        checks["nan_blackbox"] = (
+            reason.startswith("nan_update: table")
+            and f"table {int(keys.get('nan_table', -1))}" in reason)
+    return checks, all(checks.values())
+
+
+def judge_capacity(keys, demo=False):
+    """Capacity (tools/capacity_demo.py): the scraped byte books within
+    10% of the ground truth, the advisor's projected spread <= 2x; in the
+    demo the KV table's bucket bytes and the herd's bucket load skewed
+    over 2x, and rank 0's RSS and arena gauges moved by the big table."""
+    checks = {"bytes_accuracy": 0.9 <= keys.get("capacity_bytes_accuracy",
+                                                0.0) <= 1.1,
+              "kv_accuracy": 0.9 <= keys.get("capacity_kv_accuracy",
+                                             0.0) <= 1.1,
+              "mvplan_spread": keys.get("mvplan_spread_after",
+                                        math.inf) <= 2.0}
+    if demo:
+        checks.update(
+            bytes_skew=keys.get("demo_bytes_skew", 0.0) > 2.0,
+            load_skew=keys.get("demo_load_skew", 0.0) > 2.0,
+            rss_moved=keys.get("demo_rss_delta", 0.0) > 1e6,
+            arena_moved=keys.get("demo_arena_delta", 0.0) >= 1 << 20)
+    return checks, all(checks.values())
+
+
+def judge_audit(mode, findings, outs, box=None):
+    """The audit demo's modes (tools/audit_demo.py): ``chaos`` names
+    exactly the injected duplicates and no loss, gap or unacked stream;
+    ``loss`` names a gap, no loss, the never-acked async tail, and fires
+    the ``audit_gap`` black box; ``plain`` converges with the plane
+    disarmed (the worker asserts both)."""
+    kinds = [f["kind"] for f in findings]
+    if mode == "chaos":
+        checks = {"adds_exact": "CHAOS_ADDS_OK" in outs[1],
+                  "no_loss_gap_unacked": not {"lost", "gap",
+                                              "unacked"} & set(kinds),
+                  "dups_named": sum(f["count"] for f in findings
+                                    if f["kind"] == "dup") == AUDIT_DUPS}
+    elif mode == "loss":
+        checks = {"gap": "gap" in kinds, "no_loss": "lost" not in kinds,
+                  "unacked_tail": "unacked" in kinds,
+                  "blackbox": "audit_gap" in (box or {}).get("reason", "")}
+    else:
+        checks = {"plain_converged_disarmed": "PLAIN_OK" in outs[1]}
+    return checks, all(checks.values())
+
+
+def judge_ops_demo(facts):
+    """The ops demo (tools/ops_demo.py): both ranks up and labeled in the
+    fleet scrape, exemplar trace ids present, the injected barrier
+    timeout's black box with spans, and the box's and the exemplars'
+    trace ids found in the merged Chrome trace."""
+    checks = {"ranks_up": facts["ranks"] == ["0", "1"]
+              and facts["silent"] == [] and facts["rank_up"] == [1.0, 1.0]
+              and min(facts["labeled_series"]) > 0,
+              "exemplars": facts["exemplar_ids"] > 0,
+              "barrier_timeout_blackbox": facts["blackbox_reason"]
+              .startswith("barrier_timeout") and facts["blackbox_spans"] > 0,
+              "box_ids_in_trace": facts["shared_trace_ids"] > 0,
+              "exemplars_in_trace": facts["resolved_exemplars"] > 0}
+    return checks, all(checks.values())
+
+
+def judge_latency_demo(facts):
+    """The latency demo (tools/latency_demo.py:96-128): timed probes'
+    stages within 10% of their end to end, every stage populated on both
+    ranks with clock offsets and the profiler running, ``apply`` the
+    dominant stage under the seeded apply delay, and the p99 exemplar in
+    the merged trace.  The profiler's flame spans there are reported, not
+    judged: the idle ranks' CPU-time sampler took none in 1 of 10 runs on
+    an 8-core host."""
+    checks = {"stage_sums": 0.9 <= facts["stage_sum_ratio"] <= 1.1,
+              "stages_populated": facts["stages_populated"],
+              "dominant_apply": facts["dominant_stage"] == "apply",
+              "exemplar_in_trace": facts["exemplar_in_trace"]}
+    return checks, all(checks.values())
+
+
+def judge_doctor_demo(facts):
+    """The doctor demo (tools/doctor_demo.py): a healthy fleet armed with
+    nothing firing; rank 1's burn-rate alert firing under the seeded
+    apply delay; the alert resolved once the fault is cleared."""
+    checks = {"healthy_quiet": facts["healthy_armed"]
+              and facts["healthy_firing"] == 0,
+              "fault_fires": facts["fault_state"] == "firing",
+              "clear_resolves": facts["cleared_state"] == "ok"
+              and facts["resolved"] >= 1}
+    return checks, all(checks.values())
+
+
+class Fleet:
+    """The ranks of an interactive worker (``apps/<script>``), which print
+    ``ready`` and then serve commands on stdin.  A reader thread a rank
+    queues its output lines, so every wait has a deadline; a start whose
+    ranks lost a port to another process is retried on fresh ports."""
+
+    def __init__(self, script, procs, ready, extra_args=(),
+                 timeout=NATIVE_TIMEOUT_S):
+        import tempfile
+
+        self.script = script
+        worker = os.path.join(HERE, "multiverso_tpu_torch", "apps", script)
+        for attempt in range(NATIVE_ATTEMPTS):
+            self._tmp = tempfile.TemporaryDirectory(prefix="mvt_serve_")
+            mf, self.eps = machine_file(self._tmp.name, procs)
+            self.procs = [subprocess.Popen(
+                [sys.executable, worker, mf, str(r), *map(str, extra_args)],
+                stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True,
+                env=worker_env(procs)) for r in range(procs)]
+            self._start_readers()
+            try:
+                for r in range(procs):
+                    self.expect(r, ready, timeout)
+                return
+            except RuntimeError:
+                raced = any(m in "".join(seen) for seen in self.seen
+                            for m in NATIVE_BIND_RACE)
+                self.close()
+                if not raced or attempt == NATIVE_ATTEMPTS - 1:
+                    raise
+
+    def _start_readers(self):
+        import queue
+        import threading
+
+        self.queues = [queue.Queue() for _ in self.procs]
+        self.seen = [[] for _ in self.procs]
+
+        def read(p, q):
+            for line in p.stdout:
+                q.put(line)
+            q.put(None)
+
+        self._readers = [threading.Thread(target=read, args=(p, q),
+                                          daemon=True)
+                         for p, q in zip(self.procs, self.queues)]
+        for t in self._readers:
+            t.start()
+
+    def expect(self, r, marker, timeout=120):
+        """The first line of rank ``r``'s output holding ``marker``."""
+        import queue
+
+        deadline = time.monotonic() + timeout
+        while True:
+            left = deadline - time.monotonic()
+            try:
+                line = self.queues[r].get(timeout=max(left, 0.01))
+            except queue.Empty:
+                line = None
+                left = 0
+            if line is None:
+                tail = "".join(self.seen[r])[-2000:]
+                why = "timed out" if left <= 0 else "ended"
+                raise RuntimeError(f"{self.script} rank {r} {why} before "
+                                   f"{marker!r}:\n{tail}")
+            self.seen[r].append(line)
+            if marker in line:
+                return line
+
+    def send(self, r, cmd):
+        self.procs[r].stdin.write(cmd + "\n")
+        self.procs[r].stdin.flush()
+
+    def command(self, r, cmd, marker, timeout=120):
+        self.send(r, cmd)
+        return self.expect(r, marker, timeout)
+
+    def finish(self, marker, timeout=NATIVE_TIMEOUT_S):
+        """Every rank's whole output once all have exited, each required
+        to exit 0 holding ``marker(rank)``."""
+        deadline = time.monotonic() + timeout
+        outs = []
+        for r, (p, t) in enumerate(zip(self.procs, self._readers)):
+            try:
+                p.wait(timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
+            t.join(timeout=10)
+            while not self.queues[r].empty():
+                line = self.queues[r].get()
+                if line is not None:
+                    self.seen[r].append(line)
+            outs.append("".join(self.seen[r]))
+            if p.returncode != 0 or marker(r) not in outs[-1]:
+                raise RuntimeError(f"{self.script} rank {r} failed "
+                                   f"(rc={p.returncode}):\n"
+                                   f"{outs[-1][-2000:]}")
+        return outs
+
+    def close(self):
+        for p in self.procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            for f in (p.stdin, p.stdout):
+                with contextlib.suppress(OSError):
+                    f.close()
+        self._tmp.cleanup()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+
+def serve_fanin(clients, inflight, chaos=0, mode="", engine="epoll",
+                timeout=NATIVE_TIMEOUT_S):
+    """One 2-rank run of the fan-in worker: its keys and the outputs."""
+    outs = spawn_native_workers(
+        "fanin_bench_worker.py", 2, "FANIN_BENCH_OK",
+        (clients, inflight, chaos, mode, engine), timeout=timeout)
+    return worker_keys(outs), outs
+
+
+def serve_failover(timeout=NATIVE_TIMEOUT_S):
+    """The 3-rank replicated fleet whose rank 1 SIGKILLs itself."""
+    return worker_keys(spawn_native_workers(
+        "failover_bench_worker.py", 3, "FAILOVER_BENCH_OK", (),
+        timeout=timeout, exempt_ranks=(1,)))
+
+
+def serve_skew(clients, rows, reqs, nan=0, timeout=NATIVE_TIMEOUT_S):
+    """The skew worker on 2 ranks: its keys and, with ``nan``, rank 0's
+    black box."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="mvt_skew_") as tmp:
+        outs = spawn_native_workers(
+            "skew_bench_worker.py", 2, "SKEW_BENCH_OK",
+            (clients, rows, reqs, nan), timeout=timeout,
+            env={"MVTPU_SKEW_TRACE_DIR": tmp})
+        return worker_keys(outs), read_json(
+            os.path.join(tmp, "blackbox_rank0.json"))
+
+
+def serve_capacity(ranks, clients, rows, reqs, demo=0,
+                   timeout=NATIVE_TIMEOUT_S):
+    """The capacity worker's keys (the last rank drives the herd)."""
+    return worker_keys(spawn_native_workers(
+        "capacity_bench_worker.py", ranks, "CAPACITY_BENCH_OK",
+        (clients, rows, reqs, demo), timeout=timeout))
+
+
+def serve_audit(mode, extra=(), timeout=NATIVE_TIMEOUT_S):
+    """The audit demo worker's ``mode`` on 2 ranks: the port's auditor's
+    findings over rank 0's fleet books, the outputs, rank 0's black box."""
+    import tempfile
+
+    from multiverso_tpu_torch.ops.audit import diff_fleet
+
+    with tempfile.TemporaryDirectory(prefix="mvt_audit_") as tmp:
+        outs = spawn_native_workers(
+            "audit_demo_worker.py", 2, "AUDIT_DEMO_WORKER_OK",
+            (mode, tmp, *extra), timeout=timeout)
+        box = read_json(os.path.join(tmp, "blackbox_rank0.json"))
+    line = next(ln for ln in outs[0].splitlines()
+                if ln.startswith("AUDIT_FLEET "))
+    return diff_fleet(json.loads(line[len("AUDIT_FLEET "):])), outs, box
+
+
+def trace_ids(trace_dir):
+    """The merged Chrome trace of ``trace_dir``: its trace ids and its
+    events."""
+    from multiverso_tpu_torch import tracing
+
+    with open(tracing.merge_dir(trace_dir)) as f:
+        events = json.load(f)["traceEvents"]
+    ids = {e.get("args", {}).get("trace_id") for e in events} - {None}
+    return ids, events
+
+
+def serve_ops_demo(timeout=NATIVE_TIMEOUT_S):
+    """tools/ops_demo.py's steps with the port's modules: a fleet scrape
+    of the held 2-rank fleet, then the injected barrier timeout."""
+    import tempfile
+
+    from multiverso_tpu_torch.ops.introspect import OpsClient
+
+    with tempfile.TemporaryDirectory(prefix="mvt_ops_") as traces:
+        with Fleet("ops_demo_worker.py", 2, "OPS_READY", (traces,),
+                   timeout) as fleet:
+            with OpsClient(fleet.eps[0], timeout=15) as c:
+                health = c.health(fleet=True)
+                values, exemplars = c.metrics(fleet=True)
+            for r in range(2):
+                fleet.send(r, "")
+            outs = fleet.finish(lambda r: f"OPS_WORKER_OK {r}", timeout)
+        box = read_json(os.path.join(traces, "blackbox_rank0.json")) or {}
+        ids, _ = trace_ids(traces)
+    exemplar_ids = {ex["trace_id"] for ex in exemplars.values()
+                    if "trace_id" in ex}
+    box_ids = {s["trace_id"] for s in box.get("spans", [])} - {"0x0"}
+    return {"ranks": sorted(health["ranks"]), "silent": health["silent"],
+            "rank_up": [values.get(f'mv_ops_rank_up{{rank="{r}"}}')
+                        for r in range(2)],
+            "labeled_series": [sum(f'rank="{r}"' in k for k in values)
+                               for r in range(2)],
+            "exemplar_ids": len(exemplar_ids),
+            "blackbox_dumped": "BLACKBOX_DUMPED" in outs[0],
+            "blackbox_reason": box.get("reason", ""),
+            "blackbox_spans": len(box.get("spans", [])),
+            "shared_trace_ids": len(box_ids & ids),
+            "resolved_exemplars": len(exemplar_ids & ids)}
+
+
+def serve_latency_demo(timeout=NATIVE_TIMEOUT_S):
+    """tools/latency_demo.py's steps with the port's modules: 20 timed
+    probes, the fleet latency report, a seeded 25 ms apply delay on rank
+    0 and rank 1's traffic, then the merged trace.  The stage named under
+    the delay is the one with the largest mean over that traffic (rank
+    1's stage histograms' counts and sums, scraped before and after it);
+    latdoctor's reading, the largest p99 over the whole run, is reported
+    beside it: one slow request of the fleet's warm-up in a wire stage
+    outweighs it on a loaded host."""
+    import tempfile
+
+    from multiverso_tpu_torch import latency
+    from multiverso_tpu_torch.ops.introspect import OpsClient
+    from multiverso_tpu_torch.serve import wire
+
+    with tempfile.TemporaryDirectory(prefix="mvt_lat_") as traces:
+        with Fleet("latency_demo_worker.py", 2, "LATD_READY", (traces,),
+                   timeout) as fleet:
+            client = wire.AnonServeClient(fleet.eps[0], timeout=15,
+                                          timing=True)
+            ratios = []
+            for _ in range(20):
+                client.table_version(0)
+                st = client.last_stages
+                if st["total"] > 0:
+                    ratios.append(sum(v for k, v in st.items()
+                                      if k != "total") / st["total"])
+            client.close()
+            with OpsClient(fleet.eps[0], timeout=15) as c:
+                before = c.latency(fleet=True)["ranks"]
+            exemplar = (before["1"].get("total", {}).get("exemplar_p99")
+                        or before["0"].get("total", {}).get("exemplar_p99"))
+            fleet.command(0, "fault", "LATD_FAULT_ARMED")
+            fleet.command(1, "traffic", "LATD_TRAFFIC_DONE")
+            with OpsClient(fleet.eps[0], timeout=15) as c:
+                after = c.latency(fleet=True)["ranks"]["1"]
+            window = {s: (after["stages"][s]["sum_s"]
+                          - before["1"]["stages"][s]["sum_s"]) * 1e3
+                      / max(after["stages"][s]["count"]
+                            - before["1"]["stages"][s]["count"], 1)
+                      for s in LATENCY_STAGES}
+            for r in range(2):
+                fleet.send(r, "quit")
+            fleet.finish(lambda r: f"LATD_OK {r}", timeout)
+        ids, events = trace_ids(traces)
+    populated = all(
+        rep["armed"] and rep["offsets"] and rep["profiler"]["running"]
+        and all(rep["stages"][s]["count"] > 0 for s in LATENCY_STAGES)
+        for rep in (before.get("0"), before.get("1")) if rep) \
+        and len(before) == 2
+    return {"stage_sum_ratio": sum(ratios) / max(len(ratios), 1),
+            "probes": len(ratios), "stages_populated": bool(populated),
+            "dominant_stage": max(window, key=window.get),
+            "stage_means_under_delay_ms": window,
+            "dominant_p99_stage": latency.dominant_stage(after, "p99_ms"),
+            "exemplar": exemplar,
+            "exemplar_in_trace": bool(exemplar) and exemplar in ids,
+            "flame_spans": sum(e["name"].startswith("profile:")
+                               for e in events)}
+
+
+def serve_doctor_demo(timeout=NATIVE_TIMEOUT_S):
+    """tools/doctor_demo.py's steps with the port's modules (its
+    ``mvdoctor`` runs need the JAX package): a healthy fleet's alerts, a
+    seeded 25 ms apply delay on rank 0 under rank 1's probes, then the
+    fault cleared until the alert resolves."""
+    from multiverso_tpu_torch.apps.doctor_demo_worker import FLUSH_MS
+    from multiverso_tpu_torch.ops.introspect import OpsClient
+
+    flush = FLUSH_MS / 1e3
+
+    def alerts(ep):
+        with OpsClient(ep, timeout=15) as c:
+            return c.alerts(fleet=True).get("ranks") or {}
+
+    with Fleet("doctor_demo_worker.py", 2, "DOC_READY", (),
+               timeout) as fleet:
+        for r in range(2):
+            fleet.command(r, "probe", "DOC_PROBE_DONE")
+        time.sleep(2.5 * flush)
+        hosts = [(rep or {}).get("host") or {}
+                 for rep in alerts(fleet.eps[0]).values()]
+        facts = {"healthy_armed": len(hosts) == 2
+                 and all(h.get("armed") for h in hosts),
+                 "healthy_firing": sum(h.get("firing", 0) for h in hosts)}
+        fleet.command(0, "fault", "DOC_FAULT_ARMED")
+        fleet.command(1, "probe", "DOC_PROBE_DONE", timeout=180)
+        time.sleep(2.0 * flush)
+        host1 = (alerts(fleet.eps[0]).get("1") or {}).get("host") or {}
+        burn = [a for a in host1.get("alerts") or []
+                if a["rule"] == "lat-slo-burn"]
+        facts["fault_state"] = burn[0]["state"] if burn else None
+        fleet.command(0, "clear", "DOC_CLEARED")
+        deadline = time.monotonic() + 30
+        while True:
+            fleet.command(1, "probe", "DOC_PROBE_DONE")
+            line = fleet.command(1, "alerts", "DOC_ALERTS")
+            local = json.loads(line.split("DOC_ALERTS ", 1)[1])
+            a = next(x for x in local["alerts"] if x["rule"] == "lat-slo-burn")
+            if (a["state"] == "ok" and a["resolved"] >= 1
+                    or time.monotonic() > deadline):
+                break
+            time.sleep(flush)
+        facts.update(cleared_state=a["state"], resolved=a["resolved"])
+        for r in range(2):
+            fleet.send(r, "quit")
+        fleet.finish(lambda r: f"DOC_OK {r}", timeout)
+    return facts
+
+
+LUA_SMOKE = """
+package.path = package.path .. ";%s/?.lua"
+local mv = require("multiverso")
+mv.init({"-updater_type=default", "-log_level=error"})
+local t = mv.ArrayTableHandler:new(8)
+t:add({1, 1, 1, 1, 1, 1, 1, 1})
+local w = t:get()
+assert(math.abs(w[0] - 1.0) < 1e-6)
+local m = mv.MatrixTableHandler:new(6, 3)
+m:add_rows({1, 4}, {1, 2, 3, 4, 5, 6})
+local rows = m:get_rows({4, 1})
+assert(math.abs(rows[0] - 4.0) < 1e-6)   -- row 4, col 0
+assert(math.abs(rows[3] - 1.0) < 1e-6)   -- row 1, col 0
+m:add_rows({1}, {10, 10, 10}, {async = true})
+mv.barrier()
+local again = m:get_rows({1})
+assert(math.abs(again[0] - 11.0) < 1e-6)
+local kv = mv.KVTableHandler:new()
+kv:add("alpha", 2.5)
+assert(math.abs(kv:get("alpha") - 2.5) < 1e-6)
+kv:add_batch({"b", "cc"}, {1.0, 2.0})
+local vals = kv:get_batch({"cc", "b", "absent"})
+assert(math.abs(vals[0] - 2.0) < 1e-6)
+assert(math.abs(vals[1] - 1.0) < 1e-6)
+assert(vals[2] == 0.0)
+mv.barrier()
+mv.shutdown()
+print("LUA_SMOKE_OK")
+"""
+
+
+def lua_smoke(luajit, timeout=60):
+    """The port's Lua module (``binding/lua/multiverso.lua``) under
+    ``luajit`` over the port's library: array, matrix-row and KV round
+    trips.  Returns the completed process."""
+    import tempfile
+
+    lua_dir = os.path.join(HERE, "multiverso_tpu_torch", "binding", "lua")
+    with tempfile.TemporaryDirectory(prefix="mvt_lua_") as tmp:
+        script = os.path.join(tmp, "smoke.lua")
+        with open(script, "w") as f:
+            f.write(LUA_SMOKE % lua_dir)
+        return subprocess.run([luajit, script], capture_output=True,
+                              text=True, timeout=timeout)
+
+
+def raise_fd_limit(want):
+    """Raise this process's soft RLIMIT_NOFILE toward ``want`` (its ranks
+    inherit it, as bench_tail's do); (soft, hard) before and the soft
+    limit after."""
+    import resource
+
+    soft, hard = resource.getrlimit(resource.RLIMIT_NOFILE)
+    if soft != resource.RLIM_INFINITY and soft < want:
+        cap = want if hard == resource.RLIM_INFINITY else min(want, hard)
+        with contextlib.suppress(ValueError, OSError):
+            resource.setrlimit(resource.RLIMIT_NOFILE, (cap, hard))
+    return soft, hard, resource.getrlimit(resource.RLIMIT_NOFILE)[0]
+
+
+def phase_serve(card, build):
+    """The serve phase (see the module docstring) at the sizes ``SERVE``
+    and ``SERVE_DEMO``; ``build`` is ``start_native_build``'s.  Every
+    part runs and prints its line; the phase raises at its end naming
+    each part that failed."""
+    import shutil
+
+    from multiverso_tpu_torch import native as nat
+
+    sizes, demo, timeout = SERVE, SERVE_DEMO, NATIVE_TIMEOUT_S
+    thread, built = build
+    thread.join()
+    if "error" in built:
+        raise built["error"]
+    t_phase = time.perf_counter()
+    soft, hard, raised = raise_fd_limit(sizes["tail"] + 512)
+    uring = bool(nat.load().MV_UringSupported())
+    luajit = shutil.which("luajit")
+    emit({"phase": "serve", "check": "host", "host_cpus": os.cpu_count(),
+          "rlimit_nofile": {"soft": soft, "hard": hard, "soft_now": raised},
+          "uring_supported": uring, "luajit": luajit, "card": card})
+    failed, recorded = [], {}
+
+    def part(name, run):
+        t0 = time.perf_counter()
+        try:
+            rec = run()
+        except Exception as exc:     # reported; the phase fails at its end
+            traceback.print_exc()
+            rec = {"ok": False, "error": f"{type(exc).__name__}: {exc}"}
+        rec["seconds"] = time.perf_counter() - t0
+        if not name.startswith("demo_"):     # bench.py's sizes only
+            recorded.update((k, v) for k, v in rec.get("keys", {}).items()
+                            if k in SERVE_BARS)
+        emit({"phase": "serve", "check": name, **rec})
+        if not rec["ok"]:
+            failed.append(name)
+
+    def fanin(clients, inflight, chaos=0, engine="epoll", prefix="fanin_"):
+        keys, _ = serve_fanin(clients, inflight, chaos, "", engine, timeout)
+        checks, ok = judge_fanin(keys, clients, demo=bool(chaos))
+        return {"ok": ok, "checks": checks, "clients": clients,
+                "inflight": inflight, "engine": engine,
+                "keys": bench_names(keys, prefix)}
+
+    def plane(mode, clients, inflight=SERVE_INFLIGHT):
+        keys, outs = serve_fanin(clients, inflight, 0, mode, "epoll",
+                                 timeout)
+        checks, ok = judge_serve_plane(mode, keys)
+        rec = {"ok": ok, "checks": checks, "clients": clients,
+               "keys": bench_names(keys, f"{mode}_", (f"{mode}_",))}
+        if mode == "tail":
+            rec["fd_limit"] = [ln for out in outs for ln in out.splitlines()
+                               if ln.startswith("fd_limit:")]
+        return rec
+
+    def failover():
+        keys = serve_failover(timeout)
+        checks, ok = judge_failover(keys)
+        return {"ok": ok, "checks": checks,
+                "keys": bench_names(keys, "failover_",
+                                    ("failover_", "repl_"))}
+
+    def skew(size, nan=0):
+        keys, box = serve_skew(*size, nan=nan, timeout=timeout)
+        checks, ok = judge_skew(keys, box, bool(nan))
+        return {"ok": ok, "checks": checks, "size": size,
+                "blackbox_reason": (box or {}).get("reason"),
+                "keys": bench_names(keys, "skew_",
+                                    ("skew_", "hotkey_", "hot_"))}
+
+    def capacity(ranks, size, flag=0):
+        keys = serve_capacity(ranks, *size, demo=flag, timeout=timeout)
+        checks, ok = judge_capacity(keys, bool(flag))
+        return {"ok": ok, "checks": checks, "ranks": ranks, "size": size,
+                "keys": bench_names(keys, "capacity_",
+                                    ("capacity_", "mvplan_"))}
+
+    def audit(mode, *extra):
+        findings, outs, box = serve_audit(mode, extra, timeout)
+        checks, ok = judge_audit(mode, findings, outs, box)
+        return {"ok": ok, "checks": checks, "flags": list(extra),
+                "findings": [{k: f.get(k) for k in ("kind", "count")}
+                             for f in findings],
+                "blackbox_reason": (box or {}).get("reason")}
+
+    def demo_part(run, judge):
+        facts = run(timeout)
+        checks, ok = judge(facts)
+        return {"ok": ok, "checks": checks, "facts": facts}
+
+    def lua():
+        if luajit is None:
+            return {"ok": True, "ran": False,
+                    "note": "no luajit on PATH: the Lua smoke did not run"}
+        out = lua_smoke(luajit)
+        ok = out.returncode == 0 and "LUA_SMOKE_OK" in out.stdout
+        return {"ok": ok, "ran": True, "luajit": luajit,
+                "output": (out.stdout + out.stderr)[-2000:]}
+
+    part("fanin", lambda: fanin(sizes["fanin"], SERVE_INFLIGHT))
+    if uring:
+        part("fanin_uring", lambda: fanin(sizes["fanin"], SERVE_INFLIGHT,
+                                          engine="uring",
+                                          prefix="fanin_uring_"))
+    else:
+        emit({"phase": "serve", "check": "fanin_uring", "ok": True,
+              "ran": False, "note": "MV_UringSupported() is 0 on this host"})
+    part("tail", lambda: plane("tail", sizes["tail"], 0))
+    for mode in ("ops", "latency", "audit", "health"):
+        part(mode, lambda mode=mode: plane(mode, sizes[mode]))
+    part("failover", failover)
+    part("skew", lambda: skew(sizes["skew"]))
+    part("capacity", lambda: capacity(2, sizes["capacity"]))
+    part("demo_fanin_chaos", lambda: fanin(*demo["fanin"], chaos=1))
+    part("demo_skew_nan", lambda: skew(demo["skew"], nan=1))
+    part("demo_capacity", lambda: capacity(demo["capacity"][0],
+                                           demo["capacity"][1:], 1))
+    for engine in ("epoll", "tcp"):
+        part(f"demo_audit_chaos_{engine}",
+             lambda engine=engine: audit("chaos", f"-net_engine={engine}"))
+    part("demo_audit_loss", lambda: audit("loss"))
+    part("demo_audit_plain", lambda: audit("plain", "-audit=false"))
+    part("demo_doctor", lambda: demo_part(serve_doctor_demo,
+                                          judge_doctor_demo))
+    part("demo_latency", lambda: demo_part(serve_latency_demo,
+                                           judge_latency_demo))
+    part("demo_ops", lambda: demo_part(serve_ops_demo, judge_ops_demo))
+    part("lua", lua)
+    emit({"phase": "serve", "check": "recorded", "ok": not failed,
+          "failed": failed, "host_cpus": os.cpu_count(),
+          "rlimit_nofile": {"soft": soft, "hard": hard, "soft_now": raised},
+          "uring_supported": uring, "luajit": luajit,
+          "overheads_beside_bars": {k: {"value": recorded.get(k),
+                                        "acceptance": bar}
+                                    for k, bar in SERVE_BARS.items()},
+          "serve_seconds": time.perf_counter() - t_phase, "card": card})
+    if failed:
+        raise AssertionError(f"serve phase failed: {failed}")
+
+
 def main(argv) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=STEPS)
@@ -4593,7 +5382,8 @@ def main(argv) -> int:
           "count": torch.cuda.device_count(), "nvidia_smi": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda})
 
-    native_build = start_native_build() if "native" in phases else None
+    native_build = (start_native_build() if phases & {"native", "serve"}
+                    else None)
     t0 = time.perf_counter()
     paths = _build.build()
     build_s = time.perf_counter() - t0
@@ -4644,6 +5434,10 @@ def main(argv) -> int:
     if "native" in phases:
         paths["native"] = phase_native(torch, fa, card, native_build,
                                        lr_fused, w2v_fused)
+    if "serve" in phases:
+        fa.reset_launch_counts()
+        phase_serve(card, native_build)
+        paths["serve"] = fa.launch_counts()
 
     kernels = []
     for kname, (src, replaces) in KERNELS.items():

@@ -16,8 +16,13 @@ whose workers sync through ``ext.torch_ext.TorchParamManager``.
 The ``*_worker.py`` scripts are numpy programs over the native runtime
 (``native/``), one process per rank of a machine file: the 8-process
 LR and word2vec jobs that the fused rates are measured against
-(``lr_native_worker``, ``w2v_native_worker``) and ``ServeClient``'s two
-benches (``serve_bench_worker``, ``embedding_bench_worker``).
+(``lr_native_worker``, ``w2v_native_worker``), ``ServeClient``'s two
+benches (``serve_bench_worker``, ``embedding_bench_worker``), the serve
+tier's fleets (``fanin_bench_worker`` with its plane modes,
+``failover_bench_worker``, ``skew_bench_worker``,
+``capacity_bench_worker``) and the four demo workers (``audit``,
+``doctor``, ``latency``, ``ops``) that ``chip_smoke.py``'s serve phase
+drives.
 """
 
 from .dlrm import DLRMRecommender, synthetic_clicks, zipf_ids

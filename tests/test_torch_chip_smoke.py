@@ -33,6 +33,13 @@ pack.  The native phase's judges run on real tiny trainers on the CPU
 arms and reject a bridge that drops a push; the ``init`` probe rejects
 the non-assign runtimes; its sizes are bench.py's, its launcher runs
 the port's LR worker on 2 ranks, and its ratios are checked by hand.
+The serve phase's judges pass a good reading and reject each planted
+fault (a lost acked add, a failover without a promotion, an alert that
+never fired, byte books 20% off, a missed hot key, ...); its key parser,
+its sizes (bench.py's), the launcher's exempt victim and the
+interactive fleet's deadlines are checked on small stand-ins (the
+workers themselves run in ``test_torch_serve_tier.py`` and
+``test_torch_failover_audit.py``).
 """
 
 import dataclasses
@@ -175,9 +182,9 @@ def test_build_phase_fails_without_a_hopper_kernel(tmp_path, lib):
 # ------------------------------------------------ tables and lr phase judges
 
 def test_new_phases_run_by_default():
-    assert chip_smoke.PHASES[-9:] == ("tables", "lr", "rows", "w2v", "lda",
-                                      "sgmix", "resnet", "planes",
-                                      "native")
+    assert chip_smoke.PHASES[-10:] == ("tables", "lr", "rows", "w2v", "lda",
+                                       "sgmix", "resnet", "planes",
+                                       "native", "serve")
     assert chip_smoke.TABLE_SIZE == 16 * 1024 * 1024
     assert (chip_smoke.W2V_VOCAB, chip_smoke.W2V_DIM,
             chip_smoke.W2V_BATCH) == (100_000, 128, 8192)
@@ -1405,7 +1412,7 @@ def _bench_defaults(name):
 
 
 def test_native_phase_runs_last_at_bench_sizes():
-    assert chip_smoke.PHASES[-1] == "native"
+    assert chip_smoke.PHASES[-2:] == ("native", "serve")
     assert chip_smoke.NATIVE_LR == _bench_defaults("bench_lr_native8")
     assert chip_smoke.NATIVE_W2V == _bench_defaults("bench_w2v_native8")
     assert chip_smoke.NATIVE_SERVE_PROCS == 2
@@ -1508,3 +1515,226 @@ def test_native_build_thread_reports_its_build():
     assert "error" not in out and out["build_s"] >= 0
     assert isinstance(out["prebuilt"], bool)
     assert os.path.exists(nat.lib_path())
+
+
+# ---------------------------------------------------------- serve phase
+
+def test_serve_phase_runs_at_bench_sizes():
+    serve = chip_smoke.SERVE
+    assert serve["tail"] == _bench_defaults("bench_tail")["nclients"]
+    for mode in ("latency", "audit", "health"):
+        assert serve[mode] == _bench_defaults(f"bench_{mode}")["nclients"]
+    assert serve["skew"] == tuple(_bench_defaults("bench_skew").values())
+    assert serve["capacity"] == tuple(
+        _bench_defaults("bench_capacity").values())
+    assert serve["fanin"] == serve["ops"] == 1000
+    assert chip_smoke.SERVE_INFLIGHT == 8
+    assert set(chip_smoke.SERVE_BARS) >= {
+        "ops_overhead_pct", "audit_overhead_pct", "health_overhead_pct",
+        "hotkey_track_overhead_pct", "capacity_overhead_pct",
+        "repl_overhead_pct"}
+
+
+def test_worker_keys_read_report_lines_only():
+    outs = ["fd_limit: RLIMIT_NOFILE soft=1024 hard=4096 cannot cover\n"
+            "FANIN_BENCH_OK rank=0 accepted=64.000000 adds_ok=1.000000\n",
+            "rank=1 p50_ms=0.250000 shed_rate=0.5\n"
+            "rank=2 accepted=7 ep=127.0.0.1:5 detect=-1.0\n"]
+    keys = chip_smoke.worker_keys(outs)
+    assert keys == {"accepted": 64.0, "adds_ok": 1.0, "p50_ms": 0.25,
+                    "shed_rate": 0.5, "detect": -1.0}
+    assert chip_smoke.bench_names({"a": 1, "ops_b": 2}, "ops_",
+                                  ("ops_",)) == {"ops_a": 1, "ops_b": 2}
+    assert chip_smoke.bench_names({"a": 1}, "fanin_") == {"fanin_a": 1}
+
+
+_GOOD = {
+    "fanin": {"accepted": 64.0, "clients": 64.0, "shed_rate": 0.5,
+              "adds_ok": 1.0},
+    "failover": {"failover_lost_acked_adds": 0.0, "promotions": 1.0,
+                 "failover_promote_ms": 1500.0},
+    "skew": {"hot_hits": 5.0, "hot_expected": 5.0, "skew_ratio_zipf": 12.0,
+             "skew_ratio_uniform": 1.6, "staleness_count": 4.0,
+             "nan_table": 3.0},
+    "capacity": {"capacity_bytes_accuracy": 1.0, "capacity_kv_accuracy": 1.0,
+                 "mvplan_spread_after": 1.01, "demo_bytes_skew": 3.0,
+                 "demo_load_skew": 11.0, "demo_rss_delta": 7e6,
+                 "demo_arena_delta": 4194304.0},
+}
+_BOX = {"reason": "nan_update: table 3 (2 NaN element(s) in one add)"}
+
+
+def _judge(name, keys):
+    return {
+        "fanin": lambda: chip_smoke.judge_fanin(keys, 64, demo=True),
+        "failover": lambda: chip_smoke.judge_failover(keys),
+        "skew": lambda: chip_smoke.judge_skew(keys, _BOX, nan=True),
+        "capacity": lambda: chip_smoke.judge_capacity(keys, demo=True),
+    }[name]()
+
+
+@pytest.mark.parametrize("name,planted", [
+    ("fanin", {"accepted": 63.0}), ("fanin", {"shed_rate": 0.0}),
+    ("fanin", {"adds_ok": 0.0}),
+    ("failover", {"failover_lost_acked_adds": 1.0}),
+    ("failover", {"promotions": 0.0}),
+    ("failover", {"failover_promote_ms": math.inf}),
+    ("failover", {"failover_promote_ms": 12000.0}),
+    ("skew", {"hot_hits": 4.0}), ("skew", {"skew_ratio_zipf": 4.0}),
+    ("skew", {"nan_table": 2.0}), ("skew", {"staleness_count": 0.0}),
+    ("capacity", {"capacity_bytes_accuracy": 0.8}),
+    ("capacity", {"capacity_kv_accuracy": 1.2}),
+    ("capacity", {"mvplan_spread_after": 2.5}),
+    ("capacity", {"demo_load_skew": 1.5}),
+    ("capacity", {"demo_rss_delta": 0.0}),
+])
+def test_serve_judges_reject_planted_faults(name, planted):
+    assert _judge(name, dict(_GOOD[name]))[1]
+    checks, ok = _judge(name, {**_GOOD[name], **planted})
+    assert not ok and list(checks.values()).count(False) == 1, checks
+
+
+def test_fanin_judge_gates_the_shed_in_the_demo_run_only():
+    keys = {**_GOOD["fanin"], "shed_rate": 0.0}
+    assert chip_smoke.judge_fanin(keys, 64)[1]
+    assert not chip_smoke.judge_fanin(keys, 64, demo=True)[1]
+    assert not chip_smoke.judge_fanin({**keys, "accepted": 63.0}, 64)[1]
+    assert not chip_smoke.judge_fanin({**keys, "clients": 65.0}, 64)[1]
+
+
+def test_serve_judges_reject_a_missing_key_and_a_missing_box():
+    for name, keys in _GOOD.items():
+        assert not _judge(name, {})[1], name
+    assert not chip_smoke.judge_skew(_GOOD["skew"], None, nan=True)[1]
+    assert chip_smoke.judge_skew(_GOOD["skew"], None)[1]
+
+
+@pytest.mark.parametrize("mode,good,bad", [
+    ("health", {"health_alert_fired": 1.0}, {"health_alert_fired": 0.0}),
+    ("audit", {"audit_detect_ms": 12.5}, {"audit_detect_ms": -1.0}),
+    ("latency", {"stage_sum_ratio": 0.97}, {"stage_sum_ratio": 0.8}),
+    ("ops", {"ops_scrapes": 40.0}, {}),
+    ("tail", {"clients": 10000.0}, {}),
+])
+def test_plane_judges(mode, good, bad):
+    assert chip_smoke.judge_serve_plane(mode, good)[1]
+    assert not chip_smoke.judge_serve_plane(mode, bad)[1]
+
+
+def _finding(kind, count=None):
+    return {"kind": kind, "count": count}
+
+
+@pytest.mark.parametrize("mode,findings,outs,box,ok", [
+    ("chaos", [_finding("dup", 2)], ["", "CHAOS_ADDS_OK"], None, True),
+    ("chaos", [_finding("dup", 2), _finding("lost")],
+     ["", "CHAOS_ADDS_OK"], None, False),
+    ("chaos", [_finding("dup", 1)], ["", "CHAOS_ADDS_OK"], None, False),
+    ("chaos", [_finding("dup", 2), _finding("unacked")],
+     ["", "CHAOS_ADDS_OK"], None, False),
+    ("chaos", [_finding("dup", 2)], ["", ""], None, False),
+    ("loss", [_finding("gap"), _finding("unacked")], ["", ""],
+     {"reason": "audit_gap: table 0 origin 1"}, True),
+    ("loss", [_finding("gap"), _finding("unacked"), _finding("lost")],
+     ["", ""], {"reason": "audit_gap: table 0 origin 1"}, False),
+    ("loss", [_finding("gap"), _finding("unacked")], ["", ""], None, False),
+    ("loss", [_finding("unacked")], ["", ""],
+     {"reason": "audit_gap: table 0 origin 1"}, False),
+    ("plain", [], ["", "PLAIN_OK"], None, True),
+    ("plain", [], ["", ""], None, False),
+])
+def test_audit_judge(mode, findings, outs, box, ok):
+    assert chip_smoke.judge_audit(mode, findings, outs, box)[1] == ok
+
+
+_DEMO_FACTS = {
+    "ops": ({"ranks": ["0", "1"], "silent": [], "rank_up": [1.0, 1.0],
+             "labeled_series": [500, 500], "exemplar_ids": 20,
+             "blackbox_reason": "barrier_timeout: waiting for rank(s) 1",
+             "blackbox_spans": 70, "shared_trace_ids": 40,
+             "resolved_exemplars": 20},
+            [{"rank_up": [1.0, None]}, {"silent": ["1"]},
+             {"exemplar_ids": 0}, {"blackbox_reason": ""},
+             {"resolved_exemplars": 0}]),
+    "latency": ({"stage_sum_ratio": 1.0, "stages_populated": True,
+                 "dominant_stage": "apply", "exemplar_in_trace": True},
+                [{"dominant_stage": "wire_out"}, {"stage_sum_ratio": 0.8},
+                 {"stages_populated": False},
+                 {"exemplar_in_trace": False}]),
+    "doctor": ({"healthy_armed": True, "healthy_firing": 0,
+                "fault_state": "firing", "cleared_state": "ok",
+                "resolved": 1},
+               [{"healthy_firing": 1}, {"fault_state": "ok"},
+                {"fault_state": None}, {"cleared_state": "firing"},
+                {"resolved": 0}]),
+}
+
+
+@pytest.mark.parametrize("demo", sorted(_DEMO_FACTS))
+def test_demo_judges_reject_planted_faults(demo):
+    judge = getattr(chip_smoke, f"judge_{demo}_demo")
+    good, planted = _DEMO_FACTS[demo]
+    assert judge(good)[1]
+    for bad in planted:
+        assert not judge({**good, **bad})[1], bad
+
+
+_VICTIM = """
+import os, signal, sys
+if int(sys.argv[2]) == 1:
+    os.kill(os.getpid(), signal.SIGKILL)
+print("VICTIM_OK rank=" + sys.argv[2], flush=True)
+"""
+
+
+def test_spawn_native_workers_exempts_the_victim(tmp_path):
+    script = tmp_path / "victim.py"
+    script.write_text(_VICTIM)
+    outs = chip_smoke.spawn_native_workers(str(script), 2, "VICTIM_OK",
+                                           timeout=60, exempt_ranks=(1,))
+    assert "VICTIM_OK rank=0" in outs[0] and "VICTIM_OK" not in outs[1]
+    with pytest.raises(RuntimeError, match="rank 1 failed"):
+        chip_smoke.spawn_native_workers(str(script), 2, "VICTIM_OK",
+                                        timeout=60)
+
+
+_HOLDER = """
+import sys
+print("HELD", flush=True)
+for line in sys.stdin:
+    if line.strip() == "ping":
+        print("PONG " + sys.argv[2], flush=True)
+    elif line.strip() == "quit":
+        break
+print("BYE " + sys.argv[2], flush=True)
+"""
+
+
+def test_fleet_commands_deadlines_and_exits(tmp_path):
+    script = tmp_path / "holder.py"
+    script.write_text(_HOLDER)
+    with chip_smoke.Fleet(str(script), 2, "HELD", timeout=60) as fleet:
+        assert len(fleet.eps) == 2
+        assert fleet.command(1, "ping", "PONG").strip() == "PONG 1"
+        t0 = time.monotonic()
+        with pytest.raises(RuntimeError, match="rank 0 timed out"):
+            fleet.expect(0, "NEVER", timeout=0.5)
+        assert time.monotonic() - t0 < 5
+        for r in range(2):
+            fleet.send(r, "quit")
+        outs = fleet.finish(lambda r: f"BYE {r}", timeout=60)
+        assert "BYE 0" in outs[0] and "PONG 1" in outs[1]
+    with chip_smoke.Fleet(str(script), 1, "HELD", timeout=60) as fleet:
+        fleet.send(0, "quit")
+        with pytest.raises(RuntimeError, match="rank 0 ended"):
+            fleet.expect(0, "PONG", timeout=30)
+    with pytest.raises(RuntimeError, match="timed out before 'NOT_PRINT"):
+        chip_smoke.Fleet(str(script), 1, "NOT_PRINTED", timeout=2)
+
+
+def test_raise_fd_limit_stays_within_the_hard_limit():
+    import resource
+
+    soft, hard, now = chip_smoke.raise_fd_limit(256)
+    assert now >= min(256, soft if hard == resource.RLIM_INFINITY else hard)
+    assert resource.getrlimit(resource.RLIMIT_NOFILE)[1] == hard

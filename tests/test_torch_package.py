@@ -47,6 +47,10 @@ def test_imports_every_module_with_jax_blocked():
 
 
 def test_no_jax_or_reference_imports_in_source():
+    # Nor a module of the repo's ``tools/``, which import the JAX package.
+    tools = {f[:-3] for f in os.listdir(os.path.join(REPO, "tools"))
+             if f.endswith(".py")}
+    assert "mvplan" in tools
     bad = []
     for path in _py_files():
         with open(path) as f:
@@ -60,7 +64,7 @@ def test_no_jax_or_reference_imports_in_source():
                 continue
             for m in mods:
                 top = m.split(".")[0]
-                if top in ("jax", "jaxlib", "multiverso_tpu"):
+                if top in ("jax", "jaxlib", "multiverso_tpu") or m in tools:
                     bad.append(f"{os.path.relpath(path, REPO)}:"
                                f"{node.lineno} imports {m}")
     assert not bad, bad
@@ -185,7 +189,16 @@ COPIED = ["config.py", "fault.py", "capacity.py", "sketch.py",
           "tracing.py", "serve/client.py", "parallel/offload.py",
           "native/__init__.py", "apps/lr_native_worker.py",
           "apps/w2v_native_worker.py", "apps/serve_bench_worker.py",
-          "apps/embedding_bench_worker.py"]
+          "apps/embedding_bench_worker.py", "apps/skew_bench_worker.py",
+          "tools/mvplan.py", "apps/capacity_bench_worker.py",
+          "apps/failover_bench_worker.py", "apps/fanin_bench_worker.py",
+          "apps/audit_demo_worker.py", "apps/doctor_demo_worker.py",
+          "apps/latency_demo_worker.py", "apps/ops_demo_worker.py",
+          "binding/lua/multiverso.lua"]
+
+# Where an original lies outside the JAX package: the port's copy of the
+# placement advisor is the repo's ``tools/mvplan.py``.
+_ORIGINALS = {"tools/mvplan.py": ("tools", "mvplan.py")}
 
 
 # Besides the name, a copy drops the JAX package's change-history notes
@@ -196,6 +209,16 @@ _HISTORY_NOTES = {
     "tracing.py": [(r"``jax\.profiler`` capture", "``torch.profiler`` capture"),
                    (r"for XLA-level depth", "for kernel-level depth")],
 }
+
+# The placement advisor's CLI prints its proposal and verdict: the
+# repo's lint (tools/mvlint.py) reads every file under the port's path
+# outside apps/ as library code, so each print carries MV006's marker
+# (a pattern, and how many times it must match).
+_LINT_MARKERS = {
+    "tools/mvplan.py": (r"^( *print\(.*)$",
+                        r"\1  # mvlint: MV006-exempt(CLI output)", 4),
+}
+
 
 # Where a copy is the original with a change of its own: each pattern
 # must match once in the copy and once in the original, and the two
@@ -210,6 +233,12 @@ _PORT_CHANGES = {
     "native/src/uring_net.cc": [
         r"\n  (?:struct \{|// io_uring_probe ends).*?"
         r"kProbeOpSupported\)\) \{\n"],
+    # The capacity worker imports the port's own copy of the placement
+    # advisor, where the original puts the repo's ``tools/`` on the path.
+    "apps/capacity_bench_worker.py": [
+        r"\n(?:sys\.path\.insert\(0, os\.path\.join\([^\n]*\n[^\n]*"
+        r"\"tools\"\)\)\nimport mvplan"
+        r"|from multiverso_tpu_torch\.tools import mvplan)  # noqa: E402\n"],
 }
 
 
@@ -232,6 +261,10 @@ def _rewrite(text, rel=None):
         assert n == 1, (rel, pattern, n)
     for pattern, repl in _CHANGE_NUMBERS:
         text = re.sub(pattern, repl, text, flags=re.M)
+    if rel in _LINT_MARKERS:
+        pattern, repl, count = _LINT_MARKERS[rel]
+        text, n = re.subn(pattern, repl, text, flags=re.M)
+        assert n == count, (rel, pattern, n)
     return text
 
 
@@ -248,10 +281,14 @@ def _outside_changes(text, rel):
     return text
 
 
+def _original(rel):
+    return _read(*_ORIGINALS.get(rel, ("multiverso_tpu", rel)))
+
+
 @pytest.mark.parametrize("rel", COPIED)
 def test_copied_module_matches_its_original(rel):
     port = _read("multiverso_tpu_torch", rel)
-    want = _rewrite(_read("multiverso_tpu", rel), rel)
+    want = _rewrite(_original(rel), rel)
     assert _outside_changes(port, rel) == _outside_changes(want, rel)
     if rel not in _PORT_CHANGES:
         assert port == want
@@ -332,3 +369,108 @@ def test_metrics_overflow_and_capacity_hooks(tmp_path):
     finally:
         capacity.unregister_gauge("drift.test")
         metrics.REGISTRY.remove("capacity.drift.test")
+
+
+# ---------------------------------------------- mvplan against the repo's
+
+def _seeded_zipf_fleet(nshards=2, seed=7):
+    """A fleet capacity document: uniform bucket bytes and zipf bucket
+    load over ``nshards`` ranks (the JAX package's own mvplan test
+    builds this one, ``tests/test_capacity.py``)."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    p = 1.0 / np.arange(1, 65)
+    p /= p.sum()
+    load = rng.multinomial(20000, p).astype(int)
+    ranks = {}
+    for sid in range(nshards):
+        gets = [int(load[b]) if b % nshards == sid else 0
+                for b in range(64)]
+        bb = [512 if b % nshards == sid else 0 for b in range(64)]
+        ranks[str(sid)] = {
+            "rank": sid, "armed": True, "server_id": sid,
+            "servers": nshards,
+            "proc": {"rss_bytes": 1, "vm_hwm_bytes": 1, "open_fds": 1,
+                     "uptime_s": 1.0},
+            "arena": {}, "net": {}, "gauges": {},
+            "tables": [{"id": 0,
+                        "shard": {"resident_bytes": sum(bb),
+                                  "rows": 64 // nshards,
+                                  "gets": sum(gets), "adds": 0,
+                                  "bucket_bytes": bb,
+                                  "bucket_gets": gets,
+                                  "bucket_adds": [0] * 64},
+                        "history": {"windows": 0, "curve": []}}]}
+    return {"kind": "capacity", "scope": "fleet", "ranks": ranks,
+            "silent": []}
+
+
+def _mvplans():
+    """The repo's ``tools/mvplan.py`` and the port's copy, loaded without
+    leaving the copy's directory on ``sys.path``."""
+    import copy
+    import importlib
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "repo_mvplan", os.path.join(REPO, "tools", "mvplan.py"))
+    repo = importlib.util.module_from_spec(spec)
+    path = copy.copy(sys.path)
+    try:
+        spec.loader.exec_module(repo)
+        port = importlib.import_module("multiverso_tpu_torch.tools.mvplan")
+    finally:
+        sys.path[:] = path
+    return repo, port
+
+
+@pytest.mark.parametrize("history", [False, True],
+                         ids=["zipf", "history_rate"])
+def test_mvplan_proposes_what_the_repo_tool_proposes(history):
+    """The port's mvplan and the repo's, on the seeded zipf fleet and on
+    its variant with a recorded history rate: identical aggregates,
+    weights and proposals, with bucket moves proposed."""
+    import copy
+
+    repo, port = _mvplans()
+    doc = _seeded_zipf_fleet()
+    if history:
+        doc["ranks"]["0"]["tables"][0]["history"] = {
+            "windows": 2, "span_ms": 1000,
+            "bucket_rate": [100.0] + [0.0] * 63, "curve": []}
+    want = repo.propose(copy.deepcopy(doc))
+    assert port.propose(copy.deepcopy(doc)) == want
+    agg = port.aggregate_fleet(copy.deepcopy(doc))
+    assert agg == repo.aggregate_fleet(copy.deepcopy(doc))
+    assert port.bucket_weights(agg[0]) == repo.bucket_weights(agg[0])
+    assert (agg[0]["rate"] is not None) == history
+    assert want["tables"]["0"]["moves"]
+    assert port.max_observed_spread(want) == repo.max_observed_spread(want)
+
+
+def test_mvplan_cli_runs_as_the_ports_module(tmp_path):
+    """``python -m multiverso_tpu_torch.tools.mvplan --scrape`` with JAX
+    and the JAX package blocked writes the repo tool's proposal."""
+    import json
+
+    repo, _ = _mvplans()
+    doc = _seeded_zipf_fleet()
+    scrape = tmp_path / "fleet.json"
+    scrape.write_text(json.dumps(doc))
+    out = tmp_path / "proposal.json"
+    code = textwrap.dedent(f"""
+        import runpy, sys
+        sys.modules["jax"] = None
+        sys.modules["multiverso_tpu"] = None
+        sys.argv = ["mvplan", "--scrape", {str(scrape)!r},
+                    "--out", {str(out)!r}, "--strict", "--max-spread",
+                    "1.1"]
+        runpy.run_module("multiverso_tpu_torch.tools.mvplan",
+                         run_name="__main__")
+    """)
+    run = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, cwd=REPO)
+    assert run.returncode == 1, run.stderr          # --strict alarms
+    assert "mvplan: STRICT" in run.stderr
+    assert json.loads(out.read_text()) == repo.propose(doc)
