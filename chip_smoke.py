@@ -355,20 +355,41 @@ Phases, each printing JSON lines:
              modules (``SERVE_DEMO``): fan-in chaos, skew's NaN add,
              capacity's demo, audit ``chaos`` (epoll and tcp) / ``loss``
              / ``plain``, and the doctor, latency and ops demos driven
-             over stdin (``Fleet``); and the Lua smoke where a ``luajit``
-             is on PATH.  Gated, each by its judge: every connection
-             accepted; in the demo's run the overload shed and the chaos
-             adds exact; no
-             acked add lost in failover, a promotion within 10 s; the
-             audit plane's named duplicate, the health alert fired, the
-             latency stages summing to >= 0.85; the hot keys, the zipf
-             ratio over 3x uniform and the NaN black box; the byte books
-             within 10% and mvplan's spread <= 2x (demo: skews > 2x, RSS
-             and arena moved); audit chaos exactly the two duplicates,
-             loss a gap with its black box, plain converged disarmed; the
-             doctor's alert firing then resolved; ``apply`` the latency
-             demo's dominant stage under its delay; the ops demo's fleet
-             scrape, exemplars and barrier-timeout black box.  Every part
+             over stdin (``Fleet``), and the failover demo's 3 ranks of
+             the interactive failover worker (rank 1 SIGKILLed under a
+             read herd); and the Lua smoke where a ``luajit`` is on PATH.
+             The port's operator CLIs (``multiverso_tpu_torch/tools``)
+             read those fleets as the JAX drivers' steps do, each a
+             script in a child with no ``jax`` importable (``Tool``):
+             ``mvdoctor --fleet`` on the doctor fleet (``--strict`` 0
+             quiet, 1 under the delay, 0 once resolved; the top finding
+             ``[critical] rank 1: latency SLO burn``) with ``mvtop
+             --alerts``, ``latdoctor --fleet`` on the latency fleet,
+             ``mvtop --fleet`` in each view of ``MVTOP_VIEWS`` on the ops
+             fleet, ``mvaudit --settle 0.5`` and ``mvtop --replication
+             --fleet`` on the failover survivor, and ``mvaudit`` over the
+             audit chaos and loss fleets' books (``ScrapeReplay``: those
+             fleets exit once the books are printed).  Gated, each by its
+             judge: every connection accepted; in the demo's run the
+             overload shed and the chaos adds exact; no acked add lost in
+             failover, a promotion within 10 s; the audit plane's named
+             duplicate, the health alert fired, the latency stages summing
+             to >= 0.85; the hot keys, the zipf ratio over 3x uniform and
+             the NaN black box; the byte books within 10% and mvplan's
+             spread <= 2x (demo: skews > 2x, RSS and arena moved); audit
+             chaos exactly the two duplicates, loss a gap with its black
+             box, plain converged disarmed; the doctor's alert firing then
+             resolved, its fleet's shutdown within ``DOCTOR_SHUTDOWN_S``;
+             ``apply`` the latency demo's dominant stage under its delay;
+             the ops demo's fleet scrape, exemplars and barrier-timeout
+             black box; the failover demo's promotion, beacons and exact
+             convergence; and each CLI step (``judge_doctor_cli``,
+             ``judge_latdoctor``, ``judge_mvtop_views``,
+             ``judge_mvaudit``, ``judge_mvtop_replication``), the
+             doctor's top finding and latdoctor's rank 1 ``dominant p99
+             stage`` naming ``apply`` among them (each held in 10 of 10
+             runs on the card's host; ``--demo-repeats N`` runs the
+             doctor and latency demos N times and counts).  Every part
              runs and prints its line, then the phase fails naming each
              part that failed.  The overheads (``SERVE_BARS``) and every
              p50/p99 are recorded beside bench.py's acceptance bars, not
@@ -4817,6 +4838,356 @@ def judge_doctor_demo(facts):
     return checks, all(checks.values())
 
 
+# ------------------------------------------- the port's operator CLIs
+
+PORT_TOOLS = os.path.join(HERE, "multiverso_tpu_torch", "tools")
+TOOL_TIMEOUT_S = 120
+# The doctor demo's shutdown wall clock, from "quit" to every rank's
+# exit: a rank whose shutdown waits out a departed peer's reconnect
+# budget (-connect_retry_ms on each of 3 attempts) takes 45 s more.
+DOCTOR_SHUTDOWN_S = 10.0
+# A child that runs one of the port's CLIs as an operator would: the
+# script by its path (its own header puts the checkout on the path),
+# with ``jax`` and the JAX package not importable.  It executes the
+# script's body, imports included, says so on stderr, and calls its
+# ``main`` with the arguments once a line arrives on stdin, as the
+# script's ``__main__`` clause would.
+_TOOL_CHILD = ("import runpy, sys\n"
+               "sys.modules['jax'] = None\n"
+               "sys.modules['multiverso_tpu'] = None\n"
+               "sys.argv = sys.argv[1:]\n"
+               "tool = runpy.run_path(sys.argv[0], run_name='mvt_tool')\n"
+               "print('TOOL_READY', file=sys.stderr, flush=True)\n"
+               "sys.stdin.readline()\n"
+               "sys.exit(tool['main'](sys.argv[1:]))\n")
+# The mvtop view of each ops report kind (mvtop's KIND_VIEWS), as flags.
+MVTOP_VIEWS = {"metrics": ("--metrics",), "health": (), "tables": (),
+               "hotkeys": ("--hotkeys",), "latency": ("--qos",),
+               "audit": ("--audit",), "replication": ("--replication",),
+               "capacity": ("--capacity",), "alerts": ("--alerts",)}
+
+
+class Tool:
+    """The port's CLI ``multiverso_tpu_torch/tools/<name>.py`` in a child
+    started at once, from a scratch directory with ``JAX_PLATFORMS`` and
+    ``PYTHONPATH`` unset and no ``jax`` importable.  The child imports
+    the CLI (most of its start: torch) and waits; ``go`` runs it and
+    ``finish`` returns its exit code and output.  A scrape whose moment
+    matters (a burn-rate alert un-fires within seconds of its traffic)
+    is taken on ``go``, not seconds of imports later."""
+
+    def __init__(self, name, *args):
+        import tempfile
+
+        self.name, self.args = name, [str(a) for a in args]
+        self._cwd = tempfile.TemporaryDirectory(prefix="mvt_tool_")
+        env = {k: v for k, v in os.environ.items()
+               if k not in ("JAX_PLATFORMS", "PYTHONPATH")}
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", _TOOL_CHILD,
+             os.path.join(PORT_TOOLS, f"{name}.py"), *self.args],
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True, cwd=self._cwd.name, env=env)
+        self._err, self._went = [], False
+
+    def ready(self):
+        """Wait until the child has imported the CLI (or ended)."""
+        if self._went:
+            return
+        for line in self.proc.stderr:
+            if line.strip() == "TOOL_READY":
+                return
+            self._err.append(line)
+
+    def go(self):
+        self.proc.stdin.write("go\n")
+        self.proc.stdin.flush()
+        self._went = True
+
+    def finish(self, timeout=TOOL_TIMEOUT_S):
+        went, self._went = self._went, True
+        try:
+            out, err = self.proc.communicate(None if went else "go\n",
+                                             timeout=timeout)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.communicate()
+            raise RuntimeError(f"{self.name} {self.args} still running "
+                               f"after {timeout} s") from None
+        finally:
+            self._cwd.cleanup()
+        err = "".join(self._err) + err.replace("TOOL_READY\n", "")
+        return {"tool": self.name, "args": self.args,
+                "rc": self.proc.returncode, "out": out, "err": err[-2000:]}
+
+    def close(self):
+        """Stop the child if it is still waiting or running."""
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.communicate()
+        self._cwd.cleanup()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+
+class ScrapeReplay:
+    """A loopback endpoint answering the anonymous ops wire's OpsQuery
+    with reports captured from a fleet (``reports``: ``{kind: text}``,
+    which may be filled in after the endpoint is handed out), so the
+    CLIs read a one-shot fleet's scrape through the wire exactly as they
+    read a live rank.  Serves one connection at a time until ``close``."""
+
+    def __init__(self, reports):
+        import socket
+        import threading
+
+        self.reports = reports
+        self.sock = socket.socket()
+        self.sock.bind(("127.0.0.1", 0))
+        self.sock.listen(8)
+        self.endpoint = "127.0.0.1:%d" % self.sock.getsockname()[1]
+        self._thread = threading.Thread(target=self._serve, daemon=True)
+        self._thread.start()
+
+    def _serve(self):
+        from multiverso_tpu_torch.serve import wire
+
+        while True:
+            try:
+                conn, _ = self.sock.accept()
+            except OSError:
+                return
+            with conn, contextlib.suppress(OSError):   # a client gone
+                frames = wire.FrameDecoder()
+                while True:
+                    frame = frames.next_frame()
+                    if frame is None:
+                        chunk = conn.recv(65536)
+                        if not chunk:
+                            break
+                        frames.feed(chunk)
+                        continue
+                    q = wire.unpack_frame(frame)
+                    kind = q["blobs"][0].decode() if q["blobs"] else ""
+                    text = self.reports.get(kind, "{}")
+                    conn.sendall(wire.pack_frame(
+                        wire.MSG["OpsReply"], -1, q["msg_id"],
+                        blobs=[text.encode()]))
+
+    def close(self):
+        import socket
+
+        # A listening socket's close alone does not wake its accept.
+        with contextlib.suppress(OSError):
+            self.sock.shutdown(socket.SHUT_RDWR)
+        self.sock.close()
+        self._thread.join(timeout=10)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+
+_NAMED = re.compile(r"^(SILENT|LOST|GAP|DUP|REORDER|UNACKED"
+                    r"|PENDING_DROPPED)\b"
+                    r"(?: table (\S+) origin (\S+) shard (\S+))?"
+                    r"(?: x(\d+))?")
+
+
+def audit_named(text):
+    """mvaudit's named findings, ``(kind, table, origin, shard, count)``
+    each, from its text (``ops.audit.render_findings``' lines)."""
+    out = []
+    for line in text.splitlines():
+        m = _NAMED.match(line)
+        if m:
+            out.append((m.group(1).lower(), *m.group(2, 3, 4),
+                        int(m.group(5) or 0)))
+    return out
+
+
+def findings_named(findings):
+    """``audit_named``'s tuples of ``ops.audit.diff_fleet``'s findings."""
+    return [(f["kind"], *(str(f[k]) if k in f and "table" in f else None
+                          for k in ("table", "origin", "shard")),
+             int(f.get("count", 0))) for f in findings]
+
+
+def judge_mvaudit(mode, run, findings):
+    """mvaudit over a fleet's audit books beside ``ops.audit.diff_fleet``'s
+    ``findings`` over the same fleet: in the audit demo's ``chaos`` mode it
+    names exactly the planted duplicates that diff does, no loss or gap,
+    and exits 0 (duplicates are tolerated without ``--strict``); in
+    ``loss`` mode it names the gap and exits 1; on failover's survivor
+    (mode ``settle``) it exits 0 with no lost acked add and no gap, the
+    verdict of diff over a scrape of its own."""
+    named = audit_named(run["out"])
+    kinds = [n[0] for n in named]
+    if mode == "chaos":
+        dups = [n for n in named if n[0] == "dup"]
+        checks = {"exit_0": run["rc"] == 0,
+                  "dups_named": sum(n[4] for n in dups) == AUDIT_DUPS,
+                  "same_dups_as_diff": dups == [
+                      n for n in findings_named(findings) if n[0] == "dup"],
+                  "no_loss_gap": not {"lost", "gap"} & set(kinds)}
+    elif mode == "loss":
+        checks = {"exit_1": run["rc"] == 1, "gap_named": "gap" in kinds,
+                  "no_loss": "lost" not in kinds}
+    else:
+        bad = {"lost", "gap"}
+        checks = {"exit_0": run["rc"] == 0,
+                  "zero_lost": "lost" not in kinds
+                  and "mvaudit @" in run["out"],
+                  "verdict_as_diff": (not bad & set(kinds)) == (
+                      not bad & {f["kind"] for f in findings})}
+    return checks, all(checks.values())
+
+
+def table_rows(text, first="rank"):
+    """The rows of a table mvtop rendered (``mvtop.render``): a dict per
+    row keyed by the header's columns, split on whitespace (a cell with
+    a space, as the hotkey view's top keys, runs into the last column)."""
+    lines = text.splitlines()
+    for i, line in enumerate(lines):
+        cols = line.split()
+        if cols[:1] == [first]:
+            rows = []
+            for body in lines[i + 1:]:
+                cells = body.split()
+                if cells:
+                    rows.append(dict(zip(cols, cells)))
+            return rows
+    return []
+
+
+def judge_mvtop_views(runs, ranks=("0", "1")):
+    """mvtop over a fleet, one run per ops report kind (``MVTOP_VIEWS``):
+    each exits 0 and renders a row for every rank (the metrics view
+    every rank's labeled series).  A fleet with no health rules armed
+    (the ops demo's) has no alert to list: there the alerts view must
+    render its table with no ``unknown`` row, the row of a rank that did
+    not answer."""
+    checks = {}
+    for kind, run in runs.items():
+        rows = table_rows(run["out"])
+        if kind == "metrics":
+            seen = {r for r in ranks if f'rank="{r}"' in run["out"]}
+        else:
+            seen = {row.get("rank") for row in rows}
+        ok = run["rc"] == 0 and set(ranks) <= seen
+        if kind == "alerts" and not rows:
+            ok = (run["rc"] == 0 and "— 0 alert(s), 0 firing" in run["out"]
+                  and "rank  rule" in run["out"])
+        checks[kind] = ok
+    return checks, bool(checks) and all(checks.values())
+
+
+def judge_mvtop_alerts(run, firing=("1", "lat-slo-burn")):
+    """``mvtop --alerts --fleet`` over the doctor demo's fleet under its
+    seeded delay: exits 0, lists both ranks' rules, and shows rank 1's
+    latency burn rule firing."""
+    rows = table_rows(run["out"])
+    checks = {"exit_0": run["rc"] == 0,
+              "both_ranks": {r.get("rank") for r in rows} >= {"0", "1"},
+              "burn_firing": any((r.get("rank"), r.get("rule"),
+                                  r.get("state")) == (*firing, "firing")
+                                 for r in rows)}
+    return checks, all(checks.values())
+
+
+def judge_mvtop_replication(run, promoted="2", shard="1"):
+    """``mvtop --replication --fleet`` on a survivor after failover
+    (tools/failover_demo.py (f)): exits 0, the backup rank shows the
+    promoted shard, and its routing epoch is raised."""
+    rows = {r.get("rank"): r for r in table_rows(run["out"])}
+    row = rows.get(promoted) or {}
+    epoch = row.get("epoch", "")
+    checks = {"exit_0": run["rc"] == 0,
+              "promoted_shown": row.get("promoted") == shard,
+              "epoch_raised": epoch.isdigit() and int(epoch) > 0}
+    return checks, all(checks.values())
+
+
+def latdoctor_ranks(text):
+    """latdoctor's text per rank: the stage rows it printed and its
+    ``dominant p99 stage``."""
+    ranks, cur = {}, None
+    for line in text.splitlines():
+        m = re.match(r"rank (\S+) \(timing", line)
+        if m:
+            cur = ranks.setdefault(m.group(1), {"stages": [],
+                                                "dominant_p99": None})
+            continue
+        if cur is None:
+            continue
+        m = re.match(r"  (\w+)\s+-?[\d.]+ms\s+-?[\d.]+ms\s+-?[\d.]+ms"
+                     r"\s+\d+$", line)
+        if m and m.group(1) != "total":
+            cur["stages"].append(m.group(1))
+        m = re.match(r"  dominant p99 stage = (\w+) ", line)
+        if m:
+            cur["dominant_p99"] = m.group(1)
+    return ranks
+
+
+def judge_latdoctor(run, ranks=("0", "1"), gate_apply=False):
+    """``latdoctor --fleet`` over the latency demo's fleet under its delay
+    (tools/latency_demo.py:129-139): exits 0, a row for each of the six
+    stages on every rank, and a ``dominant p99 stage`` line on each;
+    with ``gate_apply``, rank 1's (the delayed traffic's) names
+    ``apply``.  The serve phase gates it on the card's host, where it
+    held in 10 of 10 runs; on a loaded CPU the whole run's largest p99
+    named a wire stage in 4 of 10."""
+    got = latdoctor_ranks(run["out"])
+    checks = {"exit_0": run["rc"] == 0,
+              "ranks": sorted(got) == sorted(ranks),
+              "six_stages_each": all(
+                  set(LATENCY_STAGES) <= set(got.get(r, {}).get("stages", ()))
+                  for r in ranks),
+              "dominant_p99_line": all(
+                  got.get(r, {}).get("dominant_p99") for r in ranks)}
+    if gate_apply:
+        checks["rank_1_dominant_p99_apply"] = (
+            got.get("1", {}).get("dominant_p99") == "apply")
+    return checks, all(checks.values())
+
+
+def judge_doctor_cli(facts, shutdown_s=DOCTOR_SHUTDOWN_S,
+                     gate_apply=False):
+    """mvdoctor over the doctor demo's fleet (tools/doctor_demo.py:106-165):
+    ``--fleet --strict`` exits 0 on the quiet fleet; under the seeded
+    apply delay the plain run exits 0 with its top finding
+    ``[critical] rank 1: latency SLO burn`` and ``--strict`` exits 1;
+    after the alert resolves ``--strict`` exits 0.  The fleet's shutdown
+    ends inside ``shutdown_s``.  With ``gate_apply`` the top finding also
+    names ``'apply'``, the latency plane's whole-run dominant p99 stage:
+    the serve phase gates it on the card's host, where it held in 10 of
+    10 runs; on a loaded CPU a wire stage outweighs it in some runs.
+    Beside the doctor under the delay, ``mvtop --alerts --fleet``
+    (``judge_mvtop_alerts``)."""
+    runs = facts["cli"]
+    head = (runs["fault"]["out"].splitlines() or [""])[0]
+    checks = {"quiet_strict_exit_0": runs["quiet_strict"]["rc"] == 0,
+              "fault_exit_0": runs["fault"]["rc"] == 0,
+              "top_critical_rank_1": re.search(
+                  r"\[critical\] rank 1:", head) is not None,
+              "top_latency_slo_burn": "latency SLO burn" in head,
+              "fault_strict_exit_1": runs["fault_strict"]["rc"] == 1,
+              "cleared_strict_exit_0": runs["cleared_strict"]["rc"] == 0,
+              "shutdown_wall": facts["shutdown_s"] < shutdown_s}
+    if gate_apply:
+        checks["top_names_apply"] = "'apply'" in head
+    alerts, _ = judge_mvtop_alerts(runs["mvtop_alerts"])
+    checks.update({f"mvtop_alerts_{k}": v for k, v in alerts.items()})
+    return checks, all(checks.values())
+
+
 class Fleet:
     """The ranks of an interactive worker (``apps/<script>``), which print
     ``ready`` and then serve commands on stdin.  A reader thread a rank
@@ -4896,9 +5267,9 @@ class Fleet:
         self.send(r, cmd)
         return self.expect(r, marker, timeout)
 
-    def finish(self, marker, timeout=NATIVE_TIMEOUT_S):
-        """Every rank's whole output once all have exited, each required
-        to exit 0 holding ``marker(rank)``."""
+    def finish(self, marker, timeout=NATIVE_TIMEOUT_S, exempt=()):
+        """Every rank's whole output once all have exited, each but those
+        in ``exempt`` required to exit 0 holding ``marker(rank)``."""
         deadline = time.monotonic() + timeout
         outs = []
         for r, (p, t) in enumerate(zip(self.procs, self._readers)):
@@ -4913,6 +5284,8 @@ class Fleet:
                 if line is not None:
                     self.seen[r].append(line)
             outs.append("".join(self.seen[r]))
+            if r in exempt:
+                continue
             if p.returncode != 0 or marker(r) not in outs[-1]:
                 raise RuntimeError(f"{self.script} rank {r} failed "
                                    f"(rc={p.returncode}):\n"
@@ -4986,9 +5359,25 @@ def serve_audit(mode, extra=(), timeout=NATIVE_TIMEOUT_S):
             "audit_demo_worker.py", 2, "AUDIT_DEMO_WORKER_OK",
             (mode, tmp, *extra), timeout=timeout)
         box = read_json(os.path.join(tmp, "blackbox_rank0.json"))
+    return diff_fleet(json.loads(audit_fleet_text(outs))), outs, box
+
+
+def audit_fleet_text(outs):
+    """The fleet ``"audit"`` report the audit demo's rank 0 printed."""
     line = next(ln for ln in outs[0].splitlines()
                 if ln.startswith("AUDIT_FLEET "))
-    return diff_fleet(json.loads(line[len("AUDIT_FLEET "):])), outs, box
+    return line[len("AUDIT_FLEET "):]
+
+
+def serve_audit_cli(mode, extra=(), timeout=NATIVE_TIMEOUT_S):
+    """``serve_audit`` and mvaudit (fleet scope, its default) over the
+    fleet's books, served by a ``ScrapeReplay``: the demo's fleet exits
+    as soon as rank 0 has printed them.  The CLI child imports while the
+    fleet runs."""
+    with ScrapeReplay({}) as replay, Tool("mvaudit", replay.endpoint) as tool:
+        findings, outs, box = serve_audit(mode, extra, timeout)
+        replay.reports = {"audit": audit_fleet_text(outs)}
+        return findings, outs, box, tool.finish()
 
 
 def trace_ids(trace_dir):
@@ -5004,17 +5393,25 @@ def trace_ids(trace_dir):
 
 def serve_ops_demo(timeout=NATIVE_TIMEOUT_S):
     """tools/ops_demo.py's steps with the port's modules: a fleet scrape
-    of the held 2-rank fleet, then the injected barrier timeout."""
+    of the held 2-rank fleet and the port's ``mvtop --fleet`` in each of
+    its views, then the injected barrier timeout."""
     import tempfile
 
     from multiverso_tpu_torch.ops.introspect import OpsClient
 
     with tempfile.TemporaryDirectory(prefix="mvt_ops_") as traces:
-        with Fleet("ops_demo_worker.py", 2, "OPS_READY", (traces,),
-                   timeout) as fleet:
+        with contextlib.ExitStack() as stack:
+            fleet = stack.enter_context(Fleet(
+                "ops_demo_worker.py", 2, "OPS_READY", (traces,), timeout))
+            tools = {kind: stack.enter_context(
+                Tool("mvtop", fleet.eps[0], "--fleet", *flags))
+                for kind, flags in MVTOP_VIEWS.items()}
             with OpsClient(fleet.eps[0], timeout=15) as c:
                 health = c.health(fleet=True)
                 values, exemplars = c.metrics(fleet=True)
+            for t in tools.values():
+                t.go()
+            views = {kind: t.finish() for kind, t in tools.items()}
             for r in range(2):
                 fleet.send(r, "")
             outs = fleet.finish(lambda r: f"OPS_WORKER_OK {r}", timeout)
@@ -5033,7 +5430,8 @@ def serve_ops_demo(timeout=NATIVE_TIMEOUT_S):
             "blackbox_reason": box.get("reason", ""),
             "blackbox_spans": len(box.get("spans", [])),
             "shared_trace_ids": len(box_ids & ids),
-            "resolved_exemplars": len(exemplar_ids & ids)}
+            "resolved_exemplars": len(exemplar_ids & ids),
+            "cli": {"mvtop": views}}
 
 
 def serve_latency_demo(timeout=NATIVE_TIMEOUT_S):
@@ -5042,9 +5440,10 @@ def serve_latency_demo(timeout=NATIVE_TIMEOUT_S):
     0 and rank 1's traffic, then the merged trace.  The stage named under
     the delay is the one with the largest mean over that traffic (rank
     1's stage histograms' counts and sums, scraped before and after it);
-    latdoctor's reading, the largest p99 over the whole run, is reported
-    beside it: one slow request of the fleet's warm-up in a wire stage
-    outweighs it on a loaded host."""
+    the port's ``latdoctor --fleet`` then reads the fleet, and its
+    reading, the largest p99 over the whole run, is reported beside it:
+    one slow request of the fleet's warm-up in a wire stage outweighs it
+    on a loaded host."""
     import tempfile
 
     from multiverso_tpu_torch import latency
@@ -5052,8 +5451,12 @@ def serve_latency_demo(timeout=NATIVE_TIMEOUT_S):
     from multiverso_tpu_torch.serve import wire
 
     with tempfile.TemporaryDirectory(prefix="mvt_lat_") as traces:
-        with Fleet("latency_demo_worker.py", 2, "LATD_READY", (traces,),
-                   timeout) as fleet:
+        with contextlib.ExitStack() as stack:
+            fleet = stack.enter_context(Fleet(
+                "latency_demo_worker.py", 2, "LATD_READY", (traces,),
+                timeout))
+            tool = stack.enter_context(
+                Tool("latdoctor", fleet.eps[0], "--fleet"))
             client = wire.AnonServeClient(fleet.eps[0], timeout=15,
                                           timing=True)
             ratios = []
@@ -5072,6 +5475,7 @@ def serve_latency_demo(timeout=NATIVE_TIMEOUT_S):
             fleet.command(1, "traffic", "LATD_TRAFFIC_DONE")
             with OpsClient(fleet.eps[0], timeout=15) as c:
                 after = c.latency(fleet=True)["ranks"]["1"]
+            latdoctor = tool.finish()
             window = {s: (after["stages"][s]["sum_s"]
                           - before["1"]["stages"][s]["sum_s"]) * 1e3
                       / max(after["stages"][s]["count"]
@@ -5091,43 +5495,76 @@ def serve_latency_demo(timeout=NATIVE_TIMEOUT_S):
             "dominant_stage": max(window, key=window.get),
             "stage_means_under_delay_ms": window,
             "dominant_p99_stage": latency.dominant_stage(after, "p99_ms"),
+            "latdoctor_dominant_p99": {
+                r: v["dominant_p99"] for r, v in
+                latdoctor_ranks(latdoctor["out"]).items()},
             "exemplar": exemplar,
             "exemplar_in_trace": bool(exemplar) and exemplar in ids,
             "flame_spans": sum(e["name"].startswith("profile:")
-                               for e in events)}
+                               for e in events),
+            "cli": {"latdoctor": latdoctor}}
 
 
 def serve_doctor_demo(timeout=NATIVE_TIMEOUT_S):
-    """tools/doctor_demo.py's steps with the port's modules (its
-    ``mvdoctor`` runs need the JAX package): a healthy fleet's alerts, a
-    seeded 25 ms apply delay on rank 0 under rank 1's probes, then the
-    fault cleared until the alert resolves."""
+    """tools/doctor_demo.py's steps with the port's modules and its
+    ``mvdoctor --fleet``: a healthy fleet's alerts and a quiet strict
+    doctor, a seeded 25 ms apply delay on rank 0 under rank 1's probes
+    with the doctor's top finding and its strict verdict, then the fault
+    cleared until the alert resolves and the strict doctor once more.
+    ``seconds`` is the wall clock from the fleet's start to every rank's
+    exit, ``shutdown_s`` from "quit" to every rank's exit."""
     from multiverso_tpu_torch.apps.doctor_demo_worker import FLUSH_MS
     from multiverso_tpu_torch.ops.introspect import OpsClient
 
     flush = FLUSH_MS / 1e3
+    t0 = time.perf_counter()
 
     def alerts(ep):
         with OpsClient(ep, timeout=15) as c:
             return c.alerts(fleet=True).get("ranks") or {}
 
-    with Fleet("doctor_demo_worker.py", 2, "DOC_READY", (),
-               timeout) as fleet:
+    with contextlib.ExitStack() as stack:
+        fleet = stack.enter_context(Fleet("doctor_demo_worker.py", 2,
+                                          "DOC_READY", (), timeout))
+        ep = fleet.eps[0]
+        # Every CLI child imports while the fleet warms up; each scrapes
+        # on ``go``, right after the traffic its step reads.
+        tools = {}
+        stack.callback(lambda: [t.close() for t in tools.values()])
+        tools.update({"quiet_strict": Tool("mvdoctor", ep, "--fleet", "--strict"),
+                 "fault": Tool("mvdoctor", ep, "--fleet"),
+                 "mvtop_alerts": Tool("mvtop", ep, "--alerts", "--fleet"),
+                 "fault_strict": Tool("mvdoctor", ep, "--fleet", "--strict"),
+                 "cleared_strict": Tool("mvdoctor", ep, "--fleet",
+                                        "--strict")})
         for r in range(2):
             fleet.command(r, "probe", "DOC_PROBE_DONE")
         time.sleep(2.5 * flush)
         hosts = [(rep or {}).get("host") or {}
-                 for rep in alerts(fleet.eps[0]).values()]
+                 for rep in alerts(ep).values()]
         facts = {"healthy_armed": len(hosts) == 2
                  and all(h.get("armed") for h in hosts),
                  "healthy_firing": sum(h.get("firing", 0) for h in hosts)}
+        doc = {"quiet_strict": tools["quiet_strict"].finish()}
+        for t in tools.values():
+            t.ready()
         fleet.command(0, "fault", "DOC_FAULT_ARMED")
         fleet.command(1, "probe", "DOC_PROBE_DONE", timeout=180)
         time.sleep(2.0 * flush)
-        host1 = (alerts(fleet.eps[0]).get("1") or {}).get("host") or {}
+        tools["fault"].go()
+        tools["mvtop_alerts"].go()
+        host1 = (alerts(ep).get("1") or {}).get("host") or {}
         burn = [a for a in host1.get("alerts") or []
                 if a["rule"] == "lat-slo-burn"]
         facts["fault_state"] = burn[0]["state"] if burn else None
+        doc["fault"] = tools["fault"].finish()
+        doc["mvtop_alerts"] = tools["mvtop_alerts"].finish()
+        # A probe burst before the strict run keeps the burn windows hot
+        # (the multiwindow rule un-fires once recent traffic stops
+        # breaching), as the JAX package's driver does.
+        fleet.command(1, "probe", "DOC_PROBE_DONE", timeout=180)
+        time.sleep(2.0 * flush)
+        doc["fault_strict"] = tools["fault_strict"].finish()
         fleet.command(0, "clear", "DOC_CLEARED")
         deadline = time.monotonic() + 30
         while True:
@@ -5140,10 +5577,139 @@ def serve_doctor_demo(timeout=NATIVE_TIMEOUT_S):
                 break
             time.sleep(flush)
         facts.update(cleared_state=a["state"], resolved=a["resolved"])
+        doc["cleared_strict"] = tools["cleared_strict"].finish()
+        t_quit = time.perf_counter()
         for r in range(2):
             fleet.send(r, "quit")
         fleet.finish(lambda r: f"DOC_OK {r}", timeout)
+    t_end = time.perf_counter()
+    head = (doc["fault"]["out"].splitlines() or [""])[0]
+    facts.update(seconds=t_end - t0, shutdown_s=t_end - t_quit,
+                 doctor_top=head,
+                 doctor_top_names_apply="'apply'" in head, cli=doc)
     return facts
+
+
+def serve_failover_demo(timeout=NATIVE_TIMEOUT_S, herd=12):
+    """tools/failover_demo.py's steps with the port's modules and CLIs,
+    over 3 replicated ranks of the port's interactive failover worker
+    (``apps/failover_demo_worker.py``): an anonymous read herd on ranks
+    0 and 2 while rank 1, shard 1's primary, is SIGKILLed; its backup
+    (rank 2) sees the lease expire and promotes the shard, and rank 0
+    adopts the route; the promoted shard's checksums equal the dead
+    primary's last audited ones; re-routed adds and a barrier that
+    excuses the corpse converge exactly; then, on the survivor rank 0,
+    ``mvaudit --settle 0.5`` beside ``ops.audit.diff_fleet`` of the
+    survivor's own fleet scrape, and ``mvtop --replication --fleet``."""
+    import signal
+    import threading
+
+    from multiverso_tpu_torch.ops.audit import diff_fleet
+    from multiverso_tpu_torch.serve.wire import AnonServeClient
+
+    def reply(fleet, r, cmd, prefix):
+        fleet.send(r, cmd)
+        got = None
+        while True:
+            line = fleet.expect(r, "", timeout)
+            if prefix and line.startswith(prefix):
+                got = line[len(prefix):].strip()
+            if line.startswith(f"OK {cmd.split()[0]}"):
+                return got
+
+    with contextlib.ExitStack() as stack:
+        fleet = stack.enter_context(Fleet(
+            "failover_demo_worker.py", 3, "FAILOVER_READY", (), timeout))
+        audit_tool = stack.enter_context(
+            Tool("mvaudit", fleet.eps[0], "--settle", "0.5"))
+        repl_tool = stack.enter_context(
+            Tool("mvtop", fleet.eps[0], "--replication", "--fleet"))
+        stop = threading.Event()
+        served = [0]
+
+        def reader(ep):
+            try:
+                c = AnonServeClient(ep, timeout=10.0, timing=False)
+                while not stop.is_set():
+                    c.get_shard(0)
+                    served[0] += 1
+            except (ConnectionError, OSError):
+                pass
+
+        herds = [threading.Thread(target=reader, args=(fleet.eps[r],),
+                                  daemon=True)
+                 for r in (0, 2) for _ in range(herd // 2)]
+        for t in herds:
+            t.start()
+        try:
+            pre = json.loads(reply(fleet, 1, "sums", "SUMS "))
+            t_kill = time.monotonic()
+            fleet.procs[1].send_signal(signal.SIGKILL)
+            fleet.procs[1].wait(timeout=30)
+            dead = int(reply(fleet, 2, "waitdead 1", "DEAD "))
+            t_detect = time.monotonic() - t_kill
+            owner2 = reply(fleet, 2, "waitowner 1 2", "OWNER ")
+            t_promote = time.monotonic() - t_kill
+            owner0 = reply(fleet, 0, "waitowner 1 2", "OWNER ")
+            post = json.loads(reply(fleet, 2, "sums", "SUMS "))
+            for r in (0, 2):
+                reply(fleet, r, "add 1", None)
+            for r in (0, 2):
+                fleet.send(r, "barrier")
+            barriers = [fleet.expect(r, "BARRIER ", timeout).strip()
+                        for r in (0, 2)]
+            for r in (0, 2):
+                fleet.expect(r, "OK barrier", timeout)
+            values = json.loads(reply(fleet, 0, "get", "VALUES "))
+        finally:
+            stop.set()
+            for t in herds:
+                t.join(timeout=5)
+        audit = audit_tool.finish()
+        findings = diff_fleet(json.loads(
+            reply(fleet, 0, "audit_fleet", "AUDIT_FLEET ")))
+        repl = repl_tool.finish()
+        for r in (0, 2):
+            fleet.send(r, "done")
+        fleet.finish(lambda r: f"FAILOVER_WORKER_OK {r}", timeout,
+                     exempt=(1,))
+    return {"dead_peers": dead, "detect_s": t_detect,
+            "promote_s": t_promote, "owner_seen": [owner2, owner0],
+            "beacons_match": post["backup_shard"] == 1
+            and post["backup"] == pre["server"],
+            "barriers": barriers, "array": values["array"],
+            "herd_reads": served[0],
+            "diff_kinds": sorted({f["kind"] for f in findings}),
+            "diff": findings, "cli": {"mvaudit": audit, "mvtop": repl}}
+
+
+def judge_failover_demo(facts):
+    """tools/failover_demo.py's bars: the backup saw the death and shard
+    1 routes to rank 2 on both survivors within 10 s, the promoted
+    shard's beacons equal the dead primary's, both barriers pass with
+    the corpse excused, the array exact (3 warm adds + 2), and the
+    herd served reads across the kill."""
+    checks = {"dead_seen": facts["dead_peers"] >= 1,
+              "promoted": facts["owner_seen"] == ["1=2", "1=2"]
+              and facts["promote_s"] < 10.0,
+              "beacons_match": facts["beacons_match"],
+              "barriers": facts["barriers"] == ["BARRIER ok"] * 2,
+              "exact": bool(facts["array"])
+              and all(v == 5.0 for v in facts["array"]),
+              "herd_served": facts["herd_reads"] > 0}
+    return checks, all(checks.values())
+
+
+def judge_failover_cli(facts):
+    """The failover demo's CLI steps: ``judge_mvaudit`` in mode
+    ``settle`` and ``judge_mvtop_replication``."""
+    checks = {}
+    for name, (part, _) in (
+            ("mvaudit", judge_mvaudit("settle", facts["cli"]["mvaudit"],
+                                      facts["diff"])),
+            ("mvtop", judge_mvtop_replication(facts["cli"]["mvtop"]))):
+        checks.update({f"{name}_{k}": v for k, v in part.items()})
+    return checks, all(checks.values())
 
 
 LUA_SMOKE = """
@@ -5206,11 +5772,39 @@ def raise_fd_limit(want):
     return soft, hard, resource.getrlimit(resource.RLIMIT_NOFILE)[0]
 
 
-def phase_serve(card, build):
+def tool_records(cli):
+    """``cli``'s CLI runs (nested by step) as printed: exit code, args
+    and the tail of the output."""
+    if "rc" in cli:
+        return {"args": cli["args"], "rc": cli["rc"],
+                "out": cli["out"][-1500:], "err": cli["err"][-500:]}
+    return {k: tool_records(v) for k, v in cli.items()}
+
+
+def apply_counts(doctors, latencies):
+    """How often the doctor and latency demos' fleets named ``apply``:
+    the doctor's top finding, latdoctor's rank 1 dominant p99 stage and
+    the latency demo's gated mean-based stage, each as ``[named, runs]``
+    over every run that got that far."""
+    def count(xs):
+        return [sum(map(bool, xs)), len(xs)]
+
+    return {"doctor_top_names_apply": count(
+                [f["doctor_top_names_apply"] for f in doctors]),
+            "latdoctor_dominant_p99_apply": count(
+                [f["latdoctor_dominant_p99"].get("1") == "apply"
+                 for f in latencies]),
+            "latency_mean_stage_apply": count(
+                [f["dominant_stage"] == "apply" for f in latencies])}
+
+
+def phase_serve(card, build, demo_repeats=1):
     """The serve phase (see the module docstring) at the sizes ``SERVE``
     and ``SERVE_DEMO``; ``build`` is ``start_native_build``'s.  Every
     part runs and prints its line; the phase raises at its end naming
-    each part that failed."""
+    each part that failed.  ``demo_repeats`` > 1 runs the doctor and
+    latency demos that many times in all and prints how often each
+    named ``apply`` (``apply_counts``)."""
     import shutil
 
     from multiverso_tpu_torch import native as nat
@@ -5285,16 +5879,34 @@ def phase_serve(card, build):
                                     ("capacity_", "mvplan_"))}
 
     def audit(mode, *extra):
-        findings, outs, box = serve_audit(mode, extra, timeout)
+        if mode == "plain":
+            findings, outs, box = serve_audit(mode, extra, timeout)
+        else:
+            findings, outs, box, run = serve_audit_cli(mode, extra, timeout)
         checks, ok = judge_audit(mode, findings, outs, box)
-        return {"ok": ok, "checks": checks, "flags": list(extra),
-                "findings": [{k: f.get(k) for k in ("kind", "count")}
-                             for f in findings],
-                "blackbox_reason": (box or {}).get("reason")}
+        rec = {"flags": list(extra),
+               "findings": [{k: f.get(k) for k in ("kind", "count")}
+                            for f in findings],
+               "blackbox_reason": (box or {}).get("reason")}
+        if mode != "plain":
+            checks["mvaudit"], cli_ok = judge_mvaudit(mode, run, findings)
+            ok = ok and cli_ok
+            rec["cli"] = {"mvaudit": tool_records(run)}
+        return {"ok": ok, "checks": checks, **rec}
 
-    def demo_part(run, judge):
+    seen = {serve_doctor_demo: [], serve_latency_demo: []}
+
+    def demo_part(run, judge, cli=None):
+        """``run``'s facts judged by ``judge`` and, with ``cli``, its CLI
+        steps by that judge (their checks under ``"cli"``)."""
         facts = run(timeout)
+        seen.get(run, []).append(facts)
         checks, ok = judge(facts)
+        if cli is not None:
+            checks["cli"], cli_ok = cli(facts)
+            ok = ok and cli_ok
+        facts = dict(facts, cli=tool_records(facts.get("cli", {})))
+        facts.pop("diff", None)
         return {"ok": ok, "checks": checks, "facts": facts}
 
     def lua():
@@ -5318,6 +5930,8 @@ def phase_serve(card, build):
     for mode in ("ops", "latency", "audit", "health"):
         part(mode, lambda mode=mode: plane(mode, sizes[mode]))
     part("failover", failover)
+    part("demo_failover", lambda: demo_part(
+        serve_failover_demo, judge_failover_demo, judge_failover_cli))
     part("skew", lambda: skew(sizes["skew"]))
     part("capacity", lambda: capacity(2, sizes["capacity"]))
     part("demo_fanin_chaos", lambda: fanin(*demo["fanin"], chaos=1))
@@ -5329,12 +5943,27 @@ def phase_serve(card, build):
              lambda engine=engine: audit("chaos", f"-net_engine={engine}"))
     part("demo_audit_loss", lambda: audit("loss"))
     part("demo_audit_plain", lambda: audit("plain", "-audit=false"))
-    part("demo_doctor", lambda: demo_part(serve_doctor_demo,
-                                          judge_doctor_demo))
-    part("demo_latency", lambda: demo_part(serve_latency_demo,
-                                           judge_latency_demo))
-    part("demo_ops", lambda: demo_part(serve_ops_demo, judge_ops_demo))
+    part("demo_doctor", lambda: demo_part(
+        serve_doctor_demo, judge_doctor_demo,
+        lambda f: judge_doctor_cli(f, gate_apply=True)))
+    part("demo_latency", lambda: demo_part(
+        serve_latency_demo, judge_latency_demo,
+        lambda f: judge_latdoctor(f["cli"]["latdoctor"], gate_apply=True)))
+    part("demo_ops", lambda: demo_part(
+        serve_ops_demo, judge_ops_demo,
+        lambda f: judge_mvtop_views(f["cli"]["mvtop"])))
     part("lua", lua)
+    for i in range(1, demo_repeats):
+        part(f"demo_doctor_repeat_{i}", lambda: demo_part(
+            serve_doctor_demo, judge_doctor_demo,
+            lambda f: judge_doctor_cli(f, gate_apply=True)))
+        part(f"demo_latency_repeat_{i}", lambda: demo_part(
+            serve_latency_demo, judge_latency_demo,
+            lambda f: judge_latdoctor(f["cli"]["latdoctor"],
+                                      gate_apply=True)))
+    emit({"phase": "serve", "check": "apply_naming", "ok": True,
+          **apply_counts(seen[serve_doctor_demo],
+                         seen[serve_latency_demo])})
     emit({"phase": "serve", "check": "recorded", "ok": not failed,
           "failed": failed, "host_cpus": os.cpu_count(),
           "rlimit_nofile": {"soft": soft, "hard": hard, "soft_now": raised},
@@ -5351,6 +5980,10 @@ def main(argv) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=STEPS)
     ap.add_argument("--phases", default=",".join(PHASES))
+    ap.add_argument("--demo-repeats", type=int, default=1,
+                    help="run the serve phase's doctor and latency demos "
+                         "this many times and count how often each named "
+                         "'apply' (a run with more is partial)")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
     if phases - set(PHASES):
@@ -5436,7 +6069,7 @@ def main(argv) -> int:
                                        lr_fused, w2v_fused)
     if "serve" in phases:
         fa.reset_launch_counts()
-        phase_serve(card, native_build)
+        phase_serve(card, native_build, args.demo_repeats)
         paths["serve"] = fa.launch_counts()
 
     kernels = []
@@ -5467,10 +6100,11 @@ def main(argv) -> int:
     emit({"kernels": kernels})
     print(smi, flush=True)
     skipped = [p for p in PHASES if p not in phases]
-    if skipped or args.steps != STEPS:
+    if skipped or args.steps != STEPS or args.demo_repeats != 1:
         # A shortened run proves less than the main path: no result line.
         emit({"ok": False, "partial": True, "skipped_phases": skipped,
-              "steps": args.steps, "steps_full": STEPS})
+              "steps": args.steps, "steps_full": STEPS,
+              "demo_repeats": args.demo_repeats})
         return 4
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

@@ -56,9 +56,15 @@ def record_stages(stages: Dict[str, float],
     if total is not None:
         slo_s = _slo_threshold_s()
         if slo_s > 0:
+            # Both counters exist from the first scored round trip: a
+            # counter's history ring starts at the first flush after it
+            # is made, so a breach counter made by the first breach
+            # would hide from the burn windows every breach before that
+            # flush (a whole burst between two flushes read as none).
+            breach = metrics.counter("lat.slo.breach")
             metrics.counter("lat.slo.total").inc()
             if total > slo_s:
-                metrics.counter("lat.slo.breach").inc()
+                breach.inc()
 
 
 def _slo_threshold_s() -> float:

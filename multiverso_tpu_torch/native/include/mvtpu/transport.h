@@ -25,6 +25,7 @@
 //            io_uring.
 #pragma once
 
+#include <atomic>
 #include <cstdint>
 #include <functional>
 #include <memory>
@@ -89,6 +90,23 @@ namespace transport {
 inline constexpr int kClientRankBase = 1 << 20;
 
 inline bool IsClientRank(int r) { return r >= kClientRankBase; }
+
+// A sender thread may tie its connect retries to a flag of its own: once
+// the flag reads false, the engines' connect loops and send retries give
+// up at their next step instead of spending the whole `connect_retry_ms`
+// budget.  The heartbeat's per-peer senders tie theirs to the lease
+// loop's running flag, so a shutdown never waits out a departed peer's
+// reconnect budget; every other thread keeps the whole budget.
+inline thread_local const std::atomic<bool>* tls_connect_guard = nullptr;
+
+inline void SetConnectGuard(const std::atomic<bool>* keep_going) {
+  tls_connect_guard = keep_going;
+}
+
+inline bool ConnectAbandoned() {
+  const std::atomic<bool>* g = tls_connect_guard;
+  return g != nullptr && !g->load(std::memory_order_acquire);
+}
 
 }  // namespace transport
 

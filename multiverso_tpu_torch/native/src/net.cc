@@ -499,6 +499,7 @@ int TcpNet::ConnectTo(int dst_rank) {
       MutexLock lk(mu_);
       if (!running_) break;
     }
+    if (transport::ConnectAbandoned()) break;
   }
   ::freeaddrinfo(res);
   return fd;
@@ -597,6 +598,7 @@ bool TcpNet::Send(int dst_rank, const Message& msg) {
       Dashboard::Record("net.retries", 0.0);
       std::this_thread::sleep_for(std::chrono::milliseconds(backoff_ms));
       backoff_ms *= 2;
+      if (transport::ConnectAbandoned()) return false;
       MutexLock lk(mu_);
       if (!running_) return false;
     }

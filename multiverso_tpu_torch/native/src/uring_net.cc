@@ -1382,7 +1382,7 @@ std::shared_ptr<UringNet::Conn> UringNet::ConnectToRank(int dst_rank) {
     ::close(fd);
     fd = -1;
     std::this_thread::sleep_for(std::chrono::milliseconds(100));
-    if (!running_ || stopping_) break;
+    if (!running_ || stopping_ || transport::ConnectAbandoned()) break;
   }
   ::freeaddrinfo(res);
   if (fd < 0) return nullptr;
@@ -1569,7 +1569,7 @@ bool UringNet::Send(int dst_rank, const Message& msg) {
       Dashboard::Record("net.retries", 0.0);
       std::this_thread::sleep_for(std::chrono::milliseconds(backoff_ms));
       backoff_ms *= 2;
-      if (!running_) return false;
+      if (!running_ || transport::ConnectAbandoned()) return false;
     }
     if (SendAttempt(dst_rank, msg)) {
       if (duplicate) {

@@ -995,6 +995,9 @@ void Zoo::HeartbeatLoop() {
   for (int peer = 0; peer < size_; ++peer) {
     if (peer == rank_) continue;
     senders.emplace_back([this, peer, interval] {
+      // Stop clears hb_running_ before it joins this sender: a send
+      // caught reconnecting to a peer that already left gives up then.
+      transport::SetConnectGuard(&hb_running_);
       while (hb_running_) {
         for (int64_t slept = 0; slept < interval && hb_running_;
              slept += 20)

@@ -39,7 +39,12 @@ never fired, byte books 20% off, a missed hot key, ...); its key parser,
 its sizes (bench.py's), the launcher's exempt victim and the
 interactive fleet's deadlines are checked on small stand-ins (the
 workers themselves run in ``test_torch_serve_tier.py`` and
-``test_torch_failover_audit.py``).
+``test_torch_failover_audit.py``).  The judges of the port's CLI steps
+reject each planted fault: a ``--strict`` that exits 0 while the page is
+live, a top finding naming rank 0, a doctor fleet whose shutdown took
+45 s, ``mvaudit`` reporting one lost acked add, ``mvtop`` missing a
+rank, a latdoctor table without a stage; their text parsers read what
+the CLIs print, and the scrape replay answers the port's ops client.
 """
 
 import dataclasses
@@ -1738,3 +1743,282 @@ def test_raise_fd_limit_stays_within_the_hard_limit():
     soft, hard, now = chip_smoke.raise_fd_limit(256)
     assert now >= min(256, soft if hard == resource.RLIM_INFINITY else hard)
     assert resource.getrlimit(resource.RLIMIT_NOFILE)[1] == hard
+
+
+# ------------------------------------------------- the port's CLIs
+
+def _run(out, rc=0):
+    return {"tool": "t", "args": [], "rc": rc, "out": out, "err": ""}
+
+
+_DOCTOR_TOP = ("1. [critical] rank 1: latency SLO burn — dominant p99 stage "
+               "is 'apply'\n     - alert 'lat-slo-burn' firing (value 80, "
+               "firing 3s)\n")
+_ALERTS_VIEW = ("mvtop --alerts @ 22:34:47 — 2 alert(s), 1 firing\n"
+                "rank          rule  severity   state  value  age_s\n"
+                "   1  lat-slo-burn  critical  firing     60      3\n"
+                "   0  lat-slo-burn  critical      ok      -      7\n")
+_QUIET = "no findings — every scraped plane is quiet\n"
+
+
+def _doctor_facts(**planted):
+    cli = {"quiet_strict": _run(_QUIET), "fault": _run(_DOCTOR_TOP),
+           "mvtop_alerts": _run(_ALERTS_VIEW),
+           "fault_strict": _run(_DOCTOR_TOP, 1),
+           "cleared_strict": _run(_QUIET)}
+    facts = {"cli": cli, "shutdown_s": 1.18, "seconds": 20.5}
+    for key, value in planted.items():
+        (cli if key in cli else facts)[key] = value
+    return facts
+
+
+@pytest.mark.parametrize("planted", [
+    {"fault_strict": _run(_DOCTOR_TOP, 0)},     # strict 0 with a live page
+    {"fault": _run(_DOCTOR_TOP.replace("rank 1", "rank 0"))},
+    {"fault": _run(_DOCTOR_TOP.replace("[critical]", "[warning]"))},
+    {"fault": _run(_DOCTOR_TOP.replace("latency SLO burn", "RSS growing"))},
+    {"fault": _run(_DOCTOR_TOP, 2)},
+    {"quiet_strict": _run(_DOCTOR_TOP, 1)},
+    {"cleared_strict": _run(_DOCTOR_TOP, 1)},
+    {"shutdown_s": 45.9},                       # the stalled shutdown
+    {"mvtop_alerts": _run(_ALERTS_VIEW.replace("firing     60", "ok  60"))},
+    {"mvtop_alerts": _run(_ALERTS_VIEW, 1)},
+], ids=["strict-0-while-paged", "top-rank-0", "top-not-critical",
+        "top-not-burn", "doctor-crashed", "quiet-strict-1",
+        "cleared-strict-1", "shutdown-45s", "alerts-not-firing",
+        "alerts-exit-1"])
+def test_doctor_cli_judge_rejects_planted_faults(planted):
+    assert chip_smoke.judge_doctor_cli(_doctor_facts())[1]
+    checks, ok = chip_smoke.judge_doctor_cli(_doctor_facts(**planted))
+    assert not ok, checks
+
+
+def test_doctor_and_latdoctor_gate_apply_only_when_asked():
+    wire = _run(_DOCTOR_TOP.replace("'apply'", "'wire_out'"))
+    for gate in (False, True):
+        assert chip_smoke.judge_doctor_cli(_doctor_facts(),
+                                           gate_apply=gate)[1]
+        assert chip_smoke.judge_doctor_cli(_doctor_facts(fault=wire),
+                                           gate_apply=gate)[1] != gate
+        text = _latdoctor_text(dominant="wire_out")
+        assert chip_smoke.judge_latdoctor(_run(text),
+                                          gate_apply=gate)[1] != gate
+        assert chip_smoke.judge_latdoctor(_run(_latdoctor_text()),
+                                          gate_apply=gate)[1]
+
+
+def test_doctor_shutdown_bound_is_well_below_the_stall():
+    # The stall is the reconnect budget's 15 s on each of 3 attempts.
+    assert chip_smoke.DOCTOR_SHUTDOWN_S <= 45.0 / 4
+
+
+_CHAOS_OUT = ("mvaudit @ 22:35:51 — 2 stream(s), 1 finding(s)\n"
+              "rank  table  origin  applied  acked  lag  dups  reorders  "
+              "pending  gap\n"
+              "   0      0       1       12     12    0     2         0  "
+              "      0    -\n"
+              "DUP table 0 origin 1 shard 0 x2 seqs [4,4],[5,5]\n")
+_CHAOS_DIFF = [{"table": 0, "origin": 1, "shard": 0, "kind": "dup",
+                "count": 2, "seqs": [(4, 4), (5, 5)]}]
+_LOSS_OUT = ("mvaudit @ 22:36:13 — 2 stream(s), 4 finding(s)\n"
+             "GAP table 0 origin 1 shard 0 seqs [1,1] — pending "
+             "out-of-order range outlived -audit_grace_ms\n"
+             "REORDER table 0 origin 1 shard 0 x3\n"
+             "UNACKED table 0 origin 1 shard 0 seqs [1,4] — sent but "
+             "never acked\n")
+_SETTLE_OUT = ("mvaudit @ 22:35:28 — 12 stream(s), 1 finding(s)\n"
+               "SILENT rank 1 — rank never answered the audit scrape "
+               "(fleet deadline)\n")
+_SILENT = [{"kind": "silent", "rank": 1, "detail": "never answered"}]
+_LOST_LINE = ("LOST table 0 origin 2 shard 1 seqs [7,7] — ACKED but never "
+              "applied — lost acked add(s)\n")
+
+
+@pytest.mark.parametrize("mode,run,findings,ok", [
+    ("chaos", _run(_CHAOS_OUT), _CHAOS_DIFF, True),
+    ("chaos", _run(_CHAOS_OUT + _LOST_LINE, 1), _CHAOS_DIFF, False),
+    ("chaos", _run(_CHAOS_OUT.replace("x2", "x1")), _CHAOS_DIFF, False),
+    ("chaos", _run(_CHAOS_OUT.replace("origin 1 shard 0 x2",
+                                      "origin 0 shard 0 x2")),
+     _CHAOS_DIFF, False),
+    ("chaos", _run(_CHAOS_OUT, 1), _CHAOS_DIFF, False),
+    ("loss", _run(_LOSS_OUT, 1), [], True),
+    ("loss", _run(_LOSS_OUT, 0), [], False),
+    ("loss", _run(_LOSS_OUT.replace("GAP", "REORDER"), 1), [], False),
+    ("loss", _run(_LOSS_OUT + _LOST_LINE, 1), [], False),
+    ("settle", _run(_SETTLE_OUT), _SILENT, True),
+    ("settle", _run(_SETTLE_OUT + _LOST_LINE, 1), _SILENT, False),
+    ("settle", _run(_SETTLE_OUT + _LOST_LINE, 0), _SILENT, False),
+    ("settle", _run(_SETTLE_OUT), _SILENT + [
+        {"kind": "lost", "table": 0, "origin": 2, "shard": 1}], False),
+    ("settle", _run("", 0), _SILENT, False),
+], ids=["chaos", "chaos-one-lost", "chaos-one-dup", "chaos-other-origin",
+        "chaos-exit-1", "loss", "loss-exit-0", "loss-no-gap", "loss-lost",
+        "settle", "settle-one-lost", "settle-lost-exit-0",
+        "settle-diff-disagrees", "settle-printed-nothing"])
+def test_mvaudit_judge(mode, run, findings, ok):
+    assert chip_smoke.judge_mvaudit(mode, run, findings)[1] == ok
+
+
+def test_audit_named_reads_what_render_findings_writes():
+    from multiverso_tpu_torch.ops.audit import render_findings
+
+    findings = _CHAOS_DIFF + _SILENT + [
+        {"kind": "gap", "table": 0, "origin": 1, "shard": 0, "seq_lo": 1,
+         "seq_hi": 1, "detail": "x"},
+        {"kind": "lost", "table": 2, "origin": 3, "shard": 1, "seq_lo": 5,
+         "seq_hi": 9, "detail": "y"}]
+    assert (chip_smoke.audit_named(render_findings(findings))
+            == chip_smoke.findings_named(findings))
+    assert chip_smoke.audit_named(render_findings([])) == []
+
+
+_VIEW_OUT = {
+    "metrics": 'mv_ops_rank_up{rank="0"} 1\nmv_ops_rank_up{rank="1"} 1\n',
+    "health": ("mvtop @ 22:33:55 — 2 rank(s)\n"
+               "rank   up  healthy  engine  queue  max\n"
+               "   0  yes      yes   epoll      0   64\n"
+               "   1  yes      yes   epoll      0   64\n"),
+    "hotkeys": ("mvtop --hotkeys @ 22:33:56 — 2 table row(s)\n"
+                "rank  table  gets  adds  skew  top keys\n"
+                "   0      0    10    10  9.00  3:100 5:40\n"
+                "   1      0    10    10  0.00         -\n"),
+    "alerts": ("mvtop --alerts @ 22:33:55 — 0 alert(s), 0 firing\n"
+               "rank  rule  severity  state  value  age_s\n"),
+}
+
+
+@pytest.mark.parametrize("kind,planted", [
+    ("health", _VIEW_OUT["health"].replace("   1  yes", "   0  yes")),
+    ("hotkeys", _VIEW_OUT["hotkeys"].splitlines()[0]),
+    ("metrics", 'mv_ops_rank_up{rank="0"} 1\n'),
+    ("alerts", _VIEW_OUT["alerts"] + "   1     -         -  unknown      -"
+     "      -\n"),
+    ("alerts", ""),
+], ids=["health-missing-rank", "hotkeys-no-rows", "metrics-missing-rank",
+        "alerts-silent-rank", "alerts-empty"])
+def test_mvtop_views_judge_rejects_a_missing_rank(kind, planted):
+    runs = {k: _run(v) for k, v in _VIEW_OUT.items()}
+    checks, ok = chip_smoke.judge_mvtop_views(runs)
+    assert ok, checks
+    checks, ok = chip_smoke.judge_mvtop_views({**runs, kind: _run(planted)})
+    assert not ok and not checks[kind]
+    assert not chip_smoke.judge_mvtop_views({**runs, kind: _run(
+        _VIEW_OUT[kind], 1)})[1]
+    assert not chip_smoke.judge_mvtop_views({})[1]
+
+
+_REPL_VIEW = ("mvtop --replication @ 22:35:34 — 4 rank(s)\n"
+              "rank   armed  sync  epoch  owners   backups  backs  promoted"
+              "  fwd\n"
+              "   0     yes   yes   2048   0,2,0  -1,-1,-1      2         2"
+              "    6\n"
+              "   1    DEAD     -      -       -         -      -         -"
+              "    -\n"
+              "   2     yes   yes   2048   0,2,0  -1,-1,-1      1         1"
+              "   10\n")
+
+
+@pytest.mark.parametrize("planted", [
+    _REPL_VIEW.replace("      1         1   10", "      1         -   10"),
+    _REPL_VIEW.replace("   2     yes   yes   2048", "   2     yes   yes      0"),
+    "\n".join(_REPL_VIEW.splitlines()[:-1]),
+], ids=["not-promoted", "epoch-not-raised", "rank-2-missing"])
+def test_mvtop_replication_judge(planted):
+    assert chip_smoke.judge_mvtop_replication(_run(_REPL_VIEW))[1]
+    assert not chip_smoke.judge_mvtop_replication(_run(_REPL_VIEW, 1))[1]
+    assert not chip_smoke.judge_mvtop_replication(_run(planted))[1]
+
+
+def _latdoctor_text(stages=chip_smoke.LATENCY_STAGES, dominant="apply"):
+    out = []
+    for r in ("0", "1"):
+        out += [f"rank {r} (timing armed)",
+                "  stage            p50       p95       p99   count"]
+        out += [f"  {s:<9}    0.012ms   0.032ms   0.073ms      40"
+                for s in stages]
+        out += ["  total        0.071ms   0.171ms   0.239ms      40",
+                f"  dominant p99 stage = {dominant} (25.570 ms)"]
+    return "\n".join(out) + "\n"
+
+
+def test_latdoctor_judge_and_parser():
+    text = _latdoctor_text()
+    ranks = chip_smoke.latdoctor_ranks(text)
+    assert ranks["1"] == {"stages": list(chip_smoke.LATENCY_STAGES),
+                          "dominant_p99": "apply"}
+    assert chip_smoke.judge_latdoctor(_run(text))[1]
+    # The named stage is reported, not gated.
+    assert chip_smoke.judge_latdoctor(_run(_latdoctor_text(
+        dominant="wire_out")))[1]
+    for bad in (_run(text, 1),
+                _run(_latdoctor_text(chip_smoke.LATENCY_STAGES[:-1])),
+                _run(text.split("rank 1 (timing")[0]),
+                _run(text.replace("  dominant p99 stage = apply", "")),
+                _run("")):
+        assert not chip_smoke.judge_latdoctor(bad)[1]
+
+
+def _failover_facts(**planted):
+    facts = {"dead_peers": 1, "detect_s": 0.3, "promote_s": 0.4,
+             "owner_seen": ["1=2", "1=2"], "beacons_match": True,
+             "barriers": ["BARRIER ok", "BARRIER ok"], "array": [5.0] * 12,
+             "herd_reads": 35359, "diff": _SILENT,
+             "cli": {"mvaudit": _run(_SETTLE_OUT),
+                     "mvtop": _run(_REPL_VIEW)}}
+    facts.update(planted)
+    return facts
+
+
+@pytest.mark.parametrize("planted", [
+    {"dead_peers": 0}, {"owner_seen": ["1=2", "1=1"]}, {"promote_s": 11.0},
+    {"beacons_match": False}, {"barriers": ["BARRIER ok", "BARRIER failed"]},
+    {"array": [5.0] * 11 + [4.0]}, {"herd_reads": 0}])
+def test_failover_demo_judge_rejects_planted_faults(planted):
+    assert chip_smoke.judge_failover_demo(_failover_facts())[1]
+    assert not chip_smoke.judge_failover_demo(_failover_facts(**planted))[1]
+
+
+@pytest.mark.parametrize("cli", [
+    {"mvaudit": _run(_SETTLE_OUT + _LOST_LINE, 1), "mvtop": _run(_REPL_VIEW)},
+    {"mvaudit": _run(_SETTLE_OUT),
+     "mvtop": _run("\n".join(_REPL_VIEW.splitlines()[:-1]))},
+], ids=["one-lost-acked-add", "mvtop-missing-rank-2"])
+def test_failover_cli_judge_rejects_planted_faults(cli):
+    checks, ok = chip_smoke.judge_failover_cli(_failover_facts())
+    assert ok, checks
+    assert not chip_smoke.judge_failover_cli(_failover_facts(cli=cli))[1]
+
+
+def test_table_rows_and_tool_records():
+    rows = chip_smoke.table_rows(_VIEW_OUT["hotkeys"])
+    assert [r["rank"] for r in rows] == ["0", "1"]
+    assert rows[0]["top"] == "3:100" and rows[1]["skew"] == "0.00"
+    assert chip_smoke.table_rows("no table here") == []
+    long = _run("x" * 5000)
+    rec = chip_smoke.tool_records({"a": long, "b": {"c": long}})
+    assert len(rec["a"]["out"]) == 1500 and rec["b"]["c"]["rc"] == 0
+
+
+def test_apply_counts():
+    doctors = [{"doctor_top_names_apply": v} for v in (True, False, True)]
+    lats = [{"latdoctor_dominant_p99": {"1": s}, "dominant_stage": "apply"}
+            for s in ("apply", "wire_out")]
+    assert chip_smoke.apply_counts(doctors, lats) == {
+        "doctor_top_names_apply": [2, 3],
+        "latdoctor_dominant_p99_apply": [1, 2],
+        "latency_mean_stage_apply": [2, 2]}
+
+
+def test_scrape_replay_answers_the_ports_ops_client():
+    from multiverso_tpu_torch.ops.introspect import OpsClient
+
+    doc = {"ranks": {"0": {"rank": 0}}, "silent": []}
+    with chip_smoke.ScrapeReplay({"audit": json.dumps(doc),
+                                  "metrics": "m 1\n"}) as replay:
+        with OpsClient(replay.endpoint, timeout=10) as c:
+            assert c.audit(fleet=True) == doc
+            assert c.metrics_text(fleet=True) == "m 1\n"
+            assert c.report("capacity", fleet=True) == "{}"
+        t0 = time.monotonic()
+    assert time.monotonic() - t0 < 5

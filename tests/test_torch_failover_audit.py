@@ -1,20 +1,24 @@
-"""The port's four demo workers on the CPU, each a fleet of processes over
-loopback on the port's own library build.
+"""The port's demo workers on the CPU, each a fleet of processes over
+loopback on the port's own library build, read by the port's own CLIs.
 
 The runs and their checks are ``chip_smoke.py``'s ``serve`` phase's: the
-audit demo's three modes (``tools/audit_demo.py``), and the doctor,
-latency and ops demos driven over stdin as ``tools/doctor_demo.py``,
-``tools/latency_demo.py`` and ``tools/ops_demo.py`` drive them, with
-the port's ``ops.introspect``, ``ops.audit``, ``latency`` and
-``tracing`` in place of the JAX package's (the ``mvdoctor`` and
-``latdoctor`` runs of those drivers need the JAX package).  Each launch
-has its own deadline and is retried on fresh ports when a rank lost its
-port to another process.
+audit demo's three modes (``tools/audit_demo.py``) with ``mvaudit`` over
+the chaos and loss fleets' books, and the doctor, latency and ops demos
+driven over stdin as ``tools/doctor_demo.py``, ``tools/latency_demo.py``
+and ``tools/ops_demo.py`` drive them, with the port's ``ops.introspect``,
+``ops.audit``, ``latency`` and ``tracing`` in place of the JAX package's
+and the port's ``mvdoctor``, ``latdoctor`` and ``mvtop`` (each run as a
+script with ``jax`` blocked) in place of the repo's.  The doctor fleet's
+shutdown is held to its bound.  Each launch has its own deadline and is
+retried on fresh ports when a rank lost its port to another process.
 
-The failover worker runs in the serve phase on the card's host only: its
-fixed 1.5 s rpc deadline and 400 ms leases do not hold on a loaded CPU
-(beside six busy processes on an 8-core host its warm-up add timed out
-or the promotion was never seen, in every run).
+The failover workers run in the serve phase on the card's host only:
+their 400 ms leases do not hold on a loaded CPU (beside six busy
+processes on an 8-core host the bench worker's warm-up add timed out or
+the promotion was never seen, in every run, and the interactive demo
+worker's warm-up add failed with the lease expired).  Their judges,
+``mvaudit --settle`` and ``mvtop --replication`` included, are held on
+planted inputs in ``tests/test_torch_chip_smoke.py``.
 """
 
 import importlib.util
@@ -47,18 +51,33 @@ def test_audit_demo_worker(mode, extra):
     unacked stream; loss: the silent discard's gap named, its black box
     fired, the async tail unacked, nothing lost; plain: the adds converge
     on pre-audit frames with the plane reported disarmed."""
-    findings, outs, box = chip_smoke.serve_audit(mode, extra,
-                                                 timeout=DEADLINE_S)
+    if mode == "plain":
+        findings, outs, box = chip_smoke.serve_audit(mode, extra,
+                                                     timeout=DEADLINE_S)
+    else:
+        findings, outs, box, run = chip_smoke.serve_audit_cli(
+            mode, extra, timeout=DEADLINE_S)
     checks, ok = chip_smoke.judge_audit(mode, findings, outs, box)
     assert ok, (checks, findings, box)
     if mode == "plain":
         assert findings == []
+    else:
+        # mvaudit over the fleet's books: the duplicates named exactly
+        # (exit 0), or the gap named (exit 1).
+        checks, ok = chip_smoke.judge_mvaudit(mode, run, findings)
+        assert ok, (checks, run)
 
 
 def test_doctor_demo_alert_fires_and_resolves():
+    """The alert fires and resolves; ``mvdoctor --fleet --strict`` exits
+    0 on the quiet fleet, 1 while the page is live and 0 after it
+    resolves, its top finding names rank 1's latency SLO burn, and the
+    fleet's shutdown ends inside its bound."""
     facts = chip_smoke.serve_doctor_demo(timeout=DEADLINE_S)
     checks, ok = chip_smoke.judge_doctor_demo(facts)
     assert ok, (checks, facts)
+    checks, ok = chip_smoke.judge_doctor_cli(facts)
+    assert ok, (checks, facts["cli"], facts["shutdown_s"])
 
 
 def test_latency_demo_names_the_apply_stage():
@@ -66,6 +85,10 @@ def test_latency_demo_names_the_apply_stage():
     checks, ok = chip_smoke.judge_latency_demo(facts)
     assert ok, (checks, facts)
     assert facts["probes"] == 20
+    # latdoctor --fleet: exit 0, every stage on both ranks, the
+    # dominant p99 line on each.
+    checks, ok = chip_smoke.judge_latdoctor(facts["cli"]["latdoctor"])
+    assert ok, (checks, facts["cli"]["latdoctor"])
 
 
 def test_ops_demo_scrape_blackbox_and_trace():
@@ -73,3 +96,7 @@ def test_ops_demo_scrape_blackbox_and_trace():
     checks, ok = chip_smoke.judge_ops_demo(facts)
     assert ok, (checks, facts)
     assert facts["blackbox_dumped"]
+    # mvtop --fleet in each view: exit 0, a row for every rank.
+    checks, ok = chip_smoke.judge_mvtop_views(facts["cli"]["mvtop"])
+    assert ok, (checks, facts["cli"]["mvtop"])
+

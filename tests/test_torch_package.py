@@ -194,11 +194,16 @@ COPIED = ["config.py", "fault.py", "capacity.py", "sketch.py",
           "apps/failover_bench_worker.py", "apps/fanin_bench_worker.py",
           "apps/audit_demo_worker.py", "apps/doctor_demo_worker.py",
           "apps/latency_demo_worker.py", "apps/ops_demo_worker.py",
-          "binding/lua/multiverso.lua"]
+          "binding/lua/multiverso.lua", "tools/latdoctor.py",
+          "tools/mvaudit.py", "tools/mvdoctor.py", "tools/mvtop.py",
+          "apps/failover_demo_worker.py"]
 
-# Where an original lies outside the JAX package: the port's copy of the
-# placement advisor is the repo's ``tools/mvplan.py``.
-_ORIGINALS = {"tools/mvplan.py": ("tools", "mvplan.py")}
+# Where an original lies outside the JAX package: the port's copies of
+# the operator CLIs are the repo's ``tools/<name>.py``, and its
+# interactive failover worker is the JAX tests' ``failover_worker.py``.
+_CLIS = ("mvplan", "latdoctor", "mvaudit", "mvdoctor", "mvtop")
+_ORIGINALS = {f"tools/{n}.py": ("tools", f"{n}.py") for n in _CLIS}
+_ORIGINALS["apps/failover_demo_worker.py"] = ("tests", "failover_worker.py")
 
 
 # Besides the name, a copy drops the JAX package's change-history notes
@@ -210,15 +215,36 @@ _HISTORY_NOTES = {
                    (r"for XLA-level depth", "for kernel-level depth")],
 }
 
-# The placement advisor's CLI prints its proposal and verdict: the
-# repo's lint (tools/mvlint.py) reads every file under the port's path
-# outside apps/ as library code, so each print carries MV006's marker
-# (a pattern, and how many times it must match).
+# The CLIs print their tables, findings and verdicts: the repo's lint
+# (tools/mvlint.py) reads every file under the port's path outside apps/
+# as library code, so each print carries MV006's marker (a pattern, and
+# how many times it must match).
 _LINT_MARKERS = {
-    "tools/mvplan.py": (r"^( *print\(.*)$",
-                        r"\1  # mvlint: MV006-exempt(CLI output)", 4),
+    f"tools/{n}.py": (r"^( *print\(.*)$",
+                      r"\1  # mvlint: MV006-exempt(CLI output)", count)
+    for n, count in (("mvplan", 4), ("latdoctor", 4), ("mvaudit", 7),
+                     ("mvdoctor", 2), ("mvtop", 2))
 }
 
+
+# The path header of a copy one directory deeper than its original
+# climbs one directory more: the CLIs' ``REPO`` and the failover
+# worker's ``sys.path`` entry, each one statement of ``os.path.dirname``
+# calls over ``__file__``.
+_DEEPER = (r"\n(?:REPO = |sys\.path\.insert\(0, )(?:os\.path\.dirname\(\n?"
+           r"(?:    )?)+os\.path\.abspath\(__file__\)\)+\n")
+
+# The shutdown repair: the heartbeat's per-peer senders tie their
+# connect retries to the lease loop's running flag, so a rank whose peer
+# left first does not wait out the peer's reconnect budget in
+# ``MV_ShutDown`` (``tests/test_torch_native_shutdown.py``).  Its regions:
+# the guard in ``transport.h``, each engine's connect loop and send
+# retry, and the sender that sets it.
+_GIVE_UP = r"(?: \|\| transport::ConnectAbandoned\(\))?"
+_ENGINE_REPAIR = [
+    rf"\n    if \(!running_ \|\| stopping_{_GIVE_UP}\) break;\n",
+    rf"\n      backoff_ms \*= 2;\n      if \(!running_{_GIVE_UP}\) "
+    r"return false;\n"]
 
 # Where a copy is the original with a change of its own: each pattern
 # must match once in the copy and once in the original, and the two
@@ -228,17 +254,39 @@ _LINT_MARKERS = {
 # buffer, because ``io_uring_probe`` ends in a flexible array member in
 # newer kernel headers and cannot be nested in a struct.
 _PORT_CHANGES = {
+    "native/include/mvtpu/transport.h": [
+        r"\n#include <(?:atomic>\n#include <)?cstdint>\n",
+        r"\ninline bool IsClientRank\(.*?\n\}  // namespace transport\n"],
+    "native/src/net.cc": [
+        r"\n      if \(!running_\) break;\n    \}\n"
+        r"(?:    if \(transport::ConnectAbandoned\(\)\) break;\n)?",
+        r"\n      backoff_ms \*= 2;\n"
+        r"(?:      if \(transport::ConnectAbandoned\(\)\) return false;\n)?"],
+    "native/src/epoll_net.cc": _ENGINE_REPAIR,
+    "native/src/zoo.cc": [
+        r"\n    senders\.emplace_back\(\[this, peer, interval\] \{\n"
+        r"(?:      // Stop clears.*?SetConnectGuard\(&hb_running_\);\n)?"],
     "native/__init__.py": [r"\nimport ctypes\n.*?from typing",
                            r"\ndef ensure_built\(.*?\n    return _LIB\n"],
     "native/src/uring_net.cc": [
         r"\n  (?:struct \{|// io_uring_probe ends).*?"
-        r"kProbeOpSupported\)\) \{\n"],
+        r"kProbeOpSupported\)\) \{\n", *_ENGINE_REPAIR],
     # The capacity worker imports the port's own copy of the placement
     # advisor, where the original puts the repo's ``tools/`` on the path.
     "apps/capacity_bench_worker.py": [
         r"\n(?:sys\.path\.insert\(0, os\.path\.join\([^\n]*\n[^\n]*"
         r"\"tools\"\)\)\nimport mvplan"
         r"|from multiverso_tpu_torch\.tools import mvplan)  # noqa: E402\n"],
+    # The failover worker and the CLIs lie one directory deeper than
+    # their originals (under the package, not the repo's tests/ and
+    # tools/), so each path header climbs one more.
+    "apps/failover_demo_worker.py": [_DEEPER],
+    **{f"tools/{n}.py": [_DEEPER] for n in _CLIS[1:]},
+    # The SLO's breach counter is made with its total counter, so its
+    # history ring holds zeros before the first breach
+    # (tests/test_torch_slo_burn.py).
+    "latency.py": [r"\n        if slo_s > 0:\n.*?\n                [^\n]*"
+                   r"\.inc\(\)\n"],
 }
 
 
@@ -303,18 +351,31 @@ def _native_sources():
     return out
 
 
+# What each repaired native file holds that its original does not.
+_NATIVE_REPAIRS = {
+    "native/include/mvtpu/transport.h": ["inline bool ConnectAbandoned()"],
+    "native/src/net.cc": ["transport::ConnectAbandoned()"],
+    "native/src/epoll_net.cc": ["transport::ConnectAbandoned()"],
+    "native/src/uring_net.cc": ["alignas(io_uring_probe)",
+                                "transport::ConnectAbandoned()"],
+    "native/src/zoo.cc": ["transport::SetConnectGuard(&hb_running_)"],
+}
+
+
 @pytest.mark.parametrize("rel", _native_sources())
 def test_native_source_matches_its_original(rel):
     """The port's copy of the native runtime's C++ sources and Makefile:
-    the original with the package name rewritten, and in ``uring_net.cc``
-    the one repair (the probe's aligned buffer) and nothing else."""
+    the original with the package name rewritten, and in the repaired
+    files (the io_uring probe's aligned buffer, the shutdown's connect
+    guard) those repairs and nothing else."""
     rel = f"native/{rel}"
     port = _read("multiverso_tpu_torch", rel)
     want = _rewrite(_read("multiverso_tpu", rel), rel)
     assert _outside_changes(port, rel) == _outside_changes(want, rel)
     if rel in _PORT_CHANGES:
-        assert port != want and "alignas(io_uring_probe)" in port
-        assert "alignas(io_uring_probe)" not in want
+        assert port != want
+        for mark in _NATIVE_REPAIRS[rel]:
+            assert mark in port and mark not in want, (rel, mark)
     else:
         assert port == want
 
