@@ -13,8 +13,9 @@ Phases, each printing JSON lines:
              and reports, per kernel, ptxas's registers and spill bytes
              and the SASS counts of HGMMA (wgmma), UTMALDG (TMA loads) and
              LDL/STL (local memory) from ``cuobjdump -sass``.  Each
-             library must hold bf16 Hopper kernels, and each of them HGMMA
-             and UTMALDG.
+             library must hold its bf16 Hopper kernels (the forward and
+             dk/dv at D 32, 64, 128 and 256, dq at 64 and 128), each of
+             them with HGMMA and UTMALDG and no bytes spilled.
 3. parity  — each kernel against its plain PyTorch version on the card:
              the trainer's attention shape (B=4, H=16, T=2048, D=128, bf16,
              causal, nonzero lse cotangent), small ragged shapes (T=200)
@@ -23,7 +24,11 @@ Phases, each printing JSON lines:
              bf16 at D 128 both Tq=40, Tk=136 and Tq=136, Tk=40), and the
              edges of the 128-row Hopper tiles in bf16: T=2112 (a
              half-full last tile), T=130 at D 64 and 128 causal and not (a
-             second tile of 2 rows), and one head at T=2048.
+             second tile of 2 rows), and one head at T=2048; the same
+             edges at D 32 and 256 (T=2112 and T=130, and for D 256's
+             64-row tiles T=2080 and T=66; Tq≠Tk both ways); and bh 65,600
+             at T 64, D 32, causal, in bf16 and float32 (past grid y's
+             65,535).
              Each output is judged by its own dtype: float32 outputs
              (lse, and every output of a float32 case) element by element
              at atol = rtol = 1e-4; bf16 outputs by their error relative
@@ -63,6 +68,16 @@ Phases, each printing JSON lines:
              against one ``accum=1`` step from the same weights (loss and
              every parameter's change within 2e-2), and the kernels at
              its attention shape (D 64): parity and timing as above.
+   headdims — the Hopper designs at D 256 and D 32 on the trainer's path:
+             transformer_large's widths with 8 heads of 256 (the
+             trainer's masters, bf16, SGD, no remat, batch 4, seq 2048)
+             and bench_transformer's with 16 heads of 32 (batch 8, seq
+             2048), 5 steps each (finite, falling losses, every kernel
+             launched once a layer and step), the kernels at [4, 8, 2048,
+             256] and [8, 16, 2048, 32] against their plain versions and
+             timed (beside each bound the exp unit's: one exp a kept
+             score at 16 a clock an SM), and the float32 kernels at [4, 16, 2048, 128] (bounds at the
+             card's FP32 and TF32 rates).
    moe     — bench_moe (vocab 16384, dim 1024, 8 layers, 8 heads, hidden
              2816, 8 experts, top-2, capacity factor 1.25, full remat,
              batch 8, seq 1024): 5 steps with each dispatch from one draw
@@ -402,6 +417,12 @@ nvidia-smi line, and the result line.  Any
 failure exits non-zero and prints no result.  ``--steps``/``--phases``
 shorten a run while iterating; such a run ends with a line naming what it
 skipped instead of the result line, and exits 4.
+
+``python3 chip_smoke.py --kernel-times [--root DIR] B,H,T,D,DTYPE ...``
+builds the kernels of the package under DIR (this checkout by default;
+an older tree to compare with, unpacked under ``build/``, which the
+tree-walking lint skips) and prints each kernel's times at each shape,
+as the timing phase does, with no result line.
 """
 
 from __future__ import annotations
@@ -423,15 +444,23 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 
 # H100 SXM published dense peaks (NVIDIA data sheet).
 PEAK_BF16_FLOPS = 989e12
+PEAK_TF32_FLOPS = 495e12
+PEAK_FP32_FLOPS = 67e12     # outside the tensor cores
 PEAK_HBM_BYTES = 3.35e12
+# The exp unit (MUFU ex2): 16 results a clock an SM (CUDA C++ Programming
+# Guide, arithmetic instruction throughput, compute capability 9.0)
+# against the tensor cores' 4,096 bf16 flops a clock an SM (132 SMs x
+# 4,096 x 1.83 GHz = the 989 TFLOP/s above), at the same clock.
+PEAK_EX2_PER_S = PEAK_BF16_FLOPS * 16 / 4096
 
 # The main path: the trainer's configuration and the attention shape it
 # gives the kernels.  The parity and timing phases use the same shape.
 LAYERS, STEPS, BATCH, SEQ = 16, 5, 4, 2048
 HEADS, HEAD_DIM = 16, 128
-PHASES = ("parity", "trainer", "profile", "check", "timing", "small", "moe",
-          "longctx", "mesh", "moe_mesh", "shard", "tables", "lr", "rows",
-          "w2v", "lda", "sgmix", "resnet", "planes", "native", "serve")
+PHASES = ("parity", "trainer", "profile", "check", "timing", "small",
+          "headdims", "moe", "longctx", "mesh", "moe_mesh", "shard",
+          "tables", "lr", "rows", "w2v", "lda", "sgmix", "resnet", "planes",
+          "native", "serve")
 # Remat reschedules the backward and recomputes the same numbers: on the
 # card "dots" matched the no-remat losses to the last bit and full remat
 # (batch 8, the batch of 4 twice) within 5.3e-5, so the losses are held
@@ -446,6 +475,14 @@ CHANGE_TOL = 2e-2
 # bench_long_context (:1619-1640).
 SMALL = dict(vocab_size=8192, dim=512, n_layers=4, n_heads=8, hidden=1408)
 SMALL_BATCH, SMALL_SEQ = 8, 2048
+# The headdims phase: the head dims outside bench.py's configs (64, 128)
+# that the Hopper designs cover, at full width: transformer_large's widths
+# in 8 heads of 256 (Gemma 7B's head dim) and bench_transformer's in 16
+# heads of 32.
+WIDE_HEADS = 8
+NARROW = dict(SMALL, n_heads=16)
+# The float32 kernels' row: the trainer's attention shape.
+F32_SHAPE = (BATCH, HEADS, SEQ, HEAD_DIM)
 MOE = dict(vocab_size=16384, dim=1024, n_layers=8, n_heads=8, hidden=2816,
            num_experts=8, top_k=2, capacity_factor=1.25, remat=True)
 MOE_BATCH, MOE_SEQ = 8, 1024
@@ -756,15 +793,47 @@ def sass_counts(sass_text):
     return per
 
 
+# The bf16 Hopper kernels each library must hold, by head dim.
+HOPPER_DIMS = {"flash_fwd": (32, 64, 128, 256), "flash_dq": (64, 128),
+               "flash_dkv": (32, 64, 128, 256)}
+
+
+def hopper_dim(kname, name):
+    """The head dim of ``kname``'s Hopper kernel ``name`` (demangled, or
+    mangled where c++filt is missing), or None for another kernel."""
+    m = (re.search(rf"{kname}_hopper<(\d+)>", name)
+         or re.search(rf"{kname}_hopperILi(\d+)EE", name))
+    return int(m.group(1)) if m else None
+
+
+def judge_build(libs):
+    """The failures of a build report: a library missing one of its
+    HOPPER_DIMS kernels, or a Hopper kernel without HGMMA or UTMALDG in
+    its SASS, or with bytes spilled."""
+    bad = []
+    for kname, lib in libs.items():
+        found = {hopper_dim(kname, n) for n in lib["kernels"]}
+        missing = [d for d in HOPPER_DIMS[kname] if d not in found]
+        if missing:
+            bad.append(f"{kname}: no Hopper kernel at D {missing}")
+        for n, c in lib["kernels"].items():
+            if "_hopper" not in n:
+                continue
+            if not (c.get("HGMMA", 0) > 0 and c.get("UTMALDG", 0) > 0):
+                bad.append(f"{n}: no HGMMA or no UTMALDG in its SASS")
+            if c.get("spill_bytes", 0) > 0:
+                bad.append(f"{n}: {c['spill_bytes']} bytes spilled")
+    return bad
+
+
 def phase_build(_build, paths, build_s):
     """Per kernel of each library: ptxas registers and spill bytes, and
     the SASS counts of wgmma (HGMMA), TMA loads (UTMALDG) and local-memory
-    traffic (LDL/STL).  Every library must hold bf16 Hopper kernels
-    (flash_fwd_hopper, flash_dq_hopper, flash_dkv_hopper), and each of
-    them HGMMA and UTMALDG."""
+    traffic (LDL/STL).  Every library must hold its bf16 Hopper kernels
+    (HOPPER_DIMS), and each of them HGMMA and UTMALDG and no spills."""
     cuobjdump = os.path.join(os.path.dirname(_build.nvcc_path()),
                              "cuobjdump")
-    libs, ok = {}, True
+    libs = {}
     for kname in KERNELS:
         with open(os.path.join(_build.BUILD_DIR, f"{kname}.log")) as f:
             log_text = f.read()
@@ -780,18 +849,15 @@ def phase_build(_build, paths, build_s):
         warnings = [ln.strip() for ln in log_text.splitlines()
                     if "warning" in ln.lower()
                     or "performance loss" in ln.lower()][:8]
-        hopper = {n: c for n, c in kernels.items() if "_hopper" in n}
-        ok = ok and bool(hopper) and all(
-            c.get("HGMMA", 0) > 0 and c.get("UTMALDG", 0) > 0
-            for c in hopper.values())
         libs[kname] = {"lib": os.path.relpath(paths[kname], HERE),
                        "kernels": kernels, "warnings": warnings,
                        "ptxas": [ln.strip() for ln in log_text.splitlines()
-                                 if "registers" in ln or "spill" in ln][:32]}
-    emit({"phase": "build", "ok": ok, "s": build_s, "libs": libs})
-    if not ok:
-        raise AssertionError("a library has no Hopper kernel, or a Hopper "
-                             "kernel has no HGMMA or no UTMALDG in its SASS")
+                                 if "registers" in ln or "spill" in ln][:40]}
+    bad = judge_build(libs)
+    emit({"phase": "build", "ok": not bad, "s": build_s, "failures": bad,
+          "libs": libs})
+    if bad:
+        raise AssertionError("build phase: " + "; ".join(bad))
 
 
 def parity_case(fa, torch, bh, t, tk, d, dtype, causal, tag, seed):
@@ -820,6 +886,28 @@ def kernel_errors(errs):
             "flash_dkv": max(worst["dk"], worst["dv"])}
 
 
+def edge_cases(torch):
+    """The parity phase's cases for the D 32 and D 256 Hopper designs and
+    the first port's grid: (bh, T, Tk, D, dtype, causal, tag).  The
+    128-row tiles' edges at both dims (a half-full last tile, a second
+    tile of 2 rows), D 256's 64-row k and q blocks' edges (T 2080, T 66),
+    Tq≠Tk both ways, and bh 65,600 (past grid y's 65,535) in bf16 and
+    float32."""
+    bf16 = torch.bfloat16
+    cases = []
+    for d in (32, 256):
+        cases.append((4, SEQ + 64, SEQ + 64, d, bf16, True, "half_tile"))
+        for t in ((130, 66) if d == 256 else (130,)):
+            for causal in (True, False):
+                cases.append((3, t, t, d, bf16, causal, "two_row_tile"))
+        for t, tk in ((40, 136), (136, 40)):
+            cases.append((3, t, tk, d, bf16, False, "cross_length"))
+    cases.append((4, SEQ + 32, SEQ + 32, 256, bf16, True, "half_tile"))
+    for dtype in (bf16, torch.float32):
+        cases.append((65_600, 64, 64, 32, dtype, True, "bh_past_grid_y"))
+    return cases
+
+
 def phase_parity(fa, torch):
     results, full_err, faults = [], {}, []
     cases = [(BATCH * HEADS, SEQ, SEQ, HEAD_DIM, torch.bfloat16, True,
@@ -846,6 +934,7 @@ def phase_parity(fa, torch):
             cases.append((3, 130, 130, d, torch.bfloat16, causal,
                           "two_row_tile"))
     cases.append((1, SEQ, SEQ, HEAD_DIM, torch.bfloat16, True, "one_head"))
+    cases += edge_cases(torch)
     for i, (bh, t, tk, d, dtype, causal, tag) in enumerate(cases):
         result, x, want = parity_case(fa, torch, bh, t, tk, d, dtype,
                                       causal, tag, seed=100 + i)
@@ -879,12 +968,13 @@ def large_host(torch):
     return host, time.perf_counter() - t0
 
 
-def large_config(torch, **kw):
-    """bench_transformer_large's model (bench.py:1468-1469) in bf16."""
+def large_config(torch, heads=HEADS, **kw):
+    """bench_transformer_large's model (bench.py:1468-1469) in bf16; its
+    dim 2048 in ``heads`` heads (16 of 128 in bench.py)."""
     from multiverso_tpu_torch.models import TransformerConfig
 
     return TransformerConfig(vocab_size=32768, dim=HEADS * HEAD_DIM,
-                             n_layers=LAYERS, n_heads=HEADS, hidden=5632,
+                             n_layers=LAYERS, n_heads=heads, hidden=5632,
                              max_seq=SEQ, compute_dtype=torch.bfloat16, **kw)
 
 
@@ -1115,6 +1205,58 @@ def phase_small(args, torch, fa, mv, card):
     return {"launches": run["launch_counts"],
             "errors": kernel_errors(parity["errors"]), "times": times,
             "shape": [SMALL_BATCH, heads, SMALL_SEQ, cfg.head_dim]}
+
+
+def phase_headdims(args, torch, fa, mv, card, host):
+    """The D 256 and D 32 Hopper designs on the trainer's path: five steps
+    of transformer_large's widths in 8 heads of 256 (from the trainer's
+    float32 masters: the head count changes no parameter's shape) and of
+    bench_transformer's in 16 heads of 32, each held by ``run_ok``; the
+    kernels at each run's attention shape against their plain versions
+    and timed; and the float32 kernels timed at the trainer's attention shape.  Returns each path's
+    entry for the kernels line."""
+    from multiverso_tpu_torch.models import TransformerConfig, init_params
+
+    narrow = TransformerConfig(**NARROW, max_seq=SMALL_SEQ,
+                               compute_dtype=torch.bfloat16)
+    runs = (("headdims_d256", large_config(torch, heads=WIDE_HEADS), host,
+             BATCH, SEQ, 610),
+            ("headdims_d32", narrow, None, SMALL_BATCH, SMALL_SEQ, 620))
+    entries, failed = {}, []
+    for path, cfg, masters, batch, seq, seed in runs:
+        if masters is None:
+            masters = init_params(cfg, seed=0)
+        tokens = torch.randint(0, cfg.vocab_size, (batch, seq),
+                               generator=torch.Generator().manual_seed(1))
+        run, tr = train_run(torch, mv, cfg, masters, tokens, args.steps)
+        del tr, masters
+        torch.cuda.empty_cache()
+        d, heads = cfg.head_dim, cfg.n_heads
+        parity, _, _ = parity_case(fa, torch, batch * heads, seq, seq, d,
+                                   torch.bfloat16, True, path, seed=seed)
+        torch.cuda.empty_cache()
+        times = kernel_times(fa, torch, batch, heads, seq, d)
+        ok = run_ok(run, args.steps) and parity["ok"]
+        emit({"phase": "headdims", "ok": ok, "path": path, "dim": cfg.dim,
+              "n_heads": heads, "head_dim": d, "hidden": cfg.hidden,
+              "vocab": cfg.vocab_size, **run, "kernel_parity": parity,
+              "kernel_times": times, "card": card})
+        if not ok:
+            failed.append(f"{path}: losses {run['losses']}, launches "
+                          f"{run['launch_counts']}, kernel parity "
+                          f"{parity['ok']}")
+        entries[path] = {"launches": run["launch_counts"],
+                         "errors": kernel_errors(parity["errors"]),
+                         "times": times, "shape": [batch, heads, seq, d]}
+    f32 = kernel_times(fa, torch, *F32_SHAPE, dtype=torch.float32)
+    emit({"phase": "headdims", "ok": True, "path": "float32",
+          "shape": list(F32_SHAPE), "dtype": "float32", "causal": True,
+          "kernel_times": f32, "card": card})
+    entries["headdims_f32"] = {"times": f32, "shape": list(F32_SHAPE),
+                               "dtype": "float32"}
+    if failed:
+        raise AssertionError("headdims phase failed: " + "; ".join(failed))
+    return entries
 
 
 def dropped_routes(moe, fn):
@@ -2582,15 +2724,16 @@ def phase_check(torch):
         raise AssertionError("card and CPU trainers disagree")
 
 
-def flash_work(bh, t, d, tk=None, causal=True):
-    """{kernel: (flops, bytes)} of bf16 attention of [bh, t, d] queries
-    over [bh, tk, d] keys (tk = t by default): 2 flops per multiply-add
-    over the (q, k) pairs the causal mask keeps (all of them without
-    it), each input read once and each output written once (q, o, do and
-    dq have t rows; k, v, dk and dv tk; lse and delta are float32)."""
+def flash_work(bh, t, d, tk=None, causal=True, elem=2):
+    """{kernel: (flops, bytes)} of attention of [bh, t, d] queries over
+    [bh, tk, d] keys (tk = t by default) in a type of ``elem`` bytes (bf16
+    by default): 2 flops per multiply-add over the (q, k) pairs the causal
+    mask keeps (all of them without it), each input read once and each
+    output written once (q, o, do and dq have t rows; k, v, dk and dv tk;
+    lse and delta are float32)."""
     tk = tk or t
     pairs = t * (t + 1) // 2 if causal else t * tk
-    e, f4 = 2, 4
+    e, f4 = elem, 4
     return {
         "flash_fwd": (2 * 2 * d * pairs * bh,
                       (2 * t + 2 * tk) * bh * d * e + bh * t * f4),
@@ -2609,24 +2752,46 @@ def phase_timing(fa, torch, card):
     return out
 
 
+def library_bwd(torch, q4, k4, v4, do4, causal, scale):
+    """One PyTorch call that returns dq, dk and dv from a forward's saved
+    output and lse: the flash backward for bf16, the memory-efficient
+    one for float32 (which the flash kernels do not take)."""
+    aten = torch.ops.aten
+    if q4.dtype == torch.float32:
+        o4, lse4, seed, offset = aten._scaled_dot_product_efficient_attention(
+            q4, k4, v4, None, True, 0.0, causal, scale=scale)
+        return lambda: aten._scaled_dot_product_efficient_attention_backward(
+            do4, q4, k4, v4, None, o4, lse4, seed, offset, 0.0,
+            [True, True, True, False], causal, scale=scale)
+    o4, lse4, cq, ck, mq, mk, seed, offset, _ = (
+        aten._scaled_dot_product_flash_attention(q4, k4, v4, 0.0, causal,
+                                                 False, scale=scale))
+    return lambda: aten._scaled_dot_product_flash_attention_backward(
+        do4, q4, k4, v4, o4, lse4, cq, ck, mq, mk, 0.0, causal, seed,
+        offset, scale=scale)
+
+
 def kernel_times(fa, torch, B, H, T, D, plain_bh=None, tk=None,
-                 causal=True):
+                 causal=True, dtype=None):
     """Each kernel alone on operands prepared as the trainer's attention
-    call prepares them (bf16, [B, H, T, D] queries over [B, H, tk, D]
-    keys, causal or not), beside its plain version (on the first
-    ``plain_bh`` heads where given: the plain versions hold [bh, T, tk]
-    float32 scores), its bound and the library call that computes the
-    same function."""
+    call prepares them ([B, H, T, D] queries over [B, H, tk, D] keys, bf16
+    unless ``dtype`` says otherwise, causal or not), beside its plain
+    version (on the first ``plain_bh`` heads where given: the plain
+    versions hold [bh, T, tk] float32 scores), its bound, the exp unit's
+    bound (one exp a kept score) and the library call that computes the
+    same function.  A float32 kernel's bound is taken at the card's FP32
+    rate (its products are FMAs), with the TF32 rate's beside it."""
     import torch.nn.functional as F
 
+    dtype = dtype or torch.bfloat16
     bh, tk = B * H, tk or T
-    x = attn_inputs(bh, T, D, torch.bfloat16, seed=7, tk=tk)
+    x = attn_inputs(bh, T, D, dtype, seed=7, tk=tk)
     q, k, v, do = x["q"], x["k"], x["v"], x["do"]
     scale = D ** -0.5
     qs, kc, vc = fa._prepare(q, k, v, scale)
     o, lse = fa._fwd(qs, kc, vc, causal)
     rows = fa._rows(do, lse, (do.float() * o.float()).sum(-1), q.dtype)
-    work = flash_work(bh, T, D, tk, causal)
+    work = flash_work(bh, T, D, tk, causal, elem=q.element_size())
     pb = plain_bh or bh
     pq, pk, pv = qs[:pb], kc[:pb], vc[:pb]
     prows = [r[:pb] for r in rows]
@@ -2639,25 +2804,20 @@ def kernel_times(fa, torch, B, H, T, D, plain_bh=None, tk=None,
         "flash_dkv": (lambda: fa._dkv(qs, kc, vc, *rows, causal),
                       lambda: fa._dkv_plain(pq, pk, pv, *prows, causal)),
     }
-    # The library: scaled_dot_product_attention for the forward, and
-    # PyTorch's flash backward, which returns dq, dk and dv in one call
-    # from the forward's saved output and lse, for the dq + dkv pair.
+    # The library: scaled_dot_product_attention for the forward, and one
+    # backward call returning dq, dk and dv for the dq + dkv pair.
     q4, do4 = (t.view(B, H, T, D) for t in (q, do))
     k4, v4 = (t.view(B, H, tk, D) for t in (k, v))
     lib_fwd_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
         q4, k4, v4, is_causal=causal, scale=scale))
-    aten = torch.ops.aten
-    o4, lse4, cq, ck, mq, mk, seed, offset, _ = (
-        aten._scaled_dot_product_flash_attention(q4, k4, v4, 0.0, causal,
-                                                 False, scale=scale))
-    lib_bwd = aten._scaled_dot_product_flash_attention_backward
-    lib_bwd_ms = cuda_ms(lambda: lib_bwd(
-        do4, q4, k4, v4, o4, lse4, cq, ck, mq, mk, 0.0, causal, seed,
-        offset, scale=scale))
+    lib_bwd_ms = cuda_ms(library_bwd(torch, q4, k4, v4, do4, causal, scale))
+    pairs = T * (T + 1) // 2 if causal else T * tk
+    exp_ms = pairs * bh / PEAK_EX2_PER_S * 1e3
+    peak = PEAK_FP32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS
     out = {}
     for name, (kern, plain) in calls.items():
         flops, nbytes = work[name]
-        t_ops = flops / PEAK_BF16_FLOPS * 1e3
+        t_ops = flops / peak * 1e3
         t_mem = nbytes / PEAK_HBM_BYTES * 1e3
         ms = cuda_ms(kern)
         out[name] = {
@@ -2665,10 +2825,14 @@ def kernel_times(fa, torch, B, H, T, D, plain_bh=None, tk=None,
             "bound_ms": max(t_ops, t_mem),
             "bound_by": "operations" if t_ops >= t_mem else "bytes",
             "bound_share": max(t_ops, t_mem) / ms,
+            "exp_bound_ms": exp_ms, "exp_bound_share": exp_ms / ms,
             "tflops": flops / (ms * 1e-3) / 1e12,
             "flops": flops, "bytes": nbytes,
             "library_ms": lib_fwd_ms if name == "flash_fwd" else lib_bwd_ms,
         }
+        if dtype == torch.float32:
+            out[name]["bound_ms_tf32"] = max(
+                flops / PEAK_TF32_FLOPS * 1e3, t_mem)
         if pb != bh:
             out[name]["plain_bh"] = pb
         if name != "flash_fwd":
@@ -6023,7 +6187,8 @@ def main(argv) -> int:
     phase_build(_build, paths, build_s)
 
     errs = phase_parity(fa, torch) if "parity" in phases else {}
-    host, draw_s = (large_host(torch) if phases & {"trainer", "mesh"}
+    host, draw_s = (large_host(torch)
+                    if phases & {"trainer", "headdims", "mesh"}
                     else (None, None))
     paths, shapes = (phase_trainer(args, torch, fa, mv, card, host, draw_s)
                      if "trainer" in phases else ({}, {}))
@@ -6033,6 +6198,12 @@ def main(argv) -> int:
     if "small" in phases:
         shapes["small"] = phase_small(args, torch, fa, mv, card)
         paths["small"] = shapes["small"]["launches"]
+    if "headdims" in phases:
+        for path, entry in phase_headdims(args, torch, fa, mv, card,
+                                          host).items():
+            shapes[path] = entry
+            if "launches" in entry:
+                paths[path] = entry["launches"]
     if "moe" in phases:
         moe_counts, shapes["moe"] = phase_moe(args, torch, fa, mv, card)
         paths.update(moe_counts)
@@ -6086,7 +6257,8 @@ def main(argv) -> int:
             "launches_by_path": {p: c.get(kname) for p, c in paths.items()},
             "other_shapes": [
                 {"path": p, "shape": sh["shape"],
-                 "max_abs_err": sh["errors"][kname],
+                 "max_abs_err": sh.get("errors", {}).get(kname),
+                 **({"dtype": sh["dtype"]} if "dtype" in sh else {}),
                  **({"causal": sh["causal"]} if "causal" in sh else {}),
                  **({"launches_per_ring_call": {
                      layout: n[kname] for layout, n in
@@ -6111,8 +6283,49 @@ def main(argv) -> int:
     return 0
 
 
+def kernel_times_main(argv) -> int:
+    """``--kernel-times``: each kernel's times at each shape, for the
+    package under ``--root`` (see the module docstring)."""
+    ap = argparse.ArgumentParser(prog="chip_smoke.py --kernel-times")
+    ap.add_argument("--root", default=HERE,
+                    help="the checkout whose multiverso_tpu_torch to time")
+    ap.add_argument("shapes", nargs="+", metavar="B,H,T,D,DTYPE")
+    args = ap.parse_args(argv)
+    root = os.path.abspath(args.root)
+    if not os.path.isdir(os.path.join(root, "multiverso_tpu_torch")):
+        print(f"chip_smoke: no multiverso_tpu_torch/ under {root}",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, root)
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false",
+              file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from multiverso_tpu_torch.ops import _build
+    from multiverso_tpu_torch.ops import flash_attention as fa
+
+    emit({"phase": "device", "name": torch.cuda.get_device_name(0),
+          "nvidia_smi": nvidia_smi_line(), "root": root,
+          "package": os.path.dirname(os.path.dirname(fa.__file__))})
+    _build.build()
+    for spec in args.shapes:
+        b, h, t, d, dt = spec.split(",")
+        b, h, t, d, dtype = int(b), int(h), int(t), int(d), getattr(torch,
+                                                                    dt)
+        emit({"phase": "kernel_times", "root": root, "shape": [b, h, t, d],
+              "dtype": dt, "causal": True,
+              "kernels": kernel_times(fa, torch, b, h, t, d, dtype=dtype)})
+    print(nvidia_smi_line(), flush=True)
+    return 0
+
+
 if __name__ == "__main__":
     try:
+        if sys.argv[1:2] == ["--kernel-times"]:
+            sys.exit(kernel_times_main(sys.argv[2:]))
         if sys.argv[1:2] == ["--shard-rank"]:
             sys.exit(shard_rank(sys.argv[2:]))
         if sys.argv[1:2] == ["--moe-rank"]:

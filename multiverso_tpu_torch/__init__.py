@@ -14,14 +14,21 @@ process.  It carries
   word2vec (``SkipGram``) and DLRM apps on it;
 - checkpoints (``checkpoint``) whose files the JAX package reads and
   writes too;
-- the transformer trainer, with the three flash-attention kernels
+- LightLDA, the skip-gram mixture and ResNet-20 with its parameter
+  managers (``apps``, ``ext``);
+- the transformer trainer, with mixture-of-experts layers, remat and the
+  state offload, on one card or on a dp/sp/tp/pp/ep mesh of processes
+  (``models``, ``parallel``), and the three flash-attention kernels
   written by hand in CUDA C++ for ``sm_90a`` (``ops/csrc/``);
-- the host planes it needs: flags, logging, metrics, tracing, the
-  dashboard, the fault injector, the flight recorder and the capacity
-  gauges.
+- tables sharded across ranks, and the native C++ runtime with its serve
+  tier, its workers, the Lua binding and the operator CLIs (``native``,
+  ``serve``, ``binding``, ``tools``);
+- the host planes: flags, logging, metrics, tracing, the dashboard, the
+  fault injector, the flight recorder, the health and latency planes and
+  the capacity gauges.
 
-LightLDA, the skip-gram mixture and the other apps come in later slices
-(ROADMAP.md).
+Every module of the JAX package has its counterpart here (ROADMAP.md,
+Queue 1).
 
 It imports ``torch`` and never ``jax``, and nothing of ``multiverso_tpu``.
 Entry points run on the card unless the caller passes ``device="cpu"``

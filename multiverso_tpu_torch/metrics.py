@@ -350,6 +350,9 @@ class Registry:
                 s = self._series.get((name, key))
             if s is None:
                 s = cls(name, key, **kwargs)
+                # Kept for record_history: the zero point a counting
+                # series' first ring starts from.
+                s.created = time.monotonic()
                 self._series[(name, key)] = s
                 self._per_name[name] = self._per_name.get(name, 0) + 1
         if overflowed:
@@ -417,17 +420,28 @@ class Registry:
         points = []
         for s in self.series():
             key = _series_name(s.name, _label_key(s.labels))
+            # A counting series (a counter, a histogram's _count and
+            # _sum) was 0 when it was made: its first ring starts with
+            # that zero, so increments made before its first point are
+            # in the windows too.  It is stamped at the series' creation
+            # on the monotonic clock, and at this point's own time on a
+            # caller's clock, which may be another one.
+            born = getattr(s, "created", ts) if now is None else ts
             if isinstance(s, Histogram):
-                points.append((key + "_count", float(s.count)))
-                points.append((key + "_sum", float(s.sum)))
+                points.append((key + "_count", float(s.count), born))
+                points.append((key + "_sum", float(s.sum), born))
+            elif isinstance(s, Counter):
+                points.append((key, float(s.value), born))
             else:
-                points.append((key, float(s.value)))
+                points.append((key, float(s.value), None))
         with self._lock:
-            for key, v in points:
+            for key, v, born in points:
                 ring = self._history.get(key)
                 if ring is None:
                     ring = collections.deque(maxlen=self.history_depth)
                     self._history[key] = ring
+                    if born is not None and v > 0:
+                        ring.append((born, 0.0))
                 ring.append((ts, v))
         return len(points)
 

@@ -13,26 +13,31 @@
 // are masked.
 //
 // Bound on an H100: four tile products per visited block, tensor-core
-// bound at the trainer's shapes.  Two designs, chosen at compile time by
-// (dtype, D) in dkv_for_dim:
+// bound at the trainer's shapes (at head dim 32 the exp of each score
+// costs about as much as its 8·32 flops).  Two designs, chosen at compile
+// time by dtype in dkv_for_dim:
 //
-// * bf16 at D 64 and 128 (flash_dkv_hopper): k-stationary with
-//   transposed scores, accumulators in registers.  One block of two
-//   warpgroups per (bh, 128-row k block) (hopper.cuh).  Thread 0 loads k
-//   and v once; q and do tiles of 64 rows stream through a ring of
-//   kStages stages by TMA, with the matching lse and delta rows beside
-//   them by cp.async from warp 0, kStages blocks ahead.  Each
-//   warpgroup owns 64 k rows and keeps its dk and dv float32
-//   accumulators in registers for the whole q loop.  Per q block it forms
-//   sᵀ = k·qᵀ and dpᵀ = v·doᵀ by wgmma (both operands from shared
-//   memory), then pᵀ = exp(sᵀ - lse) and dsᵀ = pᵀ (dpᵀ - delta) in
-//   registers (lse and delta broadcast along columns), rounds both to
-//   bf16 in registers, and feeds them as the register A operand of
-//   dv += pᵀ·do and dk += dsᵀ·q (do and q MN-major).  No score tile is
-//   ever written to shared memory.
-// * float32 at every D, and bf16 at D 32 and 256 (flash_dkv_kernel): the
-//   first port's design, operands and both accumulators in shared
-//   memory, bf16 products through WMMA.
+// * bf16 at every D (flash_dkv_hopper): k-stationary with transposed
+//   scores, accumulators in registers, both operands of every product
+//   from TMA-filled shared memory or registers (hopper.cuh).  q and do
+//   tiles of 64 rows stream through a ring of kStages stages by TMA, with
+//   the matching lse and delta rows beside them by cp.async from warp 0,
+//   kStages blocks ahead; k and v load once.  Per q block it forms
+//   sᵀ = k·qᵀ and dpᵀ = v·doᵀ by wgmma, then pᵀ = exp(sᵀ - lse) and
+//   dsᵀ = pᵀ (dpᵀ - delta) in registers (lse and delta broadcast along
+//   columns), rounds both to bf16, and feeds them as the A operand of
+//   dv += pᵀ·do and dk += dsᵀ·q (do and q MN-major).
+//   - D 32, 64, 128 (dkv_by_rows): one block of two warpgroups per (bh,
+//     128-row k block); each warpgroup owns 64 k rows, keeps its dk and dv
+//     in registers for the whole q loop, and feeds pᵀ and dsᵀ from
+//     registers.  No score tile is ever written to shared memory.
+//   - D 256 (dkv_by_cols): dk and dv of 64 rows would need 256 registers
+//     a thread, so one block per (bh, 64-row k block) splits their
+//     columns between the two warpgroups, each forming half the q block's
+//     pᵀ and dsᵀ and sharing them through shared memory (HopDkvCols).
+// * float32 at every D (flash_dkv_kernel): the first port's design,
+//   operands and both accumulators in shared memory, products as plain
+//   FMAs.
 #include "flash_common.cuh"
 #include "hopper.cuh"
 
@@ -82,10 +87,11 @@ __global__ void __launch_bounds__(kThreads)
   float* lses = reinterpret_cast<float*>(smem + L::lse);
   float* dls = reinterpret_cast<float*>(smem + L::delta);
 
-  // Early k blocks see the most causal q blocks: natural order runs the
-  // heaviest first.
-  const int k0 = blockIdx.x * BK;
-  const size_t bh = blockIdx.y;
+  // bh on grid x (no 65,535 cap), k blocks on y: early k blocks see the
+  // most causal q blocks, so natural order runs the heaviest first, over
+  // all heads.
+  const size_t bh = blockIdx.x;
+  const int k0 = blockIdx.y * BK;
   const T* qg = q + bh * tq * D;
   const T* dog = dout + bh * tq * D;
 
@@ -147,7 +153,7 @@ int launch_dkv(const void* q, const void* k, const void* v,
   static bool smem_set = false;
   cudaError_t err = allow_smem(kernel, L::bytes, &smem_set);
   if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((tk + BK - 1) / BK, bh);
+  dim3 grid(bh, (tk + BK - 1) / BK);
   kernel<<<grid, kThreads, L::bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout),
@@ -157,33 +163,147 @@ int launch_dkv(const void* q, const void* k, const void* v,
 }
 
 // ------------------------------------------------ bf16 Hopper design
+// D 32, 64 and 128: k-stationary with transposed scores, each warpgroup
+// owning 64 of the block's 128 k rows with its dk and dv in registers.
+// D 32 runs 64-byte box rows with the 64-byte swizzle, and 32-row q
+// blocks in four stages: sᵀ and pᵀ shrink to 99 registers a thread, so
+// two blocks share an SM (a little faster on the card than 64-row q
+// blocks; PERF.md).
 template <int D>
 struct HopDkv {
-  static constexpr int BK = 128, BQ = 64, kStages = 3, kBoxes = D / 64;
-  static constexpr uint32_t kBoxK = BK * hop::kRowBytes;  // one 64-col box
-  static constexpr uint32_t kBoxQ = BQ * hop::kRowBytes;
-  static constexpr uint32_t kKBytes = kBoxes * kBoxK;
-  static constexpr uint32_t kQBytes = kBoxes * kBoxQ;
+  using B = hop::Box<D>;
+  static constexpr int BK = 128, BQ = D == 32 ? 32 : 64;
+  static constexpr int kStages = D == 32 ? 4 : 3;
+  static constexpr uint32_t kBoxK = BK * B::kRow;  // one box of columns
+  static constexpr uint32_t kBoxQ = BQ * B::kRow;
+  static constexpr uint32_t kKBytes = B::kBoxes * kBoxK;
+  static constexpr uint32_t kQBytes = B::kBoxes * kBoxQ;
   static constexpr size_t k = 0;
   static constexpr size_t v = kKBytes;
   static constexpr size_t qdo = 2 * kKBytes;  // stage s: q, then do
   static constexpr size_t rows = qdo + kStages * 2 * kQBytes;  // lse, delta
   static constexpr size_t bars = rows + kStages * 2 * BQ * sizeof(float);
   static constexpr size_t bytes = bars + 8 * (2 * kStages + 1) + hop::kAtomBytes;
-  static_assert(D == 64 || D == 128, "the Hopper dk/dv covers D 64, 128");
+  static_assert(D <= 128, "D 256 splits columns: HopDkvCols");
   static_assert(bytes <= kMaxSmem, "dkv tiles exceed shared memory");
 };
 
+// D 256: dk and dv for 64 k rows would be 256 registers a thread, so both
+// warpgroups share one block of 64 k rows and split the D columns of dk
+// and dv (128 each: 128 registers).  Per q block each warpgroup forms sᵀ
+// and dpᵀ for half the block's 64 q columns, turns them into pᵀ and dsᵀ
+// in registers and writes them, bf16 and swizzled, into shared memory,
+// where both warpgroups read the whole [64, 64] tiles as wgmma's A
+// operand.  Two buffers of them, so one barrier a block keeps a buffer's
+// writes after its last readers.  k 32 KB + v 32 KB + two stages of q and
+// do (128 KB) + pᵀ and dsᵀ twice (32 KB) = 224 KB.
+struct HopDkvCols {
+  using B = hop::Box<256>;
+  static constexpr int D = 256, BK = 64, BQ = 64, kStages = 2;
+  static constexpr int kHalf = D / 2;          // dk, dv columns a warpgroup
+  static constexpr int kQCols = BQ / 2;        // sᵀ columns a warpgroup
+  static constexpr uint32_t kBoxK = BK * B::kRow;
+  static constexpr uint32_t kBoxQ = BQ * B::kRow;
+  static constexpr uint32_t kKBytes = B::kBoxes * kBoxK;
+  static constexpr uint32_t kQBytes = B::kBoxes * kBoxQ;
+  static constexpr uint32_t kPBytes = BK * BQ * 2;  // one [64, 64] bf16 box
+  static constexpr size_t k = 0;
+  static constexpr size_t v = kKBytes;
+  static constexpr size_t qdo = 2 * kKBytes;  // stage s: q, then do
+  static constexpr size_t pds = qdo + kStages * 2 * kQBytes;  // pᵀ, dsᵀ x 2
+  static constexpr size_t rows = pds + 2 * 2 * kPBytes;       // lse, delta
+  static constexpr size_t bars = rows + kStages * 2 * BQ * sizeof(float);
+  static constexpr size_t bytes = bars + 8 * (2 * kStages + 1) + hop::kAtomBytes;
+  static_assert(bytes <= kMaxSmem, "dkv tiles exceed shared memory");
+};
+
+// The launch's layout for head dim D.
 template <int D>
-__global__ void __launch_bounds__(hop::kThreads, 1)
-    flash_dkv_hopper(const __grid_constant__ CUtensorMap tm_q,
-                     const __grid_constant__ CUtensorMap tm_k,
-                     const __grid_constant__ CUtensorMap tm_v,
-                     const __grid_constant__ CUtensorMap tm_do,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ delta, bf16* __restrict__ dk,
-                     bf16* __restrict__ dv, int tq, int tk, int causal) {
+using HopDkvFor =
+    typename std::conditional<D == 256, HopDkvCols, HopDkv<D>>::type;
+
+// Warp 0's refill of stage j % kStages with the j-th q block of the loop
+// (block qstart + j), as soon as both warpgroups have released the block
+// kStages before it: q and do by TMA from lane 0, the lse and delta rows by
+// cp.async from every lane (rows past tq read as 0: their q and do rows
+// are TMA zeros, and the mask drops them).
+template <class C>
+__device__ __forceinline__ void dkv_load_q(
+    unsigned char* smem, uint64_t* full, uint64_t* empty,
+    const CUtensorMap* tm_q, const CUtensorMap* tm_do, const float* lg,
+    const float* dg, int bh, int tq, int qstart, int j, int lane) {
+  using B = typename C::B;
+  const int s = j % C::kStages;
+  const int qb = qstart + j;
+  hop::mbar_wait(&empty[s], ((j / C::kStages) & 1) ^ 1);
+  if (lane == 0) {
+    hop::mbar_expect_tx(&full[s], 2 * C::kQBytes);
+    unsigned char* qs = smem + C::qdo + s * 2 * C::kQBytes;
+    for (int b = 0; b < B::kBoxes; ++b) {
+      hop::tma_load(qs + b * C::kBoxQ, tm_q, &full[s], b * B::kCols,
+                    qb * C::BQ, bh);
+      hop::tma_load(qs + C::kQBytes + b * C::kBoxQ, tm_do, &full[s],
+                    b * B::kCols, qb * C::BQ, bh);
+    }
+  }
+  float* rows = reinterpret_cast<float*>(smem + C::rows) + s * 2 * C::BQ;
+  for (int c = lane; c < C::BQ; c += 32) {
+    const int qi = qb * C::BQ + c;
+    const uint32_t n = qi < tq ? 4 : 0;
+    hop::cp_async_4(rows + c, lg + (n ? qi : 0), n);
+    hop::cp_async_4(rows + C::BQ + c, dg + (n ? qi : 0), n);
+  }
+  hop::cp_async_arrive(&full[s]);
+}
+
+// pᵀ = exp(sᵀ - lse) and dsᵀ = pᵀ (dpᵀ - delta) in place, for 64 k rows
+// (this thread's rows row0, row0 + 8) over q columns q0 + c0 + [0, 2N):
+// the lse and delta rows are columns here, read from the stage's rows at
+// c0.  Masked where the block straddles the diagonal or an end.
+template <int N>
+__device__ __forceinline__ void dkv_probs(float (&st)[N], float (&dpt)[N],
+                                          const float* lse_s,
+                                          const float* dl_s, bool mask,
+                                          int q0, int c0, int row0, int cq,
+                                          int tq, int tk, int causal) {
+  const int row1 = row0 + 8;
+  if (mask) {
+#pragma unroll
+    for (int j = 0; j < N / 4; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int qc = q0 + c0 + 8 * j + cq + e;
+        if (masked_out(qc, row0, tq, tk, causal)) st[4 * j + e] = kNeg;
+        if (masked_out(qc, row1, tq, tk, causal)) st[4 * j + 2 + e] = kNeg;
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < N / 4; ++j) {
+    const float2 l2 = *reinterpret_cast<const float2*>(lse_s + c0 + 8 * j + cq);
+    const float2 d2 = *reinterpret_cast<const float2*>(dl_s + c0 + 8 * j + cq);
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const float lv = e ? l2.y : l2.x, dl = e ? d2.y : d2.x;
+      const float p0 = hop::exp2_approx((st[4 * j + e] - lv) * hop::kLog2e);
+      const float p1 =
+          hop::exp2_approx((st[4 * j + 2 + e] - lv) * hop::kLog2e);
+      st[4 * j + e] = p0;
+      st[4 * j + 2 + e] = p1;
+      dpt[4 * j + e] = p0 * (dpt[4 * j + e] - dl);
+      dpt[4 * j + 2 + e] = p1 * (dpt[4 * j + 2 + e] - dl);
+    }
+  }
+}
+
+// D 32, 64, 128: one block of two warpgroups per (bh, 128-row k block).
+template <int D>
+__device__ __forceinline__ void dkv_by_rows(
+    const CUtensorMap* tm_q, const CUtensorMap* tm_k, const CUtensorMap* tm_v,
+    const CUtensorMap* tm_do, const float* lse, const float* delta,
+    bf16* dk, bf16* dv, int tq, int tk, int causal) {
   using C = HopDkv<D>;
+  using B = typename C::B;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = hop::align_atom(smem_raw);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + C::bars);
@@ -208,47 +328,23 @@ __global__ void __launch_bounds__(hop::kThreads, 1)
   __syncthreads();
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  // Warp 0 loads the j-th q block of the loop into stage j % kStages: the
-  // first kStages blocks at once, each later one as soon as both
-  // warpgroups have released the block kStages before it.  q and do by TMA
-  // from lane 0, the lse and delta rows by cp.async from every lane (rows
-  // past tq read as 0: their q and do rows are TMA zeros, and the mask
-  // drops them).
   const float* lg = lse + static_cast<size_t>(bh) * tq;
   const float* dg = delta + static_cast<size_t>(bh) * tq;
-  auto load_q = [&](int j) {
-    const int s = j % C::kStages;
-    const int qb = qstart + j;
-    hop::mbar_wait(&empty[s], ((j / C::kStages) & 1) ^ 1);
-    if (lane == 0) {
-      hop::mbar_expect_tx(&full[s], 2 * C::kQBytes);
-      unsigned char* qs = smem + C::qdo + s * 2 * C::kQBytes;
-      for (int b = 0; b < C::kBoxes; ++b) {
-        hop::tma_load(qs + b * C::kBoxQ, &tm_q, &full[s], b * 64, qb * C::BQ,
-                      bh);
-        hop::tma_load(qs + C::kQBytes + b * C::kBoxQ, &tm_do, &full[s],
-                      b * 64, qb * C::BQ, bh);
-      }
-    }
-    float* rows = reinterpret_cast<float*>(smem + C::rows) + s * 2 * C::BQ;
-    for (int c = lane; c < C::BQ; c += 32) {
-      const int qi = qb * C::BQ + c;
-      const uint32_t n = qi < tq ? 4 : 0;
-      hop::cp_async_4(rows + c, lg + (n ? qi : 0), n);
-      hop::cp_async_4(rows + C::BQ + c, dg + (n ? qi : 0), n);
-    }
-    hop::cp_async_arrive(&full[s]);
-  };
   const int nblocks = nq - qstart;
   if (warp == 0) {
     if (lane == 0) {
       hop::mbar_expect_tx(kvbar, 2 * C::kKBytes);
-      for (int b = 0; b < C::kBoxes; ++b) {
-        hop::tma_load(smem + C::k + b * C::kBoxK, &tm_k, kvbar, b * 64, k0, bh);
-        hop::tma_load(smem + C::v + b * C::kBoxK, &tm_v, kvbar, b * 64, k0, bh);
+      for (int b = 0; b < B::kBoxes; ++b) {
+        hop::tma_load(smem + C::k + b * C::kBoxK, tm_k, kvbar, b * B::kCols,
+                      k0, bh);
+        hop::tma_load(smem + C::v + b * C::kBoxK, tm_v, kvbar, b * B::kCols,
+                      k0, bh);
       }
     }
-    for (int j = 0; j < C::kStages && j < nblocks; ++j) load_q(j);
+    for (int j = 0; j < C::kStages && j < nblocks; ++j) {
+      dkv_load_q<C>(smem, full, empty, tm_q, tm_do, lg, dg, bh, tq, qstart,
+                    j, lane);
+    }
   }
 
   // Warpgroup g owns k rows [k0 + 64g, k0 + 64g + 64).  In the m64nNk16
@@ -259,8 +355,8 @@ __global__ void __launch_bounds__(hop::kThreads, 1)
   const int cq = 2 * (lane % 4);
   const int kw = k0 + 64 * g;
   const int row0 = kw + r0, row1 = row0 + 8;
-  const uint32_t k_addr = hop::smem_u32(smem + C::k) + 64 * g * hop::kRowBytes;
-  const uint32_t v_addr = hop::smem_u32(smem + C::v) + 64 * g * hop::kRowBytes;
+  const uint32_t k_addr = hop::smem_u32(smem + C::k) + 64 * g * B::kRow;
+  const uint32_t v_addr = hop::smem_u32(smem + C::v) + 64 * g * B::kRow;
 
   float dka[D / 2], dva[D / 2];
 #pragma unroll
@@ -275,7 +371,10 @@ __global__ void __launch_bounds__(hop::kThreads, 1)
   auto release = [&](int i) {
     __syncwarp();
     if (lane == 0) hop::mbar_arrive(&empty[i % C::kStages]);
-    if (warp == 0 && i + C::kStages < nblocks) load_q(i + C::kStages);
+    if (warp == 0 && i + C::kStages < nblocks) {
+      dkv_load_q<C>(smem, full, empty, tm_q, tm_do, lg, dg, bh, tq, qstart,
+                    i + C::kStages, lane);
+    }
   };
   for (int i = 0; i < nblocks; ++i) {
     const int s = i % C::kStages;
@@ -296,10 +395,11 @@ __global__ void __launch_bounds__(hop::kThreads, 1)
     hop::wgmma_fence();
 #pragma unroll
     for (int t = 0; t < D / 16; ++t) {
-      const uint32_t kcol = (t / 4) * C::kBoxK + (t % 4) * 32;
-      const uint32_t qcol = (t / 4) * C::kBoxQ + (t % 4) * 32;
-      const uint64_t a = hop::desc_sw128(k_addr + kcol, 16, 1024);
-      const uint64_t b = hop::desc_sw128(q_addr + qcol, 16, 1024);
+      const uint32_t at = (t % B::kSteps) * 32;
+      const uint32_t kcol = (t / B::kSteps) * C::kBoxK + at;
+      const uint32_t qcol = (t / B::kSteps) * C::kBoxQ + at;
+      const uint64_t a = hop::desc_box<D>(k_addr + kcol, 16);
+      const uint64_t b = hop::desc_box<D>(q_addr + qcol, 16);
       if (t == 0) {
         hop::wgmma_ss_first(st, a, b);
       } else {
@@ -308,10 +408,11 @@ __global__ void __launch_bounds__(hop::kThreads, 1)
     }
 #pragma unroll
     for (int t = 0; t < D / 16; ++t) {
-      const uint32_t kcol = (t / 4) * C::kBoxK + (t % 4) * 32;
-      const uint32_t qcol = (t / 4) * C::kBoxQ + (t % 4) * 32;
-      const uint64_t a = hop::desc_sw128(v_addr + kcol, 16, 1024);
-      const uint64_t b = hop::desc_sw128(do_addr + qcol, 16, 1024);
+      const uint32_t at = (t % B::kSteps) * 32;
+      const uint32_t kcol = (t / B::kSteps) * C::kBoxK + at;
+      const uint32_t qcol = (t / B::kSteps) * C::kBoxQ + at;
+      const uint64_t a = hop::desc_box<D>(v_addr + kcol, 16);
+      const uint64_t b = hop::desc_box<D>(do_addr + qcol, 16);
       if (t == 0) {
         hop::wgmma_ss_first(dpt, a, b);
       } else {
@@ -323,33 +424,9 @@ __global__ void __launch_bounds__(hop::kThreads, 1)
     hop::fence_regs(st);
     hop::fence_regs(dpt);
 
-    if ((causal && q0 < kw + 63) || kw + 64 > tk || q0 + C::BQ > tq) {
-#pragma unroll
-      for (int j = 0; j < C::BQ / 8; ++j) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int qc = q0 + 8 * j + cq + e;
-          if (masked_out(qc, row0, tq, tk, causal)) st[4 * j + e] = kNeg;
-          if (masked_out(qc, row1, tq, tk, causal)) st[4 * j + 2 + e] = kNeg;
-        }
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < C::BQ / 8; ++j) {
-      const float2 l2 = *reinterpret_cast<const float2*>(lse_s + 8 * j + cq);
-      const float2 d2 = *reinterpret_cast<const float2*>(dl_s + 8 * j + cq);
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const float lv = e ? l2.y : l2.x, dl = e ? d2.y : d2.x;
-        const float p0 = hop::exp2_approx((st[4 * j + e] - lv) * hop::kLog2e);
-        const float p1 =
-            hop::exp2_approx((st[4 * j + 2 + e] - lv) * hop::kLog2e);
-        st[4 * j + e] = p0;
-        st[4 * j + 2 + e] = p1;
-        dpt[4 * j + e] = p0 * (dpt[4 * j + e] - dl);
-        dpt[4 * j + 2 + e] = p1 * (dpt[4 * j + 2 + e] - dl);
-      }
-    }
+    dkv_probs(st, dpt, lse_s, dl_s,
+              (causal && q0 < kw + 63) || kw + 64 > tk || q0 + C::BQ > tq,
+              q0, 0, row0, cq, tq, tk, causal);
 
     // dv += pᵀ·do and dk += dsᵀ·q over the q block in steps of 16 rows:
     // pᵀ and dsᵀ from registers, do and q MN-major.
@@ -359,9 +436,9 @@ __global__ void __launch_bounds__(hop::kThreads, 1)
     hop::wgmma_fence();
 #pragma unroll
     for (int t = 0; t < C::BQ / 16; ++t) {
-      const uint32_t row = t * 16 * hop::kRowBytes;
-      const uint64_t b_do = hop::desc_sw128(do_addr + row, C::kBoxQ, 1024);
-      const uint64_t b_q = hop::desc_sw128(q_addr + row, C::kBoxQ, 1024);
+      const uint32_t row = t * 16 * B::kRow;
+      const uint64_t b_do = hop::desc_box<D>(do_addr + row, C::kBoxQ);
+      const uint64_t b_q = hop::desc_box<D>(q_addr + row, C::kBoxQ);
       hop::wgmma_rs(dva, pa[4 * t], pa[4 * t + 1], pa[4 * t + 2],
                     pa[4 * t + 3], b_do);
       hop::wgmma_rs(dka, dsa[4 * t], dsa[4 * t + 1], dsa[4 * t + 2],
@@ -392,18 +469,227 @@ __global__ void __launch_bounds__(hop::kThreads, 1)
   }
 }
 
+// D 256: one block of two warpgroups per (bh, 64-row k block), the
+// columns split (HopDkvCols).
+__device__ __forceinline__ void dkv_by_cols(
+    const CUtensorMap* tm_q, const CUtensorMap* tm_k, const CUtensorMap* tm_v,
+    const CUtensorMap* tm_do, const float* lse, const float* delta,
+    bf16* dk, bf16* dv, int tq, int tk, int causal) {
+  using C = HopDkvCols;
+  using B = C::B;
+  constexpr int D = C::D;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = hop::align_atom(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + C::bars);
+  uint64_t* empty = full + C::kStages;
+  uint64_t* kvbar = empty + C::kStages;
+
+  const int bh = blockIdx.x;
+  const int k0 = blockIdx.y * C::BK;
+  const int nq = (tq + C::BQ - 1) / C::BQ;
+  // BQ == BK: the causal start is the diagonal block, and every visited
+  // block reaches the block's k rows (no block is skipped).
+  const int qstart = causal ? k0 / C::BQ : 0;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < C::kStages; ++s) {
+      hop::mbar_init(&full[s], 1 + 32);  // the TMA's bytes + warp 0's rows
+      hop::mbar_init(&empty[s], hop::kWarps);
+    }
+    hop::mbar_init(kvbar, 1);
+    hop::fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const float* lg = lse + static_cast<size_t>(bh) * tq;
+  const float* dg = delta + static_cast<size_t>(bh) * tq;
+  const int nblocks = nq - qstart;
+  if (warp == 0) {
+    if (lane == 0) {
+      hop::mbar_expect_tx(kvbar, 2 * C::kKBytes);
+      for (int b = 0; b < B::kBoxes; ++b) {
+        hop::tma_load(smem + C::k + b * C::kBoxK, tm_k, kvbar, b * B::kCols,
+                      k0, bh);
+        hop::tma_load(smem + C::v + b * C::kBoxK, tm_v, kvbar, b * B::kCols,
+                      k0, bh);
+      }
+    }
+    for (int j = 0; j < C::kStages && j < nblocks; ++j) {
+      dkv_load_q<C>(smem, full, empty, tm_q, tm_do, lg, dg, bh, tq, qstart,
+                    j, lane);
+    }
+  }
+
+  // Both warpgroups hold the block's 64 k rows (r0 and r0 + 8 of each
+  // thread, as in the m64nNk16 accumulator layout).  Warpgroup g forms sᵀ
+  // and dpᵀ over q columns [32g, 32g + 32) of each q block, and keeps dk
+  // and dv over D columns [128g, 128g + 128).
+  const int g = warp / 4;
+  const int r0 = (warp % 4) * 16 + lane / 4;
+  const int cq = 2 * (lane % 4);
+  const int row0 = k0 + r0, row1 = row0 + 8;
+  const uint32_t k_addr = hop::smem_u32(smem + C::k);
+  const uint32_t v_addr = hop::smem_u32(smem + C::v);
+
+  float dka[C::kHalf / 2], dva[C::kHalf / 2];
+#pragma unroll
+  for (int i = 0; i < C::kHalf / 2; ++i) {
+    dka[i] = 0.f;
+    dva[i] = 0.f;
+  }
+  hop::mbar_wait(kvbar, 0);
+
+  for (int i = 0; i < nblocks; ++i) {
+    const int s = i % C::kStages;
+    const int q0 = (qstart + i) * C::BQ;
+    hop::mbar_wait(&full[s], (i / C::kStages) & 1);
+    const uint32_t q_addr = hop::smem_u32(smem + C::qdo + s * 2 * C::kQBytes);
+    const uint32_t do_addr = q_addr + C::kQBytes;
+    const float* lse_s = reinterpret_cast<const float*>(smem + C::rows) + s * 2 * C::BQ;
+    const float* dl_s = lse_s + C::BQ;
+
+    // sᵀ = k·qᵀ and dpᵀ = v·doᵀ for this warpgroup's 32 q columns (q and
+    // do rows [32g, 32g + 32) as B), over D in steps of 16, K-major.
+    float st[C::kQCols / 2], dpt[C::kQCols / 2];
+    const uint32_t qg_addr = q_addr + C::kQCols * g * B::kRow;
+    const uint32_t dog_addr = do_addr + C::kQCols * g * B::kRow;
+    hop::wgmma_fence();
+#pragma unroll
+    for (int t = 0; t < D / 16; ++t) {
+      const uint32_t at = (t % B::kSteps) * 32;
+      const uint64_t a = hop::desc_box<D>(
+          k_addr + (t / B::kSteps) * C::kBoxK + at, 16);
+      const uint64_t b = hop::desc_box<D>(
+          qg_addr + (t / B::kSteps) * C::kBoxQ + at, 16);
+      if (t == 0) {
+        hop::wgmma_ss_first(st, a, b);
+      } else {
+        hop::wgmma_ss(st, a, b);
+      }
+    }
+#pragma unroll
+    for (int t = 0; t < D / 16; ++t) {
+      const uint32_t at = (t % B::kSteps) * 32;
+      const uint64_t a = hop::desc_box<D>(
+          v_addr + (t / B::kSteps) * C::kBoxK + at, 16);
+      const uint64_t b = hop::desc_box<D>(
+          dog_addr + (t / B::kSteps) * C::kBoxQ + at, 16);
+      if (t == 0) {
+        hop::wgmma_ss_first(dpt, a, b);
+      } else {
+        hop::wgmma_ss(dpt, a, b);
+      }
+    }
+    hop::wgmma_commit();
+    hop::wgmma_wait<0>();
+    hop::fence_regs(st);
+    hop::fence_regs(dpt);
+
+    dkv_probs(st, dpt, lse_s, dl_s,
+              (causal && q0 < k0 + 63) || k0 + 64 > tk || q0 + C::BQ > tq,
+              q0, C::kQCols * g, row0, cq, tq, tk, causal);
+
+    // This block's pᵀ and dsᵀ tiles: [64 k rows, 64 q] bf16 rows of 128
+    // bytes, 16-byte chunk c of row r at chunk c ^ (r % 8) (the 128-byte
+    // swizzle the A descriptors read).  This warpgroup writes its 32
+    // columns of both.
+    unsigned char* pbuf = smem + C::pds + (i % 2) * 2 * C::kPBytes;
+#pragma unroll
+    for (int j = 0; j < C::kQCols / 8; ++j) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = r0 + 8 * h, c = C::kQCols * g + 8 * j + cq;
+        const uint32_t at = r * 128 + (((c >> 3) ^ (r & 7)) << 4) + 2 * (c & 7);
+        *reinterpret_cast<uint32_t*>(pbuf + at) =
+            hop::pack_bf16(st[4 * j + 2 * h], st[4 * j + 2 * h + 1]);
+        *reinterpret_cast<uint32_t*>(pbuf + C::kPBytes + at) =
+            hop::pack_bf16(dpt[4 * j + 2 * h], dpt[4 * j + 2 * h + 1]);
+      }
+    }
+    hop::fence_async_shared();
+    hop::named_sync(1, hop::kThreads);
+
+    // dv += pᵀ·do and dk += dsᵀ·q over this warpgroup's 128 columns, in
+    // steps of 16 q: pᵀ and dsᵀ from shared memory (K-major), do and q
+    // MN-major (boxes 2g and 2g + 1).
+    const uint32_t p_addr = hop::smem_u32(pbuf);
+    const uint32_t cols = 2 * g * C::kBoxQ;
+    hop::wgmma_fence();
+#pragma unroll
+    for (int t = 0; t < C::BQ / 16; ++t) {
+      const uint32_t row = t * 16 * B::kRow;
+      hop::wgmma_ss<1>(dva, hop::desc_sw128(p_addr + 32 * t, 16, 1024),
+                       hop::desc_box<D>(do_addr + cols + row, C::kBoxQ));
+      hop::wgmma_ss<1>(dka,
+                       hop::desc_sw128(p_addr + C::kPBytes + 32 * t, 16, 1024),
+                       hop::desc_box<D>(q_addr + cols + row, C::kBoxQ));
+    }
+    hop::wgmma_commit();
+    hop::wgmma_wait<0>();
+    hop::fence_regs(dva);
+    hop::fence_regs(dka);
+
+    // The stage is free once this warp's products that read it are done;
+    // warp 0 then refills it kStages blocks ahead.
+    __syncwarp();
+    if (lane == 0) hop::mbar_arrive(&empty[s]);
+    if (warp == 0 && i + C::kStages < nblocks) {
+      dkv_load_q<C>(smem, full, empty, tm_q, tm_do, lg, dg, bh, tq, qstart,
+                    i + C::kStages, lane);
+    }
+  }
+
+  bf16* dkg = dk + static_cast<size_t>(bh) * tk * D;
+  bf16* dvg = dv + static_cast<size_t>(bh) * tk * D;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = h ? row1 : row0;
+    if (row < tk) {
+#pragma unroll
+      for (int j = 0; j < C::kHalf / 8; ++j) {
+        const size_t at =
+            static_cast<size_t>(row) * D + C::kHalf * g + 8 * j + cq;
+        *reinterpret_cast<uint32_t*>(dkg + at) =
+            hop::pack_bf16(dka[4 * j + 2 * h], dka[4 * j + 2 * h + 1]);
+        *reinterpret_cast<uint32_t*>(dvg + at) =
+            hop::pack_bf16(dva[4 * j + 2 * h], dva[4 * j + 2 * h + 1]);
+      }
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(hop::kThreads, 1)
+    flash_dkv_hopper(const __grid_constant__ CUtensorMap tm_q,
+                     const __grid_constant__ CUtensorMap tm_k,
+                     const __grid_constant__ CUtensorMap tm_v,
+                     const __grid_constant__ CUtensorMap tm_do,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta, bf16* __restrict__ dk,
+                     bf16* __restrict__ dv, int tq, int tk, int causal) {
+  if constexpr (D == 256) {
+    dkv_by_cols(&tm_q, &tm_k, &tm_v, &tm_do, lse, delta, dk, dv, tq, tk,
+                causal);
+  } else {
+    dkv_by_rows<D>(&tm_q, &tm_k, &tm_v, &tm_do, lse, delta, dk, dv, tq, tk,
+                   causal);
+  }
+}
+
 template <int D>
 int launch_dkv_hopper(const void* q, const void* k, const void* v,
                       const void* dout, const void* lse, const void* delta,
                       void* dk, void* dv, int bh, int tq, int tk, int causal,
                       cudaStream_t stream) {
-  using C = HopDkv<D>;
+  using C = HopDkvFor<D>;
+  constexpr int kCols = C::B::kCols;
   // The maps hold the tensors' addresses, so they are made on every call.
   CUtensorMap mq, mk, mv, mdo;
-  if (!hop::make_map(&mq, q, D, tq, bh, C::BQ) ||
-      !hop::make_map(&mk, k, D, tk, bh, C::BK) ||
-      !hop::make_map(&mv, v, D, tk, bh, C::BK) ||
-      !hop::make_map(&mdo, dout, D, tq, bh, C::BQ)) {
+  if (!hop::make_map(&mq, q, D, tq, bh, C::BQ, kCols) ||
+      !hop::make_map(&mk, k, D, tk, bh, C::BK, kCols) ||
+      !hop::make_map(&mv, v, D, tk, bh, C::BK, kCols) ||
+      !hop::make_map(&mdo, dout, D, tq, bh, C::BQ, kCols)) {
     return MVT_TMA_REFUSED;
   }
   auto kernel = flash_dkv_hopper<D>;
@@ -418,27 +704,32 @@ int launch_dkv_hopper(const void* q, const void* k, const void* v,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The design is fixed by (dtype, D) at compile time: bf16 at D 64 and 128
-// runs the Hopper design above; the rest runs the first port's kernel,
-// 64-row k blocks over 64-row q blocks, except where two float32
-// accumulators and six operand tiles outgrow 227 KB: float32 at head dim
-// 128 halves the q block, and head dim 256 runs 32 x 32.
+// The design is fixed by (dtype, D) at compile time: bf16 runs the Hopper
+// design above at every D; float32 runs the first port's kernel, 64-row k
+// blocks over 64-row q blocks, except where two float32 accumulators and
+// six operand tiles outgrow 227 KB: head dim 128 halves the q block, and
+// head dim 256 runs 32 x 32.
 template <typename T>
 int dkv_for_dim(int d, const void* q, const void* k, const void* v,
                 const void* dout, const void* lse, const void* delta,
                 void* dk, void* dv, int bh, int tq, int tk, int causal,
                 cudaStream_t s) {
-  constexpr bool f32 = std::is_same<T, float>::value;
-  switch (d) {
-    case 32: return launch_dkv<T, 32, 64, 64>(q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, causal, s);
-    case 64:
-      if constexpr (f32) return launch_dkv<T, 64, 64, 64>(q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, causal, s);
-      else return launch_dkv_hopper<64>(q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, causal, s);
-    case 128:
-      if constexpr (f32) return launch_dkv<T, 128, 32, 64>(q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, causal, s);
-      else return launch_dkv_hopper<128>(q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, causal, s);
-    case 256: return launch_dkv<T, 256, 32, 32>(q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, causal, s);
-    default: return MVT_UNSUPPORTED;
+  if constexpr (std::is_same<T, float>::value) {
+    switch (d) {
+      case 32: return launch_dkv<T, 32, 64, 64>(q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, causal, s);
+      case 64: return launch_dkv<T, 64, 64, 64>(q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, causal, s);
+      case 128: return launch_dkv<T, 128, 32, 64>(q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, causal, s);
+      case 256: return launch_dkv<T, 256, 32, 32>(q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, causal, s);
+      default: return MVT_UNSUPPORTED;
+    }
+  } else {
+    switch (d) {
+      case 32: return launch_dkv_hopper<32>(q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, causal, s);
+      case 64: return launch_dkv_hopper<64>(q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, causal, s);
+      case 128: return launch_dkv_hopper<128>(q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, causal, s);
+      case 256: return launch_dkv_hopper<256>(q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, causal, s);
+      default: return MVT_UNSUPPORTED;
+    }
   }
 }
 

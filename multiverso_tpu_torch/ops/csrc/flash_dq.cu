@@ -79,8 +79,10 @@ __global__ void __launch_bounds__(kThreads)
   float* lses = reinterpret_cast<float*>(smem + L::lse);
   float* dls = reinterpret_cast<float*>(smem + L::delta);
 
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
-  const size_t bh = blockIdx.y;
+  // bh on grid x (no 65,535 cap), q tiles on y: the heaviest causal q
+  // tiles (the last ones) start first, over all heads.
+  const size_t bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
   const T* kg = k + bh * tk * D;
   const T* vg = v + bh * tk * D;
 
@@ -136,7 +138,7 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
   static bool smem_set = false;
   cudaError_t err = allow_smem(kernel, L::bytes, &smem_set);
   if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((tq + BQ - 1) / BQ, bh);
+  dim3 grid(bh, (tq + BQ - 1) / BQ);
   kernel<<<grid, kThreads, L::bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout),

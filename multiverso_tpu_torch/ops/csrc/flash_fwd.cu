@@ -15,24 +15,25 @@
 //
 // Bound on an H100: at head_dim 128 and T 2048 the work is about 64
 // flops per byte moved, far below the ~295 the card needs to be limited
-// by memory, so the bound is the tensor-core rate.  Two designs, chosen
-// at compile time by (dtype, D) in fwd_for_dim:
+// by memory, so the bound is the tensor-core rate; at head dim 32 a score
+// costs 4·32 flops and one exp, and the exp unit (16 a clock an SM, a
+// 256th of the bf16 tensor rate) is the tighter bound.  Two designs,
+// chosen at compile time by dtype in fwd_for_dim:
 //
-// * bf16 at D 64 and 128 (flash_fwd_hopper): the tensor cores are fed
-//   without shared-memory round trips.  One block per (bh, 128-row q
-//   tile) of two consumer warpgroups and a producer warp (hopper.cuh).
-//   The producer's TMA loads bring the q tile once, then k and v tiles of
-//   128 rows into a ring of kStages stages guarded by full and empty
-//   mbarriers.  Each consumer warpgroup owns 64 q rows: s = q·kᵀ
-//   by wgmma from shared memory into registers, the softmax in registers
-//   (row max and sum across the 4 lanes that share a row), p rounded to
-//   bf16 in registers and fed back as the register A operand of o += p·v
-//   (v MN-major), o in registers for the whole loop.  The two warpgroups
-//   run independently, so one's softmax overlaps the other's products.
-// * float32 at every D, and bf16 at D 32 and 256 (flash_fwd_kernel): the
-//   first port's design.  Every tile staged in shared memory, bf16
-//   products through WMMA 16x16x16 with float32 accumulators in shared
-//   memory, float32 products as plain FMAs (no TF32).
+// * bf16 at D 32, 64, 128 and 256 (flash_fwd_hopper): the tensor cores
+//   are fed without shared-memory round trips.  One block per (bh,
+//   128-row q tile) of two consumer warpgroups and a producer warp
+//   (hopper.cuh; at D 256 warp 0 loads instead).  TMA loads bring the q
+//   tile once, then k and v tiles into a ring of kStages stages guarded
+//   by full and empty mbarriers.  Each consumer warpgroup owns 64 q rows:
+//   s = q·kᵀ by wgmma from shared memory into registers, the softmax in
+//   registers (row max and sum across the 4 lanes that share a row), p
+//   rounded to bf16 in registers and fed back as the register A operand
+//   of o += p·v (v MN-major), o in registers for the whole loop.  The two
+//   warpgroups run independently, so one's softmax overlaps the other's
+//   products.  Tile sizes, swizzle and producer by D: HopFwd.
+// * float32 at every D (flash_fwd_kernel): the first port's design.
+//   Every tile staged in shared memory, products as plain FMAs (no TF32).
 #include "flash_common.cuh"
 #include "hopper.cuh"
 
@@ -70,9 +71,10 @@ __global__ void __launch_bounds__(kThreads)
   float* os = reinterpret_cast<float*>(smem + L::o);
   float* ls = reinterpret_cast<float*>(smem + L::l);
 
-  // Heaviest causal q blocks (the last ones) start first.
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
-  const size_t bh = blockIdx.y;
+  // bh on grid x (no 65,535 cap), q tiles on y: the heaviest causal q
+  // tiles (the last ones) start first, over all heads.
+  const size_t bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
   const T* qg = q + bh * tq * D;
   const T* kg = k + bh * tk * D;
   const T* vg = v + bh * tk * D;
@@ -153,7 +155,7 @@ int launch_fwd(const void* q, const void* k, const void* v, void* o,
   static bool smem_set = false;
   cudaError_t err = allow_smem(kernel, L::bytes, &smem_set);
   if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((tq + BQ - 1) / BQ, bh);
+  dim3 grid(bh, (tq + BQ - 1) / BQ);
   kernel<<<grid, kThreads, L::bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o),
@@ -162,31 +164,53 @@ int launch_fwd(const void* q, const void* k, const void* v, void* o,
 }
 
 // ------------------------------------------------ bf16 Hopper design
+// One block per (bh, 128-row q tile): two consumer warpgroups of 64 q rows
+// and, but at D 256, a producer warp.  Tiles by head dim (Box<D> in
+// hopper.cuh):
+// * D 64, 128: 128-row k blocks in three stages, 128-byte swizzle.
+// * D 32: 64-byte rows with the 64-byte swizzle, and 64-row k blocks.
+//   The exp unit, not the tensor cores, bounds this dim (4·32 flops a
+//   score); half the k block halves s and p in registers (83 a thread
+//   against 134 at 128 rows), so two blocks share an SM and four
+//   warpgroups keep the exp unit busier: faster on the card than 128-row
+//   blocks, and than 32-row blocks three to an SM (PERF.md).
+// * D 256: q alone is 64 KB, so 64-row k blocks in two stages (q + 2 x (k
+//   + v) = 192 KB).  o is 128 registers a thread, run as two 128-column
+//   halves.  Beside a producer, ptxas budgets every thread at 168
+//   registers, whatever setmaxnreg asks (with a producer warpgroup lending
+//   its registers this design spilled 412 bytes), so here, as in dq and
+//   dk/dv, warp 0 issues the loads and every thread may hold 255.
 template <int D>
 struct HopFwd {
-  static constexpr int BQ = 128, BK = 128, kStages = 3, kBoxes = D / 64;
-  static constexpr uint32_t kBoxQ = BQ * hop::kRowBytes;  // one 64-col box
-  static constexpr uint32_t kBoxK = BK * hop::kRowBytes;
-  static constexpr uint32_t kQBytes = kBoxes * kBoxQ;
-  static constexpr uint32_t kKBytes = kBoxes * kBoxK;
+  using B = hop::Box<D>;
+  static constexpr int BQ = 128;
+  static constexpr int BK = D == 256 || D == 32 ? 64 : 128;
+  static constexpr int kStages = D == 256 ? 2 : 3;
+  static constexpr int kNC = D > 128 ? 128 : D;  // o's columns a product
+  static constexpr int kChunks = D / kNC;
+  static constexpr int kProducers = D == 256 ? 0 : 32;  // a warp, or none
+  static constexpr int kAllThreads = hop::kThreads + kProducers;
+  static constexpr uint32_t kBoxQ = BQ * B::kRow;  // one box of columns
+  static constexpr uint32_t kBoxK = BK * B::kRow;
+  static constexpr uint32_t kQBytes = B::kBoxes * kBoxQ;
+  static constexpr uint32_t kKBytes = B::kBoxes * kBoxK;
   static constexpr size_t q = 0;
   static constexpr size_t kv = kQBytes;  // stage s: k, then v
   static constexpr size_t bars = kv + kStages * 2 * kKBytes;
   static constexpr size_t bytes = bars + 8 * (2 * kStages + 1) + hop::kAtomBytes;
-  static_assert(D == 64 || D == 128, "the Hopper forward covers D 64, 128");
   static_assert(bytes <= kMaxSmem, "forward tiles exceed shared memory");
 };
 
-constexpr int kFwdThreads = hop::kThreads + 32;  // + the producer warp
-
 template <int D>
-__global__ void __launch_bounds__(kFwdThreads, 1)
+__global__ void __launch_bounds__(HopFwd<D>::kAllThreads, 1)
     flash_fwd_hopper(const __grid_constant__ CUtensorMap tm_q,
                      const __grid_constant__ CUtensorMap tm_k,
                      const __grid_constant__ CUtensorMap tm_v,
                      bf16* __restrict__ o, float* __restrict__ lse, int tq,
                      int tk, int causal) {
   using C = HopFwd<D>;
+  using B = typename C::B;
+  constexpr int BK = C::BK;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = hop::align_atom(smem_raw);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + C::bars);
@@ -196,8 +220,8 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
   const int bh = blockIdx.x;
   // Heaviest causal q tiles (the last ones) start first, over all heads.
   const int q0 = (gridDim.y - 1 - blockIdx.y) * C::BQ;
-  const int nk = (tk + C::BK - 1) / C::BK;
-  const int kend = causal ? min(nk, (q0 + C::BQ - 1) / C::BK + 1) : nk;
+  const int nk = (tk + BK - 1) / BK;
+  const int kend = causal ? min(nk, (q0 + C::BQ - 1) / BK + 1) : nk;
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < C::kStages; ++s) {
@@ -210,30 +234,40 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
   __syncthreads();
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  if (warp == hop::kWarps) {
-    // The producer: one thread loads the q tile, then k block j into
-    // stage j % kStages once both warpgroups have released the block
-    // kStages before it.
+  // One thread loads the q tile, then k block j into stage j % kStages
+  // once both warpgroups have released the block kStages before it: the
+  // producer warp all of them, or without one warp 0 the first kStages
+  // blocks at once and each later one as it releases a stage.
+  auto load_kv = [&](int j) {
+    const int s = j % C::kStages;
+    hop::mbar_wait(&empty[s], ((j / C::kStages) & 1) ^ 1);
     if (lane == 0) {
-      hop::mbar_expect_tx(qbar, C::kQBytes);
-      for (int b = 0; b < C::kBoxes; ++b) {
-        hop::tma_load(smem + C::q + b * C::kBoxQ, &tm_q, qbar, b * 64, q0, bh);
-      }
-      for (int j = 0; j < kend; ++j) {
-        const int s = j % C::kStages;
-        hop::mbar_wait(&empty[s], ((j / C::kStages) & 1) ^ 1);
-        hop::mbar_expect_tx(&full[s], 2 * C::kKBytes);
-        unsigned char* ks = smem + C::kv + s * 2 * C::kKBytes;
-        for (int b = 0; b < C::kBoxes; ++b) {
-          hop::tma_load(ks + b * C::kBoxK, &tm_k, &full[s], b * 64,
-                        j * C::BK, bh);
-          hop::tma_load(ks + C::kKBytes + b * C::kBoxK, &tm_v, &full[s],
-                        b * 64, j * C::BK, bh);
-        }
+      hop::mbar_expect_tx(&full[s], 2 * C::kKBytes);
+      unsigned char* ks = smem + C::kv + s * 2 * C::kKBytes;
+      for (int b = 0; b < B::kBoxes; ++b) {
+        hop::tma_load(ks + b * C::kBoxK, &tm_k, &full[s], b * B::kCols,
+                      j * BK, bh);
+        hop::tma_load(ks + C::kKBytes + b * C::kBoxK, &tm_v, &full[s],
+                      b * B::kCols, j * BK, bh);
       }
     }
-    return;
+    __syncwarp();
+  };
+  const int loader = C::kProducers ? hop::kWarps : 0;
+  if (warp == loader) {
+    if (lane == 0) {
+      hop::mbar_expect_tx(qbar, C::kQBytes);
+      for (int b = 0; b < B::kBoxes; ++b) {
+        hop::tma_load(smem + C::q + b * C::kBoxQ, &tm_q, qbar, b * B::kCols,
+                      q0, bh);
+      }
+    }
+    __syncwarp();
+    for (int j = 0; j < (C::kProducers ? kend : min(C::kStages, kend)); ++j) {
+      load_kv(j);
+    }
   }
+  if (warp >= hop::kWarps) return;
 
   // Warpgroup g owns q rows [q0 + 64g, q0 + 64g + 64).  In the m64nNk16
   // accumulator layout each thread holds rows r0 and r0 + 8, columns
@@ -243,13 +277,16 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
   const int cq = 2 * (lane % 4);
   const int qw = q0 + 64 * g;
   const int row0 = qw + r0, row1 = row0 + 8;
-  const uint32_t q_addr = hop::smem_u32(smem + C::q) + 64 * g * hop::kRowBytes;
+  const uint32_t q_addr = hop::smem_u32(smem + C::q) + 64 * g * B::kRow;
 
-  float acc[D / 2];  // o, unnormalised
-  float sc[64];      // s, then p, of the current k block
-  uint32_t pa[32];   // p as bf16 A fragments
+  float acc[C::kChunks][C::kNC / 2];  // o, unnormalised, by column half
+  float sc[BK / 2];                   // s, then p, of the current k block
+  uint32_t pa[BK / 4];                // p as bf16 A fragments
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  for (int c = 0; c < C::kChunks; ++c) {
+#pragma unroll
+    for (int i = 0; i < C::kNC / 2; ++i) acc[c][i] = 0.f;
+  }
   float m0 = kNeg, m1 = kNeg, l0 = 0.f, l1 = 0.f;
   hop::mbar_wait(qbar, 0);
 
@@ -263,10 +300,11 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
     hop::wgmma_fence();
 #pragma unroll
     for (int x = 0; x < D / 16; ++x) {
-      const uint64_t da = hop::desc_sw128(
-          q_addr + (x / 4) * C::kBoxQ + (x % 4) * 32, 16, 1024);
-      const uint64_t db = hop::desc_sw128(
-          k_addr + (x / 4) * C::kBoxK + (x % 4) * 32, 16, 1024);
+      const uint32_t at = (x % B::kSteps) * 32;
+      const uint64_t da = hop::desc_box<D>(
+          q_addr + (x / B::kSteps) * C::kBoxQ + at, 16);
+      const uint64_t db = hop::desc_box<D>(
+          k_addr + (x / B::kSteps) * C::kBoxK + at, 16);
       if (x == 0) {
         hop::wgmma_ss_first(sc, da, db);
       } else {
@@ -280,10 +318,10 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
     // The online softmax in registers: sc becomes p, m and l move on.  l
     // stays a per-thread partial sum; the 4 lanes of a row add theirs
     // once, in the epilogue.
-    const int k0 = kb * C::BK;
-    if ((causal && k0 + C::BK - 1 > qw) || k0 + C::BK > tk) {
+    const int k0 = kb * BK;
+    if ((causal && k0 + BK - 1 > qw) || k0 + BK > tk) {
 #pragma unroll
-      for (int j = 0; j < 16; ++j) {
+      for (int j = 0; j < BK / 8; ++j) {
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int kc = k0 + 8 * j + cq + e;
@@ -294,7 +332,7 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
     }
     float mx0 = m0, mx1 = m1;
 #pragma unroll
-    for (int j = 0; j < 16; ++j) {
+    for (int j = 0; j < BK / 8; ++j) {
       mx0 = fmaxf(mx0, fmaxf(sc[4 * j], sc[4 * j + 1]));
       mx1 = fmaxf(mx1, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
     }
@@ -306,7 +344,7 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
     m1 = mx1;
     float sum0 = 0.f, sum1 = 0.f;
 #pragma unroll
-    for (int j = 0; j < 16; ++j) {
+    for (int j = 0; j < BK / 8; ++j) {
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         sc[4 * j + e] = hop::exp2_approx((sc[4 * j + e] - mx0) * hop::kLog2e);
@@ -319,54 +357,67 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
     l0 = l0 * corr0 + sum0;
     l1 = l1 * corr1 + sum1;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      acc[4 * j] *= corr0;
-      acc[4 * j + 1] *= corr0;
-      acc[4 * j + 2] *= corr1;
-      acc[4 * j + 3] *= corr1;
+    for (int c = 0; c < C::kChunks; ++c) {
+#pragma unroll
+      for (int j = 0; j < C::kNC / 8; ++j) {
+        acc[c][4 * j] *= corr0;
+        acc[c][4 * j + 1] *= corr0;
+        acc[c][4 * j + 2] *= corr1;
+        acc[c][4 * j + 3] *= corr1;
+      }
     }
 
     // o += p·v over the k block in steps of 16 keys: p from registers, v
-    // MN-major (the next 16 keys are 2048 bytes further).
+    // MN-major (the next 16 keys are 16 box rows further), one product
+    // per column half.
     hop::acc_to_a(sc, pa);
     hop::wgmma_fence();
 #pragma unroll
-    for (int x = 0; x < C::BK / 16; ++x) {
-      hop::wgmma_rs(acc, pa[4 * x], pa[4 * x + 1], pa[4 * x + 2],
-                    pa[4 * x + 3],
-                    hop::desc_sw128(v_addr + x * 16 * hop::kRowBytes, C::kBoxK,
-                                    1024));
+    for (int c = 0; c < C::kChunks; ++c) {
+      const uint32_t half = v_addr + c * (C::kNC / B::kCols) * C::kBoxK;
+#pragma unroll
+      for (int x = 0; x < BK / 16; ++x) {
+        hop::wgmma_rs(acc[c], pa[4 * x], pa[4 * x + 1], pa[4 * x + 2],
+                      pa[4 * x + 3],
+                      hop::desc_box<D>(half + x * 16 * B::kRow, C::kBoxK));
+      }
     }
     hop::wgmma_commit();
     hop::wgmma_wait<0>();
-    hop::fence_regs(acc);
+#pragma unroll
+    for (int c = 0; c < C::kChunks; ++c) hop::fence_regs(acc[c]);
 
     // The stage is free once this warp's products that read it are done.
     __syncwarp();
     if (lane == 0) hop::mbar_arrive(&empty[s]);
+    if (C::kProducers == 0 && warp == 0 && kb + C::kStages < kend) {
+      load_kv(kb + C::kStages);
+    }
   }
 
   l0 = group_sum<4>(l0);
   l1 = group_sum<4>(l1);
   const float lc0 = fmaxf(l0, 1e-30f), lc1 = fmaxf(l1, 1e-30f);
   bf16* og = o + static_cast<size_t>(bh) * tq * D;
-  if (row0 < tq) {
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      *reinterpret_cast<uint32_t*>(og + static_cast<size_t>(row0) * D +
-                                   8 * j + cq) =
-          hop::pack_bf16(acc[4 * j] / lc0, acc[4 * j + 1] / lc0);
-    }
-    if (lane % 4 == 0) lse[static_cast<size_t>(bh) * tq + row0] = m0 + logf(lc0);
-  }
-  if (row1 < tq) {
+  for (int h = 0; h < 2; ++h) {
+    const int row = h ? row1 : row0;
+    const float lc = h ? lc1 : lc0;
+    if (row >= tq) continue;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      *reinterpret_cast<uint32_t*>(og + static_cast<size_t>(row1) * D +
-                                   8 * j + cq) =
-          hop::pack_bf16(acc[4 * j + 2] / lc1, acc[4 * j + 3] / lc1);
+    for (int c = 0; c < C::kChunks; ++c) {
+#pragma unroll
+      for (int j = 0; j < C::kNC / 8; ++j) {
+        const int col = c * C::kNC + 8 * j + cq;
+        *reinterpret_cast<uint32_t*>(og + static_cast<size_t>(row) * D +
+                                     col) =
+            hop::pack_bf16(acc[c][4 * j + 2 * h] / lc,
+                           acc[c][4 * j + 2 * h + 1] / lc);
+      }
     }
-    if (lane % 4 == 0) lse[static_cast<size_t>(bh) * tq + row1] = m1 + logf(lc1);
+    if (lane % 4 == 0) {
+      lse[static_cast<size_t>(bh) * tq + row] = (h ? m1 : m0) + logf(lc);
+    }
   }
 }
 
@@ -375,11 +426,12 @@ int launch_fwd_hopper(const void* q, const void* k, const void* v, void* o,
                       void* lse, int bh, int tq, int tk, int causal,
                       cudaStream_t stream) {
   using C = HopFwd<D>;
+  constexpr int kCols = C::B::kCols;
   // The maps hold the tensors' addresses, so they are made on every call.
   CUtensorMap mq, mk, mv;
-  if (!hop::make_map(&mq, q, D, tq, bh, C::BQ) ||
-      !hop::make_map(&mk, k, D, tk, bh, C::BK) ||
-      !hop::make_map(&mv, v, D, tk, bh, C::BK)) {
+  if (!hop::make_map(&mq, q, D, tq, bh, C::BQ, kCols) ||
+      !hop::make_map(&mk, k, D, tk, bh, C::BK, kCols) ||
+      !hop::make_map(&mv, v, D, tk, bh, C::BK, kCols)) {
     return MVT_TMA_REFUSED;
   }
   auto kernel = flash_fwd_hopper<D>;
@@ -387,31 +439,35 @@ int launch_fwd_hopper(const void* q, const void* k, const void* v, void* o,
   cudaError_t err = allow_smem(kernel, C::bytes, &smem_set);
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid(bh, (tq + C::BQ - 1) / C::BQ);
-  kernel<<<grid, kFwdThreads, C::bytes, stream>>>(
+  kernel<<<grid, C::kAllThreads, C::bytes, stream>>>(
       mq, mk, mv, static_cast<bf16*>(o), static_cast<float*>(lse), tq, tk,
       causal);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The design is fixed by (dtype, D) at compile time: bf16 at D 64 and 128
-// runs the Hopper design above; the rest runs the first port's kernel,
-// with 64 x 64 tiles everywhere but float32 at head dim 256, whose k block
-// halves to fit 227 KB.
+// The design is fixed by (dtype, D) at compile time: bf16 runs the Hopper
+// design above at every D; float32 runs the first port's kernel, with
+// 64 x 64 tiles but at head dim 256, whose k block halves to fit 227 KB.
 template <typename T>
 int fwd_for_dim(int d, const void* q, const void* k, const void* v,
                 void* o, void* lse, int bh, int tq, int tk, int causal,
                 cudaStream_t s) {
-  constexpr bool f32 = std::is_same<T, float>::value;
-  switch (d) {
-    case 32: return launch_fwd<T, 32, 64, 64>(q, k, v, o, lse, bh, tq, tk, causal, s);
-    case 64:
-      if constexpr (f32) return launch_fwd<T, 64, 64, 64>(q, k, v, o, lse, bh, tq, tk, causal, s);
-      else return launch_fwd_hopper<64>(q, k, v, o, lse, bh, tq, tk, causal, s);
-    case 128:
-      if constexpr (f32) return launch_fwd<T, 128, 64, 64>(q, k, v, o, lse, bh, tq, tk, causal, s);
-      else return launch_fwd_hopper<128>(q, k, v, o, lse, bh, tq, tk, causal, s);
-    case 256: return launch_fwd<T, 256, 64, f32 ? 32 : 64>(q, k, v, o, lse, bh, tq, tk, causal, s);
-    default: return MVT_UNSUPPORTED;
+  if constexpr (std::is_same<T, float>::value) {
+    switch (d) {
+      case 32: return launch_fwd<T, 32, 64, 64>(q, k, v, o, lse, bh, tq, tk, causal, s);
+      case 64: return launch_fwd<T, 64, 64, 64>(q, k, v, o, lse, bh, tq, tk, causal, s);
+      case 128: return launch_fwd<T, 128, 64, 64>(q, k, v, o, lse, bh, tq, tk, causal, s);
+      case 256: return launch_fwd<T, 256, 64, 32>(q, k, v, o, lse, bh, tq, tk, causal, s);
+      default: return MVT_UNSUPPORTED;
+    }
+  } else {
+    switch (d) {
+      case 32: return launch_fwd_hopper<32>(q, k, v, o, lse, bh, tq, tk, causal, s);
+      case 64: return launch_fwd_hopper<64>(q, k, v, o, lse, bh, tq, tk, causal, s);
+      case 128: return launch_fwd_hopper<128>(q, k, v, o, lse, bh, tq, tk, causal, s);
+      case 256: return launch_fwd_hopper<256>(q, k, v, o, lse, bh, tq, tk, causal, s);
+      default: return MVT_UNSUPPORTED;
+    }
   }
 }
 

@@ -1,18 +1,25 @@
 // Hopper (sm_90a) building blocks of the redesigned flash-attention
-// kernels (flash_fwd.cu, flash_dq.cu, flash_dkv.cu, bf16 at head dims 64
-// and 128):
-// mbarriers, TMA tile loads, and wgmma descriptors and instructions.  Raw
-// PTX through inline asm, so a library builds in seconds with no CUTLASS
-// headers.
+// kernels (bf16: the forward and dk/dv at head dims 32, 64, 128 and 256,
+// dq at 64 and 128): mbarriers, TMA tile loads, and wgmma descriptors and
+// instructions.  Raw PTX through inline asm, so a library builds in
+// seconds with no CUTLASS headers.
 //
 // All three kernels run two consumer warpgroups (256 threads) over one
 // ring of shared-memory stages, filled kStages blocks ahead.  The forward
 // adds a producer warp (288 threads) that issues every load.  dq and dk/dv
 // cannot: a ninth warp puts three warps on one of the SM's four register
-// files, and ptxas then budgets every thread at 168 registers (setmaxnreg
-// notwithstanding), too few for their three or four accumulators; so
-// there warp 0 refills each stage once both warpgroups have released it,
-// and every thread may hold 255 registers.
+// files, and ptxas then budgets every thread at 168 registers, too few for
+// their three or four accumulators; so there warp 0 refills each stage
+// once both warpgroups have released it, and every thread may hold 255
+// registers.  setmaxnreg does not lift that budget: a producer warpgroup
+// (384 threads) lending its registers to the consumers left the D 256
+// forward, whose o alone takes 128 registers a thread, at 168 and
+// spilling; so that forward drops its producer too.
+//
+// Tiles are TMA boxes of bf16 rows, swizzled as wgmma reads them.  A box
+// row spans the swizzle: 128 bytes (64 columns) at D 64 and above, 64
+// bytes (32 columns) at D 32, where a row of the tensor is 64 bytes
+// (Box<D>).
 #pragma once
 
 #include <cuda.h>
@@ -30,6 +37,20 @@ constexpr int kBoxCols = 64;         // bf16 columns in one 128-byte box row
 constexpr uint32_t kRowBytes = 128;  // bytes of one box row
 constexpr uint32_t kAtomBytes = 1024;
 constexpr float kLog2e = 1.4426950408889634f;
+
+// The box geometry of a [rows, D] bf16 tile: one box row spans the
+// swizzle, kRow bytes (128, or 64 at D 32); 8 rows make the swizzle's
+// period (kAtom, the descriptors' stride between 8-row groups); kSteps
+// depth steps of 16 columns fit in one box.
+template <int D>
+struct Box {
+  static constexpr uint32_t kRow = D == 32 ? 64 : kRowBytes;
+  static constexpr int kCols = kRow / 2;
+  static constexpr int kBoxes = D / kCols;
+  static constexpr int kSteps = kCols / 16;
+  static constexpr uint32_t kAtom = 8 * kRow;
+  static_assert(D % kCols == 0, "D is whole boxes");
+};
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -114,18 +135,38 @@ __device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
 }
 
 // ----------------------------------------------------------------- wgmma
-// Matrix descriptor of a 128-byte-swizzled operand at shared address
-// `addr`.  K-major: sbo = 1024 (the next 8-row atom), lbo unused.
-// MN-major: sbo = 1024 (the next 8 rows along the depth), lbo = the
-// distance to the next 64-column box.
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
+// Matrix descriptor of a swizzled operand at shared address `addr`.
+// K-major: sbo = the next 8-row atom, lbo unused.  MN-major: sbo = the
+// next 8 rows along the depth, lbo = the distance to the next box of
+// columns.  Layout type 1 is the 128-byte swizzle, 2 the 64-byte one.
+__device__ __forceinline__ uint64_t desc_swizzled(uint32_t addr,
+                                                  uint32_t lbo, uint32_t sbo,
+                                                  uint64_t layout) {
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
          (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
          (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) |
-         (1ull << 62);  // layout type 1: 128-byte swizzle
+         (layout << 62);
+}
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return desc_swizzled(addr, lbo, sbo, 1);
+}
+// A descriptor of a Box<D> tile: sbo is the box's 8-row atom.
+template <int D>
+__device__ __forceinline__ uint64_t desc_box(uint32_t addr, uint32_t lbo) {
+  using B = Box<D>;
+  return desc_swizzled(addr, lbo, B::kAtom, B::kRow == 128 ? 1 : 2);
 }
 
+// Makes the generic proxy's shared-memory writes of this thread visible
+// to the async proxy (wgmma's operand reads), before a barrier.
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// A named barrier over `threads` threads (ids 1..15; 0 is __syncthreads).
+__device__ __forceinline__ void named_sync(uint32_t id, uint32_t threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -168,12 +209,41 @@ __device__ __forceinline__ void acc_to_a(const float (&acc)[N],
 }
 
 // -------------------------------------------- wgmma instructions (bf16)
-// Overloads by the accumulator's size: float[N / 2] is the m64nNk16 tile.
+// Overloads by the accumulator's size: float[N / 2] is the m64nNk16 tile
+// (N 32, 64 or 128).
 // wgmma_ss_first: D = A.B, the first depth step; it writes D without
 //   reading it, so D carries nothing over from earlier code.
 // wgmma_ss: D += A.B, A and B K-major in shared memory.
 // wgmma_rs: D += A.B, A in registers (an accumulator packed to bf16 pairs,
 //   acc_to_a), B MN-major in shared memory (tnspB = 1).
+__device__ __forceinline__ void wgmma_ss_first(float (&d)[16],
+                                               uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]),
+        "=f"(d[6]), "=f"(d[7]), "=f"(d[8]), "=f"(d[9]), "=f"(d[10]),
+        "=f"(d[11]), "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15])
+      : "l"(da), "l"(db), "r"(0));
+}
+
+__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t da,
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(1));
+}
+
 __device__ __forceinline__ void wgmma_ss_first(float (&d)[32],
                                                uint64_t da, uint64_t db) {
   asm volatile(
@@ -242,6 +312,8 @@ __device__ __forceinline__ void wgmma_ss_first(float (&d)[64],
       : "l"(da), "l"(db), "r"(0));
 }
 
+// kTnspB 1 reads B MN-major (wgmma_ss<1>: dk/dv's A from shared memory).
+template <int kTnspB = 0>
 __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
                                          uint64_t db) {
   asm volatile(
@@ -253,7 +325,7 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
       "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43,"
       "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57,"
       "%58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      "}, %64, %65, p, 1, 1, 0, %67;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
         "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
@@ -267,7 +339,22 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
         "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
         "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1));
+      : "l"(da), "l"(db), "r"(1), "n"(kTnspB));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[16], uint32_t a0,
+                                         uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
 }
 
 __device__ __forceinline__ void wgmma_rs(float (&d)[32], uint32_t a0,
@@ -349,12 +436,14 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A bf16 [bh, t, d] tensor as a 3-D map (d, t, bh) read in [rows, 64]
-// boxes with the 128-byte swizzle.  Three dimensions, not a flat
-// [bh·t, d]: a box past row t zero-fills inside its own head instead of
-// reading the next head's rows.  False if the driver refuses the map.
+// A bf16 [bh, t, d] tensor as a 3-D map (d, t, bh) read in [rows, cols]
+// boxes swizzled across one box row: 64 columns with the 128-byte
+// swizzle, 32 with the 64-byte one.  Three dimensions, not a flat
+// [bh·t, d]: a box past row t (or past column d) zero-fills inside its
+// own head instead of reading the next head's rows.  False if the driver
+// refuses the map.
 inline bool make_map(CUtensorMap* map, const void* base, int d, int t,
-                     int bh, int rows) {
+                     int bh, int rows, int cols = kBoxCols) {
   EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr || reinterpret_cast<uintptr_t>(base) % 16 != 0) {
     return false;
@@ -364,12 +453,14 @@ inline bool make_map(CUtensorMap* map, const void* base, int d, int t,
                               static_cast<cuuint64_t>(bh)};
   const cuuint64_t strides[2] = {static_cast<cuuint64_t>(d) * 2,
                                  static_cast<cuuint64_t>(t) * d * 2};
-  const cuuint32_t box[3] = {static_cast<cuuint32_t>(kBoxCols),
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(cols),
                              static_cast<cuuint32_t>(rows), 1};
   const cuuint32_t elem[3] = {1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
                 const_cast<void*>(base), dims, strides, box, elem,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_INTERLEAVE_NONE,
+                cols == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                           : CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

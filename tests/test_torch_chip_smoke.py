@@ -1,9 +1,10 @@
 """The build report and the judges of ``chip_smoke.py``, on the CPU.
 
 The chip smoke test reads each built library's ``-Xptxas -v`` log and its
-``cuobjdump -sass`` listing, and fails the run when a library holds no
-bf16 Hopper kernel, or one holds no wgmma (HGMMA) or no TMA load
-(UTMALDG).  Those parsers and that
+``cuobjdump -sass`` listing, and fails the run when a library lacks one
+of its bf16 Hopper kernels (the forward and dk/dv at D 32, 64, 128 and
+256, dq at 64 and 128), or one holds no wgmma (HGMMA) or no TMA load
+(UTMALDG), or spills.  Those parsers and that
 rule are plain Python; here they run on listings in the formats the CUDA
 toolkit prints, with a stand-in ``cuobjdump``.  The tables, lr, rows
 and w2v phases' judges (numpy against the card, card against the CPU,
@@ -59,6 +60,7 @@ import types
 
 import numpy as np
 import pytest
+import torch
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _spec = importlib.util.spec_from_file_location(
@@ -83,11 +85,15 @@ ptxas info    : Used 40 registers, used 1 barriers, 8 bytes cumulative stack siz
 
 
 def _sass(hopper_ops, hopper=FWD):
-    lines = ["\tcode for sm_90a", f"\t\tFunction : {hopper}",
-             '\t.headerflags\t@"EF_CUDA_SM90 EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)"',
-             "        /*0000*/                   LDC R1, c[0x0][0x28] ;"]
-    for i, op in enumerate(hopper_ops):
-        lines.append(f"        /*{0x10 * (i + 1):04x}*/              @!UP0 {op} ;")
+    """A listing with the Hopper kernel(s) ``hopper`` (a name or a list),
+    each holding ``hopper_ops``, and the first port's OLD kernel."""
+    lines = ["\tcode for sm_90a"]
+    for name in [hopper] if isinstance(hopper, str) else hopper:
+        lines += [f"\t\tFunction : {name}",
+                  '\t.headerflags\t@"EF_CUDA_SM90 EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)"',
+                  "        /*0000*/                   LDC R1, c[0x0][0x28] ;"]
+        for i, op in enumerate(hopper_ops):
+            lines.append(f"        /*{0x10 * (i + 1):04x}*/              @!UP0 {op} ;")
     lines += [f"\t\tFunction : {OLD}",
               "        /*0000*/                   LDC R1, c[0x0][0x28] ;",
               "        /*0010*/               @P0 LDL.64 R2, [R1] ;",
@@ -111,19 +117,27 @@ def test_sass_counts_per_kernel_and_predicated():
     assert got[OLD] == {"HGMMA": 0, "UTMALDG": 0, "LDL": 1, "STL": 2}
 
 
-def _fake_build(tmp_path, listings):
+def _fake_build(tmp_path, listings, spills=None):
     """A stand-in for ``ops._build``: logs in BUILD_DIR, and an nvcc whose
     directory holds a ``cuobjdump`` that prints ``listings[name]`` for
-    ``lib<name>.so``."""
+    ``lib<name>.so``.  Each log reports every Hopper kernel of its
+    listing with no spills, but kernel ``spills`` with 48 bytes."""
     bindir = tmp_path / "bin"
     bindir.mkdir()
     build_dir = tmp_path / "build"
     build_dir.mkdir()
     paths = {}
     for name in chip_smoke.KERNELS:
-        hop = _hopper_name(name)
-        (build_dir / f"{name}.log").write_text(PTXAS_LOG.replace(
-            FWD, hop if hop in listings[name] else NOT_HOPPER))
+        log = PTXAS_LOG.replace(FWD, NOT_HOPPER)
+        for hop in _hopper_names(name):
+            if hop in listings[name]:
+                spill = 48 if hop == spills else 0
+                log += PTXAS_LOG.split(f"ptxas info    : Compiling entry "
+                                       f"function '{OLD}'")[0].replace(
+                    "ptxas info    : 0 bytes gmem\n", "").replace(
+                    FWD, hop).replace("0 bytes spill stores",
+                                      f"{spill} bytes spill stores")
+        (build_dir / f"{name}.log").write_text(log)
         (build_dir / f"lib{name}.sass").write_text(listings[name])
         paths[name] = str(build_dir / f"lib{name}.so")
     tool = bindir / "cuobjdump"
@@ -134,10 +148,18 @@ def _fake_build(tmp_path, listings):
     return fake, paths
 
 
-def _hopper_name(lib):
-    """The mangled name of library ``lib``'s D=128 Hopper kernel, as FWD
-    is flash_fwd's."""
-    return FWD.replace("16flash_fwd_hopper", f"{len(lib) + 7}{lib}_hopper")
+def _hopper_name(lib, d=128):
+    """The mangled name of library ``lib``'s D=d Hopper kernel, as the
+    compiler names it."""
+    return FWD.replace("16flash_fwd_hopperILi128EE",
+                       f"{len(lib) + 7}{lib}_hopperILi{d}EE")
+
+
+def _hopper_names(lib, drop=None):
+    """Library ``lib``'s Hopper kernels, one per head dim it must hold,
+    but ``drop``."""
+    return [_hopper_name(lib, d) for d in chip_smoke.HOPPER_DIMS[lib]
+            if d != drop]
 
 
 NOT_HOPPER = "_ZN3mvt15flash_dq_kernelIfLi64ELi64ELi64EEEvPKT_S3_S3_S3_PKfS5_PS1_iiif"
@@ -145,19 +167,22 @@ GOOD_OPS = ["HGMMA.64x128x16.F32.BF16 R24, gdesc[UR4], RZ, !UPT, gsb0",
             "UTMALDG.3D [UR8], [UR4]"]
 
 
-def _listings(bad=None, bad_ops=None):
-    """A listing per library, each with its own Hopper kernel holding
-    GOOD_OPS, except library ``bad``, whose Hopper kernel holds
-    ``bad_ops`` (None: it has no Hopper kernel at all)."""
+def _listings(bad=None, bad_ops=None, drop=None):
+    """A listing per library, each with its Hopper kernels holding
+    GOOD_OPS, except library ``bad``: its D=128 Hopper kernel holds
+    ``bad_ops`` (with ``bad_ops`` None it has no Hopper kernel at all,
+    with ``drop`` a head dim it lacks that dim's kernel)."""
     out = {}
     for name in chip_smoke.KERNELS:
-        hop = _hopper_name(name)
         if name != bad:
-            out[name] = _sass(GOOD_OPS, hop)
+            out[name] = _sass(GOOD_OPS, _hopper_names(name))
+        elif drop is not None:
+            out[name] = _sass(GOOD_OPS, _hopper_names(name, drop))
         elif bad_ops is None:
             out[name] = _sass(GOOD_OPS, NOT_HOPPER)
         else:
-            out[name] = _sass(bad_ops, hop)
+            out[name] = (_sass(GOOD_OPS, _hopper_names(name, 128))
+                         + _sass(bad_ops, _hopper_name(name)))
     return out
 
 
@@ -182,6 +207,36 @@ def test_build_phase_fails_without_a_hopper_kernel(tmp_path, lib):
     fake, paths = _fake_build(tmp_path, _listings(lib))
     with pytest.raises(AssertionError, match="no Hopper kernel"):
         chip_smoke.phase_build(fake, paths, 1.0)
+
+
+@pytest.mark.parametrize("lib", ["flash_fwd", "flash_dkv"])
+@pytest.mark.parametrize("d", [32, 256])
+def test_build_phase_fails_without_the_d32_or_d256_design(tmp_path, lib, d):
+    """The forward and dk/dv must each hold their Hopper kernel at D 32
+    and D 256 (with wgmma and TMA): a library that lacks one fails."""
+    fake, paths = _fake_build(tmp_path, _listings(lib, drop=d))
+    with pytest.raises(AssertionError, match=rf"{lib}: no Hopper kernel "
+                                             rf"at D \[{d}\]"):
+        chip_smoke.phase_build(fake, paths, 1.0)
+
+
+@pytest.mark.parametrize("lib,d", [("flash_fwd", 256), ("flash_dkv", 32)])
+def test_build_phase_fails_on_a_spilling_hopper_kernel(tmp_path, lib, d):
+    fake, paths = _fake_build(tmp_path, _listings(),
+                              spills=_hopper_name(lib, d))
+    with pytest.raises(AssertionError, match="48 bytes spilled"):
+        chip_smoke.phase_build(fake, paths, 1.0)
+
+
+def test_hopper_dim_reads_demangled_and_mangled_names():
+    assert chip_smoke.hopper_dim(
+        "flash_fwd", "void mvt::flash_fwd_hopper<256>") == 256
+    assert chip_smoke.hopper_dim(
+        "flash_dkv", "void mvt::flash_dkv_hopper<32>") == 32
+    assert chip_smoke.hopper_dim("flash_fwd", _hopper_name("flash_fwd",
+                                                           32)) == 32
+    assert chip_smoke.hopper_dim(
+        "flash_dq", "void mvt::flash_dkv_hopper<64>") is None
 
 
 # ------------------------------------------------ tables and lr phase judges
@@ -889,7 +944,7 @@ def test_senses_separate_verdict():
 # ------------------------------------- trainer, small, moe, longctx judges
 
 def test_transformer_phases_at_bench_shapes():
-    assert chip_smoke.PHASES[5:8] == ("small", "moe", "longctx")
+    assert chip_smoke.PHASES[5:9] == ("small", "headdims", "moe", "longctx")
     assert chip_smoke.SMALL == dict(vocab_size=8192, dim=512, n_layers=4,
                                     n_heads=8, hidden=1408)
     assert (chip_smoke.SMALL_BATCH, chip_smoke.SMALL_SEQ) == (8, 2048)
@@ -902,11 +957,50 @@ def test_transformer_phases_at_bench_shapes():
     assert (chip_smoke.LONG_BATCH, chip_smoke.LONG_SEQ) == (1, 16384)
 
 
+def test_headdims_phase_shapes():
+    """The headdims phase trains transformer_large's widths in 8 heads of
+    256 and bench_transformer's in 16 heads of 32, and times float32 at
+    the trainer's attention shape."""
+    assert chip_smoke.large_config(torch, heads=chip_smoke.WIDE_HEADS
+                                   ).head_dim == 256
+    assert chip_smoke.large_config(torch).head_dim == 128
+    assert chip_smoke.NARROW == dict(chip_smoke.SMALL, n_heads=16)
+    assert chip_smoke.NARROW["dim"] // chip_smoke.NARROW["n_heads"] == 32
+    assert chip_smoke.F32_SHAPE == (4, 16, 2048, 128)
+
+
+def test_exp_bound_rate_and_float32_bytes():
+    """The exp unit's rate is 16 a clock an SM against the tensor cores'
+    4,096 bf16 flops: a 256th of the bf16 peak; a float32 call moves
+    twice the bytes of a bf16 one (lse and delta are float32 in both)."""
+    assert chip_smoke.PEAK_EX2_PER_S == pytest.approx(989e12 / 256)
+    pairs = 2048 * 2049 // 2
+    assert pairs * 128 / chip_smoke.PEAK_EX2_PER_S * 1e3 == pytest.approx(
+        0.06952, rel=1e-4)
+    b16 = chip_smoke.flash_work(64, 2048, 128)["flash_fwd"][1]
+    b32 = chip_smoke.flash_work(64, 2048, 128, elem=4)["flash_fwd"][1]
+    assert b32 - 64 * 2048 * 4 == 2 * (b16 - 64 * 2048 * 4)
+
+
+def test_parity_edge_cases_cover_new_tiles_and_grid():
+    cases = chip_smoke.edge_cases(torch)
+    dims = {(d, t, tag) for _, t, _, d, _, _, tag in cases}
+    for d in (32, 256):
+        assert (d, 2112, "half_tile") in dims and (d, 130, "two_row_tile") \
+            in dims
+    assert (256, 2080, "half_tile") in dims and (256, 66, "two_row_tile") \
+        in dims
+    big = [(bh, d, dt, causal) for bh, _, _, d, dt, causal, tag in cases
+           if tag == "bh_past_grid_y"]
+    assert big == [(65_600, 32, torch.bfloat16, True),
+                   (65_600, 32, torch.float32, True)]
+
+
 def test_mesh_phase_and_long_context_shapes():
     """The mesh phase runs after longctx, at the trainer's config and the
     ring's bf16 check at bench_long_context's attention shape; the seq
     65,536 run is bench.py's longctx64k config."""
-    assert chip_smoke.PHASES[8] == "mesh"
+    assert chip_smoke.PHASES[9] == "mesh"
     assert (chip_smoke.LONG64K_SEQ, chip_smoke.LONG64K_BLOCK) == (65536,
                                                                   4096)
     assert chip_smoke.RING_SP == 4

@@ -277,13 +277,15 @@ def test_offset_blocks_and_attn_piece_match_jax():
 
 # ------------------------------------------------ the Hopper kernels' schedule
 # Plain-torch models of the block schedules that csrc/flash_fwd.cu,
-# csrc/flash_dq.cu and csrc/flash_dkv.cu run for bf16 at D 64 and 128 (one
-# block of two 64-row consumer warpgroups per 128-row tile), so their
-# index arithmetic is held to the plain versions here, in float32, before
-# it runs on the card: zero-filled tiles past T (what the TMA loads give),
-# the causal start and end blocks, dk/dv's per-warpgroup skip (which dq's
-# 128-key blocks never need), and masks only on straddling or
-# ragged blocks.
+# csrc/flash_dq.cu and csrc/flash_dkv.cu run for bf16 (the forward and
+# dk/dv at D 32, 64, 128 and 256, dq at 64 and 128; one block of two
+# 64-row consumer warpgroups per tile), so their index arithmetic is held
+# to the plain versions here, in float32, before it runs on the card:
+# zero-filled tiles past T (what the TMA loads give), the causal start and
+# end blocks, dk/dv's per-warpgroup skip (which dq's 128-key blocks and
+# D 256's 64-row blocks never need), D 256's column split of dk and dv,
+# and masks only on straddling or ragged blocks.  The tiles by D are the
+# kernels' (HopFwd, HopDkv, HopDkvCols).
 _NEG = -1e30
 
 
@@ -291,8 +293,7 @@ def _pad_rows(x, rows):
     return torch.nn.functional.pad(x, (0, 0, 0, rows - x.shape[1]))
 
 
-def _fwd_schedule(qs, k, v, causal):
-    BQ = BK = 128
+def _fwd_schedule(qs, k, v, causal, BQ=128, BK=128):
     bh, tq, d = qs.shape
     tk = k.shape[1]
     nqt, nk = -(-tq // BQ), -(-tk // BK)
@@ -330,9 +331,10 @@ def _fwd_schedule(qs, k, v, causal):
     return o, lse
 
 
-def _dkv_schedule(qs, k, v, do, lse, delta, causal):
-    BK, BQ = 128, 64
+def _dkv_schedule(qs, k, v, do, lse, delta, causal, BK=128, BQ=64):
     bh, tq, d = qs.shape
+    if BK == BQ == 64:
+        return _dkv_cols_schedule(qs, k, v, do, lse, delta, causal)
     tk = k.shape[1]
     nk, nq = -(-tk // BK), -(-tq // BQ)
     qp, dop = _pad_rows(qs, nq * BQ), _pad_rows(do, nq * BQ)
@@ -366,6 +368,60 @@ def _dkv_schedule(qs, k, v, do, lse, delta, causal):
             n = max(0, min(64, tk - kw))
             dk[:, kw:kw + n] = dk_acc[:, :n]
             dv[:, kw:kw + n] = dv_acc[:, :n]
+    return dk, dv
+
+
+def _dkv_cols_schedule(qs, k, v, do, lse, delta, causal):
+    """D 256's dk/dv: one block of 64 k rows shared by both warpgroups;
+    warpgroup g forms sᵀ and dpᵀ over q columns [32g, 32g + 32) of each
+    64-row q block, the two halves meet as whole pᵀ and dsᵀ tiles (shared
+    memory on the card), and warpgroup g keeps dk and dv over D columns
+    [d/2·g, d/2·(g + 1))."""
+    BK = BQ = 64
+    bh, tq, d = qs.shape
+    tk = k.shape[1]
+    nk, nq = -(-tk // BK), -(-tq // BQ)
+    qp, dop = _pad_rows(qs, nq * BQ), _pad_rows(do, nq * BQ)
+    kp, vp = _pad_rows(k, nk * BK), _pad_rows(v, nk * BK)
+    lsep = torch.nn.functional.pad(lse, (0, nq * BQ - tq))
+    dlp = torch.nn.functional.pad(delta, (0, nq * BQ - tq))
+    dk, dv = torch.zeros(bh, tk, d), torch.zeros(bh, tk, d)
+    half = d // 2
+    for kb in range(nk):
+        k0 = kb * BK
+        krows = torch.arange(k0, k0 + BK)
+        kt, vt = kp[:, k0:k0 + BK], vp[:, k0:k0 + BK]
+        acc = {g: (torch.zeros(bh, BK, half), torch.zeros(bh, BK, half))
+               for g in range(2)}
+        for qb in range(k0 // BQ if causal else 0, nq):
+            q0 = qb * BQ
+            # BQ == BK: every visited block reaches the block's k rows.
+            assert not (causal and q0 + BQ - 1 < k0)
+            mask = (causal and q0 < k0 + 63) or k0 + BK > tk or q0 + BQ > tq
+            pts, dsts = [], []
+            for g in range(2):
+                c0 = q0 + 32 * g
+                qt, dot = qp[:, c0:c0 + 32], dop[:, c0:c0 + 32]
+                st = kt @ qt.transpose(1, 2)
+                dpt = vt @ dot.transpose(1, 2)
+                if mask:
+                    qcols = torch.arange(c0, c0 + 32)
+                    out = ((krows[:, None] >= tk) | (qcols[None, :] >= tq)
+                           | (causal & (krows[:, None] > qcols[None, :])))
+                    st = st.masked_fill(out, _NEG)
+                pt = torch.exp(st - lsep[:, None, c0:c0 + 32])
+                pts.append(pt)
+                dsts.append(pt * (dpt - dlp[:, None, c0:c0 + 32]))
+            pt, dst = torch.cat(pts, -1), torch.cat(dsts, -1)
+            for g in range(2):
+                cols = slice(half * g, half * (g + 1))
+                acc[g][0].add_(dst @ qp[:, q0:q0 + BQ, cols])
+                acc[g][1].add_(pt @ dop[:, q0:q0 + BQ, cols])
+        n = max(0, min(BK, tk - k0))
+        for g in range(2):
+            cols = slice(half * g, half * (g + 1))
+            dk[:, k0:k0 + n, cols] = acc[g][0][:, :n]
+            dv[:, k0:k0 + n, cols] = acc[g][1][:, :n]
     return dk, dv
 
 
@@ -407,26 +463,42 @@ def _dq_schedule(qs, k, v, do, lse, delta, scale, causal):
     return dq
 
 
-@pytest.mark.parametrize("tq,tk,causal", [(130, 130, True),
-                                          (130, 130, False),
-                                          (200, 200, True),
-                                          (200, 200, False),
-                                          (256, 256, True),
-                                          (40, 136, False)])
-@pytest.mark.parametrize("kernel", ["fwd", "dq", "dkv"])
-def test_hopper_schedule_matches_plain(kernel, tq, tk, causal):
-    """The Hopper kernels' block schedules (fwd and dq: 128-row q tiles
-    split over two 64-row warpgroups; dk/dv: 128-row k blocks over 64-row
-    q blocks) against the plain versions, float32, at ragged T."""
-    rng = np.random.RandomState(tq + tk + causal)
-    bh, d = 2, 64
+# The kernels' tiles by head dim: (forward BQ, BK), (dk/dv BK, BQ).
+_TILES = {32: ((128, 64), (128, 32)), 64: ((128, 128), (128, 64)),
+          256: ((128, 64), (64, 64))}
+_RAGGED = [(130, 130, True), (130, 130, False), (200, 200, True),
+           (200, 200, False), (256, 256, True), (40, 136, False)]
+_SCHEDULE_CASES = (
+    [pytest.param(kern, tq, tk, causal, 64,
+                  id=f"{kern}-{tq}-{tk}-{causal}")
+     for tq, tk, causal in _RAGGED for kern in ("fwd", "dq", "dkv")]
+    + [pytest.param(kern, tq, tk, causal, d,
+                    id=f"{kern}-{tq}-{tk}-{causal}-d{d}")
+       for d in (32, 256)
+       for tq, tk, causal in _RAGGED + ([(66, 66, True), (66, 66, False),
+                                         (136, 40, False)]
+                                        if d == 256 else [])
+       for kern in ("fwd", "dkv")])
+
+
+@pytest.mark.parametrize("kernel,tq,tk,causal,d", _SCHEDULE_CASES)
+def test_hopper_schedule_matches_plain(kernel, tq, tk, causal, d):
+    """The Hopper kernels' block schedules at their tiles for head dim
+    ``d`` (fwd and dq: 128-row q tiles split over two 64-row warpgroups,
+    over 128-row k blocks, or 64-row ones at D 32 and 256; dk/dv: 128-row
+    k blocks over 64-row q blocks, 32-row ones at D 32, or at D 256
+    64-row k blocks with the columns split) against the plain versions,
+    float32, at ragged T."""
+    rng = np.random.RandomState(tq + tk + causal + d)
+    bh = 2
     q, k, v = (torch.tensor(rng.randn(bh, t, d).astype(np.float32))
                for t in (tq, tk, tk))
     scale = d ** -0.5
     qs = fa._prescale(q, scale)
     o, lse = fa.flash_fwd_ref(q, k, v, scale, causal)
+    fwd_tiles, dkv_tiles = _TILES.get(d, _TILES[64])
     if kernel == "fwd":
-        got, want = _fwd_schedule(qs, k, v, causal), (o, lse)
+        got, want = _fwd_schedule(qs, k, v, causal, *fwd_tiles), (o, lse)
     else:
         do = torch.tensor(rng.randn(bh, tq, d).astype(np.float32))
         delta = (do * o).sum(-1) - torch.tensor(
@@ -435,7 +507,7 @@ def test_hopper_schedule_matches_plain(kernel, tq, tk, causal):
         got = (_dq_schedule(qs, k, v, do, lse, delta, scale, causal),)
         want = (fa.flash_dq_ref(q, k, v, do, lse, delta, scale, causal),)
     elif kernel == "dkv":
-        got = _dkv_schedule(qs, k, v, do, lse, delta, causal)
+        got = _dkv_schedule(qs, k, v, do, lse, delta, causal, *dkv_tiles)
         want = fa.flash_dkv_ref(q, k, v, do, lse, delta, scale, causal)
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), w.numpy(), atol=2e-5,

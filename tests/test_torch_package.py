@@ -287,6 +287,15 @@ _PORT_CHANGES = {
     # (tests/test_torch_slo_burn.py).
     "latency.py": [r"\n        if slo_s > 0:\n.*?\n                [^\n]*"
                    r"\.inc\(\)\n"],
+    # A counting series keeps the time it was made, and its first history
+    # ring starts with a zero point stamped then, so increments before
+    # its first flush are in every window
+    # (tests/test_torch_metrics_window.py).
+    "metrics.py": [r"\n                s = cls\(name, key, \*\*kwargs\)\n"
+                   r"(?:                # Kept for record_history.*?"
+                   r"s\.created = [^\n]*\n)?",
+                   r"\n        points = \[\]\n.*?\n"
+                   r"                ring\.append\(\(ts, v\)\)\n"],
 }
 
 

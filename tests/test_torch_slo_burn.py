@@ -47,8 +47,11 @@ def test_a_breach_burst_between_two_flushes_burns(slo_armed, healthy):
         metrics.history(rule.metric), metrics.history(rule.total_metric),
         rule.objective, rule.threshold, rule.window_s, rule.short_window_s)
     assert firing, (long_burn, short_burn)
-    # Every round trip scored since the first flush breached.
-    assert long_burn == pytest.approx(1 / (1 - rule.objective))
+    # The windows hold every round trip scored since the counters were
+    # made: the total counter's ring starts from a zero point, so the
+    # healthy round trips before the first flush count beside the burst.
+    assert long_burn == pytest.approx(10 / (10 + healthy)
+                                      / (1 - rule.objective))
     assert metrics.history(rule.metric)[0] == (0.25, 0.0)
 
 

@@ -37,9 +37,9 @@ def _mesh():
     return Mesh(np.asarray(jax.devices()[:1]), ("dp",))
 
 
-def _cfgs(dtype="float32", **kw):
-    return (jt.TransformerConfig(**SHAPE, compute_dtype=JDT[dtype], **kw),
-            pt.TransformerConfig(**SHAPE, compute_dtype=TDT[dtype], **kw))
+def _cfgs(dtype="float32", shape=SHAPE, **kw):
+    return (jt.TransformerConfig(**shape, compute_dtype=JDT[dtype], **kw),
+            pt.TransformerConfig(**shape, compute_dtype=TDT[dtype], **kw))
 
 
 def _tokens(seed=0):
@@ -82,10 +82,10 @@ def test_params_from_jax_and_same_seed_init(scan):
         stacked["wq"].numpy(), np.stack([l["wq"] for l in loop]))
 
 
-def _loss_and_grads(dtype, **kw):
+def _loss_and_grads(dtype, shape=SHAPE, **kw):
     """((logits, loss, grads, aux) of the JAX package, the same of the
     port) from one seed's weights and tokens."""
-    jcfg, pcfg = _cfgs(dtype, **kw)
+    jcfg, pcfg = _cfgs(dtype, shape, **kw)
     host = jt.init_params(jcfg, seed=1)
     tokens = _tokens(1)
     mesh = _mesh()
@@ -119,6 +119,22 @@ def _assert_scaled(got, want, rtol):
 
 def test_forward_loss_grads_f32():
     (jl, jloss, jg, _), (pl, ploss, pg, _) = _loss_and_grads("float32")
+    _assert_scaled(pl, jl, 1e-5)
+    np.testing.assert_allclose(ploss, jloss, rtol=1e-5)
+    assert len(pg) == len(jg)
+    for a, b in zip(pg, jg):
+        _assert_scaled(a, b, 1e-5)
+
+
+@pytest.mark.parametrize("dim,head_dim", [(512, 256), (64, 32)])
+def test_forward_loss_grads_f32_at_hopper_head_dims(dim, head_dim):
+    """The head dims the card's D 256 and D 32 kernel designs take, in 2
+    heads: the port's forward, loss and gradients against the JAX
+    package's (on the CPU both run attention's plain path)."""
+    shape = dict(SHAPE, dim=dim, n_heads=dim // head_dim)
+    (jl, jloss, jg, _), (pl, ploss, pg, _) = _loss_and_grads("float32",
+                                                             shape)
+    assert shape["n_heads"] == 2
     _assert_scaled(pl, jl, 1e-5)
     np.testing.assert_allclose(ploss, jloss, rtol=1e-5)
     assert len(pg) == len(jg)
