@@ -13,9 +13,9 @@ Phases, each printing JSON lines:
              and reports, per kernel, ptxas's registers and spill bytes
              and the SASS counts of HGMMA (wgmma), UTMALDG (TMA loads) and
              LDL/STL (local memory) from ``cuobjdump -sass``.  Each
-             library must hold its bf16 Hopper kernels (the forward and
-             dk/dv at D 32, 64, 128 and 256, dq at 64 and 128), each of
-             them with HGMMA and UTMALDG and no bytes spilled.
+             library must hold its bf16 Hopper kernels (all three at D
+             32, 64, 128 and 256), each of them with HGMMA and UTMALDG and
+             no bytes spilled.
 3. parity  — each kernel against its plain PyTorch version on the card:
              the trainer's attention shape (B=4, H=16, T=2048, D=128, bf16,
              causal, nonzero lse cotangent), small ragged shapes (T=200)
@@ -794,7 +794,8 @@ def sass_counts(sass_text):
 
 
 # The bf16 Hopper kernels each library must hold, by head dim.
-HOPPER_DIMS = {"flash_fwd": (32, 64, 128, 256), "flash_dq": (64, 128),
+HOPPER_DIMS = {"flash_fwd": (32, 64, 128, 256),
+               "flash_dq": (32, 64, 128, 256),
                "flash_dkv": (32, 64, 128, 256)}
 
 

@@ -12,28 +12,34 @@
 // only straddling (or ragged) blocks are masked.
 //
 // Bound on an H100: three tile products per visited block against four
-// tiles read, so tensor-core bound at the shapes the trainer uses.  Two
-// designs, chosen at compile time by (dtype, D) in dq_for_dim:
+// tiles read, so tensor-core bound at the shapes the trainer uses (at
+// head dim 32 the exp of each score costs more than its 6·32 flops).
+// Two designs, chosen at compile time by dtype in dq_for_dim:
 //
-// * bf16 at D 64 and 128 (flash_dq_hopper): q-stationary, the forward's
-//   shape with dk/dv's products, accumulators in registers.  One block
-//   of two warpgroups per (bh, 128-row q tile) (hopper.cuh).  Warp 0
-//   loads q and do once by TMA, then k and v blocks of 128 rows into a
-//   ring of kStages stages, refilling a stage once both warpgroups have
-//   released it.  Each warpgroup owns 64 q rows, keeps their lse and
-//   delta in registers (two rows a thread) and their float32 dq in
-//   registers for the whole k loop.  Per k block it forms s = q·kᵀ and
-//   dp = do·vᵀ by wgmma (both operands K-major in shared memory), then
-//   p = exp(s - lse) and ds = p (dp - delta) in registers, rounds ds to
-//   bf16 in registers and feeds it as the register A operand of
-//   dq += ds·k (k MN-major: the same bytes as s's K-major B).  No score
-//   tile is ever written to shared memory.  The 128-key block needs
-//   three 64-float accumulators at D 128, so the block runs 8 warps and
-//   no producer warp (a ninth warp caps ptxas at 168 registers); 64-key
-//   blocks under a producer warp spilled there and ran slower.
-// * float32 at every D, and bf16 at D 32 and 256 (flash_dq_kernel): the
-//   first port's design, operands and the accumulator in shared memory,
-//   bf16 products through WMMA.
+// * bf16 at every D (flash_dq_hopper): q-stationary, the forward's shape
+//   with dk/dv's products, accumulators in registers (hopper.cuh).  Warp
+//   0 loads q and do once by TMA, then k and v blocks into a ring of
+//   kStages stages, refilling a stage once both warpgroups have released
+//   it.  Per k block it forms s = q·kᵀ and dp = do·vᵀ by wgmma (both
+//   operands K-major in shared memory), then p = exp(s - lse) and
+//   ds = p (dp - delta) in registers from lse and delta held in
+//   registers, rounds ds to bf16 and feeds it as wgmma's A operand of
+//   dq += ds·k (k MN-major: the same bytes as s's K-major B).  The
+//   accumulators need more registers than a ninth warp would leave, so
+//   no producer warp (hopper.cuh).
+//   - D 32, 64, 128 (dq_by_rows): one block of two warpgroups per (bh,
+//     128-row q tile); each warpgroup owns 64 q rows, keeps their float32
+//     dq in registers for the whole k loop, and feeds ds from registers.
+//     No score tile is ever written to shared memory.  128-key blocks at
+//     D 64 and 128; 64-key blocks at D 32 (HopDq).
+//   - D 256 (dq_by_cols): dq of 64 rows would be 128 registers a thread
+//     beside s and dp, and q and do of 128 rows leave no room for two k/v
+//     stages, so one block per (bh, 64-row q tile) splits dq's columns
+//     between the two warpgroups, each forming half the k block's ds and
+//     sharing it through shared memory (HopDqCols).
+// * float32 at every D (flash_dq_kernel): the first port's design,
+//   operands and the accumulator in shared memory, products as plain
+//   FMAs.
 #include "flash_common.cuh"
 #include "hopper.cuh"
 
@@ -148,13 +154,19 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
 }
 
 // ------------------------------------------------ bf16 Hopper design
+// D 32, 64 and 128: one block of two warpgroups per (bh, 128-row q tile),
+// each warpgroup owning 64 q rows with its dq in registers.  D 32 runs
+// 64-byte box rows with the 64-byte swizzle and 64-key blocks: s and dp
+// shrink to 32 registers a thread each, so two blocks share an SM, as in
+// the D 32 forward.
 template <int D>
 struct HopDq {
-  static constexpr int BQ = 128, BK = 128, kBoxes = D / 64;
-  static constexpr uint32_t kBoxQ = BQ * hop::kRowBytes;  // one 64-col box
-  static constexpr uint32_t kBoxK = BK * hop::kRowBytes;
-  static constexpr uint32_t kQBytes = kBoxes * kBoxQ;
-  static constexpr uint32_t kKBytes = kBoxes * kBoxK;
+  using B = hop::Box<D>;
+  static constexpr int BQ = 128, BK = D == 32 ? 64 : 128;
+  static constexpr uint32_t kBoxQ = BQ * B::kRow;  // one box of columns
+  static constexpr uint32_t kBoxK = BK * B::kRow;
+  static constexpr uint32_t kQBytes = B::kBoxes * kBoxQ;
+  static constexpr uint32_t kKBytes = B::kBoxes * kBoxK;
   static constexpr size_t q = 0;
   static constexpr size_t dout = kQBytes;
   static constexpr size_t kv = 2 * kQBytes;  // stage s: k, then v
@@ -162,35 +174,83 @@ struct HopDq {
   static constexpr int kStages = D == 128 ? 2 : 4;
   static constexpr size_t bars = kv + kStages * 2 * kKBytes;
   static constexpr size_t bytes = bars + 8 * (2 * kStages + 1) + hop::kAtomBytes;
-  static_assert(D == 64 || D == 128, "the Hopper dq covers D 64, 128");
+  static_assert(D <= 128, "D 256 splits columns: HopDqCols");
   static_assert(bytes <= kMaxSmem, "dq tiles exceed shared memory");
 };
 
+// D 256: both warpgroups share one block of 64 q rows and split dq's D
+// columns (128 each: 64 registers).  Per 64-key block each warpgroup
+// forms s and dp for half the block's keys, turns them into ds in
+// registers and writes it, bf16 and swizzled, into shared memory, where
+// both warpgroups read the whole [64, 64] tile as wgmma's A operand.  Two
+// buffers of it, so one barrier a block keeps a buffer's writes after its
+// last readers.  q 32 KB + do 32 KB + two stages of k and v (128 KB) + ds
+// twice (16 KB) = 208 KB.
+struct HopDqCols {
+  using B = hop::Box<256>;
+  static constexpr int D = 256, BQ = 64, BK = 64, kStages = 2;
+  static constexpr int kHalf = D / 2;  // dq columns a warpgroup
+  static constexpr int kKeys = BK / 2;  // s columns a warpgroup
+  static constexpr uint32_t kBoxQ = BQ * B::kRow;
+  static constexpr uint32_t kBoxK = BK * B::kRow;
+  static constexpr uint32_t kQBytes = B::kBoxes * kBoxQ;
+  static constexpr uint32_t kKBytes = B::kBoxes * kBoxK;
+  static constexpr uint32_t kDsBytes = BQ * BK * 2;  // one [64, 64] bf16 box
+  static constexpr size_t q = 0;
+  static constexpr size_t dout = kQBytes;
+  static constexpr size_t kv = 2 * kQBytes;  // stage s: k, then v
+  static constexpr size_t ds = kv + kStages * 2 * kKBytes;  // ds x 2
+  static constexpr size_t bars = ds + 2 * kDsBytes;
+  static constexpr size_t bytes = bars + 8 * (2 * kStages + 1) + hop::kAtomBytes;
+  static_assert(bytes <= kMaxSmem, "dq tiles exceed shared memory");
+};
+
+// The launch's layout for head dim D.
 template <int D>
-__global__ void __launch_bounds__(hop::kThreads, 1)
-    flash_dq_hopper(const __grid_constant__ CUtensorMap tm_q,
-                    const __grid_constant__ CUtensorMap tm_k,
-                    const __grid_constant__ CUtensorMap tm_v,
-                    const __grid_constant__ CUtensorMap tm_do,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ delta, bf16* __restrict__ dq,
-                    int tq, int tk, int causal, float scale) {
-  using C = HopDq<D>;
-  constexpr int BK = C::BK;
-  extern __shared__ unsigned char smem_raw[];
-  unsigned char* smem = hop::align_atom(smem_raw);
+using HopDqFor =
+    typename std::conditional<D == 256, HopDqCols, HopDq<D>>::type;
+
+// A block's TMA loads: its barriers (full and empty a stage, then one for
+// q and do) and warp 0's refill kv(j) of stage j % kStages with k block j,
+// once both warpgroups have released the block kStages before it.
+template <class C>
+struct DqLoads {
+  unsigned char* smem;
+  uint64_t* full;
+  uint64_t* empty;
+  uint64_t* qbar;
+  const CUtensorMap* tm_k;
+  const CUtensorMap* tm_v;
+  int bh, lane;
+
+  __device__ __forceinline__ void kv(int j) const {
+    using B = typename C::B;
+    const int s = j % C::kStages;
+    hop::mbar_wait(&empty[s], ((j / C::kStages) & 1) ^ 1);
+    if (lane == 0) {
+      hop::mbar_expect_tx(&full[s], 2 * C::kKBytes);
+      unsigned char* ks = smem + C::kv + s * 2 * C::kKBytes;
+      for (int b = 0; b < B::kBoxes; ++b) {
+        hop::tma_load(ks + b * C::kBoxK, tm_k, &full[s], b * B::kCols,
+                      j * C::BK, bh);
+        hop::tma_load(ks + C::kKBytes + b * C::kBoxK, tm_v, &full[s],
+                      b * B::kCols, j * C::BK, bh);
+      }
+    }
+    __syncwarp();
+  }
+};
+
+// Thread 0 sets up the barriers; then warp 0 loads q and do once and the
+// first kStages k blocks.
+template <class C>
+__device__ __forceinline__ DqLoads<C> dq_start(
+    unsigned char* smem, const CUtensorMap* tm_q, const CUtensorMap* tm_k,
+    const CUtensorMap* tm_v, const CUtensorMap* tm_do, int q0, int kend) {
+  using B = typename C::B;
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + C::bars);
   uint64_t* empty = full + C::kStages;
   uint64_t* qbar = empty + C::kStages;
-
-  const int bh = blockIdx.x;
-  // Heaviest causal q tiles (the last ones) start first, over all heads.
-  // With BK == BQ the causal end block starts at q0, so every visited
-  // block reaches both warpgroups' rows: none is skipped.
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * C::BQ;
-  const int nk = (tk + BK - 1) / BK;
-  const int kend = causal ? min(nk, q0 / BK + 1) : nk;
-
   if (threadIdx.x == 0) {
     for (int s = 0; s < C::kStages; ++s) {
       hop::mbar_init(&full[s], 1);
@@ -200,37 +260,141 @@ __global__ void __launch_bounds__(hop::kThreads, 1)
     hop::fence_barrier_init();
   }
   __syncthreads();
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  // Warp 0 loads q and do once, then k block j into stage j % kStages:
-  // the first kStages blocks at once, each later one as soon as both
-  // warpgroups have released the block kStages before it.
-  auto load_kv = [&](int j) {
-    const int s = j % C::kStages;
-    hop::mbar_wait(&empty[s], ((j / C::kStages) & 1) ^ 1);
-    if (lane == 0) {
-      hop::mbar_expect_tx(&full[s], 2 * C::kKBytes);
-      unsigned char* ks = smem + C::kv + s * 2 * C::kKBytes;
-      for (int b = 0; b < C::kBoxes; ++b) {
-        hop::tma_load(ks + b * C::kBoxK, &tm_k, &full[s], b * 64, j * BK, bh);
-        hop::tma_load(ks + C::kKBytes + b * C::kBoxK, &tm_v, &full[s], b * 64,
-                      j * BK, bh);
-      }
-    }
-    __syncwarp();
-  };
-  if (warp == 0) {
-    if (lane == 0) {
+  const int bh = blockIdx.x;
+  const DqLoads<C> ld{smem, full, empty, qbar, tm_k, tm_v, bh,
+                      static_cast<int>(threadIdx.x % 32)};
+  if (threadIdx.x / 32 == 0) {
+    if (ld.lane == 0) {
       hop::mbar_expect_tx(qbar, 2 * C::kQBytes);
-      for (int b = 0; b < C::kBoxes; ++b) {
-        hop::tma_load(smem + C::q + b * C::kBoxQ, &tm_q, qbar, b * 64, q0, bh);
-        hop::tma_load(smem + C::dout + b * C::kBoxQ, &tm_do, qbar, b * 64, q0,
-                      bh);
+      for (int b = 0; b < B::kBoxes; ++b) {
+        hop::tma_load(smem + C::q + b * C::kBoxQ, tm_q, qbar, b * B::kCols,
+                      q0, bh);
+        hop::tma_load(smem + C::dout + b * C::kBoxQ, tm_do, qbar,
+                      b * B::kCols, q0, bh);
       }
     }
     __syncwarp();
-    for (int j = 0; j < C::kStages && j < kend; ++j) load_kv(j);
+    for (int j = 0; j < C::kStages && j < kend; ++j) ld.kv(j);
   }
+  return ld;
+}
+
+// s = q·kᵀ and dp = do·vᵀ into sc and dp (m64nNk16 accumulators) over D
+// in steps of 16, all four operands K-major Box<D> tiles: q and do from
+// box stride qbox, k and v from box stride kbox.
+template <int D, int N>
+__device__ __forceinline__ void dq_scores(float (&sc)[N], float (&dp)[N],
+                                          uint32_t q_addr, uint32_t do_addr,
+                                          uint32_t k_addr, uint32_t v_addr,
+                                          uint32_t qbox, uint32_t kbox) {
+  using B = hop::Box<D>;
+  hop::wgmma_fence();
+#pragma unroll
+  for (int x = 0; x < D / 16; ++x) {
+    const uint32_t at = (x % B::kSteps) * 32;
+    const uint64_t a = hop::desc_box<D>(q_addr + (x / B::kSteps) * qbox + at, 16);
+    const uint64_t b = hop::desc_box<D>(k_addr + (x / B::kSteps) * kbox + at, 16);
+    if (x == 0) {
+      hop::wgmma_ss_first(sc, a, b);
+    } else {
+      hop::wgmma_ss(sc, a, b);
+    }
+  }
+#pragma unroll
+  for (int x = 0; x < D / 16; ++x) {
+    const uint32_t at = (x % B::kSteps) * 32;
+    const uint64_t a = hop::desc_box<D>(do_addr + (x / B::kSteps) * qbox + at, 16);
+    const uint64_t b = hop::desc_box<D>(v_addr + (x / B::kSteps) * kbox + at, 16);
+    if (x == 0) {
+      hop::wgmma_ss_first(dp, a, b);
+    } else {
+      hop::wgmma_ss(dp, a, b);
+    }
+  }
+  hop::wgmma_commit();
+  hop::wgmma_wait<0>();
+  hop::fence_regs(sc);
+  hop::fence_regs(dp);
+}
+
+// ds = exp(s - lse) (dp - delta) in place of dp, for this thread's rows
+// row0 and row1 = row0 + 8 over keys kc0 + [0, 2N) (N / 4 slices of 8,
+// columns cq and cq + 1 of each); ls0/ls1 are the rows' lse·log2(e),
+// dl0/dl1 their delta.  Masked where the block straddles the diagonal or
+// an end.
+template <int N>
+__device__ __forceinline__ void dq_ds(float (&sc)[N], float (&dp)[N],
+                                      bool mask, int row0, int kc0, int cq,
+                                      float ls0, float ls1, float dl0,
+                                      float dl1, int tq, int tk, int causal) {
+  if (mask) {
+#pragma unroll
+    for (int j = 0; j < N / 4; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int kc = kc0 + 8 * j + cq + e;
+        if (masked_out(row0, kc, tq, tk, causal)) sc[4 * j + e] = kNeg;
+        if (masked_out(row0 + 8, kc, tq, tk, causal)) sc[4 * j + 2 + e] = kNeg;
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < N / 4; ++j) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const float p0 =
+          hop::exp2_approx(fmaf(sc[4 * j + e], hop::kLog2e, -ls0));
+      const float p1 =
+          hop::exp2_approx(fmaf(sc[4 * j + 2 + e], hop::kLog2e, -ls1));
+      dp[4 * j + e] = p0 * (dp[4 * j + e] - dl0);
+      dp[4 * j + 2 + e] = p1 * (dp[4 * j + 2 + e] - dl1);
+    }
+  }
+}
+
+// dq · scale as bf16, for this thread's rows (past tq: not stored) and its
+// column pairs of columns [c0, c0 + 2N).
+template <int N>
+__device__ __forceinline__ void dq_store(bf16* dqg, const float (&acc)[N],
+                                         int d, int row0, int c0, int cq,
+                                         int tq, float scale) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = row0 + 8 * h;
+    if (row < tq) {
+#pragma unroll
+      for (int j = 0; j < N / 4; ++j) {
+        *reinterpret_cast<uint32_t*>(dqg + static_cast<size_t>(row) * d +
+                                     c0 + 8 * j + cq) =
+            hop::pack_bf16(acc[4 * j + 2 * h] * scale,
+                           acc[4 * j + 2 * h + 1] * scale);
+      }
+    }
+  }
+}
+
+// D 32, 64, 128: one block of two warpgroups per (bh, 128-row q tile).
+template <int D>
+__device__ __forceinline__ void dq_by_rows(
+    const CUtensorMap* tm_q, const CUtensorMap* tm_k, const CUtensorMap* tm_v,
+    const CUtensorMap* tm_do, const float* lse, const float* delta,
+    bf16* dq, int tq, int tk, int causal, float scale) {
+  using C = HopDq<D>;
+  using B = typename C::B;
+  constexpr int BK = C::BK;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = hop::align_atom(smem_raw);
+
+  const int bh = blockIdx.x;
+  // Heaviest causal q tiles (the last ones) start first, over all heads.
+  // The causal end block holds the tile's last row.  With BK == BQ it
+  // starts at q0, so every visited block reaches both warpgroups' rows;
+  // with 64-key blocks (D 32) the last reaches warpgroup 1's rows only,
+  // and warpgroup 0 skips it.
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * C::BQ;
+  const int nk = (tk + BK - 1) / BK;
+  const int kend = causal ? min(nk, (q0 + C::BQ - BK) / BK + 1) : nk;
+  const DqLoads<C> ld = dq_start<C>(smem, tm_q, tm_k, tm_v, tm_do, q0, kend);
 
   // Warpgroup g owns q rows [q0 + 64g, q0 + 64g + 64).  In the m64nNk16
   // accumulator layout each thread holds rows r0 and r0 + 8, columns
@@ -238,14 +402,14 @@ __global__ void __launch_bounds__(hop::kThreads, 1)
   // delta are two floats each.  Rows past tq read lse and delta as 0:
   // their q and do rows are TMA zeros, so their ds is 0, and their dq is
   // never stored.
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = warp / 4;
   const int r0 = (warp % 4) * 16 + lane / 4;
   const int cq = 2 * (lane % 4);
   const int qw = q0 + 64 * g;
   const int row0 = qw + r0, row1 = row0 + 8;
-  const uint32_t q_addr = hop::smem_u32(smem + C::q) + 64 * g * hop::kRowBytes;
-  const uint32_t do_addr =
-      hop::smem_u32(smem + C::dout) + 64 * g * hop::kRowBytes;
+  const uint32_t q_addr = hop::smem_u32(smem + C::q) + 64 * g * B::kRow;
+  const uint32_t do_addr = hop::smem_u32(smem + C::dout) + 64 * g * B::kRow;
   const float* lg = lse + static_cast<size_t>(bh) * tq;
   const float* dg = delta + static_cast<size_t>(bh) * tq;
   const float ls0 = row0 < tq ? lg[row0] * hop::kLog2e : 0.f;
@@ -256,74 +420,37 @@ __global__ void __launch_bounds__(hop::kThreads, 1)
   float acc[D / 2];  // dq, unscaled
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
-  hop::mbar_wait(qbar, 0);
+  hop::mbar_wait(ld.qbar, 0);
 
+  // The block's stage is free once this warp's products that read it are
+  // done; warp 0 then refills it kStages blocks ahead.
+  auto release = [&](int kb) {
+    __syncwarp();
+    if (lane == 0) hop::mbar_arrive(&ld.empty[kb % C::kStages]);
+    if (warp == 0 && kb + C::kStages < kend) ld.kv(kb + C::kStages);
+  };
   for (int kb = 0; kb < kend; ++kb) {
     const int s = kb % C::kStages;
     const int k0 = kb * BK;
-    hop::mbar_wait(&full[s], (kb / C::kStages) & 1);
+    hop::mbar_wait(&ld.full[s], (kb / C::kStages) & 1);
+    if constexpr (BK < C::BQ) {
+      if (causal && k0 > qw + 63) {
+        // Every key of this block is after every row of this warpgroup.
+        release(kb);
+        continue;
+      }
+    }
     const uint32_t k_addr = hop::smem_u32(smem + C::kv + s * 2 * C::kKBytes);
     const uint32_t v_addr = k_addr + C::kKBytes;
 
-    // s = q·kᵀ and dp = do·vᵀ over D in steps of 16, all K-major.
     float sc[BK / 2], dp[BK / 2];
-    hop::wgmma_fence();
-#pragma unroll
-    for (int x = 0; x < D / 16; ++x) {
-      const uint32_t qcol = (x / 4) * C::kBoxQ + (x % 4) * 32;
-      const uint32_t kcol = (x / 4) * C::kBoxK + (x % 4) * 32;
-      const uint64_t a = hop::desc_sw128(q_addr + qcol, 16, 1024);
-      const uint64_t b = hop::desc_sw128(k_addr + kcol, 16, 1024);
-      if (x == 0) {
-        hop::wgmma_ss_first(sc, a, b);
-      } else {
-        hop::wgmma_ss(sc, a, b);
-      }
-    }
-#pragma unroll
-    for (int x = 0; x < D / 16; ++x) {
-      const uint32_t qcol = (x / 4) * C::kBoxQ + (x % 4) * 32;
-      const uint32_t kcol = (x / 4) * C::kBoxK + (x % 4) * 32;
-      const uint64_t a = hop::desc_sw128(do_addr + qcol, 16, 1024);
-      const uint64_t b = hop::desc_sw128(v_addr + kcol, 16, 1024);
-      if (x == 0) {
-        hop::wgmma_ss_first(dp, a, b);
-      } else {
-        hop::wgmma_ss(dp, a, b);
-      }
-    }
-    hop::wgmma_commit();
-    hop::wgmma_wait<0>();
-    hop::fence_regs(sc);
-    hop::fence_regs(dp);
-
-    if ((causal && k0 + BK - 1 > qw) || k0 + BK > tk) {
-#pragma unroll
-      for (int j = 0; j < BK / 8; ++j) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int kc = k0 + 8 * j + cq + e;
-          if (masked_out(row0, kc, tq, tk, causal)) sc[4 * j + e] = kNeg;
-          if (masked_out(row1, kc, tq, tk, causal)) sc[4 * j + 2 + e] = kNeg;
-        }
-      }
-    }
-    // p = exp(s - lse), then ds = p (dp - delta), in place of dp.
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const float p0 =
-            hop::exp2_approx(fmaf(sc[4 * j + e], hop::kLog2e, -ls0));
-        const float p1 =
-            hop::exp2_approx(fmaf(sc[4 * j + 2 + e], hop::kLog2e, -ls1));
-        dp[4 * j + e] = p0 * (dp[4 * j + e] - dl0);
-        dp[4 * j + 2 + e] = p1 * (dp[4 * j + 2 + e] - dl1);
-      }
-    }
+    dq_scores<D>(sc, dp, q_addr, do_addr, k_addr, v_addr, C::kBoxQ,
+                 C::kBoxK);
+    dq_ds(sc, dp, (causal && k0 + BK - 1 > qw) || k0 + BK > tk, row0, k0,
+          cq, ls0, ls1, dl0, dl1, tq, tk, causal);
 
     // dq += ds·k over the k block in steps of 16 keys: ds from registers,
-    // k MN-major (the next 16 keys are 2048 bytes further).
+    // k MN-major (the next 16 keys are 16 box rows further).
     uint32_t dsa[BK / 4];
     hop::acc_to_a(dp, dsa);
     hop::wgmma_fence();
@@ -331,8 +458,104 @@ __global__ void __launch_bounds__(hop::kThreads, 1)
     for (int x = 0; x < BK / 16; ++x) {
       hop::wgmma_rs(acc, dsa[4 * x], dsa[4 * x + 1], dsa[4 * x + 2],
                     dsa[4 * x + 3],
-                    hop::desc_sw128(k_addr + x * 16 * hop::kRowBytes, C::kBoxK,
-                                    1024));
+                    hop::desc_box<D>(k_addr + x * 16 * B::kRow, C::kBoxK));
+    }
+    hop::wgmma_commit();
+    hop::wgmma_wait<0>();
+    hop::fence_regs(acc);
+    release(kb);
+  }
+
+  dq_store(dq + static_cast<size_t>(bh) * tq * D, acc, D, row0, 0, cq, tq,
+           scale);
+}
+
+// D 256: one block of two warpgroups per (bh, 64-row q tile), dq's
+// columns split (HopDqCols).
+__device__ __forceinline__ void dq_by_cols(
+    const CUtensorMap* tm_q, const CUtensorMap* tm_k, const CUtensorMap* tm_v,
+    const CUtensorMap* tm_do, const float* lse, const float* delta,
+    bf16* dq, int tq, int tk, int causal, float scale) {
+  using C = HopDqCols;
+  using B = C::B;
+  constexpr int D = C::D, BK = C::BK;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = hop::align_atom(smem_raw);
+
+  const int bh = blockIdx.x;
+  // Heaviest causal q tiles first.  BK == BQ: the causal end block is the
+  // diagonal one, and every visited block reaches the tile's rows (no
+  // block is skipped).
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * C::BQ;
+  const int nk = (tk + BK - 1) / BK;
+  const int kend = causal ? min(nk, q0 / BK + 1) : nk;
+  const DqLoads<C> ld = dq_start<C>(smem, tm_q, tm_k, tm_v, tm_do, q0, kend);
+
+  // Both warpgroups hold the tile's 64 q rows (r0 and r0 + 8 of each
+  // thread, as in the m64nNk16 accumulator layout).  Warpgroup g forms s
+  // and dp over keys [32g, 32g + 32) of each k block, and keeps dq over D
+  // columns [128g, 128g + 128).
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = warp / 4;
+  const int r0 = (warp % 4) * 16 + lane / 4;
+  const int cq = 2 * (lane % 4);
+  const int row0 = q0 + r0, row1 = row0 + 8;
+  const uint32_t q_addr = hop::smem_u32(smem + C::q);
+  const uint32_t do_addr = hop::smem_u32(smem + C::dout);
+  const float* lg = lse + static_cast<size_t>(bh) * tq;
+  const float* dg = delta + static_cast<size_t>(bh) * tq;
+  const float ls0 = row0 < tq ? lg[row0] * hop::kLog2e : 0.f;
+  const float ls1 = row1 < tq ? lg[row1] * hop::kLog2e : 0.f;
+  const float dl0 = row0 < tq ? dg[row0] : 0.f;
+  const float dl1 = row1 < tq ? dg[row1] : 0.f;
+
+  float acc[C::kHalf / 2];  // dq over this warpgroup's columns, unscaled
+#pragma unroll
+  for (int i = 0; i < C::kHalf / 2; ++i) acc[i] = 0.f;
+  hop::mbar_wait(ld.qbar, 0);
+
+  for (int kb = 0; kb < kend; ++kb) {
+    const int s = kb % C::kStages;
+    const int k0 = kb * BK;
+    hop::mbar_wait(&ld.full[s], (kb / C::kStages) & 1);
+    const uint32_t k_addr = hop::smem_u32(smem + C::kv + s * 2 * C::kKBytes);
+    const uint32_t v_addr = k_addr + C::kKBytes;
+
+    // s and dp for this warpgroup's 32 keys (k and v rows [32g, 32g + 32)
+    // as B).
+    float sc[C::kKeys / 2], dp[C::kKeys / 2];
+    dq_scores<D>(sc, dp, q_addr, do_addr, k_addr + C::kKeys * g * B::kRow,
+                 v_addr + C::kKeys * g * B::kRow, C::kBoxQ, C::kBoxK);
+    dq_ds(sc, dp, (causal && k0 + BK - 1 > q0) || k0 + BK > tk, row0,
+          k0 + C::kKeys * g, cq, ls0, ls1, dl0, dl1, tq, tk, causal);
+
+    // This block's ds tile: [64 q rows, 64 keys] bf16 rows of 128 bytes,
+    // 16-byte chunk c of row r at chunk c ^ (r % 8) (the 128-byte swizzle
+    // the A descriptors read).  This warpgroup writes its 32 keys.
+    unsigned char* dsbuf = smem + C::ds + (kb % 2) * C::kDsBytes;
+#pragma unroll
+    for (int j = 0; j < C::kKeys / 8; ++j) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = r0 + 8 * h, c = C::kKeys * g + 8 * j + cq;
+        const uint32_t at = r * 128 + (((c >> 3) ^ (r & 7)) << 4) + 2 * (c & 7);
+        *reinterpret_cast<uint32_t*>(dsbuf + at) =
+            hop::pack_bf16(dp[4 * j + 2 * h], dp[4 * j + 2 * h + 1]);
+      }
+    }
+    hop::fence_async_shared();
+    hop::named_sync(1, hop::kThreads);
+
+    // dq += ds·k over this warpgroup's 128 columns, in steps of 16 keys:
+    // ds from shared memory (K-major), k MN-major (boxes 2g and 2g + 1).
+    const uint32_t ds_addr = hop::smem_u32(dsbuf);
+    const uint32_t cols = 2 * g * C::kBoxK;
+    hop::wgmma_fence();
+#pragma unroll
+    for (int t = 0; t < BK / 16; ++t) {
+      hop::wgmma_ss<1>(acc, hop::desc_sw128(ds_addr + 32 * t, 16, 1024),
+                       hop::desc_box<D>(k_addr + cols + t * 16 * B::kRow,
+                                        C::kBoxK));
     }
     hop::wgmma_commit();
     hop::wgmma_wait<0>();
@@ -341,23 +564,31 @@ __global__ void __launch_bounds__(hop::kThreads, 1)
     // The stage is free once this warp's products that read it are done;
     // warp 0 then refills it kStages blocks ahead.
     __syncwarp();
-    if (lane == 0) hop::mbar_arrive(&empty[s]);
-    if (warp == 0 && kb + C::kStages < kend) load_kv(kb + C::kStages);
+    if (lane == 0) hop::mbar_arrive(&ld.empty[s]);
+    if (warp == 0 && kb + C::kStages < kend) ld.kv(kb + C::kStages);
   }
 
-  bf16* dqg = dq + static_cast<size_t>(bh) * tq * D;
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int row = h ? row1 : row0;
-    if (row < tq) {
-#pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
-        *reinterpret_cast<uint32_t*>(dqg + static_cast<size_t>(row) * D +
-                                     8 * j + cq) =
-            hop::pack_bf16(acc[4 * j + 2 * h] * scale,
-                           acc[4 * j + 2 * h + 1] * scale);
-      }
-    }
+  dq_store(dq + static_cast<size_t>(bh) * tq * D, acc, D, row0,
+           C::kHalf * g, cq, tq, scale);
+}
+
+// At D 32 two blocks share an SM: ptxas holds the kernel to 128 registers
+// a thread (left free, it takes 133, one block an SM).
+template <int D>
+__global__ void __launch_bounds__(hop::kThreads, D == 32 ? 2 : 1)
+    flash_dq_hopper(const __grid_constant__ CUtensorMap tm_q,
+                    const __grid_constant__ CUtensorMap tm_k,
+                    const __grid_constant__ CUtensorMap tm_v,
+                    const __grid_constant__ CUtensorMap tm_do,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta, bf16* __restrict__ dq,
+                    int tq, int tk, int causal, float scale) {
+  if constexpr (D == 256) {
+    dq_by_cols(&tm_q, &tm_k, &tm_v, &tm_do, lse, delta, dq, tq, tk, causal,
+               scale);
+  } else {
+    dq_by_rows<D>(&tm_q, &tm_k, &tm_v, &tm_do, lse, delta, dq, tq, tk,
+                  causal, scale);
   }
 }
 
@@ -366,13 +597,14 @@ int launch_dq_hopper(const void* q, const void* k, const void* v,
                      const void* dout, const void* lse, const void* delta,
                      void* dq, int bh, int tq, int tk, int causal, float scale,
                      cudaStream_t stream) {
-  using C = HopDq<D>;
+  using C = HopDqFor<D>;
+  constexpr int kCols = C::B::kCols;
   // The maps hold the tensors' addresses, so they are made on every call.
   CUtensorMap mq, mk, mv, mdo;
-  if (!hop::make_map(&mq, q, D, tq, bh, C::BQ) ||
-      !hop::make_map(&mk, k, D, tk, bh, C::BK) ||
-      !hop::make_map(&mv, v, D, tk, bh, C::BK) ||
-      !hop::make_map(&mdo, dout, D, tq, bh, C::BQ)) {
+  if (!hop::make_map(&mq, q, D, tq, bh, C::BQ, kCols) ||
+      !hop::make_map(&mk, k, D, tk, bh, C::BK, kCols) ||
+      !hop::make_map(&mv, v, D, tk, bh, C::BK, kCols) ||
+      !hop::make_map(&mdo, dout, D, tq, bh, C::BQ, kCols)) {
     return MVT_TMA_REFUSED;
   }
   auto kernel = flash_dq_hopper<D>;
@@ -387,26 +619,31 @@ int launch_dq_hopper(const void* q, const void* k, const void* v,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The design is fixed by (dtype, D) at compile time: bf16 at D 64 and 128
-// runs the Hopper design above; the rest runs the first port's kernel,
-// 64 x 64 tiles except at head dim 256, where the k block halves in bf16
-// and both blocks halve in float32 so the six tiles fit 227 KB.
+// The design is fixed by (dtype, D) at compile time: bf16 runs the Hopper
+// design above at every D; float32 runs the first port's kernel, 64 x 64
+// tiles except at head dim 256, where both blocks halve so the six tiles
+// fit 227 KB.
 template <typename T>
 int dq_for_dim(int d, const void* q, const void* k, const void* v,
                const void* dout, const void* lse, const void* delta,
                void* dq, int bh, int tq, int tk, int causal, float scale,
                cudaStream_t s) {
-  constexpr bool f32 = std::is_same<T, float>::value;
-  switch (d) {
-    case 32: return launch_dq<T, 32, 64, 64>(q, k, v, dout, lse, delta, dq, bh, tq, tk, causal, scale, s);
-    case 64:
-      if constexpr (f32) return launch_dq<T, 64, 64, 64>(q, k, v, dout, lse, delta, dq, bh, tq, tk, causal, scale, s);
-      else return launch_dq_hopper<64>(q, k, v, dout, lse, delta, dq, bh, tq, tk, causal, scale, s);
-    case 128:
-      if constexpr (f32) return launch_dq<T, 128, 64, 64>(q, k, v, dout, lse, delta, dq, bh, tq, tk, causal, scale, s);
-      else return launch_dq_hopper<128>(q, k, v, dout, lse, delta, dq, bh, tq, tk, causal, scale, s);
-    case 256: return launch_dq<T, 256, f32 ? 32 : 64, 32>(q, k, v, dout, lse, delta, dq, bh, tq, tk, causal, scale, s);
-    default: return MVT_UNSUPPORTED;
+  if constexpr (std::is_same<T, float>::value) {
+    switch (d) {
+      case 32: return launch_dq<T, 32, 64, 64>(q, k, v, dout, lse, delta, dq, bh, tq, tk, causal, scale, s);
+      case 64: return launch_dq<T, 64, 64, 64>(q, k, v, dout, lse, delta, dq, bh, tq, tk, causal, scale, s);
+      case 128: return launch_dq<T, 128, 64, 64>(q, k, v, dout, lse, delta, dq, bh, tq, tk, causal, scale, s);
+      case 256: return launch_dq<T, 256, 32, 32>(q, k, v, dout, lse, delta, dq, bh, tq, tk, causal, scale, s);
+      default: return MVT_UNSUPPORTED;
+    }
+  } else {
+    switch (d) {
+      case 32: return launch_dq_hopper<32>(q, k, v, dout, lse, delta, dq, bh, tq, tk, causal, scale, s);
+      case 64: return launch_dq_hopper<64>(q, k, v, dout, lse, delta, dq, bh, tq, tk, causal, scale, s);
+      case 128: return launch_dq_hopper<128>(q, k, v, dout, lse, delta, dq, bh, tq, tk, causal, scale, s);
+      case 256: return launch_dq_hopper<256>(q, k, v, dout, lse, delta, dq, bh, tq, tk, causal, scale, s);
+      default: return MVT_UNSUPPORTED;
+    }
   }
 }
 

@@ -1,8 +1,8 @@
 // Hopper (sm_90a) building blocks of the redesigned flash-attention
-// kernels (bf16: the forward and dk/dv at head dims 32, 64, 128 and 256,
-// dq at 64 and 128): mbarriers, TMA tile loads, and wgmma descriptors and
-// instructions.  Raw PTX through inline asm, so a library builds in
-// seconds with no CUTLASS headers.
+// kernels (all three in bf16 at head dims 32, 64, 128 and 256):
+// mbarriers, TMA tile loads, and wgmma descriptors and instructions.  Raw
+// PTX through inline asm, so a library builds in seconds with no CUTLASS
+// headers.
 //
 // All three kernels run two consumer warpgroups (256 threads) over one
 // ring of shared-memory stages, filled kStages blocks ahead.  The forward

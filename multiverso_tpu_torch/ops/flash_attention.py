@@ -14,12 +14,10 @@ wrapper        CUDA source                     replaces (TPU kernel)
 =============  ==============================  ==========================
 
 Which design a kernel runs is fixed at compile time by (dtype, D): in
-bf16 the forward and dk/dv run the Hopper designs (TMA loads, wgmma with
-register accumulators, shared helpers in ``csrc/hopper.cuh``) at every
-head dim, dq at D 64 and 128; dq in bf16 at D 32 and 256, and all three
-in float32, run the first port's kernels (``csrc/flash_common.cuh``;
-float32 products as FMAs).  Every design puts bh on grid x, so any bh
-launches.
+bf16 all three run the Hopper designs (TMA loads, wgmma with register
+accumulators, shared helpers in ``csrc/hopper.cuh``) at every head dim;
+in float32 they run the first port's kernels (``csrc/flash_common.cuh``;
+products as FMAs).  Every design puts bh on grid x, so any bh launches.
 
 Beside each wrapper sits its plain version (``flash_fwd_ref``,
 ``flash_dq_ref``, ``flash_dkv_ref``): the same function written with

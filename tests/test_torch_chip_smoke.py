@@ -2,9 +2,9 @@
 
 The chip smoke test reads each built library's ``-Xptxas -v`` log and its
 ``cuobjdump -sass`` listing, and fails the run when a library lacks one
-of its bf16 Hopper kernels (the forward and dk/dv at D 32, 64, 128 and
-256, dq at 64 and 128), or one holds no wgmma (HGMMA) or no TMA load
-(UTMALDG), or spills.  Those parsers and that
+of its bf16 Hopper kernels (the forward, dq and dk/dv at D 32, 64, 128
+and 256), or one holds no wgmma (HGMMA) or no TMA load (UTMALDG), or
+spills.  Those parsers and that
 rule are plain Python; here they run on listings in the formats the CUDA
 toolkit prints, with a stand-in ``cuobjdump``.  The tables, lr, rows
 and w2v phases' judges (numpy against the card, card against the CPU,
@@ -209,18 +209,19 @@ def test_build_phase_fails_without_a_hopper_kernel(tmp_path, lib):
         chip_smoke.phase_build(fake, paths, 1.0)
 
 
-@pytest.mark.parametrize("lib", ["flash_fwd", "flash_dkv"])
+@pytest.mark.parametrize("lib", ["flash_fwd", "flash_dkv", "flash_dq"])
 @pytest.mark.parametrize("d", [32, 256])
 def test_build_phase_fails_without_the_d32_or_d256_design(tmp_path, lib, d):
-    """The forward and dk/dv must each hold their Hopper kernel at D 32
-    and D 256 (with wgmma and TMA): a library that lacks one fails."""
+    """The forward, dk/dv and dq must each hold their Hopper kernel at D
+    32 and D 256 (with wgmma and TMA): a library that lacks one fails."""
     fake, paths = _fake_build(tmp_path, _listings(lib, drop=d))
     with pytest.raises(AssertionError, match=rf"{lib}: no Hopper kernel "
                                              rf"at D \[{d}\]"):
         chip_smoke.phase_build(fake, paths, 1.0)
 
 
-@pytest.mark.parametrize("lib,d", [("flash_fwd", 256), ("flash_dkv", 32)])
+@pytest.mark.parametrize("lib,d", [("flash_fwd", 256), ("flash_dkv", 32),
+                                   ("flash_dq", 256), ("flash_dq", 32)])
 def test_build_phase_fails_on_a_spilling_hopper_kernel(tmp_path, lib, d):
     fake, paths = _fake_build(tmp_path, _listings(),
                               spills=_hopper_name(lib, d))

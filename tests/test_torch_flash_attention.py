@@ -70,10 +70,16 @@ def _port_side(x, causal, dtype):
     return {n: a.detach().float().numpy() for n, a in out.items()}
 
 
-@pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("T", [64, 128, 192, 256])
-def test_plain_matches_pallas_f32(T, causal):
-    x = _inputs(T, seed=T + causal)
+# Head dim D (32) at every T, and D 256 (the kernels' other column
+# layouts: the forward's and dq's 128-column halves, dk/dv's split) at T
+# 128; the earlier cases keep their ids.
+@pytest.mark.parametrize("T,causal,d", [
+    pytest.param(T, causal, D, id=f"{T}-{causal}")
+    for T in (64, 128, 192, 256) for causal in (True, False)] + [
+    pytest.param(128, causal, 256, id=f"128-{causal}-d256")
+    for causal in (True, False)])
+def test_plain_matches_pallas_f32(T, causal, d):
+    x = _inputs(T, seed=T + causal, d=d)
     want = _jax_side(x, causal, "float32")
     got = _port_side(x, causal, "float32")
     for name in ("o", "lse"):
@@ -84,9 +90,12 @@ def test_plain_matches_pallas_f32(T, causal):
                                    err_msg=name)
 
 
-@pytest.mark.parametrize("causal", [True, False])
-def test_plain_matches_pallas_bf16(causal):
-    x = _inputs(128, seed=7 + causal)
+@pytest.mark.parametrize("causal,d", [
+    pytest.param(causal, D, id=f"{causal}") for causal in (True, False)] + [
+    pytest.param(causal, 256, id=f"{causal}-d256")
+    for causal in (True, False)])
+def test_plain_matches_pallas_bf16(causal, d):
+    x = _inputs(128, seed=7 + causal, d=d)
     want = _jax_side(x, causal, "bfloat16")
     got = _port_side(x, causal, "bfloat16")
     for name in ("o", "lse", "dq", "dk", "dv"):
@@ -277,15 +286,15 @@ def test_offset_blocks_and_attn_piece_match_jax():
 
 # ------------------------------------------------ the Hopper kernels' schedule
 # Plain-torch models of the block schedules that csrc/flash_fwd.cu,
-# csrc/flash_dq.cu and csrc/flash_dkv.cu run for bf16 (the forward and
-# dk/dv at D 32, 64, 128 and 256, dq at 64 and 128; one block of two
-# 64-row consumer warpgroups per tile), so their index arithmetic is held
-# to the plain versions here, in float32, before it runs on the card:
-# zero-filled tiles past T (what the TMA loads give), the causal start and
-# end blocks, dk/dv's per-warpgroup skip (which dq's 128-key blocks and
-# D 256's 64-row blocks never need), D 256's column split of dk and dv,
-# and masks only on straddling or ragged blocks.  The tiles by D are the
-# kernels' (HopFwd, HopDkv, HopDkvCols).
+# csrc/flash_dq.cu and csrc/flash_dkv.cu run for bf16 (all three at D 32,
+# 64, 128 and 256; one block of two 64-row consumer warpgroups per tile),
+# so their index arithmetic is held to the plain versions here, in
+# float32, before it runs on the card: zero-filled tiles past T (what the
+# TMA loads give), the causal start and end blocks, the per-warpgroup skip
+# of dk/dv and of dq's 64-key blocks at D 32 (which 128-key blocks and D
+# 256's 64-row blocks never need), D 256's column split of dk and dv and
+# of dq, and masks only on straddling or ragged blocks.  The tiles by D
+# are the kernels' (HopFwd, HopDq, HopDqCols, HopDkv, HopDkvCols).
 _NEG = -1e30
 
 
@@ -425,9 +434,10 @@ def _dkv_cols_schedule(qs, k, v, do, lse, delta, causal):
     return dk, dv
 
 
-def _dq_schedule(qs, k, v, do, lse, delta, scale, causal):
-    BQ, BK = 128, 128
+def _dq_schedule(qs, k, v, do, lse, delta, scale, causal, BQ=128, BK=128):
     bh, tq, d = qs.shape
+    if BQ == BK == 64:
+        return _dq_cols_schedule(qs, k, v, do, lse, delta, scale, causal)
     tk = k.shape[1]
     nqt, nk = -(-tq // BQ), -(-tk // BK)
     qp, dop = _pad_rows(qs, nqt * BQ), _pad_rows(do, nqt * BQ)
@@ -438,16 +448,18 @@ def _dq_schedule(qs, k, v, do, lse, delta, scale, causal):
     dq = torch.zeros(bh, tq, d)
     for qt in range(nqt):
         q0 = qt * BQ
-        kend = min(nk, q0 // BK + 1) if causal else nk
+        kend = min(nk, (q0 + BQ - BK) // BK + 1) if causal else nk
         for g in range(2):
             qw = q0 + 64 * g
             rows = torch.arange(qw, qw + 64)
             acc = torch.zeros(bh, 64, d)
             for kb in range(kend):
                 k0 = kb * BK
-                # BK == BQ: every visited block reaches this warpgroup's
-                # rows, so the kernel skips none.
-                assert not (causal and k0 > qw + 63)
+                if causal and k0 > qw + 63:
+                    # Only 64-key blocks (BK < BQ) reach past warpgroup
+                    # 0's rows: the kernel skips the last for it.
+                    assert BK < BQ and g == 0 and kb == kend - 1
+                    continue
                 kt = kp[:, k0:k0 + BK]
                 s = qp[:, qw:qw + 64] @ kt.transpose(1, 2)
                 dp = dop[:, qw:qw + 64] @ vp[:, k0:k0 + BK].transpose(1, 2)
@@ -463,9 +475,58 @@ def _dq_schedule(qs, k, v, do, lse, delta, scale, causal):
     return dq
 
 
-# The kernels' tiles by head dim: (forward BQ, BK), (dk/dv BK, BQ).
-_TILES = {32: ((128, 64), (128, 32)), 64: ((128, 128), (128, 64)),
-          256: ((128, 64), (64, 64))}
+def _dq_cols_schedule(qs, k, v, do, lse, delta, scale, causal):
+    """D 256's dq: one block of 64 q rows shared by both warpgroups;
+    warpgroup g forms s and dp over keys [32g, 32g + 32) of each 64-key
+    block, the two halves meet as one whole ds tile (shared memory on the
+    card), and warpgroup g keeps dq over D columns [d/2·g, d/2·(g + 1))."""
+    BQ = BK = 64
+    bh, tq, d = qs.shape
+    tk = k.shape[1]
+    nqt, nk = -(-tq // BQ), -(-tk // BK)
+    qp, dop = _pad_rows(qs, nqt * BQ), _pad_rows(do, nqt * BQ)
+    kp, vp = _pad_rows(k, nk * BK), _pad_rows(v, nk * BK)
+    lsep = torch.nn.functional.pad(lse, (0, nqt * BQ - tq))
+    dlp = torch.nn.functional.pad(delta, (0, nqt * BQ - tq))
+    dq = torch.zeros(bh, tq, d)
+    half = d // 2
+    for qt in range(nqt):
+        q0 = qt * BQ
+        rows = torch.arange(q0, q0 + BQ)
+        qt_, dot = qp[:, q0:q0 + BQ], dop[:, q0:q0 + BQ]
+        lrow, drow = lsep[:, q0:q0 + BQ, None], dlp[:, q0:q0 + BQ, None]
+        acc = {g: torch.zeros(bh, BQ, half) for g in range(2)}
+        for kb in range(min(nk, q0 // BK + 1) if causal else nk):
+            k0 = kb * BK
+            # BK == BQ: every visited block reaches the tile's rows.
+            assert not (causal and k0 > q0 + BQ - 1)
+            mask = (causal and k0 + BK - 1 > q0) or k0 + BK > tk
+            dss = []
+            for g in range(2):
+                c0 = k0 + 32 * g
+                s = qt_ @ kp[:, c0:c0 + 32].transpose(1, 2)
+                dp = dot @ vp[:, c0:c0 + 32].transpose(1, 2)
+                if mask:
+                    cols = torch.arange(c0, c0 + 32)
+                    out = ((cols[None, :] >= tk) | (rows[:, None] >= tq)
+                           | (causal & (cols[None, :] > rows[:, None])))
+                    s = s.masked_fill(out, _NEG)
+                dss.append(torch.exp(s - lrow) * (dp - drow))
+            ds = torch.cat(dss, -1)
+            for g in range(2):
+                acc[g].add_(ds @ kp[:, k0:k0 + BK, half * g:half * (g + 1)])
+        n = max(0, min(BQ, tq - q0))
+        for g in range(2):
+            dq[:, q0:q0 + n, half * g:half * (g + 1)] = \
+                (acc[g] * scale)[:, :n]
+    return dq
+
+
+# The kernels' tiles by head dim: (forward BQ, BK), (dq BQ, BK), (dk/dv
+# BK, BQ).
+_TILES = {32: ((128, 64), (128, 64), (128, 32)),
+          64: ((128, 128), (128, 128), (128, 64)),
+          256: ((128, 64), (64, 64), (64, 64))}
 _RAGGED = [(130, 130, True), (130, 130, False), (200, 200, True),
            (200, 200, False), (256, 256, True), (40, 136, False)]
 _SCHEDULE_CASES = (
@@ -478,17 +539,18 @@ _SCHEDULE_CASES = (
        for tq, tk, causal in _RAGGED + ([(66, 66, True), (66, 66, False),
                                          (136, 40, False)]
                                         if d == 256 else [])
-       for kern in ("fwd", "dkv")])
+       for kern in ("fwd", "dq", "dkv")])
 
 
 @pytest.mark.parametrize("kernel,tq,tk,causal,d", _SCHEDULE_CASES)
 def test_hopper_schedule_matches_plain(kernel, tq, tk, causal, d):
     """The Hopper kernels' block schedules at their tiles for head dim
     ``d`` (fwd and dq: 128-row q tiles split over two 64-row warpgroups,
-    over 128-row k blocks, or 64-row ones at D 32 and 256; dk/dv: 128-row
-    k blocks over 64-row q blocks, 32-row ones at D 32, or at D 256
-    64-row k blocks with the columns split) against the plain versions,
-    float32, at ragged T."""
+    over 128-row k blocks, or 64-row ones at D 32 and at D 256's
+    forward; dq at D 256: 64-row q tiles over 64-row k blocks with the
+    columns split; dk/dv: 128-row k blocks over 64-row q blocks, 32-row
+    ones at D 32, or at D 256 64-row k blocks with the columns split)
+    against the plain versions, float32, at ragged T."""
     rng = np.random.RandomState(tq + tk + causal + d)
     bh = 2
     q, k, v = (torch.tensor(rng.randn(bh, t, d).astype(np.float32))
@@ -496,7 +558,7 @@ def test_hopper_schedule_matches_plain(kernel, tq, tk, causal, d):
     scale = d ** -0.5
     qs = fa._prescale(q, scale)
     o, lse = fa.flash_fwd_ref(q, k, v, scale, causal)
-    fwd_tiles, dkv_tiles = _TILES.get(d, _TILES[64])
+    fwd_tiles, dq_tiles, dkv_tiles = _TILES.get(d, _TILES[64])
     if kernel == "fwd":
         got, want = _fwd_schedule(qs, k, v, causal, *fwd_tiles), (o, lse)
     else:
@@ -504,7 +566,8 @@ def test_hopper_schedule_matches_plain(kernel, tq, tk, causal, d):
         delta = (do * o).sum(-1) - torch.tensor(
             rng.randn(bh, tq).astype(np.float32))
     if kernel == "dq":
-        got = (_dq_schedule(qs, k, v, do, lse, delta, scale, causal),)
+        got = (_dq_schedule(qs, k, v, do, lse, delta, scale, causal,
+                            *dq_tiles),)
         want = (fa.flash_dq_ref(q, k, v, do, lse, delta, scale, causal),)
     elif kernel == "dkv":
         got = _dkv_schedule(qs, k, v, do, lse, delta, causal, *dkv_tiles)
