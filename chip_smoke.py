@@ -14,8 +14,9 @@ Phases, each printing JSON lines:
              and the SASS counts of HGMMA (wgmma), UTMALDG (TMA loads) and
              LDL/STL (local memory) from ``cuobjdump -sass``.  Each
              library must hold its bf16 Hopper kernels (all three at D
-             32, 64, 128 and 256), each of them with HGMMA and UTMALDG and
-             no bytes spilled.
+             32, 64, 128 and 256), and dq's and dk/dv's their float32
+             plane kernels (D 64 and 128), each of them with HGMMA and
+             UTMALDG and no bytes spilled.
 3. parity  — each kernel against its plain PyTorch version on the card:
              the trainer's attention shape (B=4, H=16, T=2048, D=128, bf16,
              causal, nonzero lse cotangent), small ragged shapes (T=200)
@@ -28,7 +29,13 @@ Phases, each printing JSON lines:
              edges at D 32 and 256 (T=2112 and T=130, and for D 256's
              64-row tiles T=2080 and T=66; Tq≠Tk both ways); and bh 65,600
              at T 64, D 32, causal, in bf16 and float32 (past grid y's
-             65,535).
+             65,535).  The float32 plane design (dq and dk/dv at D 64 and
+             128): the trainer's attention shape in float32 (nonzero lse
+             cotangent), whose dq, dk and dv must also stay within 8x the
+             plain version's largest error against float64; T=2080 (a
+             half-full last 64-row tile), T=66 causal and not (a second
+             tile of 2 rows) and Tq≠Tk both ways at D 64 and 128; T=2064
+             at D 128 (a half-full 32-row block); one head at T=2048.
              Each output is judged by its own dtype: float32 outputs
              (lse, and every output of a float32 case) element by element
              at atol = rtol = 1e-4; bf16 outputs by their error relative
@@ -68,16 +75,21 @@ Phases, each printing JSON lines:
              against one ``accum=1`` step from the same weights (loss and
              every parameter's change within 2e-2), and the kernels at
              its attention shape (D 64): parity and timing as above.
-   headdims — the Hopper designs at D 256 and D 32 on the trainer's path:
-             transformer_large's widths with 8 heads of 256 (the
-             trainer's masters, bf16, SGD, no remat, batch 4, seq 2048)
-             and bench_transformer's with 16 heads of 32 (batch 8, seq
-             2048), 5 steps each (finite, falling losses, every kernel
-             launched once a layer and step), the kernels at [4, 8, 2048,
-             256] and [8, 16, 2048, 32] against their plain versions and
+   headdims — the Hopper designs at D 256 and D 32 and the float32 plane
+             design on the trainer's path: transformer_large's widths with
+             8 heads of 256 (the trainer's masters, bf16, SGD, no remat,
+             batch 4, seq 2048), bench_transformer's with 16 heads of 32
+             (batch 8, seq 2048), and transformer_large in float32 (16
+             heads of 128, the same masters and batch), 5 steps each
+             (finite, falling losses, every kernel launched once a layer
+             and step), the kernels at [4, 8, 2048, 256], [8, 16, 2048,
+             32] and [4, 16, 2048, 128] float32 against their plain
+             versions (float32 also against float64, as in parity) and
              timed (beside each bound the exp unit's: one exp a kept
-             score at 16 a clock an SM), and the float32 kernels at [4, 16, 2048, 128] (bounds at the
-             card's FP32 and TF32 rates).
+             score at 16 a clock an SM; float32 dq and dk/dv bound at six
+             bf16 products a product with the split's profiled share,
+             the float32 forward at the card's FP32 rate, FP32 and TF32
+             bounds beside).
    moe     — bench_moe (vocab 16384, dim 1024, 8 layers, 8 heads, hidden
              2816, 8 experts, top-2, capacity factor 1.25, full remat,
              batch 8, seq 1024): 5 steps with each dispatch from one draw
@@ -478,11 +490,10 @@ SMALL_BATCH, SMALL_SEQ = 8, 2048
 # The headdims phase: the head dims outside bench.py's configs (64, 128)
 # that the Hopper designs cover, at full width: transformer_large's widths
 # in 8 heads of 256 (Gemma 7B's head dim) and bench_transformer's in 16
-# heads of 32.
+# heads of 32; and transformer_large in float32 (the plane design at the
+# trainer's attention shape).
 WIDE_HEADS = 8
 NARROW = dict(SMALL, n_heads=16)
-# The float32 kernels' row: the trainer's attention shape.
-F32_SHAPE = (BATCH, HEADS, SEQ, HEAD_DIM)
 MOE = dict(vocab_size=16384, dim=1024, n_layers=8, n_heads=8, hidden=2816,
            num_experts=8, top_k=2, capacity_factor=1.25, remat=True)
 MOE_BATCH, MOE_SEQ = 8, 1024
@@ -623,6 +634,10 @@ PLANES_STEPS = 300
 PLANES_ORDER = (False, True, True, False) * 2
 
 F32_TOL = 1e-4   # float32 outputs: every element within atol + rtol·|want|
+# The float32 plane design's largest error against float64, at most this
+# many times the plain float32 version's (one bf16 piece fewer, or TF32,
+# would miss it by far: their errors are of order 2^-16 and 2^-11).
+F32_F64_RATIO = 8.0
 BF16_TOL = 1e-2  # bf16 outputs: max and L2 error relative to the scale
 KERNELS = {
     "flash_fwd": ("multiverso_tpu_torch/ops/csrc/flash_fwd.cu",
@@ -631,6 +646,23 @@ KERNELS = {
                  "multiverso_tpu/ops/flash_attention.py:138"),
     "flash_dkv": ("multiverso_tpu_torch/ops/csrc/flash_dkv.cu",
                   "multiverso_tpu/ops/flash_attention.py:184"),
+}
+
+
+# Which kernel each (dtype, head dim) launches (dq_for_dim, dkv_for_dim
+# and fwd_for_dim in the sources).
+KERNEL_DESIGNS = {
+    "flash_fwd": {"bfloat16 D 32, 64, 128, 256": "flash_fwd_hopper<D>",
+                  "float32 D 32, 64, 128, 256":
+                      "flash_fwd_kernel (FMA products)"},
+    "flash_dq": {"bfloat16 D 32, 64, 128, 256": "flash_dq_hopper<D>",
+                 "float32 D 64, 128": "flash_dq_hopper_f32<D> (three bf16 "
+                                      "planes, six wgmma products)",
+                 "float32 D 32, 256": "flash_dq_kernel (FMA products)"},
+    "flash_dkv": {"bfloat16 D 32, 64, 128, 256": "flash_dkv_hopper<D>",
+                  "float32 D 64, 128": "flash_dkv_hopper_f32<D> (three "
+                                       "bf16 planes, six wgmma products)",
+                  "float32 D 32, 256": "flash_dkv_kernel (FMA products)"},
 }
 
 
@@ -797,26 +829,32 @@ def sass_counts(sass_text):
 HOPPER_DIMS = {"flash_fwd": (32, 64, 128, 256),
                "flash_dq": (32, 64, 128, 256),
                "flash_dkv": (32, 64, 128, 256)}
+# The float32 plane design's kernels (six bf16 products a product).
+HOPPER_F32_DIMS = {"flash_fwd": (), "flash_dq": (64, 128),
+                   "flash_dkv": (64, 128)}
 
 
-def hopper_dim(kname, name):
+def hopper_dim(kname, name, suffix=""):
     """The head dim of ``kname``'s Hopper kernel ``name`` (demangled, or
-    mangled where c++filt is missing), or None for another kernel."""
-    m = (re.search(rf"{kname}_hopper<(\d+)>", name)
-         or re.search(rf"{kname}_hopperILi(\d+)EE", name))
+    mangled where c++filt is missing; ``suffix`` "_f32" for the float32
+    plane design's), or None for another kernel."""
+    m = (re.search(rf"{kname}_hopper{suffix}<(\d+)>", name)
+         or re.search(rf"{kname}_hopper{suffix}ILi(\d+)EE", name))
     return int(m.group(1)) if m else None
 
 
 def judge_build(libs):
     """The failures of a build report: a library missing one of its
-    HOPPER_DIMS kernels, or a Hopper kernel without HGMMA or UTMALDG in
-    its SASS, or with bytes spilled."""
+    HOPPER_DIMS or HOPPER_F32_DIMS kernels, or a Hopper kernel without
+    HGMMA or UTMALDG in its SASS, or with bytes spilled."""
     bad = []
     for kname, lib in libs.items():
-        found = {hopper_dim(kname, n) for n in lib["kernels"]}
-        missing = [d for d in HOPPER_DIMS[kname] if d not in found]
-        if missing:
-            bad.append(f"{kname}: no Hopper kernel at D {missing}")
+        for suffix, dims in (("", HOPPER_DIMS), ("_f32", HOPPER_F32_DIMS)):
+            found = {hopper_dim(kname, n, suffix) for n in lib["kernels"]}
+            missing = [d for d in dims[kname] if d not in found]
+            if missing:
+                bad.append(f"{kname}: no Hopper{suffix} kernel at D "
+                           f"{missing}")
         for n, c in lib["kernels"].items():
             if "_hopper" not in n:
                 continue
@@ -831,7 +869,8 @@ def phase_build(_build, paths, build_s):
     """Per kernel of each library: ptxas registers and spill bytes, and
     the SASS counts of wgmma (HGMMA), TMA loads (UTMALDG) and local-memory
     traffic (LDL/STL).  Every library must hold its bf16 Hopper kernels
-    (HOPPER_DIMS), and each of them HGMMA and UTMALDG and no spills."""
+    (HOPPER_DIMS) and float32 plane kernels (HOPPER_F32_DIMS), and each of
+    them HGMMA and UTMALDG and no spills."""
     cuobjdump = os.path.join(os.path.dirname(_build.nvcc_path()),
                              "cuobjdump")
     libs = {}
@@ -861,9 +900,54 @@ def phase_build(_build, paths, build_s):
         raise AssertionError("build phase: " + "; ".join(bad))
 
 
-def parity_case(fa, torch, bh, t, tk, d, dtype, causal, tag, seed):
+def f64_backward(torch, x, saved, causal, heads=8):
+    """dq, dk and dv in float64 of the function the float32 kernels and
+    their plain versions compute: the same float32 operands (q pre-scaled
+    in float32) and the same saved (lse, delta), ``heads`` heads at a
+    time."""
+    q, k, v, do = x["q"], x["k"], x["v"], x["do"]
+    scale = q.shape[-1] ** -0.5
+    out = {n: [] for n in ("dq", "dk", "dv")}
+    for h0 in range(0, q.shape[0], heads):
+        hs = slice(h0, h0 + heads)
+        qs = (q[hs].float() * scale).double()
+        kd, vd, dod = k[hs].double(), v[hs].double(), do[hs].double()
+        s = qs @ kd.transpose(1, 2)
+        if causal:
+            keep = torch.ones(s.shape[1:], dtype=torch.bool,
+                              device=s.device).tril()
+            s = s.masked_fill(~keep, -math.inf)
+        p = torch.exp(s - saved[0][hs].double()[..., None])
+        ds = p * (dod @ vd.transpose(1, 2)
+                  - saved[1][hs].double()[..., None])
+        out["dq"].append(ds @ kd * scale)
+        out["dk"].append(ds.transpose(1, 2) @ qs)
+        out["dv"].append(p.transpose(1, 2) @ dod)
+        del s, p, ds
+    return {n: torch.cat(a) for n, a in out.items()}
+
+
+def f64_errors(got, want, ref):
+    """Per backward output, the largest absolute error of the kernel
+    (``got``) and of the plain version (``want``) against the float64
+    ``ref``, and whether the kernel's is within F32_F64_RATIO of the
+    plain version's."""
+    out, ok = {}, True
+    for n, r in ref.items():
+        ek = float((got[n].double() - r).abs().max())
+        ep = float((want[n].double() - r).abs().max())
+        out[n] = {"kernel": ek, "plain": ep,
+                  "ratio": ek / ep if ep > 0 else math.inf}
+        ok = ok and ek <= F32_F64_RATIO * ep
+    return out, ok
+
+
+def parity_case(fa, torch, bh, t, tk, d, dtype, causal, tag, seed,
+                f64=False):
     """One case of the three kernels against their plain versions:
-    (result line, inputs, plain outputs)."""
+    (result line, inputs, plain outputs).  With ``f64`` (float32), the
+    backward's errors of kernel and plain version against float64 too,
+    the kernel's held within F32_F64_RATIO of the plain version's."""
     x = attn_inputs(bh, t, d, dtype, seed=seed, tk=tk)
     o_ref, lse_ref = fa.flash_fwd_ref(x["q"], x["k"], x["v"], d ** -0.5,
                                       causal)
@@ -873,9 +957,16 @@ def parity_case(fa, torch, bh, t, tk, d, dtype, causal, tag, seed):
     want = run_three(fa, x, causal, True, saved)
     torch.cuda.synchronize()
     errs, ok = compare(got, want)
-    return ({"case": tag, "bh": bh, "T": t, "Tk": tk, "D": d,
-             "dtype": str(dtype).split(".")[-1], "causal": causal,
-             "ok": ok, "errors": errs}, x, want)
+    result = {"case": tag, "bh": bh, "T": t, "Tk": tk, "D": d,
+              "dtype": str(dtype).split(".")[-1], "causal": causal,
+              "ok": ok, "errors": errs}
+    if f64:
+        result["f64"], f64_ok = f64_errors(
+            got, want, f64_backward(torch, x, saved, causal))
+        result["f64_ratio_max"] = F32_F64_RATIO
+        result["ok"] = ok and f64_ok
+        torch.cuda.empty_cache()
+    return result, x, want
 
 
 def kernel_errors(errs):
@@ -909,6 +1000,26 @@ def edge_cases(torch):
     return cases
 
 
+def f32_cases(torch):
+    """The parity phase's cases for the float32 plane design (dq and dk/dv
+    at D 64 and 128): the trainer's full attention shape with the lse
+    cotangent (and the float64 gate), the 64-row tiles' edges (a
+    half-full last tile, a second tile of 2 rows), D 128's 32-row blocks'
+    half-full last block, one head, and Tq≠Tk both ways."""
+    f32 = torch.float32
+    cases = [(BATCH * HEADS, SEQ, SEQ, HEAD_DIM, f32, True,
+              "full_width_f32")]
+    for d in (64, 128):
+        cases.append((4, SEQ + 32, SEQ + 32, d, f32, True, "half_tile"))
+        for causal in (True, False):
+            cases.append((3, 66, 66, d, f32, causal, "two_row_tile"))
+        for t, tk in ((40, 136), (136, 40)):
+            cases.append((3, t, tk, d, f32, False, "cross_length"))
+    cases.append((2, SEQ + 16, SEQ + 16, HEAD_DIM, f32, True, "half_block"))
+    cases.append((1, SEQ, SEQ, HEAD_DIM, f32, True, "one_head"))
+    return cases
+
+
 def phase_parity(fa, torch):
     results, full_err, faults = [], {}, []
     cases = [(BATCH * HEADS, SEQ, SEQ, HEAD_DIM, torch.bfloat16, True,
@@ -935,10 +1046,11 @@ def phase_parity(fa, torch):
             cases.append((3, 130, 130, d, torch.bfloat16, causal,
                           "two_row_tile"))
     cases.append((1, SEQ, SEQ, HEAD_DIM, torch.bfloat16, True, "one_head"))
-    cases += edge_cases(torch)
+    cases += edge_cases(torch) + f32_cases(torch)
     for i, (bh, t, tk, d, dtype, causal, tag) in enumerate(cases):
         result, x, want = parity_case(fa, torch, bh, t, tk, d, dtype,
-                                      causal, tag, seed=100 + i)
+                                      causal, tag, seed=100 + i,
+                                      f64=tag == "full_width_f32")
         results.append(result)
         if tag == "full_width":
             full_err = kernel_errors(result["errors"])
@@ -969,14 +1081,16 @@ def large_host(torch):
     return host, time.perf_counter() - t0
 
 
-def large_config(torch, heads=HEADS, **kw):
-    """bench_transformer_large's model (bench.py:1468-1469) in bf16; its
-    dim 2048 in ``heads`` heads (16 of 128 in bench.py)."""
+def large_config(torch, heads=HEADS, dtype=None, **kw):
+    """bench_transformer_large's model (bench.py:1468-1469) in bf16 (or
+    ``dtype``); its dim 2048 in ``heads`` heads (16 of 128 in
+    bench.py)."""
     from multiverso_tpu_torch.models import TransformerConfig
 
     return TransformerConfig(vocab_size=32768, dim=HEADS * HEAD_DIM,
                              n_layers=LAYERS, n_heads=heads, hidden=5632,
-                             max_seq=SEQ, compute_dtype=torch.bfloat16, **kw)
+                             max_seq=SEQ,
+                             compute_dtype=dtype or torch.bfloat16, **kw)
 
 
 def expected_launches(remat_policy, layers, steps):
@@ -1209,22 +1323,27 @@ def phase_small(args, torch, fa, mv, card):
 
 
 def phase_headdims(args, torch, fa, mv, card, host):
-    """The D 256 and D 32 Hopper designs on the trainer's path: five steps
-    of transformer_large's widths in 8 heads of 256 (from the trainer's
-    float32 masters: the head count changes no parameter's shape) and of
-    bench_transformer's in 16 heads of 32, each held by ``run_ok``; the
-    kernels at each run's attention shape against their plain versions
-    and timed; and the float32 kernels timed at the trainer's attention shape.  Returns each path's
-    entry for the kernels line."""
+    """The D 256 and D 32 Hopper designs and the float32 plane design on
+    the trainer's path: five steps of transformer_large's widths in 8
+    heads of 256 (from the trainer's float32 masters: the head count
+    changes no parameter's shape), of bench_transformer's in 16 heads of
+    32, and of transformer_large in float32 (16 heads of 128, from the
+    same masters), each held by ``run_ok``; the kernels at each run's
+    attention shape against their plain versions (in float32 also
+    against float64, F32_F64_RATIO) and timed.  Returns each path's entry
+    for the kernels line."""
     from multiverso_tpu_torch.models import TransformerConfig, init_params
 
     narrow = TransformerConfig(**NARROW, max_seq=SMALL_SEQ,
                                compute_dtype=torch.bfloat16)
     runs = (("headdims_d256", large_config(torch, heads=WIDE_HEADS), host,
              BATCH, SEQ, 610),
-            ("headdims_d32", narrow, None, SMALL_BATCH, SMALL_SEQ, 620))
+            ("headdims_d32", narrow, None, SMALL_BATCH, SMALL_SEQ, 620),
+            ("headdims_f32", large_config(torch, dtype=torch.float32), host,
+             BATCH, SEQ, 630))
     entries, failed = {}, []
     for path, cfg, masters, batch, seq, seed in runs:
+        dtype = cfg.compute_dtype
         if masters is None:
             masters = init_params(cfg, seed=0)
         tokens = torch.randint(0, cfg.vocab_size, (batch, seq),
@@ -1233,28 +1352,25 @@ def phase_headdims(args, torch, fa, mv, card, host):
         del tr, masters
         torch.cuda.empty_cache()
         d, heads = cfg.head_dim, cfg.n_heads
+        f32 = dtype == torch.float32
         parity, _, _ = parity_case(fa, torch, batch * heads, seq, seq, d,
-                                   torch.bfloat16, True, path, seed=seed)
+                                   dtype, True, path, seed=seed, f64=f32)
         torch.cuda.empty_cache()
-        times = kernel_times(fa, torch, batch, heads, seq, d)
+        times = kernel_times(fa, torch, batch, heads, seq, d, dtype=dtype)
         ok = run_ok(run, args.steps) and parity["ok"]
         emit({"phase": "headdims", "ok": ok, "path": path, "dim": cfg.dim,
               "n_heads": heads, "head_dim": d, "hidden": cfg.hidden,
-              "vocab": cfg.vocab_size, **run, "kernel_parity": parity,
-              "kernel_times": times, "card": card})
+              "vocab": cfg.vocab_size, "dtype": str(dtype).split(".")[-1],
+              **run, "kernel_parity": parity, "kernel_times": times,
+              "card": card})
         if not ok:
             failed.append(f"{path}: losses {run['losses']}, launches "
                           f"{run['launch_counts']}, kernel parity "
                           f"{parity['ok']}")
         entries[path] = {"launches": run["launch_counts"],
                          "errors": kernel_errors(parity["errors"]),
-                         "times": times, "shape": [batch, heads, seq, d]}
-    f32 = kernel_times(fa, torch, *F32_SHAPE, dtype=torch.float32)
-    emit({"phase": "headdims", "ok": True, "path": "float32",
-          "shape": list(F32_SHAPE), "dtype": "float32", "causal": True,
-          "kernel_times": f32, "card": card})
-    entries["headdims_f32"] = {"times": f32, "shape": list(F32_SHAPE),
-                               "dtype": "float32"}
+                         "times": times, "shape": [batch, heads, seq, d],
+                         **({"dtype": "float32"} if f32 else {})}
     if failed:
         raise AssertionError("headdims phase failed: " + "; ".join(failed))
     return entries
@@ -2772,6 +2888,37 @@ def library_bwd(torch, q4, k4, v4, do4, causal, scale):
         offset, scale=scale)
 
 
+# The flops a second a kernel's bound is taken at: the tensor cores' bf16
+# rate for bf16, a sixth of it for the float32 plane design (six bf16
+# products a product), the card's FP32 rate for the first port's float32
+# FMA kernels.
+RATES = {"bf16": PEAK_BF16_FLOPS, "bf16x6": PEAK_BF16_FLOPS / 6,
+         "fp32": PEAK_FP32_FLOPS}
+
+
+def split_share(torch, fn, calls=3, profile=None):
+    """The float32 plane design's split (``flash_split3``, four launches
+    a call) inside ``fn``: its device ms a call and its share of the
+    call's device time, from torch.profiler over ``calls`` calls, with
+    the device ms a call the profile saw (``profiled_ms``: below the
+    call's CUDA-event time where the profile lost kernels)."""
+    prof = (profile or profile_calls)(torch, fn, calls, top=20)
+    split = sum(k["ms"] for k in prof["top_kernels"]
+                if "flash_split3" in k["name"])
+    return {"split_ms": split / calls,
+            "split_share": split / prof["device_busy_ms"],
+            "profiled_ms": prof["device_busy_ms"] / calls}
+
+
+def bound_rate(name, dtype, d, torch) -> str:
+    """Which of RATES bounds kernel ``name`` at ``dtype`` and head dim
+    ``d`` (the design dq_for_dim and dkv_for_dim launch: a head dim in
+    (32, 128] runs at D 64 or 128, padded)."""
+    if dtype != torch.float32:
+        return "bf16"
+    return "bf16x6" if name != "flash_fwd" and 32 < d <= 128 else "fp32"
+
+
 def kernel_times(fa, torch, B, H, T, D, plain_bh=None, tk=None,
                  causal=True, dtype=None):
     """Each kernel alone on operands prepared as the trainer's attention
@@ -2780,8 +2927,11 @@ def kernel_times(fa, torch, B, H, T, D, plain_bh=None, tk=None,
     version (on the first ``plain_bh`` heads where given: the plain
     versions hold [bh, T, tk] float32 scores), its bound, the exp unit's
     bound (one exp a kept score) and the library call that computes the
-    same function.  A float32 kernel's bound is taken at the card's FP32
-    rate (its products are FMAs), with the TF32 rate's beside it."""
+    same function.  A float32 kernel's bound is taken at the rate of the
+    design it runs: dq and dk/dv at D 64 and 128 (the plane design) as six
+    times their flops at the bf16 rate, every other float32 kernel at the
+    card's FP32 rate (its products are FMAs); the FP32 and TF32 bounds
+    stand beside it."""
     import torch.nn.functional as F
 
     dtype = dtype or torch.bfloat16
@@ -2814,11 +2964,11 @@ def kernel_times(fa, torch, B, H, T, D, plain_bh=None, tk=None,
     lib_bwd_ms = cuda_ms(library_bwd(torch, q4, k4, v4, do4, causal, scale))
     pairs = T * (T + 1) // 2 if causal else T * tk
     exp_ms = pairs * bh / PEAK_EX2_PER_S * 1e3
-    peak = PEAK_FP32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS
     out = {}
     for name, (kern, plain) in calls.items():
         flops, nbytes = work[name]
-        t_ops = flops / peak * 1e3
+        rate = bound_rate(name, dtype, D, torch)
+        t_ops = flops / RATES[rate] * 1e3
         t_mem = nbytes / PEAK_HBM_BYTES * 1e3
         ms = cuda_ms(kern)
         out[name] = {
@@ -2830,8 +2980,13 @@ def kernel_times(fa, torch, B, H, T, D, plain_bh=None, tk=None,
             "tflops": flops / (ms * 1e-3) / 1e12,
             "flops": flops, "bytes": nbytes,
             "library_ms": lib_fwd_ms if name == "flash_fwd" else lib_bwd_ms,
+            "bound_rate": rate,
         }
+        if rate == "bf16x6":
+            out[name].update(split_share(torch, kern))
         if dtype == torch.float32:
+            out[name]["bound_ms_fp32"] = max(
+                flops / PEAK_FP32_FLOPS * 1e3, t_mem)
             out[name]["bound_ms_tf32"] = max(
                 flops / PEAK_TF32_FLOPS * 1e3, t_mem)
         if pb != bh:
@@ -5574,9 +5729,13 @@ def serve_ops_demo(timeout=NATIVE_TIMEOUT_S):
             with OpsClient(fleet.eps[0], timeout=15) as c:
                 health = c.health(fleet=True)
                 values, exemplars = c.metrics(fleet=True)
-            for t in tools.values():
+            # One view at a time: a rank aggregates at most
+            # -ops_inflight_max (4) fleet queries at once and answers the
+            # rest with a busy document, which renders no rows.
+            views = {}
+            for kind, t in tools.items():
                 t.go()
-            views = {kind: t.finish() for kind, t in tools.items()}
+                views[kind] = t.finish()
             for r in range(2):
                 fleet.send(r, "")
             outs = fleet.finish(lambda r: f"OPS_WORKER_OK {r}", timeout)
@@ -5963,11 +6122,23 @@ def apply_counts(doctors, latencies):
                 [f["dominant_stage"] == "apply" for f in latencies])}
 
 
+def falsy_checks(checks):
+    """The names of the checks in ``checks`` (nested dicts of booleans)
+    that did not pass, as dotted paths."""
+    out = []
+    for k, v in (checks or {}).items():
+        if isinstance(v, dict):
+            out += [f"{k}.{sub}" for sub in falsy_checks(v)]
+        elif not v:
+            out.append(k)
+    return out
+
+
 def phase_serve(card, build, demo_repeats=1):
     """The serve phase (see the module docstring) at the sizes ``SERVE``
     and ``SERVE_DEMO``; ``build`` is ``start_native_build``'s.  Every
     part runs and prints its line; the phase raises at its end naming
-    each part that failed.  ``demo_repeats`` > 1 runs the doctor and
+    each part that failed and its failed checks.  ``demo_repeats`` > 1 runs the doctor and
     latency demos that many times in all and prints how often each
     named ``apply`` (``apply_counts``)."""
     import shutil
@@ -5986,7 +6157,7 @@ def phase_serve(card, build, demo_repeats=1):
     emit({"phase": "serve", "check": "host", "host_cpus": os.cpu_count(),
           "rlimit_nofile": {"soft": soft, "hard": hard, "soft_now": raised},
           "uring_supported": uring, "luajit": luajit, "card": card})
-    failed, recorded = [], {}
+    failed, recorded, why = [], {}, {}
 
     def part(name, run):
         t0 = time.perf_counter()
@@ -6002,6 +6173,7 @@ def phase_serve(card, build, demo_repeats=1):
         emit({"phase": "serve", "check": name, **rec})
         if not rec["ok"]:
             failed.append(name)
+            why[name] = rec.get("error") or falsy_checks(rec.get("checks"))
 
     def fanin(clients, inflight, chaos=0, engine="epoll", prefix="fanin_"):
         keys, _ = serve_fanin(clients, inflight, chaos, "", engine, timeout)
@@ -6138,7 +6310,9 @@ def phase_serve(card, build, demo_repeats=1):
                                     for k, bar in SERVE_BARS.items()},
           "serve_seconds": time.perf_counter() - t_phase, "card": card})
     if failed:
-        raise AssertionError(f"serve phase failed: {failed}")
+        # The failed checks go into the message: a caller that keeps
+        # only the end of stderr still learns why.
+        raise AssertionError(f"serve phase failed: {why}")
 
 
 def main(argv) -> int:
@@ -6270,6 +6444,7 @@ def main(argv) -> int:
         })
         if "library_covers" in t:
             kernels[-1]["library_covers"] = t["library_covers"]
+        kernels[-1]["designs"] = KERNEL_DESIGNS[kname]
     emit({"kernels": kernels})
     print(smi, flush=True)
     skipped = [p for p in PHASES if p not in phases]

@@ -7,13 +7,17 @@
 //   PRE-SCALED by the softmax scale; lse and delta are [bh, T] float.
 //   Scores, softmax statistics and accumulators are float32.
 //
-// Design of the first port's kernels, which every float32 launch runs
-// (every bf16 launch runs the Hopper designs of hopper.cuh): one thread
+// Design of the first port's kernels, which the float32 forward at every
+// head dim and float32 dq and dk/dv at D 32 and 256 run (every bf16
+// launch runs the Hopper designs of hopper.cuh, and float32 dq and dk/dv
+// at D 64 and 128 the bf16-plane design of hopper_f32.cuh): one thread
 // block of kThreads threads per (bh, row block), bh on grid x.  Every
 // operand tile is staged in shared memory with a padded leading
 // dimension; every product reads its operands from shared memory and
 // accumulates in float32 shared memory as plain FMAs, so float32 results
-// keep full float32 precision (no TF32).
+// keep full float32 precision (no TF32).  Bound by shared memory: two
+// 4-byte loads an FMA against 128 bytes a clock, at most 12.5% of the
+// card's FP32 rate.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -189,12 +193,18 @@ inline cudaError_t allow_smem(Kernel kernel, size_t bytes, bool* done) {
 #define MVT_UNSUPPORTED (-1)
 // Return code for a TMA descriptor the driver refused (hopper.cuh).
 #define MVT_TMA_REFUSED (-2)
+// Return code for a float32 launch given no scratch for its bf16 planes
+// (hopper_f32.cuh).
+#define MVT_NO_SCRATCH (-3)
 
 extern "C" const char* mvt_error_string(int code) {
   if (code == MVT_UNSUPPORTED) return "unsupported dtype or head dim";
   if (code == MVT_TMA_REFUSED) {
     return "TMA descriptor refused (pointer not 16-byte aligned or shape "
            "out of range)";
+  }
+  if (code == MVT_NO_SCRATCH) {
+    return "float32 launch given no scratch for its bf16 planes";
   }
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

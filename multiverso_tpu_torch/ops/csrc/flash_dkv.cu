@@ -14,8 +14,10 @@
 //
 // Bound on an H100: four tile products per visited block, tensor-core
 // bound at the trainer's shapes (at head dim 32 the exp of each score
-// costs about as much as its 8·32 flops).  Two designs, chosen at compile
-// time by dtype in dkv_for_dim:
+// costs about as much as its 8·32 flops); in float32 at D 64 and 128 six
+// bf16 products a product, so six times the flops at the bf16 rate
+// (0.8342 ms at [4, 16, 2048, 128], causal).  Three designs, chosen at
+// compile time by (dtype, D) in dkv_for_dim:
 //
 // * bf16 at every D (flash_dkv_hopper): k-stationary with transposed
 //   scores, accumulators in registers, both operands of every product
@@ -35,11 +37,23 @@
 //     a thread, so one block per (bh, 64-row k block) splits their
 //     columns between the two warpgroups, each forming half the q block's
 //     pᵀ and dsᵀ and sharing them through shared memory (HopDkvCols).
-// * float32 at every D (flash_dkv_kernel): the first port's design,
+// * float32 at D 64 and 128 (flash_dkv_hopper_f32, hopper_f32.cuh): q,
+//   k, v and do split into three bf16 planes (hi, mid, lo) by
+//   flash_split3, an elementwise kernel that replaces no TPU kernel, into
+//   the wrapper's scratch; every product runs as six bf16 wgmma products
+//   into float32 accumulators (a0b0 + a0b1 + a1b0 + a0b2 + a1b1 + a2b0;
+//   the terms left out are of order 2^-24 of the product), pᵀ and dsᵀ
+//   split in registers as the A operands of dv += pᵀ·do and dk += dsᵀ·q.
+//   Planes take 6 bytes an element, so one 64-row k block is shared by
+//   both warpgroups, which take every other q block from a one-stage
+//   ring each and sum their partial dk and dv once at the end (F32Dkv:
+//   192 KB of shared memory at D 128, 144 KB at D 64).
+// * float32 at D 32 and 256 (flash_dkv_kernel): the first port's design,
 //   operands and both accumulators in shared memory, products as plain
 //   FMAs.
 #include "flash_common.cuh"
 #include "hopper.cuh"
+#include "hopper_f32.cuh"
 
 namespace mvt {
 
@@ -704,21 +718,272 @@ int launch_dkv_hopper(const void* q, const void* k, const void* v,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------- float32 Hopper design
+// D 64 and 128 (hopper_f32.cuh): q, k, v and do as three bf16 planes,
+// every product six wgmma products.  One block per (bh, 64-row k block);
+// both warpgroups share its k and v planes and split the q blocks,
+// warpgroup g taking blocks qstart + g, qstart + g + 2, ... from a ring
+// of its own (kStages stages of q and do planes with their lse and delta
+// rows, refilled by its first warp), and each keeps partial dk and dv of
+// all 64 rows in registers.  Their sums meet once, after the loop, in
+// shared memory.  Per block, sᵀ = k·qᵀ and dpᵀ = v·doᵀ by wgmma from
+// shared memory, pᵀ and dsᵀ in registers, each split into three planes as
+// the register A of dv += pᵀ·do and dk += dsᵀ·q (do and q MN-major).
+// Shared memory, k and v planes plus each warpgroup's stage of q and do
+// planes: D 128, 32-row q blocks: 96 KB + 2 x 48 KB = 192 KB; D 64,
+// 64-row q blocks: 48 KB + 2 x 48 KB = 144 KB (232,448 the cap).
+template <int D>
+struct F32Dkv {
+  using B = hop::Box<D>;
+  static constexpr int BK = 64, BQ = D == 128 ? 32 : 64, kStages = 1;
+  static constexpr uint32_t kBoxK = BK * B::kRow;  // one box, one plane
+  static constexpr uint32_t kBoxQ = BQ * B::kRow;
+  static constexpr uint32_t kKPlane = B::kBoxes * kBoxK;
+  static constexpr uint32_t kQPlane = B::kBoxes * kBoxQ;
+  static constexpr uint32_t kKBytes = 3 * kKPlane;  // k's three planes
+  static constexpr uint32_t kQBytes = 3 * kQPlane;
+  static constexpr size_t k = 0;
+  static constexpr size_t v = kKBytes;
+  // Warpgroup g's stage s at qdo + (g·kStages + s)·2·kQBytes: q, then do.
+  static constexpr size_t qdo = 2 * kKBytes;
+  static constexpr size_t rows = qdo + 2 * kStages * 2 * kQBytes;  // lse, delta
+  static constexpr size_t bars = rows + 2 * kStages * 2 * BQ * sizeof(float);
+  // full and empty a stage of each warpgroup, then k's and v's.
+  static constexpr size_t bytes = bars + 8 * (4 * kStages + 1) + hop::kAtomBytes;
+  static_assert(D == 64 || D == 128, "float32 planes at D 64 and 128");
+  static_assert(bytes <= kMaxSmem, "dkv tiles exceed shared memory");
+  // Warpgroup 1's partial dk and dv pass through the idle ring.
+  static_assert(D * 4 * 128 <= 2 * kStages * 2 * kQBytes, "ring");
+};
+
+template <int D>
+__global__ void __launch_bounds__(hop::kThreads, 1)
+    flash_dkv_hopper_f32(const __grid_constant__ CUtensorMap tm_q,
+                         const __grid_constant__ CUtensorMap tm_k,
+                         const __grid_constant__ CUtensorMap tm_v,
+                         const __grid_constant__ CUtensorMap tm_do,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         float* __restrict__ dk, float* __restrict__ dv,
+                         int tq, int tk, int causal) {
+  using C = F32Dkv<D>;
+  using B = typename C::B;
+  constexpr int BQ = C::BQ, S = C::kStages;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = hop::align_atom(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + C::bars);
+  uint64_t* empty = full + 2 * S;
+  uint64_t* kvbar = empty + 2 * S;
+
+  // Plane p of head bh is head bh + p·nbh of the maps.
+  const int bh = blockIdx.x, nbh = gridDim.x;
+  // Early k blocks see the most causal q blocks: natural order runs the
+  // heaviest first, over all heads.  The causal start is the first q
+  // block that reaches k0, so every visited block reaches the block's
+  // rows.
+  const int k0 = blockIdx.y * C::BK;
+  const int nq = (tq + BQ - 1) / BQ;
+  const int qstart = causal ? k0 / BQ : 0;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = warp / 4;
+  const int nblk = (nq - qstart - g + 1) / 2;  // qstart + g, + 2, ...
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 2 * S; ++i) {
+      hop::mbar_init(&full[i], 1 + 32);  // the TMA's bytes + the warp's rows
+      hop::mbar_init(&empty[i], 4);      // the warpgroup's warps
+    }
+    hop::mbar_init(kvbar, 1);
+    hop::fence_barrier_init();
+  }
+  __syncthreads();
+
+  // This warpgroup's j-th block (q block qstart + 2j + g) into its stage
+  // j % S, once its warps have released the block S before it: q and do
+  // by TMA from lane 0, the lse and delta rows by cp.async from every
+  // lane (rows past tq read as 0: their q and do rows are TMA zeros, and
+  // the mask drops them).
+  const float* lg = lse + static_cast<size_t>(bh) * tq;
+  const float* dg = delta + static_cast<size_t>(bh) * tq;
+  const CUtensorMap* mq = &tm_q;
+  const CUtensorMap* mdo = &tm_do;
+  auto load_q = [&](int j) {
+    const int s = g * S + j % S;
+    const int qb = qstart + 2 * j + g;
+    hop::mbar_wait(&empty[s], ((j / S) & 1) ^ 1);
+    if (lane == 0) {
+      hop::mbar_expect_tx(&full[s], 2 * C::kQBytes);
+      unsigned char* qs = smem + C::qdo + s * 2 * C::kQBytes;
+      for (int p = 0; p < 3; ++p) {
+        for (int b = 0; b < B::kBoxes; ++b) {
+          const uint32_t at = p * C::kQPlane + b * C::kBoxQ;
+          hop::tma_load(qs + at, mq, &full[s], b * B::kCols, qb * BQ,
+                        bh + p * nbh);
+          hop::tma_load(qs + C::kQBytes + at, mdo, &full[s], b * B::kCols,
+                        qb * BQ, bh + p * nbh);
+        }
+      }
+    }
+    float* rs = reinterpret_cast<float*>(smem + C::rows) + s * 2 * BQ;
+    for (int c = lane; c < BQ; c += 32) {
+      const int qi = qb * BQ + c;
+      const uint32_t n = qi < tq ? 4 : 0;
+      hop::cp_async_4(rs + c, lg + (n ? qi : 0), n);
+      hop::cp_async_4(rs + BQ + c, dg + (n ? qi : 0), n);
+    }
+    hop::cp_async_arrive(&full[s]);
+  };
+  if (warp % 4 == 0) {
+    if (warp == 0 && lane == 0) {
+      hop::mbar_expect_tx(kvbar, 2 * C::kKBytes);
+      for (int p = 0; p < 3; ++p) {
+        for (int b = 0; b < B::kBoxes; ++b) {
+          const uint32_t at = p * C::kKPlane + b * C::kBoxK;
+          hop::tma_load(smem + C::k + at, &tm_k, kvbar, b * B::kCols, k0,
+                        bh + p * nbh);
+          hop::tma_load(smem + C::v + at, &tm_v, kvbar, b * B::kCols, k0,
+                        bh + p * nbh);
+        }
+      }
+    }
+    __syncwarp();
+    for (int j = 0; j < S && j < nblk; ++j) load_q(j);
+  }
+
+  // Both warpgroups hold the block's 64 k rows, r0 and r0 + 8 of each
+  // thread in the m64nNk16 accumulator layout.
+  const int r0 = (warp % 4) * 16 + lane / 4;
+  const int cq = 2 * (lane % 4);
+  const int row0 = k0 + r0, row1 = row0 + 8;
+  const uint32_t k_addr = hop::smem_u32(smem + C::k);
+  const uint32_t v_addr = hop::smem_u32(smem + C::v);
+
+  float dka[D / 2], dva[D / 2];  // this warpgroup's parts of dk and dv
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) {
+    dka[i] = 0.f;
+    dva[i] = 0.f;
+  }
+  hop::mbar_wait(kvbar, 0);
+
+  for (int j = 0; j < nblk; ++j) {
+    const int s = g * S + j % S;
+    const int q0 = (qstart + 2 * j + g) * BQ;
+    hop::mbar_wait(&full[s], (j / S) & 1);
+    const uint32_t q_addr = hop::smem_u32(smem + C::qdo + s * 2 * C::kQBytes);
+    const uint32_t do_addr = q_addr + C::kQBytes;
+    const float* lse_s = reinterpret_cast<const float*>(smem + C::rows) + s * 2 * BQ;
+    const float* dl_s = lse_s + BQ;
+
+    float st[BQ / 2], dpt[BQ / 2];
+    hop::wgmma_fence();
+    hop::planes_ss<D>(st, k_addr, C::kKPlane, C::kBoxK, q_addr, C::kQPlane,
+                      C::kBoxQ);
+    hop::planes_ss<D>(dpt, v_addr, C::kKPlane, C::kBoxK, do_addr,
+                      C::kQPlane, C::kBoxQ);
+    hop::wgmma_commit();
+    hop::wgmma_wait<0>();
+    hop::fence_regs(st);
+    hop::fence_regs(dpt);
+    dkv_probs(st, dpt, lse_s, dl_s,
+              (causal && q0 < k0 + 63) || k0 + 64 > tk || q0 + BQ > tq, q0,
+              0, row0, cq, tq, tk, causal);
+
+    // dv += pᵀ·do and dk += dsᵀ·q: pᵀ's and dsᵀ's planes from registers,
+    // do's and q's MN-major.
+    uint32_t pa[3][BQ / 4], dsa[3][BQ / 4];
+    hop::acc_to_a3(st, pa);
+    hop::acc_to_a3(dpt, dsa);
+    hop::wgmma_fence();
+    hop::planes_rs<D>(dva, pa, do_addr, C::kQPlane, C::kBoxQ);
+    hop::planes_rs<D>(dka, dsa, q_addr, C::kQPlane, C::kBoxQ);
+    hop::wgmma_commit();
+    hop::wgmma_wait<0>();
+    hop::fence_regs(dva);
+    hop::fence_regs(dka);
+
+    // The stage is free once this warp's products that read it are done;
+    // the warpgroup's first warp then refills it S blocks ahead.
+    __syncwarp();
+    if (lane == 0) hop::mbar_arrive(&empty[s]);
+    if (warp % 4 == 0 && j + S < nblk) load_q(j + S);
+  }
+
+  // Warpgroup 1's partial dk and dv to warpgroup 0 through the ring,
+  // which no load fills any more: thread t + 128 holds the same elements
+  // as t.
+  float* red = reinterpret_cast<float*>(smem + C::qdo);
+  const int t = threadIdx.x % 128;
+  hop::fence_async_shared();
+  hop::named_sync(1, hop::kThreads);
+  if (g == 1) {
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) {
+      red[i * 128 + t] = dka[i];
+      red[(D / 2 + i) * 128 + t] = dva[i];
+    }
+  }
+  hop::named_sync(1, hop::kThreads);
+  if (g == 0) {
+    float* dkg = dk + static_cast<size_t>(bh) * tk * D;
+    float* dvg = dv + static_cast<size_t>(bh) * tk * D;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = row0 + 8 * h;
+      if (row < tk) {
+#pragma unroll
+        for (int jc = 0; jc < D / 8; ++jc) {
+          const int i = 4 * jc + 2 * h;
+          const size_t at = static_cast<size_t>(row) * D + 8 * jc + cq;
+          *reinterpret_cast<float2*>(dkg + at) =
+              make_float2(dka[i] + red[i * 128 + t],
+                          dka[i + 1] + red[(i + 1) * 128 + t]);
+          *reinterpret_cast<float2*>(dvg + at) =
+              make_float2(dva[i] + red[(D / 2 + i) * 128 + t],
+                          dva[i + 1] + red[(D / 2 + i + 1) * 128 + t]);
+        }
+      }
+    }
+  }
+}
+
+template <int D>
+int launch_dkv_f32(const void* q, const void* k, const void* v,
+                   const void* dout, const void* lse, const void* delta,
+                   void* dk, void* dv, void* planes, int bh, int tq, int tk,
+                   int causal, cudaStream_t stream) {
+  using C = F32Dkv<D>;
+  Planes m;
+  const int rc = m.split(q, k, v, dout, planes, D, bh, tq, tk, C::BQ, C::BK,
+                         stream);
+  if (rc != 0) return rc;
+  auto kernel = flash_dkv_hopper_f32<D>;
+  static bool smem_set = false;
+  cudaError_t err = allow_smem(kernel, C::bytes, &smem_set);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid(bh, (tk + C::BK - 1) / C::BK);
+  kernel<<<grid, hop::kThreads, C::bytes, stream>>>(
+      m.q, m.k, m.v, m.dout, static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<float*>(dk),
+      static_cast<float*>(dv), tq, tk, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // The design is fixed by (dtype, D) at compile time: bf16 runs the Hopper
-// design above at every D; float32 runs the first port's kernel, 64-row k
-// blocks over 64-row q blocks, except where two float32 accumulators and
-// six operand tiles outgrow 227 KB: head dim 128 halves the q block, and
-// head dim 256 runs 32 x 32.
+// design above at every D; float32 runs the plane design at D 64 and 128
+// and the first port's kernel at D 32 (64-row k blocks over 64-row q
+// blocks) and D 256 (32 x 32, where two float32 accumulators and six
+// operand tiles must fit 227 KB).
 template <typename T>
 int dkv_for_dim(int d, const void* q, const void* k, const void* v,
                 const void* dout, const void* lse, const void* delta,
-                void* dk, void* dv, int bh, int tq, int tk, int causal,
-                cudaStream_t s) {
+                void* dk, void* dv, void* planes, int bh, int tq, int tk,
+                int causal, cudaStream_t s) {
   if constexpr (std::is_same<T, float>::value) {
     switch (d) {
       case 32: return launch_dkv<T, 32, 64, 64>(q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, causal, s);
-      case 64: return launch_dkv<T, 64, 64, 64>(q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, causal, s);
-      case 128: return launch_dkv<T, 128, 32, 64>(q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, causal, s);
+      case 64: return launch_dkv_f32<64>(q, k, v, dout, lse, delta, dk, dv, planes, bh, tq, tk, causal, s);
+      case 128: return launch_dkv_f32<128>(q, k, v, dout, lse, delta, dk, dv, planes, bh, tq, tk, causal, s);
       case 256: return launch_dkv<T, 256, 32, 32>(q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, causal, s);
       default: return MVT_UNSUPPORTED;
     }
@@ -736,20 +1001,22 @@ int dkv_for_dim(int d, const void* q, const void* k, const void* v,
 }  // namespace mvt
 
 // q (pre-scaled), k, v, dout: [bh, T, d]; lse, delta: [bh, tq] float;
-// dk, dv: [bh, tk, d].
+// dk, dv: [bh, tk, d].  planes: the float32 plane design's scratch,
+// 6·bh·(tq + tk)·d bf16 (hopper_f32.cuh); null for every other launch.
 extern "C" int mvt_flash_dkv(const void* q, const void* k, const void* v,
                              const void* dout, const void* lse,
-                             const void* delta, void* dk, void* dv, int bh,
-                             int tq, int tk, int d, int dtype, int causal,
-                             void* stream) {
+                             const void* delta, void* dk, void* dv,
+                             void* planes, int bh, int tq, int tk, int d,
+                             int dtype, int causal, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == MVT_DTYPE_F32) {
-    return mvt::dkv_for_dim<float>(d, q, k, v, dout, lse, delta, dk, dv, bh,
-                                   tq, tk, causal, s);
+    return mvt::dkv_for_dim<float>(d, q, k, v, dout, lse, delta, dk, dv,
+                                   planes, bh, tq, tk, causal, s);
   }
   if (dtype == MVT_DTYPE_BF16) {
     return mvt::dkv_for_dim<__nv_bfloat16>(d, q, k, v, dout, lse, delta, dk,
-                                           dv, bh, tq, tk, causal, s);
+                                           dv, planes, bh, tq, tk, causal,
+                                           s);
   }
   return MVT_UNSUPPORTED;
 }

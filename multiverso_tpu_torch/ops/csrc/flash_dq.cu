@@ -13,8 +13,10 @@
 //
 // Bound on an H100: three tile products per visited block against four
 // tiles read, so tensor-core bound at the shapes the trainer uses (at
-// head dim 32 the exp of each score costs more than its 6·32 flops).
-// Two designs, chosen at compile time by dtype in dq_for_dim:
+// head dim 32 the exp of each score costs more than its 6·32 flops); in
+// float32 at D 64 and 128 six bf16 products a product, so six times the
+// flops at the bf16 rate (0.6257 ms at [4, 16, 2048, 128], causal).
+// Three designs, chosen at compile time by (dtype, D) in dq_for_dim:
 //
 // * bf16 at every D (flash_dq_hopper): q-stationary, the forward's shape
 //   with dk/dv's products, accumulators in registers (hopper.cuh).  Warp
@@ -37,11 +39,22 @@
 //     stages, so one block per (bh, 64-row q tile) splits dq's columns
 //     between the two warpgroups, each forming half the k block's ds and
 //     sharing it through shared memory (HopDqCols).
-// * float32 at every D (flash_dq_kernel): the first port's design,
+// * float32 at D 64 and 128 (flash_dq_hopper_f32, hopper_f32.cuh): q, k,
+//   v and do split into three bf16 planes (hi, mid, lo) by flash_split3,
+//   an elementwise kernel that replaces no TPU kernel, into the wrapper's
+//   scratch; every product runs as six bf16 wgmma products into float32
+//   accumulators (a0b0 + a0b1 + a1b0 + a0b2 + a1b1 + a2b0; the terms left
+//   out are of order 2^-24 of the product), ds split in registers as the
+//   A operand of dq += ds·k.  Planes take 6 bytes an element, so one
+//   64-row q tile is shared by both warpgroups, which take every other k
+//   block from a one-stage ring each and sum their partial dq once at the
+//   end (F32Dq: 192 KB of shared memory at D 128, 144 KB at D 64).
+// * float32 at D 32 and 256 (flash_dq_kernel): the first port's design,
 //   operands and the accumulator in shared memory, products as plain
 //   FMAs.
 #include "flash_common.cuh"
 #include "hopper.cuh"
+#include "hopper_f32.cuh"
 
 namespace mvt {
 
@@ -619,20 +632,243 @@ int launch_dq_hopper(const void* q, const void* k, const void* v,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------- float32 Hopper design
+// D 64 and 128 (hopper_f32.cuh): q, k, v and do as three bf16 planes,
+// every product six wgmma products.  Planes take 6 bytes an element, so
+// a block keeps one 64-row q tile and both warpgroups share it; they
+// split the k blocks instead, warpgroup g taking blocks g, g + 2, ...
+// from a ring of its own (kStages stages, refilled by its first warp),
+// and each keeps a partial dq of all 64 rows in registers.  Their sum
+// meets once, after the loop, in shared memory.  Per block, s = q·kᵀ and
+// dp = do·vᵀ by wgmma from shared memory, ds = p (dp - delta) in
+// registers, split into three planes as dq += ds·k's register A (k
+// MN-major).  Shared memory, q and do planes plus each warpgroup's stage
+// of k and v planes: D 128, 32-key blocks: 96 KB + 2 x 48 KB = 192 KB;
+// D 64, 64-key blocks: 48 KB + 2 x 48 KB = 144 KB (232,448 the cap).
+template <int D>
+struct F32Dq {
+  using B = hop::Box<D>;
+  static constexpr int BQ = 64, BK = D == 128 ? 32 : 64, kStages = 1;
+  static constexpr uint32_t kBoxQ = BQ * B::kRow;  // one box, one plane
+  static constexpr uint32_t kBoxK = BK * B::kRow;
+  static constexpr uint32_t kQPlane = B::kBoxes * kBoxQ;
+  static constexpr uint32_t kKPlane = B::kBoxes * kBoxK;
+  static constexpr uint32_t kQBytes = 3 * kQPlane;  // q's three planes
+  static constexpr uint32_t kKBytes = 3 * kKPlane;
+  static constexpr size_t q = 0;
+  static constexpr size_t dout = kQBytes;
+  // Warpgroup g's stage s at kv + (g·kStages + s)·2·kKBytes: k, then v.
+  static constexpr size_t kv = 2 * kQBytes;
+  static constexpr size_t bars = kv + 2 * kStages * 2 * kKBytes;
+  // full and empty a stage of each warpgroup, then q's.
+  static constexpr size_t bytes = bars + 8 * (4 * kStages + 1) + hop::kAtomBytes;
+  static_assert(D == 64 || D == 128, "float32 planes at D 64 and 128");
+  static_assert(bytes <= kMaxSmem, "dq tiles exceed shared memory");
+  // Warpgroup 1's partial dq passes through the idle ring.
+  static_assert(D / 2 * 4 * 128 <= 2 * kStages * 2 * kKBytes, "ring");
+};
+
+template <int D>
+__global__ void __launch_bounds__(hop::kThreads, 1)
+    flash_dq_hopper_f32(const __grid_constant__ CUtensorMap tm_q,
+                        const __grid_constant__ CUtensorMap tm_k,
+                        const __grid_constant__ CUtensorMap tm_v,
+                        const __grid_constant__ CUtensorMap tm_do,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta,
+                        float* __restrict__ dq, int tq, int tk, int causal,
+                        float scale) {
+  using C = F32Dq<D>;
+  using B = typename C::B;
+  constexpr int BK = C::BK, S = C::kStages;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = hop::align_atom(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + C::bars);
+  uint64_t* empty = full + 2 * S;
+  uint64_t* qbar = empty + 2 * S;
+
+  // Plane p of head bh is head bh + p·nbh of the maps.
+  const int bh = blockIdx.x, nbh = gridDim.x;
+  // Heaviest causal q tiles (the last ones) start first, over all heads;
+  // every block up to the causal end reaches the tile's rows.
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * C::BQ;
+  const int nk = (tk + BK - 1) / BK;
+  const int kend = causal ? min(nk, (q0 + C::BQ - 1) / BK + 1) : nk;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = warp / 4;
+  const int nblk = (kend - g + 1) / 2;  // blocks g, g + 2, ... below kend
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 2 * S; ++i) {
+      hop::mbar_init(&full[i], 1);
+      hop::mbar_init(&empty[i], 4);  // the warpgroup's warps
+    }
+    hop::mbar_init(qbar, 1);
+    hop::fence_barrier_init();
+  }
+  __syncthreads();
+
+  // This warpgroup's j-th block (k block 2j + g) into its stage j % S,
+  // once its warps have released the block S before it.
+  const CUtensorMap* mk = &tm_k;
+  const CUtensorMap* mv = &tm_v;
+  auto load_kv = [&](int j) {
+    const int s = g * S + j % S;
+    hop::mbar_wait(&empty[s], ((j / S) & 1) ^ 1);
+    if (lane == 0) {
+      hop::mbar_expect_tx(&full[s], 2 * C::kKBytes);
+      unsigned char* ks = smem + C::kv + s * 2 * C::kKBytes;
+      for (int p = 0; p < 3; ++p) {
+        for (int b = 0; b < B::kBoxes; ++b) {
+          const uint32_t at = p * C::kKPlane + b * C::kBoxK;
+          hop::tma_load(ks + at, mk, &full[s], b * B::kCols,
+                        (2 * j + g) * BK, bh + p * nbh);
+          hop::tma_load(ks + C::kKBytes + at, mv, &full[s],
+                        b * B::kCols, (2 * j + g) * BK, bh + p * nbh);
+        }
+      }
+    }
+    __syncwarp();
+  };
+  if (warp % 4 == 0) {
+    if (warp == 0 && lane == 0) {
+      hop::mbar_expect_tx(qbar, 2 * C::kQBytes);
+      for (int p = 0; p < 3; ++p) {
+        for (int b = 0; b < B::kBoxes; ++b) {
+          const uint32_t at = p * C::kQPlane + b * C::kBoxQ;
+          hop::tma_load(smem + C::q + at, &tm_q, qbar, b * B::kCols, q0,
+                        bh + p * nbh);
+          hop::tma_load(smem + C::dout + at, &tm_do, qbar, b * B::kCols, q0,
+                        bh + p * nbh);
+        }
+      }
+    }
+    __syncwarp();
+    for (int j = 0; j < S && j < nblk; ++j) load_kv(j);
+  }
+
+  // Both warpgroups hold the tile's 64 rows, r0 and r0 + 8 of each thread
+  // in the m64nNk16 accumulator layout.  Rows past tq read lse and delta
+  // as 0: their q and do rows are TMA zeros, so their ds is 0.
+  const int r0 = (warp % 4) * 16 + lane / 4;
+  const int cq = 2 * (lane % 4);
+  const int row0 = q0 + r0, row1 = row0 + 8;
+  const float* lg = lse + static_cast<size_t>(bh) * tq;
+  const float* dg = delta + static_cast<size_t>(bh) * tq;
+  const float ls0 = row0 < tq ? lg[row0] * hop::kLog2e : 0.f;
+  const float ls1 = row1 < tq ? lg[row1] * hop::kLog2e : 0.f;
+  const float dl0 = row0 < tq ? dg[row0] : 0.f;
+  const float dl1 = row1 < tq ? dg[row1] : 0.f;
+  const uint32_t q_addr = hop::smem_u32(smem + C::q);
+  const uint32_t do_addr = hop::smem_u32(smem + C::dout);
+
+  float acc[D / 2];  // this warpgroup's part of dq, unscaled
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  hop::mbar_wait(qbar, 0);
+
+  for (int j = 0; j < nblk; ++j) {
+    const int s = g * S + j % S;
+    const int k0 = (2 * j + g) * BK;
+    hop::mbar_wait(&full[s], (j / S) & 1);
+    const uint32_t k_addr = hop::smem_u32(smem + C::kv + s * 2 * C::kKBytes);
+    const uint32_t v_addr = k_addr + C::kKBytes;
+
+    float sc[BK / 2], dp[BK / 2];
+    hop::wgmma_fence();
+    hop::planes_ss<D>(sc, q_addr, C::kQPlane, C::kBoxQ, k_addr, C::kKPlane,
+                      C::kBoxK);
+    hop::planes_ss<D>(dp, do_addr, C::kQPlane, C::kBoxQ, v_addr, C::kKPlane,
+                      C::kBoxK);
+    hop::wgmma_commit();
+    hop::wgmma_wait<0>();
+    hop::fence_regs(sc);
+    hop::fence_regs(dp);
+    dq_ds(sc, dp, (causal && k0 + BK - 1 > q0) || k0 + BK > tk, row0, k0,
+          cq, ls0, ls1, dl0, dl1, tq, tk, causal);
+
+    // dq += ds·k: ds's planes from registers, k's MN-major.
+    uint32_t dsa[3][BK / 4];
+    hop::acc_to_a3(dp, dsa);
+    hop::wgmma_fence();
+    hop::planes_rs<D>(acc, dsa, k_addr, C::kKPlane, C::kBoxK);
+    hop::wgmma_commit();
+    hop::wgmma_wait<0>();
+    hop::fence_regs(acc);
+
+    // The stage is free once this warp's products that read it are done;
+    // the warpgroup's first warp then refills it S blocks ahead.
+    __syncwarp();
+    if (lane == 0) hop::mbar_arrive(&empty[s]);
+    if (warp % 4 == 0 && j + S < nblk) load_kv(j + S);
+  }
+
+  // Warpgroup 1's partial dq to warpgroup 0 through the ring, which no
+  // load fills any more: thread t + 128 holds the same elements as t.
+  float* red = reinterpret_cast<float*>(smem + C::kv);
+  const int t = threadIdx.x % 128;
+  hop::fence_async_shared();
+  hop::named_sync(1, hop::kThreads);
+  if (g == 1) {
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) red[i * 128 + t] = acc[i];
+  }
+  hop::named_sync(1, hop::kThreads);
+  if (g == 0) {
+    float* dqg = dq + static_cast<size_t>(bh) * tq * D;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = row0 + 8 * h;
+      if (row < tq) {
+#pragma unroll
+        for (int jc = 0; jc < D / 8; ++jc) {
+          const int i = 4 * jc + 2 * h;
+          *reinterpret_cast<float2*>(dqg + static_cast<size_t>(row) * D +
+                                     8 * jc + cq) =
+              make_float2((acc[i] + red[i * 128 + t]) * scale,
+                          (acc[i + 1] + red[(i + 1) * 128 + t]) * scale);
+        }
+      }
+    }
+  }
+}
+
+template <int D>
+int launch_dq_f32(const void* q, const void* k, const void* v,
+                  const void* dout, const void* lse, const void* delta,
+                  void* dq, void* planes, int bh, int tq, int tk, int causal,
+                  float scale, cudaStream_t stream) {
+  using C = F32Dq<D>;
+  Planes m;
+  const int rc = m.split(q, k, v, dout, planes, D, bh, tq, tk, C::BQ, C::BK,
+                         stream);
+  if (rc != 0) return rc;
+  auto kernel = flash_dq_hopper_f32<D>;
+  static bool smem_set = false;
+  cudaError_t err = allow_smem(kernel, C::bytes, &smem_set);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid(bh, (tq + C::BQ - 1) / C::BQ);
+  kernel<<<grid, hop::kThreads, C::bytes, stream>>>(
+      m.q, m.k, m.v, m.dout, static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<float*>(dq), tq, tk,
+      causal, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // The design is fixed by (dtype, D) at compile time: bf16 runs the Hopper
-// design above at every D; float32 runs the first port's kernel, 64 x 64
-// tiles except at head dim 256, where both blocks halve so the six tiles
-// fit 227 KB.
+// design above at every D; float32 runs the plane design at D 64 and 128
+// and the first port's kernel at D 32 and 256 (64 x 64 tiles at D 32,
+// 32 x 32 at D 256, where the six tiles must fit 227 KB).
 template <typename T>
 int dq_for_dim(int d, const void* q, const void* k, const void* v,
                const void* dout, const void* lse, const void* delta,
-               void* dq, int bh, int tq, int tk, int causal, float scale,
-               cudaStream_t s) {
+               void* dq, void* planes, int bh, int tq, int tk, int causal,
+               float scale, cudaStream_t s) {
   if constexpr (std::is_same<T, float>::value) {
     switch (d) {
       case 32: return launch_dq<T, 32, 64, 64>(q, k, v, dout, lse, delta, dq, bh, tq, tk, causal, scale, s);
-      case 64: return launch_dq<T, 64, 64, 64>(q, k, v, dout, lse, delta, dq, bh, tq, tk, causal, scale, s);
-      case 128: return launch_dq<T, 128, 64, 64>(q, k, v, dout, lse, delta, dq, bh, tq, tk, causal, scale, s);
+      case 64: return launch_dq_f32<64>(q, k, v, dout, lse, delta, dq, planes, bh, tq, tk, causal, scale, s);
+      case 128: return launch_dq_f32<128>(q, k, v, dout, lse, delta, dq, planes, bh, tq, tk, causal, scale, s);
       case 256: return launch_dq<T, 256, 32, 32>(q, k, v, dout, lse, delta, dq, bh, tq, tk, causal, scale, s);
       default: return MVT_UNSUPPORTED;
     }
@@ -650,20 +886,23 @@ int dq_for_dim(int d, const void* q, const void* k, const void* v,
 }  // namespace mvt
 
 // q (pre-scaled), k, v, dout: [bh, T, d]; lse, delta: [bh, tq] float;
-// dq: [bh, tq, d], written as scale * ds k.
+// dq: [bh, tq, d], written as scale * ds k.  planes: the float32 plane
+// design's scratch, 6·bh·(tq + tk)·d bf16 (hopper_f32.cuh); null for
+// every other launch.
 extern "C" int mvt_flash_dq(const void* q, const void* k, const void* v,
                             const void* dout, const void* lse,
-                            const void* delta, void* dq, int bh, int tq,
-                            int tk, int d, int dtype, int causal,
-                            float scale, void* stream) {
+                            const void* delta, void* dq, void* planes,
+                            int bh, int tq, int tk, int d, int dtype,
+                            int causal, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == MVT_DTYPE_F32) {
-    return mvt::dq_for_dim<float>(d, q, k, v, dout, lse, delta, dq, bh, tq,
-                                  tk, causal, scale, s);
+    return mvt::dq_for_dim<float>(d, q, k, v, dout, lse, delta, dq, planes,
+                                  bh, tq, tk, causal, scale, s);
   }
   if (dtype == MVT_DTYPE_BF16) {
     return mvt::dq_for_dim<__nv_bfloat16>(d, q, k, v, dout, lse, delta, dq,
-                                          bh, tq, tk, causal, scale, s);
+                                          planes, bh, tq, tk, causal, scale,
+                                          s);
   }
   return MVT_UNSUPPORTED;
 }

@@ -15,9 +15,16 @@ wrapper        CUDA source                     replaces (TPU kernel)
 
 Which design a kernel runs is fixed at compile time by (dtype, D): in
 bf16 all three run the Hopper designs (TMA loads, wgmma with register
-accumulators, shared helpers in ``csrc/hopper.cuh``) at every head dim;
-in float32 they run the first port's kernels (``csrc/flash_common.cuh``;
-products as FMAs).  Every design puts bh on grid x, so any bh launches.
+accumulators, shared helpers in ``csrc/hopper.cuh``) at every head dim.
+In float32, dq and dk/dv at D 64 and 128 run the plane design
+(``csrc/hopper_f32.cuh``): one elementwise kernel, which replaces no TPU
+kernel, splits q, k, v and do into three bf16 planes (hi, mid, lo) in
+scratch the wrapper allocates, and every product runs as six bf16 wgmma
+products into float32 accumulators (the three left out are of order
+2⁻²⁴ of the product), so the bound is six times the flops at the bf16
+rate.  The float32 forward, and dq and dk/dv at D 32 and 256, run the
+first port's kernels (``csrc/flash_common.cuh``; products as FMAs).
+Every design puts bh on grid x, so any bh launches.
 
 Beside each wrapper sits its plain version (``flash_fwd_ref``,
 ``flash_dq_ref``, ``flash_dkv_ref``): the same function written with
@@ -75,9 +82,13 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "flash_fwd": ("mvt_flash_fwd", [_P] * 5 + [_I] * 6 + [_P]),
     "flash_dq": ("mvt_flash_dq",
-                 [_P] * 7 + [_I] * 6 + [ctypes.c_float, _P]),
-    "flash_dkv": ("mvt_flash_dkv", [_P] * 8 + [_I] * 6 + [_P]),
+                 [_P] * 8 + [_I] * 6 + [ctypes.c_float, _P]),
+    "flash_dkv": ("mvt_flash_dkv", [_P] * 9 + [_I] * 6 + [_P]),
 }
+# Head dims whose float32 dq and dk/dv run the plane design, which splits
+# q, k, v and do into three bf16 planes each in scratch the wrapper
+# passes (dq_for_dim and dkv_for_dim in csrc/).
+_F32_PLANE_DIMS = (64, 128)
 _FNS: Dict[str, tuple] = {}  # name -> (C entry point, error-string fn)
 _FNS_LOCK = threading.Lock()
 
@@ -186,6 +197,15 @@ def _prepare(q, k, v, scale):
     return _prescale(q, scale).contiguous(), k.contiguous(), v.contiguous()
 
 
+def _planes(qs, k):
+    """Scratch for the float32 plane design's bf16 planes (hi, mid and lo
+    of q, do, k and v), or None where the launch runs another design."""
+    if qs.dtype != torch.float32 or qs.shape[2] not in _F32_PLANE_DIMS:
+        return None
+    return torch.empty(6 * (qs.numel() + k.numel()), dtype=torch.bfloat16,
+                       device=qs.device)
+
+
 def _rows(do, lse, delta, dtype):
     """The backward's per-call operands: do in q's dtype, float32 rows."""
     return (do.to(dtype).contiguous(), lse.float().contiguous(),
@@ -221,8 +241,8 @@ def _dq(qs, k, v, do, lse, delta, scale, causal):
         return _dq(*_pad(kd, qs, k, v, do), lse, delta, scale,
                    causal)[..., :d].contiguous()
     dq = torch.empty_like(qs)
-    _launch("flash_dq", qs.device, qs, k, v, do, lse, delta, dq, bh, tq,
-            k.shape[1], d, _DTYPE_CODES[qs.dtype], int(causal), float(scale),
+    _launch("flash_dq", qs.device, qs, k, v, do, lse, delta, dq,
+            _planes(qs, k), bh, tq, k.shape[1], d, _DTYPE_CODES[qs.dtype], int(causal), float(scale),
             piece=(tq, k.shape[1], bool(causal)))
     return dq
 
@@ -236,8 +256,8 @@ def _dkv(qs, k, v, do, lse, delta, causal):
         dk, dv = _dkv(*_pad(kd, qs, k, v, do), lse, delta, causal)
         return dk[..., :d].contiguous(), dv[..., :d].contiguous()
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _launch("flash_dkv", qs.device, qs, k, v, do, lse, delta, dk, dv, bh, tq,
-            k.shape[1], d, _DTYPE_CODES[qs.dtype], int(causal),
+    _launch("flash_dkv", qs.device, qs, k, v, do, lse, delta, dk, dv,
+            _planes(qs, k), bh, tq, k.shape[1], d, _DTYPE_CODES[qs.dtype], int(causal),
             piece=(tq, k.shape[1], bool(causal)))
     return dk, dv
 

@@ -155,11 +155,19 @@ def _hopper_name(lib, d=128):
                        f"{len(lib) + 7}{lib}_hopperILi{d}EE")
 
 
-def _hopper_names(lib, drop=None):
+def _hopper_f32_name(lib, d=128):
+    """The mangled name of library ``lib``'s D=d float32 plane kernel."""
+    return FWD.replace("16flash_fwd_hopperILi128EE",
+                       f"{len(lib) + 11}{lib}_hopper_f32ILi{d}EE")
+
+
+def _hopper_names(lib, drop=None, drop_f32=None):
     """Library ``lib``'s Hopper kernels, one per head dim it must hold,
-    but ``drop``."""
-    return [_hopper_name(lib, d) for d in chip_smoke.HOPPER_DIMS[lib]
-            if d != drop]
+    but ``drop``, and its float32 plane kernels but ``drop_f32``."""
+    return ([_hopper_name(lib, d) for d in chip_smoke.HOPPER_DIMS[lib]
+             if d != drop]
+            + [_hopper_f32_name(lib, d)
+               for d in chip_smoke.HOPPER_F32_DIMS[lib] if d != drop_f32])
 
 
 NOT_HOPPER = "_ZN3mvt15flash_dq_kernelIfLi64ELi64ELi64EEEvPKT_S3_S3_S3_PKfS5_PS1_iiif"
@@ -167,17 +175,18 @@ GOOD_OPS = ["HGMMA.64x128x16.F32.BF16 R24, gdesc[UR4], RZ, !UPT, gsb0",
             "UTMALDG.3D [UR8], [UR4]"]
 
 
-def _listings(bad=None, bad_ops=None, drop=None):
+def _listings(bad=None, bad_ops=None, drop=None, drop_f32=None):
     """A listing per library, each with its Hopper kernels holding
     GOOD_OPS, except library ``bad``: its D=128 Hopper kernel holds
     ``bad_ops`` (with ``bad_ops`` None it has no Hopper kernel at all,
-    with ``drop`` a head dim it lacks that dim's kernel)."""
+    with ``drop`` or ``drop_f32`` a head dim it lacks that dim's bf16 or
+    float32 plane kernel)."""
     out = {}
     for name in chip_smoke.KERNELS:
         if name != bad:
             out[name] = _sass(GOOD_OPS, _hopper_names(name))
-        elif drop is not None:
-            out[name] = _sass(GOOD_OPS, _hopper_names(name, drop))
+        elif drop is not None or drop_f32 is not None:
+            out[name] = _sass(GOOD_OPS, _hopper_names(name, drop, drop_f32))
         elif bad_ops is None:
             out[name] = _sass(GOOD_OPS, NOT_HOPPER)
         else:
@@ -218,6 +227,37 @@ def test_build_phase_fails_without_the_d32_or_d256_design(tmp_path, lib, d):
     with pytest.raises(AssertionError, match=rf"{lib}: no Hopper kernel "
                                              rf"at D \[{d}\]"):
         chip_smoke.phase_build(fake, paths, 1.0)
+
+
+@pytest.mark.parametrize("lib", ["flash_dkv", "flash_dq"])
+@pytest.mark.parametrize("d", [64, 128])
+def test_build_phase_fails_without_the_float32_plane_design(tmp_path, lib,
+                                                            d):
+    """dq and dk/dv must each hold their float32 plane kernel at D 64 and
+    128: a library that lacks one fails."""
+    fake, paths = _fake_build(tmp_path, _listings(lib, drop_f32=d))
+    with pytest.raises(AssertionError, match=rf"{lib}: no Hopper_f32 "
+                                             rf"kernel at D \[{d}\]"):
+        chip_smoke.phase_build(fake, paths, 1.0)
+
+
+@pytest.mark.parametrize("lib,d", [("flash_dq", 128), ("flash_dkv", 64)])
+def test_build_phase_fails_on_a_spilling_float32_plane_kernel(tmp_path, lib,
+                                                              d):
+    fake, paths = _fake_build(tmp_path, _listings(),
+                              spills=_hopper_f32_name(lib, d))
+    with pytest.raises(AssertionError, match="48 bytes spilled"):
+        chip_smoke.phase_build(fake, paths, 1.0)
+
+
+def test_hopper_dim_tells_the_float32_plane_kernels_apart():
+    f32 = "void mvt::flash_dq_hopper_f32<128>"
+    assert chip_smoke.hopper_dim("flash_dq", f32, "_f32") == 128
+    assert chip_smoke.hopper_dim("flash_dq", f32) is None
+    assert chip_smoke.hopper_dim(
+        "flash_dkv", _hopper_f32_name("flash_dkv", 64), "_f32") == 64
+    assert chip_smoke.hopper_dim(
+        "flash_dkv", "void mvt::flash_dkv_hopper<64>", "_f32") is None
 
 
 @pytest.mark.parametrize("lib,d", [("flash_fwd", 256), ("flash_dkv", 32),
@@ -960,14 +1000,100 @@ def test_transformer_phases_at_bench_shapes():
 
 def test_headdims_phase_shapes():
     """The headdims phase trains transformer_large's widths in 8 heads of
-    256 and bench_transformer's in 16 heads of 32, and times float32 at
-    the trainer's attention shape."""
+    256, bench_transformer's in 16 heads of 32, and transformer_large in
+    float32 at the trainer's attention shape (16 heads of 128)."""
     assert chip_smoke.large_config(torch, heads=chip_smoke.WIDE_HEADS
                                    ).head_dim == 256
     assert chip_smoke.large_config(torch).head_dim == 128
     assert chip_smoke.NARROW == dict(chip_smoke.SMALL, n_heads=16)
     assert chip_smoke.NARROW["dim"] // chip_smoke.NARROW["n_heads"] == 32
-    assert chip_smoke.F32_SHAPE == (4, 16, 2048, 128)
+    f32 = chip_smoke.large_config(torch, dtype=torch.float32)
+    assert (f32.compute_dtype, f32.n_heads, f32.head_dim, f32.n_layers) == (
+        torch.float32, 16, 128, 16)
+    assert chip_smoke.large_config(torch).compute_dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("name,dtype,d,rate", [
+    ("flash_dq", torch.float32, 128, "bf16x6"),
+    ("flash_dkv", torch.float32, 64, "bf16x6"),
+    ("flash_dq", torch.float32, 48, "bf16x6"),
+    ("flash_fwd", torch.float32, 128, "fp32"),
+    ("flash_dkv", torch.float32, 32, "fp32"),
+    ("flash_dq", torch.float32, 256, "fp32"),
+    ("flash_dq", torch.bfloat16, 128, "bf16")])
+def test_bound_rate_follows_the_design(name, dtype, d, rate):
+    """A float32 dq or dk/dv at (padded) D 64 or 128 is bound at six bf16
+    products a product; the other float32 kernels at the FP32 rate."""
+    assert chip_smoke.bound_rate(name, dtype, d, torch) == rate
+
+
+def test_six_product_bound_at_the_trainer_shape():
+    """dq and dk/dv's six-product bounds at [4, 16, 2048, 128]: 6 x flops
+    at 989 TFLOP/s."""
+    work = chip_smoke.flash_work(64, 2048, 128, elem=4)
+    for name, ms in (("flash_dq", 0.6257), ("flash_dkv", 0.8342)):
+        flops = work[name][0]
+        assert flops / chip_smoke.RATES["bf16x6"] * 1e3 == pytest.approx(
+            ms, rel=1e-3)
+
+
+def test_split_share_reads_the_split_launches():
+    def fake(torch_, fn, calls, top):
+        assert calls == 3
+        return {"device_busy_ms": 6.0, "top_kernels": [
+            {"ms": 4.5, "calls": 3, "name": "void mvt::flash_dq_hopper_f32"
+                                            "<128>(CUtensorMap_st, ...)"},
+            {"ms": 1.5, "calls": 12, "name": "mvt::flash_split3(float4 "
+                                             "const*, uint2*, unsigned "
+                                             "long)"}]}
+    got = chip_smoke.split_share(torch, None, profile=fake)
+    assert got == {"split_ms": 0.5, "split_share": 0.25, "profiled_ms": 2.0}
+
+
+def test_f64_errors_hold_the_kernel_within_the_ratio():
+    ref = {"dq": torch.zeros(4, dtype=torch.float64)}
+    plain = {"dq": torch.tensor([1e-6, 0, 0, 0])}
+    within = {"dq": torch.tensor([0, -7.9e-6, 0, 0])}
+    past = {"dq": torch.tensor([0, 0, 9e-6, 0])}
+    errs, ok = chip_smoke.f64_errors(within, plain, ref)
+    assert ok and errs["dq"]["ratio"] == pytest.approx(7.9, rel=1e-3)
+    assert not chip_smoke.f64_errors(past, plain, ref)[1]
+
+
+def test_f64_backward_matches_autograd():
+    """The float64 reference of the parity gate is the backward of
+    softmax attention from the saved lse and delta."""
+    rng = np.random.RandomState(3)
+    x = {n: torch.tensor(rng.randn(2, 24, 16).astype(np.float32))
+         for n in ("q", "k", "v", "do")}
+    scale = 16 ** -0.5
+    q, k, v = (x[n].double().requires_grad_() for n in ("q", "k", "v"))
+    s = ((q * scale) @ k.transpose(1, 2)).masked_fill(
+        ~torch.ones(24, 24, dtype=torch.bool).tril(), -math.inf)
+    o = torch.softmax(s, -1) @ v
+    lse = torch.logsumexp(s, -1)
+    grads = torch.autograd.grad(o, (q, k, v), x["do"].double())
+    delta = (x["do"].double() * o).sum(-1)
+    ref = chip_smoke.f64_backward(torch, x, (lse.detach().float(),
+                                             delta.detach().float()),
+                                  True, heads=1)
+    for name, want in zip(("dq", "dk", "dv"), grads):
+        np.testing.assert_allclose(ref[name].numpy(), want.numpy(),
+                                   atol=1e-5, err_msg=name)
+
+
+def test_parity_float32_cases_cover_the_plane_tiles():
+    cases = chip_smoke.f32_cases(torch)
+    assert all(dt == torch.float32 for *_, dt, _, _ in cases)
+    tags = {(d, t, tk, tag) for _, t, tk, d, _, _, tag in cases}
+    assert (128, 2048, 2048, "full_width_f32") in tags
+    for d in (64, 128):
+        assert (d, 2080, 2080, "half_tile") in tags
+        assert (d, 66, 66, "two_row_tile") in tags
+        assert (d, 40, 136, "cross_length") in tags
+        assert (d, 136, 40, "cross_length") in tags
+    assert (128, 2064, 2064, "half_block") in tags
+    assert [bh for bh, *_, tag in cases if tag == "one_head"] == [1]
 
 
 def test_exp_bound_rate_and_float32_bytes():
@@ -2001,6 +2127,19 @@ def test_mvtop_views_judge_rejects_a_missing_rank(kind, planted):
     assert not chip_smoke.judge_mvtop_views({**runs, kind: _run(
         _VIEW_OUT[kind], 1)})[1]
     assert not chip_smoke.judge_mvtop_views({})[1]
+
+
+@pytest.mark.parametrize("checks,names", [
+    ({"ranks_up": True, "exemplars": False}, ["exemplars"]),
+    ({"ranks_up": True, "cli": {"metrics": True, "hotkeys": False,
+                                "audit": False}},
+     ["cli.hotkeys", "cli.audit"]),
+    ({"a": True, "cli": {"health": True}}, []),
+    (None, []),
+], ids=["flat", "nested", "all-pass", "none"])
+def test_falsy_checks_names_each_failed_check(checks, names):
+    """The serve phase's error names each failed check by its path."""
+    assert chip_smoke.falsy_checks(checks) == names
 
 
 _REPL_VIEW = ("mvtop --replication @ 22:35:34 — 4 rank(s)\n"

@@ -1,0 +1,367 @@
+"""The float32 plane design of the port's flash backward (dq and dk/dv at
+head dims 64 and 128, ``csrc/hopper_f32.cuh``), modelled on the CPU.
+
+The kernels split q, k, v and do (and, in registers, ds, p, pᵀ and dsᵀ)
+into three bf16 planes, hi, mid and lo, and form every product as six
+bf16 products summed in float32.  These tests model that arithmetic in
+plain torch: the split, the six-product sum, and the kernels' block
+schedules at the design's tiles (64 stationary rows shared by both
+warpgroups, which take every other streamed block and meet once), held
+against the plain versions at the schedule tests' tolerances (atol 2e-5,
+rtol 1e-4), against the JAX package's Pallas kernels in interpret mode
+(float32: atol 2e-4 for gradients, as ``tests/test_flash_attention.py``
+states it), and against float64, where the model's error may be at most
+twice the plain float32 version's.  The CUDA kernels themselves run only
+on the card (``chip_smoke.py``'s parity phase holds them).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from multiverso_tpu.ops import flash_attention as jax_flash
+from multiverso_tpu_torch.ops import flash_attention as fa
+
+_NEG = -1e30
+# (a plane, b plane) of the six products, in the kernels' order.
+PAIRS = ((2, 0), (1, 1), (0, 2), (1, 0), (0, 1), (0, 0))
+# The design's tiles by head dim: (dq q rows, k block), (dk/dv k rows, q
+# block) — F32Dq and F32Dkv in the sources.
+_TILES = {64: ((64, 64), (64, 64)), 128: ((64, 32), (64, 32))}
+_RAGGED = [(130, 130, True), (130, 130, False), (200, 200, True),
+           (200, 200, False), (256, 256, True), (40, 136, False)]
+
+
+def split3(x):
+    """hi, mid and lo of float32 ``x``, each rounded to nearest bf16, as
+    the split kernel and the register fragments form them (as float32
+    tensors holding bf16 values)."""
+    hi = x.to(torch.bfloat16).float()
+    r = x - hi
+    mid = r.to(torch.bfloat16).float()
+    lo = (r - mid).to(torch.bfloat16).float()
+    return hi, mid, lo
+
+
+def mm6(a, b):
+    """a @ b as the kernels form it: the six products of the operands'
+    bf16 planes (each product of two bf16 values is exact in float32),
+    summed in float32."""
+    pa, pb = split3(a), split3(b)
+    out = None
+    for i, j in PAIRS:
+        term = pa[i] @ pb[j]
+        out = term if out is None else out + term
+    return out
+
+
+def _pad_rows(x, rows):
+    return torch.nn.functional.pad(x, (0, 0, 0, rows - x.shape[1]))
+
+
+def _pad_row_vec(x, n):
+    return torch.nn.functional.pad(x, (0, n - x.shape[1]))
+
+
+def dq_f32_schedule(qs, k, v, do, lse, delta, scale, causal, BQ=64, BK=32,
+                    mm=mm6):
+    """dq as flash_dq_hopper_f32 schedules it: a block per 64-row q tile;
+    warpgroup g takes k blocks g, g + 2, ... up to the causal end, keeps a
+    partial dq of all the tile's rows, and the two partials are summed
+    once at the end."""
+    bh, tq, d = qs.shape
+    tk = k.shape[1]
+    nqt, nk = -(-tq // BQ), -(-tk // BK)
+    qp, dop = _pad_rows(qs, nqt * BQ), _pad_rows(do, nqt * BQ)
+    kp, vp = _pad_rows(k, nk * BK), _pad_rows(v, nk * BK)
+    # Rows past tq read lse and delta as 0 (their q and do are zeros).
+    lsep, dlp = _pad_row_vec(lse, nqt * BQ), _pad_row_vec(delta, nqt * BQ)
+    dq = torch.zeros(bh, tq, d)
+    for qt in range(nqt):
+        q0 = qt * BQ
+        rows = torch.arange(q0, q0 + BQ)
+        kend = min(nk, (q0 + BQ - 1) // BK + 1) if causal else nk
+        parts = []
+        for g in range(2):
+            acc = torch.zeros(bh, BQ, d)
+            for kb in range(g, kend, 2):
+                k0 = kb * BK
+                # Every block up to the causal end reaches the tile's rows.
+                assert not (causal and k0 > q0 + BQ - 1)
+                kt = kp[:, k0:k0 + BK]
+                s = mm(qp[:, q0:q0 + BQ], kt.transpose(1, 2))
+                dp = mm(dop[:, q0:q0 + BQ], vp[:, k0:k0 + BK].transpose(1, 2))
+                if (causal and k0 + BK - 1 > q0) or k0 + BK > tk:
+                    cols = torch.arange(k0, k0 + BK)
+                    out = ((cols[None, :] >= tk) | (rows[:, None] >= tq)
+                           | (causal & (cols[None, :] > rows[:, None])))
+                    s = s.masked_fill(out, _NEG)
+                p = torch.exp(s - lsep[:, q0:q0 + BQ, None])
+                acc += mm(p * (dp - dlp[:, q0:q0 + BQ, None]), kt)
+            parts.append(acc)
+        n = max(0, min(BQ, tq - q0))
+        dq[:, q0:q0 + n] = ((parts[0] + parts[1]) * scale)[:, :n]
+    return dq
+
+
+def dkv_f32_schedule(qs, k, v, do, lse, delta, causal, BK=64, BQ=32,
+                     mm=mm6):
+    """dk and dv as flash_dkv_hopper_f32 schedules them: a block per
+    64-row k block; warpgroup g takes q blocks qstart + g, qstart + g + 2,
+    ..., keeps partial dk and dv of all the block's rows, and the partials
+    are summed once at the end."""
+    bh, tq, d = qs.shape
+    tk = k.shape[1]
+    nk, nq = -(-tk // BK), -(-tq // BQ)
+    qp, dop = _pad_rows(qs, nq * BQ), _pad_rows(do, nq * BQ)
+    kp, vp = _pad_rows(k, nk * BK), _pad_rows(v, nk * BK)
+    lsep, dlp = _pad_row_vec(lse, nq * BQ), _pad_row_vec(delta, nq * BQ)
+    dk, dv = torch.zeros(bh, tk, d), torch.zeros(bh, tk, d)
+    for kb in range(nk):
+        k0 = kb * BK
+        krows = torch.arange(k0, k0 + BK)
+        kt, vt = kp[:, k0:k0 + BK], vp[:, k0:k0 + BK]
+        qstart = k0 // BQ if causal else 0
+        parts = []
+        for g in range(2):
+            dk_acc, dv_acc = torch.zeros(bh, BK, d), torch.zeros(bh, BK, d)
+            for qb in range(qstart + g, nq, 2):
+                q0 = qb * BQ
+                # The causal start reaches the block's rows, and so does
+                # every later block.
+                assert not (causal and q0 + BQ - 1 < k0)
+                qt, dot = qp[:, q0:q0 + BQ], dop[:, q0:q0 + BQ]
+                st = mm(kt, qt.transpose(1, 2))
+                dpt = mm(vt, dot.transpose(1, 2))
+                if (causal and q0 < k0 + BK - 1) or k0 + BK > tk \
+                        or q0 + BQ > tq:
+                    qcols = torch.arange(q0, q0 + BQ)
+                    out = ((krows[:, None] >= tk) | (qcols[None, :] >= tq)
+                           | (causal & (krows[:, None] > qcols[None, :])))
+                    st = st.masked_fill(out, _NEG)
+                pt = torch.exp(st - lsep[:, None, q0:q0 + BQ])
+                dst = pt * (dpt - dlp[:, None, q0:q0 + BQ])
+                dv_acc += mm(pt, dot)
+                dk_acc += mm(dst, qt)
+            parts.append((dk_acc, dv_acc))
+        n = max(0, min(BK, tk - k0))
+        dk[:, k0:k0 + n] = (parts[0][0] + parts[1][0])[:, :n]
+        dv[:, k0:k0 + n] = (parts[0][1] + parts[1][1])[:, :n]
+    return dk, dv
+
+
+def _case(tq, tk, causal, d, seed, bh=2):
+    """Seeded float32 inputs and the plain forward's saved rows."""
+    rng = np.random.RandomState(seed)
+    q, k, v = (torch.tensor(rng.randn(bh, t, d).astype(np.float32))
+               for t in (tq, tk, tk))
+    do = torch.tensor(rng.randn(bh, tq, d).astype(np.float32))
+    scale = d ** -0.5
+    o, lse = fa.flash_fwd_ref(q, k, v, scale, causal)
+    delta = (do * o).sum(-1) - torch.tensor(
+        rng.randn(bh, tq).astype(np.float32))
+    return q, k, v, do, lse, delta, scale
+
+
+# ------------------------------------------------------------- the split
+@pytest.mark.parametrize("seed,spread", [(0, 1), (1, 8), (2, 30), (3, 33)])
+def test_three_planes_reproduce_float32(seed, spread):
+    """hi + mid + lo is x within 2⁻²⁴ of |x|, and each piece is a bf16
+    value, at magnitudes 10^±spread down to 2⁻¹¹⁰ (below it lo, about
+    2⁻¹⁶|x|, falls under bf16's smallest normal, 2⁻¹²⁶)."""
+    rng = np.random.RandomState(seed)
+    x = torch.tensor((rng.randn(50_000)
+                      * 10.0 ** rng.uniform(-spread, spread, 50_000))
+                     .astype(np.float32))
+    x = x[x.abs() >= 2.0 ** -110]
+    pieces = split3(x)
+    for p in pieces:
+        assert torch.equal(p.to(torch.bfloat16).float(), p)
+    err = ((pieces[0] + pieces[1] + pieces[2]).double() - x.double()).abs()
+    assert bool((err <= 2.0 ** -24 * x.double().abs()).all())
+
+
+def test_planes_shrink_by_bf16_steps():
+    """Each piece is the remainder of the ones before it rounded to bf16:
+    |mid| ≤ 2⁻⁸|hi| and |lo| ≤ 2⁻⁸|mid| (round to nearest)."""
+    x = torch.tensor(np.random.RandomState(5).randn(10_000)
+                     .astype(np.float32))
+    hi, mid, lo = split3(x)
+    assert bool((mid.abs() <= 2.0 ** -8 * hi.abs()).all())
+    assert bool((lo.abs() <= 2.0 ** -8 * mid.abs()).all())
+
+
+@pytest.mark.parametrize("m,k,n", [(64, 128, 32), (64, 64, 64),
+                                   (64, 32, 128)])
+def test_six_products_keep_float32_accuracy(m, k, n):
+    """The six-product sum is deterministic on the CPU and within twice
+    the plain float32 product's error against float64 (the three terms
+    left out are of order 2⁻²⁴ of a·b), at the design's product shapes."""
+    rng = np.random.RandomState(m + k + n)
+    a = torch.tensor(rng.randn(4, m, k).astype(np.float32))
+    b = torch.tensor(rng.randn(4, k, n).astype(np.float32))
+    ref = a.double() @ b.double()
+    got = mm6(a, b)
+    assert torch.equal(got, mm6(a, b))
+    err6 = float((got.double() - ref).abs().max())
+    err32 = float(((a @ b).double() - ref).abs().max())
+    assert err6 <= 2 * err32
+
+
+def test_two_planes_or_one_miss_float32_accuracy():
+    """What the float64 gate on the card rejects: two planes (four
+    products' worth) or one lose bits a float32 product keeps."""
+    rng = np.random.RandomState(11)
+    a = torch.tensor(rng.randn(4, 64, 128).astype(np.float32))
+    b = torch.tensor(rng.randn(4, 128, 64).astype(np.float32))
+    ref = a.double() @ b.double()
+    err32 = float(((a @ b).double() - ref).abs().max())
+    (a0, a1, _), (b0, b1, _) = split3(a), split3(b)
+    two = a0 @ b0 + a0 @ b1 + a1 @ b0
+    one = a0 @ b0
+    assert float((two.double() - ref).abs().max()) > 8 * err32
+    assert float((one.double() - ref).abs().max()) > 8 * err32
+
+
+# ------------------------------------------------- schedules at the tiles
+@pytest.mark.parametrize("kernel", ["dq", "dkv"])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("tq,tk,causal", _RAGGED)
+def test_plane_schedule_matches_plain(kernel, d, tq, tk, causal):
+    """The plane design's block schedules at their tiles for head dim d
+    (dq: 64-row q tiles over 64-key blocks at D 64, 32-key at D 128;
+    dk/dv: 64-row k blocks over 64- or 32-row q blocks), with every
+    product as six plane products, against the plain versions, float32,
+    at ragged T."""
+    q, k, v, do, lse, delta, scale = _case(tq, tk, causal, d,
+                                           seed=tq + tk + causal + d)
+    qs = fa._prescale(q, scale)
+    dq_tiles, dkv_tiles = _TILES[d]
+    if kernel == "dq":
+        got = (dq_f32_schedule(qs, k, v, do, lse, delta, scale, causal,
+                               *dq_tiles),)
+        want = (fa.flash_dq_ref(q, k, v, do, lse, delta, scale, causal),)
+    else:
+        got = dkv_f32_schedule(qs, k, v, do, lse, delta, causal, *dkv_tiles)
+        want = fa.flash_dkv_ref(q, k, v, do, lse, delta, scale, causal)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), atol=2e-5,
+                                   rtol=1e-4)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_plane_schedule_matches_plain_with_plain_products(d):
+    """The same schedules with plain float32 products: the schedule alone
+    (the alternating blocks and the partials' sum) is exact bookkeeping."""
+    q, k, v, do, lse, delta, scale = _case(200, 200, True, d, seed=d)
+    qs = fa._prescale(q, scale)
+    dq_tiles, dkv_tiles = _TILES[d]
+    got = dq_f32_schedule(qs, k, v, do, lse, delta, scale, True, *dq_tiles,
+                          mm=torch.matmul)
+    np.testing.assert_allclose(
+        got.numpy(), fa.flash_dq_ref(q, k, v, do, lse, delta, scale,
+                                     True).numpy(), atol=2e-5, rtol=1e-4)
+    got = dkv_f32_schedule(qs, k, v, do, lse, delta, True, *dkv_tiles,
+                           mm=torch.matmul)
+    want = fa.flash_dkv_ref(q, k, v, do, lse, delta, scale, True)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), atol=2e-5,
+                                   rtol=1e-4)
+
+
+# ------------------------------------------- against the Pallas kernels
+def _jax_grads(x, causal):
+    q, k, v = (jnp.asarray(x[n]) for n in ("q", "k", "v"))
+
+    def f(q, k, v):
+        return jax_flash(q, k, v, causal=causal, interpret=True,
+                         return_lse=True)
+
+    _, vjp = jax.vjp(f, q, k, v)
+    dq, dk, dv = vjp((jnp.asarray(x["do"]), jnp.asarray(x["dlse"])))
+    return {n: np.asarray(a) for n, a in dict(dq=dq, dk=dk, dv=dv).items()}
+
+
+@pytest.mark.parametrize("kernel,d,T,causal", [("dq", 64, 128, True),
+                                               ("dkv", 128, 96, False)])
+def test_plane_schedule_matches_pallas(kernel, d, T, causal):
+    """One case a kernel: the plane model from the plain forward's saved
+    rows against the JAX package's gradients (Pallas kernels in interpret
+    mode), float32 atol 2e-4."""
+    rng = np.random.RandomState(T + d)
+    x = {"q": (rng.randn(1, 2, T, d) * 0.5).astype(np.float32),
+         "k": (rng.randn(1, 2, T, d) * 0.5).astype(np.float32),
+         "v": rng.randn(1, 2, T, d).astype(np.float32),
+         "do": rng.randn(1, 2, T, d).astype(np.float32),
+         "dlse": rng.randn(1, 2, T).astype(np.float32)}
+    want = _jax_grads(x, causal)
+    q, k, v, do = (torch.tensor(x[n]).reshape(2, T, d)
+                   for n in ("q", "k", "v", "do"))
+    scale = d ** -0.5
+    o, lse = fa.flash_fwd_ref(q, k, v, scale, causal)
+    delta = (do * o).sum(-1) - torch.tensor(x["dlse"]).reshape(2, T)
+    qs = fa._prescale(q, scale)
+    dq_tiles, dkv_tiles = _TILES[d]
+    if kernel == "dq":
+        got = {"dq": dq_f32_schedule(qs, k, v, do, lse, delta, scale,
+                                     causal, *dq_tiles)}
+    else:
+        dk, dv = dkv_f32_schedule(qs, k, v, do, lse, delta, causal,
+                                  *dkv_tiles)
+        got = {"dk": dk, "dv": dv}
+    for name, g in got.items():
+        np.testing.assert_allclose(g.reshape(1, 2, T, d).numpy(),
+                                   want[name], atol=2e-4, err_msg=name)
+
+
+# ----------------------------------------------------- against float64
+def _f64_grads(qs, k, v, do, lse, delta, scale, causal):
+    s = qs.double() @ k.double().transpose(1, 2)
+    if causal:
+        keep = torch.ones(s.shape[1:], dtype=torch.bool).tril()
+        s = s.masked_fill(~keep, -torch.inf)
+    p = torch.exp(s - lse.double()[..., None])
+    ds = p * (do.double() @ v.double().transpose(1, 2)
+              - delta.double()[..., None])
+    return {"dq": ds @ k.double() * scale,
+            "dk": ds.transpose(1, 2) @ qs.double(),
+            "dv": p.transpose(1, 2) @ do.double()}
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_plane_model_error_within_twice_plain(d):
+    """Against float64, the modelled kernels' largest error is at most
+    twice the plain float32 version's, per gradient (the card's gate,
+    F32_F64_RATIO, allows 8x for the tensor cores' accumulation)."""
+    q, k, v, do, lse, delta, scale = _case(256, 256, True, d, seed=40 + d)
+    qs = fa._prescale(q, scale)
+    ref = _f64_grads(qs, k, v, do, lse, delta, scale, True)
+    dq_tiles, dkv_tiles = _TILES[d]
+    model = {"dq": dq_f32_schedule(qs, k, v, do, lse, delta, scale, True,
+                                   *dq_tiles)}
+    model["dk"], model["dv"] = dkv_f32_schedule(qs, k, v, do, lse, delta,
+                                                True, *dkv_tiles)
+    plain = {"dq": fa.flash_dq_ref(q, k, v, do, lse, delta, scale, True)}
+    plain["dk"], plain["dv"] = fa.flash_dkv_ref(q, k, v, do, lse, delta,
+                                                scale, True)
+    for name, r in ref.items():
+        em = float((model[name].double() - r).abs().max())
+        ep = float((plain[name].double() - r).abs().max())
+        assert em <= 2 * ep, (name, em, ep)
+
+
+def test_wrapper_passes_plane_scratch_only_to_the_plane_design():
+    """The wrapper's scratch for the planes: 6·(q + k elements) bf16 for
+    float32 at D 64 and 128, none for another dtype or head dim."""
+    f32 = torch.zeros(2, 8, 128)
+    assert fa._planes(f32, torch.zeros(2, 4, 128)).shape == (6 * (
+        2 * 8 * 128 + 2 * 4 * 128),)
+    assert fa._planes(f32, f32).dtype == torch.bfloat16
+    assert fa._planes(torch.zeros(2, 8, 64), torch.zeros(2, 8, 64)) \
+        is not None
+    for d in (32, 256):
+        assert fa._planes(torch.zeros(2, 8, d), torch.zeros(2, 8, d)) is None
+    bf = torch.zeros(2, 8, 128, dtype=torch.bfloat16)
+    assert fa._planes(bf, bf) is None
