@@ -14,9 +14,9 @@ Phases, each printing JSON lines:
              and the SASS counts of HGMMA (wgmma), UTMALDG (TMA loads) and
              LDL/STL (local memory) from ``cuobjdump -sass``.  Each
              library must hold its bf16 Hopper kernels (all three at D
-             32, 64, 128 and 256), and dq's and dk/dv's their float32
-             plane kernels (D 64 and 128), each of them with HGMMA and
-             UTMALDG and no bytes spilled.
+             32, 64, 128 and 256) and its float32 plane kernels (D 64
+             and 128), each of them with HGMMA and UTMALDG and no bytes
+             spilled.
 3. parity  — each kernel against its plain PyTorch version on the card:
              the trainer's attention shape (B=4, H=16, T=2048, D=128, bf16,
              causal, nonzero lse cotangent), small ragged shapes (T=200)
@@ -29,13 +29,15 @@ Phases, each printing JSON lines:
              edges at D 32 and 256 (T=2112 and T=130, and for D 256's
              64-row tiles T=2080 and T=66; Tq≠Tk both ways); and bh 65,600
              at T 64, D 32, causal, in bf16 and float32 (past grid y's
-             65,535).  The float32 plane design (dq and dk/dv at D 64 and
+             65,535).  The float32 plane design (all three at D 64 and
              128): the trainer's attention shape in float32 (nonzero lse
-             cotangent), whose dq, dk and dv must also stay within 8x the
-             plain version's largest error against float64; T=2080 (a
-             half-full last 64-row tile), T=66 causal and not (a second
-             tile of 2 rows) and Tq≠Tk both ways at D 64 and 128; T=2064
-             at D 128 (a half-full 32-row block); one head at T=2048.
+             cotangent) and 8 heads at T=8192, whose o, lse, dq, dk and
+             dv must also stay within 8x the plain version's largest
+             error against float64; T=2080 (a half-full last 64-row
+             tile), T=2112 (a half-full last 128-row tile), T=66 and
+             T=130 causal and not (a last block or second tile of 2 rows)
+             and Tq≠Tk both ways at D 64 and 128; T=2064 at D 128 (a
+             half-full 32-row block); one head at T=2048.
              Each output is judged by its own dtype: float32 outputs
              (lse, and every output of a float32 case) element by element
              at atol = rtol = 1e-4; bf16 outputs by their error relative
@@ -86,10 +88,9 @@ Phases, each printing JSON lines:
              32] and [4, 16, 2048, 128] float32 against their plain
              versions (float32 also against float64, as in parity) and
              timed (beside each bound the exp unit's: one exp a kept
-             score at 16 a clock an SM; float32 dq and dk/dv bound at six
+             score at 16 a clock an SM; the float32 kernels bound at six
              bf16 products a product with the split's profiled share,
-             the float32 forward at the card's FP32 rate, FP32 and TF32
-             bounds beside).
+             FP32 and TF32 bounds beside).
    moe     — bench_moe (vocab 16384, dim 1024, 8 layers, 8 heads, hidden
              2816, 8 experts, top-2, capacity factor 1.25, full remat,
              batch 8, seq 1024): 5 steps with each dispatch from one draw
@@ -638,6 +639,11 @@ F32_TOL = 1e-4   # float32 outputs: every element within atol + rtol·|want|
 # many times the plain float32 version's (one bf16 piece fewer, or TF32,
 # would miss it by far: their errors are of order 2^-16 and 2^-11).
 F32_F64_RATIO = 8.0
+# The parity cases held to that gate: the trainer's float32 attention
+# shape, and 8 heads at T 8,192, where every output sums four times as
+# many wgmma products as at T 2,048.
+F64_CASES = ("full_width_f32", "long_f32")
+LONG_F32_BH, LONG_F32_SEQ = 8, 8192
 BF16_TOL = 1e-2  # bf16 outputs: max and L2 error relative to the scale
 KERNELS = {
     "flash_fwd": ("multiverso_tpu_torch/ops/csrc/flash_fwd.cu",
@@ -653,8 +659,9 @@ KERNELS = {
 # and fwd_for_dim in the sources).
 KERNEL_DESIGNS = {
     "flash_fwd": {"bfloat16 D 32, 64, 128, 256": "flash_fwd_hopper<D>",
-                  "float32 D 32, 64, 128, 256":
-                      "flash_fwd_kernel (FMA products)"},
+                  "float32 D 64, 128": "flash_fwd_hopper_f32<D> (three "
+                                       "bf16 planes, six wgmma products)",
+                  "float32 D 32, 256": "flash_fwd_kernel (FMA products)"},
     "flash_dq": {"bfloat16 D 32, 64, 128, 256": "flash_dq_hopper<D>",
                  "float32 D 64, 128": "flash_dq_hopper_f32<D> (three bf16 "
                                       "planes, six wgmma products)",
@@ -830,7 +837,7 @@ HOPPER_DIMS = {"flash_fwd": (32, 64, 128, 256),
                "flash_dq": (32, 64, 128, 256),
                "flash_dkv": (32, 64, 128, 256)}
 # The float32 plane design's kernels (six bf16 products a product).
-HOPPER_F32_DIMS = {"flash_fwd": (), "flash_dq": (64, 128),
+HOPPER_F32_DIMS = {"flash_fwd": (64, 128), "flash_dq": (64, 128),
                    "flash_dkv": (64, 128)}
 
 
@@ -900,6 +907,27 @@ def phase_build(_build, paths, build_s):
         raise AssertionError("build phase: " + "; ".join(bad))
 
 
+def f64_forward(torch, x, causal, heads=8):
+    """o and lse in float64 of the function the float32 forward kernel
+    and its plain version compute: the same float32 operands (q
+    pre-scaled in float32), ``heads`` heads at a time."""
+    q, k, v = x["q"], x["k"], x["v"]
+    scale = q.shape[-1] ** -0.5
+    out = {"o": [], "lse": []}
+    for h0 in range(0, q.shape[0], heads):
+        hs = slice(h0, h0 + heads)
+        s = (q[hs].float() * scale).double() @ k[hs].double().transpose(1, 2)
+        if causal:
+            keep = torch.ones(s.shape[1:], dtype=torch.bool,
+                              device=s.device).tril()
+            s = s.masked_fill(~keep, -math.inf)
+        lse = torch.logsumexp(s, -1)
+        out["o"].append(torch.exp(s - lse[..., None]) @ v[hs].double())
+        out["lse"].append(lse)
+        del s
+    return {n: torch.cat(a) for n, a in out.items()}
+
+
 def f64_backward(torch, x, saved, causal, heads=8):
     """dq, dk and dv in float64 of the function the float32 kernels and
     their plain versions compute: the same float32 operands (q pre-scaled
@@ -928,7 +956,7 @@ def f64_backward(torch, x, saved, causal, heads=8):
 
 
 def f64_errors(got, want, ref):
-    """Per backward output, the largest absolute error of the kernel
+    """Per output, the largest absolute error of the kernel
     (``got``) and of the plain version (``want``) against the float64
     ``ref``, and whether the kernel's is within F32_F64_RATIO of the
     plain version's."""
@@ -946,8 +974,9 @@ def parity_case(fa, torch, bh, t, tk, d, dtype, causal, tag, seed,
                 f64=False):
     """One case of the three kernels against their plain versions:
     (result line, inputs, plain outputs).  With ``f64`` (float32), the
-    backward's errors of kernel and plain version against float64 too,
-    the kernel's held within F32_F64_RATIO of the plain version's."""
+    errors of kernel and plain version against float64 too, of every
+    output, the kernel's held within F32_F64_RATIO of the plain
+    version's."""
     x = attn_inputs(bh, t, d, dtype, seed=seed, tk=tk)
     o_ref, lse_ref = fa.flash_fwd_ref(x["q"], x["k"], x["v"], d ** -0.5,
                                       causal)
@@ -961,8 +990,10 @@ def parity_case(fa, torch, bh, t, tk, d, dtype, causal, tag, seed,
               "dtype": str(dtype).split(".")[-1], "causal": causal,
               "ok": ok, "errors": errs}
     if f64:
-        result["f64"], f64_ok = f64_errors(
-            got, want, f64_backward(torch, x, saved, causal))
+        ref = f64_forward(torch, x, causal)
+        ref.update(f64_backward(torch, x, saved, causal))
+        result["f64"], f64_ok = f64_errors(got, want, ref)
+        del ref
         result["f64_ratio_max"] = F32_F64_RATIO
         result["ok"] = ok and f64_ok
         torch.cuda.empty_cache()
@@ -1001,18 +1032,24 @@ def edge_cases(torch):
 
 
 def f32_cases(torch):
-    """The parity phase's cases for the float32 plane design (dq and dk/dv
-    at D 64 and 128): the trainer's full attention shape with the lse
-    cotangent (and the float64 gate), the 64-row tiles' edges (a
-    half-full last tile, a second tile of 2 rows), D 128's 32-row blocks'
-    half-full last block, one head, and Tq≠Tk both ways."""
+    """The parity phase's cases for the float32 plane design (all three
+    kernels at D 64 and 128): the trainer's full attention shape with the
+    lse cotangent and 8 heads at T 8,192 (both with the float64 gate,
+    F64_CASES), the 64-row tiles' edges of dq and dk/dv and the forward's
+    128-row tiles' edges (a half-full last tile, a last block or second
+    tile of 2 rows), D 128's 32-row blocks' half-full last block, one
+    head, and Tq≠Tk both ways."""
     f32 = torch.float32
     cases = [(BATCH * HEADS, SEQ, SEQ, HEAD_DIM, f32, True,
-              "full_width_f32")]
+              "full_width_f32"),
+             (LONG_F32_BH, LONG_F32_SEQ, LONG_F32_SEQ, HEAD_DIM, f32, True,
+              "long_f32")]
     for d in (64, 128):
-        cases.append((4, SEQ + 32, SEQ + 32, d, f32, True, "half_tile"))
-        for causal in (True, False):
-            cases.append((3, 66, 66, d, f32, causal, "two_row_tile"))
+        for t in (SEQ + 32, SEQ + 64):
+            cases.append((4, t, t, d, f32, True, "half_tile"))
+        for t in (66, 130):
+            for causal in (True, False):
+                cases.append((3, t, t, d, f32, causal, "two_row_tile"))
         for t, tk in ((40, 136), (136, 40)):
             cases.append((3, t, tk, d, f32, False, "cross_length"))
     cases.append((2, SEQ + 16, SEQ + 16, HEAD_DIM, f32, True, "half_block"))
@@ -1050,7 +1087,7 @@ def phase_parity(fa, torch):
     for i, (bh, t, tk, d, dtype, causal, tag) in enumerate(cases):
         result, x, want = parity_case(fa, torch, bh, t, tk, d, dtype,
                                       causal, tag, seed=100 + i,
-                                      f64=tag == "full_width_f32")
+                                      f64=tag in F64_CASES)
         results.append(result)
         if tag == "full_width":
             full_err = kernel_errors(result["errors"])
@@ -2897,9 +2934,10 @@ RATES = {"bf16": PEAK_BF16_FLOPS, "bf16x6": PEAK_BF16_FLOPS / 6,
 
 
 def split_share(torch, fn, calls=3, profile=None):
-    """The float32 plane design's split (``flash_split3``, four launches
-    a call) inside ``fn``: its device ms a call and its share of the
-    call's device time, from torch.profiler over ``calls`` calls, with
+    """The float32 plane design's split (``flash_split3``, three
+    launches a forward call, four a dq or dk/dv call) inside ``fn``: its
+    device ms a call and its share of the call's device time, from
+    torch.profiler over ``calls`` calls, with
     the device ms a call the profile saw (``profiled_ms``: below the
     call's CUDA-event time where the profile lost kernels)."""
     prof = (profile or profile_calls)(torch, fn, calls, top=20)
@@ -2910,13 +2948,13 @@ def split_share(torch, fn, calls=3, profile=None):
             "profiled_ms": prof["device_busy_ms"] / calls}
 
 
-def bound_rate(name, dtype, d, torch) -> str:
-    """Which of RATES bounds kernel ``name`` at ``dtype`` and head dim
-    ``d`` (the design dq_for_dim and dkv_for_dim launch: a head dim in
-    (32, 128] runs at D 64 or 128, padded)."""
+def bound_rate(dtype, d, torch) -> str:
+    """Which of RATES bounds a kernel at ``dtype`` and head dim ``d`` (the
+    design fwd_for_dim, dq_for_dim and dkv_for_dim launch alike: a head
+    dim in (32, 128] runs at D 64 or 128, padded)."""
     if dtype != torch.float32:
         return "bf16"
-    return "bf16x6" if name != "flash_fwd" and 32 < d <= 128 else "fp32"
+    return "bf16x6" if 32 < d <= 128 else "fp32"
 
 
 def kernel_times(fa, torch, B, H, T, D, plain_bh=None, tk=None,
@@ -2928,10 +2966,9 @@ def kernel_times(fa, torch, B, H, T, D, plain_bh=None, tk=None,
     versions hold [bh, T, tk] float32 scores), its bound, the exp unit's
     bound (one exp a kept score) and the library call that computes the
     same function.  A float32 kernel's bound is taken at the rate of the
-    design it runs: dq and dk/dv at D 64 and 128 (the plane design) as six
-    times their flops at the bf16 rate, every other float32 kernel at the
-    card's FP32 rate (its products are FMAs); the FP32 and TF32 bounds
-    stand beside it."""
+    design it runs: at D 64 and 128 (the plane design) as six times its
+    flops at the bf16 rate, at D 32 and 256 at the card's FP32 rate (its
+    products are FMAs); the FP32 and TF32 bounds stand beside it."""
     import torch.nn.functional as F
 
     dtype = dtype or torch.bfloat16
@@ -2967,7 +3004,7 @@ def kernel_times(fa, torch, B, H, T, D, plain_bh=None, tk=None,
     out = {}
     for name, (kern, plain) in calls.items():
         flops, nbytes = work[name]
-        rate = bound_rate(name, dtype, D, torch)
+        rate = bound_rate(dtype, D, torch)
         t_ops = flops / RATES[rate] * 1e3
         t_mem = nbytes / PEAK_HBM_BYTES * 1e3
         ms = cuda_ms(kern)

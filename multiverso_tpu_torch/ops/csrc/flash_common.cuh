@@ -7,10 +7,10 @@
 //   PRE-SCALED by the softmax scale; lse and delta are [bh, T] float.
 //   Scores, softmax statistics and accumulators are float32.
 //
-// Design of the first port's kernels, which the float32 forward at every
-// head dim and float32 dq and dk/dv at D 32 and 256 run (every bf16
-// launch runs the Hopper designs of hopper.cuh, and float32 dq and dk/dv
-// at D 64 and 128 the bf16-plane design of hopper_f32.cuh): one thread
+// Design of the first port's kernels, which every float32 launch at D 32
+// and 256 runs (every bf16 launch runs the Hopper designs of hopper.cuh,
+// and every float32 launch at D 64 and 128 the bf16-plane design of
+// hopper_f32.cuh): one thread
 // block of kThreads threads per (bh, row block), bh on grid x.  Every
 // operand tile is staged in shared memory with a padded leading
 // dimension; every product reads its operands from shared memory and

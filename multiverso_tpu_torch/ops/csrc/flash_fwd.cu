@@ -17,8 +17,8 @@
 // flops per byte moved, far below the ~295 the card needs to be limited
 // by memory, so the bound is the tensor-core rate; at head dim 32 a score
 // costs 4·32 flops and one exp, and the exp unit (16 a clock an SM, a
-// 256th of the bf16 tensor rate) is the tighter bound.  Two designs,
-// chosen at compile time by dtype in fwd_for_dim:
+// 256th of the bf16 tensor rate) is the tighter bound.  Three designs,
+// chosen at compile time by (dtype, D) in fwd_for_dim:
 //
 // * bf16 at D 32, 64, 128 and 256 (flash_fwd_hopper): the tensor cores
 //   are fed without shared-memory round trips.  One block per (bh,
@@ -32,10 +32,14 @@
 //   of o += p·v (v MN-major), o in registers for the whole loop.  The two
 //   warpgroups run independently, so one's softmax overlaps the other's
 //   products.  Tile sizes, swizzle and producer by D: HopFwd.
-// * float32 at every D (flash_fwd_kernel): the first port's design.
+// * float32 at D 64 and 128 (flash_fwd_hopper_f32): the bf16 design's
+//   block with q, k and v as three bf16 planes each and every product as
+//   six wgmma products (hopper_f32.cuh), bound by six times the flops at
+//   the bf16 rate.  Tiles: F32Fwd.
+// * float32 at D 32 and 256 (flash_fwd_kernel): the first port's design.
 //   Every tile staged in shared memory, products as plain FMAs (no TF32).
 #include "flash_common.cuh"
-#include "hopper.cuh"
+#include "hopper_f32.cuh"
 
 namespace mvt {
 
@@ -445,18 +449,249 @@ int launch_fwd_hopper(const void* q, const void* k, const void* v, void* o,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------- float32 Hopper design
+// D 64 and 128: q, k and v split into three bf16 planes before the
+// launch (Planes, in the wrapper's scratch), every product six wgmma
+// products.  The bf16 design's block: one 128-row q tile a block, each
+// consumer warpgroup owning 64 of its rows, a producer warp loading q's
+// planes once and k's and v's through a ring of stages.  Per k block,
+// s = q·kᵀ from shared memory (planes_ss), the online softmax on float32
+// s in registers with expf as the plain version takes it, p split into
+// three register planes (acc_to_a3) as o += p·v's A operand (planes_rs,
+// v MN-major); o stays float32 in registers for the whole loop.  Planes
+// take 6 bytes an element, so the k blocks shrink: q's planes and the
+// stages fill 192 KB at both dims (232,448 the cap):
+// * D 128: 96 KB of q planes, 32-key blocks of 48 KB (k and v) in two
+//   stages.  s is an m64n32 product, o 64 registers a thread.
+// * D 64: 48 KB of q planes, 64-key blocks of 48 KB in three stages.
+template <int D>
+struct F32Fwd {
+  using B = hop::Box<D>;
+  static constexpr int BQ = 128, BK = D == 128 ? 32 : 64;
+  static constexpr int kStages = D == 128 ? 2 : 3;
+  static constexpr int kAllThreads = hop::kThreads + 32;  // + a producer
+  static constexpr uint32_t kBoxQ = BQ * B::kRow;  // one box, one plane
+  static constexpr uint32_t kBoxK = BK * B::kRow;
+  static constexpr uint32_t kQPlane = B::kBoxes * kBoxQ;
+  static constexpr uint32_t kKPlane = B::kBoxes * kBoxK;
+  static constexpr uint32_t kQBytes = 3 * kQPlane;  // q's three planes
+  static constexpr uint32_t kKBytes = 3 * kKPlane;
+  static constexpr size_t q = 0;
+  static constexpr size_t kv = kQBytes;  // stage s: k's planes, then v's
+  static constexpr size_t bars = kv + kStages * 2 * kKBytes;
+  static constexpr size_t bytes = bars + 8 * (2 * kStages + 1) + hop::kAtomBytes;
+  static_assert(D == 64 || D == 128, "float32 planes at D 64 and 128");
+  static_assert(bytes <= kMaxSmem, "forward tiles exceed shared memory");
+};
+
+template <int D>
+__global__ void __launch_bounds__(F32Fwd<D>::kAllThreads, 1)
+    flash_fwd_hopper_f32(const __grid_constant__ CUtensorMap tm_q,
+                         const __grid_constant__ CUtensorMap tm_k,
+                         const __grid_constant__ CUtensorMap tm_v,
+                         float* __restrict__ o, float* __restrict__ lse,
+                         int tq, int tk, int causal) {
+  using C = F32Fwd<D>;
+  using B = typename C::B;
+  constexpr int BK = C::BK, S = C::kStages;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = hop::align_atom(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + C::bars);
+  uint64_t* empty = full + S;
+  uint64_t* qbar = empty + S;
+
+  // Plane p of head bh is head bh + p·nbh of the maps.
+  const int bh = blockIdx.x, nbh = gridDim.x;
+  // Heaviest causal q tiles (the last ones) start first, over all heads.
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * C::BQ;
+  const int nk = (tk + BK - 1) / BK;
+  const int kend = causal ? min(nk, (q0 + C::BQ - 1) / BK + 1) : nk;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      hop::mbar_init(&full[s], 1);
+      hop::mbar_init(&empty[s], hop::kWarps);
+    }
+    hop::mbar_init(qbar, 1);
+    hop::fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  // The producer: q's planes once, then k block j's and v block j's
+  // planes into stage j % S once every consumer warp has released the
+  // block S before it.
+  if (warp == hop::kWarps) {
+    if (lane == 0) {
+      hop::mbar_expect_tx(qbar, C::kQBytes);
+      for (int p = 0; p < 3; ++p) {
+        for (int b = 0; b < B::kBoxes; ++b) {
+          hop::tma_load(smem + C::q + p * C::kQPlane + b * C::kBoxQ, &tm_q,
+                        qbar, b * B::kCols, q0, bh + p * nbh);
+        }
+      }
+      for (int j = 0; j < kend; ++j) {
+        const int s = j % S;
+        hop::mbar_wait(&empty[s], ((j / S) & 1) ^ 1);
+        hop::mbar_expect_tx(&full[s], 2 * C::kKBytes);
+        unsigned char* ks = smem + C::kv + s * 2 * C::kKBytes;
+        for (int p = 0; p < 3; ++p) {
+          for (int b = 0; b < B::kBoxes; ++b) {
+            const uint32_t at = p * C::kKPlane + b * C::kBoxK;
+            hop::tma_load(ks + at, &tm_k, &full[s], b * B::kCols, j * BK,
+                          bh + p * nbh);
+            hop::tma_load(ks + C::kKBytes + at, &tm_v, &full[s],
+                          b * B::kCols, j * BK, bh + p * nbh);
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // Warpgroup g owns q rows [q0 + 64g, q0 + 64g + 64): rows r0 and r0 + 8
+  // of each thread in the m64nNk16 accumulator layout.
+  const int g = warp / 4;
+  const int r0 = (warp % 4) * 16 + lane / 4;
+  const int cq = 2 * (lane % 4);
+  const int qw = q0 + 64 * g;
+  const int row0 = qw + r0, row1 = row0 + 8;
+  const uint32_t q_addr = hop::smem_u32(smem + C::q) + 64 * g * B::kRow;
+
+  float acc[D / 2];  // o, unnormalised
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  float m0 = kNeg, m1 = kNeg, l0 = 0.f, l1 = 0.f;
+  hop::mbar_wait(qbar, 0);
+
+  for (int kb = 0; kb < kend; ++kb) {
+    const int s = kb % S;
+    const uint32_t k_addr = hop::smem_u32(smem + C::kv + s * 2 * C::kKBytes);
+    const uint32_t v_addr = k_addr + C::kKBytes;
+    hop::mbar_wait(&full[s], (kb / S) & 1);
+
+    float sc[BK / 2];  // s, then p, of the current k block
+    hop::wgmma_fence();
+    hop::planes_ss<D>(sc, q_addr, C::kQPlane, C::kBoxQ, k_addr, C::kKPlane,
+                      C::kBoxK);
+    hop::wgmma_commit();
+    hop::wgmma_wait<0>();
+    hop::fence_regs(sc);
+
+    // The online softmax in registers, as the bf16 design runs it but
+    // with expf: l stays a per-thread partial sum until the epilogue.
+    const int k0 = kb * BK;
+    if ((causal && k0 + BK - 1 > qw) || k0 + BK > tk) {
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int kc = k0 + 8 * j + cq + e;
+          if (kc >= tk || (causal && kc > row0)) sc[4 * j + e] = kNeg;
+          if (kc >= tk || (causal && kc > row1)) sc[4 * j + 2 + e] = kNeg;
+        }
+      }
+    }
+    float mx0 = m0, mx1 = m1;
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+      mx0 = fmaxf(mx0, fmaxf(sc[4 * j], sc[4 * j + 1]));
+      mx1 = fmaxf(mx1, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
+    }
+    mx0 = group_max<4>(mx0);
+    mx1 = group_max<4>(mx1);
+    const float corr0 = expf(m0 - mx0), corr1 = expf(m1 - mx1);
+    m0 = mx0;
+    m1 = mx1;
+    float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        sc[4 * j + e] = expf(sc[4 * j + e] - mx0);
+        sc[4 * j + 2 + e] = expf(sc[4 * j + 2 + e] - mx1);
+        sum0 += sc[4 * j + e];
+        sum1 += sc[4 * j + 2 + e];
+      }
+    }
+    l0 = l0 * corr0 + sum0;
+    l1 = l1 * corr1 + sum1;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      acc[4 * j] *= corr0;
+      acc[4 * j + 1] *= corr0;
+      acc[4 * j + 2] *= corr1;
+      acc[4 * j + 3] *= corr1;
+    }
+
+    // o += p·v: p's planes from registers, v's MN-major.
+    uint32_t pa[3][BK / 4];
+    hop::acc_to_a3(sc, pa);
+    hop::wgmma_fence();
+    hop::planes_rs<D>(acc, pa, v_addr, C::kKPlane, C::kBoxK);
+    hop::wgmma_commit();
+    hop::wgmma_wait<0>();
+    hop::fence_regs(acc);
+
+    // The stage is free once this warp's products that read it are done.
+    __syncwarp();
+    if (lane == 0) hop::mbar_arrive(&empty[s]);
+  }
+
+  l0 = group_sum<4>(l0);
+  l1 = group_sum<4>(l1);
+  const float lc0 = fmaxf(l0, 1e-30f), lc1 = fmaxf(l1, 1e-30f);
+  float* og = o + static_cast<size_t>(bh) * tq * D;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = h ? row1 : row0;
+    const float lc = h ? lc1 : lc0;
+    if (row >= tq) continue;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      *reinterpret_cast<float2*>(og + static_cast<size_t>(row) * D + 8 * j +
+                                 cq) =
+          make_float2(acc[4 * j + 2 * h] / lc, acc[4 * j + 2 * h + 1] / lc);
+    }
+    if (lane % 4 == 0) {
+      lse[static_cast<size_t>(bh) * tq + row] = (h ? m1 : m0) + logf(lc);
+    }
+  }
+}
+
+template <int D>
+int launch_fwd_f32(const void* q, const void* k, const void* v, void* o,
+                   void* lse, void* planes, int bh, int tq, int tk,
+                   int causal, cudaStream_t stream) {
+  using C = F32Fwd<D>;
+  Planes m;
+  const int rc = m.split(q, k, v, nullptr, planes, D, bh, tq, tk, C::BQ,
+                         C::BK, stream);
+  if (rc != 0) return rc;
+  auto kernel = flash_fwd_hopper_f32<D>;
+  static bool smem_set = false;
+  cudaError_t err = allow_smem(kernel, C::bytes, &smem_set);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid(bh, (tq + C::BQ - 1) / C::BQ);
+  kernel<<<grid, C::kAllThreads, C::bytes, stream>>>(
+      m.q, m.k, m.v, static_cast<float*>(o), static_cast<float*>(lse), tq,
+      tk, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // The design is fixed by (dtype, D) at compile time: bf16 runs the Hopper
-// design above at every D; float32 runs the first port's kernel, with
-// 64 x 64 tiles but at head dim 256, whose k block halves to fit 227 KB.
+// design above at every D; float32 runs the plane design at D 64 and 128
+// and the first port's kernel at D 32 (64 x 64 tiles) and D 256, whose k
+// block halves to fit 227 KB.
 template <typename T>
 int fwd_for_dim(int d, const void* q, const void* k, const void* v,
-                void* o, void* lse, int bh, int tq, int tk, int causal,
-                cudaStream_t s) {
+                void* o, void* lse, void* planes, int bh, int tq, int tk,
+                int causal, cudaStream_t s) {
   if constexpr (std::is_same<T, float>::value) {
     switch (d) {
       case 32: return launch_fwd<T, 32, 64, 64>(q, k, v, o, lse, bh, tq, tk, causal, s);
-      case 64: return launch_fwd<T, 64, 64, 64>(q, k, v, o, lse, bh, tq, tk, causal, s);
-      case 128: return launch_fwd<T, 128, 64, 64>(q, k, v, o, lse, bh, tq, tk, causal, s);
+      case 64: return launch_fwd_f32<64>(q, k, v, o, lse, planes, bh, tq, tk, causal, s);
+      case 128: return launch_fwd_f32<128>(q, k, v, o, lse, planes, bh, tq, tk, causal, s);
       case 256: return launch_fwd<T, 256, 64, 32>(q, k, v, o, lse, bh, tq, tk, causal, s);
       default: return MVT_UNSUPPORTED;
     }
@@ -474,16 +709,20 @@ int fwd_for_dim(int d, const void* q, const void* k, const void* v,
 }  // namespace mvt
 
 // q (pre-scaled), k, v: [bh, T, d]; o: [bh, tq, d]; lse: [bh, tq] float.
+// planes: the float32 plane design's scratch, 3·bh·(tq + 2·tk)·d bf16
+// (hopper_f32.cuh); null for every other launch.
 extern "C" int mvt_flash_fwd(const void* q, const void* k, const void* v,
-                             void* o, void* lse, int bh, int tq, int tk,
-                             int d, int dtype, int causal, void* stream) {
+                             void* o, void* lse, void* planes, int bh,
+                             int tq, int tk, int d, int dtype, int causal,
+                             void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == MVT_DTYPE_F32) {
-    return mvt::fwd_for_dim<float>(d, q, k, v, o, lse, bh, tq, tk, causal, s);
+    return mvt::fwd_for_dim<float>(d, q, k, v, o, lse, planes, bh, tq, tk,
+                                   causal, s);
   }
   if (dtype == MVT_DTYPE_BF16) {
-    return mvt::fwd_for_dim<__nv_bfloat16>(d, q, k, v, o, lse, bh, tq, tk,
-                                           causal, s);
+    return mvt::fwd_for_dim<__nv_bfloat16>(d, q, k, v, o, lse, planes, bh,
+                                           tq, tk, causal, s);
   }
   return MVT_UNSUPPORTED;
 }

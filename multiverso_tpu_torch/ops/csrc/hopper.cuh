@@ -1,6 +1,6 @@
 // Hopper (sm_90a) building blocks of the redesigned flash-attention
-// kernels (all three in bf16 at head dims 32, 64, 128 and 256; dq and
-// dk/dv in float32 at 64 and 128 through hopper_f32.cuh):
+// kernels (all three in bf16 at head dims 32, 64, 128 and 256, and in
+// float32 at 64 and 128 through hopper_f32.cuh):
 // mbarriers, TMA tile loads, and wgmma descriptors and instructions.  Raw
 // PTX through inline asm, so a library builds in seconds with no CUTLASS
 // headers.

@@ -1,6 +1,6 @@
-// The float32 flash backward on the bf16 tensor cores (flash_dq.cu and
-// flash_dkv.cu at D 64 and 128): float32 as three bf16 planes, six wgmma
-// products a product.
+// The float32 flash kernels on the bf16 tensor cores (flash_fwd.cu,
+// flash_dq.cu and flash_dkv.cu at D 64 and 128): float32 as three bf16
+// planes, six wgmma products a product.
 //
 // A float32 x splits into hi = bf16(x), mid = bf16(x - hi) and
 // lo = bf16(x - hi - mid), each rounded to nearest; both differences are
@@ -15,12 +15,13 @@
 // boxes of bf16 rows, K-major or MN-major descriptors, accumulators fed
 // back as register A operands.
 //
-// flash_split3 splits q, k, v and do into their planes in device memory
-// before each float32 dq or dk/dv launch, into scratch the wrapper
-// allocates: [3, bh, T, D] bf16 a tensor, plane p of head b at head
-// index p·bh + b, so one 3-D TMA map (D, T, 3·bh) reads all three.  It
-// replaces no TPU kernel: the Pallas kernels take float32 operands
-// whole.  It is bound by bytes (4 read and 6 written an element).
+// flash_split3 splits the float32 operands (q, k, v, and do for dq and
+// dk/dv) into their planes in device memory before each launch, into
+// scratch the wrapper allocates: [3, bh, T, D] bf16 a tensor, plane p of
+// head b at head index p·bh + b, so one 3-D TMA map (D, T, 3·bh) reads
+// all three.  It replaces no TPU kernel: the Pallas kernels take float32
+// operands whole.  It is bound by bytes (4 read and 6 written an
+// element).
 #pragma once
 
 #include "flash_common.cuh"
@@ -144,10 +145,10 @@ inline int launch_split3(const void* x, void* out, size_t n,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The float32 operands' planes in the wrapper's scratch (6·(nq + nk)
-// bf16: q, do, k, v in that order, three planes each), split on the
-// stream, and a TMA map over each in boxes of qrows (q, do) or krows (k,
-// v) rows.
+// The float32 operands' planes in the wrapper's scratch, three a tensor
+// in the order q, do, k, v (6·(nq + nk) bf16 for dq and dk/dv; the
+// forward passes no do, so 3·(nq + 2·nk)), split on the stream, and a TMA
+// map over each in boxes of qrows (q, do) or krows (k, v) rows.
 struct Planes {
   CUtensorMap q, k, v, dout;
 
@@ -155,20 +156,19 @@ struct Planes {
             const void* dop, void* scratch, int d, int bh, int tq, int tk,
             int qrows, int krows, cudaStream_t stream) {
     if (scratch == nullptr) return MVT_NO_SCRATCH;
-    const size_t nq = static_cast<size_t>(bh) * tq * d;
-    const size_t nk = static_cast<size_t>(bh) * tk * d;
-    bf16* s = static_cast<bf16*>(scratch);
-    bf16* parts[4] = {s, s + 3 * nq, s + 6 * nq, s + 6 * nq + 3 * nk};
     const void* src[4] = {qp, dop, kp, vp};
+    CUtensorMap* maps[4] = {&q, &dout, &k, &v};
+    bf16* at = static_cast<bf16*>(scratch);
     for (int i = 0; i < 4; ++i) {
-      const int rc = launch_split3(src[i], parts[i], i < 2 ? nq : nk, stream);
+      if (src[i] == nullptr) continue;
+      const int t = i < 2 ? tq : tk;
+      const size_t n = static_cast<size_t>(bh) * t * d;
+      const int rc = launch_split3(src[i], at, n, stream);
       if (rc != 0) return rc;
-    }
-    if (!hop::make_map(&q, parts[0], d, tq, 3 * bh, qrows) ||
-        !hop::make_map(&dout, parts[1], d, tq, 3 * bh, qrows) ||
-        !hop::make_map(&k, parts[2], d, tk, 3 * bh, krows) ||
-        !hop::make_map(&v, parts[3], d, tk, 3 * bh, krows)) {
-      return MVT_TMA_REFUSED;
+      if (!hop::make_map(maps[i], at, d, t, 3 * bh, i < 2 ? qrows : krows)) {
+        return MVT_TMA_REFUSED;
+      }
+      at += 3 * n;
     }
     return 0;
   }

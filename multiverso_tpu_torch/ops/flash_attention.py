@@ -16,14 +16,14 @@ wrapper        CUDA source                     replaces (TPU kernel)
 Which design a kernel runs is fixed at compile time by (dtype, D): in
 bf16 all three run the Hopper designs (TMA loads, wgmma with register
 accumulators, shared helpers in ``csrc/hopper.cuh``) at every head dim.
-In float32, dq and dk/dv at D 64 and 128 run the plane design
+In float32, all three at D 64 and 128 run the plane design
 (``csrc/hopper_f32.cuh``): one elementwise kernel, which replaces no TPU
-kernel, splits q, k, v and do into three bf16 planes (hi, mid, lo) in
-scratch the wrapper allocates, and every product runs as six bf16 wgmma
-products into float32 accumulators (the three left out are of order
-2⁻²⁴ of the product), so the bound is six times the flops at the bf16
-rate.  The float32 forward, and dq and dk/dv at D 32 and 256, run the
-first port's kernels (``csrc/flash_common.cuh``; products as FMAs).
+kernel, splits q, k and v (and, for dq and dk/dv, do) into three bf16
+planes (hi, mid, lo) in scratch the wrapper allocates, and every product
+runs as six bf16 wgmma products into float32 accumulators (the three left
+out are of order 2⁻²⁴ of the product), so the bound is six times the
+flops at the bf16 rate.  Float32 at D 32 and 256 runs the first port's
+kernels (``csrc/flash_common.cuh``; products as FMAs).
 Every design puts bh on grid x, so any bh launches.
 
 Beside each wrapper sits its plain version (``flash_fwd_ref``,
@@ -80,14 +80,14 @@ _SHAPES: Dict[Tuple[str, int, int, bool], int] = {}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "flash_fwd": ("mvt_flash_fwd", [_P] * 5 + [_I] * 6 + [_P]),
+    "flash_fwd": ("mvt_flash_fwd", [_P] * 6 + [_I] * 6 + [_P]),
     "flash_dq": ("mvt_flash_dq",
                  [_P] * 8 + [_I] * 6 + [ctypes.c_float, _P]),
     "flash_dkv": ("mvt_flash_dkv", [_P] * 9 + [_I] * 6 + [_P]),
 }
-# Head dims whose float32 dq and dk/dv run the plane design, which splits
-# q, k, v and do into three bf16 planes each in scratch the wrapper
-# passes (dq_for_dim and dkv_for_dim in csrc/).
+# Head dims whose float32 kernels run the plane design, which splits q, k,
+# v (and do) into three bf16 planes each in scratch the wrapper passes
+# (fwd_for_dim, dq_for_dim and dkv_for_dim in csrc/).
 _F32_PLANE_DIMS = (64, 128)
 _FNS: Dict[str, tuple] = {}  # name -> (C entry point, error-string fn)
 _FNS_LOCK = threading.Lock()
@@ -197,12 +197,14 @@ def _prepare(q, k, v, scale):
     return _prescale(q, scale).contiguous(), k.contiguous(), v.contiguous()
 
 
-def _planes(qs, k):
+def _planes(qs, k, backward=True):
     """Scratch for the float32 plane design's bf16 planes (hi, mid and lo
-    of q, do, k and v), or None where the launch runs another design."""
+    of q, k, v and, for the backward, do), or None where the launch runs
+    another design."""
     if qs.dtype != torch.float32 or qs.shape[2] not in _F32_PLANE_DIMS:
         return None
-    return torch.empty(6 * (qs.numel() + k.numel()), dtype=torch.bfloat16,
+    nq = qs.numel() * (2 if backward else 1)
+    return torch.empty(3 * (nq + 2 * k.numel()), dtype=torch.bfloat16,
                        device=qs.device)
 
 
@@ -226,7 +228,8 @@ def _fwd(qs, k, v, causal):
         return o[..., :d].contiguous(), lse
     o = torch.empty_like(qs)
     lse = torch.empty((bh, tq), dtype=torch.float32, device=qs.device)
-    _launch("flash_fwd", qs.device, qs, k, v, o, lse, bh, tq, k.shape[1], d,
+    _launch("flash_fwd", qs.device, qs, k, v, o, lse,
+            _planes(qs, k, backward=False), bh, tq, k.shape[1], d,
             _DTYPE_CODES[qs.dtype], int(causal),
             piece=(tq, k.shape[1], bool(causal)))
     return o, lse

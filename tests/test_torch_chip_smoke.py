@@ -1017,14 +1017,19 @@ def test_headdims_phase_shapes():
     ("flash_dq", torch.float32, 128, "bf16x6"),
     ("flash_dkv", torch.float32, 64, "bf16x6"),
     ("flash_dq", torch.float32, 48, "bf16x6"),
-    ("flash_fwd", torch.float32, 128, "fp32"),
+    ("flash_fwd", torch.float32, 128, "bf16x6"),
     ("flash_dkv", torch.float32, 32, "fp32"),
     ("flash_dq", torch.float32, 256, "fp32"),
-    ("flash_dq", torch.bfloat16, 128, "bf16")])
+    ("flash_dq", torch.bfloat16, 128, "bf16"),
+    ("flash_fwd", torch.float32, 96, "bf16x6"),
+    ("flash_fwd", torch.float32, 32, "fp32"),
+    ("flash_fwd", torch.float32, 256, "fp32")])
 def test_bound_rate_follows_the_design(name, dtype, d, rate):
-    """A float32 dq or dk/dv at (padded) D 64 or 128 is bound at six bf16
-    products a product; the other float32 kernels at the FP32 rate."""
-    assert chip_smoke.bound_rate(name, dtype, d, torch) == rate
+    """Every float32 kernel (``name`` any of the three) at (padded) D 64
+    or 128 is bound at six bf16 products a product; at D 32 and 256 at
+    the FP32 rate."""
+    assert name in chip_smoke.KERNELS
+    assert chip_smoke.bound_rate(dtype, d, torch) == rate
 
 
 def test_six_product_bound_at_the_trainer_shape():
@@ -1060,6 +1065,30 @@ def test_f64_errors_hold_the_kernel_within_the_ratio():
     assert not chip_smoke.f64_errors(past, plain, ref)[1]
 
 
+def test_f64_forward_matches_softmax_attention():
+    """The float64 reference of the forward's gate is softmax attention
+    and its logsumexp on the pre-scaled float32 q, a head at a time or
+    all at once."""
+    rng = np.random.RandomState(4)
+    x = {n: torch.tensor(rng.randn(3, 24, 16).astype(np.float32))
+         for n in ("q", "k", "v")}
+    qs = (x["q"] * 16 ** -0.5).double()
+    for causal in (True, False):
+        s = qs @ x["k"].double().transpose(1, 2)
+        if causal:
+            s = s.masked_fill(~torch.ones(24, 24, dtype=torch.bool).tril(),
+                              -math.inf)
+        want = {"o": torch.softmax(s, -1) @ x["v"].double(),
+                "lse": torch.logsumexp(s, -1)}
+        for heads in (1, 8):
+            got = chip_smoke.f64_forward(torch, x, causal, heads=heads)
+            for name in want:
+                assert got[name].dtype == torch.float64
+                np.testing.assert_allclose(got[name].numpy(),
+                                           want[name].numpy(), atol=1e-13,
+                                           err_msg=name)
+
+
 def test_f64_backward_matches_autograd():
     """The float64 reference of the parity gate is the backward of
     softmax attention from the saved lse and delta."""
@@ -1087,9 +1116,13 @@ def test_parity_float32_cases_cover_the_plane_tiles():
     assert all(dt == torch.float32 for *_, dt, _, _ in cases)
     tags = {(d, t, tk, tag) for _, t, tk, d, _, _, tag in cases}
     assert (128, 2048, 2048, "full_width_f32") in tags
+    assert (128, 8192, 8192, "long_f32") in tags
+    assert {tag for *_, tag in cases} >= set(chip_smoke.F64_CASES)
     for d in (64, 128):
         assert (d, 2080, 2080, "half_tile") in tags
+        assert (d, 2112, 2112, "half_tile") in tags
         assert (d, 66, 66, "two_row_tile") in tags
+        assert (d, 130, 130, "two_row_tile") in tags
         assert (d, 40, 136, "cross_length") in tags
         assert (d, 136, 40, "cross_length") in tags
     assert (128, 2064, 2064, "half_block") in tags

@@ -1,18 +1,21 @@
-"""The float32 plane design of the port's flash backward (dq and dk/dv at
-head dims 64 and 128, ``csrc/hopper_f32.cuh``), modelled on the CPU.
+"""The float32 plane design of the port's flash kernels (forward, dq and
+dk/dv at head dims 64 and 128, ``csrc/hopper_f32.cuh``), modelled on the
+CPU.
 
-The kernels split q, k, v and do (and, in registers, ds, p, pᵀ and dsᵀ)
+The kernels split q, k, v and do (and, in registers, p, ds, pᵀ and dsᵀ)
 into three bf16 planes, hi, mid and lo, and form every product as six
 bf16 products summed in float32.  These tests model that arithmetic in
 plain torch: the split, the six-product sum, and the kernels' block
-schedules at the design's tiles (64 stationary rows shared by both
-warpgroups, which take every other streamed block and meet once), held
-against the plain versions at the schedule tests' tolerances (atol 2e-5,
-rtol 1e-4), against the JAX package's Pallas kernels in interpret mode
-(float32: atol 2e-4 for gradients, as ``tests/test_flash_attention.py``
-states it), and against float64, where the model's error may be at most
-twice the plain float32 version's.  The CUDA kernels themselves run only
-on the card (``chip_smoke.py``'s parity phase holds them).
+schedules at the design's tiles (the forward: 128-row q tiles, 64 rows a
+warpgroup, each walking the k blocks with an online softmax; dq and
+dk/dv: 64 stationary rows shared by both warpgroups, which take every
+other streamed block and meet once), held against the plain versions at
+the schedule tests' tolerances (atol 2e-5, rtol 1e-4), against the JAX
+package's Pallas kernels in interpret mode (float32: atol 2e-5 for the
+forward, 2e-4 for gradients, as ``tests/test_flash_attention.py`` states
+them), and against float64, where the model's error may be at most twice
+the plain float32 version's.  The CUDA kernels themselves run only on the
+card (``chip_smoke.py``'s parity phase holds them).
 """
 
 import jax
@@ -30,6 +33,8 @@ PAIRS = ((2, 0), (1, 1), (0, 2), (1, 0), (0, 1), (0, 0))
 # The design's tiles by head dim: (dq q rows, k block), (dk/dv k rows, q
 # block) — F32Dq and F32Dkv in the sources.
 _TILES = {64: ((64, 64), (64, 64)), 128: ((64, 32), (64, 32))}
+# The forward's (q rows, k block) by head dim — F32Fwd.
+_FWD_TILES = {64: (128, 64), 128: (128, 32)}
 _RAGGED = [(130, 130, True), (130, 130, False), (200, 200, True),
            (200, 200, False), (256, 256, True), (40, 136, False)]
 
@@ -63,6 +68,49 @@ def _pad_rows(x, rows):
 
 def _pad_row_vec(x, n):
     return torch.nn.functional.pad(x, (0, n - x.shape[1]))
+
+
+def fwd_f32_schedule(qs, k, v, causal, BQ=128, BK=32, mm=mm6):
+    """o and lse as flash_fwd_hopper_f32 schedules them: a block per
+    128-row q tile; warpgroup g owns 64 of its rows and walks the k blocks
+    up to the tile's causal end with an online softmax (running max m and
+    sum l, o rescaled by exp(m_old - m_new)), masking only the blocks
+    that straddle its diagonal or Tk; p is split into planes like any
+    operand."""
+    bh, tq, d = qs.shape
+    tk = k.shape[1]
+    nqt, nk = -(-tq // BQ), -(-tk // BK)
+    qp = _pad_rows(qs, nqt * BQ)
+    kp, vp = _pad_rows(k, nk * BK), _pad_rows(v, nk * BK)
+    o, lse = torch.zeros(bh, tq, d), torch.zeros(bh, tq)
+    for qt in range(nqt):
+        q0 = qt * BQ
+        kend = min(nk, (q0 + BQ - 1) // BK + 1) if causal else nk
+        for g in range(2):
+            qw = q0 + 64 * g
+            rows = torch.arange(qw, qw + 64)
+            m = torch.full((bh, 64, 1), _NEG)
+            l, acc = torch.zeros(bh, 64, 1), torch.zeros(bh, 64, d)
+            for kb in range(kend):
+                k0 = kb * BK
+                # Rows past tq are TMA zeros, masked by nothing.
+                s = mm(qp[:, qw:qw + 64], kp[:, k0:k0 + BK].transpose(1, 2))
+                if (causal and k0 + BK - 1 > qw) or k0 + BK > tk:
+                    cols = torch.arange(k0, k0 + BK)
+                    out = ((cols[None, :] >= tk)
+                           | (causal & (cols[None, :] > rows[:, None])))
+                    s = s.masked_fill(out, _NEG)
+                mx = torch.maximum(m, s.amax(-1, keepdim=True))
+                corr = torch.exp(m - mx)
+                p = torch.exp(s - mx)
+                l = l * corr + p.sum(-1, keepdim=True)
+                acc = acc * corr + mm(p, vp[:, k0:k0 + BK])
+                m = mx
+            lc = l.clamp_min(1e-30)
+            n = max(0, min(64, tq - qw))
+            o[:, qw:qw + n] = (acc / lc)[:, :n]
+            lse[:, qw:qw + n] = (m + torch.log(lc))[:, :n, 0]
+    return o, lse
 
 
 def dq_f32_schedule(qs, k, v, do, lse, delta, scale, causal, BQ=64, BK=32,
@@ -252,6 +300,22 @@ def test_plane_schedule_matches_plain(kernel, d, tq, tk, causal):
 
 
 @pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("tq,tk,causal", _RAGGED)
+def test_fwd_plane_schedule_matches_plain(d, tq, tk, causal):
+    """The forward's block schedule at its tiles for head dim d (128-row q
+    tiles over 64-key blocks at D 64, 32-key at D 128), s and p·v as six
+    plane products, against the plain forward, float32, at ragged T: o
+    and lse."""
+    q, k, v, *_, scale = _case(tq, tk, causal, d, seed=tq + tk + causal + d)
+    got = fwd_f32_schedule(fa._prescale(q, scale), k, v, causal,
+                           *_FWD_TILES[d])
+    want = fa.flash_fwd_ref(q, k, v, scale, causal)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), atol=2e-5,
+                                   rtol=1e-4)
+
+
+@pytest.mark.parametrize("d", [64, 128])
 def test_plane_schedule_matches_plain_with_plain_products(d):
     """The same schedules with plain float32 products: the schedule alone
     (the alternating blocks and the partials' sum) is exact bookkeeping."""
@@ -267,6 +331,10 @@ def test_plane_schedule_matches_plain_with_plain_products(d):
                            mm=torch.matmul)
     want = fa.flash_dkv_ref(q, k, v, do, lse, delta, scale, True)
     for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), atol=2e-5,
+                                   rtol=1e-4)
+    got = fwd_f32_schedule(qs, k, v, True, *_FWD_TILES[d], mm=torch.matmul)
+    for g, w in zip(got, fa.flash_fwd_ref(q, k, v, scale, True)):
         np.testing.assert_allclose(g.numpy(), w.numpy(), atol=2e-5,
                                    rtol=1e-4)
 
@@ -316,6 +384,23 @@ def test_plane_schedule_matches_pallas(kernel, d, T, causal):
                                    want[name], atol=2e-4, err_msg=name)
 
 
+@pytest.mark.parametrize("d,T,causal", [(64, 200, True), (128, 96, False)])
+def test_fwd_plane_schedule_matches_pallas(d, T, causal):
+    """The forward's plane model against the JAX package's Pallas forward
+    in interpret mode: o and lse, float32 atol 2e-5."""
+    rng = np.random.RandomState(T + d)
+    x = {n: rng.randn(1, 2, T, d).astype(np.float32) for n in "qkv"}
+    want = jax_flash(*(jnp.asarray(x[n]) for n in "qkv"), causal=causal,
+                     interpret=True, return_lse=True)
+    q, k, v = (torch.tensor(x[n]).reshape(2, T, d) for n in "qkv")
+    scale = d ** -0.5
+    got = fwd_f32_schedule(fa._prescale(q, scale), k, v, causal,
+                           *_FWD_TILES[d])
+    for name, g, w in zip(("o", "lse"), got, want):
+        np.testing.assert_allclose(g.reshape(np.shape(w)).numpy(),
+                                   np.asarray(w), atol=2e-5, err_msg=name)
+
+
 # ----------------------------------------------------- against float64
 def _f64_grads(qs, k, v, do, lse, delta, scale, causal):
     s = qs.double() @ k.double().transpose(1, 2)
@@ -352,16 +437,44 @@ def test_plane_model_error_within_twice_plain(d):
         assert em <= 2 * ep, (name, em, ep)
 
 
+@pytest.mark.parametrize("d", [64, 128])
+def test_fwd_plane_model_error_within_twice_plain(d):
+    """Against float64, the modelled forward's largest error in o and in
+    lse is at most twice the plain float32 version's."""
+    q, k, v, *_, scale = _case(256, 256, True, d, seed=50 + d)
+    qs = fa._prescale(q, scale)
+    s = qs.double() @ k.double().transpose(1, 2)
+    s = s.masked_fill(~torch.ones(256, 256, dtype=torch.bool).tril(),
+                      -torch.inf)
+    lse = torch.logsumexp(s, -1)
+    ref = (torch.exp(s - lse[..., None]) @ v.double(), lse)
+    model = fwd_f32_schedule(qs, k, v, True, *_FWD_TILES[d])
+    plain = fa.flash_fwd_ref(q, k, v, scale, True)
+    for name, m, p, r in zip(("o", "lse"), model, plain, ref):
+        em = float((m.double() - r).abs().max())
+        ep = float((p.double() - r).abs().max())
+        assert em <= 2 * ep, (name, em, ep)
+
+
 def test_wrapper_passes_plane_scratch_only_to_the_plane_design():
     """The wrapper's scratch for the planes: 6·(q + k elements) bf16 for
-    float32 at D 64 and 128, none for another dtype or head dim."""
+    float32 dq and dk/dv at D 64 and 128 (q, do, k, v), 3·(q + 2·k
+    elements) for the forward (q, k, v), none for another dtype or head
+    dim."""
     f32 = torch.zeros(2, 8, 128)
     assert fa._planes(f32, torch.zeros(2, 4, 128)).shape == (6 * (
         2 * 8 * 128 + 2 * 4 * 128),)
+    assert fa._planes(f32, torch.zeros(2, 4, 128), backward=False).shape \
+        == (3 * (2 * 8 * 128 + 2 * 2 * 4 * 128),)
+    assert fa._planes(torch.zeros(2, 8, 64), torch.zeros(2, 8, 64),
+                      backward=False).dtype == torch.bfloat16
     assert fa._planes(f32, f32).dtype == torch.bfloat16
     assert fa._planes(torch.zeros(2, 8, 64), torch.zeros(2, 8, 64)) \
         is not None
     for d in (32, 256):
         assert fa._planes(torch.zeros(2, 8, d), torch.zeros(2, 8, d)) is None
+        assert fa._planes(torch.zeros(2, 8, d), torch.zeros(2, 8, d),
+                          backward=False) is None
     bf = torch.zeros(2, 8, 128, dtype=torch.bfloat16)
     assert fa._planes(bf, bf) is None
+    assert fa._planes(bf, bf, backward=False) is None
