@@ -15,8 +15,8 @@ Phases, each printing JSON lines:
              LDL/STL (local memory) from ``cuobjdump -sass``.  Each
              library must hold its bf16 Hopper kernels (all three at D
              32, 64, 128 and 256) and its float32 plane kernels (D 64
-             and 128), each of them with HGMMA and UTMALDG and no bytes
-             spilled.
+             and 128; dq and dk/dv at 256 too), each of them with HGMMA
+             and UTMALDG and no bytes spilled.
 3. parity  — each kernel against its plain PyTorch version on the card:
              the trainer's attention shape (B=4, H=16, T=2048, D=128, bf16,
              causal, nonzero lse cotangent), small ragged shapes (T=200)
@@ -37,7 +37,10 @@ Phases, each printing JSON lines:
              tile), T=2112 (a half-full last 128-row tile), T=66 and
              T=130 causal and not (a last block or second tile of 2 rows)
              and Tq≠Tk both ways at D 64 and 128; T=2064 at D 128 (a
-             half-full 32-row block); one head at T=2048.
+             half-full 32-row block); one head at T=2048.  dq and dk/dv
+             at D 256 (q and do, or k and v, float32 split in registers):
+             8 heads at T=8192 under the same float64 gate, T=2080 and
+             T=66 (the 64-row tiles' edges) and Tq≠Tk both ways.
              Each output is judged by its own dtype: float32 outputs
              (lse, and every output of a float32 case) element by element
              at atol = rtol = 1e-4; bf16 outputs by their error relative
@@ -82,11 +85,12 @@ Phases, each printing JSON lines:
              8 heads of 256 (the trainer's masters, bf16, SGD, no remat,
              batch 4, seq 2048), bench_transformer's with 16 heads of 32
              (batch 8, seq 2048), and transformer_large in float32 (16
-             heads of 128, the same masters and batch), 5 steps each
-             (finite, falling losses, every kernel launched once a layer
-             and step), the kernels at [4, 8, 2048, 256], [8, 16, 2048,
-             32] and [4, 16, 2048, 128] float32 against their plain
-             versions (float32 also against float64, as in parity) and
+             heads of 128, and 8 heads of 256, the same masters and
+             batch), 5 steps each (finite, falling losses, every kernel
+             launched once a layer and step), the kernels at [4, 8, 2048,
+             256], [8, 16, 2048, 32], [4, 16, 2048, 128] float32 and [4,
+             8, 2048, 256] float32 against their plain versions (float32
+             also against float64, as in parity) and
              timed (beside each bound the exp unit's: one exp a kept
              score at 16 a clock an SM; the float32 kernels bound at six
              bf16 products a product with the split's profiled share,
@@ -492,7 +496,7 @@ SMALL_BATCH, SMALL_SEQ = 8, 2048
 # that the Hopper designs cover, at full width: transformer_large's widths
 # in 8 heads of 256 (Gemma 7B's head dim) and bench_transformer's in 16
 # heads of 32; and transformer_large in float32 (the plane design at the
-# trainer's attention shape).
+# trainer's attention shape, and in 8 heads of 256).
 WIDE_HEADS = 8
 NARROW = dict(SMALL, n_heads=16)
 MOE = dict(vocab_size=16384, dim=1024, n_layers=8, n_heads=8, hidden=2816,
@@ -640,9 +644,9 @@ F32_TOL = 1e-4   # float32 outputs: every element within atol + rtol·|want|
 # would miss it by far: their errors are of order 2^-16 and 2^-11).
 F32_F64_RATIO = 8.0
 # The parity cases held to that gate: the trainer's float32 attention
-# shape, and 8 heads at T 8,192, where every output sums four times as
-# many wgmma products as at T 2,048.
-F64_CASES = ("full_width_f32", "long_f32")
+# shape, and 8 heads at T 8,192 (at D 128 and 256), where every output
+# sums four times as many wgmma products as at T 2,048.
+F64_CASES = ("full_width_f32", "long_f32", "long_f32_d256")
 LONG_F32_BH, LONG_F32_SEQ = 8, 8192
 BF16_TOL = 1e-2  # bf16 outputs: max and L2 error relative to the scale
 KERNELS = {
@@ -665,11 +669,17 @@ KERNEL_DESIGNS = {
     "flash_dq": {"bfloat16 D 32, 64, 128, 256": "flash_dq_hopper<D>",
                  "float32 D 64, 128": "flash_dq_hopper_f32<D> (three bf16 "
                                       "planes, six wgmma products)",
-                 "float32 D 32, 256": "flash_dq_kernel (FMA products)"},
+                 "float32 D 256": "flash_dq_hopper_f32<256> (q and do "
+                                  "float32, split in registers; k and v "
+                                  "planes; 16-key blocks)",
+                 "float32 D 32": "flash_dq_kernel (FMA products)"},
     "flash_dkv": {"bfloat16 D 32, 64, 128, 256": "flash_dkv_hopper<D>",
                   "float32 D 64, 128": "flash_dkv_hopper_f32<D> (three "
                                        "bf16 planes, six wgmma products)",
-                  "float32 D 32, 256": "flash_dkv_kernel (FMA products)"},
+                  "float32 D 256": "flash_dkv_hopper_f32<256> (k and v "
+                                   "float32, split in registers; q and do "
+                                   "planes; dv and dk by warpgroup)",
+                  "float32 D 32": "flash_dkv_kernel (FMA products)"},
 }
 
 
@@ -837,8 +847,8 @@ HOPPER_DIMS = {"flash_fwd": (32, 64, 128, 256),
                "flash_dq": (32, 64, 128, 256),
                "flash_dkv": (32, 64, 128, 256)}
 # The float32 plane design's kernels (six bf16 products a product).
-HOPPER_F32_DIMS = {"flash_fwd": (64, 128), "flash_dq": (64, 128),
-                   "flash_dkv": (64, 128)}
+HOPPER_F32_DIMS = {"flash_fwd": (64, 128), "flash_dq": (64, 128, 256),
+                   "flash_dkv": (64, 128, 256)}
 
 
 def hopper_dim(kname, name, suffix=""):
@@ -1033,12 +1043,15 @@ def edge_cases(torch):
 
 def f32_cases(torch):
     """The parity phase's cases for the float32 plane design (all three
-    kernels at D 64 and 128): the trainer's full attention shape with the
-    lse cotangent and 8 heads at T 8,192 (both with the float64 gate,
-    F64_CASES), the 64-row tiles' edges of dq and dk/dv and the forward's
-    128-row tiles' edges (a half-full last tile, a last block or second
-    tile of 2 rows), D 128's 32-row blocks' half-full last block, one
-    head, and Tq≠Tk both ways."""
+    kernels at D 64 and 128, dq and dk/dv at D 256): the trainer's full
+    attention shape with the lse cotangent and 8 heads at T 8,192, at D
+    128 and 256 (all with the float64 gate, F64_CASES), the 64-row tiles'
+    edges of dq and dk/dv and the forward's 128-row tiles' edges (a
+    half-full last tile, a last block or second tile of 2 rows), D 128's
+    32-row blocks' half-full last block, one head, and Tq≠Tk both ways;
+    at D 256 the 64-row tiles' edges (T 2080, T 66) and Tq≠Tk both
+    ways, causal too (at Tq < Tk the k blocks past Tq see no q block and
+    their gradients are 0)."""
     f32 = torch.float32
     cases = [(BATCH * HEADS, SEQ, SEQ, HEAD_DIM, f32, True,
               "full_width_f32"),
@@ -1054,6 +1067,15 @@ def f32_cases(torch):
             cases.append((3, t, tk, d, f32, False, "cross_length"))
     cases.append((2, SEQ + 16, SEQ + 16, HEAD_DIM, f32, True, "half_block"))
     cases.append((1, SEQ, SEQ, HEAD_DIM, f32, True, "one_head"))
+    d256 = HEADS * HEAD_DIM // WIDE_HEADS  # the headdims runs' head dim
+    cases.append((LONG_F32_BH, LONG_F32_SEQ, LONG_F32_SEQ, d256, f32, True,
+                  "long_f32_d256"))
+    cases.append((4, SEQ + 32, SEQ + 32, d256, f32, True, "half_tile"))
+    for causal in (True, False):
+        cases.append((3, 66, 66, d256, f32, causal, "two_row_tile"))
+    for t, tk in ((40, 136), (136, 40)):
+        for causal in (True, False):
+            cases.append((3, t, tk, d256, f32, causal, "cross_length"))
     return cases
 
 
@@ -1364,8 +1386,9 @@ def phase_headdims(args, torch, fa, mv, card, host):
     the trainer's path: five steps of transformer_large's widths in 8
     heads of 256 (from the trainer's float32 masters: the head count
     changes no parameter's shape), of bench_transformer's in 16 heads of
-    32, and of transformer_large in float32 (16 heads of 128, from the
-    same masters), each held by ``run_ok``; the kernels at each run's
+    32, and of transformer_large in float32 (16 heads of 128, and 8 heads
+    of 256, from the same masters), each held by ``run_ok``; the kernels
+    at each run's
     attention shape against their plain versions (in float32 also
     against float64, F32_F64_RATIO) and timed.  Returns each path's entry
     for the kernels line."""
@@ -1377,7 +1400,10 @@ def phase_headdims(args, torch, fa, mv, card, host):
              BATCH, SEQ, 610),
             ("headdims_d32", narrow, None, SMALL_BATCH, SMALL_SEQ, 620),
             ("headdims_f32", large_config(torch, dtype=torch.float32), host,
-             BATCH, SEQ, 630))
+             BATCH, SEQ, 630),
+            ("headdims_f32_d256", large_config(torch, heads=WIDE_HEADS,
+                                               dtype=torch.float32), host,
+             BATCH, SEQ, 640))
     entries, failed = {}, []
     for path, cfg, masters, batch, seq, seed in runs:
         dtype = cfg.compute_dtype
@@ -2935,26 +2961,32 @@ RATES = {"bf16": PEAK_BF16_FLOPS, "bf16x6": PEAK_BF16_FLOPS / 6,
 
 def split_share(torch, fn, calls=3, profile=None):
     """The float32 plane design's split (``flash_split3``, three
-    launches a forward call, four a dq or dk/dv call) inside ``fn``: its
+    launches a forward call, four a dq or dk/dv call, two at D 256)
+    inside ``fn``: its
     device ms a call and its share of the call's device time, from
     torch.profiler over ``calls`` calls, with
     the device ms a call the profile saw (``profiled_ms``: below the
-    call's CUDA-event time where the profile lost kernels)."""
+    call's CUDA-event time where the profile lost kernels).  A profile
+    that lost every kernel (it has on the card's host) measured none of
+    the three: each is None."""
     prof = (profile or profile_calls)(torch, fn, calls, top=20)
     split = sum(k["ms"] for k in prof["top_kernels"]
                 if "flash_split3" in k["name"])
-    return {"split_ms": split / calls,
-            "split_share": split / prof["device_busy_ms"],
-            "profiled_ms": prof["device_busy_ms"] / calls}
+    busy = prof["device_busy_ms"]
+    if busy <= 0:
+        return {"split_ms": None, "split_share": None, "profiled_ms": None}
+    return {"split_ms": split / calls, "split_share": split / busy,
+            "profiled_ms": busy / calls}
 
 
-def bound_rate(dtype, d, torch) -> str:
-    """Which of RATES bounds a kernel at ``dtype`` and head dim ``d`` (the
-    design fwd_for_dim, dq_for_dim and dkv_for_dim launch alike: a head
-    dim in (32, 128] runs at D 64 or 128, padded)."""
-    if dtype != torch.float32:
+def bound_rate(fa, name, dtype, d) -> str:
+    """Which of RATES bounds kernel ``name`` at ``dtype`` and head dim
+    ``d``: the design the launch at its padded head dim runs, as the
+    port's table of float32 plane designs (``fa._F32_PLANE_DIMS``) says."""
+    if dtype != fa.torch.float32:
         return "bf16"
-    return "bf16x6" if 32 < d <= 128 else "fp32"
+    planes = fa._F32_PLANE_DIMS[name]
+    return "bf16x6" if fa._kernel_dim(d) in planes else "fp32"
 
 
 def kernel_times(fa, torch, B, H, T, D, plain_bh=None, tk=None,
@@ -2967,8 +2999,9 @@ def kernel_times(fa, torch, B, H, T, D, plain_bh=None, tk=None,
     bound (one exp a kept score) and the library call that computes the
     same function.  A float32 kernel's bound is taken at the rate of the
     design it runs: at D 64 and 128 (the plane design) as six times its
-    flops at the bf16 rate, at D 32 and 256 at the card's FP32 rate (its
-    products are FMAs); the FP32 and TF32 bounds stand beside it."""
+    flops at the bf16 rate (dq and dk/dv at D 256 too), otherwise at the
+    card's FP32 rate (its products are FMAs); the FP32 and TF32 bounds
+    stand beside it."""
     import torch.nn.functional as F
 
     dtype = dtype or torch.bfloat16
@@ -3004,7 +3037,7 @@ def kernel_times(fa, torch, B, H, T, D, plain_bh=None, tk=None,
     out = {}
     for name, (kern, plain) in calls.items():
         flops, nbytes = work[name]
-        rate = bound_rate(dtype, D, torch)
+        rate = bound_rate(fa, name, dtype, D)
         t_ops = flops / RATES[rate] * 1e3
         t_mem = nbytes / PEAK_HBM_BYTES * 1e3
         ms = cuda_ms(kern)

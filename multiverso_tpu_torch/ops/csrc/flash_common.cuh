@@ -196,6 +196,9 @@ inline cudaError_t allow_smem(Kernel kernel, size_t bytes, bool* done) {
 // Return code for a float32 launch given no scratch for its bf16 planes
 // (hopper_f32.cuh).
 #define MVT_NO_SCRATCH (-3)
+// Return code for a float32 launch whose scratch is smaller than its planes
+// (hopper_f32.cuh).
+#define MVT_SCRATCH_SHORT (-4)
 
 extern "C" const char* mvt_error_string(int code) {
   if (code == MVT_UNSUPPORTED) return "unsupported dtype or head dim";
@@ -205,6 +208,9 @@ extern "C" const char* mvt_error_string(int code) {
   }
   if (code == MVT_NO_SCRATCH) {
     return "float32 launch given no scratch for its bf16 planes";
+  }
+  if (code == MVT_SCRATCH_SHORT) {
+    return "float32 launch given less scratch than its bf16 planes take";
   }
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

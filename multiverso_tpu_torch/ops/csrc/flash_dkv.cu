@@ -14,10 +14,10 @@
 //
 // Bound on an H100: four tile products per visited block, tensor-core
 // bound at the trainer's shapes (at head dim 32 the exp of each score
-// costs about as much as its 8·32 flops); in float32 at D 64 and 128 six
-// bf16 products a product, so six times the flops at the bf16 rate
-// (0.8342 ms at [4, 16, 2048, 128], causal).  Three designs, chosen at
-// compile time by (dtype, D) in dkv_for_dim:
+// costs about as much as its 8·32 flops); in float32 at D 64, 128 and 256
+// six bf16 products a product, so six times the flops at the bf16 rate
+// (0.8342 ms at [4, 16, 2048, 128] and at [4, 8, 2048, 256], causal).
+// Three designs, chosen at compile time by (dtype, D) in dkv_for_dim:
 //
 // * bf16 at every D (flash_dkv_hopper): k-stationary with transposed
 //   scores, accumulators in registers, both operands of every product
@@ -37,20 +37,27 @@
 //     a thread, so one block per (bh, 64-row k block) splits their
 //     columns between the two warpgroups, each forming half the q block's
 //     pᵀ and dsᵀ and sharing them through shared memory (HopDkvCols).
-// * float32 at D 64 and 128 (flash_dkv_hopper_f32, hopper_f32.cuh): q,
-//   k, v and do split into three bf16 planes (hi, mid, lo) by
-//   flash_split3, an elementwise kernel that replaces no TPU kernel, into
-//   the wrapper's scratch; every product runs as six bf16 wgmma products
-//   into float32 accumulators (a0b0 + a0b1 + a1b0 + a0b2 + a1b1 + a2b0;
-//   the terms left out are of order 2^-24 of the product), pᵀ and dsᵀ
-//   split in registers as the A operands of dv += pᵀ·do and dk += dsᵀ·q.
-//   Planes take 6 bytes an element, so one 64-row k block is shared by
-//   both warpgroups, which take every other q block from a one-stage
-//   ring each and sum their partial dk and dv once at the end (F32Dkv:
-//   192 KB of shared memory at D 128, 144 KB at D 64).
-// * float32 at D 32 and 256 (flash_dkv_kernel): the first port's design,
-//   operands and both accumulators in shared memory, products as plain
-//   FMAs.
+// * float32 at D 64, 128 and 256 (flash_dkv_hopper_f32, hopper_f32.cuh):
+//   q and do split into three bf16 planes (hi, mid, lo) by flash_split3,
+//   an elementwise kernel that replaces no TPU kernel, into the wrapper's
+//   scratch; every product runs as six bf16 wgmma products into float32
+//   accumulators (a0b0 + a0b1 + a1b0 + a0b2 + a1b1 + a2b0; the terms left
+//   out are of order 2^-24 of the product), pᵀ and dsᵀ split in registers
+//   as the A operands of dv += pᵀ·do and dk += dsᵀ·q.  One 64-row k block
+//   a block.
+//   - D 64 and 128 (dkv_f32_by_blocks): k and v are planes too; both
+//     warpgroups share them and take every other q block from a one-stage
+//     ring each, and sum their partial dk and dv once at the end (F32Dkv:
+//     192 KB of shared memory at D 128, 144 KB at D 64).
+//   - D 256 (dkv_f32_by_roles): dk and dv of 64 rows would take 256
+//     registers a thread, and k's and v's planes 192 KB, so k and v stay
+//     float32 (128 KB), split in registers at every 16-column step as the
+//     register A of sᵀ = k·qᵀ and dpᵀ = v·doᵀ, and the warpgroups split
+//     the work by role over one stage of 32-row q blocks: warpgroup 0 owns
+//     dv, warpgroup 1 dk, each sum flushed to device memory every 8
+//     blocks (F32DkvRoles, 225 KB).
+// * float32 at D 32 (flash_dkv_kernel): the first port's design, operands
+//   and both accumulators in shared memory, products as plain FMAs.
 #include "flash_common.cuh"
 #include "hopper.cuh"
 #include "hopper_f32.cuh"
@@ -756,16 +763,13 @@ struct F32Dkv {
   static_assert(D * 4 * 128 <= 2 * kStages * 2 * kQBytes, "ring");
 };
 
+// D 64 and 128: one block of two warpgroups per (bh, 64-row k block),
+// the q blocks alternating between them (F32Dkv).
 template <int D>
-__global__ void __launch_bounds__(hop::kThreads, 1)
-    flash_dkv_hopper_f32(const __grid_constant__ CUtensorMap tm_q,
-                         const __grid_constant__ CUtensorMap tm_k,
-                         const __grid_constant__ CUtensorMap tm_v,
-                         const __grid_constant__ CUtensorMap tm_do,
-                         const float* __restrict__ lse,
-                         const float* __restrict__ delta,
-                         float* __restrict__ dk, float* __restrict__ dv,
-                         int tq, int tk, int causal) {
+__device__ __forceinline__ void dkv_f32_by_blocks(
+    const CUtensorMap* tm_q, const CUtensorMap* tm_k, const CUtensorMap* tm_v,
+    const CUtensorMap* tm_do, const float* lse, const float* delta,
+    float* dk, float* dv, int tq, int tk, int causal) {
   using C = F32Dkv<D>;
   using B = typename C::B;
   constexpr int BQ = C::BQ, S = C::kStages;
@@ -805,8 +809,8 @@ __global__ void __launch_bounds__(hop::kThreads, 1)
   // the mask drops them).
   const float* lg = lse + static_cast<size_t>(bh) * tq;
   const float* dg = delta + static_cast<size_t>(bh) * tq;
-  const CUtensorMap* mq = &tm_q;
-  const CUtensorMap* mdo = &tm_do;
+  const CUtensorMap* mq = tm_q;
+  const CUtensorMap* mdo = tm_do;
   auto load_q = [&](int j) {
     const int s = g * S + j % S;
     const int qb = qstart + 2 * j + g;
@@ -839,9 +843,9 @@ __global__ void __launch_bounds__(hop::kThreads, 1)
       for (int p = 0; p < 3; ++p) {
         for (int b = 0; b < B::kBoxes; ++b) {
           const uint32_t at = p * C::kKPlane + b * C::kBoxK;
-          hop::tma_load(smem + C::k + at, &tm_k, kvbar, b * B::kCols, k0,
+          hop::tma_load(smem + C::k + at, tm_k, kvbar, b * B::kCols, k0,
                         bh + p * nbh);
-          hop::tma_load(smem + C::v + at, &tm_v, kvbar, b * B::kCols, k0,
+          hop::tma_load(smem + C::v + at, tm_v, kvbar, b * B::kCols, k0,
                         bh + p * nbh);
         }
       }
@@ -854,7 +858,7 @@ __global__ void __launch_bounds__(hop::kThreads, 1)
   // thread in the m64nNk16 accumulator layout.
   const int r0 = (warp % 4) * 16 + lane / 4;
   const int cq = 2 * (lane % 4);
-  const int row0 = k0 + r0, row1 = row0 + 8;
+  const int row0 = k0 + r0;
   const uint32_t k_addr = hop::smem_u32(smem + C::k);
   const uint32_t v_addr = hop::smem_u32(smem + C::v);
 
@@ -947,16 +951,258 @@ __global__ void __launch_bounds__(hop::kThreads, 1)
   }
 }
 
+// D 256 (hopper_f32.cuh): dk and dv of 64 rows would take 256 registers
+// a thread, and k and v as planes 192 KB of shared memory, so k and v
+// stay float32 (F32Tile, 128 KB) and the two warpgroups split the work by
+// role over the same q blocks of 32 rows, whose q and do planes stream
+// through one stage (96 KB): both form sᵀ = k·qᵀ and dpᵀ = v·doᵀ, pᵀ and
+// dsᵀ; warpgroup 0 owns dv += pᵀ·do, warpgroup 1 dk += dsᵀ·q, each its
+// 64 x 256 accumulator in registers (128 a thread).  Handing pᵀ over
+// instead of forming it twice does not fit in shared memory beside the
+// stage, and a warpgroup that issued fewer products than the other
+// would take a divergent path, on which ptxas serializes every wgmma.
+// The k and v fragments are split in registers at every 16-column step
+// (f32_rs_scores), as the register A of sᵀ and dpᵀ, q and do K-major.
+// The products of sᵀ and dpᵀ are m64n32k16: at 16 rows (m64n16k16, two
+// stages) the tensor cores spent about as long on each as on one of 32
+// rows, so a stage of 32 rows whose load is not hidden came out ahead
+// (PERF.md).  Warpgroup 1's first warp loads.  128 KB + 96 KB =
+// 224 KB.
+struct F32DkvRoles {
+  using B = hop::Box<256>;
+  using Tile = hop::F32Tile<256, 64>;
+  static constexpr int D = 256, BK = 64, BQ = 32, kStages = 1;
+  static constexpr int kLoader = 4;  // the warp that loads
+  // q blocks summed in acc between flushes to device memory: the tensor
+  // cores' accumulation drops the bits below the accumulator's last place
+  // (it rounds toward zero), so six products a block added into one sum
+  // over all of T lose up to an ulp each, all one way (at T 8,192 dv's
+  // error against float64 was 16x the plain version's); the flushed
+  // partial sums add in float32, rounded to nearest.
+  static constexpr int kFlush = 8;
+  static constexpr uint32_t kBoxQ = BQ * B::kRow;  // one box, one plane
+  static constexpr uint32_t kQPlane = B::kBoxes * kBoxQ;
+  static constexpr uint32_t kQBytes = 3 * kQPlane;
+  static constexpr size_t k = 0;
+  static constexpr size_t v = Tile::kBytes;
+  static constexpr size_t qdo = 2 * Tile::kBytes;  // stage s: q, then do
+  static constexpr size_t rows = qdo + kStages * 2 * kQBytes;  // lse, delta
+  static constexpr size_t bars = rows + kStages * 2 * BQ * sizeof(float);
+  static constexpr size_t bytes = bars + 8 * (2 * kStages + 1) + hop::kAtomBytes;
+  static_assert(bytes <= kMaxSmem, "dkv tiles exceed shared memory");
+};
+
+__device__ __forceinline__ void dkv_f32_by_roles(
+    const CUtensorMap* tm_q, const CUtensorMap* tm_k, const CUtensorMap* tm_v,
+    const CUtensorMap* tm_do, const float* lse, const float* delta,
+    float* dk, float* dv, int tq, int tk, int causal) {
+  using C = F32DkvRoles;
+  using B = C::B;
+  constexpr int D = C::D, BQ = C::BQ, S = C::kStages;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = hop::align_atom(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + C::bars);
+  uint64_t* empty = full + S;
+  uint64_t* kvbar = empty + S;
+
+  // Plane p of head bh is head bh + p·nbh of the q and do maps.
+  const int bh = blockIdx.x, nbh = gridDim.x;
+  // Early k blocks see the most causal q blocks: natural order runs the
+  // heaviest first, over all heads.  The causal start is the first q
+  // block that reaches k0, so every visited block reaches the block's
+  // rows.
+  const int k0 = blockIdx.y * C::BK;
+  const int nq = (tq + BQ - 1) / BQ;
+  const int qstart = causal ? k0 / BQ : 0;
+  const int nblocks = nq - qstart;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = warp / 4;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      hop::mbar_init(&full[s], 1 + 32);  // the TMA's bytes + the warp's rows
+      hop::mbar_init(&empty[s], hop::kWarps);
+    }
+    hop::mbar_init(kvbar, 1);
+    hop::fence_barrier_init();
+  }
+  __syncthreads();
+
+  // The i-th q block of the loop (block qstart + i) into stage i % S, once
+  // both warpgroups have released the block S before it: q's and do's
+  // planes by TMA from lane 0, the lse and delta rows by cp.async from
+  // every lane (rows past tq read as 0: their q and do rows are TMA
+  // zeros, and the mask drops them).
+  const float* lg = lse + static_cast<size_t>(bh) * tq;
+  const float* dg = delta + static_cast<size_t>(bh) * tq;
+  auto load_q = [&](int i) {
+    const int s = i % S;
+    const int qb = qstart + i;
+    hop::mbar_wait(&empty[s], ((i / S) & 1) ^ 1);
+    if (lane == 0) {
+      hop::mbar_expect_tx(&full[s], 2 * C::kQBytes);
+      unsigned char* qs = smem + C::qdo + s * 2 * C::kQBytes;
+      for (int p = 0; p < 3; ++p) {
+        for (int b = 0; b < B::kBoxes; ++b) {
+          const uint32_t at = p * C::kQPlane + b * C::kBoxQ;
+          hop::tma_load(qs + at, tm_q, &full[s], b * B::kCols, qb * BQ,
+                        bh + p * nbh);
+          hop::tma_load(qs + C::kQBytes + at, tm_do, &full[s], b * B::kCols,
+                        qb * BQ, bh + p * nbh);
+        }
+      }
+    }
+    float* rs = reinterpret_cast<float*>(smem + C::rows) + s * 2 * BQ;
+    for (int c = lane; c < BQ; c += 32) {
+      const int qi = qb * BQ + c;
+      const uint32_t n = qi < tq ? 4 : 0;
+      hop::cp_async_4(rs + c, lg + (n ? qi : 0), n);
+      hop::cp_async_4(rs + BQ + c, dg + (n ? qi : 0), n);
+    }
+    hop::cp_async_arrive(&full[s]);
+  };
+  if (warp == C::kLoader) {
+    if (lane == 0) {
+      hop::mbar_expect_tx(kvbar, 2 * C::Tile::kBytes);
+      hop::tma_load_f32<D, C::BK>(smem + C::k, tm_k, kvbar, k0, bh);
+      hop::tma_load_f32<D, C::BK>(smem + C::v, tm_v, kvbar, k0, bh);
+    }
+    __syncwarp();
+    for (int i = 0; i < S && i < nblocks; ++i) load_q(i);
+  }
+
+  // Both warpgroups hold the block's 64 k rows, r0 and r0 + 8 of each
+  // thread in the m64nNk16 accumulator layout.
+  const int r0 = (warp % 4) * 16 + lane / 4;
+  const int cq = 2 * (lane % 4);
+  const int row0 = k0 + r0;
+  const float* kt = reinterpret_cast<const float*>(smem + C::k);
+  const float* vt = reinterpret_cast<const float*>(smem + C::v);
+
+  float acc[D / 2];  // dv (warpgroup 0) or dk (warpgroup 1) since a flush
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  // acc into this warpgroup's output rows (past tk: not stored), added to
+  // what an earlier flush left there or not, then zeroed.  Each element
+  // is this thread's alone, so its own earlier store is what it reads.
+  float* out = (g ? dk : dv) + static_cast<size_t>(bh) * tk * D;
+  auto flush = [&](bool add) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = row0 + 8 * h;
+      if (row < tk) {
+#pragma unroll
+        for (int jc = 0; jc < D / 8; ++jc) {
+          const int i = 4 * jc + 2 * h;
+          float2* o = reinterpret_cast<float2*>(
+              out + static_cast<size_t>(row) * D + 8 * jc + cq);
+          float2 v = make_float2(acc[i], acc[i + 1]);
+          if (add) {
+            const float2 w = *o;
+            v.x += w.x;
+            v.y += w.y;
+          }
+          *o = v;
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  };
+  hop::mbar_wait(kvbar, 0);
+
+  for (int i = 0; i < nblocks; ++i) {
+    const int s = i % S;
+    const int q0 = (qstart + i) * BQ;
+    hop::mbar_wait(&full[s], (i / S) & 1);
+    const uint32_t q_addr = hop::smem_u32(smem + C::qdo + s * 2 * C::kQBytes);
+    const uint32_t do_addr = q_addr + C::kQBytes;
+    const float* lse_s = reinterpret_cast<const float*>(smem + C::rows) + s * 2 * BQ;
+    const float* dl_s = lse_s + BQ;
+
+    // sᵀ and dpᵀ in both warpgroups (see F32DkvRoles).
+    float st[BQ / 2], dpt[BQ / 2];
+    hop::f32_rs_scores<D>(st, dpt, kt, vt, r0, cq, q_addr, do_addr,
+                          C::kQPlane, C::kBoxQ);
+    dkv_probs(st, dpt, lse_s, dl_s,
+              (causal && q0 < k0 + 63) || k0 + 64 > tk || q0 + BQ > tq, q0,
+              0, row0, cq, tq, tk, causal);
+
+    // dv += pᵀ·do (warpgroup 0) or dk += dsᵀ·q (warpgroup 1): the A
+    // operand's planes from registers, do's or q's MN-major.
+    float a[BQ / 2];
+#pragma unroll
+    for (int j = 0; j < BQ / 2; ++j) a[j] = g ? dpt[j] : st[j];
+    uint32_t pa[3][BQ / 4];
+    hop::acc_to_a3(a, pa);
+    hop::wgmma_fence();
+    hop::planes_rs<D>(acc, pa, g ? q_addr : do_addr, C::kQPlane, C::kBoxQ);
+    hop::wgmma_commit();
+    hop::wgmma_wait<0>();
+    hop::fence_regs(acc);
+
+    // Every kFlush blocks, and after the last, the sum so far goes to
+    // device memory (stored by the first flush, added by the later ones)
+    // and acc starts again from 0 (F32DkvRoles).
+    if ((i + 1) % C::kFlush == 0 || i + 1 == nblocks) {
+      flush(i + 1 > C::kFlush);
+    }
+
+    // The stage is free once this warp's products that read it are done;
+    // the loader then refills it S blocks ahead.
+    __syncwarp();
+    if (lane == 0) hop::mbar_arrive(&empty[s]);
+    if (warp == C::kLoader && i + S < nblocks) load_q(i + S);
+  }
+  // A k block that no q block reaches (causal, tq < tk) has gradients 0.
+  if (nblocks <= 0) flush(false);
+}
+
+// The launch's layout for head dim D.
+template <int D>
+using F32DkvFor =
+    typename std::conditional<D == 256, F32DkvRoles, F32Dkv<D>>::type;
+
+template <int D>
+__global__ void __launch_bounds__(hop::kThreads, 1)
+    flash_dkv_hopper_f32(const __grid_constant__ CUtensorMap tm_q,
+                         const __grid_constant__ CUtensorMap tm_k,
+                         const __grid_constant__ CUtensorMap tm_v,
+                         const __grid_constant__ CUtensorMap tm_do,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         float* __restrict__ dk, float* __restrict__ dv,
+                         int tq, int tk, int causal) {
+  if constexpr (D == 256) {
+    dkv_f32_by_roles(&tm_q, &tm_k, &tm_v, &tm_do, lse, delta, dk, dv, tq, tk,
+                     causal);
+  } else {
+    dkv_f32_by_blocks<D>(&tm_q, &tm_k, &tm_v, &tm_do, lse, delta, dk, dv, tq,
+                         tk, causal);
+  }
+}
+
 template <int D>
 int launch_dkv_f32(const void* q, const void* k, const void* v,
                    const void* dout, const void* lse, const void* delta,
-                   void* dk, void* dv, void* planes, int bh, int tq, int tk,
-                   int causal, cudaStream_t stream) {
-  using C = F32Dkv<D>;
+                   void* dk, void* dv, void* planes, size_t planes_n, int bh,
+                   int tq, int tk, int causal, cudaStream_t stream) {
+  using C = F32DkvFor<D>;
   Planes m;
-  const int rc = m.split(q, k, v, dout, planes, D, bh, tq, tk, C::BQ, C::BK,
-                         stream);
-  if (rc != 0) return rc;
+  if constexpr (D == 256) {
+    // Only q and do are split; k and v load float32.
+    const int rc = m.split(q, nullptr, nullptr, dout, planes, planes_n, D,
+                           bh, tq, tk, C::BQ, C::BK, stream);
+    if (rc != 0) return rc;
+    if (!make_map_f32(&m.k, k, D, tk, bh, C::BK) ||
+        !make_map_f32(&m.v, v, D, tk, bh, C::BK)) {
+      return MVT_TMA_REFUSED;
+    }
+  } else {
+    const int rc = m.split(q, k, v, dout, planes, planes_n, D, bh, tq, tk,
+                           C::BQ, C::BK, stream);
+    if (rc != 0) return rc;
+  }
   auto kernel = flash_dkv_hopper_f32<D>;
   static bool smem_set = false;
   cudaError_t err = allow_smem(kernel, C::bytes, &smem_set);
@@ -970,21 +1216,20 @@ int launch_dkv_f32(const void* q, const void* k, const void* v,
 }
 
 // The design is fixed by (dtype, D) at compile time: bf16 runs the Hopper
-// design above at every D; float32 runs the plane design at D 64 and 128
-// and the first port's kernel at D 32 (64-row k blocks over 64-row q
-// blocks) and D 256 (32 x 32, where two float32 accumulators and six
-// operand tiles must fit 227 KB).
+// design above at every D; float32 runs the plane design at D 64, 128 and
+// 256 (k and v float32 at 256) and the first port's kernel at D 32
+// (64-row k blocks over 64-row q blocks).
 template <typename T>
 int dkv_for_dim(int d, const void* q, const void* k, const void* v,
                 const void* dout, const void* lse, const void* delta,
-                void* dk, void* dv, void* planes, int bh, int tq, int tk,
-                int causal, cudaStream_t s) {
+                void* dk, void* dv, void* planes, size_t planes_n, int bh,
+                int tq, int tk, int causal, cudaStream_t s) {
   if constexpr (std::is_same<T, float>::value) {
     switch (d) {
       case 32: return launch_dkv<T, 32, 64, 64>(q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, causal, s);
-      case 64: return launch_dkv_f32<64>(q, k, v, dout, lse, delta, dk, dv, planes, bh, tq, tk, causal, s);
-      case 128: return launch_dkv_f32<128>(q, k, v, dout, lse, delta, dk, dv, planes, bh, tq, tk, causal, s);
-      case 256: return launch_dkv<T, 256, 32, 32>(q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, causal, s);
+      case 64: return launch_dkv_f32<64>(q, k, v, dout, lse, delta, dk, dv, planes, planes_n, bh, tq, tk, causal, s);
+      case 128: return launch_dkv_f32<128>(q, k, v, dout, lse, delta, dk, dv, planes, planes_n, bh, tq, tk, causal, s);
+      case 256: return launch_dkv_f32<256>(q, k, v, dout, lse, delta, dk, dv, planes, planes_n, bh, tq, tk, causal, s);
       default: return MVT_UNSUPPORTED;
     }
   } else {
@@ -1002,21 +1247,24 @@ int dkv_for_dim(int d, const void* q, const void* k, const void* v,
 
 // q (pre-scaled), k, v, dout: [bh, T, d]; lse, delta: [bh, tq] float;
 // dk, dv: [bh, tk, d].  planes: the float32 plane design's scratch,
-// 6·bh·(tq + tk)·d bf16 (hopper_f32.cuh); null for every other launch.
+// 6·bh·(tq + tk)·d bf16 at D 64 and 128, 6·bh·tq·d at D 256
+// (hopper_f32.cuh); null for every other launch.  planes_n: its size in
+// bf16 elements (a smaller one than the launch needs: MVT_SCRATCH_SHORT).
 extern "C" int mvt_flash_dkv(const void* q, const void* k, const void* v,
                              const void* dout, const void* lse,
                              const void* delta, void* dk, void* dv,
-                             void* planes, int bh, int tq, int tk, int d,
-                             int dtype, int causal, void* stream) {
+                             void* planes, size_t planes_n, int bh, int tq,
+                             int tk, int d, int dtype, int causal,
+                             void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == MVT_DTYPE_F32) {
     return mvt::dkv_for_dim<float>(d, q, k, v, dout, lse, delta, dk, dv,
-                                   planes, bh, tq, tk, causal, s);
+                                   planes, planes_n, bh, tq, tk, causal, s);
   }
   if (dtype == MVT_DTYPE_BF16) {
     return mvt::dkv_for_dim<__nv_bfloat16>(d, q, k, v, dout, lse, delta, dk,
-                                           dv, planes, bh, tq, tk, causal,
-                                           s);
+                                           dv, planes, planes_n, bh, tq, tk,
+                                           causal, s);
   }
   return MVT_UNSUPPORTED;
 }

@@ -14,9 +14,10 @@
 // Bound on an H100: three tile products per visited block against four
 // tiles read, so tensor-core bound at the shapes the trainer uses (at
 // head dim 32 the exp of each score costs more than its 6·32 flops); in
-// float32 at D 64 and 128 six bf16 products a product, so six times the
-// flops at the bf16 rate (0.6257 ms at [4, 16, 2048, 128], causal).
-// Three designs, chosen at compile time by (dtype, D) in dq_for_dim:
+// float32 at D 64, 128 and 256 six bf16 products a product, so six times
+// the flops at the bf16 rate (0.6257 ms at [4, 16, 2048, 128] and at
+// [4, 8, 2048, 256], causal).  Three designs, chosen at compile time by
+// (dtype, D) in dq_for_dim:
 //
 // * bf16 at every D (flash_dq_hopper): q-stationary, the forward's shape
 //   with dk/dv's products, accumulators in registers (hopper.cuh).  Warp
@@ -39,8 +40,8 @@
 //     stages, so one block per (bh, 64-row q tile) splits dq's columns
 //     between the two warpgroups, each forming half the k block's ds and
 //     sharing it through shared memory (HopDqCols).
-// * float32 at D 64 and 128 (flash_dq_hopper_f32, hopper_f32.cuh): q, k,
-//   v and do split into three bf16 planes (hi, mid, lo) by flash_split3,
+// * float32 at D 64, 128 and 256 (flash_dq_hopper_f32, hopper_f32.cuh):
+//   k and v split into three bf16 planes (hi, mid, lo) by flash_split3,
 //   an elementwise kernel that replaces no TPU kernel, into the wrapper's
 //   scratch; every product runs as six bf16 wgmma products into float32
 //   accumulators (a0b0 + a0b1 + a1b0 + a0b2 + a1b1 + a2b0; the terms left
@@ -48,10 +49,14 @@
 //   A operand of dq += ds·k.  Planes take 6 bytes an element, so one
 //   64-row q tile is shared by both warpgroups, which take every other k
 //   block from a one-stage ring each and sum their partial dq once at the
-//   end (F32Dq: 192 KB of shared memory at D 128, 144 KB at D 64).
-// * float32 at D 32 and 256 (flash_dq_kernel): the first port's design,
-//   operands and the accumulator in shared memory, products as plain
-//   FMAs.
+//   end (F32Dq).  At D 64 and 128 q and do are planes too (192 KB of
+//   shared memory at D 128, 144 KB at D 64).  At D 256 their planes
+//   would take 192 KB alone, so they stay float32 (128 KB), and each
+//   thread splits its fragment of them in registers at every 16-column
+//   step, as the register A of s = q·kᵀ and dp = do·vᵀ (k and v K-major);
+//   16-key blocks, 225 KB.
+// * float32 at D 32 (flash_dq_kernel): the first port's design, operands
+//   and the accumulator in shared memory, products as plain FMAs.
 #include "flash_common.cuh"
 #include "hopper.cuh"
 #include "hopper_f32.cuh"
@@ -633,27 +638,34 @@ int launch_dq_hopper(const void* q, const void* k, const void* v,
 }
 
 // ---------------------------------------------- float32 Hopper design
-// D 64 and 128 (hopper_f32.cuh): q, k, v and do as three bf16 planes,
-// every product six wgmma products.  Planes take 6 bytes an element, so
-// a block keeps one 64-row q tile and both warpgroups share it; they
-// split the k blocks instead, warpgroup g taking blocks g, g + 2, ...
-// from a ring of its own (kStages stages, refilled by its first warp),
-// and each keeps a partial dq of all 64 rows in registers.  Their sum
-// meets once, after the loop, in shared memory.  Per block, s = q·kᵀ and
-// dp = do·vᵀ by wgmma from shared memory, ds = p (dp - delta) in
-// registers, split into three planes as dq += ds·k's register A (k
-// MN-major).  Shared memory, q and do planes plus each warpgroup's stage
-// of k and v planes: D 128, 32-key blocks: 96 KB + 2 x 48 KB = 192 KB;
-// D 64, 64-key blocks: 48 KB + 2 x 48 KB = 144 KB (232,448 the cap).
+// D 64, 128 and 256 (hopper_f32.cuh): k and v as three bf16 planes, every
+// product six wgmma products.  Planes take 6 bytes an element, so a block
+// keeps one 64-row q tile and both warpgroups share it; they split the k
+// blocks instead, warpgroup g taking blocks g, g + 2, ... from a ring of
+// its own (kStages stages, refilled by its first warp), and each keeps a
+// partial dq of all 64 rows in registers.  Their sum meets once, after
+// the loop, in shared memory.  Per block, s = q·kᵀ and dp = do·vᵀ by
+// wgmma, ds = p (dp - delta) in registers, split into three planes as dq
+// += ds·k's register A (k MN-major).  Shared memory, q and do plus each
+// warpgroup's stage of k and v planes: D 128, q and do planes, 32-key
+// blocks: 96 KB + 2 x 48 KB = 192 KB; D 64, 64-key blocks: 48 KB + 2 x 48
+// KB = 144 KB; D 256 (kRowsF32), q and do float32 split in registers
+// (F32Tile), 16-key blocks: 128 KB + 2 x 48 KB = 224 KB (232,448 the
+// cap).  At D 256 dq's 128 registers a thread leave room for s and dp of
+// 16 keys (8 each) and two steps' fragment planes in flight.
 template <int D>
 struct F32Dq {
   using B = hop::Box<D>;
-  static constexpr int BQ = 64, BK = D == 128 ? 32 : 64, kStages = 1;
+  static constexpr bool kRowsF32 = D == 256;
+  static constexpr int BQ = 64, BK = D == 256 ? 16 : D == 128 ? 32 : 64;
+  static constexpr int kStages = 1;
   static constexpr uint32_t kBoxQ = BQ * B::kRow;  // one box, one plane
   static constexpr uint32_t kBoxK = BK * B::kRow;
   static constexpr uint32_t kQPlane = B::kBoxes * kBoxQ;
   static constexpr uint32_t kKPlane = B::kBoxes * kBoxK;
-  static constexpr uint32_t kQBytes = 3 * kQPlane;  // q's three planes
+  // q's float32 tile, or its three planes.
+  static constexpr uint32_t kQBytes =
+      kRowsF32 ? hop::F32Tile<D, BQ>::kBytes : 3 * kQPlane;
   static constexpr uint32_t kKBytes = 3 * kKPlane;
   static constexpr size_t q = 0;
   static constexpr size_t dout = kQBytes;
@@ -662,7 +674,7 @@ struct F32Dq {
   static constexpr size_t bars = kv + 2 * kStages * 2 * kKBytes;
   // full and empty a stage of each warpgroup, then q's.
   static constexpr size_t bytes = bars + 8 * (4 * kStages + 1) + hop::kAtomBytes;
-  static_assert(D == 64 || D == 128, "float32 planes at D 64 and 128");
+  static_assert(D == 64 || D == 128 || D == 256, "float32 D 64, 128, 256");
   static_assert(bytes <= kMaxSmem, "dq tiles exceed shared memory");
   // Warpgroup 1's partial dq passes through the idle ring.
   static_assert(D / 2 * 4 * 128 <= 2 * kStages * 2 * kKBytes, "ring");
@@ -733,13 +745,18 @@ __global__ void __launch_bounds__(hop::kThreads, 1)
   if (warp % 4 == 0) {
     if (warp == 0 && lane == 0) {
       hop::mbar_expect_tx(qbar, 2 * C::kQBytes);
-      for (int p = 0; p < 3; ++p) {
-        for (int b = 0; b < B::kBoxes; ++b) {
-          const uint32_t at = p * C::kQPlane + b * C::kBoxQ;
-          hop::tma_load(smem + C::q + at, &tm_q, qbar, b * B::kCols, q0,
-                        bh + p * nbh);
-          hop::tma_load(smem + C::dout + at, &tm_do, qbar, b * B::kCols, q0,
-                        bh + p * nbh);
+      if constexpr (C::kRowsF32) {
+        hop::tma_load_f32<D, C::BQ>(smem + C::q, &tm_q, qbar, q0, bh);
+        hop::tma_load_f32<D, C::BQ>(smem + C::dout, &tm_do, qbar, q0, bh);
+      } else {
+        for (int p = 0; p < 3; ++p) {
+          for (int b = 0; b < B::kBoxes; ++b) {
+            const uint32_t at = p * C::kQPlane + b * C::kBoxQ;
+            hop::tma_load(smem + C::q + at, &tm_q, qbar, b * B::kCols, q0,
+                          bh + p * nbh);
+            hop::tma_load(smem + C::dout + at, &tm_do, qbar, b * B::kCols,
+                          q0, bh + p * nbh);
+          }
         }
       }
     }
@@ -775,15 +792,23 @@ __global__ void __launch_bounds__(hop::kThreads, 1)
     const uint32_t v_addr = k_addr + C::kKBytes;
 
     float sc[BK / 2], dp[BK / 2];
-    hop::wgmma_fence();
-    hop::planes_ss<D>(sc, q_addr, C::kQPlane, C::kBoxQ, k_addr, C::kKPlane,
-                      C::kBoxK);
-    hop::planes_ss<D>(dp, do_addr, C::kQPlane, C::kBoxQ, v_addr, C::kKPlane,
-                      C::kBoxK);
-    hop::wgmma_commit();
-    hop::wgmma_wait<0>();
-    hop::fence_regs(sc);
-    hop::fence_regs(dp);
+    if constexpr (C::kRowsF32) {
+      // q's and do's fragments split in registers at every step.
+      hop::f32_rs_scores<D>(sc, dp,
+                            reinterpret_cast<const float*>(smem + C::q),
+                            reinterpret_cast<const float*>(smem + C::dout),
+                            r0, cq, k_addr, v_addr, C::kKPlane, C::kBoxK);
+    } else {
+      hop::wgmma_fence();
+      hop::planes_ss<D>(sc, q_addr, C::kQPlane, C::kBoxQ, k_addr,
+                        C::kKPlane, C::kBoxK);
+      hop::planes_ss<D>(dp, do_addr, C::kQPlane, C::kBoxQ, v_addr,
+                        C::kKPlane, C::kBoxK);
+      hop::wgmma_commit();
+      hop::wgmma_wait<0>();
+      hop::fence_regs(sc);
+      hop::fence_regs(dp);
+    }
     dq_ds(sc, dp, (causal && k0 + BK - 1 > q0) || k0 + BK > tk, row0, k0,
           cq, ls0, ls1, dl0, dl1, tq, tk, causal);
 
@@ -836,13 +861,24 @@ __global__ void __launch_bounds__(hop::kThreads, 1)
 template <int D>
 int launch_dq_f32(const void* q, const void* k, const void* v,
                   const void* dout, const void* lse, const void* delta,
-                  void* dq, void* planes, int bh, int tq, int tk, int causal,
-                  float scale, cudaStream_t stream) {
+                  void* dq, void* planes, size_t planes_n, int bh, int tq,
+                  int tk, int causal, float scale, cudaStream_t stream) {
   using C = F32Dq<D>;
   Planes m;
-  const int rc = m.split(q, k, v, dout, planes, D, bh, tq, tk, C::BQ, C::BK,
-                         stream);
-  if (rc != 0) return rc;
+  if constexpr (C::kRowsF32) {
+    // Only k and v are split; q and do load float32.
+    const int rc = m.split(nullptr, k, v, nullptr, planes, planes_n, D, bh,
+                           tq, tk, C::BQ, C::BK, stream);
+    if (rc != 0) return rc;
+    if (!make_map_f32(&m.q, q, D, tq, bh, C::BQ) ||
+        !make_map_f32(&m.dout, dout, D, tq, bh, C::BQ)) {
+      return MVT_TMA_REFUSED;
+    }
+  } else {
+    const int rc = m.split(q, k, v, dout, planes, planes_n, D, bh, tq, tk,
+                           C::BQ, C::BK, stream);
+    if (rc != 0) return rc;
+  }
   auto kernel = flash_dq_hopper_f32<D>;
   static bool smem_set = false;
   cudaError_t err = allow_smem(kernel, C::bytes, &smem_set);
@@ -856,20 +892,20 @@ int launch_dq_f32(const void* q, const void* k, const void* v,
 }
 
 // The design is fixed by (dtype, D) at compile time: bf16 runs the Hopper
-// design above at every D; float32 runs the plane design at D 64 and 128
-// and the first port's kernel at D 32 and 256 (64 x 64 tiles at D 32,
-// 32 x 32 at D 256, where the six tiles must fit 227 KB).
+// design above at every D; float32 runs the plane design at D 64, 128 and
+// 256 (q and do float32 at 256) and the first port's kernel at D 32
+// (64 x 64 tiles).
 template <typename T>
 int dq_for_dim(int d, const void* q, const void* k, const void* v,
                const void* dout, const void* lse, const void* delta,
-               void* dq, void* planes, int bh, int tq, int tk, int causal,
-               float scale, cudaStream_t s) {
+               void* dq, void* planes, size_t planes_n, int bh, int tq,
+               int tk, int causal, float scale, cudaStream_t s) {
   if constexpr (std::is_same<T, float>::value) {
     switch (d) {
       case 32: return launch_dq<T, 32, 64, 64>(q, k, v, dout, lse, delta, dq, bh, tq, tk, causal, scale, s);
-      case 64: return launch_dq_f32<64>(q, k, v, dout, lse, delta, dq, planes, bh, tq, tk, causal, scale, s);
-      case 128: return launch_dq_f32<128>(q, k, v, dout, lse, delta, dq, planes, bh, tq, tk, causal, scale, s);
-      case 256: return launch_dq<T, 256, 32, 32>(q, k, v, dout, lse, delta, dq, bh, tq, tk, causal, scale, s);
+      case 64: return launch_dq_f32<64>(q, k, v, dout, lse, delta, dq, planes, planes_n, bh, tq, tk, causal, scale, s);
+      case 128: return launch_dq_f32<128>(q, k, v, dout, lse, delta, dq, planes, planes_n, bh, tq, tk, causal, scale, s);
+      case 256: return launch_dq_f32<256>(q, k, v, dout, lse, delta, dq, planes, planes_n, bh, tq, tk, causal, scale, s);
       default: return MVT_UNSUPPORTED;
     }
   } else {
@@ -887,22 +923,25 @@ int dq_for_dim(int d, const void* q, const void* k, const void* v,
 
 // q (pre-scaled), k, v, dout: [bh, T, d]; lse, delta: [bh, tq] float;
 // dq: [bh, tq, d], written as scale * ds k.  planes: the float32 plane
-// design's scratch, 6·bh·(tq + tk)·d bf16 (hopper_f32.cuh); null for
-// every other launch.
+// design's scratch, 6·bh·(tq + tk)·d bf16 at D 64 and 128, 6·bh·tk·d at
+// D 256 (hopper_f32.cuh); null for every other launch.  planes_n: its
+// size in bf16 elements (a smaller one than the launch needs:
+// MVT_SCRATCH_SHORT).
 extern "C" int mvt_flash_dq(const void* q, const void* k, const void* v,
                             const void* dout, const void* lse,
                             const void* delta, void* dq, void* planes,
-                            int bh, int tq, int tk, int d, int dtype,
-                            int causal, float scale, void* stream) {
+                            size_t planes_n, int bh, int tq, int tk, int d,
+                            int dtype, int causal, float scale,
+                            void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == MVT_DTYPE_F32) {
     return mvt::dq_for_dim<float>(d, q, k, v, dout, lse, delta, dq, planes,
-                                  bh, tq, tk, causal, scale, s);
+                                  planes_n, bh, tq, tk, causal, scale, s);
   }
   if (dtype == MVT_DTYPE_BF16) {
     return mvt::dq_for_dim<__nv_bfloat16>(d, q, k, v, dout, lse, delta, dq,
-                                          planes, bh, tq, tk, causal, scale,
-                                          s);
+                                          planes, planes_n, bh, tq, tk,
+                                          causal, scale, s);
   }
   return MVT_UNSUPPORTED;
 }

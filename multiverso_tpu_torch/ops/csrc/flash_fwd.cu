@@ -661,12 +661,12 @@ __global__ void __launch_bounds__(F32Fwd<D>::kAllThreads, 1)
 
 template <int D>
 int launch_fwd_f32(const void* q, const void* k, const void* v, void* o,
-                   void* lse, void* planes, int bh, int tq, int tk,
-                   int causal, cudaStream_t stream) {
+                   void* lse, void* planes, size_t planes_n, int bh, int tq,
+                   int tk, int causal, cudaStream_t stream) {
   using C = F32Fwd<D>;
   Planes m;
-  const int rc = m.split(q, k, v, nullptr, planes, D, bh, tq, tk, C::BQ,
-                         C::BK, stream);
+  const int rc = m.split(q, k, v, nullptr, planes, planes_n, D, bh, tq, tk,
+                         C::BQ, C::BK, stream);
   if (rc != 0) return rc;
   auto kernel = flash_fwd_hopper_f32<D>;
   static bool smem_set = false;
@@ -685,13 +685,13 @@ int launch_fwd_f32(const void* q, const void* k, const void* v, void* o,
 // block halves to fit 227 KB.
 template <typename T>
 int fwd_for_dim(int d, const void* q, const void* k, const void* v,
-                void* o, void* lse, void* planes, int bh, int tq, int tk,
-                int causal, cudaStream_t s) {
+                void* o, void* lse, void* planes, size_t planes_n, int bh,
+                int tq, int tk, int causal, cudaStream_t s) {
   if constexpr (std::is_same<T, float>::value) {
     switch (d) {
       case 32: return launch_fwd<T, 32, 64, 64>(q, k, v, o, lse, bh, tq, tk, causal, s);
-      case 64: return launch_fwd_f32<64>(q, k, v, o, lse, planes, bh, tq, tk, causal, s);
-      case 128: return launch_fwd_f32<128>(q, k, v, o, lse, planes, bh, tq, tk, causal, s);
+      case 64: return launch_fwd_f32<64>(q, k, v, o, lse, planes, planes_n, bh, tq, tk, causal, s);
+      case 128: return launch_fwd_f32<128>(q, k, v, o, lse, planes, planes_n, bh, tq, tk, causal, s);
       case 256: return launch_fwd<T, 256, 64, 32>(q, k, v, o, lse, bh, tq, tk, causal, s);
       default: return MVT_UNSUPPORTED;
     }
@@ -710,19 +710,20 @@ int fwd_for_dim(int d, const void* q, const void* k, const void* v,
 
 // q (pre-scaled), k, v: [bh, T, d]; o: [bh, tq, d]; lse: [bh, tq] float.
 // planes: the float32 plane design's scratch, 3·bh·(tq + 2·tk)·d bf16
-// (hopper_f32.cuh); null for every other launch.
+// (hopper_f32.cuh); null for every other launch.  planes_n: its size in
+// bf16 elements (a smaller one than the launch needs: MVT_SCRATCH_SHORT).
 extern "C" int mvt_flash_fwd(const void* q, const void* k, const void* v,
-                             void* o, void* lse, void* planes, int bh,
-                             int tq, int tk, int d, int dtype, int causal,
-                             void* stream) {
+                             void* o, void* lse, void* planes,
+                             size_t planes_n, int bh, int tq, int tk, int d,
+                             int dtype, int causal, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == MVT_DTYPE_F32) {
-    return mvt::fwd_for_dim<float>(d, q, k, v, o, lse, planes, bh, tq, tk,
-                                   causal, s);
+    return mvt::fwd_for_dim<float>(d, q, k, v, o, lse, planes, planes_n, bh,
+                                   tq, tk, causal, s);
   }
   if (dtype == MVT_DTYPE_BF16) {
-    return mvt::fwd_for_dim<__nv_bfloat16>(d, q, k, v, o, lse, planes, bh,
-                                           tq, tk, causal, s);
+    return mvt::fwd_for_dim<__nv_bfloat16>(d, q, k, v, o, lse, planes,
+                                           planes_n, bh, tq, tk, causal, s);
   }
   return MVT_UNSUPPORTED;
 }

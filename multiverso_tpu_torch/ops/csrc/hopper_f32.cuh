@@ -1,6 +1,6 @@
-// The float32 flash kernels on the bf16 tensor cores (flash_fwd.cu,
-// flash_dq.cu and flash_dkv.cu at D 64 and 128): float32 as three bf16
-// planes, six wgmma products a product.
+// The float32 flash kernels on the bf16 tensor cores (flash_fwd.cu at D 64
+// and 128; flash_dq.cu and flash_dkv.cu at D 64, 128 and 256): float32 as
+// three bf16 planes, six wgmma products a product.
 //
 // A float32 x splits into hi = bf16(x), mid = bf16(x - hi) and
 // lo = bf16(x - hi - mid), each rounded to nearest; both differences are
@@ -15,13 +15,19 @@
 // boxes of bf16 rows, K-major or MN-major descriptors, accumulators fed
 // back as register A operands.
 //
-// flash_split3 splits the float32 operands (q, k, v, and do for dq and
-// dk/dv) into their planes in device memory before each launch, into
-// scratch the wrapper allocates: [3, bh, T, D] bf16 a tensor, plane p of
-// head b at head index p·bh + b, so one 3-D TMA map (D, T, 3·bh) reads
-// all three.  It replaces no TPU kernel: the Pallas kernels take float32
-// operands whole.  It is bound by bytes (4 read and 6 written an
-// element).
+// flash_split3 splits the float32 operands into their planes in device
+// memory before each launch, into scratch the wrapper allocates: [3, bh,
+// T, D] bf16 a tensor, plane p of head b at head index p·bh + b, so one
+// 3-D TMA map (D, T, 3·bh) reads all three.  It replaces no TPU kernel:
+// the Pallas kernels take float32 operands whole.  It is bound by bytes
+// (4 read and 6 written an element).  At D 64 and 128 it splits every
+// operand (q, k, v, and do for dq and dk/dv).  At D 256 planes of the
+// stationary 64 rows (q and do for dq, k and v for dk/dv) would take
+// 192 KB of shared memory, so they stay float32 (F32Tile: 128 KB for two
+// tensors) and each thread splits its A fragment in registers at every
+// 16-column step of D (f32_rs_scores), by the same split3_pair as
+// flash_split3, so the planes agree bit for bit; only the streamed
+// operands are split in device memory.
 #pragma once
 
 #include "flash_common.cuh"
@@ -113,6 +119,111 @@ __device__ __forceinline__ void planes_rs(float (&acc)[N],
   }
 }
 
+// A float32 [rows, D] tile in shared memory as its fragment loads want it:
+// D / 8 groups of 8 columns, each [rows, 8] floats (32-byte rows), loaded
+// by TMA one [rows, 8] box a group (make_map_f32).  A warp's fragment load
+// (8 rows, 2 floats a thread at columns cq, cq + 1) then reads 256
+// contiguous bytes, free of bank conflicts; a 1,024-byte row stride would
+// put every row of it in the same banks.
+template <int D, int Rows>
+struct F32Tile {
+  static constexpr int kGroups = D / 8;
+  static constexpr uint32_t kGroupBytes = Rows * 8 * 4;
+  static constexpr uint32_t kBytes = kGroups * kGroupBytes;
+};
+
+// Rows [t0, t0 + Rows) of head b of a float32 map into an F32Tile at dst,
+// counted on bar (the caller announces F32Tile::kBytes).  One thread.
+template <int D, int Rows>
+__device__ __forceinline__ void tma_load_f32(unsigned char* dst,
+                                             const CUtensorMap* map,
+                                             uint64_t* bar, int t0, int b) {
+  using T = F32Tile<D, Rows>;
+  for (int c = 0; c < T::kGroups; ++c) {
+    tma_load(dst + c * T::kGroupBytes, map, bar, 8 * c, t0, b);
+  }
+}
+
+// s0 = A0·B0ᵀ and s1 = A1·B1ᵀ (s and dp of a block, or sᵀ and dpᵀ), over
+// D in steps of 16, m64nNk16 products (s0 and s1 float[N / 2]) with their
+// steps interleaved: A_n a float32 F32Tile of 64 rows at t_n, of which
+// this thread's fragment (rows r0 and r0 + 8, columns cq, cq + 1, cq + 8,
+// cq + 9 of each step) is loaded and split into three register planes at
+// every step; B_n a K-major Box<D> tile of three planes (N rows of keys
+// or queries), plane p at b_n + p·b_plane, its boxes of columns b_box
+// apart.  The tensor cores drop the bits of a sum below its last place
+// (they round toward zero), so each product's largest plane product,
+// hi·hi, sums apart from the five smaller ones, which stay about 2^-8 of
+// the result: the two sums lose 16 truncations at full size between
+// them, not 96, and meet once in float32.  Each step's products form one
+// commit group; at N 16 two steps are in flight while the next one's
+// fragments are split, at N 32 (twice the accumulators) one.  Returns
+// with every product done.
+template <int D, int W>
+__device__ __forceinline__ void f32_rs_scores(float (&s0)[W], float (&s1)[W],
+                                              const float* t0,
+                                              const float* t1, int r0,
+                                              int cq, uint32_t b0,
+                                              uint32_t b1, uint32_t b_plane,
+                                              uint32_t b_box) {
+  using B = Box<D>;
+  constexpr int kGroup = F32Tile<D, 64>::kGroupBytes / 4;  // floats
+  constexpr int kFlight = W == 8 ? 2 : 1;
+  const float* tile[2] = {t0, t1};
+  const uint32_t b[2] = {b0, b1};
+  float h0[W], h1[W];  // the hi·hi sums
+#pragma unroll
+  for (int i = 0; i < W; ++i) {
+    s0[i] = 0.f;
+    s1[i] = 0.f;
+    h0[i] = 0.f;
+    h1[i] = 0.f;
+  }
+#pragma unroll
+  for (int x = 0; x < D / 16; ++x) {
+    uint32_t a[2][3][4];
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+      const float* lo = tile[n] + 2 * x * kGroup + r0 * 8 + cq;  // 16x..
+      const float* hi = lo + kGroup;                             // 16x + 8..
+      const float2 f[4] = {*reinterpret_cast<const float2*>(lo),
+                           *reinterpret_cast<const float2*>(lo + 64),
+                           *reinterpret_cast<const float2*>(hi),
+                           *reinterpret_cast<const float2*>(hi + 64)};
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        split3_pair(f[r].x, f[r].y, a[n][0][r], a[n][1][r], a[n][2][r]);
+      }
+    }
+    const uint32_t at = (x / B::kSteps) * b_box + (x % B::kSteps) * 32;
+    wgmma_fence();
+#pragma unroll
+    for (int i = 0; i < kPairs - 1; ++i) {
+      const uint32_t* f0 = a[0][pair_a(i)];
+      const uint32_t* f1 = a[1][pair_a(i)];
+      const uint32_t pb = at + pair_b(i) * b_plane;
+      wgmma_rs<0>(s0, f0[0], f0[1], f0[2], f0[3], desc_box<D>(b[0] + pb, 16));
+      wgmma_rs<0>(s1, f1[0], f1[1], f1[2], f1[3], desc_box<D>(b[1] + pb, 16));
+    }
+    const uint32_t* f0 = a[0][0];  // hi·hi, the last pair
+    const uint32_t* f1 = a[1][0];
+    wgmma_rs<0>(h0, f0[0], f0[1], f0[2], f0[3], desc_box<D>(b[0] + at, 16));
+    wgmma_rs<0>(h1, f1[0], f1[1], f1[2], f1[3], desc_box<D>(b[1] + at, 16));
+    wgmma_commit();
+    wgmma_wait<kFlight - 1>();
+  }
+  wgmma_wait<0>();
+  fence_regs(s0);
+  fence_regs(s1);
+  fence_regs(h0);
+  fence_regs(h1);
+#pragma unroll
+  for (int i = 0; i < W; ++i) {
+    s0[i] += h0[i];
+    s1[i] += h1[i];
+  }
+}
+
 }  // namespace hop
 
 // The planes of n floats (n a multiple of 4): plane p at out + p·n.
@@ -145,19 +256,53 @@ inline int launch_split3(const void* x, void* out, size_t n,
   return static_cast<int>(cudaGetLastError());
 }
 
+// A float32 [bh, t, d] tensor as a 3-D map (d, t, bh) read in [rows, 8]
+// boxes, unswizzled: the groups of an F32Tile.  Rows past t read as
+// zeros.  False if cuTensorMapEncodeTiled refuses the map.
+inline bool make_map_f32(CUtensorMap* map, const void* base, int d, int t,
+                         int bh, int rows) {
+  hop::EncodeTiledFn encode = hop::encode_tiled();
+  if (encode == nullptr || reinterpret_cast<uintptr_t>(base) % 16 != 0) {
+    return false;
+  }
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(d),
+                              static_cast<cuuint64_t>(t),
+                              static_cast<cuuint64_t>(bh)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(d) * 4,
+                                 static_cast<cuuint64_t>(t) * d * 4};
+  const cuuint32_t box[3] = {8, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3,
+                const_cast<void*>(base), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 // The float32 operands' planes in the wrapper's scratch, three a tensor
-// in the order q, do, k, v (6·(nq + nk) bf16 for dq and dk/dv; the
-// forward passes no do, so 3·(nq + 2·nk)), split on the stream, and a TMA
-// map over each in boxes of qrows (q, do) or krows (k, v) rows.
+// in the order q, do, k, v, of the operands given (a null one is not
+// split: the forward passes no do, so 3·(nq + 2·nk) bf16; dq and dk/dv
+// at D 64 and 128 all four, 6·(nq + nk); at D 256 dq only k and v, 6·nk,
+// dk/dv only q and do, 6·nq), split on the stream, and a TMA map over
+// each in boxes of qrows (q, do) or krows (k, v) rows.  ``cap`` is the
+// scratch's size in bf16 elements: a launch that needs more writes nothing
+// and returns MVT_SCRATCH_SHORT.
 struct Planes {
   CUtensorMap q, k, v, dout;
 
   int split(const void* qp, const void* kp, const void* vp,
-            const void* dop, void* scratch, int d, int bh, int tq, int tk,
-            int qrows, int krows, cudaStream_t stream) {
+            const void* dop, void* scratch, size_t cap, int d, int bh,
+            int tq, int tk, int qrows, int krows, cudaStream_t stream) {
     if (scratch == nullptr) return MVT_NO_SCRATCH;
     const void* src[4] = {qp, dop, kp, vp};
     CUtensorMap* maps[4] = {&q, &dout, &k, &v};
+    size_t need = 0;
+    for (int i = 0; i < 4; ++i) {
+      if (src[i] != nullptr) {
+        need += 3 * static_cast<size_t>(bh) * (i < 2 ? tq : tk) * d;
+      }
+    }
+    if (need > cap) return MVT_SCRATCH_SHORT;
     bf16* at = static_cast<bf16*>(scratch);
     for (int i = 0; i < 4; ++i) {
       if (src[i] == nullptr) continue;

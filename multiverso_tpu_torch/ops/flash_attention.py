@@ -16,14 +16,18 @@ wrapper        CUDA source                     replaces (TPU kernel)
 Which design a kernel runs is fixed at compile time by (dtype, D): in
 bf16 all three run the Hopper designs (TMA loads, wgmma with register
 accumulators, shared helpers in ``csrc/hopper.cuh``) at every head dim.
-In float32, all three at D 64 and 128 run the plane design
-(``csrc/hopper_f32.cuh``): one elementwise kernel, which replaces no TPU
-kernel, splits q, k and v (and, for dq and dk/dv, do) into three bf16
-planes (hi, mid, lo) in scratch the wrapper allocates, and every product
-runs as six bf16 wgmma products into float32 accumulators (the three left
-out are of order 2⁻²⁴ of the product), so the bound is six times the
-flops at the bf16 rate.  Float32 at D 32 and 256 runs the first port's
-kernels (``csrc/flash_common.cuh``; products as FMAs).
+In float32, all three at D 64 and 128, and dq and dk/dv at D 256, run the
+plane design (``csrc/hopper_f32.cuh``): one elementwise kernel, which
+replaces no TPU kernel, splits the operands into three bf16 planes (hi,
+mid, lo) in scratch the wrapper allocates, and every product runs as six
+bf16 wgmma products into float32 accumulators (the three left out are of
+order 2⁻²⁴ of the product), so the bound is six times the flops at the
+bf16 rate.  At D 64 and 128 it splits q, k and v (and, for dq and dk/dv,
+do); at D 256 only the operands a kernel streams (k and v for dq, q and do
+for dk/dv), and the stationary ones stay float32 in shared memory, split
+a fragment at a time in registers.  The float32 forward at D 256 and all
+three at D 32 run the first port's kernels (``csrc/flash_common.cuh``;
+products as FMAs).
 Every design puts bh on grid x, so any bh launches.
 
 Beside each wrapper sits its plain version (``flash_fwd_ref``,
@@ -79,16 +83,19 @@ _SHAPES: Dict[Tuple[str, int, int, bool], int] = {}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_N = ctypes.c_size_t  # the plane scratch's size in bf16 elements
 _SIGNATURES = {
-    "flash_fwd": ("mvt_flash_fwd", [_P] * 6 + [_I] * 6 + [_P]),
+    "flash_fwd": ("mvt_flash_fwd", [_P] * 6 + [_N] + [_I] * 6 + [_P]),
     "flash_dq": ("mvt_flash_dq",
-                 [_P] * 8 + [_I] * 6 + [ctypes.c_float, _P]),
-    "flash_dkv": ("mvt_flash_dkv", [_P] * 9 + [_I] * 6 + [_P]),
+                 [_P] * 8 + [_N] + [_I] * 6 + [ctypes.c_float, _P]),
+    "flash_dkv": ("mvt_flash_dkv", [_P] * 9 + [_N] + [_I] * 6 + [_P]),
 }
-# Head dims whose float32 kernels run the plane design, which splits q, k,
-# v (and do) into three bf16 planes each in scratch the wrapper passes
-# (fwd_for_dim, dq_for_dim and dkv_for_dim in csrc/).
-_F32_PLANE_DIMS = (64, 128)
+# Head dims whose float32 kernels run the plane design, which splits
+# operands into three bf16 planes each in scratch the wrapper passes
+# (fwd_for_dim, dq_for_dim and dkv_for_dim in csrc/): every operand at D
+# 64 and 128; at D 256 (dq and dk/dv only) the streamed ones alone.
+_F32_PLANE_DIMS = {"flash_fwd": (64, 128), "flash_dq": (64, 128, 256),
+                   "flash_dkv": (64, 128, 256)}
 _FNS: Dict[str, tuple] = {}  # name -> (C entry point, error-string fn)
 _FNS_LOCK = threading.Lock()
 
@@ -197,15 +204,29 @@ def _prepare(q, k, v, scale):
     return _prescale(q, scale).contiguous(), k.contiguous(), v.contiguous()
 
 
-def _planes(qs, k, backward=True):
-    """Scratch for the float32 plane design's bf16 planes (hi, mid and lo
-    of q, k, v and, for the backward, do), or None where the launch runs
-    another design."""
-    if qs.dtype != torch.float32 or qs.shape[2] not in _F32_PLANE_DIMS:
+def _planes(qs, k, kernel):
+    """Scratch for kernel ``kernel``'s bf16 planes in the float32 plane
+    design (hi, mid and lo of each operand it splits: q, k, v and, for
+    dq and dk/dv, do at D 64 and 128; at D 256 k and v for dq, q and do
+    for dk/dv), or None where the launch runs another design."""
+    d = qs.shape[2]
+    if qs.dtype != torch.float32 or d not in _F32_PLANE_DIMS[kernel]:
         return None
-    nq = qs.numel() * (2 if backward else 1)
-    return torch.empty(3 * (nq + 2 * k.numel()), dtype=torch.bfloat16,
-                       device=qs.device)
+    nq, nk = qs.numel(), k.numel()
+    if kernel == "flash_fwd":
+        n = nq + 2 * nk
+    elif d == 256:
+        n = 2 * (nk if kernel == "flash_dq" else nq)
+    else:
+        n = 2 * (nq + nk)
+    return torch.empty(3 * n, dtype=torch.bfloat16, device=qs.device)
+
+
+def _scratch(qs, k, kernel):
+    """``_planes``' scratch and its size in elements, as a launch takes
+    them (the kernel refuses a scratch smaller than its planes)."""
+    p = _planes(qs, k, kernel)
+    return p, 0 if p is None else p.numel()
 
 
 def _rows(do, lse, delta, dtype):
@@ -229,7 +250,7 @@ def _fwd(qs, k, v, causal):
     o = torch.empty_like(qs)
     lse = torch.empty((bh, tq), dtype=torch.float32, device=qs.device)
     _launch("flash_fwd", qs.device, qs, k, v, o, lse,
-            _planes(qs, k, backward=False), bh, tq, k.shape[1], d,
+            *_scratch(qs, k, "flash_fwd"), bh, tq, k.shape[1], d,
             _DTYPE_CODES[qs.dtype], int(causal),
             piece=(tq, k.shape[1], bool(causal)))
     return o, lse
@@ -245,7 +266,8 @@ def _dq(qs, k, v, do, lse, delta, scale, causal):
                    causal)[..., :d].contiguous()
     dq = torch.empty_like(qs)
     _launch("flash_dq", qs.device, qs, k, v, do, lse, delta, dq,
-            _planes(qs, k), bh, tq, k.shape[1], d, _DTYPE_CODES[qs.dtype], int(causal), float(scale),
+            *_scratch(qs, k, "flash_dq"), bh, tq, k.shape[1], d,
+            _DTYPE_CODES[qs.dtype], int(causal), float(scale),
             piece=(tq, k.shape[1], bool(causal)))
     return dq
 
@@ -260,7 +282,8 @@ def _dkv(qs, k, v, do, lse, delta, causal):
         return dk[..., :d].contiguous(), dv[..., :d].contiguous()
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _launch("flash_dkv", qs.device, qs, k, v, do, lse, delta, dk, dv,
-            _planes(qs, k), bh, tq, k.shape[1], d, _DTYPE_CODES[qs.dtype], int(causal),
+            *_scratch(qs, k, "flash_dkv"), bh, tq, k.shape[1], d,
+            _DTYPE_CODES[qs.dtype], int(causal),
             piece=(tq, k.shape[1], bool(causal)))
     return dk, dv
 

@@ -1010,6 +1010,10 @@ def test_headdims_phase_shapes():
     f32 = chip_smoke.large_config(torch, dtype=torch.float32)
     assert (f32.compute_dtype, f32.n_heads, f32.head_dim, f32.n_layers) == (
         torch.float32, 16, 128, 16)
+    wide = chip_smoke.large_config(torch, heads=chip_smoke.WIDE_HEADS,
+                                   dtype=torch.float32)
+    assert (wide.compute_dtype, wide.n_heads, wide.head_dim) == (
+        torch.float32, 8, 256)
     assert chip_smoke.large_config(torch).compute_dtype == torch.bfloat16
 
 
@@ -1019,17 +1023,21 @@ def test_headdims_phase_shapes():
     ("flash_dq", torch.float32, 48, "bf16x6"),
     ("flash_fwd", torch.float32, 128, "bf16x6"),
     ("flash_dkv", torch.float32, 32, "fp32"),
-    ("flash_dq", torch.float32, 256, "fp32"),
+    ("flash_dq", torch.float32, 256, "bf16x6"),
+    ("flash_dkv", torch.float32, 256, "bf16x6"),
+    ("flash_dkv", torch.float32, 200, "bf16x6"),
     ("flash_dq", torch.bfloat16, 128, "bf16"),
     ("flash_fwd", torch.float32, 96, "bf16x6"),
     ("flash_fwd", torch.float32, 32, "fp32"),
     ("flash_fwd", torch.float32, 256, "fp32")])
 def test_bound_rate_follows_the_design(name, dtype, d, rate):
-    """Every float32 kernel (``name`` any of the three) at (padded) D 64
-    or 128 is bound at six bf16 products a product; at D 32 and 256 at
-    the FP32 rate."""
+    """Every float32 kernel at (padded) D 64 or 128, and dq and dk/dv at
+    (padded) D 256, is bound at six bf16 products a product; the others
+    (D 32, the forward at 256) at the FP32 rate."""
+    from multiverso_tpu_torch.ops import flash_attention as fa
+
     assert name in chip_smoke.KERNELS
-    assert chip_smoke.bound_rate(dtype, d, torch) == rate
+    assert chip_smoke.bound_rate(fa, name, dtype, d) == rate
 
 
 def test_six_product_bound_at_the_trainer_shape():
@@ -1053,6 +1061,11 @@ def test_split_share_reads_the_split_launches():
                                              "long)"}]}
     got = chip_smoke.split_share(torch, None, profile=fake)
     assert got == {"split_ms": 0.5, "split_share": 0.25, "profiled_ms": 2.0}
+
+    def lost(torch_, fn, calls, top):
+        return {"device_busy_ms": 0.0, "top_kernels": []}
+    assert chip_smoke.split_share(torch, None, profile=lost) == {
+        "split_ms": None, "split_share": None, "profiled_ms": None}
 
 
 def test_f64_errors_hold_the_kernel_within_the_ratio():
@@ -1127,6 +1140,16 @@ def test_parity_float32_cases_cover_the_plane_tiles():
         assert (d, 136, 40, "cross_length") in tags
     assert (128, 2064, 2064, "half_block") in tags
     assert [bh for bh, *_, tag in cases if tag == "one_head"] == [1]
+    # dq and dk/dv at D 256: T 8,192 under the float64 gate, the 64-row
+    # tiles' edges and Tq≠Tk both ways.
+    assert (256, 8192, 8192, "long_f32_d256") in tags
+    assert "long_f32_d256" in chip_smoke.F64_CASES
+    for t, tk, tag in ((2080, 2080, "half_tile"), (66, 66, "two_row_tile"),
+                       (40, 136, "cross_length"), (136, 40, "cross_length")):
+        assert (256, t, tk, tag) in tags
+    for t in (66, 40, 136):
+        assert {c for _, tq, _, d, _, c, _ in cases
+                if d == 256 and tq == t} == {True, False}
 
 
 def test_exp_bound_rate_and_float32_bytes():

@@ -11,11 +11,15 @@ with a card, from the repository root::
 machine need not have; this file imports none of it.)
 
 The kernels are compiled for head dims 32, 64, 128 and 256.  A CUDA
-tensor of head dim 16, 48 or 96 launches the kernels of the next one on
-zero-padded operands; each output is held against the plain versions on
+tensor of head dim 16, 48 or 96 (and, in float32, 200: dq and dk/dv's
+D 256 design) launches the kernels of the next one on zero-padded
+operands; each output is held against the plain versions on
 the same inputs (float32 atol 2e-5 for o and lse, 2e-4 for gradients;
 bfloat16 2e-2, as ``test_torch_flash_attention.py`` states them), and
 each kernel must have launched once.  Past 256 the wrapper raises.
+Causal dk and dv at Tq < Tk are 0 on the k rows no query reaches, as the
+plain version gives, and a float32 launch handed less plane scratch than
+it splits into raises instead of writing past it.
 """
 
 import numpy as np
@@ -32,8 +36,9 @@ TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 TOL = {"float32": (2e-5, 2e-4), "bfloat16": (2e-2, 2e-2)}
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("d", [16, 48, 96])
+@pytest.mark.parametrize("d,dtype", [
+    (d, dtype) for d in (16, 48, 96) for dtype in ("float32", "bfloat16")
+] + [(200, "float32")])
 def test_padded_head_dim_launches_the_kernels(d, dtype):
     rng = np.random.RandomState(80 + d)
     q, k, v, do = (torch.tensor(rng.randn(3, 200, d) * s, dtype=torch.float32)
@@ -63,3 +68,41 @@ def test_head_dim_past_256_raises():
     q = torch.zeros(1, 16, 320, device="cuda")
     with pytest.raises(ValueError, match=r"\(32, 64, 128, 256\)"):
         fa.flash_fwd(q, q, q, 320 ** -0.5, True)
+
+
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_causal_keys_past_the_queries_get_zero_gradients(d):
+    rng = np.random.RandomState(90 + d)
+    q, do = (torch.tensor(rng.randn(3, 40, d), dtype=torch.float32).cuda()
+             for _ in range(2))
+    k, v = (torch.tensor(rng.randn(3, 200, d), dtype=torch.float32).cuda()
+            for _ in range(2))
+    scale = d ** -0.5
+    _, lse = fa.flash_fwd_ref(q, k, v, scale, True)
+    delta = torch.randn(3, 40, device="cuda")
+    dk, dv = fa.flash_dkv(q, k, v, do, lse, delta, scale, True)
+    want = fa.flash_dkv_ref(q, k, v, do, lse, delta, scale, True)
+    for g, w in zip((dk, dv), want):
+        assert torch.equal(g[:, 40:], torch.zeros_like(g[:, 40:]))
+        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(),
+                                   atol=2e-4)
+
+
+@pytest.mark.parametrize("name,d", [
+    (name, d) for name in ("flash_fwd", "flash_dq", "flash_dkv")
+    for d in (64, 128, 256) if d in fa._F32_PLANE_DIMS[name]])
+def test_short_plane_scratch_raises(name, d, monkeypatch):
+    q = torch.randn(2, 64, d, device="cuda")
+    rows = torch.zeros(2, 64, device="cuda")
+    planes = fa._planes
+
+    def short(qs, k, kernel):
+        return planes(qs, k, kernel)[1:]
+    monkeypatch.setattr(fa, "_planes", short)
+    call = {"flash_fwd": lambda: fa.flash_fwd(q, q, q, 1.0, True),
+            "flash_dq": lambda: fa.flash_dq(q, q, q, q, rows, rows, 1.0,
+                                            True),
+            "flash_dkv": lambda: fa.flash_dkv(q, q, q, q, rows, rows, 1.0,
+                                              True)}[name]
+    with pytest.raises(RuntimeError, match="less scratch"):
+        call()

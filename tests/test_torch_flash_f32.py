@@ -1,15 +1,19 @@
 """The float32 plane design of the port's flash kernels (forward, dq and
-dk/dv at head dims 64 and 128, ``csrc/hopper_f32.cuh``), modelled on the
-CPU.
+dk/dv at head dims 64 and 128, dq and dk/dv at 256,
+``csrc/hopper_f32.cuh``), modelled on the CPU.
 
 The kernels split q, k, v and do (and, in registers, p, ds, pᵀ and dsᵀ)
 into three bf16 planes, hi, mid and lo, and form every product as six
-bf16 products summed in float32.  These tests model that arithmetic in
-plain torch: the split, the six-product sum, and the kernels' block
-schedules at the design's tiles (the forward: 128-row q tiles, 64 rows a
-warpgroup, each walking the k blocks with an online softmax; dq and
-dk/dv: 64 stationary rows shared by both warpgroups, which take every
-other streamed block and meet once), held against the plain versions at
+bf16 products summed in float32; at D 256 the stationary operands stay
+float32 in shared memory and each thread splits its fragment of them in
+registers at every 16-column step.  These tests model that arithmetic in
+plain torch: the split, the six-product sum, the fragment loads of the
+float32 tile, and the kernels' block schedules at the design's tiles (the
+forward: 128-row q tiles, 64 rows a warpgroup, each walking the k blocks
+with an online softmax; dq, and dk/dv at D 64 and 128: 64 stationary
+rows shared by both warpgroups, which take every other streamed block and
+meet once; dk/dv at D 256: 64 k rows, both warpgroups on every 16-row q
+block, one owning dv and the other dk), held against the plain versions at
 the schedule tests' tolerances (atol 2e-5, rtol 1e-4), against the JAX
 package's Pallas kernels in interpret mode (float32: atol 2e-5 for the
 forward, 2e-4 for gradients, as ``tests/test_flash_attention.py`` states
@@ -31,8 +35,9 @@ _NEG = -1e30
 # (a plane, b plane) of the six products, in the kernels' order.
 PAIRS = ((2, 0), (1, 1), (0, 2), (1, 0), (0, 1), (0, 0))
 # The design's tiles by head dim: (dq q rows, k block), (dk/dv k rows, q
-# block) — F32Dq and F32Dkv in the sources.
-_TILES = {64: ((64, 64), (64, 64)), 128: ((64, 32), (64, 32))}
+# block) — F32Dq, and F32Dkv or (D 256) F32DkvRoles in the sources.
+_TILES = {64: ((64, 64), (64, 64)), 128: ((64, 32), (64, 32)),
+          256: ((64, 16), (64, 32))}
 # The forward's (q rows, k block) by head dim — F32Fwd.
 _FWD_TILES = {64: (128, 64), 128: (128, 32)}
 _RAGGED = [(130, 130, True), (130, 130, False), (200, 200, True),
@@ -200,6 +205,64 @@ def dkv_f32_schedule(qs, k, v, do, lse, delta, causal, BK=64, BQ=32,
     return dk, dv
 
 
+def dkv_f32_roles_schedule(qs, k, v, do, lse, delta, causal, BK=64, BQ=32,
+                           mm=mm6, flush=8):
+    """dk and dv as flash_dkv_hopper_f32<256> schedules them: a block per
+    64-row k block; both warpgroups take every q block from qstart in
+    order; warpgroup 0 forms sᵀ and pᵀ and keeps dv, warpgroup 1 forms sᵀ
+    again, dpᵀ and dsᵀ and keeps dk; every ``flush`` blocks, and after
+    the last, the sums so far are added to the outputs and start again
+    from 0; a k block that no q block reaches keeps its 0s."""
+    bh, tq, d = qs.shape
+    tk = k.shape[1]
+    nk, nq = -(-tk // BK), -(-tq // BQ)
+    qp, dop = _pad_rows(qs, nq * BQ), _pad_rows(do, nq * BQ)
+    kp, vp = _pad_rows(k, nk * BK), _pad_rows(v, nk * BK)
+    lsep, dlp = _pad_row_vec(lse, nq * BQ), _pad_row_vec(delta, nq * BQ)
+    dk, dv = torch.zeros(bh, tk, d), torch.zeros(bh, tk, d)
+    for kb in range(nk):
+        k0 = kb * BK
+        krows = torch.arange(k0, k0 + BK)
+        kt, vt = kp[:, k0:k0 + BK], vp[:, k0:k0 + BK]
+        dk_acc, dv_acc = torch.zeros(bh, BK, d), torch.zeros(bh, BK, d)
+        qstart = k0 // BQ if causal else 0
+        n = max(0, min(BK, tk - k0))
+        for qb in range(qstart, nq):
+            q0 = qb * BQ
+            assert not (causal and q0 + BQ - 1 < k0)
+            qt, dot = qp[:, q0:q0 + BQ], dop[:, q0:q0 + BQ]
+            masked = ((causal and q0 < k0 + BK - 1) or k0 + BK > tk
+                      or q0 + BQ > tq)
+            qcols = torch.arange(q0, q0 + BQ)
+            out = ((krows[:, None] >= tk) | (qcols[None, :] >= tq)
+                   | (causal & (krows[:, None] > qcols[None, :])))
+            lse_b = lsep[:, None, q0:q0 + BQ]
+            # Warpgroup 0: pᵀ, dv.
+            st = mm(kt, qt.transpose(1, 2))
+            if masked:
+                st = st.masked_fill(out, _NEG)
+            dv_acc += mm(torch.exp(st - lse_b), dot)
+            # Warpgroup 1: sᵀ again, dpᵀ, dsᵀ, dk.
+            st = mm(kt, qt.transpose(1, 2))
+            if masked:
+                st = st.masked_fill(out, _NEG)
+            dpt = mm(vt, dot.transpose(1, 2))
+            dst = torch.exp(st - lse_b) * (dpt - dlp[:, None, q0:q0 + BQ])
+            dk_acc += mm(dst, qt)
+            if (qb - qstart + 1) % flush == 0 or qb + 1 == nq:
+                dk[:, k0:k0 + n] += dk_acc[:, :n]
+                dv[:, k0:k0 + n] += dv_acc[:, :n]
+                dk_acc.zero_()
+                dv_acc.zero_()
+    return dk, dv
+
+
+def dkv_model(qs, k, v, do, lse, delta, causal, d, mm=mm6):
+    """dk and dv as the float32 kernel at head dim d schedules them."""
+    schedule = dkv_f32_roles_schedule if d == 256 else dkv_f32_schedule
+    return schedule(qs, k, v, do, lse, delta, causal, *_TILES[d][1], mm=mm)
+
+
 def _case(tq, tk, causal, d, seed, bh=2):
     """Seeded float32 inputs and the plain forward's saved rows."""
     rng = np.random.RandomState(seed)
@@ -275,14 +338,14 @@ def test_two_planes_or_one_miss_float32_accuracy():
 
 # ------------------------------------------------- schedules at the tiles
 @pytest.mark.parametrize("kernel", ["dq", "dkv"])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 @pytest.mark.parametrize("tq,tk,causal", _RAGGED)
 def test_plane_schedule_matches_plain(kernel, d, tq, tk, causal):
     """The plane design's block schedules at their tiles for head dim d
-    (dq: 64-row q tiles over 64-key blocks at D 64, 32-key at D 128;
-    dk/dv: 64-row k blocks over 64- or 32-row q blocks), with every
-    product as six plane products, against the plain versions, float32,
-    at ragged T."""
+    (dq: 64-row q tiles over 64-key blocks at D 64, 32-key at D 128,
+    16-key at D 256; dk/dv: 64-row k blocks over 64-, 32- or (by role)
+    16-row q blocks), with every product as six plane products, against
+    the plain versions, float32, at ragged T."""
     q, k, v, do, lse, delta, scale = _case(tq, tk, causal, d,
                                            seed=tq + tk + causal + d)
     qs = fa._prescale(q, scale)
@@ -292,7 +355,7 @@ def test_plane_schedule_matches_plain(kernel, d, tq, tk, causal):
                                *dq_tiles),)
         want = (fa.flash_dq_ref(q, k, v, do, lse, delta, scale, causal),)
     else:
-        got = dkv_f32_schedule(qs, k, v, do, lse, delta, causal, *dkv_tiles)
+        got = dkv_model(qs, k, v, do, lse, delta, causal, d)
         want = fa.flash_dkv_ref(q, k, v, do, lse, delta, scale, causal)
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), w.numpy(), atol=2e-5,
@@ -315,28 +378,30 @@ def test_fwd_plane_schedule_matches_plain(d, tq, tk, causal):
                                    rtol=1e-4)
 
 
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 def test_plane_schedule_matches_plain_with_plain_products(d):
     """The same schedules with plain float32 products: the schedule alone
-    (the alternating blocks and the partials' sum) is exact bookkeeping."""
+    (the alternating blocks and the partials' sum, or the roles) is exact
+    bookkeeping."""
     q, k, v, do, lse, delta, scale = _case(200, 200, True, d, seed=d)
     qs = fa._prescale(q, scale)
-    dq_tiles, dkv_tiles = _TILES[d]
+    dq_tiles = _TILES[d][0]
     got = dq_f32_schedule(qs, k, v, do, lse, delta, scale, True, *dq_tiles,
                           mm=torch.matmul)
     np.testing.assert_allclose(
         got.numpy(), fa.flash_dq_ref(q, k, v, do, lse, delta, scale,
                                      True).numpy(), atol=2e-5, rtol=1e-4)
-    got = dkv_f32_schedule(qs, k, v, do, lse, delta, True, *dkv_tiles,
-                           mm=torch.matmul)
+    got = dkv_model(qs, k, v, do, lse, delta, True, d, mm=torch.matmul)
     want = fa.flash_dkv_ref(q, k, v, do, lse, delta, scale, True)
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), w.numpy(), atol=2e-5,
                                    rtol=1e-4)
-    got = fwd_f32_schedule(qs, k, v, True, *_FWD_TILES[d], mm=torch.matmul)
-    for g, w in zip(got, fa.flash_fwd_ref(q, k, v, scale, True)):
-        np.testing.assert_allclose(g.numpy(), w.numpy(), atol=2e-5,
-                                   rtol=1e-4)
+    if d in _FWD_TILES:
+        got = fwd_f32_schedule(qs, k, v, True, *_FWD_TILES[d],
+                               mm=torch.matmul)
+        for g, w in zip(got, fa.flash_fwd_ref(q, k, v, scale, True)):
+            np.testing.assert_allclose(g.numpy(), w.numpy(), atol=2e-5,
+                                       rtol=1e-4)
 
 
 # ------------------------------------------- against the Pallas kernels
@@ -353,7 +418,10 @@ def _jax_grads(x, causal):
 
 
 @pytest.mark.parametrize("kernel,d,T,causal", [("dq", 64, 128, True),
-                                               ("dkv", 128, 96, False)])
+                                               ("dkv", 128, 96, False),
+                                               ("dq", 256, 80, True),
+                                               ("dkv", 256, 80, True),
+                                               ("dkv", 256, 96, False)])
 def test_plane_schedule_matches_pallas(kernel, d, T, causal):
     """One case a kernel: the plane model from the plain forward's saved
     rows against the JAX package's gradients (Pallas kernels in interpret
@@ -371,13 +439,11 @@ def test_plane_schedule_matches_pallas(kernel, d, T, causal):
     o, lse = fa.flash_fwd_ref(q, k, v, scale, causal)
     delta = (do * o).sum(-1) - torch.tensor(x["dlse"]).reshape(2, T)
     qs = fa._prescale(q, scale)
-    dq_tiles, dkv_tiles = _TILES[d]
     if kernel == "dq":
         got = {"dq": dq_f32_schedule(qs, k, v, do, lse, delta, scale,
-                                     causal, *dq_tiles)}
+                                     causal, *_TILES[d][0])}
     else:
-        dk, dv = dkv_f32_schedule(qs, k, v, do, lse, delta, causal,
-                                  *dkv_tiles)
+        dk, dv = dkv_model(qs, k, v, do, lse, delta, causal, d)
         got = {"dk": dk, "dv": dv}
     for name, g in got.items():
         np.testing.assert_allclose(g.reshape(1, 2, T, d).numpy(),
@@ -415,7 +481,7 @@ def _f64_grads(qs, k, v, do, lse, delta, scale, causal):
             "dv": p.transpose(1, 2) @ do.double()}
 
 
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 def test_plane_model_error_within_twice_plain(d):
     """Against float64, the modelled kernels' largest error is at most
     twice the plain float32 version's, per gradient (the card's gate,
@@ -423,11 +489,9 @@ def test_plane_model_error_within_twice_plain(d):
     q, k, v, do, lse, delta, scale = _case(256, 256, True, d, seed=40 + d)
     qs = fa._prescale(q, scale)
     ref = _f64_grads(qs, k, v, do, lse, delta, scale, True)
-    dq_tiles, dkv_tiles = _TILES[d]
     model = {"dq": dq_f32_schedule(qs, k, v, do, lse, delta, scale, True,
-                                   *dq_tiles)}
-    model["dk"], model["dv"] = dkv_f32_schedule(qs, k, v, do, lse, delta,
-                                                True, *dkv_tiles)
+                                   *_TILES[d][0])}
+    model["dk"], model["dv"] = dkv_model(qs, k, v, do, lse, delta, True, d)
     plain = {"dq": fa.flash_dq_ref(q, k, v, do, lse, delta, scale, True)}
     plain["dk"], plain["dv"] = fa.flash_dkv_ref(q, k, v, do, lse, delta,
                                                 scale, True)
@@ -459,22 +523,101 @@ def test_fwd_plane_model_error_within_twice_plain(d):
 def test_wrapper_passes_plane_scratch_only_to_the_plane_design():
     """The wrapper's scratch for the planes: 6·(q + k elements) bf16 for
     float32 dq and dk/dv at D 64 and 128 (q, do, k, v), 3·(q + 2·k
-    elements) for the forward (q, k, v), none for another dtype or head
-    dim."""
+    elements) for the forward (q, k, v); at D 256 6·k elements for dq (k,
+    v) and 6·q for dk/dv (q, do), none for the forward; none for another
+    dtype or head dim; a launch takes the scratch with its size
+    (``_scratch``)."""
     f32 = torch.zeros(2, 8, 128)
-    assert fa._planes(f32, torch.zeros(2, 4, 128)).shape == (6 * (
-        2 * 8 * 128 + 2 * 4 * 128),)
-    assert fa._planes(f32, torch.zeros(2, 4, 128), backward=False).shape \
+    for kernel in ("flash_dq", "flash_dkv"):
+        assert fa._planes(f32, torch.zeros(2, 4, 128), kernel).shape == (
+            6 * (2 * 8 * 128 + 2 * 4 * 128),)
+        assert fa._planes(f32, f32, kernel).dtype == torch.bfloat16
+        assert fa._planes(torch.zeros(2, 8, 64), torch.zeros(2, 8, 64),
+                          kernel) is not None
+    assert fa._planes(f32, torch.zeros(2, 4, 128), "flash_fwd").shape \
         == (3 * (2 * 8 * 128 + 2 * 2 * 4 * 128),)
     assert fa._planes(torch.zeros(2, 8, 64), torch.zeros(2, 8, 64),
-                      backward=False).dtype == torch.bfloat16
-    assert fa._planes(f32, f32).dtype == torch.bfloat16
-    assert fa._planes(torch.zeros(2, 8, 64), torch.zeros(2, 8, 64)) \
-        is not None
-    for d in (32, 256):
-        assert fa._planes(torch.zeros(2, 8, d), torch.zeros(2, 8, d)) is None
-        assert fa._planes(torch.zeros(2, 8, d), torch.zeros(2, 8, d),
-                          backward=False) is None
-    bf = torch.zeros(2, 8, 128, dtype=torch.bfloat16)
-    assert fa._planes(bf, bf) is None
-    assert fa._planes(bf, bf, backward=False) is None
+                      "flash_fwd").dtype == torch.bfloat16
+    wide_q, wide_k = torch.zeros(2, 8, 256), torch.zeros(2, 4, 256)
+    assert fa._planes(wide_q, wide_k, "flash_dq").shape == (
+        6 * 2 * 4 * 256,)
+    assert fa._planes(wide_q, wide_k, "flash_dkv").shape == (
+        6 * 2 * 8 * 256,)
+    assert fa._planes(wide_q, wide_k, "flash_fwd") is None
+    p, n = fa._scratch(wide_q, wide_k, "flash_dkv")
+    assert p.shape == (n,) and fa._scratch(wide_q, wide_k, "flash_fwd") == (
+        None, 0)
+    for kernel in ("flash_fwd", "flash_dq", "flash_dkv"):
+        assert fa._planes(torch.zeros(2, 8, 32), torch.zeros(2, 8, 32),
+                          kernel) is None
+        bf = torch.zeros(2, 8, 128, dtype=torch.bfloat16)
+        assert fa._planes(bf, bf, kernel) is None
+
+
+# ------------------------------------- the float32 tile's fragment loads
+_GROUP = 64 * 8  # floats of one 8-column group of a 64-row F32Tile
+
+
+def _f32_tile(x):
+    """A [64, D] float32 tile laid out as F32Tile stores it: D / 8 groups
+    of [64, 8] floats, flattened."""
+    d = x.shape[1]
+    return x.reshape(64, d // 8, 8).transpose(0, 1).reshape(-1)
+
+
+def _fragment_planes(flat, d):
+    """Each warpgroup thread's A fragments, as f32_rs_scores loads them
+    from an F32Tile (``flat``) and splits them in registers, scattered back
+    to [64, D] planes by the wgmma A layout (register i of step x: row r0
+    + 8·(i % 2), columns 16x + cq + 8·(i // 2) and the next), with how
+    often each element was loaded and each warp's load addresses."""
+    planes = [torch.zeros(64, d) for _ in range(3)]
+    seen = torch.zeros(64, d, dtype=torch.int64)
+    addrs = {}
+    for warp in range(4):
+        for lane in range(32):
+            r0, cq = 16 * warp + lane // 4, 2 * (lane % 4)
+            for x in range(d // 16):
+                lo = 2 * x * _GROUP + r0 * 8 + cq
+                for i, at in enumerate((lo, lo + 64, lo + _GROUP,
+                                        lo + _GROUP + 64)):
+                    addrs.setdefault((warp, x, i), []).append(at)
+                    pair = split3(flat[at:at + 2])
+                    row = r0 + 8 * (i % 2)
+                    col = 16 * x + cq + 8 * (i // 2)
+                    for p in range(3):
+                        planes[p][row, col:col + 2] = pair[p]
+                    seen[row, col:col + 2] += 1
+    return planes, seen, addrs
+
+
+def test_register_split_of_fragments_matches_split_of_the_tensor():
+    """Splitting each thread's float32 fragment of an F32Tile in registers
+    (D 256, q or do in dq, k or v in dk/dv) gives, over the warpgroup, the
+    planes of split3 of the whole tile bit for bit, every element loaded
+    once; and each warp's load reads 256 contiguous bytes (no bank
+    conflicts)."""
+    rng = np.random.RandomState(9)
+    x = torch.tensor((rng.randn(64, 256)
+                      * 10.0 ** rng.uniform(-3, 3, (64, 256)))
+                     .astype(np.float32))
+    planes, seen, addrs = _fragment_planes(_f32_tile(x), 256)
+    assert bool((seen == 1).all())
+    for got, want in zip(planes, split3(x)):
+        assert torch.equal(got, want)
+    for at in addrs.values():
+        assert sorted(at) == list(range(min(at), min(at) + 64, 2))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_roles_schedule_flushes_its_sums(causal):
+    """dk/dv at D 256 past one flush (8 q blocks of 32 rows): T 330 runs
+    up to 11 blocks a k block, so the first flush stores and the second
+    adds; against the plain version, float32."""
+    q, k, v, do, lse, delta, scale = _case(330, 330, causal, 256, seed=330)
+    qs = fa._prescale(q, scale)
+    got = dkv_model(qs, k, v, do, lse, delta, causal, 256)
+    want = fa.flash_dkv_ref(q, k, v, do, lse, delta, scale, causal)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), atol=2e-5,
+                                   rtol=1e-4)
