@@ -37,10 +37,11 @@ Phases, each printing JSON lines:
              tile), T=2112 (a half-full last 128-row tile), T=66 and
              T=130 causal and not (a last block or second tile of 2 rows)
              and Tq≠Tk both ways at D 64 and 128; T=2064 at D 128 (a
-             half-full 32-row block); one head at T=2048.  dq and dk/dv
-             at D 256 (q and do, or k and v, float32 split in registers):
+             half-full 32-row block); one head at T=2048.  All three at
+             D 256 (q, q and do, or k and v float32, split in registers):
              8 heads at T=8192 under the same float64 gate, T=2080 and
-             T=66 (the 64-row tiles' edges) and Tq≠Tk both ways.
+             T=66 (the 64-row tiles' edges), T=130 (the forward's second
+             tile of 2 rows) and Tq≠Tk both ways.
              Each output is judged by its own dtype: float32 outputs
              (lse, and every output of a float32 case) element by element
              at atol = rtol = 1e-4; bf16 outputs by their error relative
@@ -665,7 +666,10 @@ KERNEL_DESIGNS = {
     "flash_fwd": {"bfloat16 D 32, 64, 128, 256": "flash_fwd_hopper<D>",
                   "float32 D 64, 128": "flash_fwd_hopper_f32<D> (three "
                                        "bf16 planes, six wgmma products)",
-                  "float32 D 32, 256": "flash_fwd_kernel (FMA products)"},
+                  "float32 D 256": "flash_fwd_hopper_f32<256> (q float32, "
+                                   "split in registers; k and v planes; "
+                                   "32-key blocks)",
+                  "float32 D 32": "flash_fwd_kernel (FMA products)"},
     "flash_dq": {"bfloat16 D 32, 64, 128, 256": "flash_dq_hopper<D>",
                  "float32 D 64, 128": "flash_dq_hopper_f32<D> (three bf16 "
                                       "planes, six wgmma products)",
@@ -847,7 +851,8 @@ HOPPER_DIMS = {"flash_fwd": (32, 64, 128, 256),
                "flash_dq": (32, 64, 128, 256),
                "flash_dkv": (32, 64, 128, 256)}
 # The float32 plane design's kernels (six bf16 products a product).
-HOPPER_F32_DIMS = {"flash_fwd": (64, 128), "flash_dq": (64, 128, 256),
+HOPPER_F32_DIMS = {"flash_fwd": (64, 128, 256),
+                   "flash_dq": (64, 128, 256),
                    "flash_dkv": (64, 128, 256)}
 
 
@@ -1043,15 +1048,16 @@ def edge_cases(torch):
 
 def f32_cases(torch):
     """The parity phase's cases for the float32 plane design (all three
-    kernels at D 64 and 128, dq and dk/dv at D 256): the trainer's full
+    kernels at D 64, 128 and 256): the trainer's full
     attention shape with the lse cotangent and 8 heads at T 8,192, at D
     128 and 256 (all with the float64 gate, F64_CASES), the 64-row tiles'
     edges of dq and dk/dv and the forward's 128-row tiles' edges (a
     half-full last tile, a last block or second tile of 2 rows), D 128's
     32-row blocks' half-full last block, one head, and Tq≠Tk both ways;
-    at D 256 the 64-row tiles' edges (T 2080, T 66) and Tq≠Tk both
-    ways, causal too (at Tq < Tk the k blocks past Tq see no q block and
-    their gradients are 0)."""
+    at D 256 the 64-row tiles' edges (T 2080, T 66), the forward's
+    128-row tile's last tile of 2 rows (T 130) and Tq≠Tk both ways, causal
+    too (at Tq < Tk the k blocks past Tq see no q block and their
+    gradients are 0)."""
     f32 = torch.float32
     cases = [(BATCH * HEADS, SEQ, SEQ, HEAD_DIM, f32, True,
               "full_width_f32"),
@@ -1071,8 +1077,9 @@ def f32_cases(torch):
     cases.append((LONG_F32_BH, LONG_F32_SEQ, LONG_F32_SEQ, d256, f32, True,
                   "long_f32_d256"))
     cases.append((4, SEQ + 32, SEQ + 32, d256, f32, True, "half_tile"))
-    for causal in (True, False):
-        cases.append((3, 66, 66, d256, f32, causal, "two_row_tile"))
+    for t in (66, 130):
+        for causal in (True, False):
+            cases.append((3, t, t, d256, f32, causal, "two_row_tile"))
     for t, tk in ((40, 136), (136, 40)):
         for causal in (True, False):
             cases.append((3, t, tk, d256, f32, causal, "cross_length"))
@@ -2998,9 +3005,9 @@ def kernel_times(fa, torch, B, H, T, D, plain_bh=None, tk=None,
     versions hold [bh, T, tk] float32 scores), its bound, the exp unit's
     bound (one exp a kept score) and the library call that computes the
     same function.  A float32 kernel's bound is taken at the rate of the
-    design it runs: at D 64 and 128 (the plane design) as six times its
-    flops at the bf16 rate (dq and dk/dv at D 256 too), otherwise at the
-    card's FP32 rate (its products are FMAs); the FP32 and TF32 bounds
+    design it runs: at D 64, 128 and 256 (the plane design) as six times
+    its flops at the bf16 rate, otherwise (D 32) at the card's FP32 rate
+    (its products are FMAs); the FP32 and TF32 bounds
     stand beside it."""
     import torch.nn.functional as F
 
@@ -4769,8 +4776,10 @@ def spawn_native_workers(script, procs, marker, extra_args=(),
     ``marker``.  A rank in ``exempt_ranks`` (failover's victim, which
     SIGKILLs itself) is held to neither; ``env`` adds variables to the
     ranks' environment.  A launch whose failed ranks all lost a port to
-    another process is retried on fresh ports; every rank is killed at
-    the deadline.  Each rank's BLAS gets its share of the host's cores
+    another process is retried on fresh ports.  At the deadline every rank
+    still running is killed, what each rank wrote is read, and the error
+    names each rank that was still running with the tail of its output.
+    Each rank's BLAS gets its share of the host's cores
     (``blas_threads``), as one process a core under ``mpirun`` would:
     with every rank running a BLAS thread per core, 8 LR ranks on the
     H100 host's 8 cores ran 16-19x slower (33,442 samples/s against
@@ -4787,16 +4796,29 @@ def spawn_native_workers(script, procs, marker, extra_args=(),
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
                 env=env) for r in range(procs)]
             t0 = time.monotonic()
-            outs = []
+            outs = [None] * procs
+            late = []
             try:
-                for p in children:
+                for r, p in enumerate(children):
                     left = max(1.0, timeout - (time.monotonic() - t0))
-                    outs.append(p.communicate(timeout=left)[0])
+                    try:
+                        outs[r] = p.communicate(timeout=left)[0]
+                    except subprocess.TimeoutExpired:
+                        late = [q for q, c in enumerate(children)
+                                if c.poll() is None]
+                        break
             finally:
                 for p in children:
                     if p.poll() is None:
                         p.kill()
-                        p.wait()
+                for r, p in enumerate(children):
+                    if outs[r] is None:
+                        outs[r] = p.communicate()[0]
+        if late:
+            raise RuntimeError(f"{script}: ranks {late} still running at "
+                               f"the {timeout} s deadline, killed:\n" +
+                               "\n".join(f"rank {r}:\n{outs[r][-2000:]}"
+                                         for r in late))
         failed = [r for r, p in enumerate(children)
                   if p.returncode != 0 and r not in exempt_ranks]
         if failed and attempt < NATIVE_ATTEMPTS - 1 and all(

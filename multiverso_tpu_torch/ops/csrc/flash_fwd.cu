@@ -32,12 +32,14 @@
 //   of o += p·v (v MN-major), o in registers for the whole loop.  The two
 //   warpgroups run independently, so one's softmax overlaps the other's
 //   products.  Tile sizes, swizzle and producer by D: HopFwd.
-// * float32 at D 64 and 128 (flash_fwd_hopper_f32): the bf16 design's
-//   block with q, k and v as three bf16 planes each and every product as
-//   six wgmma products (hopper_f32.cuh), bound by six times the flops at
-//   the bf16 rate.  Tiles: F32Fwd.
-// * float32 at D 32 and 256 (flash_fwd_kernel): the first port's design.
-//   Every tile staged in shared memory, products as plain FMAs (no TF32).
+// * float32 at D 64, 128 and 256 (flash_fwd_hopper_f32): the bf16
+//   design's block with k and v as three bf16 planes each and every
+//   product as six wgmma products (hopper_f32.cuh), bound by six times the
+//   flops at the bf16 rate.  q is planes too at D 64 and 128; at D 256 it
+//   stays float32 and each thread splits its fragment in registers.
+//   Tiles: F32Fwd.
+// * float32 at D 32 (flash_fwd_kernel): the first port's design.  Every
+//   tile staged in shared memory, products as plain FMAs (no TF32).
 #include "flash_common.cuh"
 #include "hopper_f32.cuh"
 
@@ -450,37 +452,53 @@ int launch_fwd_hopper(const void* q, const void* k, const void* v, void* o,
 }
 
 // ---------------------------------------------- float32 Hopper design
-// D 64 and 128: q, k and v split into three bf16 planes before the
-// launch (Planes, in the wrapper's scratch), every product six wgmma
-// products.  The bf16 design's block: one 128-row q tile a block, each
-// consumer warpgroup owning 64 of its rows, a producer warp loading q's
-// planes once and k's and v's through a ring of stages.  Per k block,
-// s = q·kᵀ from shared memory (planes_ss), the online softmax on float32
-// s in registers with expf as the plain version takes it, p split into
-// three register planes (acc_to_a3) as o += p·v's A operand (planes_rs,
-// v MN-major); o stays float32 in registers for the whole loop.  Planes
-// take 6 bytes an element, so the k blocks shrink: q's planes and the
-// stages fill 192 KB at both dims (232,448 the cap):
-// * D 128: 96 KB of q planes, 32-key blocks of 48 KB (k and v) in two
-//   stages.  s is an m64n32 product, o 64 registers a thread.
-// * D 64: 48 KB of q planes, 64-key blocks of 48 KB in three stages.
+// k and v split into three bf16 planes before the launch (Planes, in the
+// wrapper's scratch), every product six wgmma products.  The bf16
+// design's block: one 128-row q tile a block, each consumer warpgroup
+// owning 64 of its rows, k's and v's planes streamed through a ring of
+// stages that both warpgroups share.  Per k block, s = q·kᵀ, the online
+// softmax on float32 s in registers with expf as the plain version takes
+// it, p split into three register planes (acc_to_a3) as o += p·v's A
+// operand (planes_rs, v MN-major); o stays float32 in registers for the
+// whole loop.  Planes take 6 bytes an element, so the k blocks shrink:
+// * D 128: q's planes too (96 KB, planes_ss), 32-key blocks of 48 KB (k
+//   and v) in two stages; s an m64n32 product, o 64 registers a thread.
+// * D 64: q's planes (48 KB), 64-key blocks of 48 KB in three stages.
+//   At both a producer warp loads q once and k and v stage by stage.
+// * D 256 (kRowsF32): q's planes would take 192 KB, so q stays float32,
+//   a 64-row F32Tile a warpgroup (128 KB), and each thread splits its
+//   fragment in registers at every 16-column step (f32_rs_products, k
+//   K-major).  o takes 128 registers a thread, so warp 0 loads and no
+//   producer caps the registers (hopper.cuh).  32-key blocks in one stage
+//   of 96 KB (m64n32 score products; 224 KB in all).  k and v have a
+//   barrier pair each: after its o += p·v, warp 0 refills k once both
+//   warpgroups' scores are done, then v once both o += p·v are, so k's
+//   load overlaps the other warpgroup's last products and the next scores
+//   start before v lands.  (Refilling v right after the scores, or from
+//   the other warpgroup, was slower on the card: PERF.md.)
 template <int D>
 struct F32Fwd {
   using B = hop::Box<D>;
-  static constexpr int BQ = 128, BK = D == 128 ? 32 : 64;
-  static constexpr int kStages = D == 128 ? 2 : 3;
-  static constexpr int kAllThreads = hop::kThreads + 32;  // + a producer
+  static constexpr bool kRowsF32 = D == 256;
+  static constexpr int BQ = 128, BK = D == 64 ? 64 : 32;
+  static constexpr int kStages = D == 64 ? 3 : D == 128 ? 2 : 1;
+  static constexpr int kProducers = kRowsF32 ? 0 : 32;  // a warp, or none
+  static constexpr int kAllThreads = hop::kThreads + kProducers;
+  using Tile = hop::F32Tile<D, 64>;  // kRowsF32: one warpgroup's q rows
   static constexpr uint32_t kBoxQ = BQ * B::kRow;  // one box, one plane
   static constexpr uint32_t kBoxK = BK * B::kRow;
   static constexpr uint32_t kQPlane = B::kBoxes * kBoxQ;
   static constexpr uint32_t kKPlane = B::kBoxes * kBoxK;
-  static constexpr uint32_t kQBytes = 3 * kQPlane;  // q's three planes
+  // q's three planes, or its float32 rows.
+  static constexpr uint32_t kQBytes = kRowsF32 ? 2 * Tile::kBytes : 3 * kQPlane;
   static constexpr uint32_t kKBytes = 3 * kKPlane;
   static constexpr size_t q = 0;
   static constexpr size_t kv = kQBytes;  // stage s: k's planes, then v's
   static constexpr size_t bars = kv + kStages * 2 * kKBytes;
-  static constexpr size_t bytes = bars + 8 * (2 * kStages + 1) + hop::kAtomBytes;
-  static_assert(D == 64 || D == 128, "float32 planes at D 64 and 128");
+  // full and empty a stage (kRowsF32: of k, then as many of v), q's.
+  static constexpr int kBars = (kRowsF32 ? 4 : 2) * kStages + 1;
+  static constexpr size_t bytes = bars + 8 * kBars + hop::kAtomBytes;
+  static_assert(D == 64 || D == 128 || D == 256, "float32 D 64, 128, 256");
   static_assert(bytes <= kMaxSmem, "forward tiles exceed shared memory");
 };
 
@@ -496,11 +514,15 @@ __global__ void __launch_bounds__(F32Fwd<D>::kAllThreads, 1)
   constexpr int BK = C::BK, S = C::kStages;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = hop::align_atom(smem_raw);
+  // full[s] and empty[s] guard stage s (k and v, or k alone at kRowsF32,
+  // where vfull[s] and vempty[s] guard v).
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + C::bars);
   uint64_t* empty = full + S;
   uint64_t* qbar = empty + S;
+  uint64_t* vfull = qbar + 1;
+  uint64_t* vempty = vfull + S;
 
-  // Plane p of head bh is head bh + p·nbh of the maps.
+  // Plane p of head bh is head bh + p·nbh of the k and v maps.
   const int bh = blockIdx.x, nbh = gridDim.x;
   // Heaviest causal q tiles (the last ones) start first, over all heads.
   const int q0 = (gridDim.y - 1 - blockIdx.y) * C::BQ;
@@ -511,6 +533,10 @@ __global__ void __launch_bounds__(F32Fwd<D>::kAllThreads, 1)
     for (int s = 0; s < S; ++s) {
       hop::mbar_init(&full[s], 1);
       hop::mbar_init(&empty[s], hop::kWarps);
+      if (C::kRowsF32) {
+        hop::mbar_init(&vfull[s], 1);
+        hop::mbar_init(&vempty[s], hop::kWarps);
+      }
     }
     hop::mbar_init(qbar, 1);
     hop::fence_barrier_init();
@@ -518,35 +544,66 @@ __global__ void __launch_bounds__(F32Fwd<D>::kAllThreads, 1)
   __syncthreads();
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  // The producer: q's planes once, then k block j's and v block j's
-  // planes into stage j % S once every consumer warp has released the
-  // block S before it.
-  if (warp == hop::kWarps) {
+  // k block j's planes (with_k) and v block j's (with_v) into stage j % S
+  // once every consumer warp has released the block S before it: counted
+  // on full[s], released on empty[s], but v on vfull[s] and vempty[s] at
+  // kRowsF32, where k and v load apart.  Lane 0 starts the copies; the
+  // whole warp waits.
+  auto load = [&](int j, bool with_k, bool with_v) {
+    const int s = j % S;
+    uint64_t* fb = with_k ? &full[s] : &vfull[s];
+    hop::mbar_wait(with_k ? &empty[s] : &vempty[s], ((j / S) & 1) ^ 1);
     if (lane == 0) {
-      hop::mbar_expect_tx(qbar, C::kQBytes);
+      hop::mbar_expect_tx(fb, (with_k + with_v) * C::kKBytes);
+      unsigned char* ks = smem + C::kv + s * 2 * C::kKBytes;
       for (int p = 0; p < 3; ++p) {
         for (int b = 0; b < B::kBoxes; ++b) {
-          hop::tma_load(smem + C::q + p * C::kQPlane + b * C::kBoxQ, &tm_q,
-                        qbar, b * B::kCols, q0, bh + p * nbh);
-        }
-      }
-      for (int j = 0; j < kend; ++j) {
-        const int s = j % S;
-        hop::mbar_wait(&empty[s], ((j / S) & 1) ^ 1);
-        hop::mbar_expect_tx(&full[s], 2 * C::kKBytes);
-        unsigned char* ks = smem + C::kv + s * 2 * C::kKBytes;
-        for (int p = 0; p < 3; ++p) {
-          for (int b = 0; b < B::kBoxes; ++b) {
-            const uint32_t at = p * C::kKPlane + b * C::kBoxK;
-            hop::tma_load(ks + at, &tm_k, &full[s], b * B::kCols, j * BK,
+          const uint32_t at = p * C::kKPlane + b * C::kBoxK;
+          if (with_k) {
+            hop::tma_load(ks + at, &tm_k, fb, b * B::kCols, j * BK,
                           bh + p * nbh);
-            hop::tma_load(ks + C::kKBytes + at, &tm_v, &full[s],
-                          b * B::kCols, j * BK, bh + p * nbh);
+          }
+          if (with_v) {
+            hop::tma_load(ks + C::kKBytes + at, &tm_v, fb, b * B::kCols,
+                          j * BK, bh + p * nbh);
           }
         }
       }
     }
-    return;
+    __syncwarp();
+  };
+  if constexpr (C::kRowsF32) {
+    // Warp 0: q's float32 rows, then the first S blocks of k and of v.
+    if (warp == 0) {
+      if (lane == 0) {
+        hop::mbar_expect_tx(qbar, C::kQBytes);
+        for (int g = 0; g < 2; ++g) {
+          hop::tma_load_f32<D, 64>(smem + C::q + g * C::Tile::kBytes, &tm_q,
+                                   qbar, q0 + 64 * g, bh);
+        }
+      }
+      __syncwarp();
+      for (int j = 0; j < S && j < kend; ++j) {
+        load(j, true, false);
+        load(j, false, true);
+      }
+    }
+  } else {
+    // The producer: q's planes once, then k's and v's stage by stage.
+    if (warp == hop::kWarps) {
+      if (lane == 0) {
+        hop::mbar_expect_tx(qbar, C::kQBytes);
+        for (int p = 0; p < 3; ++p) {
+          for (int b = 0; b < B::kBoxes; ++b) {
+            hop::tma_load(smem + C::q + p * C::kQPlane + b * C::kBoxQ, &tm_q,
+                          qbar, b * B::kCols, q0, bh + p * nbh);
+          }
+        }
+      }
+      __syncwarp();
+      for (int j = 0; j < kend; ++j) load(j, true, true);
+      return;
+    }
   }
 
   // Warpgroup g owns q rows [q0 + 64g, q0 + 64g + 64): rows r0 and r0 + 8
@@ -557,6 +614,8 @@ __global__ void __launch_bounds__(F32Fwd<D>::kAllThreads, 1)
   const int qw = q0 + 64 * g;
   const int row0 = qw + r0, row1 = row0 + 8;
   const uint32_t q_addr = hop::smem_u32(smem + C::q) + 64 * g * B::kRow;
+  const float* q_rows =
+      reinterpret_cast<const float*>(smem + C::q + g * C::Tile::kBytes);
 
   float acc[D / 2];  // o, unnormalised
 #pragma unroll
@@ -570,13 +629,25 @@ __global__ void __launch_bounds__(F32Fwd<D>::kAllThreads, 1)
     const uint32_t v_addr = k_addr + C::kKBytes;
     hop::mbar_wait(&full[s], (kb / S) & 1);
 
-    float sc[BK / 2];  // s, then p, of the current k block
-    hop::wgmma_fence();
-    hop::planes_ss<D>(sc, q_addr, C::kQPlane, C::kBoxQ, k_addr, C::kKPlane,
-                      C::kBoxK);
-    hop::wgmma_commit();
-    hop::wgmma_wait<0>();
-    hop::fence_regs(sc);
+    float s1[1][BK / 2];
+    float (&sc)[BK / 2] = s1[0];  // s, then p, of the current k block
+    if constexpr (C::kRowsF32) {
+      // q's fragments split in registers at every step; then k's stage is
+      // free.
+      const float* const rows[1] = {q_rows};
+      const uint32_t kb_addr[1] = {k_addr};
+      hop::f32_rs_products<D>(s1, rows, r0, cq, kb_addr, C::kKPlane,
+                              C::kBoxK);
+      __syncwarp();
+      if (lane == 0) hop::mbar_arrive(&empty[s]);
+    } else {
+      hop::wgmma_fence();
+      hop::planes_ss<D>(sc, q_addr, C::kQPlane, C::kBoxQ, k_addr,
+                        C::kKPlane, C::kBoxK);
+      hop::wgmma_commit();
+      hop::wgmma_wait<0>();
+      hop::fence_regs(sc);
+    }
 
     // The online softmax in registers, as the bf16 design runs it but
     // with expf: l stays a per-thread partial sum until the epilogue.
@@ -627,15 +698,23 @@ __global__ void __launch_bounds__(F32Fwd<D>::kAllThreads, 1)
     // o += p·v: p's planes from registers, v's MN-major.
     uint32_t pa[3][BK / 4];
     hop::acc_to_a3(sc, pa);
+    if constexpr (C::kRowsF32) hop::mbar_wait(&vfull[s], (kb / S) & 1);
     hop::wgmma_fence();
     hop::planes_rs<D>(acc, pa, v_addr, C::kKPlane, C::kBoxK);
     hop::wgmma_commit();
     hop::wgmma_wait<0>();
     hop::fence_regs(acc);
 
-    // The stage is free once this warp's products that read it are done.
+    // The stage is free once this warp's products that read it are done;
+    // at kRowsF32 warp 0 then refills it S blocks ahead, k, then v.
     __syncwarp();
-    if (lane == 0) hop::mbar_arrive(&empty[s]);
+    if (lane == 0) hop::mbar_arrive(C::kRowsF32 ? &vempty[s] : &empty[s]);
+    if constexpr (C::kRowsF32) {
+      if (warp == 0 && kb + S < kend) {
+        load(kb + S, true, false);
+        load(kb + S, false, true);
+      }
+    }
   }
 
   l0 = group_sum<4>(l0);
@@ -665,9 +744,17 @@ int launch_fwd_f32(const void* q, const void* k, const void* v, void* o,
                    int tk, int causal, cudaStream_t stream) {
   using C = F32Fwd<D>;
   Planes m;
-  const int rc = m.split(q, k, v, nullptr, planes, planes_n, D, bh, tq, tk,
-                         C::BQ, C::BK, stream);
-  if (rc != 0) return rc;
+  if constexpr (C::kRowsF32) {
+    // Only k and v are split; q loads float32, 64 rows a warpgroup.
+    const int rc = m.split(nullptr, k, v, nullptr, planes, planes_n, D, bh,
+                           tq, tk, C::BQ, C::BK, stream);
+    if (rc != 0) return rc;
+    if (!make_map_f32(&m.q, q, D, tq, bh, 64)) return MVT_TMA_REFUSED;
+  } else {
+    const int rc = m.split(q, k, v, nullptr, planes, planes_n, D, bh, tq, tk,
+                           C::BQ, C::BK, stream);
+    if (rc != 0) return rc;
+  }
   auto kernel = flash_fwd_hopper_f32<D>;
   static bool smem_set = false;
   cudaError_t err = allow_smem(kernel, C::bytes, &smem_set);
@@ -680,9 +767,9 @@ int launch_fwd_f32(const void* q, const void* k, const void* v, void* o,
 }
 
 // The design is fixed by (dtype, D) at compile time: bf16 runs the Hopper
-// design above at every D; float32 runs the plane design at D 64 and 128
-// and the first port's kernel at D 32 (64 x 64 tiles) and D 256, whose k
-// block halves to fit 227 KB.
+// design above at every D; float32 runs the plane design at D 64, 128 and
+// 256 (q float32 at 256) and the first port's kernel at D 32 (64 x 64
+// tiles).
 template <typename T>
 int fwd_for_dim(int d, const void* q, const void* k, const void* v,
                 void* o, void* lse, void* planes, size_t planes_n, int bh,
@@ -692,7 +779,7 @@ int fwd_for_dim(int d, const void* q, const void* k, const void* v,
       case 32: return launch_fwd<T, 32, 64, 64>(q, k, v, o, lse, bh, tq, tk, causal, s);
       case 64: return launch_fwd_f32<64>(q, k, v, o, lse, planes, planes_n, bh, tq, tk, causal, s);
       case 128: return launch_fwd_f32<128>(q, k, v, o, lse, planes, planes_n, bh, tq, tk, causal, s);
-      case 256: return launch_fwd<T, 256, 64, 32>(q, k, v, o, lse, bh, tq, tk, causal, s);
+      case 256: return launch_fwd_f32<256>(q, k, v, o, lse, planes, planes_n, bh, tq, tk, causal, s);
       default: return MVT_UNSUPPORTED;
     }
   } else {
@@ -709,8 +796,9 @@ int fwd_for_dim(int d, const void* q, const void* k, const void* v,
 }  // namespace mvt
 
 // q (pre-scaled), k, v: [bh, T, d]; o: [bh, tq, d]; lse: [bh, tq] float.
-// planes: the float32 plane design's scratch, 3·bh·(tq + 2·tk)·d bf16
-// (hopper_f32.cuh); null for every other launch.  planes_n: its size in
+// planes: the float32 plane design's scratch, 3·bh·(tq + 2·tk)·d bf16 at
+// D 64 and 128, 6·bh·tk·d at D 256 (hopper_f32.cuh); null for every other
+// launch.  planes_n: its size in
 // bf16 elements (a smaller one than the launch needs: MVT_SCRATCH_SHORT).
 extern "C" int mvt_flash_fwd(const void* q, const void* k, const void* v,
                              void* o, void* lse, void* planes,

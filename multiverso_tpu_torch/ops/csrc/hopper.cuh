@@ -1,7 +1,6 @@
 // Hopper (sm_90a) building blocks of the redesigned flash-attention
 // kernels (all three in bf16 at head dims 32, 64, 128 and 256, and in
-// float32 through hopper_f32.cuh: all three at 64 and 128, dq and dk/dv
-// at 256):
+// float32 through hopper_f32.cuh at 64, 128 and 256):
 // mbarriers, TMA tile loads, and wgmma descriptors and instructions.  Raw
 // PTX through inline asm, so a library builds in seconds with no CUTLASS
 // headers.
@@ -16,7 +15,8 @@
 // registers.  setmaxnreg does not lift that budget: a producer warpgroup
 // (384 threads) lending its registers to the consumers left the D 256
 // forward, whose o alone takes 128 registers a thread, at 168 and
-// spilling; so that forward drops its producer too.
+// spilling; so the D 256 forwards (bf16 and float32) drop their producer
+// too.
 //
 // Tiles are TMA boxes of bf16 rows, swizzled as wgmma reads them.  A box
 // row spans the swizzle: 128 bytes (64 columns) at D 64 and above, 64

@@ -1,6 +1,6 @@
-// The float32 flash kernels on the bf16 tensor cores (flash_fwd.cu at D 64
-// and 128; flash_dq.cu and flash_dkv.cu at D 64, 128 and 256): float32 as
-// three bf16 planes, six wgmma products a product.
+// The float32 flash kernels on the bf16 tensor cores (flash_fwd.cu,
+// flash_dq.cu and flash_dkv.cu at D 64, 128 and 256): float32 as three
+// bf16 planes, six wgmma products a product.
 //
 // A float32 x splits into hi = bf16(x), mid = bf16(x - hi) and
 // lo = bf16(x - hi - mid), each rounded to nearest; both differences are
@@ -22,12 +22,13 @@
 // the Pallas kernels take float32 operands whole.  It is bound by bytes
 // (4 read and 6 written an element).  At D 64 and 128 it splits every
 // operand (q, k, v, and do for dq and dk/dv).  At D 256 planes of the
-// stationary 64 rows (q and do for dq, k and v for dk/dv) would take
-// 192 KB of shared memory, so they stay float32 (F32Tile: 128 KB for two
-// tensors) and each thread splits its A fragment in registers at every
-// 16-column step of D (f32_rs_scores), by the same split3_pair as
-// flash_split3, so the planes agree bit for bit; only the streamed
-// operands are split in device memory.
+// stationary rows (q for the forward, q and do for dq, k and v for dk/dv)
+// would take 192 KB of shared memory, so they stay float32 (F32Tile: 128
+// KB for two 64-row tiles) and each thread splits its A fragment in
+// registers at every 16-column step of D (f32_rs_products), by the same
+// split3_pair as flash_split3, so the planes agree bit for bit; only the
+// streamed operands (k and v for the forward and dq, q and do for dk/dv)
+// are split in device memory.
 #pragma once
 
 #include "flash_common.cuh"
@@ -144,46 +145,43 @@ __device__ __forceinline__ void tma_load_f32(unsigned char* dst,
   }
 }
 
-// s0 = A0·B0ᵀ and s1 = A1·B1ᵀ (s and dp of a block, or sᵀ and dpᵀ), over
-// D in steps of 16, m64nNk16 products (s0 and s1 float[N / 2]) with their
-// steps interleaved: A_n a float32 F32Tile of 64 rows at t_n, of which
-// this thread's fragment (rows r0 and r0 + 8, columns cq, cq + 1, cq + 8,
-// cq + 9 of each step) is loaded and split into three register planes at
-// every step; B_n a K-major Box<D> tile of three planes (N rows of keys
-// or queries), plane p at b_n + p·b_plane, its boxes of columns b_box
-// apart.  The tensor cores drop the bits of a sum below its last place
-// (they round toward zero), so each product's largest plane product,
-// hi·hi, sums apart from the five smaller ones, which stay about 2^-8 of
-// the result: the two sums lose 16 truncations at full size between
-// them, not 96, and meet once in float32.  Each step's products form one
-// commit group; at N 16 two steps are in flight while the next one's
-// fragments are split, at N 32 (twice the accumulators) one.  Returns
-// with every product done.
-template <int D, int W>
-__device__ __forceinline__ void f32_rs_scores(float (&s0)[W], float (&s1)[W],
-                                              const float* t0,
-                                              const float* t1, int r0,
-                                              int cq, uint32_t b0,
-                                              uint32_t b1, uint32_t b_plane,
-                                              uint32_t b_box) {
+// s[n] = A_n·B_nᵀ for each of NP products (the forward's s alone; s and
+// dp of a block, or sᵀ and dpᵀ), over D in steps of 16, m64nNk16
+// products (each s[n] float[N / 2]) with their steps interleaved: A_n a
+// float32 F32Tile of 64 rows at tile[n], of which this thread's fragment
+// (rows r0 and r0 + 8, columns cq, cq + 1, cq + 8, cq + 9 of each step) is
+// loaded and split into three register planes at every step; B_n a
+// K-major Box<D> tile of three planes (N rows of keys or queries), plane p
+// at b[n] + p·b_plane, its boxes of columns b_box apart.  The tensor
+// cores drop the bits of a sum below its last place (they round toward
+// zero), so each product's largest plane product, hi·hi, sums apart from
+// the five smaller ones, which stay about 2^-8 of the result: the two
+// sums lose 16 truncations at full size between them, not 96, and meet
+// once in float32.  Each step's products form one commit group; with at
+// most 16 accumulator registers a thread over all NP products two steps
+// are in flight while the next one's fragments are split, with more one.
+// Returns with every product done.
+template <int D, int NP, int W>
+__device__ __forceinline__ void f32_rs_products(
+    float (&s)[NP][W], const float* const (&tile)[NP], int r0, int cq,
+    const uint32_t (&b)[NP], uint32_t b_plane, uint32_t b_box) {
   using B = Box<D>;
   constexpr int kGroup = F32Tile<D, 64>::kGroupBytes / 4;  // floats
-  constexpr int kFlight = W == 8 ? 2 : 1;
-  const float* tile[2] = {t0, t1};
-  const uint32_t b[2] = {b0, b1};
-  float h0[W], h1[W];  // the hi·hi sums
+  constexpr int kFlight = NP * W <= 16 ? 2 : 1;
+  float h[NP][W];  // the hi·hi sums
 #pragma unroll
-  for (int i = 0; i < W; ++i) {
-    s0[i] = 0.f;
-    s1[i] = 0.f;
-    h0[i] = 0.f;
-    h1[i] = 0.f;
+  for (int n = 0; n < NP; ++n) {
+#pragma unroll
+    for (int i = 0; i < W; ++i) {
+      s[n][i] = 0.f;
+      h[n][i] = 0.f;
+    }
   }
 #pragma unroll
   for (int x = 0; x < D / 16; ++x) {
-    uint32_t a[2][3][4];
+    uint32_t a[NP][3][4];
 #pragma unroll
-    for (int n = 0; n < 2; ++n) {
+    for (int n = 0; n < NP; ++n) {
       const float* lo = tile[n] + 2 * x * kGroup + r0 * 8 + cq;  // 16x..
       const float* hi = lo + kGroup;                             // 16x + 8..
       const float2 f[4] = {*reinterpret_cast<const float2*>(lo),
@@ -199,28 +197,50 @@ __device__ __forceinline__ void f32_rs_scores(float (&s0)[W], float (&s1)[W],
     wgmma_fence();
 #pragma unroll
     for (int i = 0; i < kPairs - 1; ++i) {
-      const uint32_t* f0 = a[0][pair_a(i)];
-      const uint32_t* f1 = a[1][pair_a(i)];
-      const uint32_t pb = at + pair_b(i) * b_plane;
-      wgmma_rs<0>(s0, f0[0], f0[1], f0[2], f0[3], desc_box<D>(b[0] + pb, 16));
-      wgmma_rs<0>(s1, f1[0], f1[1], f1[2], f1[3], desc_box<D>(b[1] + pb, 16));
+#pragma unroll
+      for (int n = 0; n < NP; ++n) {
+        const uint32_t* f = a[n][pair_a(i)];
+        wgmma_rs<0>(s[n], f[0], f[1], f[2], f[3],
+                    desc_box<D>(b[n] + at + pair_b(i) * b_plane, 16));
+      }
     }
-    const uint32_t* f0 = a[0][0];  // hi·hi, the last pair
-    const uint32_t* f1 = a[1][0];
-    wgmma_rs<0>(h0, f0[0], f0[1], f0[2], f0[3], desc_box<D>(b[0] + at, 16));
-    wgmma_rs<0>(h1, f1[0], f1[1], f1[2], f1[3], desc_box<D>(b[1] + at, 16));
+#pragma unroll
+    for (int n = 0; n < NP; ++n) {  // hi·hi, the last pair
+      const uint32_t* f = a[n][0];
+      wgmma_rs<0>(h[n], f[0], f[1], f[2], f[3], desc_box<D>(b[n] + at, 16));
+    }
     wgmma_commit();
     wgmma_wait<kFlight - 1>();
   }
   wgmma_wait<0>();
-  fence_regs(s0);
-  fence_regs(s1);
-  fence_regs(h0);
-  fence_regs(h1);
+#pragma unroll
+  for (int n = 0; n < NP; ++n) fence_regs(s[n]);
+#pragma unroll
+  for (int n = 0; n < NP; ++n) fence_regs(h[n]);
+#pragma unroll
+  for (int n = 0; n < NP; ++n) {
+#pragma unroll
+    for (int i = 0; i < W; ++i) s[n][i] += h[n][i];
+  }
+}
+
+// s0 = A0·B0ᵀ and s1 = A1·B1ᵀ by f32_rs_products: s and dp of a block (dq),
+// or sᵀ and dpᵀ (dk/dv).
+template <int D, int W>
+__device__ __forceinline__ void f32_rs_scores(float (&s0)[W], float (&s1)[W],
+                                              const float* t0,
+                                              const float* t1, int r0,
+                                              int cq, uint32_t b0,
+                                              uint32_t b1, uint32_t b_plane,
+                                              uint32_t b_box) {
+  const float* const tile[2] = {t0, t1};
+  const uint32_t b[2] = {b0, b1};
+  float s[2][W];
+  f32_rs_products<D>(s, tile, r0, cq, b, b_plane, b_box);
 #pragma unroll
   for (int i = 0; i < W; ++i) {
-    s0[i] += h0[i];
-    s1[i] += h1[i];
+    s0[i] = s[0][i];
+    s1[i] = s[1][i];
   }
 }
 
@@ -282,8 +302,8 @@ inline bool make_map_f32(CUtensorMap* map, const void* base, int d, int t,
 // The float32 operands' planes in the wrapper's scratch, three a tensor
 // in the order q, do, k, v, of the operands given (a null one is not
 // split: the forward passes no do, so 3·(nq + 2·nk) bf16; dq and dk/dv
-// at D 64 and 128 all four, 6·(nq + nk); at D 256 dq only k and v, 6·nk,
-// dk/dv only q and do, 6·nq), split on the stream, and a TMA map over
+// at D 64 and 128 all four, 6·(nq + nk); at D 256 the forward and dq only
+// k and v, 6·nk, dk/dv only q and do, 6·nq), split on the stream, and a TMA map over
 // each in boxes of qrows (q, do) or krows (k, v) rows.  ``cap`` is the
 // scratch's size in bf16 elements: a launch that needs more writes nothing
 // and returns MVT_SCRATCH_SHORT.

@@ -229,19 +229,20 @@ def test_build_phase_fails_without_the_d32_or_d256_design(tmp_path, lib, d):
         chip_smoke.phase_build(fake, paths, 1.0)
 
 
-@pytest.mark.parametrize("lib", ["flash_dkv", "flash_dq"])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("lib", ["flash_fwd", "flash_dkv", "flash_dq"])
+@pytest.mark.parametrize("d", [64, 128, 256])
 def test_build_phase_fails_without_the_float32_plane_design(tmp_path, lib,
                                                             d):
-    """dq and dk/dv must each hold their float32 plane kernel at D 64 and
-    128: a library that lacks one fails."""
+    """The forward, dq and dk/dv must each hold their float32 plane kernel
+    at D 64, 128 and 256: a library that lacks one fails."""
     fake, paths = _fake_build(tmp_path, _listings(lib, drop_f32=d))
     with pytest.raises(AssertionError, match=rf"{lib}: no Hopper_f32 "
                                              rf"kernel at D \[{d}\]"):
         chip_smoke.phase_build(fake, paths, 1.0)
 
 
-@pytest.mark.parametrize("lib,d", [("flash_dq", 128), ("flash_dkv", 64)])
+@pytest.mark.parametrize("lib,d", [("flash_dq", 128), ("flash_dkv", 64),
+                                   ("flash_fwd", 256)])
 def test_build_phase_fails_on_a_spilling_float32_plane_kernel(tmp_path, lib,
                                                               d):
     fake, paths = _fake_build(tmp_path, _listings(),
@@ -1029,11 +1030,10 @@ def test_headdims_phase_shapes():
     ("flash_dq", torch.bfloat16, 128, "bf16"),
     ("flash_fwd", torch.float32, 96, "bf16x6"),
     ("flash_fwd", torch.float32, 32, "fp32"),
-    ("flash_fwd", torch.float32, 256, "fp32")])
+    ("flash_fwd", torch.float32, 256, "bf16x6")])
 def test_bound_rate_follows_the_design(name, dtype, d, rate):
-    """Every float32 kernel at (padded) D 64 or 128, and dq and dk/dv at
-    (padded) D 256, is bound at six bf16 products a product; the others
-    (D 32, the forward at 256) at the FP32 rate."""
+    """Every float32 kernel at (padded) D 64, 128 or 256 is bound at six
+    bf16 products a product; the others (D 32) at the FP32 rate."""
     from multiverso_tpu_torch.ops import flash_attention as fa
 
     assert name in chip_smoke.KERNELS
@@ -1140,14 +1140,16 @@ def test_parity_float32_cases_cover_the_plane_tiles():
         assert (d, 136, 40, "cross_length") in tags
     assert (128, 2064, 2064, "half_block") in tags
     assert [bh for bh, *_, tag in cases if tag == "one_head"] == [1]
-    # dq and dk/dv at D 256: T 8,192 under the float64 gate, the 64-row
-    # tiles' edges and Tq≠Tk both ways.
+    # All three at D 256: T 8,192 under the float64 gate, the 64-row
+    # tiles' edges, the forward's 128-row tile's last tile of 2 rows and
+    # Tq≠Tk both ways.
     assert (256, 8192, 8192, "long_f32_d256") in tags
     assert "long_f32_d256" in chip_smoke.F64_CASES
     for t, tk, tag in ((2080, 2080, "half_tile"), (66, 66, "two_row_tile"),
+                       (130, 130, "two_row_tile"),
                        (40, 136, "cross_length"), (136, 40, "cross_length")):
         assert (256, t, tk, tag) in tags
-    for t in (66, 40, 136):
+    for t in (66, 130, 40, 136):
         assert {c for _, tq, _, d, _, c, _ in cases
                 if d == 256 and tq == t} == {True, False}
 
@@ -1978,6 +1980,36 @@ def test_spawn_native_workers_exempts_the_victim(tmp_path):
     with pytest.raises(RuntimeError, match="rank 1 failed"):
         chip_smoke.spawn_native_workers(str(script), 2, "VICTIM_OK",
                                         timeout=60)
+
+
+_SLEEPER = """
+import os, sys, time
+rank = sys.argv[2]
+with open(os.path.join(os.path.dirname(__file__), "pid" + rank), "w") as f:
+    f.write(str(os.getpid()))
+if rank == "1":
+    print("SLEEPER rank=1 waiting on its peer", flush=True)
+    time.sleep(120)
+print("SLEEPER_OK rank=" + rank, flush=True)
+"""
+
+
+def test_spawn_native_workers_names_the_rank_past_its_deadline(tmp_path):
+    """A rank still running at the deadline is killed, named in the error
+    with what it wrote, and no rank is left behind."""
+    script = tmp_path / "sleeper.py"
+    script.write_text(_SLEEPER)
+    t0 = time.monotonic()
+    with pytest.raises(RuntimeError, match=r"ranks \[1\] still running") \
+            as err:
+        chip_smoke.spawn_native_workers(str(script), 2, "SLEEPER_OK",
+                                        timeout=3)
+    assert time.monotonic() - t0 < 60
+    assert "rank 1:\nSLEEPER rank=1 waiting on its peer" in str(err.value)
+    for r in range(2):
+        pid = int((tmp_path / f"pid{r}").read_text())
+        with pytest.raises(ProcessLookupError):
+            os.kill(pid, 0)
 
 
 _HOLDER = """

@@ -1,6 +1,6 @@
 """The float32 plane design of the port's flash kernels (forward, dq and
-dk/dv at head dims 64 and 128, dq and dk/dv at 256,
-``csrc/hopper_f32.cuh``), modelled on the CPU.
+dk/dv at head dims 64, 128 and 256, ``csrc/hopper_f32.cuh``), modelled on
+the CPU.
 
 The kernels split q, k, v and do (and, in registers, p, ds, pᵀ and dsᵀ)
 into three bf16 planes, hi, mid and lo, and form every product as six
@@ -39,7 +39,7 @@ PAIRS = ((2, 0), (1, 1), (0, 2), (1, 0), (0, 1), (0, 0))
 _TILES = {64: ((64, 64), (64, 64)), 128: ((64, 32), (64, 32)),
           256: ((64, 16), (64, 32))}
 # The forward's (q rows, k block) by head dim — F32Fwd.
-_FWD_TILES = {64: (128, 64), 128: (128, 32)}
+_FWD_TILES = {64: (128, 64), 128: (128, 32), 256: (128, 32)}
 _RAGGED = [(130, 130, True), (130, 130, False), (200, 200, True),
            (200, 200, False), (256, 256, True), (40, 136, False)]
 
@@ -362,13 +362,13 @@ def test_plane_schedule_matches_plain(kernel, d, tq, tk, causal):
                                    rtol=1e-4)
 
 
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 @pytest.mark.parametrize("tq,tk,causal", _RAGGED)
 def test_fwd_plane_schedule_matches_plain(d, tq, tk, causal):
     """The forward's block schedule at its tiles for head dim d (128-row q
-    tiles over 64-key blocks at D 64, 32-key at D 128), s and p·v as six
-    plane products, against the plain forward, float32, at ragged T: o
-    and lse."""
+    tiles over 64-key blocks at D 64, 32-key at D 128 and 256), s and p·v
+    as six plane products, against the plain forward, float32, at ragged
+    T: o and lse."""
     q, k, v, *_, scale = _case(tq, tk, causal, d, seed=tq + tk + causal + d)
     got = fwd_f32_schedule(fa._prescale(q, scale), k, v, causal,
                            *_FWD_TILES[d])
@@ -450,7 +450,8 @@ def test_plane_schedule_matches_pallas(kernel, d, T, causal):
                                    want[name], atol=2e-4, err_msg=name)
 
 
-@pytest.mark.parametrize("d,T,causal", [(64, 200, True), (128, 96, False)])
+@pytest.mark.parametrize("d,T,causal", [(64, 200, True), (128, 96, False),
+                                        (256, 80, True)])
 def test_fwd_plane_schedule_matches_pallas(d, T, causal):
     """The forward's plane model against the JAX package's Pallas forward
     in interpret mode: o and lse, float32 atol 2e-5."""
@@ -501,7 +502,7 @@ def test_plane_model_error_within_twice_plain(d):
         assert em <= 2 * ep, (name, em, ep)
 
 
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 def test_fwd_plane_model_error_within_twice_plain(d):
     """Against float64, the modelled forward's largest error in o and in
     lse is at most twice the plain float32 version's."""
@@ -523,8 +524,8 @@ def test_fwd_plane_model_error_within_twice_plain(d):
 def test_wrapper_passes_plane_scratch_only_to_the_plane_design():
     """The wrapper's scratch for the planes: 6·(q + k elements) bf16 for
     float32 dq and dk/dv at D 64 and 128 (q, do, k, v), 3·(q + 2·k
-    elements) for the forward (q, k, v); at D 256 6·k elements for dq (k,
-    v) and 6·q for dk/dv (q, do), none for the forward; none for another
+    elements) for the forward (q, k, v); at D 256 6·k elements for the
+    forward and dq (k, v) and 6·q for dk/dv (q, do); none for another
     dtype or head dim; a launch takes the scratch with its size
     (``_scratch``)."""
     f32 = torch.zeros(2, 8, 128)
@@ -543,10 +544,12 @@ def test_wrapper_passes_plane_scratch_only_to_the_plane_design():
         6 * 2 * 4 * 256,)
     assert fa._planes(wide_q, wide_k, "flash_dkv").shape == (
         6 * 2 * 8 * 256,)
-    assert fa._planes(wide_q, wide_k, "flash_fwd") is None
+    assert fa._planes(wide_q, wide_k, "flash_fwd").shape == (
+        6 * 2 * 4 * 256,)
     p, n = fa._scratch(wide_q, wide_k, "flash_dkv")
-    assert p.shape == (n,) and fa._scratch(wide_q, wide_k, "flash_fwd") == (
-        None, 0)
+    assert p.shape == (n,)
+    p, n = fa._scratch(wide_q, wide_k, "flash_fwd")
+    assert p.shape == (n,) and n == 6 * 2 * 4 * 256
     for kernel in ("flash_fwd", "flash_dq", "flash_dkv"):
         assert fa._planes(torch.zeros(2, 8, 32), torch.zeros(2, 8, 32),
                           kernel) is None
