@@ -14,8 +14,8 @@ Phases, each printing JSON lines:
              and the SASS counts of HGMMA (wgmma), UTMALDG (TMA loads) and
              LDL/STL (local memory) from ``cuobjdump -sass``.  Each
              library must hold its bf16 Hopper kernels (all three at D
-             32, 64, 128 and 256) and its float32 plane kernels (D 64
-             and 128; dq and dk/dv at 256 too), each of them with HGMMA
+             32, 64, 128 and 256) and its float32 plane kernels (D 64,
+             128 and 256; dq and dk/dv at 32 too), each of them with HGMMA
              and UTMALDG and no bytes spilled.
 3. parity  — each kernel against its plain PyTorch version on the card:
              the trainer's attention shape (B=4, H=16, T=2048, D=128, bf16,
@@ -41,7 +41,9 @@ Phases, each printing JSON lines:
              D 256 (q, q and do, or k and v float32, split in registers):
              8 heads at T=8192 under the same float64 gate, T=2080 and
              T=66 (the 64-row tiles' edges), T=130 (the forward's second
-             tile of 2 rows) and Tq≠Tk both ways.
+             tile of 2 rows) and Tq≠Tk both ways.  dq and dk/dv at D 32:
+             8 heads at T=8192 under the same float64 gate, T=2080,
+             2112, 66 and 130 and Tq≠Tk both ways.
              Each output is judged by its own dtype: float32 outputs
              (lse, and every output of a float32 case) element by element
              at atol = rtol = 1e-4; bf16 outputs by their error relative
@@ -85,12 +87,14 @@ Phases, each printing JSON lines:
              design on the trainer's path: transformer_large's widths with
              8 heads of 256 (the trainer's masters, bf16, SGD, no remat,
              batch 4, seq 2048), bench_transformer's with 16 heads of 32
-             (batch 8, seq 2048), and transformer_large in float32 (16
+             (batch 8, seq 2048), transformer_large in float32 (16
              heads of 128, and 8 heads of 256, the same masters and
-             batch), 5 steps each (finite, falling losses, every kernel
+             batch) and bench_transformer's in float32 with 16 heads of
+             32, 5 steps each (finite, falling losses, every kernel
              launched once a layer and step), the kernels at [4, 8, 2048,
-             256], [8, 16, 2048, 32], [4, 16, 2048, 128] float32 and [4,
-             8, 2048, 256] float32 against their plain versions (float32
+             256], [8, 16, 2048, 32], [4, 16, 2048, 128] float32, [4, 8,
+             2048, 256] float32 and [8, 16, 2048, 32] float32 against
+             their plain versions (float32
              also against float64, as in parity) and
              timed (beside each bound the exp unit's: one exp a kept
              score at 16 a clock an SM; the float32 kernels bound at six
@@ -645,9 +649,9 @@ F32_TOL = 1e-4   # float32 outputs: every element within atol + rtol·|want|
 # would miss it by far: their errors are of order 2^-16 and 2^-11).
 F32_F64_RATIO = 8.0
 # The parity cases held to that gate: the trainer's float32 attention
-# shape, and 8 heads at T 8,192 (at D 128 and 256), where every output
-# sums four times as many wgmma products as at T 2,048.
-F64_CASES = ("full_width_f32", "long_f32", "long_f32_d256")
+# shape, and 8 heads at T 8,192 (at D 32, 128 and 256), where every
+# output sums four times as many wgmma products as at T 2,048.
+F64_CASES = ("full_width_f32", "long_f32", "long_f32_d256", "long_f32_d32")
 LONG_F32_BH, LONG_F32_SEQ = 8, 8192
 BF16_TOL = 1e-2  # bf16 outputs: max and L2 error relative to the scale
 KERNELS = {
@@ -676,14 +680,21 @@ KERNEL_DESIGNS = {
                  "float32 D 256": "flash_dq_hopper_f32<256> (q and do "
                                   "float32, split in registers; k and v "
                                   "planes; 16-key blocks)",
-                 "float32 D 32": "flash_dq_kernel (FMA products)"},
+                 "float32 D 32": "flash_dq_hopper_f32<32> (three bf16 "
+                                 "planes in 64-byte rows; 128 q rows, 64 a "
+                                 "warpgroup, over one ring of 64-key "
+                                 "blocks; hi·hi summed apart)"},
     "flash_dkv": {"bfloat16 D 32, 64, 128, 256": "flash_dkv_hopper<D>",
                   "float32 D 64, 128": "flash_dkv_hopper_f32<D> (three "
                                        "bf16 planes, six wgmma products)",
                   "float32 D 256": "flash_dkv_hopper_f32<256> (k and v "
                                    "float32, split in registers; q and do "
                                    "planes; dv and dk by warpgroup)",
-                  "float32 D 32": "flash_dkv_kernel (FMA products)"},
+                  "float32 D 32": "flash_dkv_hopper_f32<32> (three "
+                                  "bf16 planes in 64-byte rows; 128 k rows, "
+                                  "64 a warpgroup, over one ring of 64-row "
+                                  "q blocks; hi·hi summed apart, dk and dv "
+                                  "flushed into float32 sums)"},
 }
 
 
@@ -852,8 +863,8 @@ HOPPER_DIMS = {"flash_fwd": (32, 64, 128, 256),
                "flash_dkv": (32, 64, 128, 256)}
 # The float32 plane design's kernels (six bf16 products a product).
 HOPPER_F32_DIMS = {"flash_fwd": (64, 128, 256),
-                   "flash_dq": (64, 128, 256),
-                   "flash_dkv": (64, 128, 256)}
+                   "flash_dq": (32, 64, 128, 256),
+                   "flash_dkv": (32, 64, 128, 256)}
 
 
 def hopper_dim(kname, name, suffix=""):
@@ -1026,7 +1037,7 @@ def kernel_errors(errs):
 
 def edge_cases(torch):
     """The parity phase's cases for the D 32 and D 256 Hopper designs and
-    the first port's grid: (bh, T, Tk, D, dtype, causal, tag).  The
+    the grids: (bh, T, Tk, D, dtype, causal, tag).  The
     128-row tiles' edges at both dims (a half-full last tile, a second
     tile of 2 rows), D 256's 64-row k and q blocks' edges (T 2080, T 66),
     Tq≠Tk both ways, and bh 65,600 (past grid y's 65,535) in bf16 and
@@ -1048,16 +1059,15 @@ def edge_cases(torch):
 
 def f32_cases(torch):
     """The parity phase's cases for the float32 plane design (all three
-    kernels at D 64, 128 and 256): the trainer's full
+    kernels at D 64, 128 and 256, dq and dk/dv at D 32): the trainer's full
     attention shape with the lse cotangent and 8 heads at T 8,192, at D
-    128 and 256 (all with the float64 gate, F64_CASES), the 64-row tiles'
-    edges of dq and dk/dv and the forward's 128-row tiles' edges (a
+    32, 128 and 256 (all with the float64 gate, F64_CASES), the 64-row
+    tiles' edges of dq and dk/dv and the forward's 128-row tiles' edges (a
     half-full last tile, a last block or second tile of 2 rows), D 128's
     32-row blocks' half-full last block, one head, and Tq≠Tk both ways;
-    at D 256 the 64-row tiles' edges (T 2080, T 66), the forward's
-    128-row tile's last tile of 2 rows (T 130) and Tq≠Tk both ways, causal
-    too (at Tq < Tk the k blocks past Tq see no q block and their
-    gradients are 0)."""
+    at D 32 and 256 the 64-row tiles' edges (T 2080, 2112, 66 and 130)
+    and Tq≠Tk both ways, causal too (at Tq < Tk the k blocks past Tq see
+    no q block and their gradients are 0)."""
     f32 = torch.float32
     cases = [(BATCH * HEADS, SEQ, SEQ, HEAD_DIM, f32, True,
               "full_width_f32"),
@@ -1083,6 +1093,17 @@ def f32_cases(torch):
     for t, tk in ((40, 136), (136, 40)):
         for causal in (True, False):
             cases.append((3, t, tk, d256, f32, causal, "cross_length"))
+    d32 = NARROW["dim"] // NARROW["n_heads"]  # headdims_f32_d32's head dim
+    cases.append((LONG_F32_BH, LONG_F32_SEQ, LONG_F32_SEQ, d32, f32, True,
+                  "long_f32_d32"))
+    for t in (SEQ + 32, SEQ + 64):
+        cases.append((4, t, t, d32, f32, True, "half_tile"))
+    for t in (66, 130):
+        for causal in (True, False):
+            cases.append((3, t, t, d32, f32, causal, "two_row_tile"))
+    for t, tk in ((40, 136), (136, 40)):
+        for causal in (True, False):
+            cases.append((3, t, tk, d32, f32, causal, "cross_length"))
     return cases
 
 
@@ -1393,16 +1414,17 @@ def phase_headdims(args, torch, fa, mv, card, host):
     the trainer's path: five steps of transformer_large's widths in 8
     heads of 256 (from the trainer's float32 masters: the head count
     changes no parameter's shape), of bench_transformer's in 16 heads of
-    32, and of transformer_large in float32 (16 heads of 128, and 8 heads
-    of 256, from the same masters), each held by ``run_ok``; the kernels
-    at each run's
+    32, of transformer_large in float32 (16 heads of 128, and 8 heads of
+    256, from the same masters) and of bench_transformer's in float32 in
+    16 heads of 32, each held by ``run_ok``; the kernels at each run's
     attention shape against their plain versions (in float32 also
     against float64, F32_F64_RATIO) and timed.  Returns each path's entry
     for the kernels line."""
     from multiverso_tpu_torch.models import TransformerConfig, init_params
 
-    narrow = TransformerConfig(**NARROW, max_seq=SMALL_SEQ,
-                               compute_dtype=torch.bfloat16)
+    narrow, narrow_f32 = (TransformerConfig(**NARROW, max_seq=SMALL_SEQ,
+                                            compute_dtype=dtype)
+                          for dtype in (torch.bfloat16, torch.float32))
     runs = (("headdims_d256", large_config(torch, heads=WIDE_HEADS), host,
              BATCH, SEQ, 610),
             ("headdims_d32", narrow, None, SMALL_BATCH, SMALL_SEQ, 620),
@@ -1410,7 +1432,9 @@ def phase_headdims(args, torch, fa, mv, card, host):
              BATCH, SEQ, 630),
             ("headdims_f32_d256", large_config(torch, heads=WIDE_HEADS,
                                                dtype=torch.float32), host,
-             BATCH, SEQ, 640))
+             BATCH, SEQ, 640),
+            ("headdims_f32_d32", narrow_f32, None, SMALL_BATCH, SMALL_SEQ,
+             650))
     entries, failed = {}, []
     for path, cfg, masters, batch, seq, seed in runs:
         dtype = cfg.compute_dtype
@@ -2961,7 +2985,7 @@ def library_bwd(torch, q4, k4, v4, do4, causal, scale):
 # The flops a second a kernel's bound is taken at: the tensor cores' bf16
 # rate for bf16, a sixth of it for the float32 plane design (six bf16
 # products a product), the card's FP32 rate for the first port's float32
-# FMA kernels.
+# forward at D 32 (FMA products).
 RATES = {"bf16": PEAK_BF16_FLOPS, "bf16x6": PEAK_BF16_FLOPS / 6,
          "fp32": PEAK_FP32_FLOPS}
 
@@ -3005,10 +3029,10 @@ def kernel_times(fa, torch, B, H, T, D, plain_bh=None, tk=None,
     versions hold [bh, T, tk] float32 scores), its bound, the exp unit's
     bound (one exp a kept score) and the library call that computes the
     same function.  A float32 kernel's bound is taken at the rate of the
-    design it runs: at D 64, 128 and 256 (the plane design) as six times
-    its flops at the bf16 rate, otherwise (D 32) at the card's FP32 rate
-    (its products are FMAs); the FP32 and TF32 bounds
-    stand beside it."""
+    design it runs (``bound_rate``): the plane design's (dq and dk/dv at
+    every D, the forward at D 64, 128 and 256) as six times its flops at
+    the bf16 rate, the forward's at D 32 at the card's FP32 rate (its
+    products are FMAs); the FP32 and TF32 bounds stand beside it."""
     import torch.nn.functional as F
 
     dtype = dtype or torch.bfloat16

@@ -1,23 +1,22 @@
 // Shared pieces of the Hopper flash-attention kernels (flash_fwd.cu,
-// flash_dq.cu, flash_dkv.cu): shared-memory tile staging, the three tile
-// products, and the plain-C error helper every library exports.
+// flash_dq.cu, flash_dkv.cu): the masks, the first port's forward's
+// shared-memory tile staging and its two tile products, and the plain-C error helper every library exports.
 //
 // Conventions shared with multiverso_tpu/ops/flash_attention.py:
 //   q, k, v, do are [bh, T, D] row-major in T (float or bf16), q arrives
 //   PRE-SCALED by the softmax scale; lse and delta are [bh, T] float.
 //   Scores, softmax statistics and accumulators are float32.
 //
-// Design of the first port's kernels, which every float32 launch at D 32
-// and 256 runs (every bf16 launch runs the Hopper designs of hopper.cuh,
-// and every float32 launch at D 64 and 128 the bf16-plane design of
-// hopper_f32.cuh): one thread
-// block of kThreads threads per (bh, row block), bh on grid x.  Every
-// operand tile is staged in shared memory with a padded leading
-// dimension; every product reads its operands from shared memory and
-// accumulates in float32 shared memory as plain FMAs, so float32 results
-// keep full float32 precision (no TF32).  Bound by shared memory: two
-// 4-byte loads an FMA against 128 bytes a clock, at most 12.5% of the
-// card's FP32 rate.
+// Design of the first port's forward kernel, which every float32 forward
+// at D 32 runs (every bf16 launch runs the Hopper designs of hopper.cuh,
+// and every other float32 launch the bf16-plane design of
+// hopper_f32.cuh): one thread block of kThreads threads per (bh, q
+// block), bh on grid x.  Every operand tile is staged in shared memory
+// with a padded leading dimension; every product reads its operands from
+// shared memory and accumulates in float32 shared memory as plain FMAs,
+// so float32 results keep full float32 precision (no TF32).  Bound by
+// shared memory: two 4-byte loads an FMA against 128 bytes a clock, at
+// most 12.5% of the card's FP32 rate.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -80,15 +79,6 @@ __device__ __forceinline__ void load_rows(T* __restrict__ dst,
   }
 }
 
-template <int ROWS>
-__device__ __forceinline__ void load_vec(float* __restrict__ dst,
-                                         const float* __restrict__ src,
-                                         int row0, int n) {
-  for (int r = threadIdx.x; r < ROWS; r += kThreads) {
-    dst[r] = (row0 + r < n) ? src[row0 + r] : 0.f;
-  }
-}
-
 template <int ROWS, int COLS, int LD>
 __device__ __forceinline__ void zero_acc(float* __restrict__ acc) {
   for (int i = threadIdx.x; i < ROWS * COLS; i += kThreads) {
@@ -117,9 +107,8 @@ __device__ __forceinline__ float group_sum(float x) {
 // ---------------------------------------------------------------------
 // Tile products over shared memory, float32 FMAs.  C is [M][N] with
 // leading dimension ldc; ACC adds into C, otherwise C is overwritten.
-//   mm_abt: C (+)= A[M][K] . B[N][K]^T   (s = q k^T, dp = do v^T)
-//   mm_ab : C (+)= A[M][K] . B[K][N]     (o += p v,  dq += ds k)
-//   mm_atb: C (+)= A[K][M]^T . B[K][N]   (dv += p^T do, dk += ds^T q)
+//   mm_abt: C (+)= A[M][K] . B[N][K]^T   (s = q k^T)
+//   mm_ab : C (+)= A[M][K] . B[K][N]     (o += p v)
 // Callers separate a product from the writes of its operands and the
 // reads of its result by __syncthreads.
 // ---------------------------------------------------------------------
@@ -152,22 +141,6 @@ __device__ __forceinline__ void mm_ab(float* __restrict__ C, int ldc,
     float acc = 0.f;
 #pragma unroll 8
     for (int k = 0; k < K; ++k) acc = fmaf(a[k], B[k * ldb + j], acc);
-    C[i * ldc + j] = ACC ? C[i * ldc + j] + acc : acc;
-  }
-}
-
-template <typename T, int M, int N, int K, bool ACC>
-__device__ __forceinline__ void mm_atb(float* __restrict__ C, int ldc,
-                                       const T* __restrict__ A, int lda,
-                                       const T* __restrict__ B, int ldb) {
-  static_assert(std::is_same<T, float>::value, "float32 products only");
-  for (int idx = threadIdx.x; idx < M * N; idx += kThreads) {
-    const int i = idx / N, j = idx % N;
-    float acc = 0.f;
-#pragma unroll 8
-    for (int k = 0; k < K; ++k) {
-      acc = fmaf(A[k * lda + i], B[k * ldb + j], acc);
-    }
     C[i * ldc + j] = ACC ? C[i * ldc + j] + acc : acc;
   }
 }

@@ -14,10 +14,11 @@
 //
 // Bound on an H100: four tile products per visited block, tensor-core
 // bound at the trainer's shapes (at head dim 32 the exp of each score
-// costs about as much as its 8·32 flops); in float32 at D 64, 128 and 256
-// six bf16 products a product, so six times the flops at the bf16 rate
-// (0.8342 ms at [4, 16, 2048, 128] and at [4, 8, 2048, 256], causal).
-// Three designs, chosen at compile time by (dtype, D) in dkv_for_dim:
+// costs about as much as its 8·32 flops); in float32 six bf16 products a
+// product, so six times the flops at the bf16 rate (0.8342 ms at [4, 16,
+// 2048, 128] and at [4, 8, 2048, 256], 0.4171 ms at [8, 16, 2048, 32],
+// causal).  Two designs, chosen at compile time by (dtype, D) in
+// dkv_for_dim:
 //
 // * bf16 at every D (flash_dkv_hopper): k-stationary with transposed
 //   scores, accumulators in registers, both operands of every product
@@ -37,18 +38,23 @@
 //     a thread, so one block per (bh, 64-row k block) splits their
 //     columns between the two warpgroups, each forming half the q block's
 //     pᵀ and dsᵀ and sharing them through shared memory (HopDkvCols).
-// * float32 at D 64, 128 and 256 (flash_dkv_hopper_f32, hopper_f32.cuh):
-//   q and do split into three bf16 planes (hi, mid, lo) by flash_split3,
-//   an elementwise kernel that replaces no TPU kernel, into the wrapper's
+// * float32 at every D (flash_dkv_hopper_f32, hopper_f32.cuh): q and do
+//   split into three bf16 planes (hi, mid, lo) by flash_split3, an
+//   elementwise kernel that replaces no TPU kernel, into the wrapper's
 //   scratch; every product runs as six bf16 wgmma products into float32
 //   accumulators (a0b0 + a0b1 + a1b0 + a0b2 + a1b1 + a2b0; the terms left
 //   out are of order 2^-24 of the product), pᵀ and dsᵀ split in registers
 //   as the A operands of dv += pᵀ·do and dk += dsᵀ·q.  One 64-row k block
 //   a block.
 //   - D 64 and 128 (dkv_f32_by_blocks): k and v are planes too; both
-//     warpgroups share them and take every other q block from a one-stage
-//     ring each, and sum their partial dk and dv once at the end (F32Dkv:
+//     warpgroups share them and take every other q block from a ring of
+//     their own, and sum their partial dk and dv once at the end (F32Dkv:
 //     192 KB of shared memory at D 128, 144 KB at D 64).
+//   - D 32 (dkv_f32_by_blocks, kByRows): a row of planes is 64 bytes, so
+//     the block keeps the bf16 design's 128 k rows, 64 a warpgroup, as
+//     planes, both warpgroups taking every q block from one ring of four
+//     stages (144 KB); hi·hi of every product sums apart, and dk and dv
+//     flush into float32 sums every 8 q blocks.
 //   - D 256 (dkv_f32_by_roles): dk and dv of 64 rows would take 256
 //     registers a thread, and k's and v's planes 192 KB, so k and v stay
 //     float32 (128 KB), split in registers at every 16-column step as the
@@ -56,132 +62,11 @@
 //     the work by role over one stage of 32-row q blocks: warpgroup 0 owns
 //     dv, warpgroup 1 dk, each sum flushed to device memory every 8
 //     blocks (F32DkvRoles, 225 KB).
-// * float32 at D 32 (flash_dkv_kernel): the first port's design, operands
-//   and both accumulators in shared memory, products as plain FMAs.
 #include "flash_common.cuh"
 #include "hopper.cuh"
 #include "hopper_f32.cuh"
 
 namespace mvt {
-
-template <typename T, int D, int BQ, int BK>
-struct DkvSmem {
-  static constexpr int kLdT = Ld<T, D>::value;
-  static constexpr int kLdS = Ld<float, BK>::value;
-  static constexpr int kLdP = Ld<T, BK>::value;
-  static constexpr int kLdO = Ld<float, D>::value;
-  static constexpr size_t k = 0;
-  static constexpr size_t v = k + align128(sizeof(T) * BK * kLdT);
-  static constexpr size_t q = v + align128(sizeof(T) * BK * kLdT);
-  static constexpr size_t dout = q + align128(sizeof(T) * BQ * kLdT);
-  static constexpr size_t s = dout + align128(sizeof(T) * BQ * kLdT);
-  static constexpr size_t dp = s + align128(sizeof(float) * BQ * kLdS);
-  static constexpr size_t p = dp + align128(sizeof(float) * BQ * kLdS);
-  static constexpr size_t ds = p + align128(sizeof(T) * BQ * kLdP);
-  static constexpr size_t dk = ds + align128(sizeof(T) * BQ * kLdP);
-  static constexpr size_t dv = dk + align128(sizeof(float) * BK * kLdO);
-  static constexpr size_t lse = dv + align128(sizeof(float) * BK * kLdO);
-  static constexpr size_t delta = lse + align128(sizeof(float) * BQ);
-  static constexpr size_t bytes = delta + align128(sizeof(float) * BQ);
-  static_assert(bytes <= kMaxSmem, "dkv tiles exceed shared memory");
-};
-
-template <typename T, int D, int BQ, int BK>
-__global__ void __launch_bounds__(kThreads)
-    flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ dout,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ delta, T* __restrict__ dk,
-                     T* __restrict__ dv, int tq, int tk, int causal) {
-  using L = DkvSmem<T, D, BQ, BK>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  T* ks = reinterpret_cast<T*>(smem + L::k);
-  T* vs = reinterpret_cast<T*>(smem + L::v);
-  T* qs = reinterpret_cast<T*>(smem + L::q);
-  T* dos = reinterpret_cast<T*>(smem + L::dout);
-  float* ss = reinterpret_cast<float*>(smem + L::s);
-  float* dps = reinterpret_cast<float*>(smem + L::dp);
-  T* pts = reinterpret_cast<T*>(smem + L::p);
-  T* dss = reinterpret_cast<T*>(smem + L::ds);
-  float* dks = reinterpret_cast<float*>(smem + L::dk);
-  float* dvs = reinterpret_cast<float*>(smem + L::dv);
-  float* lses = reinterpret_cast<float*>(smem + L::lse);
-  float* dls = reinterpret_cast<float*>(smem + L::delta);
-
-  // bh on grid x (no 65,535 cap), k blocks on y: early k blocks see the
-  // most causal q blocks, so natural order runs the heaviest first, over
-  // all heads.
-  const size_t bh = blockIdx.x;
-  const int k0 = blockIdx.y * BK;
-  const T* qg = q + bh * tq * D;
-  const T* dog = dout + bh * tq * D;
-
-  load_rows<T, BK, D, L::kLdT>(ks, k + bh * tk * D, k0, tk);
-  load_rows<T, BK, D, L::kLdT>(vs, v + bh * tk * D, k0, tk);
-  zero_acc<BK, D, L::kLdO>(dks);
-  zero_acc<BK, D, L::kLdO>(dvs);
-
-  const int nq = (tq + BQ - 1) / BQ;
-  const int qstart = causal ? k0 / BQ : 0;
-  for (int qb = qstart; qb < nq; ++qb) {
-    const int q0 = qb * BQ;
-    __syncthreads();  // the previous products are done with q, do, p, ds
-    load_rows<T, BQ, D, L::kLdT>(qs, qg, q0, tq);
-    load_rows<T, BQ, D, L::kLdT>(dos, dog, q0, tq);
-    load_vec<BQ>(lses, lse + bh * tq, q0, tq);
-    load_vec<BQ>(dls, delta + bh * tq, q0, tq);
-    __syncthreads();
-    mm_abt<T, BQ, BK, D, false>(ss, L::kLdS, qs, L::kLdT, ks, L::kLdT);
-    mm_abt<T, BQ, BK, D, false>(dps, L::kLdS, dos, L::kLdT, vs, L::kLdT);
-    __syncthreads();
-
-    const bool need_mask = (causal && q0 < k0 + BK - 1) || k0 + BK > tk ||
-                           q0 + BQ > tq;
-    for (int idx = threadIdx.x; idx < BQ * BK; idx += kThreads) {
-      const int i = idx / BK, j = idx % BK;
-      float sv = ss[i * L::kLdS + j];
-      if (need_mask && masked_out(q0 + i, k0 + j, tq, tk, causal)) sv = kNeg;
-      const float pv = expf(sv - lses[i]);
-      const float dsv = pv * (dps[i * L::kLdS + j] - dls[i]);
-      pts[i * L::kLdP + j] = from_f<T>(pv);
-      dss[i * L::kLdP + j] = from_f<T>(dsv);
-    }
-    __syncthreads();
-    mm_atb<T, BK, D, BQ, true>(dvs, L::kLdO, pts, L::kLdP, dos, L::kLdT);
-    mm_atb<T, BK, D, BQ, true>(dks, L::kLdO, dss, L::kLdP, qs, L::kLdT);
-  }
-  __syncthreads();
-
-  T* dkg = dk + bh * tk * D;
-  T* dvg = dv + bh * tk * D;
-  for (int i = threadIdx.x; i < BK * D; i += kThreads) {
-    const int rr = i / D, c = i % D;
-    if (k0 + rr < tk) {
-      const size_t at = static_cast<size_t>(k0 + rr) * D + c;
-      dkg[at] = from_f<T>(dks[rr * L::kLdO + c]);
-      dvg[at] = from_f<T>(dvs[rr * L::kLdO + c]);
-    }
-  }
-}
-
-template <typename T, int D, int BQ, int BK>
-int launch_dkv(const void* q, const void* k, const void* v,
-               const void* dout, const void* lse, const void* delta,
-               void* dk, void* dv, int bh, int tq, int tk, int causal,
-               cudaStream_t stream) {
-  using L = DkvSmem<T, D, BQ, BK>;
-  auto kernel = flash_dkv_kernel<T, D, BQ, BK>;
-  static bool smem_set = false;
-  cudaError_t err = allow_smem(kernel, L::bytes, &smem_set);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid(bh, (tk + BK - 1) / BK);
-  kernel<<<grid, kThreads, L::bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dk), static_cast<T*>(dv), tq, tk, causal);
-  return static_cast<int>(cudaGetLastError());
-}
 
 // ------------------------------------------------ bf16 Hopper design
 // D 32, 64 and 128: k-stationary with transposed scores, each warpgroup
@@ -726,23 +611,46 @@ int launch_dkv_hopper(const void* q, const void* k, const void* v,
 }
 
 // ---------------------------------------------- float32 Hopper design
-// D 64 and 128 (hopper_f32.cuh): q, k, v and do as three bf16 planes,
-// every product six wgmma products.  One block per (bh, 64-row k block);
-// both warpgroups share its k and v planes and split the q blocks,
-// warpgroup g taking blocks qstart + g, qstart + g + 2, ... from a ring
-// of its own (kStages stages of q and do planes with their lse and delta
-// rows, refilled by its first warp), and each keeps partial dk and dv of
-// all 64 rows in registers.  Their sums meet once, after the loop, in
-// shared memory.  Per block, sᵀ = k·qᵀ and dpᵀ = v·doᵀ by wgmma from
-// shared memory, pᵀ and dsᵀ in registers, each split into three planes as
-// the register A of dv += pᵀ·do and dk += dsᵀ·q (do and q MN-major).
-// Shared memory, k and v planes plus each warpgroup's stage of q and do
-// planes: D 128, 32-row q blocks: 96 KB + 2 x 48 KB = 192 KB; D 64,
-// 64-row q blocks: 48 KB + 2 x 48 KB = 144 KB (232,448 the cap).
+// D 32, 64 and 128 (hopper_f32.cuh): q, k, v and do as three bf16 planes,
+// every product six wgmma products.  k and v planes load once; q and do
+// planes stream through a ring of kStages stages, with their lse and
+// delta rows.  Per q block, sᵀ = k·qᵀ and dpᵀ = v·doᵀ by wgmma from shared
+// memory, pᵀ and dsᵀ in registers, each split into three planes as the
+// register A of dv += pᵀ·do and dk += dsᵀ·q (do and q MN-major).
+// * D 64 and 128: one block per (bh, 64-row k block); both warpgroups
+//   share its k and v planes and split the q blocks, warpgroup g taking
+//   blocks qstart + g, qstart + g + 2, ... from a ring of its own
+//   (refilled by its first warp), and each keeps partial dk and dv of all
+//   64 rows in registers.  Their sums meet once, after the loop, in shared
+//   memory.  Shared memory, k and v planes plus each warpgroup's stage of
+//   q and do planes: D 128, 32-row q blocks: 96 KB + 2 x 48 KB = 192 KB;
+//   D 64, 64-row q blocks: 48 KB + 2 x 48 KB = 144 KB (232,448 the cap).
+// * D 32 (kByRows; 64-byte rows, the 64-byte swizzle): the bf16 design's
+//   shape, one block per (bh, 128-row k block), each warpgroup owning 64
+//   of its rows and their dk and dv, both taking every q block from one
+//   ring of four 64-row stages that warp 0 refills once both have
+//   released a stage (k and v planes 48 KB + 4 x 24 KB = 144 KB): half the
+//   streamed bytes a row, and no final sum; on the card 5% faster than
+//   alternating the q blocks (PERF.md).  Warpgroup 1 skips the causal start
+//   block, which reaches warpgroup 0's rows only.  dk and dv are 16
+//   registers a thread each, so the sums over T can be kept apart
+//   against the tensor cores' round-toward-zero sums: every product's
+//   hi·hi in accumulators of its own (kHiApart), and dk's and dv's
+//   accumulators added into float32 sums, rounded to nearest, every
+//   kFlush q blocks (F32DkvRoles flushes into device memory the same
+//   way).  At T 8,192 their error against float64 was 1.2-1.3x the plain
+//   version's without hi·hi apart and 4.0-4.4x without the flushes,
+//   0.33-0.36x with both; neither cost a time the card could tell from
+//   its noise (about 1%).
 template <int D>
 struct F32Dkv {
   using B = hop::Box<D>;
-  static constexpr int BK = 64, BQ = D == 128 ? 32 : 64, kStages = 1;
+  static constexpr bool kByRows = D == 32;
+  static constexpr bool kHiApart = D == 32;
+  static constexpr int kFlush = D == 32 ? 8 : 0;  // 0: never
+  static constexpr int kRings = kByRows ? 1 : 2;  // one a warpgroup, or shared
+  static constexpr int BK = kByRows ? 128 : 64, BQ = D == 128 ? 32 : 64;
+  static constexpr int kStages = kByRows ? 4 : 1;
   static constexpr uint32_t kBoxK = BK * B::kRow;  // one box, one plane
   static constexpr uint32_t kBoxQ = BQ * B::kRow;
   static constexpr uint32_t kKPlane = B::kBoxes * kBoxK;
@@ -751,20 +659,25 @@ struct F32Dkv {
   static constexpr uint32_t kQBytes = 3 * kQPlane;
   static constexpr size_t k = 0;
   static constexpr size_t v = kKBytes;
-  // Warpgroup g's stage s at qdo + (g·kStages + s)·2·kQBytes: q, then do.
+  // Ring r's stage s at qdo + (r·kStages + s)·2·kQBytes: q, then do.
   static constexpr size_t qdo = 2 * kKBytes;
-  static constexpr size_t rows = qdo + 2 * kStages * 2 * kQBytes;  // lse, delta
-  static constexpr size_t bars = rows + 2 * kStages * 2 * BQ * sizeof(float);
-  // full and empty a stage of each warpgroup, then k's and v's.
-  static constexpr size_t bytes = bars + 8 * (4 * kStages + 1) + hop::kAtomBytes;
-  static_assert(D == 64 || D == 128, "float32 planes at D 64 and 128");
+  static constexpr size_t rows =  // lse, delta
+      qdo + kRings * kStages * 2 * kQBytes;
+  static constexpr size_t bars =
+      rows + kRings * kStages * 2 * BQ * sizeof(float);
+  // full and empty a stage of each ring, then k's and v's.
+  static constexpr size_t bytes =
+      bars + 8 * (2 * kRings * kStages + 1) + hop::kAtomBytes;
+  static_assert(D == 32 || D == 64 || D == 128,
+                "float32 planes at D 32, 64 and 128");
   static_assert(bytes <= kMaxSmem, "dkv tiles exceed shared memory");
-  // Warpgroup 1's partial dk and dv pass through the idle ring.
-  static_assert(D * 4 * 128 <= 2 * kStages * 2 * kQBytes, "ring");
+  // Warpgroup 1's partial dk and dv pass through the idle rings.
+  static_assert(kByRows || D * 4 * 128 <= 2 * kStages * 2 * kQBytes, "ring");
 };
 
-// D 64 and 128: one block of two warpgroups per (bh, 64-row k block),
-// the q blocks alternating between them (F32Dkv).
+// D 32, 64 and 128: one block of two warpgroups per (bh, k block), the q
+// blocks alternating between them or, with kByRows, taken by both
+// (F32Dkv).
 template <int D>
 __device__ __forceinline__ void dkv_f32_by_blocks(
     const CUtensorMap* tm_q, const CUtensorMap* tm_k, const CUtensorMap* tm_v,
@@ -772,48 +685,56 @@ __device__ __forceinline__ void dkv_f32_by_blocks(
     float* dk, float* dv, int tq, int tk, int causal) {
   using C = F32Dkv<D>;
   using B = typename C::B;
-  constexpr int BQ = C::BQ, S = C::kStages;
+  constexpr int BQ = C::BQ, S = C::kStages, R = C::kRings;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = hop::align_atom(smem_raw);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + C::bars);
-  uint64_t* empty = full + 2 * S;
-  uint64_t* kvbar = empty + 2 * S;
+  uint64_t* empty = full + R * S;
+  uint64_t* kvbar = empty + R * S;
 
   // Plane p of head bh is head bh + p·nbh of the maps.
   const int bh = blockIdx.x, nbh = gridDim.x;
   // Early k blocks see the most causal q blocks: natural order runs the
   // heaviest first, over all heads.  The causal start is the first q
-  // block that reaches k0, so every visited block reaches the block's
-  // rows.
+  // block that reaches k0: with 64-row k blocks every visited block
+  // reaches the block's rows; with 128 (kByRows) the first reaches
+  // warpgroup 0's rows only.
   const int k0 = blockIdx.y * C::BK;
   const int nq = (tq + BQ - 1) / BQ;
   const int qstart = causal ? k0 / BQ : 0;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = warp / 4;
-  const int nblk = (nq - qstart - g + 1) / 2;  // qstart + g, + 2, ...
+  // The warpgroup's blocks: every q block from qstart from the shared
+  // ring (kByRows), or qstart + g, qstart + g + 2, ... from ring g.
+  const int nblk = C::kByRows ? nq - qstart : (nq - qstart - g + 1) / 2;
+  const int ring = C::kByRows ? 0 : g;
+  const bool loader = C::kByRows ? warp == 0 : warp % 4 == 0;
+  auto qblock = [&](int j) {
+    return C::kByRows ? qstart + j : qstart + 2 * j + g;
+  };
 
   if (threadIdx.x == 0) {
-    for (int i = 0; i < 2 * S; ++i) {
+    for (int i = 0; i < R * S; ++i) {
       hop::mbar_init(&full[i], 1 + 32);  // the TMA's bytes + the warp's rows
-      hop::mbar_init(&empty[i], 4);      // the warpgroup's warps
+      hop::mbar_init(&empty[i], 4 * (2 / R));  // the ring's warps
     }
     hop::mbar_init(kvbar, 1);
     hop::fence_barrier_init();
   }
   __syncthreads();
 
-  // This warpgroup's j-th block (q block qstart + 2j + g) into its stage
-  // j % S, once its warps have released the block S before it: q and do
-  // by TMA from lane 0, the lse and delta rows by cp.async from every
-  // lane (rows past tq read as 0: their q and do rows are TMA zeros, and
-  // the mask drops them).
+  // The warpgroup's j-th block into its ring's stage j % S, once the
+  // ring's warps have released the block S before it: q and do by TMA
+  // from lane 0, the lse and delta rows by cp.async from every lane (rows
+  // past tq read as 0: their q and do rows are TMA zeros, and the mask
+  // drops them).
   const float* lg = lse + static_cast<size_t>(bh) * tq;
   const float* dg = delta + static_cast<size_t>(bh) * tq;
   const CUtensorMap* mq = tm_q;
   const CUtensorMap* mdo = tm_do;
   auto load_q = [&](int j) {
-    const int s = g * S + j % S;
-    const int qb = qstart + 2 * j + g;
+    const int s = ring * S + j % S;
+    const int qb = qblock(j);
     hop::mbar_wait(&empty[s], ((j / S) & 1) ^ 1);
     if (lane == 0) {
       hop::mbar_expect_tx(&full[s], 2 * C::kQBytes);
@@ -837,7 +758,7 @@ __device__ __forceinline__ void dkv_f32_by_blocks(
     }
     hop::cp_async_arrive(&full[s]);
   };
-  if (warp % 4 == 0) {
+  if (loader) {
     if (warp == 0 && lane == 0) {
       hop::mbar_expect_tx(kvbar, 2 * C::kKBytes);
       for (int p = 0; p < 3; ++p) {
@@ -854,43 +775,85 @@ __device__ __forceinline__ void dkv_f32_by_blocks(
     for (int j = 0; j < S && j < nblk; ++j) load_q(j);
   }
 
-  // Both warpgroups hold the block's 64 k rows, r0 and r0 + 8 of each
-  // thread in the m64nNk16 accumulator layout.
+  // Each warpgroup holds 64 k rows from kw (the block's, or with kByRows
+  // its own half), r0 and r0 + 8 of each thread in the m64nNk16
+  // accumulator layout.
   const int r0 = (warp % 4) * 16 + lane / 4;
   const int cq = 2 * (lane % 4);
-  const int row0 = k0 + r0;
-  const uint32_t k_addr = hop::smem_u32(smem + C::k);
-  const uint32_t v_addr = hop::smem_u32(smem + C::v);
+  const int kw = k0 + (C::kByRows ? 64 * g : 0);
+  const int row0 = kw + r0;
+  const uint32_t rows_at = C::kByRows ? 64 * g * B::kRow : 0;
+  const uint32_t k_addr = hop::smem_u32(smem + C::k) + rows_at;
+  const uint32_t v_addr = hop::smem_u32(smem + C::v) + rows_at;
 
-  float dka[D / 2], dva[D / 2];  // this warpgroup's parts of dk and dv
+  // This warpgroup's parts of dk and dv: since the last flush (with
+  // kHiApart their hi·hi products in hka and hva) and the flushed sums.
+  float dka[D / 2], dva[D / 2], hka[D / 2], hva[D / 2];
+  float dks[D / 2], dvs[D / 2];
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) {
     dka[i] = 0.f;
     dva[i] = 0.f;
+    hka[i] = 0.f;
+    hva[i] = 0.f;
+    dks[i] = 0.f;
+    dvs[i] = 0.f;
   }
   hop::mbar_wait(kvbar, 0);
 
+  // The stage is free once this warp's products that read it are done;
+  // the ring's loader then refills it S blocks ahead.
+  auto release = [&](int j, int s) {
+    __syncwarp();
+    if (lane == 0) hop::mbar_arrive(&empty[s]);
+    if (loader && j + S < nblk) load_q(j + S);
+  };
   for (int j = 0; j < nblk; ++j) {
-    const int s = g * S + j % S;
-    const int q0 = (qstart + 2 * j + g) * BQ;
+    const int s = ring * S + j % S;
+    const int q0 = qblock(j) * BQ;
     hop::mbar_wait(&full[s], (j / S) & 1);
+    if (C::kByRows && causal && q0 + BQ - 1 < kw) {
+      // Every q of this block is before every k of this warpgroup.
+      release(j, s);
+      continue;
+    }
     const uint32_t q_addr = hop::smem_u32(smem + C::qdo + s * 2 * C::kQBytes);
     const uint32_t do_addr = q_addr + C::kQBytes;
     const float* lse_s = reinterpret_cast<const float*>(smem + C::rows) + s * 2 * BQ;
     const float* dl_s = lse_s + BQ;
 
     float st[BQ / 2], dpt[BQ / 2];
-    hop::wgmma_fence();
-    hop::planes_ss<D>(st, k_addr, C::kKPlane, C::kBoxK, q_addr, C::kQPlane,
-                      C::kBoxQ);
-    hop::planes_ss<D>(dpt, v_addr, C::kKPlane, C::kBoxK, do_addr,
-                      C::kQPlane, C::kBoxQ);
-    hop::wgmma_commit();
-    hop::wgmma_wait<0>();
-    hop::fence_regs(st);
-    hop::fence_regs(dpt);
+    if constexpr (C::kHiApart) {
+      float hs[BQ / 2], hd[BQ / 2];
+      hop::wgmma_fence();
+      hop::planes_ss<D>(st, hs, k_addr, C::kKPlane, C::kBoxK, q_addr,
+                        C::kQPlane, C::kBoxQ);
+      hop::planes_ss<D>(dpt, hd, v_addr, C::kKPlane, C::kBoxK, do_addr,
+                        C::kQPlane, C::kBoxQ);
+      hop::wgmma_commit();
+      hop::wgmma_wait<0>();
+      hop::fence_regs(st);
+      hop::fence_regs(dpt);
+      hop::fence_regs(hs);
+      hop::fence_regs(hd);
+#pragma unroll
+      for (int i = 0; i < BQ / 2; ++i) {
+        st[i] += hs[i];
+        dpt[i] += hd[i];
+      }
+    } else {
+      hop::wgmma_fence();
+      hop::planes_ss<D>(st, k_addr, C::kKPlane, C::kBoxK, q_addr,
+                        C::kQPlane, C::kBoxQ);
+      hop::planes_ss<D>(dpt, v_addr, C::kKPlane, C::kBoxK, do_addr,
+                        C::kQPlane, C::kBoxQ);
+      hop::wgmma_commit();
+      hop::wgmma_wait<0>();
+      hop::fence_regs(st);
+      hop::fence_regs(dpt);
+    }
     dkv_probs(st, dpt, lse_s, dl_s,
-              (causal && q0 < k0 + 63) || k0 + 64 > tk || q0 + BQ > tq, q0,
+              (causal && q0 < kw + 63) || kw + 64 > tk || q0 + BQ > tq, q0,
               0, row0, cq, tq, tk, causal);
 
     // dv += pᵀ·do and dk += dsᵀ·q: pᵀ's and dsᵀ's planes from registers,
@@ -899,53 +862,85 @@ __device__ __forceinline__ void dkv_f32_by_blocks(
     hop::acc_to_a3(st, pa);
     hop::acc_to_a3(dpt, dsa);
     hop::wgmma_fence();
-    hop::planes_rs<D>(dva, pa, do_addr, C::kQPlane, C::kBoxQ);
-    hop::planes_rs<D>(dka, dsa, q_addr, C::kQPlane, C::kBoxQ);
+    if constexpr (C::kHiApart) {
+      hop::planes_rs<D>(dva, hva, pa, do_addr, C::kQPlane, C::kBoxQ);
+      hop::planes_rs<D>(dka, hka, dsa, q_addr, C::kQPlane, C::kBoxQ);
+    } else {
+      hop::planes_rs<D>(dva, pa, do_addr, C::kQPlane, C::kBoxQ);
+      hop::planes_rs<D>(dka, dsa, q_addr, C::kQPlane, C::kBoxQ);
+    }
     hop::wgmma_commit();
     hop::wgmma_wait<0>();
     hop::fence_regs(dva);
     hop::fence_regs(dka);
-
-    // The stage is free once this warp's products that read it are done;
-    // the warpgroup's first warp then refills it S blocks ahead.
-    __syncwarp();
-    if (lane == 0) hop::mbar_arrive(&empty[s]);
-    if (warp % 4 == 0 && j + S < nblk) load_q(j + S);
+    if constexpr (C::kHiApart) {
+      hop::fence_regs(hva);
+      hop::fence_regs(hka);
+    }
+    if constexpr (C::kFlush > 0) {
+      // Every kFlush blocks the accumulators add into the float32 sums,
+      // rounded to nearest, and start again from 0.
+      if ((j + 1) % C::kFlush == 0) {
+#pragma unroll
+        for (int i = 0; i < D / 2; ++i) {
+          dks[i] += dka[i] + hka[i];
+          dvs[i] += dva[i] + hva[i];
+          dka[i] = 0.f;
+          dva[i] = 0.f;
+          hka[i] = 0.f;
+          hva[i] = 0.f;
+        }
+      }
+    }
+    release(j, s);
   }
-
-  // Warpgroup 1's partial dk and dv to warpgroup 0 through the ring,
-  // which no load fills any more: thread t + 128 holds the same elements
-  // as t.
-  float* red = reinterpret_cast<float*>(smem + C::qdo);
-  const int t = threadIdx.x % 128;
-  hop::fence_async_shared();
-  hop::named_sync(1, hop::kThreads);
-  if (g == 1) {
+  if constexpr (C::kHiApart || C::kFlush > 0) {
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) {
-      red[i * 128 + t] = dka[i];
-      red[(D / 2 + i) * 128 + t] = dva[i];
+      dka[i] = dks[i] + (dka[i] + hka[i]);
+      dva[i] = dvs[i] + (dva[i] + hva[i]);
     }
   }
-  hop::named_sync(1, hop::kThreads);
-  if (g == 0) {
-    float* dkg = dk + static_cast<size_t>(bh) * tk * D;
-    float* dvg = dv + static_cast<size_t>(bh) * tk * D;
+
+  // With kByRows each warpgroup stores its own rows.  Otherwise warpgroup
+  // 1's partial dk and dv pass to warpgroup 0 through the rings, which no
+  // load fills any more: thread t + 128 holds the same elements as t.
+  const float* red = reinterpret_cast<const float*>(smem + C::qdo);
+  const int t = threadIdx.x % 128;
+  if constexpr (!C::kByRows) {
+    hop::fence_async_shared();
+    hop::named_sync(1, hop::kThreads);
+    if (g == 1) {
+      float* out = reinterpret_cast<float*>(smem + C::qdo);
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = row0 + 8 * h;
-      if (row < tk) {
+      for (int i = 0; i < D / 2; ++i) {
+        out[i * 128 + t] = dka[i];
+        out[(D / 2 + i) * 128 + t] = dva[i];
+      }
+    }
+    hop::named_sync(1, hop::kThreads);
+    if (g == 1) return;
+  }
+  float* dkg = dk + static_cast<size_t>(bh) * tk * D;
+  float* dvg = dv + static_cast<size_t>(bh) * tk * D;
 #pragma unroll
-        for (int jc = 0; jc < D / 8; ++jc) {
-          const int i = 4 * jc + 2 * h;
-          const size_t at = static_cast<size_t>(row) * D + 8 * jc + cq;
-          *reinterpret_cast<float2*>(dkg + at) =
-              make_float2(dka[i] + red[i * 128 + t],
-                          dka[i + 1] + red[(i + 1) * 128 + t]);
-          *reinterpret_cast<float2*>(dvg + at) =
-              make_float2(dva[i] + red[(D / 2 + i) * 128 + t],
-                          dva[i + 1] + red[(D / 2 + i + 1) * 128 + t]);
+  for (int h = 0; h < 2; ++h) {
+    const int row = row0 + 8 * h;
+    if (row < tk) {
+#pragma unroll
+      for (int jc = 0; jc < D / 8; ++jc) {
+        const int i = 4 * jc + 2 * h;
+        const size_t at = static_cast<size_t>(row) * D + 8 * jc + cq;
+        float2 xk = make_float2(dka[i], dka[i + 1]);
+        float2 xv = make_float2(dva[i], dva[i + 1]);
+        if constexpr (!C::kByRows) {
+          xk.x += red[i * 128 + t];
+          xk.y += red[(i + 1) * 128 + t];
+          xv.x += red[(D / 2 + i) * 128 + t];
+          xv.y += red[(D / 2 + i + 1) * 128 + t];
         }
+        *reinterpret_cast<float2*>(dkg + at) = xk;
+        *reinterpret_cast<float2*>(dvg + at) = xv;
       }
     }
   }
@@ -1216,9 +1211,8 @@ int launch_dkv_f32(const void* q, const void* k, const void* v,
 }
 
 // The design is fixed by (dtype, D) at compile time: bf16 runs the Hopper
-// design above at every D; float32 runs the plane design at D 64, 128 and
-// 256 (k and v float32 at 256) and the first port's kernel at D 32
-// (64-row k blocks over 64-row q blocks).
+// design above at every D, float32 the plane design (k and v float32 at
+// D 256).
 template <typename T>
 int dkv_for_dim(int d, const void* q, const void* k, const void* v,
                 const void* dout, const void* lse, const void* delta,
@@ -1226,7 +1220,7 @@ int dkv_for_dim(int d, const void* q, const void* k, const void* v,
                 int tq, int tk, int causal, cudaStream_t s) {
   if constexpr (std::is_same<T, float>::value) {
     switch (d) {
-      case 32: return launch_dkv<T, 32, 64, 64>(q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, causal, s);
+      case 32: return launch_dkv_f32<32>(q, k, v, dout, lse, delta, dk, dv, planes, planes_n, bh, tq, tk, causal, s);
       case 64: return launch_dkv_f32<64>(q, k, v, dout, lse, delta, dk, dv, planes, planes_n, bh, tq, tk, causal, s);
       case 128: return launch_dkv_f32<128>(q, k, v, dout, lse, delta, dk, dv, planes, planes_n, bh, tq, tk, causal, s);
       case 256: return launch_dkv_f32<256>(q, k, v, dout, lse, delta, dk, dv, planes, planes_n, bh, tq, tk, causal, s);
@@ -1247,8 +1241,8 @@ int dkv_for_dim(int d, const void* q, const void* k, const void* v,
 
 // q (pre-scaled), k, v, dout: [bh, T, d]; lse, delta: [bh, tq] float;
 // dk, dv: [bh, tk, d].  planes: the float32 plane design's scratch,
-// 6·bh·(tq + tk)·d bf16 at D 64 and 128, 6·bh·tq·d at D 256
-// (hopper_f32.cuh); null for every other launch.  planes_n: its size in
+// 6·bh·(tq + tk)·d bf16 at D 32, 64 and 128, 6·bh·tq·d at D 256
+// (hopper_f32.cuh); null for a bf16 launch.  planes_n: its size in
 // bf16 elements (a smaller one than the launch needs: MVT_SCRATCH_SHORT).
 extern "C" int mvt_flash_dkv(const void* q, const void* k, const void* v,
                              const void* dout, const void* lse,

@@ -14,10 +14,10 @@
 // Bound on an H100: three tile products per visited block against four
 // tiles read, so tensor-core bound at the shapes the trainer uses (at
 // head dim 32 the exp of each score costs more than its 6·32 flops); in
-// float32 at D 64, 128 and 256 six bf16 products a product, so six times
-// the flops at the bf16 rate (0.6257 ms at [4, 16, 2048, 128] and at
-// [4, 8, 2048, 256], causal).  Three designs, chosen at compile time by
-// (dtype, D) in dq_for_dim:
+// float32 six bf16 products a product, so six times the flops at the
+// bf16 rate (0.6257 ms at [4, 16, 2048, 128] and at [4, 8, 2048, 256],
+// 0.3128 ms at [8, 16, 2048, 32], causal).  Two designs, chosen at compile
+// time by (dtype, D) in dq_for_dim:
 //
 // * bf16 at every D (flash_dq_hopper): q-stationary, the forward's shape
 //   with dk/dv's products, accumulators in registers (hopper.cuh).  Warp
@@ -40,136 +40,29 @@
 //     stages, so one block per (bh, 64-row q tile) splits dq's columns
 //     between the two warpgroups, each forming half the k block's ds and
 //     sharing it through shared memory (HopDqCols).
-// * float32 at D 64, 128 and 256 (flash_dq_hopper_f32, hopper_f32.cuh):
-//   k and v split into three bf16 planes (hi, mid, lo) by flash_split3,
-//   an elementwise kernel that replaces no TPU kernel, into the wrapper's
+// * float32 at every D (flash_dq_hopper_f32, hopper_f32.cuh): k and v
+//   split into three bf16 planes (hi, mid, lo) by flash_split3, an
+//   elementwise kernel that replaces no TPU kernel, into the wrapper's
 //   scratch; every product runs as six bf16 wgmma products into float32
 //   accumulators (a0b0 + a0b1 + a1b0 + a0b2 + a1b1 + a2b0; the terms left
 //   out are of order 2^-24 of the product), ds split in registers as the
-//   A operand of dq += ds·k.  Planes take 6 bytes an element, so one
-//   64-row q tile is shared by both warpgroups, which take every other k
-//   block from a one-stage ring each and sum their partial dq once at the
-//   end (F32Dq).  At D 64 and 128 q and do are planes too (192 KB of
-//   shared memory at D 128, 144 KB at D 64).  At D 256 their planes
-//   would take 192 KB alone, so they stay float32 (128 KB), and each
-//   thread splits its fragment of them in registers at every 16-column
-//   step, as the register A of s = q·kᵀ and dp = do·vᵀ (k and v K-major);
-//   16-key blocks, 225 KB.
-// * float32 at D 32 (flash_dq_kernel): the first port's design, operands
-//   and the accumulator in shared memory, products as plain FMAs.
+//   A operand of dq += ds·k.  Planes take 6 bytes an element, so at D 64,
+//   128 and 256 one 64-row q tile is shared by both warpgroups, which
+//   take every other k block from a ring of their own and sum their
+//   partial dq once at the end (F32Dq).  At D 64 and 128 q and do are
+//   planes too (192 KB of shared memory at D 128, 144 KB at D 64).  At D
+//   256 their planes would take 192 KB alone, so they stay float32 (128
+//   KB), and each thread splits its fragment of them in registers at
+//   every 16-column step, as the register A of s = q·kᵀ and dp = do·vᵀ (k
+//   and v K-major); 16-key blocks, 225 KB.  At D 32 a row of planes is 64
+//   bytes, so the block keeps the bf16 design's 128 q rows, 64 a
+//   warpgroup, as planes (144 KB with four 64-key stages), and hi·hi of
+//   every product sums apart from the five smaller ones.
 #include "flash_common.cuh"
 #include "hopper.cuh"
 #include "hopper_f32.cuh"
 
 namespace mvt {
-
-template <typename T, int D, int BQ, int BK>
-struct DqSmem {
-  static constexpr int kLdT = Ld<T, D>::value;
-  static constexpr int kLdS = Ld<float, BK>::value;
-  static constexpr int kLdP = Ld<T, BK>::value;
-  static constexpr int kLdO = Ld<float, D>::value;
-  static constexpr size_t q = 0;
-  static constexpr size_t dout = q + align128(sizeof(T) * BQ * kLdT);
-  static constexpr size_t k = dout + align128(sizeof(T) * BQ * kLdT);
-  static constexpr size_t v = k + align128(sizeof(T) * BK * kLdT);
-  static constexpr size_t s = v + align128(sizeof(T) * BK * kLdT);
-  static constexpr size_t dp = s + align128(sizeof(float) * BQ * kLdS);
-  static constexpr size_t ds = dp + align128(sizeof(float) * BQ * kLdS);
-  static constexpr size_t dq = ds + align128(sizeof(T) * BQ * kLdP);
-  static constexpr size_t lse = dq + align128(sizeof(float) * BQ * kLdO);
-  static constexpr size_t delta = lse + align128(sizeof(float) * BQ);
-  static constexpr size_t bytes = delta + align128(sizeof(float) * BQ);
-  static_assert(bytes <= kMaxSmem, "dq tiles exceed shared memory");
-};
-
-template <typename T, int D, int BQ, int BK>
-__global__ void __launch_bounds__(kThreads)
-    flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ dout,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ delta, T* __restrict__ dq,
-                    int tq, int tk, int causal, float scale) {
-  using L = DqSmem<T, D, BQ, BK>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  T* qs = reinterpret_cast<T*>(smem + L::q);
-  T* dos = reinterpret_cast<T*>(smem + L::dout);
-  T* ks = reinterpret_cast<T*>(smem + L::k);
-  T* vs = reinterpret_cast<T*>(smem + L::v);
-  float* ss = reinterpret_cast<float*>(smem + L::s);
-  float* dps = reinterpret_cast<float*>(smem + L::dp);
-  T* dss = reinterpret_cast<T*>(smem + L::ds);
-  float* dqs = reinterpret_cast<float*>(smem + L::dq);
-  float* lses = reinterpret_cast<float*>(smem + L::lse);
-  float* dls = reinterpret_cast<float*>(smem + L::delta);
-
-  // bh on grid x (no 65,535 cap), q tiles on y: the heaviest causal q
-  // tiles (the last ones) start first, over all heads.
-  const size_t bh = blockIdx.x;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
-  const T* kg = k + bh * tk * D;
-  const T* vg = v + bh * tk * D;
-
-  load_rows<T, BQ, D, L::kLdT>(qs, q + bh * tq * D, q0, tq);
-  load_rows<T, BQ, D, L::kLdT>(dos, dout + bh * tq * D, q0, tq);
-  load_vec<BQ>(lses, lse + bh * tq, q0, tq);
-  load_vec<BQ>(dls, delta + bh * tq, q0, tq);
-  zero_acc<BQ, D, L::kLdO>(dqs);
-
-  const int nk = (tk + BK - 1) / BK;
-  const int kend = causal ? min(nk, (q0 + BQ - 1) / BK + 1) : nk;
-  for (int kb = 0; kb < kend; ++kb) {
-    const int k0 = kb * BK;
-    __syncthreads();  // the previous ds.k product is done with k and ds
-    load_rows<T, BK, D, L::kLdT>(ks, kg, k0, tk);
-    load_rows<T, BK, D, L::kLdT>(vs, vg, k0, tk);
-    __syncthreads();
-    mm_abt<T, BQ, BK, D, false>(ss, L::kLdS, qs, L::kLdT, ks, L::kLdT);
-    mm_abt<T, BQ, BK, D, false>(dps, L::kLdS, dos, L::kLdT, vs, L::kLdT);
-    __syncthreads();
-
-    const bool need_mask = (causal && q0 < k0 + BK - 1) || k0 + BK > tk ||
-                           q0 + BQ > tq;
-    for (int idx = threadIdx.x; idx < BQ * BK; idx += kThreads) {
-      const int i = idx / BK, j = idx % BK;
-      float sv = ss[i * L::kLdS + j];
-      if (need_mask && masked_out(q0 + i, k0 + j, tq, tk, causal)) sv = kNeg;
-      const float pv = expf(sv - lses[i]);
-      const float dsv = pv * (dps[i * L::kLdS + j] - dls[i]);
-      dss[i * L::kLdP + j] = from_f<T>(dsv);
-    }
-    __syncthreads();
-    mm_ab<T, BQ, D, BK, true>(dqs, L::kLdO, dss, L::kLdP, ks, L::kLdT);
-  }
-  __syncthreads();
-
-  T* dqg = dq + bh * tq * D;
-  for (int i = threadIdx.x; i < BQ * D; i += kThreads) {
-    const int rr = i / D, c = i % D;
-    if (q0 + rr < tq) {
-      dqg[static_cast<size_t>(q0 + rr) * D + c] =
-          from_f<T>(dqs[rr * L::kLdO + c] * scale);
-    }
-  }
-}
-
-template <typename T, int D, int BQ, int BK>
-int launch_dq(const void* q, const void* k, const void* v, const void* dout,
-              const void* lse, const void* delta, void* dq, int bh, int tq,
-              int tk, int causal, float scale, cudaStream_t stream) {
-  using L = DqSmem<T, D, BQ, BK>;
-  auto kernel = flash_dq_kernel<T, D, BQ, BK>;
-  static bool smem_set = false;
-  cudaError_t err = allow_smem(kernel, L::bytes, &smem_set);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid(bh, (tq + BQ - 1) / BQ);
-  kernel<<<grid, kThreads, L::bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dq), tq, tk, causal, scale);
-  return static_cast<int>(cudaGetLastError());
-}
 
 // ------------------------------------------------ bf16 Hopper design
 // D 32, 64 and 128: one block of two warpgroups per (bh, 128-row q tile),
@@ -638,27 +531,45 @@ int launch_dq_hopper(const void* q, const void* k, const void* v,
 }
 
 // ---------------------------------------------- float32 Hopper design
-// D 64, 128 and 256 (hopper_f32.cuh): k and v as three bf16 planes, every
-// product six wgmma products.  Planes take 6 bytes an element, so a block
-// keeps one 64-row q tile and both warpgroups share it; they split the k
-// blocks instead, warpgroup g taking blocks g, g + 2, ... from a ring of
-// its own (kStages stages, refilled by its first warp), and each keeps a
-// partial dq of all 64 rows in registers.  Their sum meets once, after
-// the loop, in shared memory.  Per block, s = q·kᵀ and dp = do·vᵀ by
-// wgmma, ds = p (dp - delta) in registers, split into three planes as dq
-// += ds·k's register A (k MN-major).  Shared memory, q and do plus each
-// warpgroup's stage of k and v planes: D 128, q and do planes, 32-key
-// blocks: 96 KB + 2 x 48 KB = 192 KB; D 64, 64-key blocks: 48 KB + 2 x 48
-// KB = 144 KB; D 256 (kRowsF32), q and do float32 split in registers
-// (F32Tile), 16-key blocks: 128 KB + 2 x 48 KB = 224 KB (232,448 the
-// cap).  At D 256 dq's 128 registers a thread leave room for s and dp of
-// 16 keys (8 each) and two steps' fragment planes in flight.
+// Every D (hopper_f32.cuh): k and v as three bf16 planes, every product
+// six wgmma products.  Per k block, s = q·kᵀ and dp = do·vᵀ by wgmma,
+// ds = p (dp - delta) in registers, split into three planes as dq +=
+// ds·k's register A (k MN-major).
+// * D 64, 128 and 256: planes take 6 bytes an element, so a block keeps
+//   one 64-row q tile and both warpgroups share it; they split the k
+//   blocks instead, warpgroup g taking blocks g, g + 2, ... from a ring of
+//   its own (kStages stages, refilled by its first warp), and each keeps a
+//   partial dq of all 64 rows in registers.  Their sum meets once, after
+//   the loop, in shared memory.  Shared memory, q and do plus each
+//   warpgroup's stage of k and v planes: D 128, q and do planes, 32-key
+//   blocks: 96 KB + 2 x 48 KB = 192 KB; D 64, 64-key blocks: 48 KB + 2 x
+//   48 KB = 144 KB; D 256 (kRowsF32), q and do float32 split in registers
+//   (F32Tile), 16-key blocks: 128 KB + 2 x 48 KB = 224 KB (232,448 the
+//   cap).  At D 256 dq's 128 registers a thread leave room for s and dp of
+//   16 keys (8 each) and two steps' fragment planes in flight.
+// * D 32 (kByRows; 64-byte rows, the 64-byte swizzle): rows are small
+//   enough for the bf16 design's shape, one block per 128-row q tile, each
+//   warpgroup owning 64 of its rows and their dq, both taking every k
+//   block from one ring of four 64-key stages that warp 0 refills once
+//   both have released a stage (q and do planes 48 KB + 4 x 24 KB = 144
+//   KB): half the streamed bytes a row of the alternating shape, and no
+//   final sum; on the card 9% faster than that shape (PERF.md).
+//   Warpgroup 0 skips the causal end block, which reaches warpgroup 1's
+//   rows only.  dq is 16 registers a thread, so every product's hi·hi
+//   sums in accumulators of its own (kHiApart): the tensor cores'
+//   round-toward-zero sums over T took dq to 9.3x the plain version's
+//   error against float64 at T 8,192 with one accumulator (the gate is
+//   8x), 2.9x with two, for 3.5% of the time.
 template <int D>
 struct F32Dq {
   using B = hop::Box<D>;
   static constexpr bool kRowsF32 = D == 256;
-  static constexpr int BQ = 64, BK = D == 256 ? 16 : D == 128 ? 32 : 64;
-  static constexpr int kStages = 1;
+  static constexpr bool kByRows = D == 32;
+  static constexpr bool kHiApart = D == 32;
+  static constexpr int kRings = kByRows ? 1 : 2;  // one a warpgroup, or shared
+  static constexpr int BQ = kByRows ? 128 : 64;
+  static constexpr int BK = D == 256 ? 16 : D == 128 ? 32 : 64;
+  static constexpr int kStages = kByRows ? 4 : 1;
   static constexpr uint32_t kBoxQ = BQ * B::kRow;  // one box, one plane
   static constexpr uint32_t kBoxK = BK * B::kRow;
   static constexpr uint32_t kQPlane = B::kBoxes * kBoxQ;
@@ -669,15 +580,18 @@ struct F32Dq {
   static constexpr uint32_t kKBytes = 3 * kKPlane;
   static constexpr size_t q = 0;
   static constexpr size_t dout = kQBytes;
-  // Warpgroup g's stage s at kv + (g·kStages + s)·2·kKBytes: k, then v.
+  // Ring r's stage s at kv + (r·kStages + s)·2·kKBytes: k, then v.
   static constexpr size_t kv = 2 * kQBytes;
-  static constexpr size_t bars = kv + 2 * kStages * 2 * kKBytes;
-  // full and empty a stage of each warpgroup, then q's.
-  static constexpr size_t bytes = bars + 8 * (4 * kStages + 1) + hop::kAtomBytes;
-  static_assert(D == 64 || D == 128 || D == 256, "float32 D 64, 128, 256");
+  static constexpr size_t bars = kv + kRings * kStages * 2 * kKBytes;
+  // full and empty a stage of each ring, then q's.
+  static constexpr size_t bytes =
+      bars + 8 * (2 * kRings * kStages + 1) + hop::kAtomBytes;
+  static_assert(D == 32 || D == 64 || D == 128 || D == 256,
+                "float32 D 32, 64, 128, 256");
   static_assert(bytes <= kMaxSmem, "dq tiles exceed shared memory");
-  // Warpgroup 1's partial dq passes through the idle ring.
-  static_assert(D / 2 * 4 * 128 <= 2 * kStages * 2 * kKBytes, "ring");
+  // Warpgroup 1's partial dq passes through the idle rings.
+  static_assert(kByRows || D / 2 * 4 * 128 <= 2 * kStages * 2 * kKBytes,
+                "ring");
 };
 
 template <int D>
@@ -695,37 +609,45 @@ __global__ void __launch_bounds__(hop::kThreads, 1)
   constexpr int BK = C::BK, S = C::kStages;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = hop::align_atom(smem_raw);
+  constexpr int R = C::kRings;
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + C::bars);
-  uint64_t* empty = full + 2 * S;
-  uint64_t* qbar = empty + 2 * S;
+  uint64_t* empty = full + R * S;
+  uint64_t* qbar = empty + R * S;
 
   // Plane p of head bh is head bh + p·nbh of the maps.
   const int bh = blockIdx.x, nbh = gridDim.x;
-  // Heaviest causal q tiles (the last ones) start first, over all heads;
-  // every block up to the causal end reaches the tile's rows.
+  // Heaviest causal q tiles (the last ones) start first, over all heads.
+  // The causal end block holds the tile's last row: with 64-row tiles
+  // every block up to it reaches the tile's rows; with 128 (kByRows) the
+  // last reaches warpgroup 1's rows only.
   const int q0 = (gridDim.y - 1 - blockIdx.y) * C::BQ;
   const int nk = (tk + BK - 1) / BK;
   const int kend = causal ? min(nk, (q0 + C::BQ - 1) / BK + 1) : nk;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = warp / 4;
-  const int nblk = (kend - g + 1) / 2;  // blocks g, g + 2, ... below kend
+  // The warpgroup's blocks: all of them from the shared ring (kByRows),
+  // or k blocks g, g + 2, ... below kend from ring g.
+  const int nblk = C::kByRows ? kend : (kend - g + 1) / 2;
+  const int ring = C::kByRows ? 0 : g;
+  const bool loader = C::kByRows ? warp == 0 : warp % 4 == 0;
+  auto kblock = [&](int j) { return C::kByRows ? j : 2 * j + g; };
 
   if (threadIdx.x == 0) {
-    for (int i = 0; i < 2 * S; ++i) {
+    for (int i = 0; i < R * S; ++i) {
       hop::mbar_init(&full[i], 1);
-      hop::mbar_init(&empty[i], 4);  // the warpgroup's warps
+      hop::mbar_init(&empty[i], 4 * (2 / R));  // the ring's warps
     }
     hop::mbar_init(qbar, 1);
     hop::fence_barrier_init();
   }
   __syncthreads();
 
-  // This warpgroup's j-th block (k block 2j + g) into its stage j % S,
-  // once its warps have released the block S before it.
+  // The warpgroup's j-th block into its ring's stage j % S, once the
+  // ring's warps have released the block S before it.
   const CUtensorMap* mk = &tm_k;
   const CUtensorMap* mv = &tm_v;
   auto load_kv = [&](int j) {
-    const int s = g * S + j % S;
+    const int s = ring * S + j % S;
     hop::mbar_wait(&empty[s], ((j / S) & 1) ^ 1);
     if (lane == 0) {
       hop::mbar_expect_tx(&full[s], 2 * C::kKBytes);
@@ -734,15 +656,15 @@ __global__ void __launch_bounds__(hop::kThreads, 1)
         for (int b = 0; b < B::kBoxes; ++b) {
           const uint32_t at = p * C::kKPlane + b * C::kBoxK;
           hop::tma_load(ks + at, mk, &full[s], b * B::kCols,
-                        (2 * j + g) * BK, bh + p * nbh);
+                        kblock(j) * BK, bh + p * nbh);
           hop::tma_load(ks + C::kKBytes + at, mv, &full[s],
-                        b * B::kCols, (2 * j + g) * BK, bh + p * nbh);
+                        b * B::kCols, kblock(j) * BK, bh + p * nbh);
         }
       }
     }
     __syncwarp();
   };
-  if (warp % 4 == 0) {
+  if (loader) {
     if (warp == 0 && lane == 0) {
       hop::mbar_expect_tx(qbar, 2 * C::kQBytes);
       if constexpr (C::kRowsF32) {
@@ -764,30 +686,50 @@ __global__ void __launch_bounds__(hop::kThreads, 1)
     for (int j = 0; j < S && j < nblk; ++j) load_kv(j);
   }
 
-  // Both warpgroups hold the tile's 64 rows, r0 and r0 + 8 of each thread
-  // in the m64nNk16 accumulator layout.  Rows past tq read lse and delta
-  // as 0: their q and do rows are TMA zeros, so their ds is 0.
+  // Each warpgroup holds 64 rows from qw (the tile's, or with kByRows
+  // its own half), r0 and r0 + 8 of each thread in the m64nNk16
+  // accumulator layout.  Rows past tq read lse and delta as 0: their q
+  // and do rows are TMA zeros, so their ds is 0.
   const int r0 = (warp % 4) * 16 + lane / 4;
   const int cq = 2 * (lane % 4);
-  const int row0 = q0 + r0, row1 = row0 + 8;
+  const int qw = q0 + (C::kByRows ? 64 * g : 0);
+  const int row0 = qw + r0, row1 = row0 + 8;
   const float* lg = lse + static_cast<size_t>(bh) * tq;
   const float* dg = delta + static_cast<size_t>(bh) * tq;
   const float ls0 = row0 < tq ? lg[row0] * hop::kLog2e : 0.f;
   const float ls1 = row1 < tq ? lg[row1] * hop::kLog2e : 0.f;
   const float dl0 = row0 < tq ? dg[row0] : 0.f;
   const float dl1 = row1 < tq ? dg[row1] : 0.f;
-  const uint32_t q_addr = hop::smem_u32(smem + C::q);
-  const uint32_t do_addr = hop::smem_u32(smem + C::dout);
+  const uint32_t rows_at = C::kByRows ? 64 * g * B::kRow : 0;
+  const uint32_t q_addr = hop::smem_u32(smem + C::q) + rows_at;
+  const uint32_t do_addr = hop::smem_u32(smem + C::dout) + rows_at;
 
-  float acc[D / 2];  // this warpgroup's part of dq, unscaled
+  // This warpgroup's part of dq, unscaled (with kHiApart its hi·hi
+  // products in hacc).
+  float acc[D / 2], hacc[D / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < D / 2; ++i) {
+    acc[i] = 0.f;
+    hacc[i] = 0.f;
+  }
   hop::mbar_wait(qbar, 0);
 
+  // The stage is free once this warp's products that read it are done;
+  // the ring's loader then refills it S blocks ahead.
+  auto release = [&](int j, int s) {
+    __syncwarp();
+    if (lane == 0) hop::mbar_arrive(&empty[s]);
+    if (loader && j + S < nblk) load_kv(j + S);
+  };
   for (int j = 0; j < nblk; ++j) {
-    const int s = g * S + j % S;
-    const int k0 = (2 * j + g) * BK;
+    const int s = ring * S + j % S;
+    const int k0 = kblock(j) * BK;
     hop::mbar_wait(&full[s], (j / S) & 1);
+    if (C::kByRows && causal && k0 > qw + 63) {
+      // Every key of this block is after every row of this warpgroup.
+      release(j, s);
+      continue;
+    }
     const uint32_t k_addr = hop::smem_u32(smem + C::kv + s * 2 * C::kKBytes);
     const uint32_t v_addr = k_addr + C::kKBytes;
 
@@ -798,6 +740,24 @@ __global__ void __launch_bounds__(hop::kThreads, 1)
                             reinterpret_cast<const float*>(smem + C::q),
                             reinterpret_cast<const float*>(smem + C::dout),
                             r0, cq, k_addr, v_addr, C::kKPlane, C::kBoxK);
+    } else if constexpr (C::kHiApart) {
+      float hs[BK / 2], hd[BK / 2];
+      hop::wgmma_fence();
+      hop::planes_ss<D>(sc, hs, q_addr, C::kQPlane, C::kBoxQ, k_addr,
+                        C::kKPlane, C::kBoxK);
+      hop::planes_ss<D>(dp, hd, do_addr, C::kQPlane, C::kBoxQ, v_addr,
+                        C::kKPlane, C::kBoxK);
+      hop::wgmma_commit();
+      hop::wgmma_wait<0>();
+      hop::fence_regs(sc);
+      hop::fence_regs(dp);
+      hop::fence_regs(hs);
+      hop::fence_regs(hd);
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i) {
+        sc[i] += hs[i];
+        dp[i] += hd[i];
+      }
     } else {
       hop::wgmma_fence();
       hop::planes_ss<D>(sc, q_addr, C::kQPlane, C::kBoxQ, k_addr,
@@ -809,50 +769,61 @@ __global__ void __launch_bounds__(hop::kThreads, 1)
       hop::fence_regs(sc);
       hop::fence_regs(dp);
     }
-    dq_ds(sc, dp, (causal && k0 + BK - 1 > q0) || k0 + BK > tk, row0, k0,
+    dq_ds(sc, dp, (causal && k0 + BK - 1 > qw) || k0 + BK > tk, row0, k0,
           cq, ls0, ls1, dl0, dl1, tq, tk, causal);
 
     // dq += ds·k: ds's planes from registers, k's MN-major.
     uint32_t dsa[3][BK / 4];
     hop::acc_to_a3(dp, dsa);
     hop::wgmma_fence();
-    hop::planes_rs<D>(acc, dsa, k_addr, C::kKPlane, C::kBoxK);
+    if constexpr (C::kHiApart) {
+      hop::planes_rs<D>(acc, hacc, dsa, k_addr, C::kKPlane, C::kBoxK);
+    } else {
+      hop::planes_rs<D>(acc, dsa, k_addr, C::kKPlane, C::kBoxK);
+    }
     hop::wgmma_commit();
     hop::wgmma_wait<0>();
     hop::fence_regs(acc);
-
-    // The stage is free once this warp's products that read it are done;
-    // the warpgroup's first warp then refills it S blocks ahead.
-    __syncwarp();
-    if (lane == 0) hop::mbar_arrive(&empty[s]);
-    if (warp % 4 == 0 && j + S < nblk) load_kv(j + S);
+    if constexpr (C::kHiApart) hop::fence_regs(hacc);
+    release(j, s);
+  }
+  if constexpr (C::kHiApart) {
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] += hacc[i];
   }
 
-  // Warpgroup 1's partial dq to warpgroup 0 through the ring, which no
-  // load fills any more: thread t + 128 holds the same elements as t.
-  float* red = reinterpret_cast<float*>(smem + C::kv);
+  // With kByRows each warpgroup stores its own rows.  Otherwise warpgroup
+  // 1's partial dq passes to warpgroup 0 through the rings, which no load
+  // fills any more: thread t + 128 holds the same elements as t.
+  const float* red = reinterpret_cast<const float*>(smem + C::kv);
   const int t = threadIdx.x % 128;
-  hop::fence_async_shared();
-  hop::named_sync(1, hop::kThreads);
-  if (g == 1) {
+  if constexpr (!C::kByRows) {
+    hop::fence_async_shared();
+    hop::named_sync(1, hop::kThreads);
+    if (g == 1) {
+      float* out = reinterpret_cast<float*>(smem + C::kv);
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) red[i * 128 + t] = acc[i];
+      for (int i = 0; i < D / 2; ++i) out[i * 128 + t] = acc[i];
+    }
+    hop::named_sync(1, hop::kThreads);
+    if (g == 1) return;
   }
-  hop::named_sync(1, hop::kThreads);
-  if (g == 0) {
-    float* dqg = dq + static_cast<size_t>(bh) * tq * D;
+  float* dqg = dq + static_cast<size_t>(bh) * tq * D;
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = row0 + 8 * h;
-      if (row < tq) {
+  for (int h = 0; h < 2; ++h) {
+    const int row = row0 + 8 * h;
+    if (row < tq) {
 #pragma unroll
-        for (int jc = 0; jc < D / 8; ++jc) {
-          const int i = 4 * jc + 2 * h;
-          *reinterpret_cast<float2*>(dqg + static_cast<size_t>(row) * D +
-                                     8 * jc + cq) =
-              make_float2((acc[i] + red[i * 128 + t]) * scale,
-                          (acc[i + 1] + red[(i + 1) * 128 + t]) * scale);
+      for (int jc = 0; jc < D / 8; ++jc) {
+        const int i = 4 * jc + 2 * h;
+        float2 x = make_float2(acc[i], acc[i + 1]);
+        if constexpr (!C::kByRows) {
+          x.x += red[i * 128 + t];
+          x.y += red[(i + 1) * 128 + t];
         }
+        *reinterpret_cast<float2*>(dqg + static_cast<size_t>(row) * D +
+                                   8 * jc + cq) =
+            make_float2(x.x * scale, x.y * scale);
       }
     }
   }
@@ -892,9 +863,8 @@ int launch_dq_f32(const void* q, const void* k, const void* v,
 }
 
 // The design is fixed by (dtype, D) at compile time: bf16 runs the Hopper
-// design above at every D; float32 runs the plane design at D 64, 128 and
-// 256 (q and do float32 at 256) and the first port's kernel at D 32
-// (64 x 64 tiles).
+// design above at every D, float32 the plane design (q and do float32 at
+// D 256).
 template <typename T>
 int dq_for_dim(int d, const void* q, const void* k, const void* v,
                const void* dout, const void* lse, const void* delta,
@@ -902,7 +872,7 @@ int dq_for_dim(int d, const void* q, const void* k, const void* v,
                int tk, int causal, float scale, cudaStream_t s) {
   if constexpr (std::is_same<T, float>::value) {
     switch (d) {
-      case 32: return launch_dq<T, 32, 64, 64>(q, k, v, dout, lse, delta, dq, bh, tq, tk, causal, scale, s);
+      case 32: return launch_dq_f32<32>(q, k, v, dout, lse, delta, dq, planes, planes_n, bh, tq, tk, causal, scale, s);
       case 64: return launch_dq_f32<64>(q, k, v, dout, lse, delta, dq, planes, planes_n, bh, tq, tk, causal, scale, s);
       case 128: return launch_dq_f32<128>(q, k, v, dout, lse, delta, dq, planes, planes_n, bh, tq, tk, causal, scale, s);
       case 256: return launch_dq_f32<256>(q, k, v, dout, lse, delta, dq, planes, planes_n, bh, tq, tk, causal, scale, s);
@@ -923,8 +893,8 @@ int dq_for_dim(int d, const void* q, const void* k, const void* v,
 
 // q (pre-scaled), k, v, dout: [bh, T, d]; lse, delta: [bh, tq] float;
 // dq: [bh, tq, d], written as scale * ds k.  planes: the float32 plane
-// design's scratch, 6·bh·(tq + tk)·d bf16 at D 64 and 128, 6·bh·tk·d at
-// D 256 (hopper_f32.cuh); null for every other launch.  planes_n: its
+// design's scratch, 6·bh·(tq + tk)·d bf16 at D 32, 64 and 128, 6·bh·tk·d
+// at D 256 (hopper_f32.cuh); null for a bf16 launch.  planes_n: its
 // size in bf16 elements (a smaller one than the launch needs:
 // MVT_SCRATCH_SHORT).
 extern "C" int mvt_flash_dq(const void* q, const void* k, const void* v,

@@ -1,6 +1,6 @@
-// The float32 flash kernels on the bf16 tensor cores (flash_fwd.cu,
-// flash_dq.cu and flash_dkv.cu at D 64, 128 and 256): float32 as three
-// bf16 planes, six wgmma products a product.
+// The float32 flash kernels on the bf16 tensor cores (flash_fwd.cu at D
+// 64, 128 and 256; flash_dq.cu and flash_dkv.cu at D 32, 64, 128 and
+// 256): float32 as three bf16 planes, six wgmma products a product.
 //
 // A float32 x splits into hi = bf16(x), mid = bf16(x - hi) and
 // lo = bf16(x - hi - mid), each rounded to nearest; both differences are
@@ -20,8 +20,9 @@
 // T, D] bf16 a tensor, plane p of head b at head index p·bh + b, so one
 // 3-D TMA map (D, T, 3·bh) reads all three.  It replaces no TPU kernel:
 // the Pallas kernels take float32 operands whole.  It is bound by bytes
-// (4 read and 6 written an element).  At D 64 and 128 it splits every
-// operand (q, k, v, and do for dq and dk/dv).  At D 256 planes of the
+// (4 read and 6 written an element).  At D 32, 64 and 128 it splits every
+// operand it is given (q, k, v, and do for dq and dk/dv; the forward runs
+// the first port's FMA kernel at D 32).  At D 256 planes of the
 // stationary rows (q for the forward, q and do for dq, k and v for dk/dv)
 // would take 192 KB of shared memory, so they stay float32 (F32Tile: 128
 // KB for two 64-row tiles) and each thread splits its A fragment in
@@ -29,6 +30,14 @@
 // split3_pair as flash_split3, so the planes agree bit for bit; only the
 // streamed operands (k and v for the forward and dq, q and do for dk/dv)
 // are split in device memory.
+//
+// The tensor cores drop the bits of a sum below its last place (they
+// round toward zero).  Where a sum runs long, its largest plane product,
+// hi·hi, sums in an accumulator of its own, apart from the five smaller
+// ones, which stay about 2^-8 of the result (f32_rs_products at D 256;
+// planes_ss and planes_rs given a second accumulator at D 32), and the
+// sums of T-long gradients are flushed into float32 sums, rounded to
+// nearest, every few blocks.
 #pragma once
 
 #include "flash_common.cuh"
@@ -74,12 +83,16 @@ __device__ __forceinline__ void acc_to_a3(const float (&acc)[N],
 // acc = A·Bᵀ over D in steps of 16, both operands K-major Box<D> tiles of
 // three planes each: A's plane p at a_addr + p·a_plane, its boxes of
 // columns a_box apart; B's likewise.  Overwrites acc (the first product
-// reads nothing); the caller fences before and commits after.
-template <int D, int N>
-__device__ __forceinline__ void planes_ss(float (&acc)[N], uint32_t a_addr,
-                                          uint32_t a_plane, uint32_t a_box,
-                                          uint32_t b_addr, uint32_t b_plane,
-                                          uint32_t b_box) {
+// reads nothing); with kApart the largest pair, hi·hi, goes to hi
+// instead (overwritten too), and the caller adds it to acc once the
+// products are done.  The caller fences before and commits after.
+template <int D, bool kApart, int N>
+__device__ __forceinline__ void planes_ss_in(float (&acc)[N], float (&hi)[N],
+                                             uint32_t a_addr,
+                                             uint32_t a_plane,
+                                             uint32_t a_box, uint32_t b_addr,
+                                             uint32_t b_plane,
+                                             uint32_t b_box) {
   using B = Box<D>;
 #pragma unroll
   for (int x = 0; x < D / 16; ++x) {
@@ -90,20 +103,39 @@ __device__ __forceinline__ void planes_ss(float (&acc)[N], uint32_t a_addr,
     for (int i = 0; i < kPairs; ++i) {
       const uint64_t da = desc_box<D>(ac + pair_a(i) * a_plane, 16);
       const uint64_t db = desc_box<D>(bc + pair_b(i) * b_plane, 16);
-      if (x == 0 && i == 0) {
-        wgmma_ss_first(acc, da, db);
+      const bool to_hi = kApart && i == kPairs - 1;
+      float(&d)[N] = to_hi ? hi : acc;
+      if (x == 0 && (i == 0 || to_hi)) {
+        wgmma_ss_first(d, da, db);
       } else {
-        wgmma_ss(acc, da, db);
+        wgmma_ss(d, da, db);
       }
     }
   }
 }
+template <int D, int N>
+__device__ __forceinline__ void planes_ss(float (&acc)[N], uint32_t a_addr,
+                                          uint32_t a_plane, uint32_t a_box,
+                                          uint32_t b_addr, uint32_t b_plane,
+                                          uint32_t b_box) {
+  planes_ss_in<D, false>(acc, acc, a_addr, a_plane, a_box, b_addr, b_plane,
+                         b_box);
+}
+template <int D, int N>
+__device__ __forceinline__ void planes_ss(float (&acc)[N], float (&hi)[N],
+                                          uint32_t a_addr, uint32_t a_plane,
+                                          uint32_t a_box, uint32_t b_addr,
+                                          uint32_t b_plane, uint32_t b_box) {
+  planes_ss_in<D, true>(acc, hi, a_addr, a_plane, a_box, b_addr, b_plane,
+                        b_box);
+}
 
 // acc += A·B over RA / 4 steps of 16 rows of B: A the register planes a
 // (acc_to_a3), B MN-major Box<D> tiles of three planes, plane p at
-// b_addr + p·b_plane, its boxes of columns b_box apart.
+// b_addr + p·b_plane, its boxes of columns b_box apart.  Given hi, the
+// largest pair, hi·hi, adds into hi instead of acc.
 template <int D, int RA, int N>
-__device__ __forceinline__ void planes_rs(float (&acc)[N],
+__device__ __forceinline__ void planes_rs(float (&acc)[N], float (&hi)[N],
                                           const uint32_t (&a)[3][RA],
                                           uint32_t b_addr, uint32_t b_plane,
                                           uint32_t b_box) {
@@ -112,12 +144,20 @@ __device__ __forceinline__ void planes_rs(float (&acc)[N],
 #pragma unroll
     for (int i = 0; i < kPairs; ++i) {
       const uint32_t* f = &a[pair_a(i)][4 * t];
-      wgmma_rs(acc, f[0], f[1], f[2], f[3],
+      float(&d)[N] = i == kPairs - 1 ? hi : acc;
+      wgmma_rs(d, f[0], f[1], f[2], f[3],
                desc_box<D>(b_addr + pair_b(i) * b_plane +
                                t * 16 * Box<D>::kRow,
                            b_box));
     }
   }
+}
+template <int D, int RA, int N>
+__device__ __forceinline__ void planes_rs(float (&acc)[N],
+                                          const uint32_t (&a)[3][RA],
+                                          uint32_t b_addr, uint32_t b_plane,
+                                          uint32_t b_box) {
+  planes_rs<D>(acc, acc, a, b_addr, b_plane, b_box);
 }
 
 // A float32 [rows, D] tile in shared memory as its fragment loads want it:
@@ -302,11 +342,12 @@ inline bool make_map_f32(CUtensorMap* map, const void* base, int d, int t,
 // The float32 operands' planes in the wrapper's scratch, three a tensor
 // in the order q, do, k, v, of the operands given (a null one is not
 // split: the forward passes no do, so 3·(nq + 2·nk) bf16; dq and dk/dv
-// at D 64 and 128 all four, 6·(nq + nk); at D 256 the forward and dq only
-// k and v, 6·nk, dk/dv only q and do, 6·nq), split on the stream, and a TMA map over
-// each in boxes of qrows (q, do) or krows (k, v) rows.  ``cap`` is the
-// scratch's size in bf16 elements: a launch that needs more writes nothing
-// and returns MVT_SCRATCH_SHORT.
+// at D 32, 64 and 128 all four, 6·(nq + nk); at D 256 the forward and dq
+// only k and v, 6·nk, dk/dv only q and do, 6·nq), split on the stream,
+// and a TMA map over each in boxes of qrows (q, do) or krows (k, v) rows
+// of Box<D>'s columns (32 with the 64-byte swizzle at D 32, 64 with the
+// 128-byte one above).  ``cap`` is the scratch's size in bf16 elements: a
+// launch that needs more writes nothing and returns MVT_SCRATCH_SHORT.
 struct Planes {
   CUtensorMap q, k, v, dout;
 
@@ -330,7 +371,8 @@ struct Planes {
       const size_t n = static_cast<size_t>(bh) * t * d;
       const int rc = launch_split3(src[i], at, n, stream);
       if (rc != 0) return rc;
-      if (!hop::make_map(maps[i], at, d, t, 3 * bh, i < 2 ? qrows : krows)) {
+      if (!hop::make_map(maps[i], at, d, t, 3 * bh, i < 2 ? qrows : krows,
+                         d < hop::kBoxCols ? d : hop::kBoxCols)) {
         return MVT_TMA_REFUSED;
       }
       at += 3 * n;

@@ -16,17 +16,18 @@ wrapper        CUDA source                     replaces (TPU kernel)
 Which design a kernel runs is fixed at compile time by (dtype, D): in
 bf16 all three run the Hopper designs (TMA loads, wgmma with register
 accumulators, shared helpers in ``csrc/hopper.cuh``) at every head dim.
-In float32, all three at D 64, 128 and 256 run the plane design (``csrc/hopper_f32.cuh``): one elementwise kernel, which
-replaces no TPU kernel, splits the operands into three bf16 planes (hi,
-mid, lo) in scratch the wrapper allocates, and every product runs as six
-bf16 wgmma products into float32 accumulators (the three left out are of
-order 2⁻²⁴ of the product), so the bound is six times the flops at the
-bf16 rate.  At D 64 and 128 it splits q, k and v (and, for dq and dk/dv,
-do); at D 256 only the operands a kernel streams (k and v for the
-forward and dq, q and do for dk/dv), and the stationary ones stay float32
-in shared memory, split a fragment at a time in registers.  All three at
-D 32 run the first port's kernels in float32 (``csrc/flash_common.cuh``;
-products as FMAs).
+In float32, dq and dk/dv at every head dim, and the forward at D 64, 128
+and 256, run the plane design (``csrc/hopper_f32.cuh``): one elementwise
+kernel, which replaces no TPU kernel, splits the operands into three
+bf16 planes (hi, mid, lo) in scratch the wrapper allocates, and every
+product runs as six bf16 wgmma products into float32 accumulators (the
+three left out are of order 2⁻²⁴ of the product), so the bound is six
+times the flops at the bf16 rate.  At D 32, 64 and 128 it splits q, k
+and v (and, for dq and dk/dv, do); at D 256 only the operands a kernel
+streams (k and v for the forward and dq, q and do for dk/dv), and the
+stationary ones stay float32 in shared memory, split a fragment at a
+time in registers.  The float32 forward at D 32 runs the first port's
+kernel (``csrc/flash_common.cuh``; products as FMAs).
 Every design puts bh on grid x, so any bh launches.
 
 Beside each wrapper sits its plain version (``flash_fwd_ref``,
@@ -92,9 +93,10 @@ _SIGNATURES = {
 # Head dims whose float32 kernels run the plane design, which splits
 # operands into three bf16 planes each in scratch the wrapper passes
 # (fwd_for_dim, dq_for_dim and dkv_for_dim in csrc/): every operand at D
-# 64 and 128; at D 256 the streamed ones alone.
-_F32_PLANE_DIMS = {"flash_fwd": (64, 128, 256), "flash_dq": (64, 128, 256),
-                   "flash_dkv": (64, 128, 256)}
+# 32 (dq and dk/dv), 64 and 128; at D 256 the streamed ones alone.
+_F32_PLANE_DIMS = {"flash_fwd": (64, 128, 256),
+                   "flash_dq": (32, 64, 128, 256),
+                   "flash_dkv": (32, 64, 128, 256)}
 _FNS: Dict[str, tuple] = {}  # name -> (C entry point, error-string fn)
 _FNS_LOCK = threading.Lock()
 
@@ -206,9 +208,9 @@ def _prepare(q, k, v, scale):
 def _planes(qs, k, kernel):
     """Scratch for kernel ``kernel``'s bf16 planes in the float32 plane
     design (hi, mid and lo of each operand it splits: q, k, v and, for
-    dq and dk/dv, do at D 64 and 128; at D 256 k and v for the forward and
-    dq, q and do for dk/dv), or None where the launch runs another
-    design."""
+    dq and dk/dv, do at D 32, 64 and 128; at D 256 k and v for the
+    forward and dq, q and do for dk/dv), or None where the launch runs
+    another design (bf16, or the float32 forward at D 32)."""
     d = qs.shape[2]
     if qs.dtype != torch.float32 or d not in _F32_PLANE_DIMS[kernel]:
         return None

@@ -241,8 +241,22 @@ def test_build_phase_fails_without_the_float32_plane_design(tmp_path, lib,
         chip_smoke.phase_build(fake, paths, 1.0)
 
 
+@pytest.mark.parametrize("lib", ["flash_dkv", "flash_dq"])
+def test_build_phase_fails_without_the_d32_float32_plane_design(tmp_path,
+                                                                lib):
+    """dq and dk/dv must hold their float32 plane kernel at D 32 too (the
+    forward runs the first port's FMA kernel there): a library that
+    lacks it fails."""
+    assert 32 not in chip_smoke.HOPPER_F32_DIMS["flash_fwd"]
+    fake, paths = _fake_build(tmp_path, _listings(lib, drop_f32=32))
+    with pytest.raises(AssertionError, match=rf"{lib}: no Hopper_f32 "
+                                             rf"kernel at D \[32\]"):
+        chip_smoke.phase_build(fake, paths, 1.0)
+
+
 @pytest.mark.parametrize("lib,d", [("flash_dq", 128), ("flash_dkv", 64),
-                                   ("flash_fwd", 256)])
+                                   ("flash_fwd", 256), ("flash_dkv", 32),
+                                   ("flash_dq", 32)])
 def test_build_phase_fails_on_a_spilling_float32_plane_kernel(tmp_path, lib,
                                                               d):
     fake, paths = _fake_build(tmp_path, _listings(),
@@ -1023,17 +1037,20 @@ def test_headdims_phase_shapes():
     ("flash_dkv", torch.float32, 64, "bf16x6"),
     ("flash_dq", torch.float32, 48, "bf16x6"),
     ("flash_fwd", torch.float32, 128, "bf16x6"),
-    ("flash_dkv", torch.float32, 32, "fp32"),
+    ("flash_dkv", torch.float32, 32, "bf16x6"),
     ("flash_dq", torch.float32, 256, "bf16x6"),
     ("flash_dkv", torch.float32, 256, "bf16x6"),
     ("flash_dkv", torch.float32, 200, "bf16x6"),
     ("flash_dq", torch.bfloat16, 128, "bf16"),
     ("flash_fwd", torch.float32, 96, "bf16x6"),
     ("flash_fwd", torch.float32, 32, "fp32"),
-    ("flash_fwd", torch.float32, 256, "bf16x6")])
+    ("flash_fwd", torch.float32, 256, "bf16x6"),
+    ("flash_dq", torch.float32, 32, "bf16x6"),
+    ("flash_dkv", torch.float32, 16, "bf16x6")])
 def test_bound_rate_follows_the_design(name, dtype, d, rate):
-    """Every float32 kernel at (padded) D 64, 128 or 256 is bound at six
-    bf16 products a product; the others (D 32) at the FP32 rate."""
+    """Every float32 kernel that runs the plane design (dq and dk/dv at
+    every padded D, the forward at D 64, 128 and 256) is bound at six
+    bf16 products a product; the forward at D 32 at the FP32 rate."""
     from multiverso_tpu_torch.ops import flash_attention as fa
 
     assert name in chip_smoke.KERNELS
@@ -1152,6 +1169,17 @@ def test_parity_float32_cases_cover_the_plane_tiles():
     for t in (66, 130, 40, 136):
         assert {c for _, tq, _, d, _, c, _ in cases
                 if d == 256 and tq == t} == {True, False}
+    # dq and dk/dv at D 32: T 8,192 under the float64 gate, the 64-row
+    # tiles' edges and Tq≠Tk both ways, causal and not.
+    assert (32, 8192, 8192, "long_f32_d32") in tags
+    assert "long_f32_d32" in chip_smoke.F64_CASES
+    for t, tk, tag in ((2080, 2080, "half_tile"), (2112, 2112, "half_tile"),
+                       (66, 66, "two_row_tile"), (130, 130, "two_row_tile"),
+                       (40, 136, "cross_length"), (136, 40, "cross_length")):
+        assert (32, t, tk, tag) in tags
+    for t in (66, 130, 40, 136):
+        assert {c for _, tq, _, d, _, c, _ in cases
+                if d == 32 and tq == t} == {True, False}
 
 
 def test_exp_bound_rate_and_float32_bytes():

@@ -70,7 +70,7 @@ def test_head_dim_past_256_raises():
         fa.flash_fwd(q, q, q, 320 ** -0.5, True)
 
 
-@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("d", [32, 64, 128, 256])
 def test_causal_keys_past_the_queries_get_zero_gradients(d):
     rng = np.random.RandomState(90 + d)
     q, do = (torch.tensor(rng.randn(3, 40, d), dtype=torch.float32).cuda()
@@ -90,7 +90,7 @@ def test_causal_keys_past_the_queries_get_zero_gradients(d):
 
 @pytest.mark.parametrize("name,d", [
     (name, d) for name in ("flash_fwd", "flash_dq", "flash_dkv")
-    for d in (64, 128, 256) if d in fa._F32_PLANE_DIMS[name]])
+    for d in (32, 64, 128, 256) if d in fa._F32_PLANE_DIMS[name]])
 def test_short_plane_scratch_raises(name, d, monkeypatch):
     q = torch.randn(2, 64, d, device="cuda")
     rows = torch.zeros(2, 64, device="cuda")

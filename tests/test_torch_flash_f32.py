@@ -1,6 +1,6 @@
-"""The float32 plane design of the port's flash kernels (forward, dq and
-dk/dv at head dims 64, 128 and 256, ``csrc/hopper_f32.cuh``), modelled on
-the CPU.
+"""The float32 plane design of the port's flash kernels (forward at head
+dims 64, 128 and 256, dq and dk/dv at 32, 64, 128 and 256,
+``csrc/hopper_f32.cuh``), modelled on the CPU.
 
 The kernels split q, k, v and do (and, in registers, p, ds, pᵀ and dsᵀ)
 into three bf16 planes, hi, mid and lo, and form every product as six
@@ -12,8 +12,12 @@ float32 tile, and the kernels' block schedules at the design's tiles (the
 forward: 128-row q tiles, 64 rows a warpgroup, each walking the k blocks
 with an online softmax; dq, and dk/dv at D 64 and 128: 64 stationary
 rows shared by both warpgroups, which take every other streamed block and
-meet once; dk/dv at D 256: 64 k rows, both warpgroups on every 16-row q
-block, one owning dv and the other dk), held against the plain versions at
+meet once; at D 32: 128 stationary rows, 64 a warpgroup, both taking
+every streamed block; dk/dv at D 256: 64 k rows, both warpgroups on every
+32-row q block, one owning dv and the other dk) and the sums a kernel
+keeps apart (at D 32 hi·hi of every product in an accumulator of its
+own, and dk and dv flushed into float32 sums every few blocks), held
+against the plain versions at
 the schedule tests' tolerances (atol 2e-5, rtol 1e-4), against the JAX
 package's Pallas kernels in interpret mode (float32: atol 2e-5 for the
 forward, 2e-4 for gradients, as ``tests/test_flash_attention.py`` states
@@ -35,9 +39,15 @@ _NEG = -1e30
 # (a plane, b plane) of the six products, in the kernels' order.
 PAIRS = ((2, 0), (1, 1), (0, 2), (1, 0), (0, 1), (0, 0))
 # The design's tiles by head dim: (dq q rows, k block), (dk/dv k rows, q
-# block) — F32Dq, and F32Dkv or (D 256) F32DkvRoles in the sources.
-_TILES = {64: ((64, 64), (64, 64)), 128: ((64, 32), (64, 32)),
-          256: ((64, 16), (64, 32))}
+# block) — F32Dq, and F32Dkv or (D 256) F32DkvRoles in the sources.  At D
+# 32 a block's 128 stationary rows are 64 a warpgroup (kByRows).
+_TILES = {32: ((128, 64), (128, 64)), 64: ((64, 64), (64, 64)),
+          128: ((64, 32), (64, 32)), 256: ((64, 16), (64, 32))}
+# Head dims whose dq and dk/dv keep 128 stationary rows, 64 a warpgroup
+# (kByRows), with how dq and dk/dv sum there: (hi·hi apart, blocks of the
+# warpgroup's loop between flushes, 0 for none) — kHiApart and kFlush of
+# F32Dq and F32Dkv.
+_BY_ROWS = {32: ((True, 0), (True, 8))}
 # The forward's (q rows, k block) by head dim — F32Fwd.
 _FWD_TILES = {64: (128, 64), 128: (128, 32), 256: (128, 32)}
 _RAGGED = [(130, 130, True), (130, 130, False), (200, 200, True),
@@ -65,6 +75,56 @@ def mm6(a, b):
         term = pa[i] @ pb[j]
         out = term if out is None else out + term
     return out
+
+
+def mm6_parts(a, b):
+    """a @ b's six plane products as a kernel sums them with hi·hi apart:
+    (the five smaller ones summed in float32, hi·hi)."""
+    pa, pb = split3(a), split3(b)
+    lo = None
+    for i, j in PAIRS[:-1]:
+        term = pa[i] @ pb[j]
+        lo = term if lo is None else lo + term
+    return lo, pa[0] @ pb[0]
+
+
+def mm6_apart(a, b):
+    """a @ b with hi·hi summed apart from the five smaller products, then
+    added once (a score product at D 32)."""
+    lo, hi = mm6_parts(a, b)
+    return lo + hi
+
+
+class _Sum:
+    """One T-long gradient sum of a warpgroup as a kernel keeps it: with
+    ``apart`` the five smaller plane products and hi·hi in accumulators
+    of their own; every ``flush`` blocks of the warpgroup's loop (0:
+    never; a block it skips counts) both added into a float32 sum and
+    zeroed."""
+
+    def __init__(self, shape, mm, apart, flush):
+        self.mm, self.apart, self.flush = mm, apart, flush
+        self.acc, self.hi, self.sum = (torch.zeros(shape) for _ in range(3))
+        self.blocks = 0
+
+    def add(self, a, b):
+        if self.apart:
+            lo, hi = mm6_parts(a, b)
+            self.acc += lo
+            self.hi += hi
+        else:
+            self.acc += self.mm(a, b)
+        self.blocks += 1
+        if self.flush and self.blocks % self.flush == 0:
+            self.sum += self.acc + self.hi
+            self.acc.zero_()
+            self.hi.zero_()
+
+    def skip(self):
+        self.blocks += 1
+
+    def total(self):
+        return self.sum + (self.acc + self.hi)
 
 
 def _pad_rows(x, rows):
@@ -205,6 +265,98 @@ def dkv_f32_schedule(qs, k, v, do, lse, delta, causal, BK=64, BQ=32,
     return dk, dv
 
 
+def dq_f32_rows_schedule(qs, k, v, do, lse, delta, scale, causal, BQ=128,
+                         BK=64, mm=mm6, apart=False, flush=0):
+    """dq as flash_dq_hopper_f32<32> schedules it (kByRows): a block per
+    128-row q tile; warpgroup g owns rows q0 + 64g + [0, 64) and walks
+    every k block up to the tile's causal end, skipping those whose keys
+    all follow its rows and masking those that straddle its diagonal or
+    Tk; no partials to sum."""
+    bh, tq, d = qs.shape
+    tk = k.shape[1]
+    nqt, nk = -(-tq // BQ), -(-tk // BK)
+    qp, dop = _pad_rows(qs, nqt * BQ), _pad_rows(do, nqt * BQ)
+    kp, vp = _pad_rows(k, nk * BK), _pad_rows(v, nk * BK)
+    lsep, dlp = _pad_row_vec(lse, nqt * BQ), _pad_row_vec(delta, nqt * BQ)
+    dq = torch.zeros(bh, tq, d)
+    score = mm6_apart if apart else mm
+    for qt in range(nqt):
+        q0 = qt * BQ
+        kend = min(nk, (q0 + BQ - 1) // BK + 1) if causal else nk
+        for g in range(2):
+            qw = q0 + 64 * g
+            rows = torch.arange(qw, qw + 64)
+            acc = _Sum((bh, 64, d), mm, apart, flush)
+            for kb in range(kend):
+                k0 = kb * BK
+                if causal and k0 > qw + 63:
+                    acc.skip()
+                    continue
+                kt = kp[:, k0:k0 + BK]
+                s = score(qp[:, qw:qw + 64], kt.transpose(1, 2))
+                dp = score(dop[:, qw:qw + 64],
+                           vp[:, k0:k0 + BK].transpose(1, 2))
+                if (causal and k0 + BK - 1 > qw) or k0 + BK > tk:
+                    cols = torch.arange(k0, k0 + BK)
+                    out = ((cols[None, :] >= tk) | (rows[:, None] >= tq)
+                           | (causal & (cols[None, :] > rows[:, None])))
+                    s = s.masked_fill(out, _NEG)
+                p = torch.exp(s - lsep[:, qw:qw + 64, None])
+                acc.add(p * (dp - dlp[:, qw:qw + 64, None]), kt)
+            n = max(0, min(64, tq - qw))
+            dq[:, qw:qw + n] = (acc.total() * scale)[:, :n]
+    return dq
+
+
+def dkv_f32_rows_schedule(qs, k, v, do, lse, delta, causal, BK=128, BQ=64,
+                          mm=mm6, apart=False, flush=0):
+    """dk and dv as flash_dkv_hopper_f32<32> schedules them (kByRows): a
+    block per 128-row k block; warpgroup g owns rows k0 + 64g + [0, 64)
+    and walks every q block from the block's causal start, skipping those
+    whose queries all precede its rows and masking those that straddle
+    its diagonal or an end; no partials to sum."""
+    bh, tq, d = qs.shape
+    tk = k.shape[1]
+    nk, nq = -(-tk // BK), -(-tq // BQ)
+    qp, dop = _pad_rows(qs, nq * BQ), _pad_rows(do, nq * BQ)
+    kp, vp = _pad_rows(k, nk * BK), _pad_rows(v, nk * BK)
+    lsep, dlp = _pad_row_vec(lse, nq * BQ), _pad_row_vec(delta, nq * BQ)
+    dk, dv = torch.zeros(bh, tk, d), torch.zeros(bh, tk, d)
+    score = mm6_apart if apart else mm
+    for kb in range(nk):
+        k0 = kb * BK
+        qstart = k0 // BQ if causal else 0
+        for g in range(2):
+            kw = k0 + 64 * g
+            krows = torch.arange(kw, kw + 64)
+            kt, vt = kp[:, kw:kw + 64], vp[:, kw:kw + 64]
+            dk_acc, dv_acc = (_Sum((bh, 64, d), mm, apart, flush)
+                              for _ in range(2))
+            for qb in range(qstart, nq):
+                q0 = qb * BQ
+                if causal and q0 + BQ - 1 < kw:
+                    dk_acc.skip()
+                    dv_acc.skip()
+                    continue
+                qt, dot = qp[:, q0:q0 + BQ], dop[:, q0:q0 + BQ]
+                st = score(kt, qt.transpose(1, 2))
+                dpt = score(vt, dot.transpose(1, 2))
+                if (causal and q0 < kw + 63) or kw + 64 > tk \
+                        or q0 + BQ > tq:
+                    qcols = torch.arange(q0, q0 + BQ)
+                    out = ((krows[:, None] >= tk) | (qcols[None, :] >= tq)
+                           | (causal & (krows[:, None] > qcols[None, :])))
+                    st = st.masked_fill(out, _NEG)
+                pt = torch.exp(st - lsep[:, None, q0:q0 + BQ])
+                dst = pt * (dpt - dlp[:, None, q0:q0 + BQ])
+                dv_acc.add(pt, dot)
+                dk_acc.add(dst, qt)
+            n = max(0, min(64, tk - kw))
+            dk[:, kw:kw + n] = dk_acc.total()[:, :n]
+            dv[:, kw:kw + n] = dv_acc.total()[:, :n]
+    return dk, dv
+
+
 def dkv_f32_roles_schedule(qs, k, v, do, lse, delta, causal, BK=64, BQ=32,
                            mm=mm6, flush=8):
     """dk and dv as flash_dkv_hopper_f32<256> schedules them: a block per
@@ -257,8 +409,28 @@ def dkv_f32_roles_schedule(qs, k, v, do, lse, delta, causal, BK=64, BQ=32,
     return dk, dv
 
 
+def _sums(d, kernel, mm):
+    """The rows schedule's ``apart`` and ``flush`` for kernel (0 dq, 1
+    dk/dv) at head dim d (``_BY_ROWS``): with plain products nothing is
+    apart, and the flushes stay."""
+    apart, flush = _BY_ROWS[d][kernel]
+    return dict(apart=apart and mm is mm6, flush=flush)
+
+
+def dq_model(qs, k, v, do, lse, delta, scale, causal, d, mm=mm6):
+    """dq as the float32 kernel at head dim d schedules it."""
+    if d in _BY_ROWS:
+        return dq_f32_rows_schedule(qs, k, v, do, lse, delta, scale, causal,
+                                    *_TILES[d][0], mm=mm, **_sums(d, 0, mm))
+    return dq_f32_schedule(qs, k, v, do, lse, delta, scale, causal,
+                           *_TILES[d][0], mm=mm)
+
+
 def dkv_model(qs, k, v, do, lse, delta, causal, d, mm=mm6):
     """dk and dv as the float32 kernel at head dim d schedules them."""
+    if d in _BY_ROWS:
+        return dkv_f32_rows_schedule(qs, k, v, do, lse, delta, causal,
+                                     *_TILES[d][1], mm=mm, **_sums(d, 1, mm))
     schedule = dkv_f32_roles_schedule if d == 256 else dkv_f32_schedule
     return schedule(qs, k, v, do, lse, delta, causal, *_TILES[d][1], mm=mm)
 
@@ -338,21 +510,21 @@ def test_two_planes_or_one_miss_float32_accuracy():
 
 # ------------------------------------------------- schedules at the tiles
 @pytest.mark.parametrize("kernel", ["dq", "dkv"])
-@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("d", [32, 64, 128, 256])
 @pytest.mark.parametrize("tq,tk,causal", _RAGGED)
 def test_plane_schedule_matches_plain(kernel, d, tq, tk, causal):
     """The plane design's block schedules at their tiles for head dim d
     (dq: 64-row q tiles over 64-key blocks at D 64, 32-key at D 128,
-    16-key at D 256; dk/dv: 64-row k blocks over 64-, 32- or (by role)
-    16-row q blocks), with every product as six plane products, against
-    the plain versions, float32, at ragged T."""
+    16-key at D 256, 128-row tiles over 64-key blocks at D 32; dk/dv:
+    64-row k blocks over 64-, 32- or (by role) 32-row q blocks, 128-row k
+    blocks over 64-row q blocks at D 32), with every product as six plane
+    products (at D 32 hi·hi apart, dk and dv flushed), against the plain
+    versions, float32, at ragged T."""
     q, k, v, do, lse, delta, scale = _case(tq, tk, causal, d,
                                            seed=tq + tk + causal + d)
     qs = fa._prescale(q, scale)
-    dq_tiles, dkv_tiles = _TILES[d]
     if kernel == "dq":
-        got = (dq_f32_schedule(qs, k, v, do, lse, delta, scale, causal,
-                               *dq_tiles),)
+        got = (dq_model(qs, k, v, do, lse, delta, scale, causal, d),)
         want = (fa.flash_dq_ref(q, k, v, do, lse, delta, scale, causal),)
     else:
         got = dkv_model(qs, k, v, do, lse, delta, causal, d)
@@ -378,16 +550,16 @@ def test_fwd_plane_schedule_matches_plain(d, tq, tk, causal):
                                    rtol=1e-4)
 
 
-@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("d", [32, 64, 128, 256])
 def test_plane_schedule_matches_plain_with_plain_products(d):
     """The same schedules with plain float32 products: the schedule alone
-    (the alternating blocks and the partials' sum, or the roles) is exact
+    (the alternating blocks and the partials' sum, the warpgroups' rows
+    and skipped blocks, the flushes, or the roles) is exact
     bookkeeping."""
     q, k, v, do, lse, delta, scale = _case(200, 200, True, d, seed=d)
     qs = fa._prescale(q, scale)
-    dq_tiles = _TILES[d][0]
-    got = dq_f32_schedule(qs, k, v, do, lse, delta, scale, True, *dq_tiles,
-                          mm=torch.matmul)
+    got = dq_model(qs, k, v, do, lse, delta, scale, True, d,
+                   mm=torch.matmul)
     np.testing.assert_allclose(
         got.numpy(), fa.flash_dq_ref(q, k, v, do, lse, delta, scale,
                                      True).numpy(), atol=2e-5, rtol=1e-4)
@@ -421,7 +593,9 @@ def _jax_grads(x, causal):
                                                ("dkv", 128, 96, False),
                                                ("dq", 256, 80, True),
                                                ("dkv", 256, 80, True),
-                                               ("dkv", 256, 96, False)])
+                                               ("dkv", 256, 96, False),
+                                               ("dq", 32, 200, True),
+                                               ("dkv", 32, 130, False)])
 def test_plane_schedule_matches_pallas(kernel, d, T, causal):
     """One case a kernel: the plane model from the plain forward's saved
     rows against the JAX package's gradients (Pallas kernels in interpret
@@ -440,8 +614,7 @@ def test_plane_schedule_matches_pallas(kernel, d, T, causal):
     delta = (do * o).sum(-1) - torch.tensor(x["dlse"]).reshape(2, T)
     qs = fa._prescale(q, scale)
     if kernel == "dq":
-        got = {"dq": dq_f32_schedule(qs, k, v, do, lse, delta, scale,
-                                     causal, *_TILES[d][0])}
+        got = {"dq": dq_model(qs, k, v, do, lse, delta, scale, causal, d)}
     else:
         dk, dv = dkv_model(qs, k, v, do, lse, delta, causal, d)
         got = {"dk": dk, "dv": dv}
@@ -482,7 +655,7 @@ def _f64_grads(qs, k, v, do, lse, delta, scale, causal):
             "dv": p.transpose(1, 2) @ do.double()}
 
 
-@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("d", [32, 64, 128, 256])
 def test_plane_model_error_within_twice_plain(d):
     """Against float64, the modelled kernels' largest error is at most
     twice the plain float32 version's, per gradient (the card's gate,
@@ -490,8 +663,7 @@ def test_plane_model_error_within_twice_plain(d):
     q, k, v, do, lse, delta, scale = _case(256, 256, True, d, seed=40 + d)
     qs = fa._prescale(q, scale)
     ref = _f64_grads(qs, k, v, do, lse, delta, scale, True)
-    model = {"dq": dq_f32_schedule(qs, k, v, do, lse, delta, scale, True,
-                                   *_TILES[d][0])}
+    model = {"dq": dq_model(qs, k, v, do, lse, delta, scale, True, d)}
     model["dk"], model["dv"] = dkv_model(qs, k, v, do, lse, delta, True, d)
     plain = {"dq": fa.flash_dq_ref(q, k, v, do, lse, delta, scale, True)}
     plain["dk"], plain["dv"] = fa.flash_dkv_ref(q, k, v, do, lse, delta,
@@ -523,11 +695,11 @@ def test_fwd_plane_model_error_within_twice_plain(d):
 
 def test_wrapper_passes_plane_scratch_only_to_the_plane_design():
     """The wrapper's scratch for the planes: 6·(q + k elements) bf16 for
-    float32 dq and dk/dv at D 64 and 128 (q, do, k, v), 3·(q + 2·k
-    elements) for the forward (q, k, v); at D 256 6·k elements for the
-    forward and dq (k, v) and 6·q for dk/dv (q, do); none for another
-    dtype or head dim; a launch takes the scratch with its size
-    (``_scratch``)."""
+    float32 dq and dk/dv at D 32, 64 and 128 (q, do, k, v), 3·(q + 2·k
+    elements) for the forward (q, k, v) at D 64 and 128; at D 256 6·k
+    elements for the forward and dq (k, v) and 6·q for dk/dv (q, do); none
+    for the forward at D 32 or for bf16; a launch takes the scratch with
+    its size (``_scratch``)."""
     f32 = torch.zeros(2, 8, 128)
     for kernel in ("flash_dq", "flash_dkv"):
         assert fa._planes(f32, torch.zeros(2, 4, 128), kernel).shape == (
@@ -550,9 +722,12 @@ def test_wrapper_passes_plane_scratch_only_to_the_plane_design():
     assert p.shape == (n,)
     p, n = fa._scratch(wide_q, wide_k, "flash_fwd")
     assert p.shape == (n,) and n == 6 * 2 * 4 * 256
+    narrow_q, narrow_k = torch.zeros(2, 8, 32), torch.zeros(2, 4, 32)
+    for kernel in ("flash_dq", "flash_dkv"):
+        assert fa._planes(narrow_q, narrow_k, kernel).shape == (
+            6 * (2 * 8 * 32 + 2 * 4 * 32),)
+    assert fa._planes(narrow_q, narrow_k, "flash_fwd") is None
     for kernel in ("flash_fwd", "flash_dq", "flash_dkv"):
-        assert fa._planes(torch.zeros(2, 8, 32), torch.zeros(2, 8, 32),
-                          kernel) is None
         bf = torch.zeros(2, 8, 128, dtype=torch.bfloat16)
         assert fa._planes(bf, bf, kernel) is None
 
@@ -620,6 +795,25 @@ def test_roles_schedule_flushes_its_sums(causal):
     q, k, v, do, lse, delta, scale = _case(330, 330, causal, 256, seed=330)
     qs = fa._prescale(q, scale)
     got = dkv_model(qs, k, v, do, lse, delta, causal, 256)
+    want = fa.flash_dkv_ref(q, k, v, do, lse, delta, scale, causal)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), atol=2e-5,
+                                   rtol=1e-4)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_d32_schedule_flushes_dk_and_dv(causal):
+    """dk/dv at D 32 past a flush (every 8 of a warpgroup's 64-row q
+    blocks): 1,090 queries run 18 q blocks over 130 keys' two 128-row k
+    blocks, so each warpgroup flushes after its eighth and sixteenth
+    block of the loop and sums on (causal, warpgroup 1 skips each k
+    block's first q block, which counts); with hi·hi apart, against the
+    plain version, float32."""
+    assert _BY_ROWS[32][1] == (True, 8)
+    q, k, v, do, lse, delta, scale = _case(1090, 130, causal, 32,
+                                           seed=1090 + causal)
+    qs = fa._prescale(q, scale)
+    got = dkv_model(qs, k, v, do, lse, delta, causal, 32)
     want = fa.flash_dkv_ref(q, k, v, do, lse, delta, scale, causal)
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), w.numpy(), atol=2e-5,
