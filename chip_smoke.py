@@ -41,7 +41,7 @@ Phases, each printing JSON lines:
              D 256 (q, q and do, or k and v float32, split in registers):
              8 heads at T=8192 under the same float64 gate, T=2080 and
              T=66 (the 64-row tiles' edges), T=130 (the forward's second
-             tile of 2 rows) and Tq≠Tk both ways.  dq and dk/dv at D 32:
+             tile of 2 rows) and Tq≠Tk both ways.  All three at D 32:
              8 heads at T=8192 under the same float64 gate, T=2080,
              2112, 66 and 130 and Tq≠Tk both ways.
              Each output is judged by its own dtype: float32 outputs
@@ -98,8 +98,9 @@ Phases, each printing JSON lines:
              also against float64, as in parity) and
              timed (beside each bound the exp unit's: one exp a kept
              score at 16 a clock an SM; the float32 kernels bound at six
-             bf16 products a product with the split's profiled share,
-             FP32 and TF32 bounds beside).
+             bf16 products a product with the split's time alone and
+             its share, timed with CUDA events, FP32 and TF32 bounds
+             beside).
    moe     — bench_moe (vocab 16384, dim 1024, 8 layers, 8 heads, hidden
              2816, 8 experts, top-2, capacity factor 1.25, full remat,
              batch 8, seq 1024): 5 steps with each dispatch from one draw
@@ -673,7 +674,9 @@ KERNEL_DESIGNS = {
                   "float32 D 256": "flash_fwd_hopper_f32<256> (q float32, "
                                    "split in registers; k and v planes; "
                                    "32-key blocks)",
-                  "float32 D 32": "flash_fwd_kernel (FMA products)"},
+                  "float32 D 32": "flash_fwd_hopper_f32<32> (three bf16 "
+                                  "planes in 64-byte rows; 64-key blocks in "
+                                  "three stages; o's hi·hi summed apart)"},
     "flash_dq": {"bfloat16 D 32, 64, 128, 256": "flash_dq_hopper<D>",
                  "float32 D 64, 128": "flash_dq_hopper_f32<D> (three bf16 "
                                       "planes, six wgmma products)",
@@ -862,7 +865,7 @@ HOPPER_DIMS = {"flash_fwd": (32, 64, 128, 256),
                "flash_dq": (32, 64, 128, 256),
                "flash_dkv": (32, 64, 128, 256)}
 # The float32 plane design's kernels (six bf16 products a product).
-HOPPER_F32_DIMS = {"flash_fwd": (64, 128, 256),
+HOPPER_F32_DIMS = {"flash_fwd": (32, 64, 128, 256),
                    "flash_dq": (32, 64, 128, 256),
                    "flash_dkv": (32, 64, 128, 256)}
 
@@ -1059,7 +1062,7 @@ def edge_cases(torch):
 
 def f32_cases(torch):
     """The parity phase's cases for the float32 plane design (all three
-    kernels at D 64, 128 and 256, dq and dk/dv at D 32): the trainer's full
+    kernels at D 32, 64, 128 and 256): the trainer's full
     attention shape with the lse cotangent and 8 heads at T 8,192, at D
     32, 128 and 256 (all with the float64 gate, F64_CASES), the 64-row
     tiles' edges of dq and dk/dv and the forward's 128-row tiles' edges (a
@@ -2983,37 +2986,31 @@ def library_bwd(torch, q4, k4, v4, do4, causal, scale):
 
 
 # The flops a second a kernel's bound is taken at: the tensor cores' bf16
-# rate for bf16, a sixth of it for the float32 plane design (six bf16
-# products a product), the card's FP32 rate for the first port's float32
-# forward at D 32 (FMA products).
+# rate for bf16, a sixth of it for float32 (the plane design, six bf16
+# products a product, which runs every float32 kernel), and the card's
+# FP32 rate for an older tree's float32 kernel outside the plane design
+# (``--kernel-times --root``: the first port's forward at D 32).
 RATES = {"bf16": PEAK_BF16_FLOPS, "bf16x6": PEAK_BF16_FLOPS / 6,
          "fp32": PEAK_FP32_FLOPS}
 
 
-def split_share(torch, fn, calls=3, profile=None):
-    """The float32 plane design's split (``flash_split3``, three
-    launches a forward call, four a dq or dk/dv call, two at D 256)
-    inside ``fn``: its
-    device ms a call and its share of the call's device time, from
-    torch.profiler over ``calls`` calls, with
-    the device ms a call the profile saw (``profiled_ms``: below the
-    call's CUDA-event time where the profile lost kernels).  A profile
-    that lost every kernel (it has on the card's host) measured none of
-    the three: each is None."""
-    prof = (profile or profile_calls)(torch, fn, calls, top=20)
-    split = sum(k["ms"] for k in prof["top_kernels"]
-                if "flash_split3" in k["name"])
-    busy = prof["device_busy_ms"]
-    if busy <= 0:
-        return {"split_ms": None, "split_share": None, "profiled_ms": None}
-    return {"split_ms": split / calls, "split_share": split / busy,
-            "profiled_ms": busy / calls}
+def split_share(split, call_ms, timer=None):
+    """The float32 plane design's split inside a call: ``split`` runs the
+    call's split alone (``fa.plane_split`` on the call's operands and
+    scratch: three ``flash_split3`` launches a forward call, four a dq or
+    dk/dv call, two at D 256), timed with CUDA events (``timer``,
+    ``cuda_ms`` unless given) as the call was, and its share of the call's
+    ``call_ms``."""
+    split_ms = (timer or cuda_ms)(split)
+    return {"split_ms": split_ms, "split_share": split_ms / call_ms}
 
 
 def bound_rate(fa, name, dtype, d) -> str:
     """Which of RATES bounds kernel ``name`` at ``dtype`` and head dim
-    ``d``: the design the launch at its padded head dim runs, as the
-    port's table of float32 plane designs (``fa._F32_PLANE_DIMS``) says."""
+    ``d``: bf16, or for float32 the design the launch at its padded head
+    dim runs, as the package's table of plane designs
+    (``fa._F32_PLANE_DIMS``) says: every head dim in this tree, D 32's
+    forward excepted in trees before it."""
     if dtype != fa.torch.float32:
         return "bf16"
     planes = fa._F32_PLANE_DIMS[name]
@@ -3028,11 +3025,10 @@ def kernel_times(fa, torch, B, H, T, D, plain_bh=None, tk=None,
     version (on the first ``plain_bh`` heads where given: the plain
     versions hold [bh, T, tk] float32 scores), its bound, the exp unit's
     bound (one exp a kept score) and the library call that computes the
-    same function.  A float32 kernel's bound is taken at the rate of the
-    design it runs (``bound_rate``): the plane design's (dq and dk/dv at
-    every D, the forward at D 64, 128 and 256) as six times its flops at
-    the bf16 rate, the forward's at D 32 at the card's FP32 rate (its
-    products are FMAs); the FP32 and TF32 bounds stand beside it."""
+    same function.  A float32 kernel's bound is taken at the plane
+    design's rate (``bound_rate``), as six times its flops at the bf16
+    rate, with the split's time and share beside it (``split_share``);
+    the FP32 and TF32 bounds stand beside it."""
     import torch.nn.functional as F
 
     dtype = dtype or torch.bfloat16
@@ -3056,6 +3052,11 @@ def kernel_times(fa, torch, B, H, T, D, plain_bh=None, tk=None,
         "flash_dkv": (lambda: fa._dkv(qs, kc, vc, *rows, causal),
                       lambda: fa._dkv_plain(pq, pk, pv, *prows, causal)),
     }
+    # The float32 launches' split alone, on the same operands (a tree
+    # before ``plane_split`` times none).
+    splits = {name: (lambda name=name: fa.plane_split(
+        name, qs, kc, vc, None if name == "flash_fwd" else rows[0]))
+        for name in calls if hasattr(fa, "plane_split")}
     # The library: scaled_dot_product_attention for the forward, and one
     # backward call returning dq, dk and dv for the dq + dkv pair.
     q4, do4 = (t.view(B, H, T, D) for t in (q, do))
@@ -3083,8 +3084,8 @@ def kernel_times(fa, torch, B, H, T, D, plain_bh=None, tk=None,
             "library_ms": lib_fwd_ms if name == "flash_fwd" else lib_bwd_ms,
             "bound_rate": rate,
         }
-        if rate == "bf16x6":
-            out[name].update(split_share(torch, kern))
+        if rate == "bf16x6" and name in splits:
+            out[name].update(split_share(splits[name], ms))
         if dtype == torch.float32:
             out[name]["bound_ms_fp32"] = max(
                 flops / PEAK_FP32_FLOPS * 1e3, t_mem)

@@ -1177,6 +1177,28 @@ __global__ void __launch_bounds__(hop::kThreads, 1)
   }
 }
 
+// The float32 launch's planes (k's and v's too but at D 256, where their
+// float32 rows get maps of their own) split on the stream into the
+// scratch, and the maps over them in m.
+template <int D>
+int split_dkv_f32(Planes& m, const void* q, const void* k, const void* v,
+                  const void* dout, void* planes, size_t planes_n, int bh,
+                  int tq, int tk, cudaStream_t stream) {
+  using C = F32DkvFor<D>;
+  if constexpr (D == 256) {
+    const int rc = m.split(q, nullptr, nullptr, dout, planes, planes_n, D,
+                           bh, tq, tk, C::BQ, C::BK, stream);
+    if (rc != 0) return rc;
+    return make_map_f32(&m.k, k, D, tk, bh, C::BK) &&
+                   make_map_f32(&m.v, v, D, tk, bh, C::BK)
+               ? 0
+               : MVT_TMA_REFUSED;
+  } else {
+    return m.split(q, k, v, dout, planes, planes_n, D, bh, tq, tk, C::BQ,
+                   C::BK, stream);
+  }
+}
+
 template <int D>
 int launch_dkv_f32(const void* q, const void* k, const void* v,
                    const void* dout, const void* lse, const void* delta,
@@ -1184,20 +1206,9 @@ int launch_dkv_f32(const void* q, const void* k, const void* v,
                    int tq, int tk, int causal, cudaStream_t stream) {
   using C = F32DkvFor<D>;
   Planes m;
-  if constexpr (D == 256) {
-    // Only q and do are split; k and v load float32.
-    const int rc = m.split(q, nullptr, nullptr, dout, planes, planes_n, D,
-                           bh, tq, tk, C::BQ, C::BK, stream);
-    if (rc != 0) return rc;
-    if (!make_map_f32(&m.k, k, D, tk, bh, C::BK) ||
-        !make_map_f32(&m.v, v, D, tk, bh, C::BK)) {
-      return MVT_TMA_REFUSED;
-    }
-  } else {
-    const int rc = m.split(q, k, v, dout, planes, planes_n, D, bh, tq, tk,
-                           C::BQ, C::BK, stream);
-    if (rc != 0) return rc;
-  }
+  const int rc = split_dkv_f32<D>(m, q, k, v, dout, planes, planes_n, bh, tq,
+                                  tk, stream);
+  if (rc != 0) return rc;
   auto kernel = flash_dkv_hopper_f32<D>;
   static bool smem_set = false;
   cudaError_t err = allow_smem(kernel, C::bytes, &smem_set);
@@ -1261,4 +1272,22 @@ extern "C" int mvt_flash_dkv(const void* q, const void* k, const void* v,
                                            causal, s);
   }
   return MVT_UNSUPPORTED;
+}
+
+// The split of a float32 mvt_flash_dkv launch alone, on the same operands
+// and scratch, with no kernel after it: what the launch spends before its
+// kernel starts, timed apart.
+extern "C" int mvt_plane_split(const void* q, const void* k, const void* v,
+                               const void* dout, void* planes,
+                               size_t planes_n, int bh, int tq, int tk,
+                               int d, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  mvt::Planes m;
+  switch (d) {
+    case 32: return mvt::split_dkv_f32<32>(m, q, k, v, dout, planes, planes_n, bh, tq, tk, s);
+    case 64: return mvt::split_dkv_f32<64>(m, q, k, v, dout, planes, planes_n, bh, tq, tk, s);
+    case 128: return mvt::split_dkv_f32<128>(m, q, k, v, dout, planes, planes_n, bh, tq, tk, s);
+    case 256: return mvt::split_dkv_f32<256>(m, q, k, v, dout, planes, planes_n, bh, tq, tk, s);
+    default: return MVT_UNSUPPORTED;
+  }
 }

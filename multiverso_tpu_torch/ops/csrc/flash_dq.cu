@@ -829,6 +829,28 @@ __global__ void __launch_bounds__(hop::kThreads, 1)
   }
 }
 
+// The float32 launch's planes (q's and do's too but at kRowsF32, where
+// their float32 rows get maps of their own) split on the stream into the
+// scratch, and the maps over them in m.
+template <int D>
+int split_dq_f32(Planes& m, const void* q, const void* k, const void* v,
+                 const void* dout, void* planes, size_t planes_n, int bh,
+                 int tq, int tk, cudaStream_t stream) {
+  using C = F32Dq<D>;
+  if constexpr (C::kRowsF32) {
+    const int rc = m.split(nullptr, k, v, nullptr, planes, planes_n, D, bh,
+                           tq, tk, C::BQ, C::BK, stream);
+    if (rc != 0) return rc;
+    return make_map_f32(&m.q, q, D, tq, bh, C::BQ) &&
+                   make_map_f32(&m.dout, dout, D, tq, bh, C::BQ)
+               ? 0
+               : MVT_TMA_REFUSED;
+  } else {
+    return m.split(q, k, v, dout, planes, planes_n, D, bh, tq, tk, C::BQ,
+                   C::BK, stream);
+  }
+}
+
 template <int D>
 int launch_dq_f32(const void* q, const void* k, const void* v,
                   const void* dout, const void* lse, const void* delta,
@@ -836,20 +858,9 @@ int launch_dq_f32(const void* q, const void* k, const void* v,
                   int tk, int causal, float scale, cudaStream_t stream) {
   using C = F32Dq<D>;
   Planes m;
-  if constexpr (C::kRowsF32) {
-    // Only k and v are split; q and do load float32.
-    const int rc = m.split(nullptr, k, v, nullptr, planes, planes_n, D, bh,
-                           tq, tk, C::BQ, C::BK, stream);
-    if (rc != 0) return rc;
-    if (!make_map_f32(&m.q, q, D, tq, bh, C::BQ) ||
-        !make_map_f32(&m.dout, dout, D, tq, bh, C::BQ)) {
-      return MVT_TMA_REFUSED;
-    }
-  } else {
-    const int rc = m.split(q, k, v, dout, planes, planes_n, D, bh, tq, tk,
-                           C::BQ, C::BK, stream);
-    if (rc != 0) return rc;
-  }
+  const int rc = split_dq_f32<D>(m, q, k, v, dout, planes, planes_n, bh, tq,
+                                 tk, stream);
+  if (rc != 0) return rc;
   auto kernel = flash_dq_hopper_f32<D>;
   static bool smem_set = false;
   cudaError_t err = allow_smem(kernel, C::bytes, &smem_set);
@@ -914,4 +925,22 @@ extern "C" int mvt_flash_dq(const void* q, const void* k, const void* v,
                                           causal, scale, s);
   }
   return MVT_UNSUPPORTED;
+}
+
+// The split of a float32 mvt_flash_dq launch alone, on the same operands
+// and scratch, with no kernel after it: what the launch spends before its
+// kernel starts, timed apart.
+extern "C" int mvt_plane_split(const void* q, const void* k, const void* v,
+                               const void* dout, void* planes,
+                               size_t planes_n, int bh, int tq, int tk,
+                               int d, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  mvt::Planes m;
+  switch (d) {
+    case 32: return mvt::split_dq_f32<32>(m, q, k, v, dout, planes, planes_n, bh, tq, tk, s);
+    case 64: return mvt::split_dq_f32<64>(m, q, k, v, dout, planes, planes_n, bh, tq, tk, s);
+    case 128: return mvt::split_dq_f32<128>(m, q, k, v, dout, planes, planes_n, bh, tq, tk, s);
+    case 256: return mvt::split_dq_f32<256>(m, q, k, v, dout, planes, planes_n, bh, tq, tk, s);
+    default: return MVT_UNSUPPORTED;
+  }
 }

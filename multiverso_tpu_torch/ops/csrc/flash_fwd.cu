@@ -17,8 +17,8 @@
 // flops per byte moved, far below the ~295 the card needs to be limited
 // by memory, so the bound is the tensor-core rate; at head dim 32 a score
 // costs 4·32 flops and one exp, and the exp unit (16 a clock an SM, a
-// 256th of the bf16 tensor rate) is the tighter bound.  Three designs,
-// chosen at compile time by (dtype, D) in fwd_for_dim:
+// 256th of the bf16 tensor rate) is the tighter bound in bf16.  Two
+// designs, chosen at compile time by (dtype, D) in fwd_for_dim:
 //
 // * bf16 at D 32, 64, 128 and 256 (flash_fwd_hopper): the tensor cores
 //   are fed without shared-memory round trips.  One block per (bh,
@@ -32,142 +32,17 @@
 //   of o += p·v (v MN-major), o in registers for the whole loop.  The two
 //   warpgroups run independently, so one's softmax overlaps the other's
 //   products.  Tile sizes, swizzle and producer by D: HopFwd.
-// * float32 at D 64, 128 and 256 (flash_fwd_hopper_f32): the bf16
+// * float32 at D 32, 64, 128 and 256 (flash_fwd_hopper_f32): the bf16
 //   design's block with k and v as three bf16 planes each and every
 //   product as six wgmma products (hopper_f32.cuh), bound by six times the
-//   flops at the bf16 rate.  q is planes too at D 64 and 128; at D 256 it
+//   flops at the bf16 rate (0.2086 ms at [8, 16, 2048, 32], where the exp
+//   bound is 0.0695).  q is planes too at D 32, 64 and 128; at D 256 it
 //   stays float32 and each thread splits its fragment in registers.
 //   Tiles: F32Fwd.
-// * float32 at D 32 (flash_fwd_kernel): the first port's design.  Every
-//   tile staged in shared memory, products as plain FMAs (no TF32).
 #include "flash_common.cuh"
 #include "hopper_f32.cuh"
 
 namespace mvt {
-
-template <typename T, int D, int BQ, int BK>
-struct FwdSmem {
-  static constexpr int kLdT = Ld<T, D>::value;       // q, k, v tiles
-  static constexpr int kLdS = Ld<float, BK>::value;  // scores
-  static constexpr int kLdP = Ld<T, BK>::value;      // probabilities
-  static constexpr int kLdO = Ld<float, D>::value;   // accumulator
-  static constexpr size_t q = 0;
-  static constexpr size_t k = q + align128(sizeof(T) * BQ * kLdT);
-  static constexpr size_t v = k + align128(sizeof(T) * BK * kLdT);
-  static constexpr size_t s = v + align128(sizeof(T) * BK * kLdT);
-  static constexpr size_t p = s + align128(sizeof(float) * BQ * kLdS);
-  static constexpr size_t o = p + align128(sizeof(T) * BQ * kLdP);
-  static constexpr size_t l = o + align128(sizeof(float) * BQ * kLdO);
-  static constexpr size_t bytes = l + align128(sizeof(float) * BQ);
-  static_assert(bytes <= kMaxSmem, "forward tiles exceed shared memory");
-};
-
-template <typename T, int D, int BQ, int BK>
-__global__ void __launch_bounds__(kThreads)
-    flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ o,
-                     float* __restrict__ lse, int tq, int tk, int causal) {
-  using L = FwdSmem<T, D, BQ, BK>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  T* qs = reinterpret_cast<T*>(smem + L::q);
-  T* ks = reinterpret_cast<T*>(smem + L::k);
-  T* vs = reinterpret_cast<T*>(smem + L::v);
-  float* ss = reinterpret_cast<float*>(smem + L::s);
-  T* ps = reinterpret_cast<T*>(smem + L::p);
-  float* os = reinterpret_cast<float*>(smem + L::o);
-  float* ls = reinterpret_cast<float*>(smem + L::l);
-
-  // bh on grid x (no 65,535 cap), q tiles on y: the heaviest causal q
-  // tiles (the last ones) start first, over all heads.
-  const size_t bh = blockIdx.x;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
-  const T* qg = q + bh * tq * D;
-  const T* kg = k + bh * tk * D;
-  const T* vg = v + bh * tk * D;
-
-  load_rows<T, BQ, D, L::kLdT>(qs, qg, q0, tq);
-  zero_acc<BQ, D, L::kLdO>(os);
-
-  // Each row of the block belongs to TPR consecutive lanes of one warp;
-  // they keep the row's m and l in registers for the whole kernel.
-  constexpr int TPR = kThreads / BQ;
-  const int r = threadIdx.x / TPR;
-  const int sub = threadIdx.x % TPR;
-  float m = kNeg, l = 0.f;
-
-  const int nk = (tk + BK - 1) / BK;
-  const int kend = causal ? min(nk, (q0 + BQ - 1) / BK + 1) : nk;
-  for (int kb = 0; kb < kend; ++kb) {
-    const int k0 = kb * BK;
-    __syncthreads();  // the previous p.v product is done with k, v, p
-    load_rows<T, BK, D, L::kLdT>(ks, kg, k0, tk);
-    load_rows<T, BK, D, L::kLdT>(vs, vg, k0, tk);
-    __syncthreads();
-    mm_abt<T, BQ, BK, D, false>(ss, L::kLdS, qs, L::kLdT, ks, L::kLdT);
-    __syncthreads();
-
-    const bool need_mask = (causal && q0 < k0 + BK - 1) || k0 + BK > tk ||
-                           q0 + BQ > tq;
-    float* srow = ss + r * L::kLdS;
-    float mx = kNeg;
-    for (int j = sub; j < BK; j += TPR) {
-      float sv = srow[j];
-      if (need_mask && masked_out(q0 + r, k0 + j, tq, tk, causal)) {
-        sv = kNeg;
-        srow[j] = sv;
-      }
-      mx = fmaxf(mx, sv);
-    }
-    mx = group_max<TPR>(mx);
-    const float m_new = fmaxf(m, mx);
-    float sum = 0.f;
-    for (int j = sub; j < BK; j += TPR) {
-      const float pv = expf(srow[j] - m_new);
-      sum += pv;
-      ps[r * L::kLdP + j] = from_f<T>(pv);
-    }
-    sum = group_sum<TPR>(sum);
-    const float corr = expf(m - m_new);
-    l = l * corr + sum;
-    m = m_new;
-    for (int c = sub; c < D; c += TPR) os[r * L::kLdO + c] *= corr;
-    __syncthreads();
-    mm_ab<T, BQ, D, BK, true>(os, L::kLdO, ps, L::kLdP, vs, L::kLdT);
-  }
-  __syncthreads();
-
-  if (sub == 0) {
-    const float lc = fmaxf(l, 1e-30f);
-    ls[r] = lc;
-    if (q0 + r < tq) lse[bh * tq + q0 + r] = m + logf(lc);
-  }
-  __syncthreads();
-  T* og = o + bh * tq * D;
-  for (int i = threadIdx.x; i < BQ * D; i += kThreads) {
-    const int rr = i / D, c = i % D;
-    if (q0 + rr < tq) {
-      og[static_cast<size_t>(q0 + rr) * D + c] =
-          from_f<T>(os[rr * L::kLdO + c] / ls[rr]);
-    }
-  }
-}
-
-template <typename T, int D, int BQ, int BK>
-int launch_fwd(const void* q, const void* k, const void* v, void* o,
-               void* lse, int bh, int tq, int tk, int causal,
-               cudaStream_t stream) {
-  using L = FwdSmem<T, D, BQ, BK>;
-  auto kernel = flash_fwd_kernel<T, D, BQ, BK>;
-  static bool smem_set = false;
-  cudaError_t err = allow_smem(kernel, L::bytes, &smem_set);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid(bh, (tq + BQ - 1) / BQ);
-  kernel<<<grid, kThreads, L::bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o),
-      static_cast<float*>(lse), tq, tk, causal);
-  return static_cast<int>(cudaGetLastError());
-}
 
 // ------------------------------------------------ bf16 Hopper design
 // One block per (bh, 128-row q tile): two consumer warpgroups of 64 q rows
@@ -464,7 +339,20 @@ int launch_fwd_hopper(const void* q, const void* k, const void* v, void* o,
 // * D 128: q's planes too (96 KB, planes_ss), 32-key blocks of 48 KB (k
 //   and v) in two stages; s an m64n32 product, o 64 registers a thread.
 // * D 64: q's planes (48 KB), 64-key blocks of 48 KB in three stages.
-//   At both a producer warp loads q once and k and v stage by stage.
+// * D 32: a row of planes is 64 bytes (the 64-byte swizzle), so q's
+//   planes take 24 KB and a stage of 64 keys 24 KB: three stages, 96 KB.
+//   o is 16 registers a thread, so hi·hi of o += p·v sums in an
+//   accumulator of its own (kHiApart): the tensor cores drop the bits
+//   below a sum's last place, and o sums all of T in one warpgroup's
+//   registers, unflushed (o 7.0x the plain version's error against
+//   float64 at T 8,192 with one accumulator, 2.3x with two, at no
+//   measured cost; hi·hi apart in the score product too bought nothing
+//   and cost 2-3%).  One block an SM: two, as the bf16 D 32 forward runs,
+//   cap every thread at 96 registers beside a producer warp (five warps
+//   on one of the SM's four register files) or 128 without one, and
+//   spilled in every variant tried (PERF.md).
+//   At D 32, 64 and 128 a producer warp loads q once and k and v stage
+//   by stage.
 // * D 256 (kRowsF32): q's planes would take 192 KB, so q stays float32,
 //   a 64-row F32Tile a warpgroup (128 KB), and each thread splits its
 //   fragment in registers at every 16-column step (f32_rs_products, k
@@ -480,8 +368,9 @@ template <int D>
 struct F32Fwd {
   using B = hop::Box<D>;
   static constexpr bool kRowsF32 = D == 256;
-  static constexpr int BQ = 128, BK = D == 64 ? 64 : 32;
-  static constexpr int kStages = D == 64 ? 3 : D == 128 ? 2 : 1;
+  static constexpr bool kHiApart = D == 32;  // o's hi·hi apart
+  static constexpr int BQ = 128, BK = D <= 64 ? 64 : 32;
+  static constexpr int kStages = D <= 64 ? 3 : D == 128 ? 2 : 1;
   static constexpr int kProducers = kRowsF32 ? 0 : 32;  // a warp, or none
   static constexpr int kAllThreads = hop::kThreads + kProducers;
   using Tile = hop::F32Tile<D, 64>;  // kRowsF32: one warpgroup's q rows
@@ -498,7 +387,8 @@ struct F32Fwd {
   // full and empty a stage (kRowsF32: of k, then as many of v), q's.
   static constexpr int kBars = (kRowsF32 ? 4 : 2) * kStages + 1;
   static constexpr size_t bytes = bars + 8 * kBars + hop::kAtomBytes;
-  static_assert(D == 64 || D == 128 || D == 256, "float32 D 64, 128, 256");
+  static_assert(D == 32 || D == 64 || D == 128 || D == 256,
+                "float32 D 32, 64, 128, 256");
   static_assert(bytes <= kMaxSmem, "forward tiles exceed shared memory");
 };
 
@@ -617,9 +507,13 @@ __global__ void __launch_bounds__(F32Fwd<D>::kAllThreads, 1)
   const float* q_rows =
       reinterpret_cast<const float*>(smem + C::q + g * C::Tile::kBytes);
 
-  float acc[D / 2];  // o, unnormalised
+  // o, unnormalised (with kHiApart its hi·hi products in hacc).
+  float acc[D / 2], hacc[D / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < D / 2; ++i) {
+    acc[i] = 0.f;
+    hacc[i] = 0.f;
+  }
   float m0 = kNeg, m1 = kNeg, l0 = 0.f, l1 = 0.f;
   hop::mbar_wait(qbar, 0);
 
@@ -693,6 +587,12 @@ __global__ void __launch_bounds__(F32Fwd<D>::kAllThreads, 1)
       acc[4 * j + 1] *= corr0;
       acc[4 * j + 2] *= corr1;
       acc[4 * j + 3] *= corr1;
+      if constexpr (C::kHiApart) {
+        hacc[4 * j] *= corr0;
+        hacc[4 * j + 1] *= corr0;
+        hacc[4 * j + 2] *= corr1;
+        hacc[4 * j + 3] *= corr1;
+      }
     }
 
     // o += p·v: p's planes from registers, v's MN-major.
@@ -700,10 +600,15 @@ __global__ void __launch_bounds__(F32Fwd<D>::kAllThreads, 1)
     hop::acc_to_a3(sc, pa);
     if constexpr (C::kRowsF32) hop::mbar_wait(&vfull[s], (kb / S) & 1);
     hop::wgmma_fence();
-    hop::planes_rs<D>(acc, pa, v_addr, C::kKPlane, C::kBoxK);
+    if constexpr (C::kHiApart) {
+      hop::planes_rs<D>(acc, hacc, pa, v_addr, C::kKPlane, C::kBoxK);
+    } else {
+      hop::planes_rs<D>(acc, pa, v_addr, C::kKPlane, C::kBoxK);
+    }
     hop::wgmma_commit();
     hop::wgmma_wait<0>();
     hop::fence_regs(acc);
+    if constexpr (C::kHiApart) hop::fence_regs(hacc);
 
     // The stage is free once this warp's products that read it are done;
     // at kRowsF32 warp 0 then refills it S blocks ahead, k, then v.
@@ -717,6 +622,10 @@ __global__ void __launch_bounds__(F32Fwd<D>::kAllThreads, 1)
     }
   }
 
+  if constexpr (C::kHiApart) {
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] += hacc[i];
+  }
   l0 = group_sum<4>(l0);
   l1 = group_sum<4>(l1);
   const float lc0 = fmaxf(l0, 1e-30f), lc1 = fmaxf(l1, 1e-30f);
@@ -738,23 +647,34 @@ __global__ void __launch_bounds__(F32Fwd<D>::kAllThreads, 1)
   }
 }
 
+// The float32 launch's planes (q's too but at kRowsF32, where q's
+// float32 rows get a map of their own) split on the stream into the
+// scratch, and the maps over them in m.
+template <int D>
+int split_fwd_f32(Planes& m, const void* q, const void* k, const void* v,
+                  void* planes, size_t planes_n, int bh, int tq, int tk,
+                  cudaStream_t stream) {
+  using C = F32Fwd<D>;
+  if constexpr (C::kRowsF32) {
+    const int rc = m.split(nullptr, k, v, nullptr, planes, planes_n, D, bh,
+                           tq, tk, C::BQ, C::BK, stream);
+    if (rc != 0) return rc;
+    return make_map_f32(&m.q, q, D, tq, bh, 64) ? 0 : MVT_TMA_REFUSED;
+  } else {
+    return m.split(q, k, v, nullptr, planes, planes_n, D, bh, tq, tk, C::BQ,
+                   C::BK, stream);
+  }
+}
+
 template <int D>
 int launch_fwd_f32(const void* q, const void* k, const void* v, void* o,
                    void* lse, void* planes, size_t planes_n, int bh, int tq,
                    int tk, int causal, cudaStream_t stream) {
   using C = F32Fwd<D>;
   Planes m;
-  if constexpr (C::kRowsF32) {
-    // Only k and v are split; q loads float32, 64 rows a warpgroup.
-    const int rc = m.split(nullptr, k, v, nullptr, planes, planes_n, D, bh,
-                           tq, tk, C::BQ, C::BK, stream);
-    if (rc != 0) return rc;
-    if (!make_map_f32(&m.q, q, D, tq, bh, 64)) return MVT_TMA_REFUSED;
-  } else {
-    const int rc = m.split(q, k, v, nullptr, planes, planes_n, D, bh, tq, tk,
-                           C::BQ, C::BK, stream);
-    if (rc != 0) return rc;
-  }
+  const int rc =
+      split_fwd_f32<D>(m, q, k, v, planes, planes_n, bh, tq, tk, stream);
+  if (rc != 0) return rc;
   auto kernel = flash_fwd_hopper_f32<D>;
   static bool smem_set = false;
   cudaError_t err = allow_smem(kernel, C::bytes, &smem_set);
@@ -767,16 +687,14 @@ int launch_fwd_f32(const void* q, const void* k, const void* v, void* o,
 }
 
 // The design is fixed by (dtype, D) at compile time: bf16 runs the Hopper
-// design above at every D; float32 runs the plane design at D 64, 128 and
-// 256 (q float32 at 256) and the first port's kernel at D 32 (64 x 64
-// tiles).
+// design above at every D, float32 the plane design (q float32 at 256).
 template <typename T>
 int fwd_for_dim(int d, const void* q, const void* k, const void* v,
                 void* o, void* lse, void* planes, size_t planes_n, int bh,
                 int tq, int tk, int causal, cudaStream_t s) {
   if constexpr (std::is_same<T, float>::value) {
     switch (d) {
-      case 32: return launch_fwd<T, 32, 64, 64>(q, k, v, o, lse, bh, tq, tk, causal, s);
+      case 32: return launch_fwd_f32<32>(q, k, v, o, lse, planes, planes_n, bh, tq, tk, causal, s);
       case 64: return launch_fwd_f32<64>(q, k, v, o, lse, planes, planes_n, bh, tq, tk, causal, s);
       case 128: return launch_fwd_f32<128>(q, k, v, o, lse, planes, planes_n, bh, tq, tk, causal, s);
       case 256: return launch_fwd_f32<256>(q, k, v, o, lse, planes, planes_n, bh, tq, tk, causal, s);
@@ -797,9 +715,9 @@ int fwd_for_dim(int d, const void* q, const void* k, const void* v,
 
 // q (pre-scaled), k, v: [bh, T, d]; o: [bh, tq, d]; lse: [bh, tq] float.
 // planes: the float32 plane design's scratch, 3·bh·(tq + 2·tk)·d bf16 at
-// D 64 and 128, 6·bh·tk·d at D 256 (hopper_f32.cuh); null for every other
-// launch.  planes_n: its size in
-// bf16 elements (a smaller one than the launch needs: MVT_SCRATCH_SHORT).
+// D 32, 64 and 128, 6·bh·tk·d at D 256 (hopper_f32.cuh); null for a bf16
+// launch.  planes_n: its size in bf16 elements (a smaller one than the
+// launch needs: MVT_SCRATCH_SHORT).
 extern "C" int mvt_flash_fwd(const void* q, const void* k, const void* v,
                              void* o, void* lse, void* planes,
                              size_t planes_n, int bh, int tq, int tk, int d,
@@ -814,4 +732,22 @@ extern "C" int mvt_flash_fwd(const void* q, const void* k, const void* v,
                                            planes_n, bh, tq, tk, causal, s);
   }
   return MVT_UNSUPPORTED;
+}
+
+// The split of a float32 mvt_flash_fwd launch alone, on the same operands
+// and scratch (dout unused), with no kernel after it: what the launch
+// spends before its kernel starts, timed apart.
+extern "C" int mvt_plane_split(const void* q, const void* k, const void* v,
+                               const void* dout, void* planes,
+                               size_t planes_n, int bh, int tq, int tk,
+                               int d, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  mvt::Planes m;
+  switch (d) {
+    case 32: return mvt::split_fwd_f32<32>(m, q, k, v, planes, planes_n, bh, tq, tk, s);
+    case 64: return mvt::split_fwd_f32<64>(m, q, k, v, planes, planes_n, bh, tq, tk, s);
+    case 128: return mvt::split_fwd_f32<128>(m, q, k, v, planes, planes_n, bh, tq, tk, s);
+    case 256: return mvt::split_fwd_f32<256>(m, q, k, v, planes, planes_n, bh, tq, tk, s);
+    default: return MVT_UNSUPPORTED;
+  }
 }

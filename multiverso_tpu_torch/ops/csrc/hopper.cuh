@@ -1,7 +1,6 @@
 // Hopper (sm_90a) building blocks of the redesigned flash-attention
-// kernels (all three in bf16 at head dims 32, 64, 128 and 256, and in
-// float32 through hopper_f32.cuh: dq and dk/dv at every head dim, the
-// forward at 64, 128 and 256):
+// kernels (all three at head dims 32, 64, 128 and 256, in bf16 and, through
+// hopper_f32.cuh, in float32):
 // mbarriers, TMA tile loads, and wgmma descriptors and instructions.  Raw
 // PTX through inline asm, so a library builds in seconds with no CUTLASS
 // headers.

@@ -1,6 +1,6 @@
-// The float32 flash kernels on the bf16 tensor cores (flash_fwd.cu at D
-// 64, 128 and 256; flash_dq.cu and flash_dkv.cu at D 32, 64, 128 and
-// 256): float32 as three bf16 planes, six wgmma products a product.
+// The float32 flash kernels on the bf16 tensor cores (flash_fwd.cu,
+// flash_dq.cu and flash_dkv.cu at D 32, 64, 128 and 256): float32 as
+// three bf16 planes, six wgmma products a product.
 //
 // A float32 x splits into hi = bf16(x), mid = bf16(x - hi) and
 // lo = bf16(x - hi - mid), each rounded to nearest; both differences are
@@ -21,8 +21,9 @@
 // 3-D TMA map (D, T, 3·bh) reads all three.  It replaces no TPU kernel:
 // the Pallas kernels take float32 operands whole.  It is bound by bytes
 // (4 read and 6 written an element).  At D 32, 64 and 128 it splits every
-// operand it is given (q, k, v, and do for dq and dk/dv; the forward runs
-// the first port's FMA kernel at D 32).  At D 256 planes of the
+// operand it is given (q, k, v, and do for dq and dk/dv).  Each library's
+// mvt_plane_split runs a launch's split alone, so that it can be timed
+// apart from the kernel.  At D 256 planes of the
 // stationary rows (q for the forward, q and do for dq, k and v for dk/dv)
 // would take 192 KB of shared memory, so they stay float32 (F32Tile: 128
 // KB for two 64-row tiles) and each thread splits its A fragment in

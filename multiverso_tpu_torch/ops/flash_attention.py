@@ -16,19 +16,18 @@ wrapper        CUDA source                     replaces (TPU kernel)
 Which design a kernel runs is fixed at compile time by (dtype, D): in
 bf16 all three run the Hopper designs (TMA loads, wgmma with register
 accumulators, shared helpers in ``csrc/hopper.cuh``) at every head dim.
-In float32, dq and dk/dv at every head dim, and the forward at D 64, 128
-and 256, run the plane design (``csrc/hopper_f32.cuh``): one elementwise
-kernel, which replaces no TPU kernel, splits the operands into three
-bf16 planes (hi, mid, lo) in scratch the wrapper allocates, and every
-product runs as six bf16 wgmma products into float32 accumulators (the
-three left out are of order 2⁻²⁴ of the product), so the bound is six
-times the flops at the bf16 rate.  At D 32, 64 and 128 it splits q, k
-and v (and, for dq and dk/dv, do); at D 256 only the operands a kernel
-streams (k and v for the forward and dq, q and do for dk/dv), and the
-stationary ones stay float32 in shared memory, split a fragment at a
-time in registers.  The float32 forward at D 32 runs the first port's
-kernel (``csrc/flash_common.cuh``; products as FMAs).
-Every design puts bh on grid x, so any bh launches.
+In float32 all three run the plane design (``csrc/hopper_f32.cuh``) at
+every head dim: one elementwise kernel, which replaces no TPU kernel,
+splits the operands into three bf16 planes (hi, mid, lo) in scratch the
+wrapper allocates, and every product runs as six bf16 wgmma products
+into float32 accumulators (the three left out are of order 2⁻²⁴ of the
+product), so the bound is six times the flops at the bf16 rate.  At D
+32, 64 and 128 it splits q, k and v (and, for dq and dk/dv, do); at D
+256 only the operands a kernel streams (k and v for the forward and dq,
+q and do for dk/dv), and the stationary ones stay float32 in shared
+memory, split a fragment at a time in registers.  :func:`plane_split`
+runs a launch's split alone.  Every design puts bh on grid x, so any bh
+launches.
 
 Beside each wrapper sits its plain version (``flash_fwd_ref``,
 ``flash_dq_ref``, ``flash_dkv_ref``): the same function written with
@@ -70,7 +69,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 __all__ = ["flash_attention", "flash_fwd", "flash_dq", "flash_dkv",
-           "flash_fwd_ref", "flash_dq_ref", "flash_dkv_ref",
+           "flash_fwd_ref", "flash_dq_ref", "flash_dkv_ref", "plane_split",
            "launch_counts", "launch_shapes", "reset_launch_counts",
            "HEAD_DIMS"]
 
@@ -90,14 +89,18 @@ _SIGNATURES = {
                  [_P] * 8 + [_N] + [_I] * 6 + [ctypes.c_float, _P]),
     "flash_dkv": ("mvt_flash_dkv", [_P] * 9 + [_N] + [_I] * 6 + [_P]),
 }
+# Each library's split alone (mvt_plane_split): q, k, v, do, scratch, its
+# size, bh, tq, tk, d, stream.
+_SPLIT_ARGS = [_P] * 5 + [_N] + [_I] * 4 + [_P]
 # Head dims whose float32 kernels run the plane design, which splits
 # operands into three bf16 planes each in scratch the wrapper passes
 # (fwd_for_dim, dq_for_dim and dkv_for_dim in csrc/): every operand at D
-# 32 (dq and dk/dv), 64 and 128; at D 256 the streamed ones alone.
-_F32_PLANE_DIMS = {"flash_fwd": (64, 128, 256),
+# 32, 64 and 128; at D 256 the streamed ones alone.
+_F32_PLANE_DIMS = {"flash_fwd": (32, 64, 128, 256),
                    "flash_dq": (32, 64, 128, 256),
                    "flash_dkv": (32, 64, 128, 256)}
-_FNS: Dict[str, tuple] = {}  # name -> (C entry point, error-string fn)
+# name -> (C entry point, the split alone, error-string fn)
+_FNS: Dict[str, tuple] = {}
 _FNS_LOCK = threading.Lock()
 
 
@@ -129,7 +132,10 @@ def _kernel(name: str) -> tuple:
             fn = getattr(lib, sym)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-            entry = _FNS[name] = (fn, lib.mvt_error_string)
+            split = lib.mvt_plane_split
+            split.argtypes = _SPLIT_ARGS
+            split.restype = ctypes.c_int
+            entry = _FNS[name] = (fn, split, lib.mvt_error_string)
         return entry
 
 
@@ -137,17 +143,23 @@ def _launch(name: str, device: torch.device, *args, piece) -> None:
     """Launch on the current stream; tensors pass as their data pointers
     (the wrappers checked shape, dtype, device and contiguity).  ``piece``
     is the launch's ``(Tq, Tk, causal)``."""
-    fn, error_string = _kernel(name)
-    ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = fn(*ptrs, stream)
-    if rc != 0:
-        raise RuntimeError(f"{name} kernel launch failed ({rc}): "
-                           f"{error_string(rc).decode()}")
+    _call(name, device, *args)
     _LAUNCHES[name] += 1
     key = (name, *piece)
     _SHAPES[key] = _SHAPES.get(key, 0) + 1
+
+
+def _call(name: str, device: torch.device, *args, split=False) -> None:
+    """Call library ``name``'s launch (or, with ``split``, its split
+    alone) on the current stream; raises on a non-zero return."""
+    launch, split_alone, error_string = _kernel(name)
+    ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = (split_alone if split else launch)(*ptrs, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed ({rc}): "
+                           f"{error_string(rc).decode()}")
 
 
 def _check(q, k, v, do=None, lse=None, delta=None) -> None:
@@ -209,8 +221,7 @@ def _planes(qs, k, kernel):
     """Scratch for kernel ``kernel``'s bf16 planes in the float32 plane
     design (hi, mid and lo of each operand it splits: q, k, v and, for
     dq and dk/dv, do at D 32, 64 and 128; at D 256 k and v for the
-    forward and dq, q and do for dk/dv), or None where the launch runs
-    another design (bf16, or the float32 forward at D 32)."""
+    forward and dq, q and do for dk/dv), or None for a bf16 launch."""
     d = qs.shape[2]
     if qs.dtype != torch.float32 or d not in _F32_PLANE_DIMS[kernel]:
         return None
@@ -229,6 +240,49 @@ def _scratch(qs, k, kernel):
     them (the kernel refuses a scratch smaller than its planes)."""
     p = _planes(qs, k, kernel)
     return p, 0 if p is None else p.numel()
+
+
+def plane_split(kernel, qs, k, v, do=None) -> torch.Tensor:
+    """A float32 launch's split alone: the scratch (``_planes``) that
+    kernel ``kernel``'s launch on these prepared operands (``do`` for dq
+    and dk/dv) fills with their bf16 planes, filled the same way, with no
+    kernel after it, so a caller can time the split apart from the
+    launch (on operands zero-padded to the launch's head dim, as the
+    launch pads them).  On CPU tensors its plain version,
+    ``_split_plain``; on the card the library's ``mvt_plane_split``."""
+    if qs.dtype != torch.float32:
+        raise ValueError(f"the plane design splits float32 operands, not "
+                         f"{qs.dtype}")
+    kd = _kernel_dim(qs.shape[2])
+    if kd != qs.shape[2]:
+        return plane_split(kernel, *_pad(kd, qs, k, v),
+                           None if do is None else _pad(kd, do)[0])
+    if not qs.is_cuda:
+        return _split_plain(kernel, qs, k, v, do)
+    planes, n = _scratch(qs, k, kernel)
+    _call(kernel, qs.device, qs, k, v, do, planes, n, qs.shape[0],
+          qs.shape[1], k.shape[1], qs.shape[2], split=True)
+    return planes
+
+
+def _split3(x):
+    """hi, mid and lo of float32 ``x`` as bf16, each rounded to nearest:
+    flash_split3's arithmetic (both differences are exact in float32)."""
+    hi = x.to(torch.bfloat16)
+    r = x - hi.float()
+    mid = r.to(torch.bfloat16)
+    return hi, mid, (r - mid.float()).to(torch.bfloat16)
+
+
+def _split_plain(kernel, qs, k, v, do):
+    """The scratch as ``Planes::split`` fills it: the planes of the
+    operands it splits in the order q, do, k, v, each as [3, bh, T, D]
+    (plane p of head b at head p·bh + b)."""
+    if qs.shape[2] == 256:
+        ops = (qs, do) if kernel == "flash_dkv" else (k, v)
+    else:
+        ops = (qs, k, v) if kernel == "flash_fwd" else (qs, do, k, v)
+    return torch.cat([torch.stack(_split3(x)).reshape(-1) for x in ops])
 
 
 def _rows(do, lse, delta, dtype):

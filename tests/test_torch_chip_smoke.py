@@ -69,7 +69,7 @@ chip_smoke = importlib.util.module_from_spec(_spec)
 _spec.loader.exec_module(chip_smoke)
 
 FWD = "_ZN3mvt16flash_fwd_hopperILi128EEEv14CUtensorMap_stS1_S1_P13__nv_bfloat16Pfiii"
-OLD = "_ZN3mvt16flash_fwd_kernelIfLi32ELi64ELi64EEEvPKT_S3_S3_PS1_Pfiii"
+SPLIT = "_ZN3mvt12flash_split3EPK6float4P5uint2m"
 
 PTXAS_LOG = f"""\
 ptxas info    : 0 bytes gmem
@@ -77,8 +77,8 @@ ptxas info    : Compiling entry function '{FWD}' for 'sm_90a'
 ptxas info    : Function properties for {FWD}
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 ptxas info    : Used 182 registers, used 1 barriers, 400 bytes cmem[0]
-ptxas info    : Compiling entry function '{OLD}' for 'sm_90a'
-ptxas info    : Function properties for {OLD}
+ptxas info    : Compiling entry function '{SPLIT}' for 'sm_90a'
+ptxas info    : Function properties for {SPLIT}
     8 bytes stack frame, 36 bytes spill stores, 40 bytes spill loads
 ptxas info    : Used 40 registers, used 1 barriers, 8 bytes cumulative stack size
 """
@@ -86,7 +86,8 @@ ptxas info    : Used 40 registers, used 1 barriers, 8 bytes cumulative stack siz
 
 def _sass(hopper_ops, hopper=FWD):
     """A listing with the Hopper kernel(s) ``hopper`` (a name or a list),
-    each holding ``hopper_ops``, and the first port's OLD kernel."""
+    each holding ``hopper_ops``, and a kernel of another design (the
+    split, SPLIT) with local-memory traffic."""
     lines = ["\tcode for sm_90a"]
     for name in [hopper] if isinstance(hopper, str) else hopper:
         lines += [f"\t\tFunction : {name}",
@@ -94,7 +95,7 @@ def _sass(hopper_ops, hopper=FWD):
                   "        /*0000*/                   LDC R1, c[0x0][0x28] ;"]
         for i, op in enumerate(hopper_ops):
             lines.append(f"        /*{0x10 * (i + 1):04x}*/              @!UP0 {op} ;")
-    lines += [f"\t\tFunction : {OLD}",
+    lines += [f"\t\tFunction : {SPLIT}",
               "        /*0000*/                   LDC R1, c[0x0][0x28] ;",
               "        /*0010*/               @P0 LDL.64 R2, [R1] ;",
               "        /*0020*/                   STL [R1], R3 ;",
@@ -105,7 +106,7 @@ def _sass(hopper_ops, hopper=FWD):
 def test_ptxas_report_reads_registers_and_spills():
     got = chip_smoke.ptxas_report(PTXAS_LOG)
     assert got == {FWD: {"spill_bytes": 0, "registers": 182},
-                   OLD: {"spill_bytes": 76, "registers": 40}}
+                   SPLIT: {"spill_bytes": 76, "registers": 40}}
 
 
 def test_sass_counts_per_kernel_and_predicated():
@@ -114,7 +115,7 @@ def test_sass_counts_per_kernel_and_predicated():
            "UTMALDG.3D [UR8], [UR4]"]
     got = chip_smoke.sass_counts(_sass(ops))
     assert got[FWD] == {"HGMMA": 2, "UTMALDG": 1, "LDL": 0, "STL": 0}
-    assert got[OLD] == {"HGMMA": 0, "UTMALDG": 0, "LDL": 1, "STL": 2}
+    assert got[SPLIT] == {"HGMMA": 0, "UTMALDG": 0, "LDL": 1, "STL": 2}
 
 
 def _fake_build(tmp_path, listings, spills=None):
@@ -133,7 +134,7 @@ def _fake_build(tmp_path, listings, spills=None):
             if hop in listings[name]:
                 spill = 48 if hop == spills else 0
                 log += PTXAS_LOG.split(f"ptxas info    : Compiling entry "
-                                       f"function '{OLD}'")[0].replace(
+                                       f"function '{SPLIT}'")[0].replace(
                     "ptxas info    : 0 bytes gmem\n", "").replace(
                     FWD, hop).replace("0 bytes spill stores",
                                       f"{spill} bytes spill stores")
@@ -241,13 +242,11 @@ def test_build_phase_fails_without_the_float32_plane_design(tmp_path, lib,
         chip_smoke.phase_build(fake, paths, 1.0)
 
 
-@pytest.mark.parametrize("lib", ["flash_dkv", "flash_dq"])
+@pytest.mark.parametrize("lib", ["flash_dkv", "flash_dq", "flash_fwd"])
 def test_build_phase_fails_without_the_d32_float32_plane_design(tmp_path,
                                                                 lib):
-    """dq and dk/dv must hold their float32 plane kernel at D 32 too (the
-    forward runs the first port's FMA kernel there): a library that
-    lacks it fails."""
-    assert 32 not in chip_smoke.HOPPER_F32_DIMS["flash_fwd"]
+    """The forward, dq and dk/dv must hold their float32 plane kernel at D
+    32 too: a library that lacks it fails."""
     fake, paths = _fake_build(tmp_path, _listings(lib, drop_f32=32))
     with pytest.raises(AssertionError, match=rf"{lib}: no Hopper_f32 "
                                              rf"kernel at D \[32\]"):
@@ -1043,18 +1042,38 @@ def test_headdims_phase_shapes():
     ("flash_dkv", torch.float32, 200, "bf16x6"),
     ("flash_dq", torch.bfloat16, 128, "bf16"),
     ("flash_fwd", torch.float32, 96, "bf16x6"),
-    ("flash_fwd", torch.float32, 32, "fp32"),
+    ("flash_fwd", torch.float32, 32, "bf16x6"),
     ("flash_fwd", torch.float32, 256, "bf16x6"),
     ("flash_dq", torch.float32, 32, "bf16x6"),
     ("flash_dkv", torch.float32, 16, "bf16x6")])
 def test_bound_rate_follows_the_design(name, dtype, d, rate):
-    """Every float32 kernel that runs the plane design (dq and dk/dv at
-    every padded D, the forward at D 64, 128 and 256) is bound at six
-    bf16 products a product; the forward at D 32 at the FP32 rate."""
+    """Every float32 kernel runs the plane design at every padded D, so
+    each is bound at six bf16 products a product; bf16 at the bf16
+    rate."""
     from multiverso_tpu_torch.ops import flash_attention as fa
 
     assert name in chip_smoke.KERNELS
     assert chip_smoke.bound_rate(fa, name, dtype, d) == rate
+
+
+def test_bound_rate_reads_an_older_trees_table():
+    """``--kernel-times --root`` of a tree whose float32 forward at D 32
+    ran the first port's FMA kernel (its ``_F32_PLANE_DIMS`` lacks 32)
+    bounds that launch at the card's FP32 rate, and the rest as before."""
+    from multiverso_tpu_torch.ops import flash_attention as fa
+
+    old = types.SimpleNamespace(
+        torch=torch, _kernel_dim=fa._kernel_dim,
+        _F32_PLANE_DIMS={"flash_fwd": (64, 128, 256),
+                         "flash_dq": (32, 64, 128, 256),
+                         "flash_dkv": (32, 64, 128, 256)})
+    assert chip_smoke.bound_rate(old, "flash_fwd", torch.float32, 32) \
+        == "fp32"
+    assert chip_smoke.bound_rate(old, "flash_fwd", torch.float32, 16) \
+        == "fp32"
+    assert chip_smoke.bound_rate(old, "flash_dq", torch.float32, 32) \
+        == "bf16x6"
+    assert chip_smoke.RATES["fp32"] == chip_smoke.PEAK_FP32_FLOPS
 
 
 def test_six_product_bound_at_the_trainer_shape():
@@ -1067,22 +1086,28 @@ def test_six_product_bound_at_the_trainer_shape():
             ms, rel=1e-3)
 
 
-def test_split_share_reads_the_split_launches():
-    def fake(torch_, fn, calls, top):
-        assert calls == 3
-        return {"device_busy_ms": 6.0, "top_kernels": [
-            {"ms": 4.5, "calls": 3, "name": "void mvt::flash_dq_hopper_f32"
-                                            "<128>(CUtensorMap_st, ...)"},
-            {"ms": 1.5, "calls": 12, "name": "mvt::flash_split3(float4 "
-                                             "const*, uint2*, unsigned "
-                                             "long)"}]}
-    got = chip_smoke.split_share(torch, None, profile=fake)
-    assert got == {"split_ms": 0.5, "split_share": 0.25, "profiled_ms": 2.0}
+def test_split_share_times_the_split_beside_the_call():
+    """The split's ms is the timer's reading of the split alone (CUDA
+    events on the card), and its share is that over the call's ms."""
+    timed = []
 
-    def lost(torch_, fn, calls, top):
-        return {"device_busy_ms": 0.0, "top_kernels": []}
-    assert chip_smoke.split_share(torch, None, profile=lost) == {
-        "split_ms": None, "split_share": None, "profiled_ms": None}
+    def timer(fn):
+        timed.append(fn)
+        return 0.5
+    split = object()
+    got = chip_smoke.split_share(split, 2.0, timer=timer)
+    assert got == {"split_ms": 0.5, "split_share": 0.25}
+    assert timed == [split]
+
+
+def test_split_share_times_with_cuda_events_by_default(monkeypatch):
+    """Without a timer the split is timed as the call is, by ``cuda_ms``
+    (CUDA events), not by a profiler, which lost kernels on the card's
+    host."""
+    monkeypatch.setattr(chip_smoke, "cuda_ms", lambda fn: 0.09)
+    got = chip_smoke.split_share(lambda: None, 0.45)
+    assert got["split_ms"] == 0.09
+    assert got["split_share"] == pytest.approx(0.2)
 
 
 def test_f64_errors_hold_the_kernel_within_the_ratio():

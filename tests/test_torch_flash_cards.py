@@ -19,7 +19,9 @@ bfloat16 2e-2, as ``test_torch_flash_attention.py`` states them), and
 each kernel must have launched once.  Past 256 the wrapper raises.
 Causal dk and dv at Tq < Tk are 0 on the k rows no query reaches, as the
 plain version gives, and a float32 launch handed less plane scratch than
-it splits into raises instead of writing past it.
+it splits into raises instead of writing past it.  The split alone
+(``fa.plane_split``, which ``chip_smoke.py`` times) fills the scratch as
+its plain version does, bit for bit.
 """
 
 import numpy as np
@@ -106,3 +108,20 @@ def test_short_plane_scratch_raises(name, d, monkeypatch):
                                               True)}[name]
     with pytest.raises(RuntimeError, match="less scratch"):
         call()
+
+
+@pytest.mark.parametrize("name,d", [
+    (name, d) for name in ("flash_fwd", "flash_dq", "flash_dkv")
+    for d in (32, 64, 128, 256)])
+def test_plane_split_matches_its_plain_version(name, d):
+    rng = np.random.RandomState(100 + d)
+    qs, do = (torch.tensor(rng.randn(3, 130, d), dtype=torch.float32)
+              for _ in range(2))
+    k, v = (torch.tensor(rng.randn(3, 66, d), dtype=torch.float32)
+            for _ in range(2))
+    do = None if name == "flash_fwd" else do
+    want = fa.plane_split(name, qs, k, v, do)
+    got = fa.plane_split(name, qs.cuda(), k.cuda(), v.cuda(),
+                         None if do is None else do.cuda())
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)

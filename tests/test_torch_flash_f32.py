@@ -1,6 +1,6 @@
-"""The float32 plane design of the port's flash kernels (forward at head
-dims 64, 128 and 256, dq and dk/dv at 32, 64, 128 and 256,
-``csrc/hopper_f32.cuh``), modelled on the CPU.
+"""The float32 plane design of the port's flash kernels (all three at
+head dims 32, 64, 128 and 256, ``csrc/hopper_f32.cuh``), modelled on the
+CPU.
 
 The kernels split q, k, v and do (and, in registers, p, ds, pᵀ and dsᵀ)
 into three bf16 planes, hi, mid and lo, and form every product as six
@@ -15,15 +15,17 @@ rows shared by both warpgroups, which take every other streamed block and
 meet once; at D 32: 128 stationary rows, 64 a warpgroup, both taking
 every streamed block; dk/dv at D 256: 64 k rows, both warpgroups on every
 32-row q block, one owning dv and the other dk) and the sums a kernel
-keeps apart (at D 32 hi·hi of every product in an accumulator of its
-own, and dk and dv flushed into float32 sums every few blocks), held
-against the plain versions at
-the schedule tests' tolerances (atol 2e-5, rtol 1e-4), against the JAX
-package's Pallas kernels in interpret mode (float32: atol 2e-5 for the
+keeps apart (at D 32 hi·hi of every product of dq and dk/dv, and of
+the forward's o += p·v, in an accumulator of its own, and dk and dv
+flushed into float32 sums every few blocks), held against the plain
+versions at the schedule tests' tolerances (atol 2e-5, rtol 1e-4), against
+the JAX package's Pallas kernels in interpret mode (float32: atol 2e-5 for the
 forward, 2e-4 for gradients, as ``tests/test_flash_attention.py`` states
 them), and against float64, where the model's error may be at most twice
-the plain float32 version's.  The CUDA kernels themselves run only on the
-card (``chip_smoke.py``'s parity phase holds them).
+the plain float32 version's; and the wrapper's split alone
+(``plane_split``), which fills a launch's scratch as the launch does.
+The CUDA kernels themselves run only on the card (``chip_smoke.py``'s
+parity phase holds them).
 """
 
 import jax
@@ -49,7 +51,9 @@ _TILES = {32: ((128, 64), (128, 64)), 64: ((64, 64), (64, 64)),
 # F32Dq and F32Dkv.
 _BY_ROWS = {32: ((True, 0), (True, 8))}
 # The forward's (q rows, k block) by head dim — F32Fwd.
-_FWD_TILES = {64: (128, 64), 128: (128, 32), 256: (128, 32)}
+_FWD_TILES = {32: (128, 64), 64: (128, 64), 128: (128, 32), 256: (128, 32)}
+# Head dims whose forward sums o += p·v's hi·hi apart (kHiApart).
+_FWD_APART = (32,)
 _RAGGED = [(130, 130, True), (130, 130, False), (200, 200, True),
            (200, 200, False), (256, 256, True), (40, 136, False)]
 
@@ -135,13 +139,15 @@ def _pad_row_vec(x, n):
     return torch.nn.functional.pad(x, (0, n - x.shape[1]))
 
 
-def fwd_f32_schedule(qs, k, v, causal, BQ=128, BK=32, mm=mm6):
+def fwd_f32_schedule(qs, k, v, causal, BQ=128, BK=32, mm=mm6,
+                     apart=False):
     """o and lse as flash_fwd_hopper_f32 schedules them: a block per
     128-row q tile; warpgroup g owns 64 of its rows and walks the k blocks
     up to the tile's causal end with an online softmax (running max m and
     sum l, o rescaled by exp(m_old - m_new)), masking only the blocks
     that straddle its diagonal or Tk; p is split into planes like any
-    operand."""
+    operand.  With ``apart`` (D 32) o's hi·hi products sum in a second
+    accumulator, rescaled with it and added once at the end."""
     bh, tq, d = qs.shape
     tk = k.shape[1]
     nqt, nk = -(-tq // BQ), -(-tk // BK)
@@ -156,6 +162,7 @@ def fwd_f32_schedule(qs, k, v, causal, BQ=128, BK=32, mm=mm6):
             rows = torch.arange(qw, qw + 64)
             m = torch.full((bh, 64, 1), _NEG)
             l, acc = torch.zeros(bh, 64, 1), torch.zeros(bh, 64, d)
+            hacc = torch.zeros(bh, 64, d)
             for kb in range(kend):
                 k0 = kb * BK
                 # Rows past tq are TMA zeros, masked by nothing.
@@ -169,13 +176,26 @@ def fwd_f32_schedule(qs, k, v, causal, BQ=128, BK=32, mm=mm6):
                 corr = torch.exp(m - mx)
                 p = torch.exp(s - mx)
                 l = l * corr + p.sum(-1, keepdim=True)
-                acc = acc * corr + mm(p, vp[:, k0:k0 + BK])
+                if apart:
+                    lo, hi = mm6_parts(p, vp[:, k0:k0 + BK])
+                    acc = acc * corr + lo
+                    hacc = hacc * corr + hi
+                else:
+                    acc = acc * corr + mm(p, vp[:, k0:k0 + BK])
                 m = mx
+            acc = acc + hacc
             lc = l.clamp_min(1e-30)
             n = max(0, min(64, tq - qw))
             o[:, qw:qw + n] = (acc / lc)[:, :n]
             lse[:, qw:qw + n] = (m + torch.log(lc))[:, :n, 0]
     return o, lse
+
+
+def fwd_model(qs, k, v, causal, d, mm=mm6):
+    """o and lse as the float32 forward at head dim d schedules them (with
+    plain products nothing is apart)."""
+    return fwd_f32_schedule(qs, k, v, causal, *_FWD_TILES[d], mm=mm,
+                            apart=d in _FWD_APART and mm is mm6)
 
 
 def dq_f32_schedule(qs, k, v, do, lse, delta, scale, causal, BQ=64, BK=32,
@@ -534,16 +554,15 @@ def test_plane_schedule_matches_plain(kernel, d, tq, tk, causal):
                                    rtol=1e-4)
 
 
-@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("d", [32, 64, 128, 256])
 @pytest.mark.parametrize("tq,tk,causal", _RAGGED)
 def test_fwd_plane_schedule_matches_plain(d, tq, tk, causal):
     """The forward's block schedule at its tiles for head dim d (128-row q
-    tiles over 64-key blocks at D 64, 32-key at D 128 and 256), s and p·v
-    as six plane products, against the plain forward, float32, at ragged
-    T: o and lse."""
+    tiles over 64-key blocks at D 32 and 64, 32-key at D 128 and 256), s
+    and p·v as six plane products (at D 32 o's hi·hi apart), against the
+    plain forward, float32, at ragged T: o and lse."""
     q, k, v, *_, scale = _case(tq, tk, causal, d, seed=tq + tk + causal + d)
-    got = fwd_f32_schedule(fa._prescale(q, scale), k, v, causal,
-                           *_FWD_TILES[d])
+    got = fwd_model(fa._prescale(q, scale), k, v, causal, d)
     want = fa.flash_fwd_ref(q, k, v, scale, causal)
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), w.numpy(), atol=2e-5,
@@ -569,8 +588,7 @@ def test_plane_schedule_matches_plain_with_plain_products(d):
         np.testing.assert_allclose(g.numpy(), w.numpy(), atol=2e-5,
                                    rtol=1e-4)
     if d in _FWD_TILES:
-        got = fwd_f32_schedule(qs, k, v, True, *_FWD_TILES[d],
-                               mm=torch.matmul)
+        got = fwd_model(qs, k, v, True, d, mm=torch.matmul)
         for g, w in zip(got, fa.flash_fwd_ref(q, k, v, scale, True)):
             np.testing.assert_allclose(g.numpy(), w.numpy(), atol=2e-5,
                                        rtol=1e-4)
@@ -624,7 +642,8 @@ def test_plane_schedule_matches_pallas(kernel, d, T, causal):
 
 
 @pytest.mark.parametrize("d,T,causal", [(64, 200, True), (128, 96, False),
-                                        (256, 80, True)])
+                                        (256, 80, True), (32, 200, True),
+                                        (32, 130, False)])
 def test_fwd_plane_schedule_matches_pallas(d, T, causal):
     """The forward's plane model against the JAX package's Pallas forward
     in interpret mode: o and lse, float32 atol 2e-5."""
@@ -634,8 +653,7 @@ def test_fwd_plane_schedule_matches_pallas(d, T, causal):
                      interpret=True, return_lse=True)
     q, k, v = (torch.tensor(x[n]).reshape(2, T, d) for n in "qkv")
     scale = d ** -0.5
-    got = fwd_f32_schedule(fa._prescale(q, scale), k, v, causal,
-                           *_FWD_TILES[d])
+    got = fwd_model(fa._prescale(q, scale), k, v, causal, d)
     for name, g, w in zip(("o", "lse"), got, want):
         np.testing.assert_allclose(g.reshape(np.shape(w)).numpy(),
                                    np.asarray(w), atol=2e-5, err_msg=name)
@@ -674,7 +692,7 @@ def test_plane_model_error_within_twice_plain(d):
         assert em <= 2 * ep, (name, em, ep)
 
 
-@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("d", [32, 64, 128, 256])
 def test_fwd_plane_model_error_within_twice_plain(d):
     """Against float64, the modelled forward's largest error in o and in
     lse is at most twice the plain float32 version's."""
@@ -685,7 +703,7 @@ def test_fwd_plane_model_error_within_twice_plain(d):
                       -torch.inf)
     lse = torch.logsumexp(s, -1)
     ref = (torch.exp(s - lse[..., None]) @ v.double(), lse)
-    model = fwd_f32_schedule(qs, k, v, True, *_FWD_TILES[d])
+    model = fwd_model(qs, k, v, True, d)
     plain = fa.flash_fwd_ref(q, k, v, scale, True)
     for name, m, p, r in zip(("o", "lse"), model, plain, ref):
         em = float((m.double() - r).abs().max())
@@ -696,10 +714,9 @@ def test_fwd_plane_model_error_within_twice_plain(d):
 def test_wrapper_passes_plane_scratch_only_to_the_plane_design():
     """The wrapper's scratch for the planes: 6·(q + k elements) bf16 for
     float32 dq and dk/dv at D 32, 64 and 128 (q, do, k, v), 3·(q + 2·k
-    elements) for the forward (q, k, v) at D 64 and 128; at D 256 6·k
+    elements) for the forward (q, k, v) at D 32, 64 and 128; at D 256 6·k
     elements for the forward and dq (k, v) and 6·q for dk/dv (q, do); none
-    for the forward at D 32 or for bf16; a launch takes the scratch with
-    its size (``_scratch``)."""
+    for bf16; a launch takes the scratch with its size (``_scratch``)."""
     f32 = torch.zeros(2, 8, 128)
     for kernel in ("flash_dq", "flash_dkv"):
         assert fa._planes(f32, torch.zeros(2, 4, 128), kernel).shape == (
@@ -726,10 +743,63 @@ def test_wrapper_passes_plane_scratch_only_to_the_plane_design():
     for kernel in ("flash_dq", "flash_dkv"):
         assert fa._planes(narrow_q, narrow_k, kernel).shape == (
             6 * (2 * 8 * 32 + 2 * 4 * 32),)
-    assert fa._planes(narrow_q, narrow_k, "flash_fwd") is None
+    assert fa._planes(narrow_q, narrow_k, "flash_fwd").shape == (
+        3 * (2 * 8 * 32 + 2 * 2 * 4 * 32),)
     for kernel in ("flash_fwd", "flash_dq", "flash_dkv"):
         bf = torch.zeros(2, 8, 128, dtype=torch.bfloat16)
         assert fa._planes(bf, bf, kernel) is None
+
+
+@pytest.mark.parametrize("kernel", ["flash_fwd", "flash_dq", "flash_dkv"])
+@pytest.mark.parametrize("d", [32, 64, 128, 256])
+def test_plane_split_fills_the_launch_scratch(kernel, d):
+    """The split alone (on CPU tensors its plain version) returns the
+    scratch a float32 launch of ``kernel`` would take (``_planes``' size
+    and type), holding split3's hi, mid and lo of each operand the launch
+    splits, in the order q, do, k, v (the forward has no do; at D 256 k
+    and v for the forward and dq, q and do for dk/dv), each as [3, bh, T,
+    D]."""
+    rng = np.random.RandomState(d)
+    qs, do = (torch.tensor(rng.randn(2, 24, d).astype(np.float32))
+              for _ in range(2))
+    k, v = (torch.tensor(rng.randn(2, 40, d).astype(np.float32))
+            for _ in range(2))
+    got = fa.plane_split(kernel, qs, k, v,
+                         None if kernel == "flash_fwd" else do)
+    want = fa._planes(qs, k, kernel)
+    assert got.dtype == want.dtype == torch.bfloat16
+    assert got.shape == want.shape
+    if d == 256:
+        ops = (qs, do) if kernel == "flash_dkv" else (k, v)
+    else:
+        ops = (qs, k, v) if kernel == "flash_fwd" else (qs, do, k, v)
+    at = 0
+    for x in ops:
+        planes = got[at:at + 3 * x.numel()].view(3, *x.shape).float()
+        for p, w in zip(planes, split3(x)):
+            assert torch.equal(p, w)
+        at += 3 * x.numel()
+    assert at == got.numel()
+
+
+def test_plane_split_pads_as_the_launch_does():
+    """At a head dim outside the compiled set the split is that of the
+    operands zero-padded to the next one (D 200: 256's, whose forward
+    splits k and v alone)."""
+    rng = np.random.RandomState(200)
+    qs, k = (torch.tensor(rng.randn(1, 8, 200).astype(np.float32))
+             for _ in range(2))
+    got = fa.plane_split("flash_fwd", qs, k, k)
+    pad = torch.nn.functional.pad(k, (0, 56))
+    assert got.shape == (2 * 3 * 8 * 256,)
+    assert torch.equal(got, fa._split_plain("flash_fwd", pad, pad, pad,
+                                            None))
+
+
+def test_plane_split_refuses_bf16():
+    x = torch.zeros(1, 8, 32, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="float32"):
+        fa.plane_split("flash_fwd", x, x, x)
 
 
 # ------------------------------------- the float32 tile's fragment loads

@@ -142,6 +142,20 @@ def test_forward_loss_grads_f32_at_hopper_head_dims(dim, head_dim):
         _assert_scaled(a, b, 1e-5)
 
 
+def test_forward_loss_grads_f32_dim512_in_16_heads_of_32():
+    """bench_transformer's widths (dim 512, hidden 1408) in 16 heads of
+    32, the float32 D 32 path the card's trainer runs, at 2 layers: the
+    port's forward, loss and gradients against the JAX package's."""
+    shape = dict(SHAPE, dim=512, n_heads=16, hidden=1408)
+    (jl, jloss, jg, _), (pl, ploss, pg, _) = _loss_and_grads("float32",
+                                                             shape)
+    _assert_scaled(pl, jl, 1e-5)
+    np.testing.assert_allclose(ploss, jloss, rtol=1e-5)
+    assert len(pg) == len(jg)
+    for a, b in zip(pg, jg):
+        _assert_scaled(a, b, 1e-5)
+
+
 # The JAX tests' own config (tests/test_transformer.py's _CFG): 4 heads
 # of 16, a head dim outside the kernels' compiled set, which the port's
 # attention runs through the plain versions.
