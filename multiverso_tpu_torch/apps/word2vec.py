@@ -35,6 +35,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import tracing
 from ..tables import MatrixTable
 from ..updaters import AddOption
 from ..util import AsyncBuffer
@@ -212,18 +213,22 @@ class SkipGram:
         D = self.dim
 
         def step(din, sin, dout, sout, c, o, neg):
-            B, K = neg.shape
-            vc = t_in.rows_of(din, c)
-            out_rows = torch.cat([o, neg.reshape(-1)])
-            out_emb = t_out.rows_of(dout, out_rows)
-            uo = out_emb[:B]
-            un = out_emb[B:].reshape(B, K, D)
-            loss, (dvc, duo, dun) = _sgns_value_and_grad(vc, uo, un)
-            din, sin = t_in.scatter_rows(din, sin, c, dvc, opt)
-            out_delta = torch.cat([duo, dun.reshape(B * K, D)])
-            dout, sout = t_out.scatter_rows(dout, sout, out_rows,
-                                            out_delta, opt)
-            return din, sin, dout, sout, loss
+            with tracing.span("SkipGram::step"):
+                B, K = neg.shape
+                with tracing.span("SkipGram::gather"):
+                    vc = t_in.rows_of(din, c)
+                    out_rows = torch.cat([o, neg.reshape(-1)])
+                    out_emb = t_out.rows_of(dout, out_rows)
+                    uo = out_emb[:B]
+                    un = out_emb[B:].reshape(B, K, D)
+                with tracing.span("SkipGram::sgns"):
+                    loss, (dvc, duo, dun) = _sgns_value_and_grad(vc, uo, un)
+                with tracing.span("SkipGram::scatter"):
+                    din, sin = t_in.scatter_rows(din, sin, c, dvc, opt)
+                    out_delta = torch.cat([duo, dun.reshape(B * K, D)])
+                    dout, sout = t_out.scatter_rows(dout, sout, out_rows,
+                                                    out_delta, opt)
+                return din, sin, dout, sout, loss
 
         self._fused_cache[batch_axis] = (step, place)
         return step, place

@@ -13,7 +13,9 @@ every monitor alongside the counters/gauges of the rest of the system.
 When tracing is armed (``-trace_dir`` / ``tracing.enable()``), each
 monitored section also records a span into ``multiverso_tpu.tracing``
 — table ops, barriers, and jitted steps show up on the merged timeline
-without new call sites.
+without new call sites.  Under a ``torch.profiler`` capture each section
+shows up in the capture too, on the profiler's clock (``tracing``'s "Two
+clocks").
 
 A port of ``multiverso_tpu/dashboard.py``: ``torch.profiler`` trace
 capture (CPU and, where a card is present, CUDA activity) takes the place
@@ -114,18 +116,12 @@ def get_monitor(name: str) -> Monitor:
 def monitor(name: str) -> Iterator[Monitor]:
     """``with dashboard.monitor("Worker::Get"):`` — the MONITOR macro.
 
-    With tracing armed the section runs under a span context too, so
+    The section runs under ``tracing.span(name)``: with tracing armed
     nested monitors (and native calls the caller stamps via
-    ``NativeRuntime.set_trace_id``) share its trace id.
+    ``NativeRuntime.set_trace_id``) share its trace id, and under a
+    ``torch.profiler`` capture the section shows up in it.
     """
     m = get_monitor(name)
-    if not tracing.enabled():
-        t0 = m.begin()
-        try:
-            yield m
-        finally:
-            m.end(t0)
-        return
     with tracing.span(name):
         t0 = time.perf_counter()
         try:

@@ -64,7 +64,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
-from .. import dashboard
+from .. import dashboard, metrics, tracing
 from ..device import resolve_device
 from ..parallel.collectives import (all_reduce_grads, all_reduce_max,
                                     all_reduce_sum, copy_to, reduce_from,
@@ -710,6 +710,12 @@ class TransformerTrainer:
         self.state = [self.updater.init_state(p.shape, p.dtype, p.device)
                       for p in _leaves(self.params)]
         self._offload = None       # the OffloadedState bridge, once set
+        # The least bytes a step's dense update moves, for the
+        # ``trainer.update_bytes`` counter: each leaf's w and g read and w
+        # written, each state tensor read and written once.
+        self._update_bytes = sum(
+            p.numel() * p.element_size() * (3 + 2 * self.updater.num_slots)
+            for p in _leaves(self.params))
 
     def _tokens(self, tokens) -> torch.Tensor:
         if not isinstance(tokens, torch.Tensor):
@@ -752,43 +758,56 @@ class TransformerTrainer:
             raise ValueError(
                 f"microbatch {B // accum} (batch {B} / accum {accum}) not "
                 f"divisible by the dp axis ({mesh.size('dp')})")
-        if self._offload is None:
-            return self._update(tokens, accum)
-        # Offloaded state: the vector prefetched after the previous step
-        # (or fetched now on the first), rebuilt on the device; the new
-        # state ships back and the next prefetch is issued behind it.
-        with dashboard.monitor("Transformer::offload_wait"):
-            self.state = self._flat_to_state(self._offload.wait())
-        loss = self._update(tokens, accum)
-        with dashboard.monitor("Transformer::offload_push"):
-            self._offload.push(self._state_to_flat())
-            self._offload.prefetch()
-        self.state = self._no_state()      # the bridge owns it now
-        return loss
+        with tracing.span("Transformer::train_step_async"):
+            if self._offload is None:
+                return self._update(tokens, accum)
+            # Offloaded state: the vector prefetched after the previous
+            # step (or fetched now on the first), rebuilt on the device;
+            # the new state ships back and the next prefetch is issued
+            # behind it.
+            with dashboard.monitor("Transformer::offload_wait"):
+                self.state = self._flat_to_state(self._offload.wait())
+            loss = self._update(tokens, accum)
+            with dashboard.monitor("Transformer::offload_push"):
+                self._offload.push(self._state_to_flat())
+                self._offload.prefetch()
+            self.state = self._no_state()      # the bridge owns it now
+            return loss
 
     def _update(self, tokens: torch.Tensor, accum: int) -> torch.Tensor:
         """The step's gradients and the updater's application, in place
-        of ``params`` and ``state``; returns the device loss."""
+        of ``params`` and ``state``; returns the device loss.  Its phases
+        are spans (``Transformer::forward``, ``backward``, ``grad_sync``
+        under a mesh, ``update``) that together hold every op of the
+        step."""
         cfg, mesh = self.cfg, self.mesh
         B = tokens.shape[0]
         leaves = [p.detach().requires_grad_() for p in _leaves(self.params)]
         params = _with_leaves(self.params, leaves)
         grads, losses = None, []
         for chunk in tokens.reshape(accum, B // accum, -1):
-            loss = lm_loss(params, chunk, cfg, mesh)
-            # Under GPipe only stage 0 uses the embedding: zeros elsewhere.
-            g = [torch.zeros_like(p) if d is None else d for p, d in zip(
-                leaves, torch.autograd.grad(loss, leaves, allow_unused=True))]
-            grads = g if grads is None else [a + b for a, b in zip(grads, g)]
+            with tracing.span("Transformer::forward"):
+                loss = lm_loss(params, chunk, cfg, mesh)
+            with tracing.span("Transformer::backward"):
+                # Under GPipe only stage 0 uses the embedding: zeros
+                # elsewhere.
+                g = [torch.zeros_like(p) if d is None else d
+                     for p, d in zip(leaves, torch.autograd.grad(
+                         loss, leaves, allow_unused=True))]
+                grads = g if grads is None else [a + b for a, b in
+                                                 zip(grads, g)]
             losses.append(loss.detach())
         if accum > 1:
-            grads = [g / accum for g in grads]
-            loss = torch.stack(losses).mean()
+            with tracing.span("Transformer::backward"):
+                grads = [g / accum for g in grads]
+                loss = torch.stack(losses).mean()
         if mesh is not None:
-            self._sum_grads(list(grads))
-        with torch.no_grad():
+            with tracing.span("Transformer::grad_sync"):
+                self._sum_grads(list(grads))
+        with tracing.span("Transformer::update"), torch.no_grad():
             out = [self.updater.apply_dense(p.detach(), s, g, self.option)
                    for p, s, g in zip(leaves, self.state, grads)]
+        metrics.counter("trainer.update_bytes").inc(self._update_bytes)
         self.params = _with_leaves(self.params, [p for p, _ in out])
         self.state = [s for _, s in out]
         return loss.detach()

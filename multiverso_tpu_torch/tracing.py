@@ -24,6 +24,16 @@ Three pieces:
   ``dashboard.start_trace`` for kernel-level depth — this layer is the
   cheap always-on complement.
 
+Two clocks.  The buffer's spans are on the wall clock (``time.time()``),
+which is what lines ranks up in a merge, and no device trace shares it.
+While a ``torch.profiler`` capture runs (``dashboard.start_trace`` or
+any ``torch.profiler.profile``), :func:`span` also opens
+``torch.profiler.record_function`` around its body, whether or not the
+buffer is armed: the span then lands in the capture as a
+``user_annotation`` on the profiler's own clock, beside the kernels it
+launched.  With the buffer off and no capture running, a span is a flag
+check and a profiler check and enters nothing.
+
 Enable with the ``-trace_dir=<dir>`` flag (``init()`` arms it and
 ``shutdown()`` writes ``trace_rank<r>.json``), or programmatically with
 :func:`enable`.
@@ -34,9 +44,10 @@ from __future__ import annotations
 import collections
 import json
 import os
+import sys
 import threading
 import time
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from dataclasses import dataclass, field
 from typing import Any, Dict, Iterator, List, Optional
 
@@ -45,7 +56,6 @@ from .log import Log
 __all__ = [
     "SpanEvent", "enabled", "enable", "disable", "span", "record_span",
     "current_trace_id", "set_trace_id", "new_trace_id", "events",
-    "trace_ids",
     "clear", "to_chrome", "save", "merge_dir", "add_native_spans",
     "parse_native_spans", "default_trace_path",
 ]
@@ -133,6 +143,13 @@ def record_span(name: str, ts_us: int, dur_us: int,
         _EVENTS.append(ev)
 
 
+def _profiling() -> bool:
+    """A ``torch.profiler`` capture is running in this process (with no
+    torch loaded, none can be)."""
+    torch = sys.modules.get("torch")
+    return torch is not None and torch.autograd._profiler_enabled()
+
+
 @contextmanager
 def span(name: str, trace_id: Optional[int] = None,
          **args: Any) -> Iterator[int]:
@@ -140,35 +157,38 @@ def span(name: str, trace_id: Optional[int] = None,
     and records a span.  Yields the trace id in effect (0 when tracing
     is off) so callers can stamp it into native calls
     (``NativeRuntime.set_trace_id``) or log lines.  Nested spans share
-    the outermost id; an explicit ``trace_id`` pins it.
+    the outermost id; an explicit ``trace_id`` pins it.  Under a running
+    ``torch.profiler`` capture the body also runs inside
+    ``record_function(name)`` (the module's "Two clocks").
     """
-    if not _ENABLED:
+    profiling = _profiling()
+    if not _ENABLED and not profiling:
         yield 0
         return
-    prev = current_trace_id()
-    tid = int(trace_id) if trace_id else (prev or new_trace_id())
-    set_trace_id(tid)
-    ts = time.time()
-    t0 = time.perf_counter()
-    try:
-        yield tid
-    finally:
-        dur = time.perf_counter() - t0
-        set_trace_id(prev)
-        record_span(name, int(ts * 1e6), int(dur * 1e6), trace_id=tid,
-                    args=args)
+    import torch
+
+    with (torch.profiler.record_function(name) if profiling
+          else nullcontext()):
+        if not _ENABLED:
+            yield 0
+            return
+        prev = current_trace_id()
+        tid = int(trace_id) if trace_id else (prev or new_trace_id())
+        set_trace_id(tid)
+        ts = time.time()
+        t0 = time.perf_counter()
+        try:
+            yield tid
+        finally:
+            dur = time.perf_counter() - t0
+            set_trace_id(prev)
+            record_span(name, int(ts * 1e6), int(dur * 1e6), trace_id=tid,
+                        args=args)
 
 
 def events() -> List[SpanEvent]:
     with _LOCK:
         return list(_EVENTS)
-
-
-def trace_ids() -> set:
-    """Every distinct trace id in the buffer — the resolution set an
-    exemplar (docs/observability.md) must land in to be explainable."""
-    with _LOCK:
-        return {e.trace_id for e in _EVENTS if e.trace_id}
 
 
 # ---------------------------------------------------------------------------

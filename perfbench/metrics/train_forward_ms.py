@@ -1,0 +1,9 @@
+"""Device ms a step of every kernel, copy and fill launched inside the
+trainer's ``Transformer::forward`` spans (``perfbench/spans.py``)."""
+
+from perfbench.spans import phase_seconds
+
+
+def read(ctx):
+    spent = phase_seconds(ctx, "train", "Transformer::forward")
+    return None if spent is None else 1e3 * spent / ctx.steps

@@ -1,0 +1,10 @@
+"""Device ms a step of every kernel, copy and fill launched inside the
+trainer's ``Transformer::update`` spans: the updater over every leaf
+(``perfbench/spans.py``)."""
+
+from perfbench.spans import phase_seconds
+
+
+def read(ctx):
+    spent = phase_seconds(ctx, "train", "Transformer::update")
+    return None if spent is None else 1e3 * spent / ctx.steps

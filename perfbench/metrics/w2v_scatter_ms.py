@@ -1,0 +1,11 @@
+"""Device ms a step of every kernel, copy and fill launched inside the
+fused word2vec step's ``SkipGram::scatter`` spans: the deltas'
+concatenation and both tables' updater row scatters
+(``perfbench/spans.py``)."""
+
+from perfbench.spans import phase_seconds
+
+
+def read(ctx):
+    spent = phase_seconds(ctx, "w2v", "SkipGram::scatter")
+    return None if spent is None else 1e3 * spent / ctx.steps
