@@ -265,7 +265,14 @@ Phases, each printing JSON lines:
              memory; last ``DLRMRecommender`` (32,768 users and items,
              dim 16, zipf 1.0, 0.05 per pair): 10 ``train_step``s of 512
              pairs, the table's change and the losses card against CPU
-             within 1e-4.
+             within 1e-4.  The SGNS kernel (``ops/csrc/sgns.cu``): one
+             launch a fused step (its launch count over the card's 20 sgd
+             and 5 adagrad steps), its loss and gradients against the
+             plain version at [131,072, 300, K 5] (the benchmark's cell),
+             [8,192, 128, K 5] and a ragged [1,001, 7, K 3] (``SGNS_CASES``,
+             within ``SGNS_RTOL``), and its times at the first two
+             (``sgns_times``: ms, the bytes bound, the plain version's ms
+             and autograd's chain with the cat it needed, the yardstick).
 11. lda    — ``LightLDA`` at ``bench.py``'s shape (bench_lightlda: 2,048
              docs of 64 tokens, V 10,000, K 64, alpha 0.5, beta 0.1).  One
              fused and one MH sweep (4 steps) on the card against the same
@@ -445,7 +452,8 @@ skipped instead of the result line, and exits 4.
 builds the kernels of the package under DIR (this checkout by default;
 an older tree to compare with, unpacked under ``build/``, which the
 tree-walking lint skips) and prints each kernel's times at each shape,
-as the timing phase does, with no result line.
+as the timing phase does, with no result line.  A shape ``sgns,B,D,K``
+times the SGNS kernel instead (``sgns_times``).
 """
 
 from __future__ import annotations
@@ -570,6 +578,16 @@ W2V_ADAGRAD_EPS, W2V_ADAGRAD_STEPS = 1e-6, 5
 # the change the reference made, never by its values, which one step
 # barely moves.
 W2V_RTOL = 1e-4
+# The SGNS kernel against its plain version on the card, [pairs, D, K]:
+# the benchmark's word2vec cell, bench_w2v's batch, and a ragged shape
+# (scalar loads at D 7, a last block of one pair).  Both sides are float32
+# and sum D products and 1 + K gradient terms in other orders: within rtol
+# 1e-5, with an atol of 1e-6 of the tensor's largest entry for entries
+# that cancel (tests/test_torch_sgns.py holds the plain version to
+# autograd the same way).
+SGNS_CASES = ((131_072, 300, 5), (W2V_BATCH, W2V_DIM, W2V_NEG),
+              (1_001, 7, 3))
+SGNS_RTOL, SGNS_ATOL_SHARE = 1e-5, 1e-6
 # The shard phase: tables across ranks (2 gloo ranks on one card, or an
 # NCCL rank per card).  Row batches of bench_w2v's batch; the big table
 # is a word-embedding vocabulary of 2^20 rows.
@@ -906,7 +924,8 @@ def phase_build(_build, paths, build_s):
     the SASS counts of wgmma (HGMMA), TMA loads (UTMALDG) and local-memory
     traffic (LDL/STL).  Every library must hold its bf16 Hopper kernels
     (HOPPER_DIMS) and float32 plane kernels (HOPPER_F32_DIMS), and each of
-    them HGMMA and UTMALDG and no spills."""
+    them HGMMA and UTMALDG and no spills; the SGNS library's kernels
+    (where built) no spills."""
     cuobjdump = os.path.join(os.path.dirname(_build.nvcc_path()),
                              "cuobjdump")
     libs = {}
@@ -930,8 +949,19 @@ def phase_build(_build, paths, build_s):
                        "ptxas": [ln.strip() for ln in log_text.splitlines()
                                  if "registers" in ln or "spill" in ln][:40]}
     bad = judge_build(libs)
+    sgns = None
+    if "sgns" in paths:
+        # The SGNS kernels (no wgmma, no TMA): registers and no spills.
+        with open(os.path.join(_build.BUILD_DIR, "sgns.log")) as f:
+            ptx = ptxas_report(f.read())
+        sgns = {"lib": os.path.relpath(paths["sgns"], HERE),
+                "kernels": dict(zip(demangle(sorted(ptx)),
+                                    (ptx[n] for n in sorted(ptx))))}
+        bad += [f"{n}: {c['spill_bytes']} bytes spilled"
+                for n, c in sgns["kernels"].items()
+                if c.get("spill_bytes", 0) > 0]
     emit({"phase": "build", "ok": not bad, "s": build_s, "failures": bad,
-          "libs": libs})
+          "libs": libs, "sgns": sgns})
     if bad:
         raise AssertionError("build phase: " + "; ".join(bad))
 
@@ -3778,12 +3808,82 @@ def w2v_fused(torch, sg, batches, sync_check=False):
                      sync_check)
 
 
+def sgns_inputs(torch, b, d, k, seed):
+    """Centre rows [b, d] and output rows [b·(1 + k), d] on the card,
+    normal with scores of about N(0, 4), so that the sigmoids span their
+    range."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    scale = 2.0 / math.sqrt(d)
+    vc = torch.randn(b, d, generator=g, device="cuda") * scale
+    out = torch.randn(b * (1 + k), d, generator=g, device="cuda") * scale
+    return vc, out
+
+
+def sgns_close(got, want, rtol=SGNS_RTOL, atol_share=SGNS_ATOL_SHARE):
+    """(max |got - want| over max |want|, within rtol and atol_share of
+    the largest entry everywhere)."""
+    got, want = got.double(), want.double()
+    peak = float(want.abs().max())
+    diff = (got - want).abs()
+    ok = bool((diff <= rtol * want.abs() + atol_share * peak).all()
+              and got.isfinite().all())
+    return float(diff.max()) / peak if peak else float(diff.max()), ok
+
+
+def sgns_case(torch, sgns, b, d, k, seed):
+    """The kernel's loss, dvc and dout against the plain version's on one
+    set of card rows: {name: error share} and whether all are within
+    SGNS_RTOL."""
+    vc, out = sgns_inputs(torch, b, d, k, seed)
+    got = sgns.sgns_grads(vc, out, k)
+    want = sgns.sgns_plain(vc, out, k)
+    torch.cuda.synchronize()
+    errs, ok = {}, True
+    for name, g, w in zip(("loss", "dvc", "dout"), got, want):
+        errs[name], good = sgns_close(g, w)
+        ok = ok and good
+    return {"shape": [b, d, k], "errors": errs, "ok": ok}
+
+
+def sgns_bytes(b, d, k) -> int:
+    """The least bytes of one SGNS call: every gathered row (b centres,
+    b·(1 + k) output rows) read once and its gradient written once."""
+    return 2 * b * (2 + k) * d * 4
+
+
+def sgns_times(torch, sgns, b, d, k):
+    """The kernel alone at [b, d, k] beside its bytes bound, the plain
+    version on the card, and the yardstick: autograd's chain over
+    ``_sgns_loss`` with the cat that joined its context and negative
+    gradients for the scatter (the fused step before the kernel)."""
+    from multiverso_tpu_torch.apps.word2vec import _sgns_value_and_grad
+
+    vc, out = sgns_inputs(torch, b, d, k, seed=11)
+    uo, un = out[:b], out[b:].view(b, k, d)
+
+    def autograd_cat():
+        _, (dvc, duo, dun) = _sgns_value_and_grad(vc, uo, un)
+        return dvc, torch.cat([duo, dun.reshape(b * k, d)])
+
+    nbytes = sgns_bytes(b, d, k)
+    bound_ms = nbytes / PEAK_HBM_BYTES * 1e3
+    ms = cuda_ms(lambda: sgns.sgns_grads(vc, out, k), iters=50, warmup=3)
+    return {"shape": [b, d, k], "ms": ms, "bytes": nbytes,
+            "bound_ms": bound_ms, "bound_by": "bytes",
+            "bound_share": bound_ms / ms,
+            "gbytes_per_s": nbytes / (ms * 1e-3) / 1e9,
+            "plain_ms": cuda_ms(lambda: sgns.sgns_plain(vc, out, k),
+                                iters=10),
+            "autograd_cat_ms": cuda_ms(autograd_cat, iters=10)}
+
+
 def phase_w2v(torch, mv, card):
     """word2vec at bench_w2v's shape: card against CPU, push-pull against
     fused, prefetched against placed (each judged by the table changes),
     no host sync in the fused step, both rates and a profile; then DLRM
     card against CPU.  Returns ``w2v_fused_pairs_per_sec``."""
     from multiverso_tpu_torch.apps import DLRMRecommender, SkipGram
+    from multiverso_tpu_torch.ops import sgns
 
     V, D, B, K = W2V_VOCAB, W2V_DIM, W2V_BATCH, W2V_NEG
     rng = np.random.RandomState(0)
@@ -3830,7 +3930,11 @@ def phase_w2v(torch, mv, card):
     torch.cuda.reset_peak_memory_stats()
     mv.ops.reset_launch_counts()
     mv.init(device=None)
+    sgns.reset_launch_counts()
     card_runs = fused_runs()
+    # One SGNS launch a fused step.
+    sgns_launches = sgns.launch_counts()["sgns"]
+    sgns_launches_ok = sgns_launches == W2V_STEPS + W2V_ADAGRAD_STEPS
     changes = {}
 
     # One push-pull step against one fused step from the same start: the
@@ -3880,6 +3984,10 @@ def phase_w2v(torch, mv, card):
     dlrm_card = dlrm_run()
     mv.shutdown()
     counts = mv.ops.launch_counts()
+    sgns_parity = [sgns_case(torch, sgns, *shape, seed=20 + i)
+                   for i, shape in enumerate(SGNS_CASES)]
+    sgns_timing = [sgns_times(torch, sgns, *shape)
+                   for shape in SGNS_CASES[:2]]
 
     mv.init(device="cpu")
     cpu_runs = fused_runs()
@@ -3899,7 +4007,8 @@ def phase_w2v(torch, mv, card):
                                     - start[k]).max()) for k in want}
              for name, (_, want, start) in changes.items()}
     prefetch_ok = pe_steps > 0 and math.isfinite(pe_loss)
-    ok = ok and prefetch_ok
+    sgns_ok = sgns_launches_ok and all(c["ok"] for c in sgns_parity)
+    ok = ok and prefetch_ok and sgns_ok
     emit({"phase": "w2v", "ok": ok, "vocab": V, "dim": D, "batch": B,
           "negatives": K, "learning_rate": W2V_LR,
           "check_learning_rate": {u: w2v_check_lr(u, B) for u in updaters},
@@ -3919,11 +4028,17 @@ def phase_w2v(torch, mv, card):
                    "dim": DLRM_DIM, "batch": DLRM_BATCH,
                    "learning_rate": DLRM_LR * DLRM_BATCH,
                    "losses_cuda": dlrm_card[2], "losses_cpu": dlrm_cpu[2]},
-          "launch_counts": counts, "card": card})
+          "launch_counts": counts,
+          "sgns": {"launches": sgns_launches,
+                   "fused_steps": W2V_STEPS + W2V_ADAGRAD_STEPS,
+                   "rtol": SGNS_RTOL, "atol_share": SGNS_ATOL_SHARE,
+                   "parity": sgns_parity, "times": sgns_timing},
+          "card": card})
     if not ok:
         raise AssertionError(
             f"w2v phase failed: {verdict}, prefetch epoch {pe_steps} steps "
-            f"loss {pe_loss}")
+            f"loss {pe_loss}, sgns launches {sgns_launches}, sgns parity "
+            f"{sgns_parity}")
     return B / (fused_ms * 1e-3)
 
 
@@ -6582,7 +6697,8 @@ def kernel_times_main(argv) -> int:
     ap = argparse.ArgumentParser(prog="chip_smoke.py --kernel-times")
     ap.add_argument("--root", default=HERE,
                     help="the checkout whose multiverso_tpu_torch to time")
-    ap.add_argument("shapes", nargs="+", metavar="B,H,T,D,DTYPE")
+    ap.add_argument("shapes", nargs="+",
+                    metavar="B,H,T,D,DTYPE | sgns,B,D,K")
     args = ap.parse_args(argv)
     root = os.path.abspath(args.root)
     if not os.path.isdir(os.path.join(root, "multiverso_tpu_torch")):
@@ -6605,6 +6721,13 @@ def kernel_times_main(argv) -> int:
           "package": os.path.dirname(os.path.dirname(fa.__file__))})
     _build.build()
     for spec in args.shapes:
+        if spec.startswith("sgns,"):
+            from multiverso_tpu_torch.ops import sgns
+
+            b, d, k = (int(x) for x in spec.split(",")[1:])
+            emit({"phase": "kernel_times", "root": root, "kernel": "sgns",
+                  **sgns_times(torch, sgns, b, d, k)})
+            continue
         b, h, t, d, dt = spec.split(",")
         b, h, t, d, dtype = int(b), int(h), int(t), int(d), getattr(torch,
                                                                     dt)

@@ -11,16 +11,22 @@ PyTorch: both embedding matrices are ``MatrixTable`` tensors on the
 table device.  Two training paths:
 
 - ``train_batch`` — the literal reference loop: ``get_rows``, the SGNS
-  gradients by plain autograd, ``add_rows``.
+  gradients, ``add_rows``.
 - ``make_fused_step`` — the whole pull→grad→push round trip over the
-  tables' own tensors: row gathers, autograd, and the updaters' in-place
-  row scatter (``scatter_apply``).  It runs eagerly (no
-  ``torch.compile``, no CUDA graph) and never waits for the device, so
-  consecutive steps queue back to back.  Under several processes the
+  tables' own tensors: row gathers, the SGNS gradients, and the
+  updaters' in-place row scatter (``scatter_apply``).  It runs eagerly
+  (no ``torch.compile``, no CUDA graph) and never waits for the device,
+  so consecutive steps queue back to back.  Under several processes the
   caller's batch is the global batch, as in the JAX package: the rows
   reach every rank by one sum of owner-filled buffers per table
   (``MatrixTable.rows_of``), every rank computes the batch's gradients,
   and each applies the rows it owns (``MatrixTable.scatter_rows``).
+
+Both take the SGNS loss and gradients from ``ops.sgns.sgns_grads``: one
+CUDA kernel on the card, which writes the output rows' gradients in the
+order the output table's row scatter takes them; its closed form in
+plain tensor ops on the CPU.  ``_sgns_value_and_grad`` (autograd over
+``_sgns_loss``) stays as the reference the tests hold it against.
 
 Negatives are pre-sampled on the host (the reference samples on the
 worker too), from the same ``RandomState`` seeds as the JAX package, so
@@ -36,6 +42,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import tracing
+from ..ops.sgns import sgns_grads
 from ..tables import MatrixTable
 from ..updaters import AddOption
 from ..util import AsyncBuffer
@@ -66,7 +73,8 @@ def _sgns_loss(vc: torch.Tensor, uo: torch.Tensor,
 
 
 def _sgns_value_and_grad(vc, uo, un):
-    """``(loss, (dvc, duo, dun))`` by plain autograd."""
+    """``(loss, (dvc, duo, dun))`` by plain autograd: the reference the
+    tests hold ``ops.sgns.sgns_grads`` against."""
     vc, uo, un = (t.detach().requires_grad_() for t in (vc, uo, un))
     loss = _sgns_loss(vc, uo, un)
     grads = torch.autograd.grad(loss, (vc, uo, un))
@@ -148,17 +156,12 @@ class SkipGram:
     def train_batch(self, centers: np.ndarray, contexts: np.ndarray,
                     negatives: np.ndarray) -> None:
         """Reference loop body: Get(rows) → local grads → Add(rows)."""
-        B, K = negatives.shape
         vc = self._on_device(self.table_in.get_rows(centers))
         out_rows = np.concatenate([contexts, negatives.reshape(-1)])
         out_emb = self._on_device(self.table_out.get_rows(out_rows))
-        uo = out_emb[:B]
-        un = out_emb[B:].reshape(B, K, self.dim)
-        _, (dvc, duo, dun) = _sgns_value_and_grad(vc, uo, un)
+        _, dvc, dout = sgns_grads(vc, out_emb, negatives.shape[1])
         self.table_in.add_rows(centers, dvc, option=self.option)
-        self.table_out.add_rows(
-            out_rows, torch.cat([duo, dun.reshape(B * K, self.dim)]),
-            option=self.option)
+        self.table_out.add_rows(out_rows, dout, option=self.option)
 
     def train_epoch(self, corpus: np.ndarray, batch_size: int,
                     seed: int = 0, prefetch: bool = True) -> int:
@@ -210,22 +213,18 @@ class SkipGram:
 
         t_in, t_out = self.table_in, self.table_out
         opt = self.option
-        D = self.dim
 
         def step(din, sin, dout, sout, c, o, neg):
             with tracing.span("SkipGram::step"):
-                B, K = neg.shape
                 with tracing.span("SkipGram::gather"):
                     vc = t_in.rows_of(din, c)
                     out_rows = torch.cat([o, neg.reshape(-1)])
                     out_emb = t_out.rows_of(dout, out_rows)
-                    uo = out_emb[:B]
-                    un = out_emb[B:].reshape(B, K, D)
                 with tracing.span("SkipGram::sgns"):
-                    loss, (dvc, duo, dun) = _sgns_value_and_grad(vc, uo, un)
+                    loss, dvc, out_delta = sgns_grads(vc, out_emb,
+                                                      neg.shape[1])
                 with tracing.span("SkipGram::scatter"):
                     din, sin = t_in.scatter_rows(din, sin, c, dvc, opt)
-                    out_delta = torch.cat([duo, dun.reshape(B * K, D)])
                     dout, sout = t_out.scatter_rows(dout, sout, out_rows,
                                                     out_delta, opt)
                 return din, sin, dout, sout, loss

@@ -28,12 +28,15 @@ from typing import Dict, Iterable, List
 
 from ..log import Log
 
-__all__ = ["SOURCES", "BUILD_DIR", "build", "load", "nvcc_path"]
+__all__ = ["SOURCES", "FLASH", "BUILD_DIR", "build", "load", "nvcc_path"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
-SOURCES = ("flash_fwd", "flash_dq", "flash_dkv")
+# The flash kernels' three libraries build together: a trainer launches all
+# of them, so a first run pays one build, not three in turn.
+FLASH = ("flash_fwd", "flash_dq", "flash_dkv")
+SOURCES = FLASH + ("sgns",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 BUILD_TIMEOUT_S = 900
@@ -108,11 +111,11 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, str]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The library for ``csrc/<name>.cu``.  Builds every missing library
-    first, in parallel, so a first run pays one build, not three in turn
-    (the caller keeps the handle: ``ops/flash_attention.py`` loads each
-    once)."""
-    lib = ctypes.CDLL(build()[name])
+    """The library for ``csrc/<name>.cu``.  A flash library builds the
+    missing ones of ``FLASH`` first, in parallel; any other library
+    builds alone (the caller keeps the handle: ``ops/flash_attention.py``
+    and ``ops/sgns.py`` load each once)."""
+    lib = ctypes.CDLL(build(FLASH if name in FLASH else (name,))[name])
     lib.mvt_error_string.restype = ctypes.c_char_p
     lib.mvt_error_string.argtypes = [ctypes.c_int]
     return lib
